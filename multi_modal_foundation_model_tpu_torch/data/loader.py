@@ -1,0 +1,201 @@
+"""Fixed-shape batching of whole splits (numpy).
+
+The port's copy of ``multi_modal_foundation_model_tpu/data/loader.py``
+(``attention_mask``, ``prepare_split``, ``make_loader``): the whole split is
+padded once into stacked fixed-shape arrays, and the loader yields them in
+trial order, padding the last batch up to ``batch_size`` with its
+``time/space_attn_mask`` zeroed and ``n_real`` telling the real count. The
+batch keys are the JAX loader's. Shuffling, the length-grouped and stitch
+samplers and the NEMO unit filter come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional, Sequence
+
+import numpy as np
+
+from .session import SessionData
+
+Batch = Dict[str, np.ndarray]
+
+
+def attention_mask(seq_length: int, pad_length: int) -> np.ndarray:
+    mask = np.ones(seq_length)
+    if pad_length:
+        mask[-pad_length:] = 0
+    return mask
+
+
+def prepare_split(
+    session: SessionData,
+    max_time_length: int = 100,
+    max_space_length: int = 668,
+    pad_value: float = 0.0,
+    pad_to_right: bool = True,
+    sort_by_depth: bool = False,
+    sort_by_region: bool = False,
+    brain_region: str = "all",
+    region_vocab: Optional[Dict[str, int]] = None,
+) -> Dict[str, np.ndarray]:
+    """Pad/truncate time to ``max_time_length`` and space to
+    ``max_space_length``, optionally subset one brain region and sort
+    neurons by depth or region, over the whole split at once. Also emits
+    integer ``region_ids`` (padding = -1)."""
+    assert not (sort_by_depth and sort_by_region), \
+        "Can only sort either by depth or region."
+
+    spikes = session.spikes
+    regions = session.neuron_regions.astype(str)
+    depths = session.neuron_depths
+
+    if brain_region != "all":
+        keep = np.argwhere(regions == brain_region).flatten()
+        spikes = spikes[:, :, keep]
+        regions = regions[keep]
+        depths = depths[keep]
+
+    n_trials, n_t, n_n = spikes.shape
+
+    order = np.arange(n_n)
+    if sort_by_depth:
+        order = np.argsort(depths, kind="stable")
+    elif sort_by_region:
+        order = np.argsort(regions, kind="stable")
+    spikes = spikes[:, :, order]
+    regions = regions[order]
+    depths = depths[order]
+
+    # --- time axis ---
+    pad_t = 0
+    if n_t > max_time_length:
+        spikes = spikes[:, :max_time_length]
+        behavior = session.behavior[:, :max_time_length]
+    else:
+        pad_t = max_time_length - n_t
+        behavior = session.behavior
+        if pad_t:
+            width = (0, pad_t) if pad_to_right else (pad_t, 0)
+            spikes = np.pad(spikes, ((0, 0), width, (0, 0)),
+                            constant_values=pad_value)
+            behavior = np.pad(behavior, ((0, 0), width, (0, 0)),
+                              constant_values=pad_value)
+
+    # --- space axis ---
+    pad_n = 0
+    if n_n > max_space_length:
+        spikes = spikes[:, :, :max_space_length]
+        regions = regions[:max_space_length]
+        depths = depths[:max_space_length]
+    else:
+        pad_n = max_space_length - n_n
+        if pad_n:
+            width = (0, pad_n) if pad_to_right else (pad_n, 0)
+            spikes = np.pad(spikes, ((0, 0), (0, 0), width),
+                            constant_values=pad_value)
+            regions = np.concatenate([regions, np.array(["<pad>"] * pad_n)])
+            depths = np.concatenate([depths, np.full(pad_n, np.nan)])
+
+    if region_vocab is None:
+        uniq = sorted(set(regions.tolist()) - {"<pad>"})
+        region_vocab = {r: i for i, r in enumerate(uniq)}
+    region_ids = np.array([region_vocab.get(r, -1) for r in regions],
+                          dtype=np.int32)
+
+    time_mask = attention_mask(max_time_length, pad_t).astype(np.int64)
+    space_mask = attention_mask(max_space_length, pad_n).astype(np.int64)
+
+    return {
+        "spikes_data": spikes.astype(np.float32),
+        "target": behavior.astype(np.float32),
+        "time_attn_mask": np.tile(time_mask, (n_trials, 1)),
+        "space_attn_mask": np.tile(space_mask, (n_trials, 1)),
+        "spikes_timestamps": np.tile(
+            np.arange(max_time_length, dtype=np.int64), (n_trials, 1)),
+        "spikes_spacestamps": np.tile(
+            np.arange(max_space_length, dtype=np.int64), (n_trials, 1)),
+        "choice": session.choice.astype(np.float32),
+        "block": session.block.astype(np.float32),
+        "reward": session.reward.astype(np.float32),
+        "neuron_regions": regions,           # (N,) str, shared across trials
+        "neuron_depths": depths.astype(np.float32),
+        "region_ids": region_ids,            # (N,) int32, -1 = padding
+        "region_vocab": region_vocab,        # host-side dict
+        "eid": session.eid,
+    }
+
+
+_PER_TRIAL_KEYS = ("spikes_data", "target", "time_attn_mask",
+                   "space_attn_mask", "spikes_timestamps",
+                   "spikes_spacestamps", "choice", "block", "reward")
+_SHARED_KEYS = ("neuron_regions", "neuron_depths", "region_ids",
+                "region_vocab", "eid", "nemo_rep")
+
+
+@dataclasses.dataclass
+class DataLoader:
+    """Fixed-shape batches of a prepared split, in trial order."""
+
+    arrays: Dict[str, np.ndarray]
+    batch_size: int
+
+    def __len__(self) -> int:
+        return -(-self.n_trials // self.batch_size)
+
+    @property
+    def n_trials(self) -> int:
+        return int(self.arrays["spikes_data"].shape[0])
+
+    def __iter__(self) -> Iterator[Batch]:
+        bs = self.batch_size
+        for start in range(0, self.n_trials, bs):
+            idxs = np.arange(start, min(start + bs, self.n_trials))
+            n_real = len(idxs)
+            if n_real < bs:
+                idxs = np.concatenate([idxs, np.full(bs - n_real, idxs[-1])])
+            batch: Batch = {k: self.arrays[k][idxs] for k in _PER_TRIAL_KEYS}
+            if n_real < bs:
+                # padding trials carry zero attention -> zero loss weight
+                batch["time_attn_mask"][n_real:] = 0
+                batch["space_attn_mask"][n_real:] = 0
+            for k in _SHARED_KEYS:
+                batch[k] = self.arrays[k]
+            batch["n_real"] = n_real
+            yield batch
+
+
+def make_loader(
+    session: SessionData,
+    batch_size: int,
+    target: Optional[Sequence[str]] = None,
+    pad_to_right: bool = True,
+    sort_by_depth: bool = False,
+    sort_by_region: bool = False,
+    pad_value: float = 0.0,
+    max_time_length: int = 100,
+    max_space_length: int = 668,
+    brain_region: str = "all",
+    region_vocab: Optional[Dict[str, int]] = None,
+) -> DataLoader:
+    """Loader over one session split, in trial order. ``target`` selects
+    behavior covariates by name (default: the session's stored ones)."""
+    if target is not None and tuple(target) != tuple(session.target_names):
+        name_to_idx = {n: i for i, n in enumerate(session.target_names)}
+        cols = [name_to_idx[t] for t in target]
+        session = dataclasses.replace(
+            session, behavior=session.behavior[:, :, cols],
+            target_names=tuple(target))
+    arrays = prepare_split(
+        session,
+        max_time_length=max_time_length,
+        max_space_length=max_space_length,
+        pad_value=pad_value,
+        pad_to_right=pad_to_right,
+        sort_by_depth=sort_by_depth,
+        sort_by_region=sort_by_region,
+        brain_region=brain_region,
+        region_vocab=region_vocab,
+    )
+    arrays["nemo_rep"] = np.array([np.nan], dtype=np.float32)
+    return DataLoader(arrays=arrays, batch_size=batch_size)

@@ -1,0 +1,340 @@
+"""The MultiModal masked autoencoder (``nn.Module``), eval forward.
+
+Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
+
+- **Static token layout.** Tokens concatenate per modality in
+  ``avail_mod`` order, ``max_F`` each, so a modality's tokens are a static
+  slice.
+- **Batch-uniform token zeroing by row 0** (``:468-480`` of the JAX
+  module): one mask per batch zeroes the tokens that batch element 0's
+  mask selects, for the whole batch. ``token_zero_groups=G`` treats the
+  batch as G equal groups, each zeroed by ITS OWN first row — what
+  ``jax.vmap`` of one forward per group does. The eval sweep relies on it:
+  it runs many held-out-neuron variants in one batch, and zeroing by the
+  whole batch's row 0 would let variant 0 (neuron 0 held out) flip the
+  token mask of every other variant.
+- **Attention masks as (key_pad, static) decompositions**: encoder
+  ``eye | pad``, decoder pad / causal / modality-separation, fed to the
+  fused attention (K1 on the card).
+- **Losses**: Poisson NLL (log-input, no Stirling) on spikes + MSE on
+  behavior, masked, combined as the sum over modalities divided by the
+  total masked count, or by ``mod_loss_weights``.
+
+This slice runs the eval forward: ``training=False`` with an explicit
+``eval_mask`` per modality. Sampling masks (``eval_mask=None`` or a
+``masking_mode``) and training come with the masker and the trainer;
+session stitching (``n_sessions > 1``) and bf16 compute come later. Each
+raises ``NotImplementedError`` until then.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.attention import MaskSpec, create_context_mask
+from ..ops.layernorm import LayerNorm
+from ..ops.losses import masked_mse, masked_poisson_nll
+from ..ops.masking import MaskParams
+from ..utils.device import DeviceLike, resolve_device
+from .layers import (DecoderLayer, EncoderLayer, ModalityTokenizer,
+                     reset_parameters_)
+
+MODALITY_LOSS = {"ap": "poisson_nll", "behavior": "mse"}
+_COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+@dataclasses.dataclass
+class ModalityInput:
+    """Per-modality model input."""
+
+    inputs: torch.Tensor                     # (B, T, C)
+    targets: torch.Tensor                    # (B, T, C)
+    attn_mask: torch.Tensor                  # (B, T) int
+    timestamps: torch.Tensor                 # (B, T) int
+    eval_mask: Optional[torch.Tensor] = None  # (B, T, C) int
+
+
+@dataclasses.dataclass
+class MultiModalOutput:
+    loss: torch.Tensor
+    mod_loss: Dict[str, torch.Tensor]
+    mod_n_examples: Dict[str, torch.Tensor]
+    mod_preds: Dict[str, torch.Tensor]
+    mod_targets: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiModalConfig:
+    """Static model hyperparameters; field for field the JAX package's
+    ``MultiModalConfig``, so both read each other's ``model_config.json``.
+    ``compute_dtype`` is the dtype's name. ``attn_impl="pallas"`` runs the
+    hand-written kernels on the card, ``"xla"`` the plain versions.
+    ``fixup_init``, ``dropout``, ``embed_dropout``, the masker fields and
+    ``remat_layers`` are read by the training slice."""
+
+    avail_mod: Tuple[str, ...] = ("ap", "behavior")
+    n_channels: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"ap": 668, "behavior": 2})
+    max_F: int = 100
+    hidden_size: int = 256
+    n_enc_layers: int = 5
+    n_dec_layers: int = 5
+    n_heads: int = 8
+    inter_size: int = 512
+    act: str = "gelu"
+    use_scalenorm: bool = False
+    attention_bias: bool = True
+    mlp_bias: bool = True
+    dropout: float = 0.4
+    fixup_init: bool = True
+    # embedder
+    n_modality: int = 2
+    mult: int = 2
+    embed_act: str = "softsign"
+    embed_scale: float = 1.0
+    embed_bias: bool = True
+    embed_dropout: float = 0.2
+    use_pos: bool = True
+    # decoder options
+    decoder_sep_mask: bool = False
+    decoder_causal_mask: bool = False
+    context_forward: int = -1
+    context_backward: int = -1
+    # masker
+    mask_params: MaskParams = dataclasses.field(default_factory=MaskParams)
+    mask_mode: str = "temporal"
+    force_active: bool = True
+    mod_loss_weights: Optional[Dict[str, float]] = None
+    # compute
+    attn_impl: str = "pallas"
+    compute_dtype: str = "float32"
+    share_modality_embeddings: bool = True
+    remat_layers: bool = True
+    n_sessions: int = 1
+
+    def to_json_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json_dict(cls, d: Dict[str, Any]) -> "MultiModalConfig":
+        d = dict(d)
+        d["avail_mod"] = tuple(d["avail_mod"])
+        d["compute_dtype"] = d.get("compute_dtype", "float32")
+        if d["compute_dtype"] not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {d['compute_dtype']!r}")
+        mp = dict(d.get("mask_params", {}))
+        for k in ("channels", "timesteps"):
+            if mp.get(k) is not None:
+                mp[k] = tuple(mp[k])
+        d["mask_params"] = MaskParams(**mp)
+        return cls(**d)
+
+
+class _Embeddings(nn.Module):
+    """Holder giving the reference names ``<side>_embeddings.{m}.embedder``
+    (and ``decoder_embeddings.{m}.out`` for the output head)."""
+
+    def __init__(self, embedder: ModalityTokenizer,
+                 out: Optional[nn.Linear] = None):
+        super().__init__()
+        self.embedder = embedder
+        if out is not None:
+            self.out = out
+
+
+class MultiModal(nn.Module):
+    """MultiMAE-style encoder-decoder over concatenated modality tokens.
+
+    Built on ``device`` (default: the card; ``device="cpu"`` must be asked
+    for) with torch-default weights drawn from ``generator`` (default: a
+    generator seeded with 0)."""
+
+    def __init__(self, config: MultiModalConfig, *,
+                 device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mc = config
+        dev = resolve_device(device)
+        if mc.n_sessions != 1:
+            raise NotImplementedError(
+                "session stitching (n_sessions > 1) is a later slice")
+        if mc.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {mc.compute_dtype!r}: only float32 is ported")
+        self.config = mc
+        H = mc.hidden_size
+
+        def tokenizer(mod):
+            return ModalityTokenizer(mc.n_channels[mod], H, mc.mult,
+                                     mc.embed_act, mc.embed_scale,
+                                     mc.embed_bias)
+
+        self.encoder_embeddings = nn.ModuleDict()
+        self.decoder_embeddings = nn.ModuleDict()
+        for mod in mc.avail_mod:
+            enc, dec = tokenizer(mod), tokenizer(mod)
+            enc.mod_emb = nn.Embedding(mc.n_modality, H)
+            # one shared table: the reference's state_dict carries it under
+            # both the encoder and the decoder key
+            dec.mod_emb = (enc.mod_emb if mc.share_modality_embeddings
+                           else nn.Embedding(mc.n_modality, H))
+            if mc.use_pos:
+                enc.pos_embed = nn.Embedding(mc.max_F, H)
+                dec.pos_embed = nn.Embedding(mc.max_F, H)
+            self.encoder_embeddings[mod] = _Embeddings(enc)
+            self.decoder_embeddings[mod] = _Embeddings(
+                dec, out=nn.Linear(H, mc.n_channels[mod]))
+
+        self.encoder = nn.ModuleList(
+            EncoderLayer(mc, mc.attn_impl) for _ in range(mc.n_enc_layers))
+        self.encoder_norm = LayerNorm(H, eps=1e-5)
+        self.decoder_proj_context = nn.Linear(H, H)
+        self.decoder = nn.ModuleList(
+            DecoderLayer(mc, mc.attn_impl) for _ in range(mc.n_dec_layers))
+        self.decoder_norm = LayerNorm(H, eps=1e-5)
+
+        reset_parameters_(self, generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+        self.to(dev)
+
+    # ------------------------------------------------------------------
+    # attention-mask construction
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _encoder_attn_mask(attn_tokens: torch.Tensor) -> MaskSpec:
+        """eye OR key-padding (the context mask is all-ones)."""
+        N = attn_tokens.shape[1]
+        return MaskSpec(key_pad=attn_tokens,
+                        static=torch.eye(N, dtype=torch.int32,
+                                         device=attn_tokens.device))
+
+    def _decoder_attn_mask(self, attn_tokens: torch.Tensor) -> MaskSpec:
+        """pad / causal / modality-separation terms as (key_pad, static)."""
+        mc = self.config
+        N = attn_tokens.shape[1]
+        dev = attn_tokens.device
+        static = None
+        key_pad = attn_tokens
+        if mc.decoder_causal_mask:
+            static = create_context_mask(0, -1, N, device=dev)
+            key_pad = None                 # causal replaces the pad term
+        if mc.decoder_sep_mask:
+            mod_of_token = np.repeat(np.arange(len(mc.avail_mod)), mc.max_F)
+            sep = torch.as_tensor(
+                mod_of_token[:, None] != mod_of_token[None, :],
+                device=dev).to(torch.int32)
+            static = sep if static is None else (static.bool()
+                                                 | sep.bool()).int()
+        if mc.decoder_causal_mask and key_pad is None and static is not None:
+            # causal-only: no pad term may re-admit padded keys
+            key_pad = torch.zeros_like(attn_tokens)
+        return MaskSpec(key_pad=key_pad, static=static)
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+
+    def forward(self, mod_inputs: Dict[str, ModalityInput],
+                masking_mode=None, training: bool = False,
+                token_zero_groups: int = 1) -> MultiModalOutput:
+        mc = self.config
+        if training:
+            raise NotImplementedError("training lands with the next slice")
+        if masking_mode is not None:
+            raise NotImplementedError(
+                "masking_mode needs the masker, which lands with the "
+                "training slice")
+        T = mc.max_F
+
+        tokens_e, tokens_d, embs_e, embs_d = [], [], [], []
+        token_masks, attn_tokens, gts = [], [], {}
+        for i, mod in enumerate(mc.avail_mod):
+            d = mod_inputs[mod]
+            if d.eval_mask is None:
+                raise NotImplementedError(
+                    "eval_mask=None samples a mask with the masker, which "
+                    "lands with the training slice")
+            attn = d.attn_mask.to(torch.int32)
+            token_masks.append(d.eval_mask[:, :, 0].to(torch.int32) & attn)
+            attn_tokens.append(attn)
+            gts[mod] = d.targets
+
+            enc = self.encoder_embeddings[mod].embedder
+            dec = self.decoder_embeddings[mod].embedder
+            ts = d.timestamps.long()
+            mod_id = torch.full_like(ts, i)
+            e_emb, d_emb = enc.mod_emb(mod_id), dec.mod_emb(mod_id)
+            if mc.use_pos:
+                e_emb = e_emb + enc.pos_embed(ts)
+                d_emb = d_emb + dec.pos_embed(ts)
+            x = d.inputs.float()
+            tokens_e.append(enc(x))
+            # decoder tokens are embedded from the inputs too
+            tokens_d.append(dec(x))
+            embs_e.append(e_emb)
+            embs_d.append(d_emb)
+
+        enc_tokens = torch.cat(tokens_e, dim=1)          # (B, M*T, H)
+        dec_tokens = torch.cat(tokens_d, dim=1)
+        enc_emb = torch.cat(embs_e, dim=1)
+        dec_emb = torch.cat(embs_d, dim=1)
+        token_mask = torch.cat(token_masks, dim=1)        # (B, M*T)
+        attn_token = torch.cat(attn_tokens, dim=1)
+
+        # token zeroing by each group's first row (module docstring)
+        B = token_mask.shape[0]
+        G = token_zero_groups
+        if G < 1 or B % G:
+            raise ValueError(f"batch {B} is not {G} equal groups")
+        first = token_mask.reshape(G, B // G, -1)[:, :1]
+        keep = (1 - first).expand(G, B // G, -1).reshape(B, -1)
+        zero = keep.to(enc_tokens.dtype)[:, :, None]
+        enc_tokens = enc_tokens * zero
+        dec_tokens = dec_tokens * zero
+
+        enc_attn = self._encoder_attn_mask(attn_token)
+        dec_attn = self._decoder_attn_mask(attn_token)
+
+        x = enc_tokens + enc_emb
+        for layer in self.encoder:
+            x = layer(x, enc_attn)
+        x = self.encoder_norm(x)
+
+        context = self.decoder_proj_context(x) + enc_emb
+        y = dec_tokens + dec_emb
+        for layer in self.decoder:
+            y = layer(y, context, dec_attn, enc_attn)
+        y = self.decoder_norm(y)
+
+        mod_loss, mod_n, mod_preds, mod_targets = {}, {}, {}, {}
+        for i, mod in enumerate(mc.avail_mod):
+            head = self.decoder_embeddings[mod].out
+            preds = head(y[:, i * T:(i + 1) * T]).float()
+            targets = gts[mod].float()
+            elem_mask = token_masks[i][:, :, None].expand(targets.shape)
+            if MODALITY_LOSS.get(mod, "mse") == "poisson_nll":
+                loss_sum, n = masked_poisson_nll(preds, targets, elem_mask)
+            else:
+                loss_sum, n = masked_mse(preds, targets, elem_mask)
+            mod_loss[mod] = loss_sum
+            mod_n[mod] = n
+            mod_preds[mod] = preds
+            mod_targets[mod] = targets
+
+        if mc.mod_loss_weights is not None:
+            loss = sum(mc.mod_loss_weights.get(mod, 1.0)
+                       * mod_loss[mod] / mod_n[mod].clamp_min(1.0)
+                       for mod in mc.avail_mod)
+        else:
+            total_n = sum(mod_n.values())
+            loss = sum(mod_loss.values()) / total_n.clamp_min(1.0)
+
+        return MultiModalOutput(
+            loss=loss, mod_loss=mod_loss, mod_n_examples=mod_n,
+            mod_preds=mod_preds, mod_targets=mod_targets)

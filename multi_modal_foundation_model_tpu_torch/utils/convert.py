@@ -1,0 +1,89 @@
+"""JAX param tree -> the port's ``state_dict``.
+
+The port's own copy of the JAX package's ``params_to_reference_state_dict``
+(``utils/torch_convert.py:159-221`` there): the port's modules carry the
+reference ``state_dict`` names, so a JAX ``MultiModal``'s params (as a
+nested dict of numpy arrays) map onto them and load with
+``load_state_dict(strict=True)``. Dense kernels ``(in, out)`` transpose to
+Linear weights ``(out, in)``; LayerNorm ``scale`` is ``weight``. With
+shared modality embeddings the table is emitted under both the encoder and
+the decoder key, as the port's shared ``nn.Embedding`` appears under both.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+_NORM_NAMES = ("ln1", "query_norm", "context_norm", "ln2")
+
+
+def _flat(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def params_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
+    """``state_dict`` (f32 CPU tensors) of a port ``MultiModal`` built with
+    ``config`` from the JAX ``MultiModal`` params of the same config."""
+    flat = _flat(params)
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(ref_key, path):
+        sd[ref_key + ".weight"] = flat[path + ("kernel",)].T
+        if path + ("bias",) in flat:
+            sd[ref_key + ".bias"] = flat[path + ("bias",)]
+
+    def norm(ref_key, path):
+        scale = flat[path + ("scale",)]
+        if scale.ndim == 0:                      # ScaleNorm
+            sd[ref_key + ".scale"] = scale
+        else:
+            sd[ref_key + ".weight"] = scale
+            sd[ref_key + ".bias"] = flat[path + ("bias",)]
+
+    for m in config.avail_mod:
+        for side, tok, mod_emb, pos_emb in (
+                ("encoder_embeddings", f"encoder_tokenizers_{m}",
+                 f"enc_mod_emb_{m}", f"enc_pos_emb_{m}"),
+                ("decoder_embeddings", f"decoder_tokenizers_{m}",
+                 f"dec_mod_emb_{m}", f"dec_pos_emb_{m}")):
+            emb = f"{side}.{m}.embedder"
+            linear(f"{emb}.token_embed", (tok, "token_embed"))
+            linear(f"{emb}.projection", (tok, "projection"))
+            src = (f"enc_mod_emb_{m}" if config.share_modality_embeddings
+                   else mod_emb)
+            sd[f"{emb}.mod_emb.weight"] = flat[(src, "embedding")]
+            if config.use_pos:
+                sd[f"{emb}.pos_embed.weight"] = flat[(pos_emb, "embedding")]
+        linear(f"decoder_embeddings.{m}.out", (f"out_proj_{m}",))
+
+    for i in range(config.n_enc_layers):
+        for n in ("ln1", "ln2"):
+            norm(f"encoder.{i}.{n}", (f"encoder_{i}", n))
+        for n in ("query", "key", "value", "out_proj"):
+            linear(f"encoder.{i}.attn.{n}", (f"encoder_{i}", "attn", n))
+        for n in ("up_proj", "down_proj"):
+            linear(f"encoder.{i}.mlp.{n}", (f"encoder_{i}", "mlp", n))
+    norm("encoder_norm", ("encoder_norm",))
+    linear("decoder_proj_context", ("decoder_proj_context",))
+    for i in range(config.n_dec_layers):
+        for n in _NORM_NAMES:
+            norm(f"decoder.{i}.{n}", (f"decoder_{i}", n))
+        for blk in ("attn", "cross_attn"):
+            for n in ("query", "key", "value", "out_proj"):
+                linear(f"decoder.{i}.{blk}.{n}", (f"decoder_{i}", blk, n))
+        for n in ("up_proj", "down_proj"):
+            linear(f"decoder.{i}.mlp.{n}", (f"decoder_{i}", "mlp", n))
+    norm("decoder_norm", ("decoder_norm",))
+
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}

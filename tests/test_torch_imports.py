@@ -1,0 +1,136 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX package,
+its entry points refuse to fall back to the CPU, and ``chip_smoke.py``
+fails (printing no result) where there is no card or no repo."""
+
+import ast
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per xdist worker)
+from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
+from multi_modal_foundation_model_tpu_torch.ops import build
+from multi_modal_foundation_model_tpu_torch.utils import device as tdevice
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "multi_modal_foundation_model_tpu_torch"
+FORBIDDEN = re.compile(
+    r"^(jax|jaxlib|flax|optax|orbax|multi_modal_foundation_model_tpu)(\.|$)")
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        name = ".".join(rel.parts)
+        yield name[:-len(".__init__")] if name.endswith(".__init__") else name
+
+
+def _imported_names(path: Path):
+    """Absolute module names imported by a source file."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_with_jax_blocked():
+    """Every port module imports in a process where importing jax, flax,
+    optax, orbax or the JAX package raises."""
+    blocked = ["jax", "jaxlib", "flax", "optax", "orbax",
+               "multi_modal_foundation_model_tpu"]
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"sys.modules[{m!r}] = None" for m in blocked]
+        + [f"importlib.import_module({m!r})" for m in _port_modules()]
+        + ["assert not any(sys.modules.get(m) for m in %r)" % blocked,
+           "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax_package(path):
+    """Source scan: no import of jax/flax/optax/orbax or of the JAX
+    package; the port's own name (``..._tpu_torch``) shares the JAX
+    package's prefix and is allowed."""
+    bad = [n for n in _imported_names(ROOT / path) if FORBIDDEN.match(n)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_forbidden_pattern_tells_the_port_from_the_jax_package():
+    assert FORBIDDEN.match("multi_modal_foundation_model_tpu.ops")
+    assert FORBIDDEN.match("multi_modal_foundation_model_tpu")
+    assert FORBIDDEN.match("jax.numpy")
+    assert not FORBIDDEN.match("multi_modal_foundation_model_tpu_torch.ops")
+    assert not FORBIDDEN.match("jaxtyping")
+
+
+def test_entry_points_need_an_explicit_cpu():
+    """Without a card, device=None raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        tmm.MultiModal(tmm.MultiModalConfig(hidden_size=32, n_heads=2,
+                                            n_enc_layers=1, n_dec_layers=1))
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_kernel_sources_and_build_key(tmp_path, monkeypatch):
+    """Every CUDA source is listed; its library name carries a hash of
+    the sources, so an edited source builds a new library."""
+    assert "attention_fwd" in build.kernel_sources()
+    path = build.library_path("attention_fwd")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libattention_fwd-")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src = (build.CSRC / "attention_fwd.cu").read_text()
+    (csrc / "attention_fwd.cu").write_text(src)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.library_path("attention_fwd") == path
+    (csrc / "attention_fwd.cu").write_text(src + "\n// edited\n")
+    assert build.library_path("attention_fwd") != path
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build(["attention_fwd"])
