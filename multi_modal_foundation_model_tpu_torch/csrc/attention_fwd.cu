@@ -2,21 +2,26 @@
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
-// `_mha_impl`, :349-391) on the eval forward: dropout 0, with an optional
-// row statistic `lse` for the training slice's backward.
+// `_mha_impl`, :349-391): the eval forward (dropout 0, no lse) and the
+// training forward (probability dropout, row statistic `lse` for K2).
 //
 // What it computes (the function, not the TPU blocking), per batch b and
 // head h, on natural-layout (B, T, H*D) q/k/v:
 //   s[q,k] = (q * scale) . k + (static[q,k] | key_pad[b,k] ? 0 : -1e30)
-//   o[q]   = sum_k exp(s[q,k] - m[q]) v[k] / l[q],   l[q] = sum_k exp(s - m)
+//   p[q,k] = exp(s[q,k] - m[q]),  l[q] = sum_k p[q,k]
+//   o[q]   = sum_k p[q,k] keep[q,k] / (1 - rate) v[k] / l[q]
 //   lse[q] = max(m[q], -1e6) + log(l[q])                (optional, f32)
+// As in JAX (:196, :206-216), l sums the UNDROPPED probabilities and only
+// the numerator sees the dropped ones. keep[q,k] is a Philox draw keyed by
+// the seed with counter (b, h, q, k) alone (philox.cuh), so K2 replays it
+// at its own tiling; keep iff bits > uint32(rate * (2^32 - 1)), JAX's test.
 // The bias is the finite -1e30 of the JAX package, never -inf: in f32
 // -1e30 + q.k rounds to -1e30, so a fully-masked row sees equal scores and
-// comes out as the mean of V, as in JAX. All math is f32; inputs are f32
-// or bf16 and the output has the inputs' type.
+// comes out as the mean of V (of the kept V with dropout), as in JAX. All
+// math is f32; inputs are f32 or bf16 and the output has the inputs' type.
 //
-// What bounds it on the H100: at the eval shapes (Tq = Tk = 200, H = 8,
-// D = 32) each (b, h) pair reads 3 x 200 x 32 values and does
+// What bounds it on the H100: at the main path's shapes (Tq = Tk = 200,
+// H = 8, D = 32) each (b, h) pair reads 3 x 200 x 32 values and does
 // 4 x 200 x 200 x 32 flops, ~67 flops per byte in f32: above the f32 CUDA
 // core ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/B), so the two products
 // bound it, not device memory. The TPU kernel held all heads of a batch
@@ -31,7 +36,9 @@
 //     an online softmax that rescales the accumulator once per tile;
 //   - the static | key_pad attend flags of the tile are staged in shared
 //     memory with a padded row (33 ints) so the per-thread reads do not
-//     conflict.
+//     conflict;
+//   - with dropout, the thread draws its row's 32 keep bits of the tile
+//     with 8 Philox calls (4 words each) into one register.
 // q, k and v each take a batch stride and a row stride (elements) with
 // unit stride inside the row, so the column views of a fused QKV product
 // (row stride 3*H*D) need no copy. The output is contiguous (B, Tq, H*D).
@@ -41,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -63,14 +72,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kQTile)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ key_pad,
                 const int* __restrict__ static_mask, T* __restrict__ out,
                 float* __restrict__ lse, int Tq, int Tk, int H,
                 long long q_sb, long long q_st, long long k_sb,
-                long long k_st, long long v_sb, long long v_st, float scale) {
+                long long k_st, long long v_sb, long long v_st, float scale,
+                unsigned seed, unsigned threshold, float keep_scale) {
   constexpr int D = kHeadDim;
   __shared__ float ks[kKTile][D];
   __shared__ float vs[kKTile][D];
@@ -121,6 +131,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       att[r][j] = a;
     }
     __syncthreads();
+    const uint32_t keep =
+        kDropout ? mmfm::keep_bits32(seed, threshold, b, h, row, k0) : ~0u;
 
     float s[kKTile];
     float tile_max = -INFINITY;
@@ -143,9 +155,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kKTile; ++j) {
       const float p = j < nk ? expf(s[j] - m_new) : 0.f;
-      l += p;
+      l += p;  // the undropped probability
+      const float pd =
+          kDropout ? ((keep >> j) & 1u ? p * keep_scale : 0.f) : p;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(pd, vs[j][d], acc[d]);
     }
     m = m_new;
   }
@@ -165,35 +179,48 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float* lse, int B, int Tq, int Tk, int H, long long q_sb,
                    long long q_st, long long k_sb, long long k_st,
                    long long v_sb, long long v_st, float scale,
-                   cudaStream_t stream) {
+                   unsigned seed, unsigned threshold, float keep_scale,
+                   int dropout, cudaStream_t stream) {
   const int n_qtiles = (Tq + kQTile - 1) / kQTile;
   const dim3 grid((unsigned)B * n_qtiles, H);
-  attn_fwd_kernel<T><<<grid, kQTile, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), key_pad, static_mask, static_cast<T*>(out),
-      lse, Tq, Tk, H, q_sb, q_st, k_sb, k_st, v_sb, v_st, scale);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
+  if (dropout)
+    attn_fwd_kernel<T, true><<<grid, kQTile, 0, stream>>>(
+        qp, kp, vp, key_pad, static_mask, op, lse, Tq, Tk, H, q_sb, q_st,
+        k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale);
+  else
+    attn_fwd_kernel<T, false><<<grid, kQTile, 0, stream>>>(
+        qp, kp, vp, key_pad, static_mask, op, lse, Tq, Tk, H, q_sb, q_st,
+        k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D must be 32. lse may be null.
-// Strides in elements. Returns the launch's cudaGetLastError() (0 = ok).
+// Strides in elements. dropout != 0 drops p[q,k] unless its Philox bits
+// exceed `threshold` and scales survivors by `keep_scale`.
+// Returns the launch's cudaGetLastError() (0 = ok).
 extern "C" int mmfm_attention_fwd(
     const void* q, const void* k, const void* v, const int* key_pad,
     const int* static_mask, void* out, float* lse, int B, int Tq, int Tk,
     int H, int D, long long q_sb, long long q_st, long long k_sb,
-    long long k_st, long long v_sb, long long v_st, float scale, int dtype,
-    void* stream) {
+    long long k_st, long long v_sb, long long v_st, float scale,
+    unsigned seed, unsigned threshold, float keep_scale, int dropout,
+    int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(q, k, v, key_pad, static_mask, out, lse, B, Tq,
                               Tk, H, q_sb, q_st, k_sb, k_st, v_sb, v_st,
-                              scale, s);
+                              scale, seed, threshold, keep_scale, dropout, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, key_pad, static_mask, out,
-                                      lse, B, Tq, Tk, H, q_sb, q_st, k_sb,
-                                      k_st, v_sb, v_st, scale, s);
+    return (int)launch<__nv_bfloat16>(
+        q, k, v, key_pad, static_mask, out, lse, B, Tq, Tk, H, q_sb, q_st,
+        k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale, dropout,
+        s);
   return (int)cudaErrorInvalidValue;
 }

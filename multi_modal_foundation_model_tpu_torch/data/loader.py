@@ -1,12 +1,16 @@
 """Fixed-shape batching of whole splits (numpy).
 
 The port's copy of ``multi_modal_foundation_model_tpu/data/loader.py``
-(``attention_mask``, ``prepare_split``, ``make_loader``): the whole split is
-padded once into stacked fixed-shape arrays, and the loader yields them in
-trial order, padding the last batch up to ``batch_size`` with its
-``time/space_attn_mask`` zeroed and ``n_real`` telling the real count. The
-batch keys are the JAX loader's. Shuffling, the length-grouped and stitch
-samplers and the NEMO unit filter come with the training slice.
+(``attention_mask``, ``prepare_split``, ``DataLoader``, ``make_loader``):
+the whole split is padded once into stacked fixed-shape arrays, and the
+loader yields batches in JAX's order: with ``shuffle`` a permutation drawn
+from ``np.random.default_rng((seed, epoch))``, the epoch advancing after
+each pass, so both packages yield the same batches. The last batch is
+padded up to ``batch_size`` with its ``time/space_attn_mask`` zeroed and
+``n_real`` telling the real count (``pad_last``), or dropped
+(``drop_last``). The batch keys are the JAX loader's. The length-grouped
+and stitch samplers and the NEMO unit filter are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -133,34 +137,81 @@ _SHARED_KEYS = ("neuron_regions", "neuron_depths", "region_ids",
                 "region_vocab", "eid", "nemo_rep")
 
 
-@dataclasses.dataclass
+def _check_sampler(sampler: Optional[str]) -> None:
+    if sampler is not None:
+        raise NotImplementedError(
+            f"sampler={sampler!r}: the length-grouped and stitch samplers "
+            "are not ported yet")
+
+
+@dataclasses.dataclass(eq=False)  # identity eq/hash: loaders are stateful
 class DataLoader:
-    """Fixed-shape batches of a prepared split, in trial order."""
+    """Deterministic fixed-shape batch iterator over a prepared split."""
 
     arrays: Dict[str, np.ndarray]
     batch_size: int
+    shuffle: bool = True
+    seed: int = 42
+    pad_last: bool = True
+    drop_last: bool = False
+    sampler: Optional[str] = None
+
+    def __post_init__(self):
+        _check_sampler(self.sampler)
+        self._epoch = 0
+        self._n = int(self.arrays["spikes_data"].shape[0])
 
     def __len__(self) -> int:
-        return -(-self.n_trials // self.batch_size)
+        if self.drop_last:
+            return self._n // self.batch_size
+        return -(-self._n // self.batch_size)
 
     @property
     def n_trials(self) -> int:
-        return int(self.arrays["spikes_data"].shape[0])
+        return self._n
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def _order(self) -> np.ndarray:
+        if self.shuffle:
+            gen = np.random.default_rng((self.seed, self._epoch))
+            return gen.permutation(self._n)
+        return np.arange(self._n)
+
+    def iter_index_batches(self) -> Iterator[tuple]:
+        """``(idxs (B,) int32, valid (B,) int32, n_real)`` per batch, in the
+        order and with the padding ``__iter__`` yields (JAX :365-389);
+        advances the epoch as a pass does."""
+        order = self._order()
+        self._epoch += 1
+        bs = self.batch_size
+        for start in range(0, len(order), bs):
+            idxs = order[start:start + bs]
+            n_real = len(idxs)
+            valid = np.ones(bs, dtype=np.int32)
+            if n_real < bs:
+                if self.drop_last:
+                    return
+                if self.pad_last:
+                    idxs = np.concatenate(
+                        [idxs, np.full(bs - n_real, idxs[-1],
+                                       dtype=idxs.dtype)])
+                    valid[n_real:] = 0
+                else:
+                    valid = valid[:n_real]
+            yield idxs.astype(np.int32), valid, n_real
 
     def __iter__(self) -> Iterator[Batch]:
-        bs = self.batch_size
-        for start in range(0, self.n_trials, bs):
-            idxs = np.arange(start, min(start + bs, self.n_trials))
-            n_real = len(idxs)
-            if n_real < bs:
-                idxs = np.concatenate([idxs, np.full(bs - n_real, idxs[-1])])
+        for idxs, valid, n_real in self.iter_index_batches():
             batch: Batch = {k: self.arrays[k][idxs] for k in _PER_TRIAL_KEYS}
-            if n_real < bs:
+            if n_real < len(idxs):
                 # padding trials carry zero attention -> zero loss weight
                 batch["time_attn_mask"][n_real:] = 0
                 batch["space_attn_mask"][n_real:] = 0
             for k in _SHARED_KEYS:
-                batch[k] = self.arrays[k]
+                if k in self.arrays:
+                    batch[k] = self.arrays[k]
             batch["n_real"] = n_real
             yield batch
 
@@ -176,10 +227,17 @@ def make_loader(
     max_time_length: int = 100,
     max_space_length: int = 668,
     brain_region: str = "all",
+    shuffle: bool = True,
+    seed: int = 42,
     region_vocab: Optional[Dict[str, int]] = None,
+    drop_last: bool = False,
+    sampler: Optional[str] = None,
 ) -> DataLoader:
-    """Loader over one session split, in trial order. ``target`` selects
-    behavior covariates by name (default: the session's stored ones)."""
+    """Loader over one session split with JAX ``make_loader``'s batching
+    arguments (:392-464); ``target`` selects behavior covariates by name
+    (default: the session's stored ones). A ``sampler`` is not ported and
+    raises."""
+    _check_sampler(sampler)
     if target is not None and tuple(target) != tuple(session.target_names):
         name_to_idx = {n: i for i, n in enumerate(session.target_names)}
         cols = [name_to_idx[t] for t in target]
@@ -198,4 +256,5 @@ def make_loader(
         region_vocab=region_vocab,
     )
     arrays["nemo_rep"] = np.array([np.nan], dtype=np.float32)
-    return DataLoader(arrays=arrays, batch_size=batch_size)
+    return DataLoader(arrays=arrays, batch_size=batch_size, shuffle=shuffle,
+                      seed=seed, drop_last=drop_last, sampler=sampler)

@@ -1,6 +1,7 @@
 from .harness import EvalForward, co_smoothing_eval
 from .heldout import heldout_mask
-from .loading import load_model_config, save_model_config
+from .loading import (load_model_config, load_model_data_local,
+                      save_model_config)
 from .metrics import (
     bits_per_spike,
     compute_PSTH,
@@ -19,6 +20,7 @@ __all__ = [
     "co_smoothing_eval",
     "heldout_mask",
     "load_model_config",
+    "load_model_data_local",
     "save_model_config",
     "bits_per_spike",
     "compute_PSTH",

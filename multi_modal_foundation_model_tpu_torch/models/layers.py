@@ -6,15 +6,28 @@ names are the reference ``state_dict`` names
 ``query``/``key``/``value`` Linears; the projections that share an input
 run as ONE GEMM over the concatenated weights at apply time, as the JAX
 package's ``_fused_proj`` does, and the q/k/v column views of that product
-go to the attention kernel without a copy.
+go to the attention kernels without a copy.
 
-- ``MXUDense``/``MXUEmbed`` are ``nn.Linear``/``nn.Embedding``.
-- Initialization is torch's default (U(+-1/sqrt(fan_in)) for Linear weight
-  and bias, N(0, 1) for embeddings) drawn from an explicit
-  ``torch.Generator`` (``reset_parameters_``). The JAX package's fixup
-  rescaling of the output/value projections comes with the training slice.
-- Dropout is the identity at eval; the modules here run the eval forward
-  only (the training slice brings dropout).
+- ``MXUDense``/``MXUEmbed`` are ``nn.Linear``/``nn.Embedding``. Their JAX
+  custom backward passes (:105-150, :533-577) only move the plain linear
+  and embedding gradients onto the TPU's matrix unit, so autograd of
+  ``nn.Linear``/``nn.Embedding`` is their port.
+- Initialization is JAX's, drawn from an explicit ``torch.Generator``:
+  torch's default (U(+-1/sqrt(fan_in)) for Linear weight and bias, N(0, 1)
+  for embeddings; ``reset_parameters_``), then, with ``config.fixup_init``,
+  ``fixup_init_`` rescales ``out_proj``, ``up_proj`` and ``down_proj`` by
+  ``0.67 * L**-0.25`` and ``value`` by a further sqrt(2), L being the
+  n_layers of the owning stack (JAX :80-87); biases, ``query``, ``key``
+  and the tokenizers keep the torch default. The two Linears JAX builds
+  as plain ``MXUDense`` (``decoder_proj_context`` and the output heads)
+  take flax's default instead: ``lecun_normal_``.
+- Dropout is JAX's default u8 policy (``U8_DROPOUT_BITS``, :211-240): keep
+  iff a random byte >= t, t = round(rate * 256) clamped to 255, survivors
+  divided by the exact keep probability (256 - t) / 256. Attention
+  probabilities drop inside the kernel (``ops/attention.py``). A module
+  drops only when its forward gets a ``seed`` (a host int; ``None`` is the
+  eval forward); each site derives its own seed with ``fold_in``, so a
+  ``torch.utils.checkpoint`` recompute replays every draw.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from torch import nn
 
 from ..ops.attention import MaskSpec, multi_head_attention
 from ..ops.layernorm import LayerNorm
+from ..utils.rng import fold_in
 
 
 def _gelu_tanh(x):
@@ -59,6 +73,70 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.normal_(0.0, 1.0, generator=generator)
 
 
+@torch.no_grad()
+def lecun_normal_(linear: nn.Linear, generator: torch.Generator) -> None:
+    """flax's default Dense init: kernel ``lecun_normal`` (a normal of std
+    sqrt(1/fan_in) / 0.8796..., truncated at 2 std, so the kept part has
+    variance 1/fan_in), bias zero."""
+    std = math.sqrt(1.0 / linear.in_features) / 0.87962566103423978
+    nn.init.trunc_normal_(linear.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    if linear.bias is not None:
+        linear.bias.zero_()
+
+
+def fixup_factor(n_layers: int, value: bool = False) -> float:
+    """JAX ``fixup_scaled_init``'s scale: ``0.67 * n_layers**-0.25``, x
+    sqrt(2) for value kernels."""
+    factor = 0.67 * float(n_layers) ** (-0.25)
+    return factor * math.sqrt(2.0) if value else factor
+
+
+@torch.no_grad()
+def fixup_init_(layer: nn.Module, n_layers: int) -> None:
+    """Fixup rescaling of an Encoder/DecoderLayer's torch-default weights:
+    every attention's ``out_proj`` and the MLP's ``up_proj``/``down_proj``
+    by ``fixup_factor(n_layers)``, every ``value`` by
+    ``fixup_factor(n_layers, value=True)``. Biases are left alone."""
+    for m in layer.modules():
+        if isinstance(m, (Attention, CrossAttention)):
+            m.out_proj.weight.mul_(fixup_factor(n_layers))
+            m.value.weight.mul_(fixup_factor(n_layers, value=True))
+        elif isinstance(m, MLP):
+            m.up_proj.weight.mul_(fixup_factor(n_layers))
+            m.down_proj.weight.mul_(fixup_factor(n_layers))
+
+
+def dropout_keep_threshold(rate: float):
+    """(t, keep probability) of the u8 policy: drop iff byte < t, with
+    t = round(rate * 256) clamped to 255 (t = 256 would overflow the
+    byte; ROADMAP, JAX :237-240)."""
+    t = min(int(round(rate * 256.0)), 255)
+    return t, (256 - t) / 256.0
+
+
+def dropout_u8(x: torch.Tensor, rate: float,
+               seed: Optional[int]) -> torch.Tensor:
+    """Layer dropout (JAX ``ReplayDropout`` under ``U8_DROPOUT_BITS``):
+    identity without a seed or at rate 0, zeros at rate 1, else one random
+    byte per element from a generator seeded with ``seed``."""
+    if seed is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    t, keep_p = dropout_keep_threshold(rate)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    bits = torch.randint(0, 256, x.shape, generator=gen, device=x.device,
+                         dtype=torch.uint8)
+    return torch.where(bits >= t, x / keep_p, 0.0)
+
+
+def site_seed(seed: Optional[int], *site: int) -> Optional[int]:
+    """The seed of one random site under ``seed`` (None stays None: no
+    draw)."""
+    return None if seed is None else fold_in(seed, *site)
+
+
 def fused_linear(x: torch.Tensor, linears: Sequence[nn.Linear]):
     """Several same-input projections as one GEMM; returns the per-
     projection column views of the (..., sum(out)) product."""
@@ -86,57 +164,70 @@ class MLP(nn.Module):
     """up-proj -> act -> down-proj."""
 
     def __init__(self, hidden_size: int, inter_size: int, act: str,
-                 use_bias: bool):
+                 use_bias: bool, dropout: float = 0.0):
         super().__init__()
         self.act = ACT2FN[act]
+        self.dropout = dropout
         self.up_proj = nn.Linear(hidden_size, inter_size, bias=use_bias)
         self.down_proj = nn.Linear(inter_size, hidden_size, bias=use_bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(self.act(self.up_proj(x)))
+    def forward(self, x: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
+        return dropout_u8(self.down_proj(self.act(self.up_proj(x))),
+                          self.dropout, seed)
+
+
+def _attend(module, q, k, v, mask, seed):
+    """Fused attention with in-kernel probability dropout (site 0), then
+    the output dropout (site 1), as JAX ``Attention`` does (:404-409)."""
+    rate = module.dropout if seed is not None else 0.0
+    out = multi_head_attention(q, k, v, module.n_heads, mask_spec=mask,
+                               dropout_rate=rate,
+                               seed=site_seed(seed, 0) if rate else None,
+                               impl=module.attn_impl)
+    return dropout_u8(out, module.dropout, site_seed(seed, 1))
 
 
 class Attention(nn.Module):
     """Self-attention; q/k/v as one (H, 3H) GEMM, then the fused kernel."""
 
     def __init__(self, hidden_size: int, n_heads: int, use_bias: bool,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.attn_impl = attn_impl
+        self.dropout = dropout
         self.query = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.key = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.value = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.out_proj = nn.Linear(hidden_size, hidden_size, bias=use_bias)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[MaskSpec] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         q, k, v = fused_linear(x, (self.query, self.key, self.value))
-        out = multi_head_attention(q, k, v, self.n_heads, mask_spec=mask,
-                                   impl=self.attn_impl)
-        return self.out_proj(out)
+        return self.out_proj(_attend(self, q, k, v, mask, seed))
 
 
 class CrossAttention(nn.Module):
     """Cross-attention: q from x, k/v as one (H, 2H) GEMM over context."""
 
     def __init__(self, hidden_size: int, n_heads: int, use_bias: bool,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.attn_impl = attn_impl
+        self.dropout = dropout
         self.query = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.key = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.value = nn.Linear(hidden_size, hidden_size, bias=use_bias)
         self.out_proj = nn.Linear(hidden_size, hidden_size, bias=use_bias)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                mask: Optional[MaskSpec] = None) -> torch.Tensor:
+                mask: Optional[MaskSpec] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         q = self.query(x)
         k, v = fused_linear(context, (self.key, self.value))
-        out = multi_head_attention(q, k, v, self.n_heads, mask_spec=mask,
-                                   impl=self.attn_impl)
-        return self.out_proj(out)
+        return self.out_proj(_attend(self, q, k, v, mask, seed))
 
 
 def _norm(cfg) -> nn.Module:
@@ -152,14 +243,15 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.ln1 = _norm(cfg)
         self.attn = Attention(cfg.hidden_size, cfg.n_heads,
-                              cfg.attention_bias, attn_impl)
+                              cfg.attention_bias, attn_impl, cfg.dropout)
         self.ln2 = _norm(cfg)
-        self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias)
+        self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias,
+                       cfg.dropout)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[MaskSpec] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask, site_seed(seed, 0))
+        return x + self.mlp(self.ln2(x), site_seed(seed, 1))
 
 
 class DecoderLayer(nn.Module):
@@ -169,39 +261,46 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.ln1 = _norm(cfg)
         self.attn = Attention(cfg.hidden_size, cfg.n_heads,
-                              cfg.attention_bias, attn_impl)
+                              cfg.attention_bias, attn_impl, cfg.dropout)
         self.query_norm = _norm(cfg)
         self.context_norm = _norm(cfg)
         self.cross_attn = CrossAttention(cfg.hidden_size, cfg.n_heads,
-                                         cfg.attention_bias, attn_impl)
+                                         cfg.attention_bias, attn_impl,
+                                         cfg.dropout)
         self.ln2 = _norm(cfg)
-        self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias)
+        self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias,
+                       cfg.dropout)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sa_mask: Optional[MaskSpec] = None,
-                xa_mask: Optional[MaskSpec] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), sa_mask)
+                xa_mask: Optional[MaskSpec] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), sa_mask, site_seed(seed, 0))
         x = x + self.cross_attn(self.query_norm(x),
-                                self.context_norm(context), xa_mask)
-        return x + self.mlp(self.ln2(x))
+                                self.context_norm(context), xa_mask,
+                                site_seed(seed, 1))
+        return x + self.mlp(self.ln2(x), site_seed(seed, 2))
 
 
 class ModalityTokenizer(nn.Module):
     """Per-modality token path: Linear(C -> C*mult) -> act -> *scale ->
-    Linear(-> H). The reference's embedder module also owns the modality
-    and position tables (``mod_emb``, ``pos_embed``); ``MultiModal``
-    attaches them here so the state_dict names match, and adds them
-    itself."""
+    Linear(-> H) -> dropout (``embed_dropout``). The reference's embedder
+    module also owns the modality and position tables (``mod_emb``,
+    ``pos_embed``); ``MultiModal`` attaches them here so the state_dict
+    names match, and adds them itself."""
 
     def __init__(self, n_channels: int, hidden_size: int, mult: int,
-                 act: str, scale: float, use_bias: bool):
+                 act: str, scale: float, use_bias: bool,
+                 dropout: float = 0.0):
         super().__init__()
         inter = n_channels * mult
         self.act = ACT2FN[act]
         self.scale = scale
+        self.dropout = dropout
         self.token_embed = nn.Linear(n_channels, inter, bias=use_bias)
         self.projection = nn.Linear(inter, hidden_size, bias=True)
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
         x = self.act(self.token_embed(inputs)) * self.scale
-        return self.projection(x)
+        return dropout_u8(self.projection(x), self.dropout, seed)

@@ -1,4 +1,4 @@
-"""The MultiModal masked autoencoder (``nn.Module``), eval forward.
+"""The MultiModal masked autoencoder (``nn.Module``): training and eval.
 
 Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
 
@@ -13,36 +13,51 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   it runs many held-out-neuron variants in one batch, and zeroing by the
   whole batch's row 0 would let variant 0 (neuron 0 held out) flip the
   token mask of every other variant.
+- **The masker** (``_resolve_masks``, JAX :316-363): a ``masking_mode``
+  (a mode name, or a host int into ``mtm_modes``, the MtM menu) corrupts
+  the inputs and takes precedence over ``eval_mask``; ``eval_mask=None``
+  samples a targets mask with ``config.mask_mode``. Modalities without
+  region info (behavior) run ``temporal`` where the menu names a region
+  mode (JAX :345-347).
+- **Randomness from one host seed.** ``seed`` (a host int; the trainer
+  folds its step into it, as JAX folds ``fold_in(key, step)``) keys the
+  masker and, with ``training=True``, every dropout site; see
+  ``utils/rng.py``. Nothing random is drawn without it.
+- **Remat.** With ``training=True`` and ``remat_layers`` each transformer
+  layer runs under ``torch.utils.checkpoint(use_reentrant=False)``, as
+  JAX's ``nn.remat`` (:281-287); its dropout seeds are arguments of the
+  checkpointed call, so the recompute replays the same masks.
 - **Attention masks as (key_pad, static) decompositions**: encoder
   ``eye | pad``, decoder pad / causal / modality-separation, fed to the
-  fused attention (K1 on the card).
+  fused attention (K1/K2 on the card).
 - **Losses**: Poisson NLL (log-input, no Stirling) on spikes + MSE on
-  behavior, masked, combined as the sum over modalities divided by the
-  total masked count, or by ``mod_loss_weights``.
+  behavior, masked (by the masker's element mask where there is one),
+  combined as the sum over modalities divided by the total masked count,
+  or by ``mod_loss_weights``.
 
-This slice runs the eval forward: ``training=False`` with an explicit
-``eval_mask`` per modality. Sampling masks (``eval_mask=None`` or a
-``masking_mode``) and training come with the masker and the trainer;
-session stitching (``n_sessions > 1``) and bf16 compute come later. Each
-raises ``NotImplementedError`` until then.
+Session stitching (``n_sessions > 1``) and bf16 compute are later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import MaskSpec, create_context_mask
 from ..ops.layernorm import LayerNorm
 from ..ops.losses import masked_mse, masked_poisson_nll
-from ..ops.masking import MaskParams
+from ..ops.masking import MaskParams, RegionSets, apply_mask
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.rng import fold_in
 from .layers import (DecoderLayer, EncoderLayer, ModalityTokenizer,
-                     reset_parameters_)
+                     fixup_init_, lecun_normal_, reset_parameters_,
+                     site_seed)
 
 MODALITY_LOSS = {"ap": "poisson_nll", "behavior": "mse"}
 _COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -73,9 +88,7 @@ class MultiModalConfig:
     """Static model hyperparameters; field for field the JAX package's
     ``MultiModalConfig``, so both read each other's ``model_config.json``.
     ``compute_dtype`` is the dtype's name. ``attn_impl="pallas"`` runs the
-    hand-written kernels on the card, ``"xla"`` the plain versions.
-    ``fixup_init``, ``dropout``, ``embed_dropout``, the masker fields and
-    ``remat_layers`` are read by the training slice."""
+    hand-written kernels on the card, ``"xla"`` the plain versions."""
 
     avail_mod: Tuple[str, ...] = ("ap", "behavior")
     n_channels: Dict[str, int] = dataclasses.field(
@@ -151,8 +164,10 @@ class MultiModal(nn.Module):
     """MultiMAE-style encoder-decoder over concatenated modality tokens.
 
     Built on ``device`` (default: the card; ``device="cpu"`` must be asked
-    for) with torch-default weights drawn from ``generator`` (default: a
-    generator seeded with 0)."""
+    for) with JAX's initialization drawn from ``generator`` (default: a
+    generator seeded with 0): torch-default Linears and N(0, 1) tables,
+    ``lecun_normal_`` context projection and output heads, fixup-rescaled
+    when ``config.fixup_init`` (``models/layers.py``)."""
 
     def __init__(self, config: MultiModalConfig, *,
                  device: DeviceLike = None,
@@ -172,7 +187,7 @@ class MultiModal(nn.Module):
         def tokenizer(mod):
             return ModalityTokenizer(mc.n_channels[mod], H, mc.mult,
                                      mc.embed_act, mc.embed_scale,
-                                     mc.embed_bias)
+                                     mc.embed_bias, mc.embed_dropout)
 
         self.encoder_embeddings = nn.ModuleDict()
         self.decoder_embeddings = nn.ModuleDict()
@@ -198,9 +213,60 @@ class MultiModal(nn.Module):
             DecoderLayer(mc, mc.attn_impl) for _ in range(mc.n_dec_layers))
         self.decoder_norm = LayerNorm(H, eps=1e-5)
 
-        reset_parameters_(self, generator if generator is not None
-                          else torch.Generator().manual_seed(0))
+        gen = (generator if generator is not None
+               else torch.Generator().manual_seed(0))
+        reset_parameters_(self, gen)
+        # JAX builds these two as plain MXUDense: flax's default init
+        lecun_normal_(self.decoder_proj_context, gen)
+        for mod in mc.avail_mod:
+            lecun_normal_(self.decoder_embeddings[mod].out, gen)
+        if mc.fixup_init:
+            for layer in self.encoder:
+                fixup_init_(layer, mc.n_enc_layers)
+            for layer in self.decoder:
+                fixup_init_(layer, mc.n_dec_layers)
         self.to(dev)
+
+    # ------------------------------------------------------------------
+    # mask plumbing
+    # ------------------------------------------------------------------
+
+    def _resolve_masks(self, mod: str, d: ModalityInput, masking_mode,
+                       mtm_modes: Sequence[str],
+                       regions: Optional[RegionSets], training: bool,
+                       seed: Optional[int]):
+        """(inputs, possibly corrupted; token_mask (B, T) int32; element
+        mask (B, T, C) int32 or None), JAX ``_resolve_masks``."""
+        mc = self.config
+        active = bool(mc.force_active) or training
+        attn = d.attn_mask.to(torch.int32)
+        if regions is not None and mod != "ap":
+            regions = None
+        if regions is not None \
+                and regions.region_ids.shape[-1] > d.inputs.shape[-1]:
+            regions = dataclasses.replace(
+                regions, region_ids=regions.region_ids[
+                    ..., :d.inputs.shape[-1]])
+        if masking_mode is not None or d.eval_mask is None:
+            if seed is None:
+                raise ValueError("sampling a mask needs a seed")
+        if masking_mode is not None:
+            if isinstance(masking_mode, str):
+                mode = masking_mode
+            else:                         # host int into the MtM menu
+                mode = mtm_modes[int(masking_mode)]
+                if regions is None and mode.endswith("region"):
+                    mode = "temporal"
+            corrupted, spike_mask = apply_mask(seed, d.inputs, mc.mask_params,
+                                               mode, regions=regions,
+                                               active=active)
+            return corrupted, spike_mask[:, :, 0] & attn, spike_mask
+        if d.eval_mask is None:
+            _, mask = apply_mask(seed, d.inputs, mc.mask_params, mc.mask_mode,
+                                 regions=regions, active=active)
+        else:
+            mask = d.eval_mask
+        return d.inputs, mask[:, :, 0].to(torch.int32) & attn, None
 
     # ------------------------------------------------------------------
     # attention-mask construction
@@ -241,28 +307,32 @@ class MultiModal(nn.Module):
     # ------------------------------------------------------------------
 
     def forward(self, mod_inputs: Dict[str, ModalityInput],
-                masking_mode=None, training: bool = False,
-                token_zero_groups: int = 1) -> MultiModalOutput:
+                masking_mode=None, mtm_modes: Sequence[str] = (),
+                regions: Optional[RegionSets] = None,
+                training: bool = False, token_zero_groups: int = 1,
+                seed: Optional[int] = None) -> MultiModalOutput:
+        """``masking_mode``: None, a mode name, or a host int into
+        ``mtm_modes``. ``seed``: host int keying the masker and (with
+        ``training``) dropout; required whenever a mask is sampled."""
         mc = self.config
-        if training:
-            raise NotImplementedError("training lands with the next slice")
-        if masking_mode is not None:
-            raise NotImplementedError(
-                "masking_mode needs the masker, which lands with the "
-                "training slice")
         T = mc.max_F
+        mask_seed = drop_seed = None
+        if seed is not None:
+            mask_seed, drop_seed = fold_in(seed, 0), fold_in(seed, 1)
+        if not training:
+            drop_seed = None
+        elif drop_seed is None and (mc.dropout > 0 or mc.embed_dropout > 0):
+            raise ValueError("training with dropout needs a seed")
 
         tokens_e, tokens_d, embs_e, embs_d = [], [], [], []
-        token_masks, attn_tokens, gts = [], [], {}
+        token_masks, attn_tokens, gts, spike_masks = [], [], {}, {}
         for i, mod in enumerate(mc.avail_mod):
             d = mod_inputs[mod]
-            if d.eval_mask is None:
-                raise NotImplementedError(
-                    "eval_mask=None samples a mask with the masker, which "
-                    "lands with the training slice")
-            attn = d.attn_mask.to(torch.int32)
-            token_masks.append(d.eval_mask[:, :, 0].to(torch.int32) & attn)
-            attn_tokens.append(attn)
+            inputs, token_mask, spike_masks[mod] = self._resolve_masks(
+                mod, d, masking_mode, mtm_modes, regions, training,
+                site_seed(mask_seed, i))
+            token_masks.append(token_mask)
+            attn_tokens.append(d.attn_mask.to(torch.int32))
             gts[mod] = d.targets
 
             enc = self.encoder_embeddings[mod].embedder
@@ -273,10 +343,10 @@ class MultiModal(nn.Module):
             if mc.use_pos:
                 e_emb = e_emb + enc.pos_embed(ts)
                 d_emb = d_emb + dec.pos_embed(ts)
-            x = d.inputs.float()
-            tokens_e.append(enc(x))
+            x = inputs.float()
+            tokens_e.append(enc(x, site_seed(drop_seed, 0, i)))
             # decoder tokens are embedded from the inputs too
-            tokens_d.append(dec(x))
+            tokens_d.append(dec(x, site_seed(drop_seed, 1, i)))
             embs_e.append(e_emb)
             embs_d.append(d_emb)
 
@@ -301,15 +371,26 @@ class MultiModal(nn.Module):
         enc_attn = self._encoder_attn_mask(attn_token)
         dec_attn = self._decoder_attn_mask(attn_token)
 
+        remat = training and mc.remat_layers and torch.is_grad_enabled()
+
+        def run(layer, *args):
+            if remat:
+                # the layer's seeds are arguments: the recompute replays
+                # its dropout draws, so the default RNG state is not needed
+                return checkpoint(layer, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return layer(*args)
+
         x = enc_tokens + enc_emb
-        for layer in self.encoder:
-            x = layer(x, enc_attn)
+        for li, layer in enumerate(self.encoder):
+            x = run(layer, x, enc_attn, site_seed(drop_seed, 2, li))
         x = self.encoder_norm(x)
 
         context = self.decoder_proj_context(x) + enc_emb
         y = dec_tokens + dec_emb
-        for layer in self.decoder:
-            y = layer(y, context, dec_attn, enc_attn)
+        for li, layer in enumerate(self.decoder):
+            y = run(layer, y, context, dec_attn, enc_attn,
+                    site_seed(drop_seed, 3, li))
         y = self.decoder_norm(y)
 
         mod_loss, mod_n, mod_preds, mod_targets = {}, {}, {}, {}
@@ -317,7 +398,9 @@ class MultiModal(nn.Module):
             head = self.decoder_embeddings[mod].out
             preds = head(y[:, i * T:(i + 1) * T]).float()
             targets = gts[mod].float()
-            elem_mask = token_masks[i][:, :, None].expand(targets.shape)
+            elem_mask = spike_masks[mod]
+            if elem_mask is None:
+                elem_mask = token_masks[i][:, :, None].expand(targets.shape)
             if MODALITY_LOSS.get(mod, "mse") == "poisson_nll":
                 loss_sum, n = masked_poisson_nll(preds, targets, elem_mask)
             else:

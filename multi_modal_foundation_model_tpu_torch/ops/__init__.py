@@ -1,12 +1,14 @@
-from .attention import (NEG_INF, MaskSpec, attention_fwd,
+from .attention import (NEG_INF, MaskSpec, attention_bwd,
+                        attention_bwd_reference, attention_fwd,
                         attention_reference, create_context_mask,
-                        mask_to_bias, multi_head_attention, spec_to_bias)
+                        mask_to_bias, multi_head_attention, philox_keep,
+                        spec_to_bias)
 from .layernorm import LayerNorm, layer_norm
 from .losses import masked_mse, masked_poisson_nll
 
 __all__ = [
-    "NEG_INF", "MaskSpec", "attention_fwd", "attention_reference",
-    "create_context_mask", "mask_to_bias", "multi_head_attention",
-    "spec_to_bias", "LayerNorm", "layer_norm", "masked_mse",
-    "masked_poisson_nll",
+    "NEG_INF", "MaskSpec", "attention_bwd", "attention_bwd_reference",
+    "attention_fwd", "attention_reference", "create_context_mask",
+    "mask_to_bias", "multi_head_attention", "philox_keep", "spec_to_bias",
+    "LayerNorm", "layer_norm", "masked_mse", "masked_poisson_nll",
 ]

@@ -1,24 +1,35 @@
-"""Fused multi-head attention: the K1 kernel for Hopper + its plain version.
+"""Fused multi-head attention: the K1/K2 kernels for Hopper + plain versions.
 
 Port of ``multi_modal_foundation_model_tpu/ops/attention.py``. What stays:
 
 - **Natural layout.** q/k/v arrive as ``(B, T, H*D)`` exactly as the
-  projections produce them; the kernel splits heads itself, and takes a
+  projections produce them; the kernels split heads themselves, and take a
   row stride so the column views of a fused QKV product need no copy.
 - **Masks as (key_pad, static) decompositions.** Every mask the model uses
   is ``attend(b, q, k) = static(q, k) OR key_pad(b, k)`` (``MaskSpec``);
-  the kernel rebuilds the additive bias from a ``(B, Tk)`` and a
-  ``(Tq, Tk)`` int32 array and never sees a ``(B, Tq, Tk)`` tensor.
+  the kernels rebuild the additive bias from a ``(B, Tk)`` and a
+  ``(Tq, Tk)`` int32 array and never see a ``(B, Tq, Tk)`` tensor.
 - **Finite NEG_INF.** ``-1e30`` instead of ``-inf``, so fully-masked rows
-  (padded trials) come out uniform (the mean of V) instead of NaN.
+  (padded trials) come out uniform (the mean of V) instead of NaN, and the
+  clamped ``lse = max(m, -1e6) + log(l)`` gives them ZERO gradient in the
+  backward (JAX ``_attn_fwd_kernel`` docstring, :154-172).
+- **Probability dropout inside the kernel, replayed by the backward.** JAX
+  draws the TPU's own bits per grid step; here the keep decision of score
+  (b, h, q, k) is Philox4x32-10 keyed by the call's seed with counter
+  (k // 4, q, h, b) (``csrc/philox.cuh``), so K2 replays K1's mask at any
+  tiling and ``philox_keep`` draws the same bits on any device. JAX's
+  threshold (keep iff bits > uint32(rate * (2^32 - 1)), :129-133) and
+  normalisation (``l`` sums the undropped probabilities, the numerator the
+  dropped ones scaled by 1/(1 - rate), :196, :206-216) carry over.
 
-Dispatch (``multi_head_attention``): CPU tensors take the plain version
-``attention_reference``; CUDA tensors with a ``MaskSpec`` launch K1
-(``attention_fwd``, ``csrc/attention_fwd.cu``) or raise — there is no
-fallback. A full ``mask``/``bias`` takes the plain path on either device,
-as in JAX; no module on the model's path passes one. ``impl="xla"`` asks
-for the plain path explicitly (the JAX package's name for its oracle).
-Attention dropout (in-kernel Philox) lands with the training slice.
+Dispatch (``multi_head_attention``): with an input that requires grad,
+``_FlashAttention`` (the port of ``_flash_mha``'s custom VJP) runs K1 with
+``lse`` forward and K2 backward on CUDA tensors, and the plain versions
+(``attention_reference`` / ``attention_bwd_reference``) on CPU tensors or
+with ``impl="xla"``. Without grad, CUDA tensors launch K1 alone and CPU
+tensors take the plain forward. A CUDA tensor launches the kernel or
+raises: there is no fallback. A full ``mask``/``bias`` takes the plain path
+on either device, as in JAX; no module on the model's path passes one.
 """
 
 from __future__ import annotations
@@ -34,11 +45,14 @@ NEG_INF = -1e30
 # A raw m + log(l) is absorbed to m = -1e30 on fully-masked rows.
 _LSE_FLOOR = -1e6
 
-# launches of the K1 kernel, counted by its wrapper where it launches
+# launches of the K1 / K2 kernels, counted by their wrappers where they
+# launch
 K1_LAUNCHES = 0
+K2_LAUNCHES = 0
 
-_HEAD_DIM = 32                     # the head width csrc/attention_fwd.cu takes
+_HEAD_DIM = 32                     # the head width the kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MASK32 = 0xFFFFFFFF
 
 
 class MaskSpec(NamedTuple):
@@ -108,97 +122,241 @@ def spec_to_bias(spec: MaskSpec, B: int, Tq: int, Tk: int,
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# dropout bits: Philox4x32-10 in torch integer operations
 # ---------------------------------------------------------------------------
 
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of the 64-bit product of the constant ``a``
+    and the uint32 values held in int64 ``b``. The product would overflow
+    int64, so both operands are split into 16-bit halves."""
+    ah, al = a >> 16, a & 0xFFFF
+    bh, bl = b >> 16, b & 0xFFFF
+    mid = ah * bl + al * bh                     # < 2^33
+    low = al * bl + ((mid & 0xFFFF) << 16)      # < 2^33
+    hi = ah * bh + (mid >> 16) + (low >> 32)
+    return hi & _MASK32, low & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC'11) of counters held in int64
+    tensors (uint32 values, broadcastable) under the key (k0, k1); returns
+    the four output words as int64 tensors of uint32 values."""
+    k0, k1 = int(k0) & _MASK32, int(k1) & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """JAX's keep test is ``bits > uint32(rate * (2^32 - 1))``."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate {rate} outside [0, 1)")
+    return int(rate * float(2 ** 32 - 1))
+
+
+def philox_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+                device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) int64 tensor of the uint32 Philox words the kernels
+    draw for score (b, h, q, k): word k % 4 of philox(counter =
+    (k // 4, q, h, b), key = (seed, 0))."""
+    nw = -(-Tk // 4)
+
+    def ar(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+
+    full = (B, H, Tq, nw)
+    words = philox4x32_10(ar(nw, 3).expand(full), ar(Tq, 2).expand(full),
+                          ar(H, 1).expand(full), ar(B, 0).expand(full),
+                          int(seed) & _MASK32, 0)
+    return torch.stack(words, dim=-1).reshape(B, H, Tq, 4 * nw)[..., :Tk]
+
+
+def philox_keep(seed: int, B: int, H: int, Tq: int, Tk: int, rate: float,
+                device=None) -> torch.Tensor:
+    """(B, H, Tq, Tk) bool keep mask of K1/K2's dropout: the same bits as
+    the kernels' Philox (``csrc/philox.cuh``)."""
+    return philox_bits(seed, B, H, Tq, Tk, device) > dropout_threshold(rate)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, hidden = x.shape
+    return x.float().reshape(B, T, n_heads, hidden // n_heads).transpose(1, 2)
+
+
+def _merge(o: torch.Tensor, dtype) -> torch.Tensor:
+    B, H, T, D = o.shape
+    return o.transpose(1, 2).reshape(B, T, H * D).to(dtype)
+
+
 def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
-                      with_lse: bool):
+                      with_lse: bool, dropout_rate: float = 0.0,
+                      seed: int = 0):
     """Softmax attention of (B, T, H*D) operands under an additive
     ``bias`` broadcastable to (B, Tq, Tk); f32 math, q pre-scaled as K1
-    does. Returns (out in q's dtype, lse (B, H, Tq) f32 or None)."""
-    B, Tq, hidden = q.shape
+    does; probability dropout from ``philox_keep``. Returns (out in q's
+    dtype, lse (B, H, Tq) f32 or None)."""
+    B, Tq, _ = q.shape
     Tk = k.shape[1]
-    D = hidden // n_heads
-
-    def heads(x, T):
-        return x.float().reshape(B, T, n_heads, D).transpose(1, 2)
-
-    s = (heads(q, Tq) * scale) @ heads(k, Tk).transpose(-1, -2)
+    s = (_heads(q, n_heads) * scale) @ _heads(k, n_heads).transpose(-1, -2)
     s = s + bias.float()[:, None]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = (p @ heads(v, Tk)) / l
-    out = o.transpose(1, 2).reshape(B, Tq, hidden).to(q.dtype)
+    if dropout_rate > 0.0:
+        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
+    o = (p @ _heads(v, n_heads)) / l
     lse = None
     if with_lse:
         lse = (m.clamp_min(_LSE_FLOOR) + torch.log(l))[..., 0]
-    return out, lse
+    return _merge(o, q.dtype), lse
+
+
+def _attend_bias(key_pad, static) -> torch.Tensor:
+    return mask_to_bias(static.bool()[None] | key_pad.bool()[:, None, :])
 
 
 def attention_reference(q, k, v, key_pad, static, n_heads: int,
-                        scale: float, with_lse: bool = False):
+                        scale: float, with_lse: bool = False,
+                        dropout_rate: float = 0.0, seed: int = 0):
     """Plain PyTorch version of K1 on the kernel's operands: q (B, Tq, H*D),
     k/v (B, Tk, H*D), key_pad (B, Tk) int, static (Tq, Tk) int. Returns
     (out, lse or None); ``lse`` (B, H, Tq) = max(m, -1e6) + log(l)."""
-    attend = static.bool()[None] | key_pad.bool()[:, None, :]
-    return _biased_attention(q, k, v, mask_to_bias(attend), n_heads, scale,
-                             with_lse)
+    return _biased_attention(q, k, v, _attend_bias(key_pad, static),
+                             n_heads, scale, with_lse, dropout_rate, seed)
+
+
+def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
+                            scale: float, dropout_rate: float = 0.0,
+                            seed: int = 0):
+    """Plain PyTorch version of K2 (JAX ``_attn_bwd_kernel``, :221-307):
+    probabilities recovered from the forward's ``lse``, dropout replayed
+    from ``philox_keep``. Returns (dq, dk, dv) in q's dtype.
+
+    Written from the lse formula, not from autograd of
+    ``attention_reference``: a fully-masked query row has scores of -1e30
+    and lse = -1e6 + log(Tk), so ``pn = 0`` and the row gets ZERO
+    gradient, the kernels' contract, where autograd would give it the
+    uniform row's gradient."""
+    B, Tq, _ = q.shape
+    Tk = k.shape[1]
+    qs = _heads(q, n_heads) * scale
+    kh, vh, gh = _heads(k, n_heads), _heads(v, n_heads), _heads(g, n_heads)
+    s = qs @ kh.transpose(-1, -2) + _attend_bias(key_pad, static)[:, None]
+    pn = torch.exp(s - lse.float()[..., None])
+    dpd = gh @ vh.transpose(-1, -2)
+    if dropout_rate > 0.0:
+        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device)
+        ms = torch.where(keep, 1.0 / (1.0 - dropout_rate), 0.0)
+        pd, dpn = pn * ms, dpd * ms
+    else:
+        pd, dpn = pn, dpd
+    ds = pn * (dpn - (dpn * pn).sum(dim=-1, keepdim=True))
+    dq = (ds @ kh) * scale
+    dk = ds.transpose(-1, -2) @ qs
+    dv = pd.transpose(-1, -2) @ gh
+    return (_merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype))
 
 
 # ---------------------------------------------------------------------------
-# K1 wrapper
+# K1 / K2 wrappers
 # ---------------------------------------------------------------------------
 
 def _k1_lib():
     from . import build
 
-    lib = build.load("attention_fwd")
-    fn = lib.mmfm_attention_fwd
+    fn = build.load("attention_fwd").mmfm_attention_fwd
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_uint)
+        f = ctypes.c_float
         fn.argtypes = ([p] * 7 + [i] * 5 + [ll] * 6
-                       + [ctypes.c_float, i, p])
+                       + [f, u, u, f, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _k2_lib():
+    from . import build
+
+    fn = build.load("attention_bwd").mmfm_attention_bwd
+    if fn.argtypes is None:
+        p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_uint)
+        f = ctypes.c_float
+        fn.argtypes = ([p] * 11 + [i] * 5 + [ll] * 8
+                       + [f, u, u, f, i, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
+    B, Tq, hidden = q.shape
+    Tk = k.shape[1]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors only")
+    if any(t.device != dev for t in (k, v, key_pad, static)):
+        raise ValueError(f"{name}: operands on different devices")
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share one dtype of "
+                        f"{sorted(map(str, dtypes))}, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if k.dim() != 3 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[2] != hidden:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hidden != n_heads * _HEAD_DIM:
+        raise ValueError(f"{name}: head width {hidden}/{n_heads}, "
+                         f"the kernel takes {_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name}: q/k/v need unit stride in the "
+                         "last dimension")
+    if key_pad.shape != (B, Tk) or static.shape != (Tq, Tk) \
+            or key_pad.dtype != torch.int32 or static.dtype != torch.int32 \
+            or not key_pad.is_contiguous() or not static.is_contiguous():
+        raise ValueError(f"{name}: key_pad (B, Tk) and static "
+                         "(Tq, Tk) must be contiguous int32")
+    return B, Tq, Tk, hidden
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    """(seed, threshold, keep_scale, on) as the kernels take them."""
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0, 0
+    return (int(seed) & _MASK32, dropout_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate), 1)
+
+
 def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
-                  with_lse: bool = False):
+                  with_lse: bool = False, dropout_rate: float = 0.0,
+                  seed: int = 0):
     """Launch K1 on CUDA tensors; same contract as ``attention_reference``.
 
     q/k/v: f32 or bf16, one dtype, unit stride in the last dimension; any
     batch and row strides (the column views of a fused (B, T, 3*H*D) QKV
     product go in without a copy). key_pad (B, Tk) and static (Tq, Tk):
-    contiguous int32. Head width D = 32. Returns a contiguous
-    output in q's dtype and, with ``with_lse``, an f32 (B, H, Tq) lse."""
+    contiguous int32. Head width D = 32. ``seed`` is a host integer (its
+    low 32 bits key the Philox draw). Returns a contiguous output in q's
+    dtype and, with ``with_lse``, an f32 (B, H, Tq) lse."""
     global K1_LAUNCHES
-    B, Tq, hidden = q.shape
-    Tk = k.shape[1]
+    B, Tq, Tk, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
+                                        static, n_heads, _DTYPE_CODE)
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError("attention_fwd runs on CUDA tensors only")
-    if any(t.device != dev for t in (k, v, key_pad, static)):
-        raise ValueError("attention_fwd: operands on different devices")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"attention_fwd: q/k/v must share dtype f32 or bf16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.dim() != 3 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[2] != hidden:
-        raise ValueError(f"attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hidden != n_heads * _HEAD_DIM:
-        raise ValueError(f"attention_fwd: head width {hidden}/{n_heads}, "
-                         f"the kernel takes {_HEAD_DIM}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("attention_fwd: q/k/v need unit stride in the "
-                         "last dimension")
-    if key_pad.shape != (B, Tk) or static.shape != (Tq, Tk) \
-            or key_pad.dtype != torch.int32 or static.dtype != torch.int32 \
-            or not key_pad.is_contiguous() or not static.is_contiguous():
-        raise ValueError("attention_fwd: key_pad (B, Tk) and static "
-                         "(Tq, Tk) must be contiguous int32")
-
     fn = _k1_lib()
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
@@ -210,13 +368,81 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                 lse.data_ptr() if lse is not None else None,
                 B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                v.stride(0), v.stride(1), float(scale), _DTYPE_CODE[q.dtype],
+                v.stride(0), v.stride(1), float(scale),
+                *_dropout_args(dropout_rate, seed), _DTYPE_CODE[q.dtype],
                 stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     K1_LAUNCHES += 1
     return out, lse
+
+
+def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
+                  scale: float, dropout_rate: float = 0.0, seed: int = 0):
+    """Launch K2 on CUDA tensors; same contract as
+    ``attention_bwd_reference``. q/k/v/g f32 with unit inner stride and any
+    batch and row strides; lse the f32 (B, H, Tq) of K1 on the same
+    operands, dropout rate and seed. Returns contiguous (dq, dk, dv)."""
+    global K2_LAUNCHES
+    B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
+                                        static, n_heads, (torch.float32,))
+    dev = q.device
+    if g.shape != q.shape or g.dtype != torch.float32 or g.device != dev:
+        raise ValueError(f"attention_bwd: g {tuple(g.shape)} {g.dtype} "
+                         f"must be f32 like q {tuple(q.shape)}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError("attention_bwd: lse must be contiguous f32 "
+                         "(B, H, Tq)")
+    fn = _k2_lib()
+    dq = torch.empty((B, Tq, hidden), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, Tk, hidden), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, Tk, hidden), dtype=torch.float32, device=dev)
+    rowsum = torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                key_pad.data_ptr(), static.data_ptr(), lse.data_ptr(),
+                rowsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, Tq, Tk, n_heads, hidden // n_heads,
+                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), g.stride(0), g.stride(1),
+                float(scale), *_dropout_args(dropout_rate, seed), stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd: kernel launch failed "
+                           f"(cudaError {rc})")
+    K2_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 (with ``lse``) forward, K2 backward: the port of JAX's
+    ``_flash_mha`` custom VJP (:394-456). ``use_kernel=False`` runs the
+    plain versions in the same two places (CPU tensors, ``impl="xla"``).
+    Saves the operands, the masks and ``lse``; seed and rate ride along as
+    host values, so the backward replays the forward's dropout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_pad, static, n_heads, scale, dropout_rate,
+                seed, use_kernel):
+        fwd = attention_fwd if use_kernel else attention_reference
+        out, lse = fwd(q, k, v, key_pad, static, n_heads, scale,
+                       with_lse=True, dropout_rate=dropout_rate, seed=seed)
+        ctx.save_for_backward(q, k, v, key_pad, static, lse)
+        ctx.args = (n_heads, scale, dropout_rate, seed, use_kernel)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_pad, static, lse = ctx.saved_tensors
+        n_heads, scale, dropout_rate, seed, use_kernel = ctx.args
+        bwd = attention_bwd if use_kernel else attention_bwd_reference
+        dq, dk, dv = bwd(q, k, v, key_pad, static, g, lse, n_heads, scale,
+                         dropout_rate, seed)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -232,31 +458,38 @@ def multi_head_attention(
     bias: Optional[torch.Tensor] = None,     # additive, overrides mask
     mask_spec: Optional[MaskSpec] = None,    # decomposed (kernel-native)
     dropout_rate: float = 0.0,
+    seed: Optional[int] = None,              # host int, keys the dropout
     impl: str = "pallas",
 ) -> torch.Tensor:
     """MHA over already-projected q/k/v; returns (B, Tq, hidden).
 
-    ``impl="pallas"`` (the default, the JAX package's name) launches K1 on
-    CUDA tensors and takes the plain version on CPU tensors; ``"xla"`` takes
-    the plain version on either device."""
+    ``impl="pallas"`` (the default, the JAX package's name) runs the
+    kernels on CUDA tensors and the plain versions on CPU tensors;
+    ``"xla"`` takes the plain versions on either device. Dropout needs a
+    ``seed`` (JAX needs a ``dropout_key``)."""
     B, Tq, hidden = q.shape
     Tk = k.shape[1]
     if hidden % n_heads:
         raise ValueError("hidden size not divisible by n_heads")
     if impl not in ("pallas", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout lands with the training slice")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    dropout_rate = float(dropout_rate)
+    seed = int(seed or 0)
     scale = 1.0 / math.sqrt(hidden // n_heads)
 
     if mask is not None or bias is not None:       # full masks: plain path
         if bias is None:
             bias = mask_to_bias(mask)
-        return _biased_attention(q, k, v, bias, n_heads, scale, False)[0]
+        return _biased_attention(q, k, v, bias, n_heads, scale, False,
+                                 dropout_rate, seed)[0]
 
     key_pad, static = spec_operands(mask_spec, B, Tq, Tk, q.device)
-    if impl == "xla" or q.device.type == "cpu":
-        return attention_reference(q, k, v, key_pad, static, n_heads,
-                                   scale)[0]
-    return attention_fwd(q, k, v, key_pad, static, n_heads, scale)[0]
+    use_kernel = impl == "pallas" and q.device.type == "cuda"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_pad, static, n_heads,
+                                     scale, dropout_rate, seed, use_kernel)
+    fwd = attention_fwd if use_kernel else attention_reference
+    return fwd(q, k, v, key_pad, static, n_heads, scale,
+               dropout_rate=dropout_rate, seed=seed)[0]

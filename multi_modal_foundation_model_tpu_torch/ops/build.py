@@ -2,9 +2,10 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``. Libraries land in ``build/torch_kernels/``
-beside the package (git-ignored), named by a hash of the sources, so a
-changed source rebuilds and an unchanged one loads at once. A failed build
-raises with the compiler's output. Nothing here runs at import time.
+beside the package (git-ignored), named by a hash of the source and the
+shared headers, so a changed source or header rebuilds and an unchanged
+one loads at once. A failed build raises with the compiler's output.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Path of ``csrc/<name>.cu``'s library, keyed by a hash of the source
-    and the compiler flags."""
+    """Path of ``csrc/<name>.cu``'s library, keyed by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -4,9 +4,9 @@ The plain version ``attention_reference`` and the ``multi_head_attention``
 dispatch run on the CPU against JAX ``multi_head_attention`` with the
 Pallas kernel K1 (interpret mode) and with the XLA oracle, and the lse
 statistic against ``_mha_impl(with_lse=True)``; f32, atol 1e-5 (the two
-sides sum the same f32 products in different orders). The K1 kernel
-itself is CUDA-only: ``tests/test_torch_kernels.py`` holds it against the
-plain version on the card.
+sides sum the same f32 products in different orders). The K1/K2 kernels
+themselves are CUDA-only: ``tests/test_torch_kernels.py`` holds them
+against the plain versions on the card.
 """
 
 import math
@@ -181,9 +181,15 @@ def test_fused_qkv_views_match_contiguous():
 
 
 def test_dropout_and_cpu_kernel_launch_raise():
-    q = torch.zeros(1, 4, 32)
-    with pytest.raises(NotImplementedError):
-        tatt.multi_head_attention(q, q, q, 2, dropout_rate=0.1)
+    """Dropout runs on the CPU (the plain version, the kernels' Philox
+    bits); a CPU tensor still cannot launch a kernel."""
+    q = torch.randn(1, 4, 32, generator=torch.Generator().manual_seed(0))
+    out = tatt.multi_head_attention(q, q, q, 2, dropout_rate=0.1, seed=3)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert not torch.equal(out, tatt.multi_head_attention(q, q, q, 2))
     pad, static = tatt.spec_operands(None, 1, 4, 4, "cpu")
     with pytest.raises(ValueError):
         tatt.attention_fwd(q, q, q, pad, static, 2, 0.25)
+    with pytest.raises(ValueError):
+        tatt.attention_bwd(q, q, q, pad, static, q, torch.zeros(1, 2, 4), 2,
+                           0.25)

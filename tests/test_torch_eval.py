@@ -83,7 +83,7 @@ def test_loader_batches_match_jax():
                                    n_timesteps=20), shuffle=False, **kw)
     t = tloader.make_loader(
         tsession.synthetic_session(seed=2, n_trials=20, n_neurons=24,
-                                   n_timesteps=20), **kw)
+                                   n_timesteps=20), shuffle=False, **kw)
     jb, tb = list(j), list(t)
     assert len(jb) == len(tb) == len(t) == 3
     for a, b in zip(jb, tb):
@@ -138,7 +138,7 @@ def shared():
     jl = jloader.make_loader(jsession.synthetic_splits(**split_kw).test,
                              shuffle=False, **kw)
     tl = tloader.make_loader(tsession.synthetic_splits(**split_kw).test,
-                             **kw)
+                             shuffle=False, **kw)
     return jmodel, jparams, tmodel, jl, tl
 
 

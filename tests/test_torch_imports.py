@@ -112,19 +112,23 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 
 def test_kernel_sources_and_build_key(tmp_path, monkeypatch):
     """Every CUDA source is listed; its library name carries a hash of
-    the sources, so an edited source builds a new library."""
-    assert "attention_fwd" in build.kernel_sources()
+    the source and the shared headers, so an edited source or header
+    builds a new library."""
+    assert {"attention_fwd", "attention_bwd"} <= set(build.kernel_sources())
     path = build.library_path("attention_fwd")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libattention_fwd-")
     csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    src = (build.CSRC / "attention_fwd.cu").read_text()
-    (csrc / "attention_fwd.cu").write_text(src)
+    shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.library_path("attention_fwd") == path
+    src = (csrc / "attention_fwd.cu").read_text()
     (csrc / "attention_fwd.cu").write_text(src + "\n// edited\n")
-    assert build.library_path("attention_fwd") != path
+    edited = build.library_path("attention_fwd")
+    assert edited != path
+    header = (csrc / "philox.cuh").read_text()
+    (csrc / "philox.cuh").write_text(header + "\n// edited\n")
+    assert build.library_path("attention_fwd") not in (path, edited)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

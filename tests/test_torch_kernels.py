@@ -8,7 +8,10 @@ not installed:
 (``--noconftest``: the repository's ``tests/conftest.py`` sets up JAX.)
 Tests marked ``cuda`` skip without a card. K1 tolerances: f32 atol 1e-5
 (online vs two-pass softmax, same f32 products), bf16 atol 2e-2 (one bf16
-rounding of the output on each side), lse atol 1e-5.
+rounding of the output on each side), lse atol 1e-5. K2 (f32 only):
+atol 1e-5 on dq/dk/dv (the same f32 products summed per thread in key or
+query order against cuBLAS's blocked order). Dropout runs on the same
+Philox bits on both sides, so the tolerances hold at rate 0.4 too.
 """
 
 import math
@@ -107,8 +110,12 @@ def test_k1_rejects_what_it_does_not_take():
         tatt.attention_fwd(qt, q, q, key_pad, static, H, 1.0)
     with pytest.raises(ValueError):              # int64 pad
         tatt.attention_fwd(q, q, q, key_pad.long(), static, H, 1.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):              # dropout needs a seed
         tatt.multi_head_attention(q, q, q, H, dropout_rate=0.1)
+    with pytest.raises(TypeError):               # K2 is f32 only
+        qb = q.bfloat16()
+        tatt.attention_bwd(qb, qb, qb, key_pad, static, qb,
+                           torch.zeros(B, H, T, device="cuda"), H, 1.0)
 
 
 @pytest.mark.cuda
@@ -146,3 +153,123 @@ def test_model_forward_launches_k1_fifteen_times():
     for mod in ("ap", "behavior"):
         torch.testing.assert_close(out.mod_preds[mod], ref.mod_preds[mod],
                                    atol=1e-4, rtol=0)
+
+
+def _qkv(case, tk=T, seed=1):
+    """q/k/v as column views of a fused QKV (self) or KV (cross) product."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if case == "cross":
+        q = torch.randn(B, T, H * D, device="cuda", generator=g)
+        kv = torch.randn(B, tk, 2 * H * D, device="cuda", generator=g)
+        return (q, *kv.split(H * D, dim=-1))
+    qkv = torch.randn(B, T, 3 * H * D, device="cuda", generator=g)
+    return qkv.split(H * D, dim=-1)
+
+
+K2_CASES = [("enc_eye_pad", T), ("fully_masked_row", T), ("cross", 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", ["enc_eye_pad", "fully_masked_row",
+                                  "random"])
+def test_k1_dropout_matches_plain(case, rate):
+    """K1 at dropout 0 and 0.4 against the plain version on the same
+    Philox bits, output and lse."""
+    _need_cuda()
+    q, k, v = _qkv(case)
+    key_pad, static = _operands(case)
+    scale = 1.0 / math.sqrt(D)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                  with_lse=True, dropout_rate=rate, seed=77)
+    want, want_lse = tatt.attention_reference(
+        q, k, v, key_pad, static, H, scale, with_lse=True,
+        dropout_rate=rate, seed=77)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k1_philox_bits_match_philox_keep():
+    """Read K1's keep mask back: q = 0 and all keys attended make every
+    probability 1/Tk; V's rows are one-hot per head (Tk = D = 32), so
+    out[b, q, h*D + k] = keep[b, h, q, k] / (1 - rate) / Tk."""
+    _need_cuda()
+    tk, rate, seed = D, 0.4, 123456789
+    q = torch.zeros(B, T, H * D, device="cuda")
+    v = torch.eye(D, device="cuda").repeat(1, H).expand(B, tk, H * D)
+    k = torch.zeros(B, tk, H * D, device="cuda")
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
+    out, _ = tatt.attention_fwd(q, k, v.contiguous(), key_pad, static, H,
+                                1.0, dropout_rate=rate, seed=seed)
+    got = out.reshape(B, T, H, D).transpose(1, 2) > 0
+    want = tatt.philox_keep(seed, B, H, T, tk, rate, device="cuda")
+    assert torch.equal(got, want)
+    assert 0.5 < want.float().mean().item() < 0.7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case,tk", K2_CASES)
+def test_k2_matches_plain(case, tk, rate):
+    """K2 against ``attention_bwd_reference`` on K1's lse, through the
+    fused-projection column views; T = 37 leaves ragged tiles."""
+    _need_cuda()
+    q, k, v = _qkv(case, tk)
+    key_pad, static = _operands("random" if case == "cross" else case, tk)
+    scale = 1.0 / math.sqrt(D)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                with_lse=True, dropout_rate=rate, seed=5)
+    g = torch.randn(B, T, H * D, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    n0 = tatt.K2_LAUNCHES
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                             rate, 5)
+    torch.cuda.synchronize()
+    assert tatt.K2_LAUNCHES == n0 + 1
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse,
+                                        H, scale, rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.is_contiguous(), name
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_k2_fully_masked_row_gets_zero_gradient():
+    """A padded trial under a pad-only mask: K2 gives its query rows zero
+    dq, and its keys zero dk/dv, as JAX's K2 does."""
+    _need_cuda()
+    q, k, v = _qkv("fully_masked_row")
+    key_pad, static = _operands("fully_masked_row")
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, 0.2,
+                                with_lse=True)
+    g = torch.randn_like(q)
+    dq, dk, dv = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, 0.2)
+    assert dq[2].abs().max().item() == 0.0
+    assert dk[2].abs().max().item() == 0.0
+    assert dv[2].abs().max().item() == 0.0
+    assert dq[0].abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_flash_attention_function_kernel_vs_plain(rate):
+    """``multi_head_attention`` with grad: K1 + K2 through the autograd
+    Function against the plain versions (``impl="xla"``) in it."""
+    _need_cuda()
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in _qkv("enc_eye_pad"))
+    key_pad, static = _operands("enc_eye_pad")
+    spec = tatt.MaskSpec(key_pad=key_pad, static=static)
+    g = torch.randn_like(q)
+    grads = []
+    for impl in ("pallas", "xla"):
+        n1, n2 = tatt.K1_LAUNCHES, tatt.K2_LAUNCHES
+        out = tatt.multi_head_attention(q, k, v, H, mask_spec=spec,
+                                        dropout_rate=rate, seed=3, impl=impl)
+        grads.append((out,) + torch.autograd.grad(out, (q, k, v), g))
+        launched = (tatt.K1_LAUNCHES - n1, tatt.K2_LAUNCHES - n2)
+        assert launched == ((1, 1) if impl == "pallas" else (0, 0))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

@@ -166,21 +166,39 @@ def test_config_json_round_trip_both_ways(tmp_path):
 
 
 def test_unported_paths_raise(toy):
+    """What is still unported raises: session stitching, bf16 compute, the
+    device-resident trainer data and the loader's samplers."""
+    from multi_modal_foundation_model_tpu_torch.data import loader, session
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MultiModalTrainer, OptimizerConfig, TrainerConfig)
+
     _, _, tmodel = toy
-    spikes, beh, attn, ts = make_batch(16, 2)
-    inputs = torch_inputs(spikes, beh, attn, ts,
-                          *_eval_masks("none", spikes, beh, None))
-    with pytest.raises(NotImplementedError):
-        tmodel(inputs, masking_mode="temporal")
-    with pytest.raises(NotImplementedError):
-        tmodel(inputs, training=True)
-    inputs["ap"] = dataclasses.replace(inputs["ap"], eval_mask=None)
-    with pytest.raises(NotImplementedError):
-        tmodel(inputs)
     for over in (dict(n_sessions=2), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             tmm.MultiModal(tmm.MultiModalConfig(**TOY, **over),
                            device="cpu")
+    sess = session.synthetic_session(seed=0, n_trials=8,
+                                     n_neurons=TOY["n_channels"]["ap"],
+                                     n_timesteps=TOY["max_F"])
+    kw = dict(batch_size=4, max_time_length=TOY["max_F"],
+              max_space_length=TOY["n_channels"]["ap"])
+    for sampler in ("length_grouped", "stitch"):
+        with pytest.raises(NotImplementedError):
+            loader.make_loader(sess, sampler=sampler, **kw)
+    train = loader.make_loader(sess, **kw)
+    with pytest.raises(NotImplementedError):
+        MultiModalTrainer(tmodel, train, None, OptimizerConfig(),
+                          TrainerConfig(device_resident_data=True,
+                                        log_dir="unused"))
+    # the masker and training, unported in the first slice, now run
+    spikes, beh, attn, ts = make_batch(16, 2)
+    inputs = torch_inputs(spikes, beh, attn, ts,
+                          *_eval_masks("none", spikes, beh, None))
+    inputs["ap"] = dataclasses.replace(inputs["ap"], eval_mask=None)
+    out = tmodel(inputs, masking_mode="temporal", training=True, seed=0)
+    assert torch.isfinite(out.loss)
+    with pytest.raises(ValueError):                 # sampling needs a seed
+        tmodel(inputs)
 
 
 def test_port_init_is_seeded():
