@@ -36,10 +36,14 @@
 // of one counter per call, inside its key loop, pass B one word per
 // (query, key). (Gathering a 32-key tile's bits into one register up front,
 // as K1 does, read back wrong bits in this kernel on the H100 with nvcc
-// 12.8; drawing per 4 keys reads back right: tests/test_torch_kernels.py.) q, k, v and g take batch and row
-// strides (the fused-QKV column views go in without a copy); dq, dk, dv are
-// written contiguous. f32 only: the training path is f32.
+// 12.8; drawing per 4 keys reads back right: tests/test_torch_kernels.py.)
+// q, k, v and g take batch and row strides (the fused-QKV column views go in
+// without a copy); dq, dk, dv are written contiguous. q, k, v and g share
+// one dtype, f32 or bf16; all math is f32 (bf16 values are widened as they
+// load) and dq, dk, dv come out in that dtype, as JAX's out_shape (:444-446)
+// gives them. lse and the rowsum scratch stay f32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -52,14 +56,27 @@ constexpr int kRows = 64;           // rows per block (one thread each)
 constexpr int kTile = 32;           // streamed rows per shared-memory tile
 constexpr float kNegInf = -1e30f;   // ops/attention.py NEG_INF
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
 // Pass A: rowsum and dq for 64 query rows of one (b, h).
-template <bool kDropout>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kRows)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ g,
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ g,
                    const int* __restrict__ key_pad,
                    const int* __restrict__ static_mask,
-                   const float* __restrict__ lse, float* __restrict__ dq,
+                   const float* __restrict__ lse, T* __restrict__ dq,
                    float* __restrict__ rowsum, int Tq, int Tk, int H,
                    long long q_sb, long long q_st, long long k_sb,
                    long long k_st, long long v_sb, long long v_st,
@@ -81,18 +98,18 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   float qr[D], gr[D], acc[D];
   {
-    const float* qp = q + b * q_sb + (long long)r * q_st + h * D;
-    const float* gp = g + b * g_sb + (long long)r * g_st + h * D;
+    const T* qp = q + b * q_sb + (long long)r * q_st + h * D;
+    const T* gp = g + b * g_sb + (long long)r * g_st + h * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[d] = qp[d] * scale;
-      gr[d] = gp[d];
+      qr[d] = to_f32(qp[d]) * scale;
+      gr[d] = to_f32(gp[d]);
       acc[d] = 0.f;
     }
   }
   const float row_lse = lse[((long long)b * H + h) * Tq + r];
-  const float* kb = k + b * k_sb + h * D;
-  const float* vb = v + b * v_sb + h * D;
+  const T* kb = k + b * k_sb + h * D;
+  const T* vb = v + b * v_sb + h * D;
   const int* pad = key_pad + (long long)b * Tk;
 
   float dsum = 0.f;
@@ -104,8 +121,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int j = i / D, d = i % D;
         float kv = 0.f, vv = 0.f;
         if (j < nk) {
-          kv = kb[(long long)(k0 + j) * k_st + d];
-          vv = vb[(long long)(k0 + j) * v_st + d];
+          kv = to_f32(kb[(long long)(k0 + j) * k_st + d]);
+          vv = to_f32(vb[(long long)(k0 + j) * v_st + d]);
         }
         ks[j][d] = kv;
         vs[j][d] = vv;
@@ -147,22 +164,22 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!valid) return;
-  float* op = dq + ((long long)b * Tq + row) * H * D + h * D;
+  T* op = dq + ((long long)b * Tq + row) * H * D + h * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = acc[d] * scale;
+  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * scale);
   rowsum[((long long)b * H + h) * Tq + row] = dsum;
 }
 
 // Pass B: dk and dv for 64 key rows of one (b, h).
-template <bool kDropout>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kRows)
-attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ g,
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ g,
                      const int* __restrict__ key_pad,
                      const int* __restrict__ static_mask,
                      const float* __restrict__ lse,
-                     const float* __restrict__ rowsum, float* __restrict__ dk,
-                     float* __restrict__ dv, int Tq, int Tk, int H,
+                     const float* __restrict__ rowsum, T* __restrict__ dk,
+                     T* __restrict__ dv, int Tq, int Tk, int H,
                      long long q_sb, long long q_st, long long k_sb,
                      long long k_st, long long v_sb, long long v_st,
                      long long g_sb, long long g_st, float scale,
@@ -185,19 +202,19 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   float kr[D], vr[D], dka[D], dva[D];
   {
-    const float* kp = k + b * k_sb + (long long)kk * k_st + h * D;
-    const float* vp = v + b * v_sb + (long long)kk * v_st + h * D;
+    const T* kp = k + b * k_sb + (long long)kk * k_st + h * D;
+    const T* vp = v + b * v_sb + (long long)kk * v_st + h * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      kr[d] = kp[d];
-      vr[d] = vp[d];
+      kr[d] = to_f32(kp[d]);
+      vr[d] = to_f32(vp[d]);
       dka[d] = 0.f;
       dva[d] = 0.f;
     }
   }
   const int key_attend = key_pad[(long long)b * Tk + kk] != 0;
-  const float* qb = q + b * q_sb + h * D;
-  const float* gb = g + b * g_sb + h * D;
+  const T* qb = q + b * q_sb + h * D;
+  const T* gb = g + b * g_sb + h * D;
   const float* lb = lse + ((long long)b * H + h) * Tq;
   const float* sb = rowsum + ((long long)b * H + h) * Tq;
 
@@ -208,8 +225,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = i / D, d = i % D;
       float qv = 0.f, gv = 0.f;
       if (j < nq) {
-        qv = qb[(long long)(q0 + j) * q_st + d] * scale;
-        gv = gb[(long long)(q0 + j) * g_st + d];
+        qv = to_f32(qb[(long long)(q0 + j) * q_st + d]) * scale;
+        gv = to_f32(gb[(long long)(q0 + j) * g_st + d]);
       }
       qs[j][d] = qv;
       gs[j][d] = gv;
@@ -255,30 +272,37 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long o = ((long long)b * Tk + key) * H * D + h * D;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    dk[o + d] = dka[d];
-    dv[o + d] = dva[d];
+    dk[o + d] = from_f32<T>(dka[d]);
+    dv[o + d] = from_f32<T>(dva[d]);
   }
 }
 
-template <bool kDropout>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* g, const int* key_pad, const int* static_mask,
-                   const float* lse, float* rowsum, float* dq, float* dk,
-                   float* dv, int B, int Tq, int Tk, int H, long long q_sb,
+template <typename T, bool kDropout>
+cudaError_t launch(const void* q_, const void* k_, const void* v_,
+                   const void* g_, const int* key_pad, const int* static_mask,
+                   const float* lse, float* rowsum, void* dq_, void* dk_,
+                   void* dv_, int B, int Tq, int Tk, int H, long long q_sb,
                    long long q_st, long long k_sb, long long k_st,
                    long long v_sb, long long v_st, long long g_sb,
                    long long g_st, float scale, unsigned seed,
                    unsigned threshold, float keep_scale,
                    cudaStream_t stream) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* g = static_cast<const T*>(g_);
+  T* dq = static_cast<T*>(dq_);
+  T* dk = static_cast<T*>(dk_);
+  T* dv = static_cast<T*>(dv_);
   const dim3 grid_a((unsigned)B * ((Tq + kRows - 1) / kRows), H);
-  attn_bwd_dq_kernel<kDropout><<<grid_a, kRows, 0, stream>>>(
+  attn_bwd_dq_kernel<T, kDropout><<<grid_a, kRows, 0, stream>>>(
       q, k, v, g, key_pad, static_mask, lse, dq, rowsum, Tq, Tk, H, q_sb,
       q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed, threshold,
       keep_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_b((unsigned)B * ((Tk + kRows - 1) / kRows), H);
-  attn_bwd_dkdv_kernel<kDropout><<<grid_b, kRows, 0, stream>>>(
+  attn_bwd_dkdv_kernel<T, kDropout><<<grid_b, kRows, 0, stream>>>(
       q, k, v, g, key_pad, static_mask, lse, rowsum, dk, dv, Tq, Tk, H, q_sb,
       q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed, threshold,
       keep_scale);
@@ -287,26 +311,30 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// f32 only; D must be 32. Strides in elements; dq (B, Tq, H*D), dk and dv
-// (B, Tk, H*D) contiguous; rowsum is (B, H, Tq) scratch written by pass A
-// and read by pass B. Returns the first launch error (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dq, dk, dv); D must be 32.
+// Strides in elements; dq (B, Tq, H*D), dk and dv (B, Tk, H*D) contiguous;
+// rowsum is (B, H, Tq) f32 scratch written by pass A and read by pass B.
+// Returns the first launch error (0 = ok).
 extern "C" int mmfm_attention_bwd(
-    const float* q, const float* k, const float* v, const float* g,
+    const void* q, const void* k, const void* v, const void* g,
     const int* key_pad, const int* static_mask, const float* lse,
-    float* rowsum, float* dq, float* dk, float* dv, int B, int Tq, int Tk,
+    float* rowsum, void* dq, void* dk, void* dv, int B, int Tq, int Tk,
     int H, int D, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st, long long g_sb,
     long long g_st, float scale, unsigned seed, unsigned threshold,
-    float keep_scale, int dropout, void* stream) {
+    float keep_scale, int dropout, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;
-  if (dropout)
-    return (int)launch<true>(q, k, v, g, key_pad, static_mask, lse, rowsum,
-                             dq, dk, dv, B, Tq, Tk, H, q_sb, q_st, k_sb,
-                             k_st, v_sb, v_st, g_sb, g_st, scale, seed,
-                             threshold, keep_scale, s);
-  return (int)launch<false>(q, k, v, g, key_pad, static_mask, lse, rowsum,
-                            dq, dk, dv, B, Tq, Tk, H, q_sb, q_st, k_sb, k_st,
-                            v_sb, v_st, g_sb, g_st, scale, seed, threshold,
-                            keep_scale, s);
+#define MMFM_K2_LAUNCH(T, DROP)                                            \
+  launch<T, DROP>(q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, \
+                  B, Tq, Tk, H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb,   \
+                  g_st, scale, seed, threshold, keep_scale, s)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);
+  else if (dtype == 1)
+    err = dropout ? MMFM_K2_LAUNCH(__nv_bfloat16, true)
+                  : MMFM_K2_LAUNCH(__nv_bfloat16, false);
+#undef MMFM_K2_LAUNCH
+  return (int)err;
 }

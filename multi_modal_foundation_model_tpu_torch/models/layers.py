@@ -8,10 +8,18 @@ run as ONE GEMM over the concatenated weights at apply time, as the JAX
 package's ``_fused_proj`` does, and the q/k/v column views of that product
 go to the attention kernels without a copy.
 
-- ``MXUDense``/``MXUEmbed`` are ``nn.Linear``/``nn.Embedding``. Their JAX
-  custom backward passes (:105-150, :533-577) only move the plain linear
-  and embedding gradients onto the TPU's matrix unit, so autograd of
-  ``nn.Linear``/``nn.Embedding`` is their port.
+- ``MXUDense`` is ``Dense``, an ``nn.Linear`` with JAX's ``dtype``: with a
+  compute dtype, x, weight and bias are cast to it and the product runs in
+  it (``_apply_dense``, :153-162; the weights stay f32 master copies and
+  their gradients come back through the casts); without one, the
+  operands' own dtype. ``MXUEmbed`` is ``nn.Embedding`` (f32 tables). Their
+  JAX custom backward passes (:105-150, :533-577) only move the plain
+  linear and embedding gradients onto the TPU's matrix unit, so autograd
+  is their port.
+- Every module takes the compute dtype as JAX's do (``dtype=``): the
+  tokenizers, attention projections, MLPs and their layer dropout run in
+  it, the norms output it (``_norm``, :459-468). Casts are explicit; no
+  ``torch.autocast``, whose op policy is not JAX's.
 - Initialization is JAX's, drawn from an explicit ``torch.Generator``:
   torch's default (U(+-1/sqrt(fan_in)) for Linear weight and bias, N(0, 1)
   for embeddings; ``reset_parameters_``), then, with ``config.fixup_init``,
@@ -137,14 +145,38 @@ def site_seed(seed: Optional[int], *site: int) -> Optional[int]:
     return None if seed is None else fold_in(seed, *site)
 
 
-def fused_linear(x: torch.Tensor, linears: Sequence[nn.Linear]):
-    """Several same-input projections as one GEMM; returns the per-
-    projection column views of the (..., sum(out)) product."""
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor],
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """JAX ``_apply_dense``: x, weight and bias cast to ``dtype`` (when
+    given), then one ``F.linear``."""
+    if dtype is not None:
+        x, weight = x.to(dtype), weight.to(dtype)
+        bias = None if bias is None else bias.to(dtype)
+    return F.linear(x, weight, bias)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (``MXUDense``'s ``dtype``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def fused_linear(x: torch.Tensor, linears: Sequence[Dense]):
+    """Several same-input projections as one GEMM in their compute dtype;
+    returns the per-projection column views of the (..., sum(out))
+    product."""
     w = torch.cat([lin.weight for lin in linears])
     b = (torch.cat([lin.bias for lin in linears])
          if linears[0].bias is not None else None)
-    return F.linear(x, w, b).split([lin.out_features for lin in linears],
-                                   dim=-1)
+    y = dense(x, w, b, linears[0].compute_dtype)
+    return y.split([lin.out_features for lin in linears], dim=-1)
 
 
 class ScaleNorm(nn.Module):
@@ -164,12 +196,13 @@ class MLP(nn.Module):
     """up-proj -> act -> down-proj."""
 
     def __init__(self, hidden_size: int, inter_size: int, act: str,
-                 use_bias: bool, dropout: float = 0.0):
+                 use_bias: bool, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.act = ACT2FN[act]
         self.dropout = dropout
-        self.up_proj = nn.Linear(hidden_size, inter_size, bias=use_bias)
-        self.down_proj = nn.Linear(inter_size, hidden_size, bias=use_bias)
+        self.up_proj = Dense(hidden_size, inter_size, use_bias, dtype)
+        self.down_proj = Dense(inter_size, hidden_size, use_bias, dtype)
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -192,15 +225,16 @@ class Attention(nn.Module):
     """Self-attention; q/k/v as one (H, 3H) GEMM, then the fused kernel."""
 
     def __init__(self, hidden_size: int, n_heads: int, use_bias: bool,
-                 attn_impl: str = "pallas", dropout: float = 0.0):
+                 attn_impl: str = "pallas", dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_heads = n_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
-        self.query = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.key = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.value = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.out_proj = nn.Linear(hidden_size, hidden_size, bias=use_bias)
+        self.query = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.key = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.value = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.out_proj = Dense(hidden_size, hidden_size, use_bias, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -212,15 +246,16 @@ class CrossAttention(nn.Module):
     """Cross-attention: q from x, k/v as one (H, 2H) GEMM over context."""
 
     def __init__(self, hidden_size: int, n_heads: int, use_bias: bool,
-                 attn_impl: str = "pallas", dropout: float = 0.0):
+                 attn_impl: str = "pallas", dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_heads = n_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
-        self.query = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.key = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.value = nn.Linear(hidden_size, hidden_size, bias=use_bias)
-        self.out_proj = nn.Linear(hidden_size, hidden_size, bias=use_bias)
+        self.query = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.key = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.value = Dense(hidden_size, hidden_size, use_bias, dtype)
+        self.out_proj = Dense(hidden_size, hidden_size, use_bias, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[MaskSpec] = None,
@@ -230,23 +265,25 @@ class CrossAttention(nn.Module):
         return self.out_proj(_attend(self, q, k, v, mask, seed))
 
 
-def _norm(cfg) -> nn.Module:
-    if cfg.use_scalenorm:
+def _norm(cfg, dtype: Optional[torch.dtype]) -> nn.Module:
+    if cfg.use_scalenorm:            # JAX's ScaleNorm keeps x's dtype
         return ScaleNorm(cfg.hidden_size ** 0.5)
-    return LayerNorm(cfg.hidden_size, eps=1e-5)
+    return LayerNorm(cfg.hidden_size, eps=1e-5, dtype=dtype)
 
 
 class EncoderLayer(nn.Module):
     """Pre-norm residual block: x + attn(ln1(x)); x + mlp(ln2(x))."""
 
-    def __init__(self, cfg, attn_impl: str = "pallas"):
+    def __init__(self, cfg, attn_impl: str = "pallas",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.ln1 = _norm(cfg)
+        self.ln1 = _norm(cfg, dtype)
         self.attn = Attention(cfg.hidden_size, cfg.n_heads,
-                              cfg.attention_bias, attn_impl, cfg.dropout)
-        self.ln2 = _norm(cfg)
+                              cfg.attention_bias, attn_impl, cfg.dropout,
+                              dtype)
+        self.ln2 = _norm(cfg, dtype)
         self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias,
-                       cfg.dropout)
+                       cfg.dropout, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -257,19 +294,21 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     """Self-attn + cross-attn (query_norm / context_norm) + MLP block."""
 
-    def __init__(self, cfg, attn_impl: str = "pallas"):
+    def __init__(self, cfg, attn_impl: str = "pallas",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.ln1 = _norm(cfg)
+        self.ln1 = _norm(cfg, dtype)
         self.attn = Attention(cfg.hidden_size, cfg.n_heads,
-                              cfg.attention_bias, attn_impl, cfg.dropout)
-        self.query_norm = _norm(cfg)
-        self.context_norm = _norm(cfg)
+                              cfg.attention_bias, attn_impl, cfg.dropout,
+                              dtype)
+        self.query_norm = _norm(cfg, dtype)
+        self.context_norm = _norm(cfg, dtype)
         self.cross_attn = CrossAttention(cfg.hidden_size, cfg.n_heads,
                                          cfg.attention_bias, attn_impl,
-                                         cfg.dropout)
-        self.ln2 = _norm(cfg)
+                                         cfg.dropout, dtype)
+        self.ln2 = _norm(cfg, dtype)
         self.mlp = MLP(cfg.hidden_size, cfg.inter_size, cfg.act, cfg.mlp_bias,
-                       cfg.dropout)
+                       cfg.dropout, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sa_mask: Optional[MaskSpec] = None,
@@ -283,22 +322,22 @@ class DecoderLayer(nn.Module):
 
 
 class ModalityTokenizer(nn.Module):
-    """Per-modality token path: Linear(C -> C*mult) -> act -> *scale ->
-    Linear(-> H) -> dropout (``embed_dropout``). The reference's embedder
-    module also owns the modality and position tables (``mod_emb``,
-    ``pos_embed``); ``MultiModal`` attaches them here so the state_dict
-    names match, and adds them itself."""
+    """Per-modality token path: Dense(C -> C*mult) -> act -> *scale ->
+    Dense(-> H) -> dropout (``embed_dropout``), in the compute dtype. The
+    reference's embedder module also owns the modality and position tables
+    (``mod_emb``, ``pos_embed``); ``MultiModal`` attaches them here so the
+    state_dict names match, and adds them itself."""
 
     def __init__(self, n_channels: int, hidden_size: int, mult: int,
                  act: str, scale: float, use_bias: bool,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         inter = n_channels * mult
         self.act = ACT2FN[act]
         self.scale = scale
         self.dropout = dropout
-        self.token_embed = nn.Linear(n_channels, inter, bias=use_bias)
-        self.projection = nn.Linear(inter, hidden_size, bias=True)
+        self.token_embed = Dense(n_channels, inter, use_bias, dtype)
+        self.projection = Dense(inter, hidden_size, True, dtype)
 
     def forward(self, inputs: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:

@@ -34,9 +34,16 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   behavior, masked (by the masker's element mask where there is one),
   combined as the sum over modalities divided by the total masked count,
   or by ``mod_loss_weights``.
+- **Compute dtype** (``compute_dtype``, "float32" or "bfloat16"; mm.yaml
+  runs bf16): the casts sit where JAX puts them (:432-509). Inputs go to
+  the compute dtype; the embedding tables stay f32 and their sums are cast
+  after the concatenation; the tokenizers, the layers and the context
+  projection compute in it; ``encoder_norm`` runs on ``x.float()`` and is
+  cast back, ``decoder_norm`` runs on ``y.float()`` and stays f32, so the
+  heads are f32 Linears; preds and targets are f32. Parameters stay f32.
 
-Session stitching (``n_sessions > 1``) and bf16 compute are later slices
-and raise ``NotImplementedError``.
+Session stitching (``n_sessions > 1``) is a later slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,12 +62,12 @@ from ..ops.losses import masked_mse, masked_poisson_nll
 from ..ops.masking import MaskParams, RegionSets, apply_mask
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import fold_in
-from .layers import (DecoderLayer, EncoderLayer, ModalityTokenizer,
+from .layers import (Dense, DecoderLayer, EncoderLayer, ModalityTokenizer,
                      fixup_init_, lecun_normal_, reset_parameters_,
                      site_seed)
 
 MODALITY_LOSS = {"ap": "poisson_nll", "behavior": "mse"}
-_COMPUTE_DTYPES = ("float32", "bfloat16")
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -178,16 +185,17 @@ class MultiModal(nn.Module):
         if mc.n_sessions != 1:
             raise NotImplementedError(
                 "session stitching (n_sessions > 1) is a later slice")
-        if mc.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {mc.compute_dtype!r}: only float32 is ported")
+        if mc.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {mc.compute_dtype!r} not in "
+                             f"{tuple(_COMPUTE_DTYPES)}")
         self.config = mc
+        self.compute_dtype = cdt = _COMPUTE_DTYPES[mc.compute_dtype]
         H = mc.hidden_size
 
         def tokenizer(mod):
             return ModalityTokenizer(mc.n_channels[mod], H, mc.mult,
                                      mc.embed_act, mc.embed_scale,
-                                     mc.embed_bias, mc.embed_dropout)
+                                     mc.embed_bias, mc.embed_dropout, cdt)
 
         self.encoder_embeddings = nn.ModuleDict()
         self.decoder_embeddings = nn.ModuleDict()
@@ -202,15 +210,18 @@ class MultiModal(nn.Module):
                 enc.pos_embed = nn.Embedding(mc.max_F, H)
                 dec.pos_embed = nn.Embedding(mc.max_F, H)
             self.encoder_embeddings[mod] = _Embeddings(enc)
+            # the heads read decoder_norm's f32 output: f32 Linears
             self.decoder_embeddings[mod] = _Embeddings(
                 dec, out=nn.Linear(H, mc.n_channels[mod]))
 
         self.encoder = nn.ModuleList(
-            EncoderLayer(mc, mc.attn_impl) for _ in range(mc.n_enc_layers))
+            EncoderLayer(mc, mc.attn_impl, cdt)
+            for _ in range(mc.n_enc_layers))
         self.encoder_norm = LayerNorm(H, eps=1e-5)
-        self.decoder_proj_context = nn.Linear(H, H)
+        self.decoder_proj_context = Dense(H, H, dtype=cdt)
         self.decoder = nn.ModuleList(
-            DecoderLayer(mc, mc.attn_impl) for _ in range(mc.n_dec_layers))
+            DecoderLayer(mc, mc.attn_impl, cdt)
+            for _ in range(mc.n_dec_layers))
         self.decoder_norm = LayerNorm(H, eps=1e-5)
 
         gen = (generator if generator is not None
@@ -315,6 +326,7 @@ class MultiModal(nn.Module):
         ``mtm_modes``. ``seed``: host int keying the masker and (with
         ``training``) dropout; required whenever a mask is sampled."""
         mc = self.config
+        cdt = self.compute_dtype
         T = mc.max_F
         mask_seed = drop_seed = None
         if seed is not None:
@@ -343,7 +355,7 @@ class MultiModal(nn.Module):
             if mc.use_pos:
                 e_emb = e_emb + enc.pos_embed(ts)
                 d_emb = d_emb + dec.pos_embed(ts)
-            x = inputs.float()
+            x = inputs.to(cdt)
             tokens_e.append(enc(x, site_seed(drop_seed, 0, i)))
             # decoder tokens are embedded from the inputs too
             tokens_d.append(dec(x, site_seed(drop_seed, 1, i)))
@@ -352,8 +364,8 @@ class MultiModal(nn.Module):
 
         enc_tokens = torch.cat(tokens_e, dim=1)          # (B, M*T, H)
         dec_tokens = torch.cat(tokens_d, dim=1)
-        enc_emb = torch.cat(embs_e, dim=1)
-        dec_emb = torch.cat(embs_d, dim=1)
+        enc_emb = torch.cat(embs_e, dim=1).to(cdt)       # summed in f32
+        dec_emb = torch.cat(embs_d, dim=1).to(cdt)
         token_mask = torch.cat(token_masks, dim=1)        # (B, M*T)
         attn_token = torch.cat(attn_tokens, dim=1)
 
@@ -384,14 +396,14 @@ class MultiModal(nn.Module):
         x = enc_tokens + enc_emb
         for li, layer in enumerate(self.encoder):
             x = run(layer, x, enc_attn, site_seed(drop_seed, 2, li))
-        x = self.encoder_norm(x)
+        x = self.encoder_norm(x.float()).to(cdt)
 
         context = self.decoder_proj_context(x) + enc_emb
         y = dec_tokens + dec_emb
         for li, layer in enumerate(self.decoder):
             y = run(layer, y, context, dec_attn, enc_attn,
                     site_seed(drop_seed, 3, li))
-        y = self.decoder_norm(y)
+        y = self.decoder_norm(y.float())                  # stays f32
 
         mod_loss, mod_n, mod_preds, mod_targets = {}, {}, {}, {}
         for i, mod in enumerate(mc.avail_mod):

@@ -299,7 +299,7 @@ def _k2_lib():
                        ctypes.c_uint)
         f = ctypes.c_float
         fn.argtypes = ([p] * 11 + [i] * 5 + [ll] * 8
-                       + [f, u, u, f, i, p])
+                       + [f, u, u, f, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -381,16 +381,17 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
 def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                   scale: float, dropout_rate: float = 0.0, seed: int = 0):
     """Launch K2 on CUDA tensors; same contract as
-    ``attention_bwd_reference``. q/k/v/g f32 with unit inner stride and any
-    batch and row strides; lse the f32 (B, H, Tq) of K1 on the same
-    operands, dropout rate and seed. Returns contiguous (dq, dk, dv)."""
+    ``attention_bwd_reference``. q/k/v/g share one dtype, f32 or bf16, with
+    unit inner stride and any batch and row strides; lse the f32
+    (B, H, Tq) of K1 on the same operands, dropout rate and seed. Returns
+    contiguous (dq, dk, dv) in q's dtype (f32 math either way)."""
     global K2_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
-                                        static, n_heads, (torch.float32,))
+                                        static, n_heads, _DTYPE_CODE)
     dev = q.device
-    if g.shape != q.shape or g.dtype != torch.float32 or g.device != dev:
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != dev:
         raise ValueError(f"attention_bwd: g {tuple(g.shape)} {g.dtype} "
-                         f"must be f32 like q {tuple(q.shape)}")
+                         f"must match q {tuple(q.shape)} {q.dtype}")
     if g.stride(-1) != 1:
         g = g.contiguous()
     if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
@@ -398,9 +399,9 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
         raise ValueError("attention_bwd: lse must be contiguous f32 "
                          "(B, H, Tq)")
     fn = _k2_lib()
-    dq = torch.empty((B, Tq, hidden), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, Tk, hidden), dtype=torch.float32, device=dev)
-    dv = torch.empty((B, Tk, hidden), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
     rowsum = torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -410,7 +411,8 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                 dv.data_ptr(), B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), g.stride(0), g.stride(1),
-                float(scale), *_dropout_args(dropout_rate, seed), stream)
+                float(scale), *_dropout_args(dropout_rate, seed),
+                _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd: kernel launch failed "
                            f"(cudaError {rc})")

@@ -8,10 +8,16 @@ not installed:
 (``--noconftest``: the repository's ``tests/conftest.py`` sets up JAX.)
 Tests marked ``cuda`` skip without a card. K1 tolerances: f32 atol 1e-5
 (online vs two-pass softmax, same f32 products), bf16 atol 2e-2 (one bf16
-rounding of the output on each side), lse atol 1e-5. K2 (f32 only):
-atol 1e-5 on dq/dk/dv (the same f32 products summed per thread in key or
-query order against cuBLAS's blocked order). Dropout runs on the same
-Philox bits on both sides, so the tolerances hold at rate 0.4 too.
+rounding of the output on each side), lse atol 1e-5. K2: f32 atol 1e-5 on
+dq/dk/dv (the same f32 products summed per thread in key or query order
+against cuBLAS's blocked order); bf16 |kernel - plain| <= 2e-2 (1 + |plain|)
+(f32 math on both sides, one bf16 rounding of each output, which a last-bit
+difference can move by one bf16 step). Dropout runs on the same Philox bits
+on both sides, so the tolerances hold at rate 0.4 too. K3/K4 (LayerNorm):
+y and dx within atol = rtol = 1e-5 (f32) / 2e-2 (bf16), as the JAX
+package's own LayerNorm tests; dweight and dbias are sums over every row,
+held normwise: max |kernel - plain| <= 1e-5 max |plain|, and bit-equal
+from one launch to the next.
 """
 
 import math
@@ -22,6 +28,7 @@ import torch
 
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
 from multi_modal_foundation_model_tpu_torch.ops import attention as tatt
+from multi_modal_foundation_model_tpu_torch.ops import layernorm as tln
 
 torch.set_num_threads(1)
 
@@ -112,9 +119,12 @@ def test_k1_rejects_what_it_does_not_take():
         tatt.attention_fwd(q, q, q, key_pad.long(), static, H, 1.0)
     with pytest.raises(ValueError):              # dropout needs a seed
         tatt.multi_head_attention(q, q, q, H, dropout_rate=0.1)
-    with pytest.raises(TypeError):               # K2 is f32 only
-        qb = q.bfloat16()
-        tatt.attention_bwd(qb, qb, qb, key_pad, static, qb,
+    with pytest.raises(TypeError):               # K2: f32 or bf16 only
+        qh = q.half()
+        tatt.attention_bwd(qh, qh, qh, key_pad, static, qh,
+                           torch.zeros(B, H, T, device="cuda"), H, 1.0)
+    with pytest.raises(ValueError):              # g in q's dtype
+        tatt.attention_bwd(q, q, q, key_pad, static, q.bfloat16(),
                            torch.zeros(B, H, T, device="cuda"), H, 1.0)
 
 
@@ -273,3 +283,203 @@ def test_flash_attention_function_kernel_vs_plain(rate):
         assert launched == ((1, 1) if impl == "pallas" else (0, 0))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def _bf16_close(a, b, name=""):
+    """|a - b| <= 2e-2 (1 + |b|): bf16 outputs of the same f32 math."""
+    torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2,
+                               msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case,tk", K2_CASES)
+def test_k2_bf16_matches_plain(case, tk, rate):
+    """bf16 q/k/v/g (the bf16 model's operands): K2 writes bf16 dq/dk/dv
+    and agrees with the plain version on the same lse and Philox bits."""
+    _need_cuda()
+    q, k, v = (t.bfloat16() for t in _qkv(case, tk))
+    key_pad, static = _operands("random" if case == "cross" else case, tk)
+    scale = 1.0 / math.sqrt(D)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                with_lse=True, dropout_rate=rate, seed=5)
+    g = torch.randn(B, T, H * D, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    g = g.bfloat16()
+    n0 = tatt.K2_LAUNCHES
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                             rate, 5)
+    torch.cuda.synchronize()
+    assert tatt.K2_LAUNCHES == n0 + 1
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse,
+                                        H, scale, rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous(), name
+        _bf16_close(a, b, name)
+    if case == "fully_masked_row":
+        assert got[0][2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_dropout_lse_matches_plain(rate):
+    """The bf16 training forward: K1 on bf16 q/k/v with dropout and lse."""
+    _need_cuda()
+    q, k, v = (t.bfloat16() for t in _qkv("enc_eye_pad"))
+    key_pad, static = _operands("enc_eye_pad")
+    scale = 1.0 / math.sqrt(D)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                  with_lse=True, dropout_rate=rate, seed=11)
+    want, want_lse = tatt.attention_reference(
+        q, k, v, key_pad, static, H, scale, with_lse=True,
+        dropout_rate=rate, seed=11)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+
+
+LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _ln_operands(rows, width, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, width, device="cuda", generator=g) * 2.0 + 0.3)
+    w = torch.randn(width, device="cuda", generator=g) * 0.2 + 1.0
+    b = torch.randn(width, device="cuda", generator=g) * 0.1
+    dy = torch.randn(rows, width, device="cuda", generator=g)
+    return x.to(dtype), w, b, dy.to(dtype)
+
+
+def _normwise(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,width", [(37 * 4, 256), (50 * 4, 64),
+                                        (1001, 256), (129, 96),
+                                        (3, 1024)])
+def test_k3_k4_match_plain(rows, width, dtype):
+    """K3 and K4 against ``layer_norm`` / ``layer_norm_bwd_reference``:
+    odd row counts (ragged warps and blocks), H = 64, 96, 256, 1024."""
+    _need_cuda()
+    dt, tol = getattr(torch, dtype), LN_TOL[dtype]
+    x, w, b, dy = _ln_operands(rows, width, dt)
+    n3, n4 = tln.K3_LAUNCHES, tln.K4_LAUNCHES
+    y = tln.layernorm_fwd(x, w, b, 1e-5, dt)
+    dx, dw, db = tln.layernorm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (tln.K3_LAUNCHES - n3, tln.K4_LAUNCHES - n4) == (1, 1)
+    assert y.dtype == dt and dx.dtype == dt
+    assert dw.dtype == db.dtype == torch.float32
+    torch.testing.assert_close(y.float(), tln.layer_norm(x, w, b, 1e-5,
+                                                         dt).float(),
+                               atol=tol, rtol=tol)
+    want = tln.layer_norm_bwd_reference(x, w, dy, 1e-5)
+    torch.testing.assert_close(dx.float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    assert _normwise(dw, want[1]) <= 1e-5
+    assert _normwise(db, want[2]) <= 1e-5
+    # dweight / dbias: a fixed summation order, the same bits every run
+    dx2, dw2, db2 = tln.layernorm_bwd(x, w, dy, 1e-5)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+def test_k3_k4_reject_what_they_do_not_take():
+    """Widths that are not a multiple of 32 up to 1024, an output dtype
+    other than x's, g in another dtype, and CPU tensors raise."""
+    _need_cuda()
+    for width in (48, 2048):
+        x, w, b, dy = _ln_operands(8, width, torch.float32)
+        with pytest.raises(ValueError):
+            tln.layernorm_fwd(x, w, b)
+        with pytest.raises(ValueError):
+            tln.layernorm_bwd(x, w, dy)
+    x, w, b, dy = _ln_operands(8, 64, torch.bfloat16)
+    with pytest.raises(TypeError):               # bf16 -> f32 output
+        tln.layernorm_fwd(x, w, b)
+    with pytest.raises(TypeError):
+        tln.layernorm_bwd(x, w, dy.float())
+    with pytest.raises(TypeError):
+        tln.layernorm_fwd(x.half(), w, b, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tln.layernorm_fwd(x.cpu(), w.cpu(), b.cpu(), dtype=torch.bfloat16)
+    # under "full", a CUDA tensor of an unsupported width raises in the
+    # module: no plain fallback
+    ln = tln.LayerNorm(48).cuda()
+    old = tln.PALLAS_LAYERNORM
+    tln.PALLAS_LAYERNORM = "full"
+    try:
+        with pytest.raises(ValueError):
+            ln(torch.randn(4, 48, device="cuda"))
+    finally:
+        tln.PALLAS_LAYERNORM = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bwd", "full"])
+def test_layernorm_functions_kernel_vs_autograd(mode):
+    """The "bwd"/"full" Functions on the card against autograd of the plain
+    form ("off"), bf16 in and out with f32 parameters."""
+    _need_cuda()
+    x, w, b, dy = _ln_operands(300, 256, torch.bfloat16, seed=4)
+    grads = []
+    old = tln.PALLAS_LAYERNORM
+    for m in (mode, "off"):
+        xx, ww, bb = (t.detach().clone().requires_grad_(True)
+                      for t in (x, w, b))
+        n4 = tln.K4_LAUNCHES
+        tln.PALLAS_LAYERNORM = m
+        try:
+            y = tln.layernorm(xx, ww, bb, 1e-5, torch.bfloat16)
+            grads.append((y,) + torch.autograd.grad(y, (xx, ww, bb), dy))
+        finally:
+            tln.PALLAS_LAYERNORM = old
+        assert tln.K4_LAUNCHES - n4 == (1 if m != "off" else 0)
+    for name, a, c in zip(("y", "dx", "dw", "db"), *grads):
+        if name in ("dw", "db"):
+            assert _normwise(a, c) <= 1e-5, name
+        else:
+            _bf16_close(a, c, name)
+
+
+@pytest.mark.cuda
+def test_model_full_layernorm_launches_k3_32_per_forward():
+    """The bf16 5+5-layer model under ``PALLAS_LAYERNORM="full"``: 30
+    in-layer norms + encoder_norm + decoder_norm = 32 K3 launches per
+    forward, 15 K1, and the same preds as the plain LayerNorm ("off")."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tmm.MultiModalConfig(n_channels={"ap": 30, "behavior": 2},
+                               max_F=T, hidden_size=128, n_heads=4,
+                               inter_size=256, compute_dtype="bfloat16")
+    model = tmm.MultiModal(cfg)
+    rng = np.random.default_rng(5)
+    attn = torch.ones(B, T, dtype=torch.int64, device="cuda")
+    ts = torch.arange(T, device="cuda").expand(B, T)
+
+    def mi(c):
+        x = torch.from_numpy(rng.poisson(1.0, (B, T, c)).astype(np.float32))
+        ev = torch.from_numpy((rng.random((B, T, c)) > 0.5).astype(np.int32))
+        return tmm.ModalityInput(x.cuda(), x.cuda(), attn, ts, ev.cuda())
+
+    inputs = {"ap": mi(30), "behavior": mi(2)}
+    old = tln.PALLAS_LAYERNORM
+    try:
+        preds = {}
+        for mode in ("full", "off"):
+            tln.PALLAS_LAYERNORM = mode
+            n1, n3 = tatt.K1_LAUNCHES, tln.K3_LAUNCHES
+            with torch.inference_mode():
+                preds[mode] = model(inputs).mod_preds["ap"]
+            torch.cuda.synchronize()
+            assert tatt.K1_LAUNCHES - n1 == 15
+            assert tln.K3_LAUNCHES - n3 == (32 if mode == "full" else 0)
+    finally:
+        tln.PALLAS_LAYERNORM = old
+    assert preds["full"].dtype == torch.float32
+    rel = ((preds["full"] - preds["off"]).norm()
+           / preds["off"].norm()).item()
+    assert rel <= 2e-2

@@ -166,17 +166,25 @@ def test_config_json_round_trip_both_ways(tmp_path):
 
 
 def test_unported_paths_raise(toy):
-    """What is still unported raises: session stitching, bf16 compute, the
-    device-resident trainer data and the loader's samplers."""
+    """What is still unported raises: session stitching, the
+    device-resident trainer data and the loader's samplers. bf16 compute,
+    unported in the first two slices, now builds; another compute dtype
+    is refused."""
     from multi_modal_foundation_model_tpu_torch.data import loader, session
     from multi_modal_foundation_model_tpu_torch.train import (
         MultiModalTrainer, OptimizerConfig, TrainerConfig)
 
     _, _, tmodel = toy
-    for over in (dict(n_sessions=2), dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            tmm.MultiModal(tmm.MultiModalConfig(**TOY, **over),
-                           device="cpu")
+    with pytest.raises(NotImplementedError):
+        tmm.MultiModal(tmm.MultiModalConfig(**TOY, n_sessions=2),
+                       device="cpu")
+    bf16 = tmm.MultiModal(tmm.MultiModalConfig(**TOY,
+                                               compute_dtype="bfloat16"),
+                          device="cpu")
+    assert bf16.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        tmm.MultiModal(tmm.MultiModalConfig(**TOY, compute_dtype="float16"),
+                       device="cpu")
     sess = session.synthetic_session(seed=0, n_trials=8,
                                      n_neurons=TOY["n_channels"]["ap"],
                                      n_timesteps=TOY["max_F"])
