@@ -242,10 +242,17 @@ def attention_reference(q, k, v, key_pad, static, n_heads: int,
 
 def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
                             scale: float, dropout_rate: float = 0.0,
-                            seed: int = 0):
+                            seed: int = 0, dots_dtype=torch.float32):
     """Plain PyTorch version of K2 (JAX ``_attn_bwd_kernel``, :221-307):
     probabilities recovered from the forward's ``lse``, dropout replayed
     from ``philox_keep``. Returns (dq, dk, dv) in q's dtype.
+
+    ``dots_dtype`` is JAX's (:224): the operands of the five products are
+    rounded to it where JAX's kernel rounds them (``q * scale``, k, v, g,
+    and ``ds``, ``pd``), every product accumulating in f32. f32 (the
+    default, JAX's interpret mode) is what the CPU path runs; bf16 is what
+    JAX's K2 runs on its hardware (:431) and what the tensor-core bf16 K2
+    computes.
 
     Written from the lse formula, not from autograd of
     ``attention_reference``: a fully-masked query row has scores of -1e30
@@ -254,8 +261,12 @@ def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
     uniform row's gradient."""
     B, Tq, _ = q.shape
     Tk = k.shape[1]
-    qs = _heads(q, n_heads) * scale
-    kh, vh, gh = _heads(k, n_heads), _heads(v, n_heads), _heads(g, n_heads)
+
+    def rnd(x):
+        return x.to(dots_dtype).float()
+
+    qs = rnd(_heads(q, n_heads) * scale)
+    kh, vh, gh = (rnd(_heads(x, n_heads)) for x in (k, v, g))
     s = qs @ kh.transpose(-1, -2) + _attend_bias(key_pad, static)[:, None]
     pn = torch.exp(s - lse.float()[..., None])
     dpd = gh @ vh.transpose(-1, -2)
@@ -265,7 +276,8 @@ def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
         pd, dpn = pn * ms, dpd * ms
     else:
         pd, dpn = pn, dpd
-    ds = pn * (dpn - (dpn * pn).sum(dim=-1, keepdim=True))
+    ds = rnd(pn * (dpn - (dpn * pn).sum(dim=-1, keepdim=True)))
+    pd = rnd(pd)
     dq = (ds @ kh) * scale
     dk = ds.transpose(-1, -2) @ qs
     dv = pd.transpose(-1, -2) @ gh
@@ -302,6 +314,17 @@ def _k2_lib():
                        + [f, u, u, f, i, i, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int, dtype) -> int:
+    """f32 words of K2's scratch: rowsum (B, H, Tq), and for the bf16
+    kernels pass A's mask bytes for pass B after it, one byte per (b, h,
+    query, 4 keys) with rows padded to 64 keys, 16-byte aligned
+    (``csrc/attention_bwd.cu``, ``mmfm_attention_bwd``)."""
+    n = B * H * Tq
+    if dtype == torch.bfloat16:
+        n += (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
+    return n
 
 
 def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
@@ -380,11 +403,18 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
 
 def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                   scale: float, dropout_rate: float = 0.0, seed: int = 0):
-    """Launch K2 on CUDA tensors; same contract as
-    ``attention_bwd_reference``. q/k/v/g share one dtype, f32 or bf16, with
+    """Launch K2 on CUDA tensors. q/k/v/g share one dtype, f32 or bf16, with
     unit inner stride and any batch and row strides; lse the f32
     (B, H, Tq) of K1 on the same operands, dropout rate and seed. Returns
-    contiguous (dq, dk, dv) in q's dtype (f32 math either way)."""
+    contiguous (dq, dk, dv) in q's dtype.
+
+    f32 runs f32 math: the contract of ``attention_bwd_reference``. bf16
+    runs the tensor-core kernels, whose products take bf16 operands as JAX's
+    K2 on its hardware: the contract of ``attention_bwd_reference(...,
+    dots_dtype=torch.bfloat16)``. They copy their tiles with ``cp.async``,
+    so bf16 q/k/v/g need 16-byte aligned data pointers and batch and row
+    strides (the fused-QKV column views have them); anything else raises
+    ``ValueError``."""
     global K2_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
@@ -394,6 +424,13 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                          f"must match q {tuple(q.shape)} {q.dtype}")
     if g.stride(-1) != 1:
         g = g.contiguous()
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+            if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+                raise ValueError(
+                    f"attention_bwd: bf16 {name} needs a 16-byte aligned "
+                    f"data pointer and batch and row strides, got offset "
+                    f"{t.data_ptr() % 16} and strides {t.stride()[:2]}")
     if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
             or lse.device != dev or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous f32 "
@@ -402,7 +439,8 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
     dv = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
-    rowsum = torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
+    rowsum = torch.empty(_k2_scratch_floats(B, n_heads, Tq, Tk, q.dtype),
+                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

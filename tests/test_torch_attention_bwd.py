@@ -133,3 +133,81 @@ def test_function_uses_the_lse_backward_not_autograd():
     torch.testing.assert_close(dv_auto[2], tg[2].mean(0).expand(TQ, -1),
                                atol=ATOL, rtol=0)
     torch.testing.assert_close(dv[:2], dv_auto[:2], atol=ATOL, rtol=0)
+
+
+# JAX's K2 with bf16 dots: what its hardware runs (``ops/attention.py:431``
+# there). ``_flash_mha_bwd`` ties the dots to ``_should_interpret()``, so
+# the test builds the same ``pl.pallas_call`` (its specs, :433-450) with
+# ``dots_dtype=bf16`` and ``interpret=True``. Both sides round q * scale,
+# k, v, g, ds and pd to bf16 at the same places and sum in f32 in other
+# orders, so they stay within BF16_DOTS_ATOL; the f32-dots plain version
+# sits ~1e-2 away (one bf16 rounding of every product operand) and must
+# fall outside it.
+BF16_DOTS_ATOL = 1e-3
+
+
+def _jax_bf16_dots_k2(q, k, v, g, pad, static):
+    """dq, dk, dv of JAX's ``_attn_bwd_kernel`` with bf16 dots, and the
+    lse (B, H, Tq) of JAX's forward that it read."""
+    import functools
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    tk = k.shape[1]
+    hidden = H * D
+    key_pad = jnp.asarray(pad).reshape(B, 1, tk)
+    stat = (jnp.zeros((1, TQ, tk), jnp.int32) if static is None
+            else jnp.asarray(static).reshape(1, TQ, tk))
+    seed = jnp.zeros((1, 1), jnp.int32)
+    scale = 1.0 / math.sqrt(D)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    _, ml = jatt._mha_impl(jq, jk, jv, key_pad, stat, seed, scale, 0.0, H, D,
+                           with_lse=True)
+    kernel = functools.partial(jatt._attn_bwd_kernel, scale=scale,
+                               dropout_rate=0.0, n_heads=H, d_head=D,
+                               dots_dtype=jnp.bfloat16)
+    blk_q = pl.BlockSpec((B, TQ, hidden), lambda i: (i, 0, 0),
+                         memory_space=pltpu.VMEM)
+    blk_k = pl.BlockSpec((B, tk, hidden), lambda i: (i, 0, 0),
+                         memory_space=pltpu.VMEM)
+    blk_ml = pl.BlockSpec((B, 8, H * TQ), lambda i: (i, 0, 0),
+                          memory_space=pltpu.VMEM)
+    grads = pl.pallas_call(
+        kernel, grid=(1,),
+        in_specs=jatt._specs(B, TQ, tk, hidden) + [blk_q, blk_ml],
+        out_specs=[blk_q, blk_k, blk_k],
+        out_shape=[jax.ShapeDtypeStruct(jq.shape, jq.dtype),
+                   jax.ShapeDtypeStruct(jk.shape, jk.dtype),
+                   jax.ShapeDtypeStruct(jv.shape, jv.dtype)],
+        scratch_shapes=[pltpu.VMEM((B, H * TQ, tk), jnp.float32),
+                        pltpu.VMEM((B, H * TQ, tk), jnp.float32)],
+        interpret=True,
+    )(seed, jq, jk, jv, key_pad, stat, jg, ml)
+    lse = np.array(ml[:, 0, :]).reshape(B, H, TQ)
+    return [np.asarray(x) for x in grads], lse
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_dots_reference_matches_jax_bf16_dots_k2(case):
+    """``attention_bwd_reference(dots_dtype=bf16)`` against JAX's K2 with
+    bf16 dots on the same numpy inputs and JAX's own lse, dropout 0: the
+    yardstick of the tensor-core bf16 K2. The f32-dots version is held to
+    the same inputs and must fall outside the tolerance, so the test tells
+    the two apart."""
+    q, k, v, g, pad, static = _case(case, seed=3)
+    want, lse = _jax_bf16_dots_k2(q, k, v, g, pad, static)
+    tq, tk_, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    key_pad, stat = tatt.spec_operands(_tspec(pad, static), B, TQ,
+                                       k.shape[1], "cpu")
+    args = (tq, tk_, tv, key_pad, stat, tg, torch.from_numpy(lse), H,
+            1.0 / math.sqrt(D))
+    got = tatt.attention_bwd_reference(*args, dots_dtype=torch.bfloat16)
+    f32 = tatt.attention_bwd_reference(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=BF16_DOTS_ATOL, rtol=0,
+                                   err_msg=name)
+    worst_f32 = max(np.abs(a.numpy() - b).max() for a, b in zip(f32, want))
+    assert worst_f32 > 2 * BF16_DOTS_ATOL, worst_f32
+    if case == "decoder_pad_padded_trial":
+        assert not got[0][2].any() and not want[0][2].any()
