@@ -14,9 +14,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    could reach: K1 of the eval (``k1_check``/``k1_time``, f32 and bf16,
    B=320), K1 of the training step with dropout and ``lse``
    (``k1_dropout_check``) and K2 (``k2_check``/``k2_time``), B=256, f32
-   and bf16 (the bf16 K2 on the tensor cores, held against the plain
-   version with JAX's bf16 dots and the f32-dots one), dropout 0 and 0.4 on
-   the same Philox bits as the plain versions; K3/K4, the LayerNorm forward and backward
+   and bf16 (the bf16 K1 and K2 on the tensor cores, each held against the
+   plain version with JAX's bf16 dots and the f32-dots one, and the bf16
+   K1's lse against the scores K2 recomputes, ``k1_lse_row_sums``),
+   dropout 0 and 0.4 on the same Philox bits as the plain versions; K3/K4,
+   the LayerNorm forward and backward
    (``k3_k4_check``/``k3_k4_time``), at the B=256 step's 51,200 x 256
    tokens, one row fewer and 1,001 x 64, f32 and bf16, with dweight/dbias
    bit-equal from one launch to the next. Tolerances: f32 1e-5, bf16 2e-2
@@ -49,6 +51,15 @@ The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
 The port never imports JAX, and neither does this script.
+
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
+compares this checkout's port with another's (say the parent commit's,
+unpacked by ``git archive`` into a git-ignored directory) on one card: four
+processes in the order other, this, this, other, each importing its own
+checkout's package and building its kernels, each timing the bf16 training
+step under ``"full"`` at B=16 and B=256 and the bf16 sweep-chunk forward
+(``ab_step`` / ``ab_sweep_chunk`` lines, with profiles).
 """
 
 from __future__ import annotations
@@ -115,7 +126,7 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "attn_fwd_kernel" in low:
+    if "attn_fwd_" in low:
         return "k1_ms"
     if "attn_bwd_" in low:
         return "k2_ms"
@@ -282,15 +293,77 @@ def k1_inputs(case: str, dtype, B=320, T=200, H=8, D=32, seed=1,
     return q, k, v, MaskSpec(key_pad=pad, static=eye), H
 
 
+def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
+             seed=0) -> dict:
+    """K1's output and lse against its plain versions on the same inputs
+    and Philox bits. f32: out and lse atol 1e-5 (the same f32 products
+    summed in other orders). bf16 (the tensor-core K1, with JAX's bf16
+    dots): out within 1e-2 (1 + |plain|) of the plain version with the
+    same bf16 roundings (``dots_dtype=bf16``; f32 sums in other orders,
+    an online softmax that rounds p to bf16 before, not after, its last
+    rescale, and one bf16 rounding of the output) and within 2e-2 (1 +
+    |plain|) of the f32-dots one (one bf16 rounding of every product
+    operand); lse within 1e-5 (1 + |lse|) of the bf16-dots plain lse."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    args = (q, k, v, key_pad, static, H, scale, True, rate, seed)
+    ref, ref_lse = att.attention_reference(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    if q.dtype == torch.float32:
+        return dict(max_abs_err=err, lse_max_abs_err=lse_err,
+                    tolerance="atol 1e-5",
+                    ok=err <= 1e-5 and lse_err <= 1e-5 and finite)
+    bf, bf_lse = att.attention_reference(*args, dots_dtype=torch.bfloat16)
+    ex_bf = _excess(out, bf, 1e-2)
+    ex_f32 = _excess(out, ref, 2e-2)
+    ex_lse = _excess(lse, bf_lse, 1e-5)
+    return dict(max_abs_err=err, f32_dots_lse_max_abs_err=lse_err,
+                bf16_dots_max_abs_err=(out.float() - bf.float()).abs().max()
+                .item(),
+                bf16_dots_lse_max_abs_err=(lse - bf_lse).abs().max().item(),
+                bf16_dots_excess=ex_bf, f32_dots_excess=ex_f32,
+                bf16_dots_lse_excess=ex_lse,
+                tolerance=("out 1e-2 (1 + |plain bf16 dots|) and 2e-2 (1 + "
+                           "|plain f32 dots|); lse 1e-5 (1 + |lse bf16 "
+                           "dots|)"),
+                ok=ex_bf <= 0.0 and ex_f32 <= 0.0 and ex_lse <= 0.0
+                and finite)
+
+
+def lse_row_sums(q, k, key_pad, static, H, scale, lse) -> dict:
+    """What the bf16 K2 relies on: with the bf16-dots scores (``s =
+    bf16(q * scale) . bf16(k) + bias``, the scores K2 recomputes), every
+    row that attends anything has ``sum_k exp(s - lse) = 1`` against K1's
+    lse (dropout 0), within 1e-3."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    B, Tq, hidden = q.shape
+    D = hidden // H
+
+    def heads(x):
+        return x.unflatten(-1, (H, D)).transpose(1, 2).float()
+
+    s = ((heads(q) * scale).bfloat16().float()
+         @ heads(k.bfloat16()).transpose(-1, -2)
+         + att._attend_bias(key_pad, static)[:, None])
+    sums = torch.exp(s - lse[..., None]).sum(-1)            # (B, H, Tq)
+    del s
+    rows = (static.bool()[None] | key_pad.bool()[:, None]).any(-1)
+    err = (sums - 1).abs()[rows[:, None].expand_as(sums)].max().item()
+    return dict(row_sum_max_abs_err=err, rows=int(rows.sum()) * H,
+                ok=err <= 1e-3)
+
+
 def k1_phase():
-    """K1 of the eval (no dropout, no lse) at B=320: f32 atol 1e-5, bf16
-    atol 2e-2 (one bf16 rounding of the output on each side), lse 1e-5;
-    timed in both dtypes at the encoder shape."""
+    """K1 of the eval (no dropout, no lse) at B=320 against its plain
+    versions (``k1_gates``); timed in both dtypes at the encoder shape."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     worst = dict.fromkeys(DTYPES, 0.0)
     for case in ("encoder_eye_pad", "decoder_pad", "cross"):
-        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for dtype in DTYPES:
             q, k, v, spec, H = k1_inputs(case, dtype)
             B, Tq, hidden = q.shape
             key_pad, static = att.spec_operands(spec, B, Tq, k.shape[1],
@@ -299,19 +372,13 @@ def k1_phase():
             out, lse = att.attention_fwd(q, k, v, key_pad, static, H, scale,
                                          with_lse=True)
             torch.cuda.synchronize()
-            ref, ref_lse = att.attention_reference(q, k, v, key_pad, static,
-                                                   H, scale, with_lse=True)
-            err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            ok = (err <= atol and lse_err <= 1e-5
-                  and bool(torch.isfinite(out).all()))
+            gates = k1_gates(q, k, v, key_pad, static, H, scale, out, lse)
             emit(phase="k1_check", case=case, dtype=str(dtype), shape=[
-                B, Tq, hidden], heads=H, max_abs_err=err,
-                lse_max_abs_err=lse_err, atol=atol, ok=ok)
-            if not ok:
+                B, Tq, hidden], heads=H, **gates)
+            if not gates["ok"]:
                 raise AssertionError(f"K1 disagrees with its plain version "
-                                     f"({case}, {dtype}): {err}, {lse_err}")
-            worst[dtype] = max(worst[dtype], err)
+                                     f"({case}, {dtype}): {gates}")
+            worst[dtype] = max(worst[dtype], gates["max_abs_err"])
 
     # timing at the encoder shape, in each dtype
     rows = {}
@@ -323,8 +390,9 @@ def k1_phase():
         scale = 1.0 / math.sqrt(D)
         ms = cuda_time_ms(lambda: att.attention_fwd(q, k, v, key_pad, static,
                                                     H, scale))
+        # the plain version of the kernel: bf16 dots for the bf16 K1
         plain_ms = cuda_time_ms(lambda: att.attention_reference(
-            q, k, v, key_pad, static, H, scale))
+            q, k, v, key_pad, static, H, scale, dots_dtype=dtype))
         # library yardstick (never called by the port): SDPA on head views
         # with the same additive bias
         bias = att.mask_to_bias(static.bool()[None] | key_pad.bool()[:, None])
@@ -357,7 +425,9 @@ def train_kernels_phase():
     Tq=Tk=200, H=8, D=32), f32 and bf16, each case at dropout 0 and 0.4
     against the plain versions on the same Philox bits. f32: atol 1e-5 on
     out, lse, dq, dk, dv (the same f32 products summed in other orders).
-    bf16: out atol 2e-2, lse 1e-5; the tensor-core K2's dq/dk/dv within
+    bf16: K1 as ``k1_gates`` says, and at dropout 0 its lse against the
+    bf16-dots scores K2 recomputes (``lse_row_sums``); the tensor-core
+    K2's dq/dk/dv within
     1e-2 (1 + |plain|) of the plain version with JAX's bf16 dots
     (``dots_dtype=bf16``: the same bf16 roundings, f32 sums in other
     orders) and within 2e-2 (1 + |plain|) of the f32-dots one (one bf16
@@ -388,17 +458,21 @@ def train_kernels_phase():
                 bit_equal = all(torch.equal(a, b)
                                 for a, b in zip(grads, again))
                 del again
-                ref, ref_lse = att.attention_reference(
-                    q, k, v, key_pad, static, H, scale, True, rate, 1234)
+                k1 = k1_gates(q, k, v, key_pad, static, H, scale, out, lse,
+                              rate, 1234)
+                if dtype == torch.bfloat16 and rate == 0.0:
+                    sums = lse_row_sums(q, k, key_pad, static, H, scale,
+                                        lse)
+                    emit(phase="k1_lse_row_sums", dtype=dtype_name(dtype),
+                         case=case, shape=[B, Tq, hidden], **sums)
+                    k1["ok"] = k1["ok"] and sums["ok"]
                 ref_grads = att.attention_bwd_reference(
                     q, k, v, key_pad, static, g, lse, H, scale, rate, 1234)
-                err = (out.float() - ref.float()).abs().max().item()
-                lse_err = (lse - ref_lse).abs().max().item()
                 gerr = [(a.float() - b.float()).abs().max().item()
                         for a, b in zip(grads, ref_grads)]
                 masked_dq = (grads[0][3].abs().max().item()
                              if case == "decoder_pad" else 0.0)
-                ok1 = err <= TOL[dtype] and lse_err <= 1e-5
+                ok1 = k1["ok"]
                 extra = {}
                 if dtype == torch.float32:
                     ok2 = max(gerr) <= 1e-5
@@ -423,9 +497,7 @@ def train_kernels_phase():
                                  f32_dots_excess=ex_f32)
                 ok2 = ok2 and masked_dq == 0.0 and bit_equal
                 emit(phase="k1_dropout_check", dtype=dtype_name(dtype),
-                     case=case, dropout=rate, shape=[B, Tq, hidden],
-                     max_abs_err=err, lse_max_abs_err=lse_err,
-                     atol=TOL[dtype], ok=ok1)
+                     case=case, dropout=rate, shape=[B, Tq, hidden], **k1)
                 emit(phase="k2_check", dtype=dtype_name(dtype), case=case,
                      dropout=rate, shape=[B, Tq, hidden],
                      dq_dk_dv_max_abs_err=gerr, **extra,
@@ -435,9 +507,9 @@ def train_kernels_phase():
                 if not (ok1 and ok2):
                     raise AssertionError(
                         f"K1/K2 disagree with their plain versions ({case}, "
-                        f"{dtype}, {rate}): {err}, {lse_err}, {gerr}, "
+                        f"{dtype}, {rate}): {k1}, {gerr}, "
                         f"{masked_dq}, {extra}, bit-equal {bit_equal}")
-                worst_k1[dtype] = max(worst_k1[dtype], err)
+                worst_k1[dtype] = max(worst_k1[dtype], k1["max_abs_err"])
                 worst_k2[dtype] = max(worst_k2[dtype], *gerr)
 
     # timings at the encoder shape, dropout 0.4 (the training step's)
@@ -456,7 +528,8 @@ def train_kernels_phase():
         k1_ms = cuda_time_ms(lambda: att.attention_fwd(
             q, k, v, key_pad, static, H, scale, True, DROPOUT, 7))
         k1_plain = cuda_time_ms(lambda: att.attention_reference(
-            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7), 5, 1)
+            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
+            dots_dtype=dtype), 5, 1)
         k2_ms = cuda_time_ms(lambda: att.attention_bwd(
             q, k, v, key_pad, static, g, lse, H, scale, DROPOUT, 7))
         k2_ms_rate0 = cuda_time_ms(lambda: att.attention_bwd(
@@ -1044,11 +1117,96 @@ def layernorm_ab(root: Path, dtype) -> str:
     return choice
 
 
+def ab_worker(side: str, out: Path) -> None:
+    """One process of ``--ab``: the bf16 steps under "full" at B=16 and
+    B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median)
+    and the bf16 sweep-chunk forward (B = 16 x 20, 3 timings of 5), each
+    with a profile, on the package first on ``sys.path``."""
+    import multi_modal_foundation_model_tpu_torch as pkg
+    from multi_modal_foundation_model_tpu_torch.data import (make_loader,
+                                                             synthetic_splits)
+    from multi_modal_foundation_model_tpu_torch.eval import EvalForward
+    from multi_modal_foundation_model_tpu_torch.models import MultiModal
+
+    dtype = torch.bfloat16
+    where = str(Path(pkg.__file__).resolve().parent)
+    with ln_mode("full"):
+        for B, reps in ((TRAIN_B, 10), (BIG_B, 3)):
+            tr = _trainer(_cfg(dtype), _step_loaders(B), None, 1,
+                          out / "chip_smoke_ab")
+            step = _step_fn(tr)
+            tr._reseed_host_rng(0)
+            for _ in range(2):
+                step()
+            segs = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    step()
+                torch.cuda.synchronize()
+                segs.append((time.perf_counter() - t0) * 1e3 / reps)
+            emit(phase="ab_step", side=side, package=where, dtype="bfloat16",
+                 layernorm="full", batch=B, segments_ms=segs,
+                 ms_per_step=float(np.median(segs)),
+                 **device_breakdown(step, top=4))
+            del tr, step
+            torch.cuda.empty_cache()
+
+        cfg = _cfg(dtype)
+        T, N = cfg.max_F, cfg.n_channels["ap"]
+        model = MultiModal(cfg, generator=torch.Generator().manual_seed(SEED))
+        splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
+                                  n_timesteps=T)
+        loader = make_loader(splits.test, batch_size=splits.test.n_trials,
+                             max_time_length=T, max_space_length=N,
+                             shuffle=False)
+        batch = next(iter(loader))
+        fwd = EvalForward(model, batch, chunk=CHUNK)
+        visible = np.ones((CHUNK, N), np.float32)
+        visible[np.arange(CHUNK), np.arange(CHUNK)] = 0.0
+        tgt = np.arange(CHUNK)
+
+        def chunk():
+            return fwd.sweep(visible, tgt, True)
+
+        times = [cuda_time_ms(chunk, 5, 1) for _ in range(3)]
+        emit(phase="ab_sweep_chunk", side=side, package=where,
+             dtype="bfloat16", layernorm="full",
+             batch=CHUNK * int(batch["n_real"]), ms=times,
+             **device_breakdown(chunk, top=4))
+
+
+def ab(other: str) -> int:
+    """``--ab OTHER``: other, this, this, other, one process each."""
+    me = Path(__file__).resolve()
+    print(nvidia_smi(), flush=True)
+    for side, root in (("other", other), ("this", me.parent),
+                       ("this", me.parent), ("other", other)):
+        rc = subprocess.run([sys.executable, str(me), "--ab-worker", side,
+                             str(Path(root).resolve())]).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(sys.argv[2])
+    if sys.argv[1:2] == ["--ab-worker"]:
+        # this script's helpers, on the other checkout's package
+        sys.path.insert(0, sys.argv[3])
+        from multi_modal_foundation_model_tpu_torch.ops import build
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build(build.kernel_sources())
+        ab_worker(sys.argv[2], root / "build")
+        return 0
     sys.path.insert(0, str(root))
     from multi_modal_foundation_model_tpu_torch.ops import build
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
@@ -1093,14 +1251,16 @@ def main() -> int:
              route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=eval_f32["k1"],
              **_row(k1[f32])),
-        dict(name="attention_fwd (K1, eval), bf16", route="cuda",
+        dict(name="attention_fwd (K1, eval), bf16: tensor cores (mma.sync "
+             "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
              launches=eval_bf16["k1"], **_row(k1[bf16])),
         dict(name="attention_fwd (K1, training: dropout 0.4, lse), f32",
              route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=train_f32["k1"],
              **_row(k1_train[f32])),
-        dict(name="attention_fwd (K1, training), bf16", route="cuda",
+        dict(name="attention_fwd (K1, training), bf16: tensor cores "
+             "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
              launches=train_bf16["k1"], **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32", route="cuda",

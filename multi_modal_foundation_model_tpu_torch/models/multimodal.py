@@ -263,14 +263,17 @@ class MultiModal(nn.Module):
                 raise ValueError("sampling a mask needs a seed")
         if masking_mode is not None:
             if isinstance(masking_mode, str):
-                mode = masking_mode
+                mode, mode_active = masking_mode, active
             else:                         # host int into the MtM menu
                 mode = mtm_modes[int(masking_mode)]
                 if regions is None and mode.endswith("region"):
                     mode = "temporal"
+                # JAX's menu path (``apply_mask_by_id``) always masks,
+                # whatever force_active and training say
+                mode_active = True
             corrupted, spike_mask = apply_mask(seed, d.inputs, mc.mask_params,
                                                mode, regions=regions,
-                                               active=active)
+                                               active=mode_active)
             return corrupted, spike_mask[:, :, 0] & attn, spike_mask
         if d.eval_mask is None:
             _, mask = apply_mask(seed, d.inputs, mc.mask_params, mc.mask_mode,

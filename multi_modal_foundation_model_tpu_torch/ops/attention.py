@@ -204,14 +204,22 @@ def _merge(o: torch.Tensor, dtype) -> torch.Tensor:
 
 def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
                       with_lse: bool, dropout_rate: float = 0.0,
-                      seed: int = 0):
+                      seed: int = 0, dots_dtype=torch.float32):
     """Softmax attention of (B, T, H*D) operands under an additive
     ``bias`` broadcastable to (B, Tq, Tk); f32 math, q pre-scaled as K1
-    does; probability dropout from ``philox_keep``. Returns (out in q's
-    dtype, lse (B, H, Tq) f32 or None)."""
+    does; probability dropout from ``philox_keep``. The operands of the two
+    products are rounded to ``dots_dtype`` where JAX's K1 on its hardware
+    rounds them (``q * scale``, k, v, and the dropped, rescaled p), both
+    products accumulating in f32. Returns (out in q's dtype, lse (B, H, Tq)
+    f32 or None)."""
     B, Tq, _ = q.shape
     Tk = k.shape[1]
-    s = (_heads(q, n_heads) * scale) @ _heads(k, n_heads).transpose(-1, -2)
+
+    def rnd(x):
+        return x.to(dots_dtype).float()
+
+    qs = rnd(_heads(q, n_heads) * scale)
+    s = qs @ rnd(_heads(k, n_heads)).transpose(-1, -2)
     s = s + bias.float()[:, None]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -219,7 +227,7 @@ def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
     if dropout_rate > 0.0:
         keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-    o = (p @ _heads(v, n_heads)) / l
+    o = (rnd(p) @ rnd(_heads(v, n_heads))) / l
     lse = None
     if with_lse:
         lse = (m.clamp_min(_LSE_FLOOR) + torch.log(l))[..., 0]
@@ -232,12 +240,23 @@ def _attend_bias(key_pad, static) -> torch.Tensor:
 
 def attention_reference(q, k, v, key_pad, static, n_heads: int,
                         scale: float, with_lse: bool = False,
-                        dropout_rate: float = 0.0, seed: int = 0):
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        dots_dtype=torch.float32):
     """Plain PyTorch version of K1 on the kernel's operands: q (B, Tq, H*D),
     k/v (B, Tk, H*D), key_pad (B, Tk) int, static (Tq, Tk) int. Returns
-    (out, lse or None); ``lse`` (B, H, Tq) = max(m, -1e6) + log(l)."""
+    (out, lse or None); ``lse`` (B, H, Tq) = max(m, -1e6) + log(l).
+
+    ``dots_dtype`` rounds the products' operands as JAX's K1 on its
+    hardware does: there its DEFAULT-precision f32 dots feed the matrix
+    unit bf16 operands (JAX ``ops/attention.py:189-191``, ``:213-216``), so
+    ``s = bf16(f32(q) * scale) . bf16(k)`` and ``o = bf16(pd) . bf16(v) /
+    l`` with ``pd`` the dropped p scaled by 1/(1 - rate) (JAX scales before
+    the dot, :207-208) and ``l`` the sum of the unrounded, undropped f32 p.
+    f32 (the default, JAX's interpret mode) is what the CPU path runs;
+    bf16 is what the tensor-core bf16 K1 computes."""
     return _biased_attention(q, k, v, _attend_bias(key_pad, static),
-                             n_heads, scale, with_lse, dropout_rate, seed)
+                             n_heads, scale, with_lse, dropout_rate, seed,
+                             dots_dtype)
 
 
 def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
@@ -357,6 +376,18 @@ def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
     return B, Tq, Tk, hidden
 
 
+def _check_aligned(name, **tensors):
+    """The tensor-core kernels copy bf16 rows 16 bytes at a time
+    (``cp.async``): data pointers and batch and row strides must be
+    16-byte aligned, or ``ValueError``."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(
+                f"{name}: bf16 {arg} needs a 16-byte aligned data pointer "
+                f"and batch and row strides, got offset {t.data_ptr() % 16} "
+                f"and strides {t.stride()[:2]}")
+
+
 def _dropout_args(dropout_rate: float, seed: int):
     """(seed, threshold, keep_scale, on) as the kernels take them."""
     if dropout_rate == 0.0:
@@ -368,17 +399,28 @@ def _dropout_args(dropout_rate: float, seed: int):
 def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                   with_lse: bool = False, dropout_rate: float = 0.0,
                   seed: int = 0):
-    """Launch K1 on CUDA tensors; same contract as ``attention_reference``.
+    """Launch K1 on CUDA tensors.
 
     q/k/v: f32 or bf16, one dtype, unit stride in the last dimension; any
     batch and row strides (the column views of a fused (B, T, 3*H*D) QKV
     product go in without a copy). key_pad (B, Tk) and static (Tq, Tk):
     contiguous int32. Head width D = 32. ``seed`` is a host integer (its
     low 32 bits key the Philox draw). Returns a contiguous output in q's
-    dtype and, with ``with_lse``, an f32 (B, H, Tq) lse."""
+    dtype and, with ``with_lse``, an f32 (B, H, Tq) lse.
+
+    f32 runs f32 math: the contract of ``attention_reference``. bf16 runs
+    the tensor-core kernel, whose products take bf16 operands as JAX's K1
+    on its hardware: the contract of ``attention_reference(...,
+    dots_dtype=torch.bfloat16)``, and the lse the bf16 K2 recomputes its
+    probabilities against. It copies its tiles with ``cp.async``, so bf16
+    q/k/v need 16-byte aligned data pointers and batch and row strides
+    (the fused-QKV column views have them); anything else raises
+    ``ValueError``."""
     global K1_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("attention_fwd", q=q, k=k, v=v)
     dev = q.device
     fn = _k1_lib()
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
@@ -425,12 +467,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     if g.stride(-1) != 1:
         g = g.contiguous()
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-            if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
-                raise ValueError(
-                    f"attention_bwd: bf16 {name} needs a 16-byte aligned "
-                    f"data pointer and batch and row strides, got offset "
-                    f"{t.data_ptr() % 16} and strides {t.stride()[:2]}")
+        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
     if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
             or lse.device != dev or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous f32 "

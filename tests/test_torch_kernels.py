@@ -7,8 +7,15 @@ not installed:
 
 (``--noconftest``: the repository's ``tests/conftest.py`` sets up JAX.)
 Tests marked ``cuda`` skip without a card. K1 tolerances: f32 atol 1e-5
-(online vs two-pass softmax, same f32 products), bf16 atol 2e-2 (one bf16
-rounding of the output on each side), lse atol 1e-5. K2: f32 atol 1e-5 on
+(online vs two-pass softmax, same f32 products), lse atol 1e-5. The bf16
+K1 runs its products on the tensor cores with bf16 operands, as JAX's K1
+on its hardware: its output is held against the plain version with the same
+bf16 roundings (``dots_dtype=torch.bfloat16``) at |kernel - plain| <=
+1e-2 (1 + |plain|) (f32 sums in other orders, p rounded to bf16 before
+its online softmax's last rescale, and one bf16 rounding of the output)
+and against the f32-dots plain version at 2e-2 (1 + |plain|) (one bf16
+rounding of every product operand); its lse within 1e-5 (1 + |lse|) of
+the bf16-dots plain lse. K2: f32 atol 1e-5 on
 dq/dk/dv (the same f32 products summed per thread in key or query order
 against cuBLAS's blocked order); bf16 |kernel - plain| <= 2e-2 (1 + |plain|)
 (f32 math on both sides, one bf16 rounding of each output, which a last-bit
@@ -82,12 +89,15 @@ def test_k1_matches_plain(case, dtype):
                                   with_lse=True)
     torch.cuda.synchronize()
     assert tatt.K1_LAUNCHES == n0 + 1
-    want, want_lse = tatt.attention_reference(q, k, v, key_pad, static, H,
-                                              scale, with_lse=True)
-    atol = 1e-5 if dt == torch.float32 else 2e-2
     assert got.dtype == dt and got.is_contiguous()
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
-    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    if dt == torch.float32:
+        want, want_lse = tatt.attention_reference(q, k, v, key_pad, static,
+                                                  H, scale, with_lse=True)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    else:
+        _k1_bf16_gates(q, k, v, key_pad, static, got, lse)
+    atol = 1e-5 if dt == torch.float32 else 2e-2
     if case == "fully_masked_row":         # uniform: the mean of V
         torch.testing.assert_close(
             got[2].float(), v[2].float().mean(0).expand(T, -1), atol=atol,
@@ -484,12 +494,133 @@ def test_k1_bf16_dropout_lse_matches_plain(rate):
     scale = 1.0 / math.sqrt(D)
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
                                   with_lse=True, dropout_rate=rate, seed=11)
-    want, want_lse = tatt.attention_reference(
-        q, k, v, key_pad, static, H, scale, with_lse=True,
-        dropout_rate=rate, seed=11)
     assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
-    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 11)
+
+
+def _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate=0.0, seed=0):
+    """The bf16 K1's out against the bf16-dots plain version (1e-2) and the
+    f32-dots one (2e-2); its lse against the bf16-dots plain lse (1e-5 (1 +
+    |lse|))."""
+    h = q.shape[-1] // D
+    args = (q, k, v, key_pad, static, h, 1.0 / math.sqrt(D), True, rate,
+            seed)
+    want, want_lse = tatt.attention_reference(*args,
+                                              dots_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    _within(got, want, 1e-2, "out")
+    _within(lse, want_lse, 1e-5, "lse")
+    _within(got, tatt.attention_reference(*args)[0], 2e-2, "out f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (64, 64), (65, 65),
+                                   (70, 70), (200, 200), (65, 200),
+                                   (200, 17)])
+def test_k1_bf16_tensor_cores_at_tile_edges(tq, tk, rate):
+    """The tensor-core K1 at lengths below, at and past its 64-row tiles
+    (200 = 3 x 64 + 8, the model's), through the fused-QKV (self) or KV
+    (cross) column views, random masks, with lse."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _bf16_problem(tq, tk)
+    n0 = tatt.K1_LAUNCHES
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
+                                  1.0 / math.sqrt(D), with_lse=True,
+                                  dropout_rate=rate, seed=31)
+    torch.cuda.synchronize()
+    assert tatt.K1_LAUNCHES == n0 + 1
+    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_blocks_walking_several_heads(rate):
+    """At B = 256 a block of the tensor-core K1 walks all 4 heads of its
+    (batch, row tile), drawing the next head's keep bits beside the
+    current head's products; the smaller tests run one head a block."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _bf16_problem(200, 200, seed=7, b=256)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
+                                  1.0 / math.sqrt(D), with_lse=True,
+                                  dropout_rate=rate, seed=17)
+    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_fully_masked_row_and_bit_equal(rate):
+    """A padded trial (every key masked, pad-only mask): its rows are the
+    mean of V (of the kept V / (1 - rate) with dropout) and their lse is
+    -1e6 + log(Tk); two launches give the same bits."""
+    _need_cuda()
+    q, k, v, key_pad, _, _ = _bf16_problem(200, 200, seed=6)
+    key_pad[1] = 0
+    static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(D)
+    one = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                             with_lse=True, dropout_rate=rate, seed=8)
+    two = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                             with_lse=True, dropout_rate=rate, seed=8)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    got, lse = one
+    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 8)
+    floor = torch.tensor(-1e6) + torch.log(torch.tensor(200.0))
+    torch.testing.assert_close(lse[1].cpu(), floor.expand(H, 200), atol=0.07,
+                               rtol=0)
+    vh = v[1].float().reshape(200, H, D).transpose(0, 1)    # (H, Tk, D)
+    if rate > 0.0:
+        keep = tatt.philox_keep(8, 2, H, 200, 200, rate, device="cuda")[1]
+        scale_kept = torch.tensor(1.0 / (1.0 - rate)).bfloat16().float()
+        mean = (keep.float() * scale_kept) @ vh / 200     # (H, Tq, D)
+    else:
+        mean = vh.mean(1, keepdim=True).expand(H, 200, D)
+    _within(got[1].float().reshape(200, H, D).transpose(0, 1), mean, 1e-2,
+            "padded trial")
+
+
+@pytest.mark.cuda
+def test_k1_bf16_rejects_misaligned_views():
+    """cp.async copies 16 bytes: a bf16 view whose data pointer or row
+    stride is not 16-byte aligned raises ValueError."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _bf16_problem(17, 17)
+    wide = torch.zeros(3, 17, H * D + 8, device="cuda").bfloat16()
+    off = wide[..., 1:1 + H * D]                   # pointer 2 bytes off
+    odd = torch.zeros(3, 17, H * D + 4, device="cuda").bfloat16()
+    odd = odd[..., :H * D]                         # row stride 260
+    n0 = tatt.K1_LAUNCHES
+    for bad in (off, odd):
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(bad, k, v, key_pad, static, H, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, bad, v, key_pad, static, H, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, k, bad, key_pad, static, H, 1.0)
+    assert tatt.K1_LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_k1_bf16_philox_bits_match_philox_keep():
+    """The bf16 K1's keep mask read back: q = 0 and all keys attended make
+    every probability 1 (before 1/l = 1/Tk); V's rows are one-hot per head
+    (Tk = D = 32), so out[b, q, h*D + k] > 0 exactly where Philox keeps
+    (b, h, q, k)."""
+    _need_cuda()
+    tk, rate, seed = D, 0.4, 123456789
+    q = torch.zeros(B, T, H * D, device="cuda").bfloat16()
+    v = torch.eye(D, device="cuda").repeat(1, H).expand(B, tk, H * D)
+    v = v.contiguous().bfloat16()
+    k = torch.zeros(B, tk, H * D, device="cuda").bfloat16()
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
+    out, _ = tatt.attention_fwd(q, k, v, key_pad, static, H, 1.0,
+                                dropout_rate=rate, seed=seed)
+    got = out.float().reshape(B, T, H, D).transpose(1, 2) > 0
+    want = tatt.philox_keep(seed, B, H, T, tk, rate, device="cuda")
+    assert torch.equal(got, want)
+    assert 0.5 < want.float().mean().item() < 0.7
 
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -15,21 +15,33 @@
   (so an unscaled or a doubly scaled init both fail).
 - **Loader order.** With and without shuffle, with a ragged tail, over
   three epochs, the port's loader yields JAX's indices and batches.
+- **MtM menu ids mask whatever ``force_active`` says.** JAX's menu path
+  (``apply_mask_by_id``) calls ``apply_mask`` with its default
+  ``active=True``, so a model with ``force_active=False`` evaluated with
+  ``training=False`` under an int ``masking_mode`` (the trainer's MtM
+  ``eval_epoch``) still masks and scores. The port gives the same
+  element mask: the same nonzero ``mod_n_examples`` as JAX's, on the
+  same inputs and weights, for a fixed menu scheme (forward-pred) and a
+  region scheme with one candidate region (inter-region).
 """
 
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import TOY, jax_model
+from torch_parity import (TOY, jax_inputs, jax_model, make_batch,
+                          port_model, torch_inputs)
 from multi_modal_foundation_model_tpu.data import loader as jloader
 from multi_modal_foundation_model_tpu.data import session as jsession
+from multi_modal_foundation_model_tpu.ops import masking as jmask
 from multi_modal_foundation_model_tpu_torch.data import loader as tloader
 from multi_modal_foundation_model_tpu_torch.data import session as tsession
 from multi_modal_foundation_model_tpu_torch.models import layers as tl
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
+from multi_modal_foundation_model_tpu_torch.ops import masking as tmask
 from multi_modal_foundation_model_tpu_torch.utils.convert import (
     params_from_jax)
 
@@ -149,3 +161,70 @@ def test_loader_unported_samplers_raise():
     arrays = tloader.make_loader(sess, **kw).arrays
     with pytest.raises(NotImplementedError):
         tloader.DataLoader(arrays, 2, sampler="stitch")
+
+
+MTM_MENU = ("forward-pred", "inter-region")
+FWD_STEPS = (15, 16, 17, 18, 19)
+
+
+@pytest.fixture(scope="module")
+def inactive_models():
+    """JAX and port models with ``force_active=False`` on one set of
+    weights, forward-pred over the last 5 bins."""
+    jmodel, jparams = jax_model(
+        seed=4, force_active=False,
+        mask_params=jmask.MaskParams(ratio=0.3, timesteps=FWD_STEPS))
+    tmodel = port_model(
+        jparams, force_active=False,
+        mask_params=tmask.MaskParams(ratio=0.3, timesteps=FWD_STEPS))
+    return jmodel, jparams, tmodel
+
+
+@pytest.mark.parametrize("mode_id", [0, 1], ids=MTM_MENU)
+def test_mtm_menu_id_masks_without_force_active(inactive_models, mode_id):
+    """``training=False``, ``force_active=False``, an int ``masking_mode``:
+    the port masks as JAX does. Forward-pred is fixed, so every output
+    agrees; inter-region samples one region of the one candidate on the
+    spike modality (fixed) and degrades to temporal masking on behavior
+    (random on both sides, from different generators), so the spike
+    modality's masked count is compared and behavior's is only nonzero."""
+    jmodel, jparams, tmodel = inactive_models
+    spikes, beh, attn, ts = make_batch(21, 3)
+    zeros = (np.zeros_like(spikes, np.int32), np.zeros_like(beh, np.int32))
+    ids = np.repeat(np.arange(2, dtype=np.int32), spikes.shape[-1] // 2)
+    vocab = {"A": 0, "B": 1}
+    jreg = jmask.RegionSets.build(ids, ("A",), ("A",), vocab)
+    treg = tmask.RegionSets.build(ids, ("A",), ("A",), vocab)
+    want = jmodel.apply({"params": jparams},
+                        jax_inputs(spikes, beh, attn, ts, *zeros),
+                        masking_mode=mode_id, mtm_modes=MTM_MENU,
+                        regions=jreg, training=False,
+                        rngs={"mask": jax.random.PRNGKey(5)})
+    with torch.inference_mode():
+        got = tmodel(torch_inputs(spikes, beh, attn, ts, *zeros),
+                     masking_mode=mode_id, mtm_modes=MTM_MENU,
+                     regions=treg, training=False, seed=5)
+    n_ap = float(want.mod_n_examples["ap"])
+    want_ap = (3 * len(FWD_STEPS) * spikes.shape[-1] if mode_id == 0
+               else 3 * spikes.shape[1] * int((ids == 0).sum()))
+    assert n_ap == want_ap
+    assert got.mod_n_examples["ap"].item() == n_ap
+    if mode_id == 0:
+        for mod in ("ap", "behavior"):
+            assert got.mod_n_examples[mod].item() == float(
+                want.mod_n_examples[mod]) > 0
+            np.testing.assert_allclose(got.mod_preds[mod].numpy(),
+                                       np.asarray(want.mod_preds[mod]),
+                                       atol=1e-4, rtol=0, err_msg=mod)
+            np.testing.assert_allclose(got.mod_loss[mod].item(),
+                                       float(want.mod_loss[mod]),
+                                       rtol=1e-5, atol=1e-6, err_msg=mod)
+    else:
+        assert float(want.mod_n_examples["behavior"]) > 0
+        assert got.mod_n_examples["behavior"].item() > 0
+    # the string-mode path still follows force_active: nothing masked
+    with torch.inference_mode():
+        off = tmodel(torch_inputs(spikes, beh, attn, ts, *zeros),
+                     masking_mode=MTM_MENU[mode_id], regions=treg,
+                     training=False, seed=5)
+    assert off.mod_n_examples["ap"].item() == 0
