@@ -58,7 +58,8 @@ compares this checkout's port with another's (say the parent commit's,
 unpacked by ``git archive`` into a git-ignored directory) on one card: four
 processes in the order other, this, this, other, each importing its own
 checkout's package and building its kernels, each timing the bf16 training
-step under ``"full"`` at B=16 and B=256 and the bf16 sweep-chunk forward
+step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward and
+the f32 training step at B=256 under the port's default LayerNorm mode
 (``ab_step`` / ``ab_sweep_chunk`` lines, with profiles).
 """
 
@@ -81,6 +82,7 @@ import torch.nn.functional as F
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_FLOPS = 495e12          # tensor cores, TF32 operands
 
 # the main path: the reference model at full width
 GEOMETRY = dict(n_channels={"ap": 668, "behavior": 2}, max_F=100,
@@ -205,11 +207,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _bound(bytes_moved: float, flops: float, dtype=torch.float32) -> dict:
+def _bound(bytes_moved: float, flops: float, dtype=torch.float32,
+           peak: float | None = None) -> dict:
     """The least time for the work: bytes at the memory rate, operations at
-    the peak rate of the inputs' type; the larger one bounds it."""
+    the peak rate of the inputs' type (or ``peak``); the larger one bounds
+    it."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
@@ -563,9 +567,18 @@ def train_kernels_phase():
         # K1: q, k, v in, out and lse out
         k1_b = _bound(B * (2 * Tq + 2 * Tk) * hidden * elem + lse_bytes
                       + masks, 4 * B * H * Tq * Tk * D, dtype)
-        # K2: q, g, k, v, lse in; dq, dk, dv out
-        k2_b = _bound(B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
-                      + masks, 10 * B * H * Tq * Tk * D, dtype)
+        # K2: q, g, k, v, lse in; dq, dk, dv out. The f32 K2 runs its five
+        # products as three TF32 tensor-core products each (3xTF32): its
+        # bound counts 3 x the operations at the TF32 peak, with the five
+        # on the CUDA cores (f32 peak) beside it
+        k2_bytes = (B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
+                    + masks)
+        k2_flops = 10 * B * H * Tq * Tk * D
+        if dtype == torch.float32:
+            k2_b = dict(_bound(k2_bytes, 3 * k2_flops, peak=PEAK_TF32_FLOPS),
+                        bound_cuda_core_ms=k2_flops / PEAK_FLOPS[dtype] * 1e3)
+        else:
+            k2_b = _bound(k2_bytes, k2_flops, dtype)
         emit(phase="k1_train_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, with_lse=True,
              ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b)
@@ -1117,41 +1130,52 @@ def layernorm_ab(root: Path, dtype) -> str:
     return choice
 
 
+def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
+             reps: int) -> None:
+    """One ``ab_step`` line: 4 segments of ``reps`` kernel-path steps after
+    2 warm-ups, their median, and a profile of one step."""
+    tr = _trainer(_cfg(dtype), _step_loaders(B), None, 1,
+                  out / "chip_smoke_ab")
+    step = _step_fn(tr)
+    tr._reseed_host_rng(0)
+    for _ in range(2):
+        step()
+    segs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        segs.append((time.perf_counter() - t0) * 1e3 / reps)
+    emit(phase="ab_step", side=side, package=where, dtype=dtype_name(dtype),
+         layernorm=mode, batch=B, segments_ms=segs,
+         ms_per_step=float(np.median(segs)),
+         **device_breakdown(step, top=4))
+    del tr, step
+    torch.cuda.empty_cache()
+
+
 def ab_worker(side: str, out: Path) -> None:
     """One process of ``--ab``: the bf16 steps under "full" at B=16 and
-    B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median)
-    and the bf16 sweep-chunk forward (B = 16 x 20, 3 timings of 5), each
-    with a profile, on the package first on ``sys.path``."""
+    B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median),
+    the bf16 sweep-chunk forward (B = 16 x 20, 3 timings of 5), and the
+    f32 step at B=256 under the port's default LayerNorm mode (the
+    device-bound step, where the f32 K2 shows), each with a profile, on the
+    package first on ``sys.path``."""
     import multi_modal_foundation_model_tpu_torch as pkg
     from multi_modal_foundation_model_tpu_torch.data import (make_loader,
                                                              synthetic_splits)
     from multi_modal_foundation_model_tpu_torch.eval import EvalForward
     from multi_modal_foundation_model_tpu_torch.models import MultiModal
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
     dtype = torch.bfloat16
     where = str(Path(pkg.__file__).resolve().parent)
+    default = ln.PALLAS_LAYERNORM
     with ln_mode("full"):
         for B, reps in ((TRAIN_B, 10), (BIG_B, 3)):
-            tr = _trainer(_cfg(dtype), _step_loaders(B), None, 1,
-                          out / "chip_smoke_ab")
-            step = _step_fn(tr)
-            tr._reseed_host_rng(0)
-            for _ in range(2):
-                step()
-            segs = []
-            for _ in range(4):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    step()
-                torch.cuda.synchronize()
-                segs.append((time.perf_counter() - t0) * 1e3 / reps)
-            emit(phase="ab_step", side=side, package=where, dtype="bfloat16",
-                 layernorm="full", batch=B, segments_ms=segs,
-                 ms_per_step=float(np.median(segs)),
-                 **device_breakdown(step, top=4))
-            del tr, step
-            torch.cuda.empty_cache()
+            _ab_step(side, where, out, dtype, "full", B, reps)
 
         cfg = _cfg(dtype)
         T, N = cfg.max_F, cfg.n_channels["ap"]
@@ -1175,6 +1199,10 @@ def ab_worker(side: str, out: Path) -> None:
              dtype="bfloat16", layernorm="full",
              batch=CHUNK * int(batch["n_real"]), ms=times,
              **device_breakdown(chunk, top=4))
+        del fwd, model
+        torch.cuda.empty_cache()
+    with ln_mode(default):
+        _ab_step(side, where, out, torch.float32, default, BIG_B, 3)
 
 
 def ab(other: str) -> int:
@@ -1263,7 +1291,8 @@ def main() -> int:
              "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
              launches=train_bf16["k1"], **_row(k1_train[bf16])),
-        dict(name="attention_bwd (K2), f32", route="cuda",
+        dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
+             "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
              source=src + "attention_bwd.cu", replaces=attn_py + ":221",
              launches=train_f32["k2"], **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "

@@ -1,5 +1,7 @@
 // Tensor-core building blocks shared by the bf16 attention kernels K1
-// (attention_fwd.cu) and K2 (attention_bwd.cu), for Hopper (sm_90a).
+// (attention_fwd.cu) and K2 (attention_bwd.cu), for Hopper (sm_90a); the
+// f32 K2 (3xTF32, mma_tf32.cuh) shares their copies, mask and keep-bit
+// staging and launch helpers.
 //
 // Four warps a block, each owning 16 rows of its side as mma.sync m16n8k16
 // A fragments in registers; the other side streams through shared memory

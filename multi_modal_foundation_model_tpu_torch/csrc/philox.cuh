@@ -71,14 +71,4 @@ __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed,
          (uint32_t)(r.z > threshold) << 2 | (uint32_t)(r.w > threshold) << 3;
 }
 
-// Keep decision of one score (b, h, q, k).
-__device__ __forceinline__ bool keep_one(uint32_t seed, uint32_t threshold,
-                                         int b, int h, int q, int k) {
-  const Philox4 r = philox4x32_10((uint32_t)(k >> 2), (uint32_t)q,
-                                  (uint32_t)h, (uint32_t)b, seed, 0u);
-  const int w = k & 3;
-  const uint32_t word = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-  return word > threshold;
-}
-
 }  // namespace mmfm

@@ -335,15 +335,13 @@ def _k2_lib():
     return fn
 
 
-def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int, dtype) -> int:
-    """f32 words of K2's scratch: rowsum (B, H, Tq), and for the bf16
-    kernels pass A's mask bytes for pass B after it, one byte per (b, h,
-    query, 4 keys) with rows padded to 64 keys, 16-byte aligned
-    (``csrc/attention_bwd.cu``, ``mmfm_attention_bwd``)."""
+def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int) -> int:
+    """f32 words of K2's scratch: rowsum (B, H, Tq), then pass A's mask
+    bytes for pass B, one byte per (b, h, query, 4 keys) with rows padded
+    to 64 keys, 16-byte aligned (``csrc/attention_bwd.cu``,
+    ``mmfm_attention_bwd``)."""
     n = B * H * Tq
-    if dtype == torch.bfloat16:
-        n += (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
-    return n
+    return n + (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
 
 
 def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
@@ -377,15 +375,17 @@ def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
 
 
 def _check_aligned(name, **tensors):
-    """The tensor-core kernels copy bf16 rows 16 bytes at a time
+    """The tensor-core kernels copy rows 16 bytes at a time
     (``cp.async``): data pointers and batch and row strides must be
-    16-byte aligned, or ``ValueError``."""
+    16-byte aligned (a multiple of 8 bf16 or 4 f32 elements), or
+    ``ValueError``."""
     for arg, t in tensors.items():
-        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+        per = 16 // t.element_size()
+        if t.data_ptr() % 16 or t.stride(0) % per or t.stride(1) % per:
             raise ValueError(
-                f"{name}: bf16 {arg} needs a 16-byte aligned data pointer "
-                f"and batch and row strides, got offset {t.data_ptr() % 16} "
-                f"and strides {t.stride()[:2]}")
+                f"{name}: {t.dtype} {arg} needs a 16-byte aligned data "
+                f"pointer and batch and row strides, got offset "
+                f"{t.data_ptr() % 16} and strides {t.stride()[:2]}")
 
 
 def _dropout_args(dropout_rate: float, seed: int):
@@ -450,13 +450,15 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     (B, H, Tq) of K1 on the same operands, dropout rate and seed. Returns
     contiguous (dq, dk, dv) in q's dtype.
 
-    f32 runs f32 math: the contract of ``attention_bwd_reference``. bf16
-    runs the tensor-core kernels, whose products take bf16 operands as JAX's
-    K2 on its hardware: the contract of ``attention_bwd_reference(...,
-    dots_dtype=torch.bfloat16)``. They copy their tiles with ``cp.async``,
-    so bf16 q/k/v/g need 16-byte aligned data pointers and batch and row
-    strides (the fused-QKV column views have them); anything else raises
-    ``ValueError``."""
+    Both dtypes run on the tensor cores. f32 computes each product as
+    three TF32 products of operands split into hi and lo parts (3xTF32),
+    f32 math to about f32 accuracy: the contract of
+    ``attention_bwd_reference``. bf16 takes bf16 operands as JAX's K2 on
+    its hardware: the contract of ``attention_bwd_reference(...,
+    dots_dtype=torch.bfloat16)``. The kernels copy their tiles with
+    ``cp.async``, so q/k/v/g need 16-byte aligned data pointers and batch
+    and row strides (a multiple of 4 f32 or 8 bf16 elements; the fused-QKV
+    column views have them); anything else raises ``ValueError``."""
     global K2_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
@@ -466,8 +468,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                          f"must match q {tuple(q.shape)} {q.dtype}")
     if g.stride(-1) != 1:
         g = g.contiguous()
-    if q.dtype == torch.bfloat16:
-        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
+    _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
     if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
             or lse.device != dev or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous f32 "
@@ -476,7 +477,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
     dv = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
-    rowsum = torch.empty(_k2_scratch_floats(B, n_heads, Tq, Tk, q.dtype),
+    rowsum = torch.empty(_k2_scratch_floats(B, n_heads, Tq, Tk),
                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

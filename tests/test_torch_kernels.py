@@ -337,6 +337,51 @@ def _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
     return got
 
 
+def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True):
+    """The tensor-core K2 in q's dtype against its plain version: f32
+    (3xTF32) within 1e-5 + 1e-6 |plain| of ``attention_bwd_reference``,
+    bf16 as ``_k2_bf16_gates``; returns the kernel's (dq, dk, dv). The f32
+    gate is the smoke's 1e-5 at unit magnitudes; its relative term covers
+    sums of up to 200 terms in another f32 order (~sqrt(n) 2^-24 relative)
+    where they grow large: at Tq = 200, Tk = 1 the 200 queries' g sum to
+    |dv| ~ 40, and f32 sums rounded to nearest in the kernel's order miss
+    an absolute 1e-5 there too (``tests/test_torch_attention_bwd_f32.py``).
+
+    With one key (Tk = 1) the softmax is constant and dk's exact value is
+    0; both sides reach it as a cancellation, dk = sum_q dpn pn (1 - pn)
+    qs with pn = exp(s - lse), s recomputed in another f32 order than
+    K1's (3xTF32 here, K1's scalar FMAs there) and so a few ulps from the
+    s that lse holds. The kernel's f32 dk is then held to that
+    cancellation's scale, sum_q |dpn| |qs| 2^-20 (|1 - pn| within a few
+    ulps of |s| ~ 1, randn operands), not to the plain version's own
+    rounding of it (measured 1.08e-5 where the plain version has 4.7e-6 at
+    Tq = 200, dropout 0.4; the bound is ~1e-4)."""
+    if q.dtype == torch.bfloat16:
+        return _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
+                              f32_gate)
+    scale = 1.0 / math.sqrt(D)
+    n0 = tatt.K2_LAUNCHES
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                             rate, seed)
+    torch.cuda.synchronize()
+    assert tatt.K2_LAUNCHES == n0 + 1
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse, H,
+                                        scale, rate, seed)
+    one_key = k.shape[1] == 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.is_contiguous(), name
+        if one_key and name == "dk":
+            dpn = (tatt._heads(g, H) * tatt._heads(v, H)).sum(-1).abs()
+            dpn = dpn / (1.0 - rate)                         # (B, H, Tq)
+            qs = tatt._heads(q, H).abs() * scale             # (B, H, Tq, D)
+            bound = 2.0 ** -20 * (dpn[..., None] * qs).sum(2)
+            assert (tatt._heads(a, H)[:, :, 0].abs() <= bound).all(), name
+            continue
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("case,tk", K2_CASES)
@@ -360,68 +405,77 @@ def test_k2_bf16_matches_plain(case, tk, rate):
         assert got[0][2].abs().max().item() == 0.0
 
 
-def _bf16_problem(tq, tk, seed=4, b=3):
-    """bf16 q (column view of a fused QKV when self-attention, else its own
-    tensor), k/v views of a fused KV, random masks, g, at Tq x Tk."""
+def _problem(tq, tk, seed=4, b=3, dtype=torch.bfloat16):
+    """q (column view of a fused QKV when self-attention, else its own
+    tensor), k/v views of a fused KV, random masks, g, at Tq x Tk, in
+    ``dtype``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if tq == tk:
         qkv = torch.randn(b, tq, 3 * H * D, device="cuda", generator=gen)
-        q, k, v = qkv.bfloat16().split(H * D, dim=-1)
+        q, k, v = qkv.to(dtype).split(H * D, dim=-1)
     else:
-        q = torch.randn(b, tq, H * D, device="cuda", generator=gen).bfloat16()
+        q = torch.randn(b, tq, H * D, device="cuda", generator=gen).to(dtype)
         kv = torch.randn(b, tk, 2 * H * D, device="cuda", generator=gen)
-        k, v = kv.bfloat16().split(H * D, dim=-1)
+        k, v = kv.to(dtype).split(H * D, dim=-1)
     rng = np.random.default_rng(seed)
     pad = (rng.random((b, tk)) > 0.3).astype(np.int32)
     pad[0] = 1
     static = (rng.random((tq, tk)) > 0.8).astype(np.int32)
-    g = torch.randn(b, tq, H * D, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(b, tq, H * D, device="cuda", generator=gen).to(dtype)
     return (q, k, v, torch.from_numpy(pad).cuda(),
             torch.from_numpy(static).cuda(), g)
 
 
+# both dtypes of K2; the tests below keep the names they had when they
+# held the bf16 kernel alone
+K2_DTYPES = [torch.float32, torch.bfloat16]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (64, 64), (65, 65),
-                                   (70, 70), (200, 200), (65, 200),
-                                   (200, 17)])
-def test_k2_bf16_tensor_cores_at_tile_edges(tq, tk, rate):
-    """The tensor-core K2 at lengths below, at and past its 64-row tiles
-    (200 = 3 x 64 + 8, the model's), self and cross, against the bf16-dots
-    plain version only: at Tk = 1 the f32 softmax is exactly 1 and the
-    f32-dots ds exactly 0, while q * scale rounded to bf16 moves s off K1's
-    lse by up to 2^-8 |s|, and ds by that times |g . v| (~2e-2 in dq here),
-    as on JAX's hardware K2."""
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (63, 63), (64, 64),
+                                   (65, 65), (70, 70), (200, 200), (65, 200),
+                                   (200, 17), (1, 200), (200, 1), (63, 65)])
+def test_k2_bf16_tensor_cores_at_tile_edges(tq, tk, rate, dtype):
+    """The tensor-core K2 (f32: 3xTF32; bf16) at lengths below, at and past
+    its 64-row tiles (200 = 3 x 64 + 8, the model's), self and cross. The
+    bf16 kernel is held against the bf16-dots plain version only: at Tk = 1
+    the f32 softmax is exactly 1 and the f32-dots ds exactly 0, while q *
+    scale rounded to bf16 moves s off K1's lse by up to 2^-8 |s|, and ds by
+    that times |g . v| (~2e-2 in dq here), as on JAX's hardware K2."""
     _need_cuda()
-    q, k, v, key_pad, static, g = _bf16_problem(tq, tk)
+    q, k, v, key_pad, static, g = _problem(tq, tk, dtype=dtype)
     _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                 1.0 / math.sqrt(D), with_lse=True,
                                 dropout_rate=rate, seed=21)
-    _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, 21,
-                   f32_gate=False)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 21, f32_gate=False)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-def test_k2_bf16_blocks_walking_several_heads(rate):
+def test_k2_bf16_blocks_walking_several_heads(rate, dtype):
     """At B = 256 a block of the tensor-core K2 walks all 4 heads of its
     (batch, row tile), redrawing the keep bits per head; the smaller tests
     run one head a block."""
     _need_cuda()
-    q, k, v, key_pad, static, g = _bf16_problem(200, 200, seed=7, b=256)
+    q, k, v, key_pad, static, g = _problem(200, 200, seed=7, b=256,
+                                           dtype=dtype)
     _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                 1.0 / math.sqrt(D), with_lse=True,
                                 dropout_rate=rate, seed=13)
-    _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, 13)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 13)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-def test_k2_bf16_padded_trial_zero_and_bit_equal(rate):
+def test_k2_bf16_padded_trial_zero_and_bit_equal(rate, dtype):
     """A padded trial (every key masked, pad-only mask) gets exactly zero
     dq, dk and dv; and two launches give the same bits (no atomics)."""
     _need_cuda()
-    q, k, v, key_pad, _, g = _bf16_problem(200, 200, seed=6)
+    q, k, v, key_pad, _, g = _problem(200, 200, seed=6, dtype=dtype)
     key_pad[1] = 0
     static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(D)
@@ -438,16 +492,18 @@ def test_k2_bf16_padded_trial_zero_and_bit_equal(rate):
 
 
 @pytest.mark.cuda
-def test_k2_bf16_rejects_misaligned_views():
-    """cp.async copies 16 bytes: a bf16 view whose data pointer or row
-    stride is not 16-byte aligned raises ValueError."""
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
+def test_k2_bf16_rejects_misaligned_views(dtype):
+    """cp.async copies 16 bytes: a view whose data pointer or row stride is
+    not 16-byte aligned raises ValueError, in f32 as in bf16."""
     _need_cuda()
-    q, k, v, key_pad, static, g = _bf16_problem(17, 17)
+    q, k, v, key_pad, static, g = _problem(17, 17, dtype=dtype)
     lse = torch.zeros(3, H, 17, device="cuda")
-    wide = torch.zeros(3, 17, H * D + 8, device="cuda").bfloat16()
-    off = wide[..., 1:1 + H * D]                   # pointer 2 bytes off
-    odd = torch.zeros(3, 17, H * D + 4, device="cuda").bfloat16()
-    odd = odd[..., :H * D]                         # row stride 260
+    half = 8 // q.element_size()                   # half a 16-byte chunk
+    wide = torch.zeros(3, 17, H * D + 8, device="cuda", dtype=dtype)
+    off = wide[..., 1:1 + H * D]                   # pointer one element off
+    odd = torch.zeros(3, 17, H * D + half, device="cuda", dtype=dtype)
+    odd = odd[..., :H * D]                         # row stride 8 bytes off
     for bad in (off, odd):
         with pytest.raises(ValueError):
             tatt.attention_bwd(bad, k, v, key_pad, static, g, lse, H, 1.0)
@@ -458,20 +514,22 @@ def test_k2_bf16_rejects_misaligned_views():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
 @pytest.mark.parametrize("q0", [0, 77, 199])
-def test_k2_bf16_pass_b_keep_bits_read_back(q0):
+def test_k2_bf16_pass_b_keep_bits_read_back(q0, dtype):
     """Read pass B's staged keep bits back: q = k = 0 and every key
     attended make every probability 1/Tk; v = 0 and g one-hot at query q0
     (ones over its D) make dv[b, k, h*D + d] = ms(q0, k) / Tk, so dv > 0
-    exactly where Philox keeps (b, h, q0, k)."""
+    exactly where Philox keeps (b, h, q0, k). rtol: one bf16 rounding of
+    dv, or ex2.approx's ~2 ulp in f32."""
     _need_cuda()
     tq = tk = 200
     rate, seed = 0.4, 987654321
-    q = torch.zeros(B, tq, H * D, device="cuda").bfloat16()
-    k = torch.zeros(B, tk, H * D, device="cuda").bfloat16()
+    q = torch.zeros(B, tq, H * D, device="cuda", dtype=dtype)
+    k = torch.zeros(B, tk, H * D, device="cuda", dtype=dtype)
     g = torch.zeros(B, tq, H * D, device="cuda")
     g[:, q0] = 1.0
-    g = g.bfloat16()
+    g = g.to(dtype)
     key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
     static = torch.zeros(tq, tk, dtype=torch.int32, device="cuda")
     _, lse = tatt.attention_fwd(q, k, k, key_pad, static, H, 1.0,
@@ -481,7 +539,8 @@ def test_k2_bf16_pass_b_keep_bits_read_back(q0):
     dv = dv.float().reshape(B, tk, H, D).transpose(1, 2)      # (B, H, Tk, D)
     keep = tatt.philox_keep(seed, B, H, tq, tk, rate, device="cuda")[:, :, q0]
     want = keep.float()[..., None] / (1 - rate) / tk
-    torch.testing.assert_close(dv, want.expand_as(dv), atol=0, rtol=4e-3)
+    rtol = 4e-3 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(dv, want.expand_as(dv), atol=0, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -524,7 +583,7 @@ def test_k1_bf16_tensor_cores_at_tile_edges(tq, tk, rate):
     (200 = 3 x 64 + 8, the model's), through the fused-QKV (self) or KV
     (cross) column views, random masks, with lse."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _bf16_problem(tq, tk)
+    q, k, v, key_pad, static, _ = _problem(tq, tk)
     n0 = tatt.K1_LAUNCHES
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                   1.0 / math.sqrt(D), with_lse=True,
@@ -541,7 +600,7 @@ def test_k1_bf16_blocks_walking_several_heads(rate):
     (batch, row tile), drawing the next head's keep bits beside the
     current head's products; the smaller tests run one head a block."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _bf16_problem(200, 200, seed=7, b=256)
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=7, b=256)
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                   1.0 / math.sqrt(D), with_lse=True,
                                   dropout_rate=rate, seed=17)
@@ -555,7 +614,7 @@ def test_k1_bf16_fully_masked_row_and_bit_equal(rate):
     mean of V (of the kept V / (1 - rate) with dropout) and their lse is
     -1e6 + log(Tk); two launches give the same bits."""
     _need_cuda()
-    q, k, v, key_pad, _, _ = _bf16_problem(200, 200, seed=6)
+    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6)
     key_pad[1] = 0
     static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(D)
@@ -585,7 +644,7 @@ def test_k1_bf16_rejects_misaligned_views():
     """cp.async copies 16 bytes: a bf16 view whose data pointer or row
     stride is not 16-byte aligned raises ValueError."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _bf16_problem(17, 17)
+    q, k, v, key_pad, static, _ = _problem(17, 17)
     wide = torch.zeros(3, 17, H * D + 8, device="cuda").bfloat16()
     off = wide[..., 1:1 + H * D]                   # pointer 2 bytes off
     odd = torch.zeros(3, 17, H * D + 4, device="cuda").bfloat16()
