@@ -14,10 +14,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    could reach: K1 of the eval (``k1_check``/``k1_time``, f32 and bf16,
    B=320), K1 of the training step with dropout and ``lse``
    (``k1_dropout_check``) and K2 (``k2_check``/``k2_time``), B=256, f32
-   and bf16 (the bf16 K1 and K2 on the tensor cores, each held against the
-   plain version with JAX's bf16 dots and the f32-dots one, and the bf16
-   K1's lse against the scores K2 recomputes, ``k1_lse_row_sums``),
-   dropout 0 and 0.4 on the same Philox bits as the plain versions; K3/K4,
+   and bf16 (all four on the tensor cores: bf16 each held against the plain
+   version with JAX's bf16 dots and the f32-dots one, f32 in 3xTF32 against
+   the f32 one; each K1's lse against the scores K2 recomputes,
+   ``k1_lse_row_sums``), dropout 0 and 0.4 on the same Philox bits as the
+   plain versions; K3/K4,
    the LayerNorm forward and backward
    (``k3_k4_check``/``k3_k4_time``), at the B=256 step's 51,200 x 256
    tokens, one row fewer and 1,001 x 64, f32 and bf16, with dweight/dbias
@@ -58,9 +59,10 @@ compares this checkout's port with another's (say the parent commit's,
 unpacked by ``git archive`` into a git-ignored directory) on one card: four
 processes in the order other, this, this, other, each importing its own
 checkout's package and building its kernels, each timing the bf16 training
-step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward and
-the f32 training step at B=256 under the port's default LayerNorm mode
-(``ab_step`` / ``ab_sweep_chunk`` lines, with profiles).
+step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward
+under ``"full"``, and the f32 sweep-chunk forward and training step at
+B=256 under the port's default LayerNorm mode (``ab_step`` /
+``ab_sweep_chunk`` lines, with profiles).
 """
 
 from __future__ import annotations
@@ -219,6 +221,17 @@ def _bound(bytes_moved: float, flops: float, dtype=torch.float32,
                 bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
 
 
+def _tc_bound(bytes_moved: float, flops: float, dtype) -> dict:
+    """The bound of a tensor-core attention kernel. bf16: ``_bound``. f32
+    runs each product as three TF32 tensor-core products (3xTF32): 3 x the
+    operations at the TF32 peak, with the same products on the CUDA cores
+    (f32 peak) beside it as ``bound_cuda_core_ms``."""
+    if dtype != torch.float32:
+        return _bound(bytes_moved, flops, dtype)
+    return dict(_bound(bytes_moved, 3 * flops, peak=PEAK_TF32_FLOPS),
+                bound_cuda_core_ms=flops / PEAK_FLOPS[dtype] * 1e3)
+
+
 _ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by")
 
@@ -300,8 +313,9 @@ def k1_inputs(case: str, dtype, B=320, T=200, H=8, D=32, seed=1,
 def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
              seed=0) -> dict:
     """K1's output and lse against its plain versions on the same inputs
-    and Philox bits. f32: out and lse atol 1e-5 (the same f32 products
-    summed in other orders). bf16 (the tensor-core K1, with JAX's bf16
+    and Philox bits. f32 (3xTF32): out and lse atol 1e-5 (f32 products to
+    about f32 accuracy, summed in other orders; out is a convex combination
+    of V's rows and lse = m + log(l), so no relative term). bf16 (the tensor-core K1, with JAX's bf16
     dots): out within 1e-2 (1 + |plain|) of the plain version with the
     same bf16 roundings (``dots_dtype=bf16``; f32 sums in other orders,
     an online softmax that rounds p to bf16 before, not after, its last
@@ -337,27 +351,36 @@ def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
 
 
 def lse_row_sums(q, k, key_pad, static, H, scale, lse) -> dict:
-    """What the bf16 K2 relies on: with the bf16-dots scores (``s =
-    bf16(q * scale) . bf16(k) + bias``, the scores K2 recomputes), every
-    row that attends anything has ``sum_k exp(s - lse) = 1`` against K1's
-    lse (dropout 0), within 1e-3."""
+    """What K2 relies on: with the scores K2 recomputes, every row that
+    attends anything has ``sum_k exp(s - lse) = 1`` against K1's lse
+    (dropout 0). bf16: the bf16-dots scores (``s = bf16(q * scale) .
+    bf16(k) + bias``), within 1e-3. f32: the f32 scores (cuBLAS in f32,
+    TF32 off; K2's 3xTF32 ones are within a few ulps of them), within
+    1e-5 + Tk 2^-24: K1's lse gate (1e-5) moves every exp(s - lse) by a
+    factor within 1 +- 1e-5, and the f32 sum of Tk terms rounds by up to
+    Tk 2^-24."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     B, Tq, hidden = q.shape
-    D = hidden // H
+    Tk, D = k.shape[1], hidden // H
 
     def heads(x):
         return x.unflatten(-1, (H, D)).transpose(1, 2).float()
 
-    s = ((heads(q) * scale).bfloat16().float()
-         @ heads(k.bfloat16()).transpose(-1, -2)
+    qs = heads(q) * scale
+    if q.dtype == torch.bfloat16:
+        qs = qs.bfloat16().float()
+        tol = 1e-3
+    else:
+        tol = 1e-5 + Tk * 2.0 ** -24
+    s = (qs @ heads(k).transpose(-1, -2)
          + att._attend_bias(key_pad, static)[:, None])
     sums = torch.exp(s - lse[..., None]).sum(-1)            # (B, H, Tq)
     del s
     rows = (static.bool()[None] | key_pad.bool()[:, None]).any(-1)
     err = (sums - 1).abs()[rows[:, None].expand_as(sums)].max().item()
     return dict(row_sum_max_abs_err=err, rows=int(rows.sum()) * H,
-                ok=err <= 1e-3)
+                tolerance=tol, ok=err <= tol)
 
 
 def k1_phase():
@@ -406,12 +429,12 @@ def k1_phase():
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=bias))
         # least time for the same work: each input read once, the output
-        # written once; the two products' flops at the inputs' type's peak
+        # written once; the two products' flops as ``_tc_bound`` counts them
         elem = q.element_size()
         bytes_moved = ((2 * B * Tq + 2 * B * Tk) * hidden * elem
                        + key_pad.numel() * 4 + static.numel() * 4)
         flops = 4 * B * H * Tq * Tk * D
-        b = _bound(bytes_moved, flops, dtype)
+        b = _tc_bound(bytes_moved, flops, dtype)
         emit(phase="k1_time", shape=[B, Tq, Tk, H, D],
              dtype=dtype_name(dtype), ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bytes=bytes_moved, flops=flops, **b)
@@ -427,11 +450,10 @@ def k1_phase():
 def train_kernels_phase():
     """K1 (dropout, lse) and K2 at the training step's shapes (B=256,
     Tq=Tk=200, H=8, D=32), f32 and bf16, each case at dropout 0 and 0.4
-    against the plain versions on the same Philox bits. f32: atol 1e-5 on
-    out, lse, dq, dk, dv (the same f32 products summed in other orders).
-    bf16: K1 as ``k1_gates`` says, and at dropout 0 its lse against the
-    bf16-dots scores K2 recomputes (``lse_row_sums``); the tensor-core
-    K2's dq/dk/dv within
+    against the plain versions on the same Philox bits. K1 as ``k1_gates``
+    says, and at dropout 0 its lse against the scores K2 recomputes
+    (``lse_row_sums``). f32 K2: atol 1e-5 on dq, dk, dv (3xTF32 products
+    summed in other orders). bf16: the tensor-core K2's dq/dk/dv within
     1e-2 (1 + |plain|) of the plain version with JAX's bf16 dots
     (``dots_dtype=bf16``: the same bf16 roundings, f32 sums in other
     orders) and within 2e-2 (1 + |plain|) of the f32-dots one (one bf16
@@ -464,7 +486,7 @@ def train_kernels_phase():
                 del again
                 k1 = k1_gates(q, k, v, key_pad, static, H, scale, out, lse,
                               rate, 1234)
-                if dtype == torch.bfloat16 and rate == 0.0:
+                if rate == 0.0:
                     sums = lse_row_sums(q, k, key_pad, static, H, scale,
                                         lse)
                     emit(phase="k1_lse_row_sums", dtype=dtype_name(dtype),
@@ -560,25 +582,17 @@ def train_kernels_phase():
         lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
             sdpa(), (qh, kh, vh), gh))
         # bounds: each input read once, each output written once; the
-        # products at the inputs' type's peak (the Philox draws not counted)
+        # products as ``_tc_bound`` counts them (the Philox draws not
+        # counted)
         elem = q.element_size()
         masks = key_pad.numel() * 4 + static.numel() * 4
         lse_bytes = B * H * Tq * 4
-        # K1: q, k, v in, out and lse out
-        k1_b = _bound(B * (2 * Tq + 2 * Tk) * hidden * elem + lse_bytes
-                      + masks, 4 * B * H * Tq * Tk * D, dtype)
-        # K2: q, g, k, v, lse in; dq, dk, dv out. The f32 K2 runs its five
-        # products as three TF32 tensor-core products each (3xTF32): its
-        # bound counts 3 x the operations at the TF32 peak, with the five
-        # on the CUDA cores (f32 peak) beside it
-        k2_bytes = (B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
-                    + masks)
-        k2_flops = 10 * B * H * Tq * Tk * D
-        if dtype == torch.float32:
-            k2_b = dict(_bound(k2_bytes, 3 * k2_flops, peak=PEAK_TF32_FLOPS),
-                        bound_cuda_core_ms=k2_flops / PEAK_FLOPS[dtype] * 1e3)
-        else:
-            k2_b = _bound(k2_bytes, k2_flops, dtype)
+        # K1: q, k, v in, out and lse out; two products
+        k1_b = _tc_bound(B * (2 * Tq + 2 * Tk) * hidden * elem + lse_bytes
+                         + masks, 4 * B * H * Tq * Tk * D, dtype)
+        # K2: q, g, k, v, lse in; dq, dk, dv out; five products
+        k2_b = _tc_bound(B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
+                         + masks, 10 * B * H * Tq * Tk * D, dtype)
         emit(phase="k1_train_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, with_lse=True,
              ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b)
@@ -1156,52 +1170,60 @@ def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
     torch.cuda.empty_cache()
 
 
-def ab_worker(side: str, out: Path) -> None:
-    """One process of ``--ab``: the bf16 steps under "full" at B=16 and
-    B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median),
-    the bf16 sweep-chunk forward (B = 16 x 20, 3 timings of 5), and the
-    f32 step at B=256 under the port's default LayerNorm mode (the
-    device-bound step, where the f32 K2 shows), each with a profile, on the
-    package first on ``sys.path``."""
-    import multi_modal_foundation_model_tpu_torch as pkg
+def _ab_sweep_chunk(side: str, where: str, dtype, mode: str) -> None:
+    """One ``ab_sweep_chunk`` line: the sweep-chunk forward (B = 16 x 20)
+    of a full-width ``dtype`` model, 3 timings of 5 calls, and a
+    profile of one."""
     from multi_modal_foundation_model_tpu_torch.data import (make_loader,
                                                              synthetic_splits)
     from multi_modal_foundation_model_tpu_torch.eval import EvalForward
     from multi_modal_foundation_model_tpu_torch.models import MultiModal
+
+    cfg = _cfg(dtype)
+    T, N = cfg.max_F, cfg.n_channels["ap"]
+    model = MultiModal(cfg, generator=torch.Generator().manual_seed(SEED))
+    splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
+                              n_timesteps=T)
+    loader = make_loader(splits.test, batch_size=splits.test.n_trials,
+                         max_time_length=T, max_space_length=N,
+                         shuffle=False)
+    batch = next(iter(loader))
+    fwd = EvalForward(model, batch, chunk=CHUNK)
+    visible = np.ones((CHUNK, N), np.float32)
+    visible[np.arange(CHUNK), np.arange(CHUNK)] = 0.0
+    tgt = np.arange(CHUNK)
+
+    def chunk():
+        return fwd.sweep(visible, tgt, True)
+
+    times = [cuda_time_ms(chunk, 5, 1) for _ in range(3)]
+    emit(phase="ab_sweep_chunk", side=side, package=where,
+         dtype=dtype_name(dtype), layernorm=mode,
+         batch=CHUNK * int(batch["n_real"]), ms=times,
+         **device_breakdown(chunk, top=4))
+    del fwd, model
+    torch.cuda.empty_cache()
+
+
+def ab_worker(side: str, out: Path) -> None:
+    """One process of ``--ab``: the bf16 steps under "full" at B=16 and
+    B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median)
+    and the bf16 sweep-chunk forward; then, under the port's default
+    LayerNorm mode, the f32 sweep-chunk forward (where the f32 K1 of the
+    eval shows) and the f32 step at B=256 (the device-bound step, where the
+    f32 K1 and K2 show), each with a profile, on the package first on
+    ``sys.path``."""
+    import multi_modal_foundation_model_tpu_torch as pkg
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
-    dtype = torch.bfloat16
     where = str(Path(pkg.__file__).resolve().parent)
     default = ln.PALLAS_LAYERNORM
     with ln_mode("full"):
         for B, reps in ((TRAIN_B, 10), (BIG_B, 3)):
-            _ab_step(side, where, out, dtype, "full", B, reps)
-
-        cfg = _cfg(dtype)
-        T, N = cfg.max_F, cfg.n_channels["ap"]
-        model = MultiModal(cfg, generator=torch.Generator().manual_seed(SEED))
-        splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
-                                  n_timesteps=T)
-        loader = make_loader(splits.test, batch_size=splits.test.n_trials,
-                             max_time_length=T, max_space_length=N,
-                             shuffle=False)
-        batch = next(iter(loader))
-        fwd = EvalForward(model, batch, chunk=CHUNK)
-        visible = np.ones((CHUNK, N), np.float32)
-        visible[np.arange(CHUNK), np.arange(CHUNK)] = 0.0
-        tgt = np.arange(CHUNK)
-
-        def chunk():
-            return fwd.sweep(visible, tgt, True)
-
-        times = [cuda_time_ms(chunk, 5, 1) for _ in range(3)]
-        emit(phase="ab_sweep_chunk", side=side, package=where,
-             dtype="bfloat16", layernorm="full",
-             batch=CHUNK * int(batch["n_real"]), ms=times,
-             **device_breakdown(chunk, top=4))
-        del fwd, model
-        torch.cuda.empty_cache()
+            _ab_step(side, where, out, torch.bfloat16, "full", B, reps)
+        _ab_sweep_chunk(side, where, torch.bfloat16, "full")
     with ln_mode(default):
+        _ab_sweep_chunk(side, where, torch.float32, default)
         _ab_step(side, where, out, torch.float32, default, BIG_B, 3)
 
 
@@ -1275,7 +1297,8 @@ def main() -> int:
     attn_py = "multi_modal_foundation_model_tpu/ops/attention.py"
     ln_py = "multi_modal_foundation_model_tpu/ops/layernorm.py"
     kernels = [
-        dict(name="attention_fwd (K1, eval: no dropout, no lse), f32",
+        dict(name="attention_fwd (K1, eval: no dropout, no lse), f32: tensor "
+             "cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, cp.async)",
              route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=eval_f32["k1"],
              **_row(k1[f32])),
@@ -1283,8 +1306,9 @@ def main() -> int:
              "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
              launches=eval_bf16["k1"], **_row(k1[bf16])),
-        dict(name="attention_fwd (K1, training: dropout 0.4, lse), f32",
-             route="cuda", source=src + "attention_fwd.cu",
+        dict(name="attention_fwd (K1, training: dropout 0.4, lse), f32: "
+             "tensor cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, "
+             "cp.async)", route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=train_f32["k1"],
              **_row(k1_train[f32])),
         dict(name="attention_fwd (K1, training), bf16: tensor cores "

@@ -29,7 +29,8 @@
 // Pass A recomputes s and g . v twice and pass B once more: 9 products
 // where the bound counts 5.
 //
-// One kernel pair serves both dtypes (Tc<T> below holds what differs).
+// One kernel pair serves both dtypes (Tc<T> in tc_traits.cuh holds what
+// differs, shared with K1).
 // Four warps a block, each owning 16 rows of its side: its two operands
 // (q * scale and g, or k and v) are mma A fragments in registers; the other
 // side streams through shared memory in 64-row tiles by cp.async (16 B a
@@ -92,119 +93,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_bf16.cuh"
-#include "mma_tf32.cuh"
 #include "philox.cuh"
+#include "tc_traits.cuh"
 
 namespace {
 
 using namespace mmfm;
-
-// What the operand type changes in the tensor-core K2: its shared tiles,
-// its A fragments, its products, how a landed chunk is readied, the exp and
-// the stores. Pass A readies its k/v chunks with kScale = false, pass B its
-// q chunks with kScale = true (q * scale) and its g chunks with false.
-template <typename T>
-struct Tc;
-
-template <>
-struct Tc<bf16> {
-  static constexpr int kChunks = 4;            // 16-byte copies a row
-  static constexpr int kPitch = kLd;           // shared row pitch, elements
-  static constexpr int kElems = kTileElems;    // one buffered tile
-  // two double-buffered tiles of the streamed side, bytes
-  static constexpr size_t kSmem = 2 * 2 * kElems * sizeof(bf16);
-  // pass A's blocks an SM: 4 holds it to 128 registers a thread. Left
-  // free, ptxas took 152 with dropout and 143 without (3 blocks an SM:
-  // +0.13 ms a launch at dropout 0.4 and at 0, measured on the H100);
-  // without dropout it then spills 8 bytes, at no measured cost
-  static constexpr int kBlocksA = 4;
-  struct Frags {
-    uint32_t f[2][4];
-  };
-  template <bool kScale>
-  static __device__ __forceinline__ void load(Frags& a, const bf16* base,
-                                              long long st, int row0, int T,
-                                              int lane, float mul) {
-    load_a_frags<kScale>(a.f, base, st, row0, T, lane, mul);
-  }
-  static __device__ __forceinline__ void rows(float (&acc)[8][4],
-                                              const Frags& a,
-                                              const bf16* tile, int lane,
-                                              int n_valid) {
-    mma_rows(acc, a.f, tile, lane, n_valid);
-  }
-  static __device__ __forceinline__ void cols(float (&out)[4][4],
-                                              const float (&acc)[8][4],
-                                              const bf16* tile, int lane,
-                                              int n_valid) {
-    mma_cols(out, acc, tile, lane, n_valid);
-  }
-  // q tiles: bf16(f32(q) * scale), in place; k, v, g tiles as they land
-  template <bool kScale>
-  static __device__ __forceinline__ void land(bf16* p, float mul) {
-    if (!kScale) return;
-    uint4* c = reinterpret_cast<uint4*>(p);
-    uint4 w = *c;
-    w.x = scale_bf16x2(w.x, mul);
-    w.y = scale_bf16x2(w.y, mul);
-    w.z = scale_bf16x2(w.z, mul);
-    w.w = scale_bf16x2(w.w, mul);
-    *c = w;
-  }
-  static __device__ __forceinline__ float lse_arg(float lse) {
-    return lse * kLog2e;
-  }
-  // exp(s - lse), l = lse_arg(lse)
-  static __device__ __forceinline__ float prob(float s, float l) {
-    return fast_exp2(fmaf(s, kLog2e, -l));
-  }
-  static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-  }
-};
-
-template <>
-struct Tc<float> {
-  static constexpr int kChunks = 8;
-  static constexpr int kPitch = kLdF;
-  static constexpr int kElems = 2 * kPlaneF;   // the hi plane, then lo
-  static constexpr size_t kSmem = 2 * 2 * kElems * sizeof(float);
-  static constexpr int kBlocksA = 2;           // ~220 registers, 82 KB
-  struct Frags {
-    uint32_t hi[4][4], lo[4][4];
-  };
-  template <bool kScale>
-  static __device__ __forceinline__ void load(Frags& a, const float* base,
-                                              long long st, int row0, int T,
-                                              int lane, float mul) {
-    load_a_tf32<kScale>(a.hi, a.lo, base, st, row0, T, lane, mul);
-  }
-  static __device__ __forceinline__ void rows(float (&acc)[8][4],
-                                              const Frags& a,
-                                              const float* tile, int lane,
-                                              int n_valid) {
-    mma_rows_3x(acc, a.hi, a.lo, tile, lane, n_valid);
-  }
-  static __device__ __forceinline__ void cols(float (&out)[4][4],
-                                              const float (&acc)[8][4],
-                                              const float* tile, int lane,
-                                              int n_valid) {
-    mma_cols_3x(out, acc, tile, lane, n_valid);
-  }
-  // every tile split into hi and lo planes (q times scale first)
-  template <bool kScale>
-  static __device__ __forceinline__ void land(float* p, float mul) {
-    land_split<kScale>(p, mul);
-  }
-  static __device__ __forceinline__ float lse_arg(float lse) { return lse; }
-  static __device__ __forceinline__ float prob(float s, float l) {
-    return fast_exp2((s - l) * kLog2e);
-  }
-  static __device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
 
 // Pass A: rowsum and dq for 64 query rows of one b and heads [h0, h0 +
 // hpb); and each head's mask bytes (attend and keep bits) for pass B, in

@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bf16 attention kernels K1
 // (attention_fwd.cu) and K2 (attention_bwd.cu), for Hopper (sm_90a); the
-// f32 K2 (3xTF32, mma_tf32.cuh) shares their copies, mask and keep-bit
-// staging and launch helpers.
+// f32 K1 and K2 (3xTF32, mma_tf32.cuh) share their copies, mask and
+// keep-bit staging and launch helpers.
 //
 // Four warps a block, each owning 16 rows of its side as mma.sync m16n8k16
 // A fragments in registers; the other side streams through shared memory
@@ -34,8 +34,6 @@ constexpr int kTcRows = 64;          // rows per block, and per streamed tile
 constexpr int kLd = kHeadDim + 8;    // shared row pitch in bf16: 80 bytes,
                                      // so ldmatrix's 8 rows hit 8 bank groups
 constexpr int kTileElems = kTcRows * kLd;
-// two double-buffered (64, kLd) bf16 tiles
-constexpr size_t kTileBytes = 2 * 2 * kTileElems * sizeof(bf16);
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

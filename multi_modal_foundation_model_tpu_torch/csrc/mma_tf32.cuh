@@ -1,5 +1,5 @@
-// 3xTF32 tensor-core building blocks of the f32 attention backward K2
-// (attention_bwd.cu), for Hopper (sm_90a).
+// 3xTF32 tensor-core building blocks of the f32 attention kernels K1
+// (attention_fwd.cu) and K2 (attention_bwd.cu), for Hopper (sm_90a).
 //
 // f32 products at about f32 accuracy on the TF32 tensor cores: each f32
 // operand x splits into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna, round
@@ -8,7 +8,9 @@
 // then ah . bh (al . bl, ~2^-22 of the product, is dropped), summed from
 // zero and added to the f32 accumulator (mma_3xtf32). One-term TF32 keeps
 // ~3 decimal digits; the three terms keep the f32 contract of the attention
-// backward (1e-5 against the f32 plain version; emulated on the CPU by
+// forward and backward (1e-5 against the f32 plain versions; emulated on
+// the CPU by tests/tf32_emulation.py, held by
+// tests/test_torch_attention_fwd_f32.py and
 // tests/test_torch_attention_bwd_f32.py).
 //
 // Fragments of m16n8k8 (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32),

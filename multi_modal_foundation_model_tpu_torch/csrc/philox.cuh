@@ -42,24 +42,6 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
   return Philox4{c0, c1, c2, c3};
 }
 
-// Keep bits of the 32 keys [k0, k0 + 32) of row (b, h, q), bit j = key
-// k0 + j; k0 must be a multiple of 4. Bits past Tk are don't-care.
-__device__ __forceinline__ uint32_t keep_bits32(uint32_t seed,
-                                                uint32_t threshold, int b,
-                                                int h, int q, int k0) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int g = 0; g < 8; ++g) {
-    const Philox4 r = philox4x32_10((uint32_t)((k0 >> 2) + g), (uint32_t)q,
-                                    (uint32_t)h, (uint32_t)b, seed, 0u);
-    bits |= (uint32_t)(r.x > threshold) << (4 * g);
-    bits |= (uint32_t)(r.y > threshold) << (4 * g + 1);
-    bits |= (uint32_t)(r.z > threshold) << (4 * g + 2);
-    bits |= (uint32_t)(r.w > threshold) << (4 * g + 3);
-  }
-  return bits;
-}
-
 // Keep bits of the 4 keys [4 k4, 4 k4 + 4) of row (b, h, q), bit j = key
 // 4 k4 + j: one Philox call.
 __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed,

@@ -408,19 +408,21 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     low 32 bits key the Philox draw). Returns a contiguous output in q's
     dtype and, with ``with_lse``, an f32 (B, H, Tq) lse.
 
-    f32 runs f32 math: the contract of ``attention_reference``. bf16 runs
-    the tensor-core kernel, whose products take bf16 operands as JAX's K1
-    on its hardware: the contract of ``attention_reference(...,
-    dots_dtype=torch.bfloat16)``, and the lse the bf16 K2 recomputes its
-    probabilities against. It copies its tiles with ``cp.async``, so bf16
-    q/k/v need 16-byte aligned data pointers and batch and row strides
-    (the fused-QKV column views have them); anything else raises
+    Both dtypes run on the tensor cores. f32 computes each product as
+    three TF32 products of operands split into hi and lo parts (3xTF32),
+    f32 math to about f32 accuracy: the contract of
+    ``attention_reference``, with the scores the f32 K2 recomputes. bf16
+    takes bf16 operands as JAX's K1 on its hardware: the contract of
+    ``attention_reference(..., dots_dtype=torch.bfloat16)``, and the lse
+    the bf16 K2 recomputes its probabilities against. The kernel copies
+    its tiles with ``cp.async``, so q/k/v need 16-byte aligned data
+    pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
+    elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""
     global K1_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
-    if q.dtype == torch.bfloat16:
-        _check_aligned("attention_fwd", q=q, k=k, v=v)
+    _check_aligned("attention_fwd", q=q, k=k, v=v)
     dev = q.device
     fn = _k1_lib()
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)

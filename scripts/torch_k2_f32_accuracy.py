@@ -12,7 +12,8 @@ At the inputs of ``chip_smoke.py``'s ``k2_check`` (B=256, T=200, 8 heads of
   yardstick at atol 1e-5) and an f64 evaluation of the same formula;
 - the 3xTF32 emulation of ``tests/tf32_emulation.py`` (torch's exp);
 - the same kernel built with pn = ``expf(s - lse)`` (the library's accurate
-  exp, an edit of ``Tc<float>::prob`` into ``build/probe/k2_expf/``).
+  exp, an edit of ``Tc<float>::prob`` (``csrc/tc_traits.cuh``) into
+  ``build/probe/k2_expf/``).
 
 The plain version and the emulation are held against f64 as well. Then the
 two builds are timed at the smoke's timing shape (encoder mask), in one
@@ -55,7 +56,7 @@ def build_expf():
     out.mkdir(parents=True, exist_ok=True)
     for src in build.CSRC.glob("*.cu*"):
         text = src.read_text()
-        if src.name == "attention_bwd.cu":
+        if src.name == "tc_traits.cuh":
             if text.count(PROB) != 1:
                 raise RuntimeError("Tc<float>::prob is not as expected")
             text = text.replace(PROB, PROB_EXPF)

@@ -6,8 +6,12 @@ not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 (``--noconftest``: the repository's ``tests/conftest.py`` sets up JAX.)
-Tests marked ``cuda`` skip without a card. K1 tolerances: f32 atol 1e-5
-(online vs two-pass softmax, same f32 products), lse atol 1e-5. The bf16
+Tests marked ``cuda`` skip without a card. K1 tolerances: f32 (3xTF32 on
+the tensor cores) atol 1e-5 on out and lse against the f32 plain version,
+with no relative term: out is a convex combination of V's rows (times
+1/(1 - rate) with dropout) and lse = m + log(l), so no sum grows with the
+sequence (the 3xTF32 products against cuBLAS's f32 ones, an online
+against a two-pass softmax, ex2.approx against exp). The bf16
 K1 runs its products on the tensor cores with bf16 operands, as JAX's K1
 on its hardware: its output is held against the plain version with the same
 bf16 roundings (``dots_dtype=torch.bfloat16``) at |kernel - plain| <=
@@ -96,7 +100,7 @@ def test_k1_matches_plain(case, dtype):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
         torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
     else:
-        _k1_bf16_gates(q, k, v, key_pad, static, got, lse)
+        _k1_gates(q, k, v, key_pad, static, got, lse)
     atol = 1e-5 if dt == torch.float32 else 2e-2
     if case == "fully_masked_row":         # uniform: the mean of V
         torch.testing.assert_close(
@@ -217,26 +221,6 @@ def test_k1_dropout_matches_plain(case, rate):
 
 
 @pytest.mark.cuda
-def test_k1_philox_bits_match_philox_keep():
-    """Read K1's keep mask back: q = 0 and all keys attended make every
-    probability 1/Tk; V's rows are one-hot per head (Tk = D = 32), so
-    out[b, q, h*D + k] = keep[b, h, q, k] / (1 - rate) / Tk."""
-    _need_cuda()
-    tk, rate, seed = D, 0.4, 123456789
-    q = torch.zeros(B, T, H * D, device="cuda")
-    v = torch.eye(D, device="cuda").repeat(1, H).expand(B, tk, H * D)
-    k = torch.zeros(B, tk, H * D, device="cuda")
-    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
-    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
-    out, _ = tatt.attention_fwd(q, k, v.contiguous(), key_pad, static, H,
-                                1.0, dropout_rate=rate, seed=seed)
-    got = out.reshape(B, T, H, D).transpose(1, 2) > 0
-    want = tatt.philox_keep(seed, B, H, T, tk, rate, device="cuda")
-    assert torch.equal(got, want)
-    assert 0.5 < want.float().mean().item() < 0.7
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("case,tk", K2_CASES)
 def test_k2_matches_plain(case, tk, rate):
@@ -349,13 +333,16 @@ def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True):
 
     With one key (Tk = 1) the softmax is constant and dk's exact value is
     0; both sides reach it as a cancellation, dk = sum_q dpn pn (1 - pn)
-    qs with pn = exp(s - lse), s recomputed in another f32 order than
-    K1's (3xTF32 here, K1's scalar FMAs there) and so a few ulps from the
-    s that lse holds. The kernel's f32 dk is then held to that
-    cancellation's scale, sum_q |dpn| |qs| 2^-20 (|1 - pn| within a few
-    ulps of |s| ~ 1, randn operands), not to the plain version's own
-    rounding of it (measured 1.08e-5 where the plain version has 4.7e-6 at
-    Tq = 200, dropout 0.4; the bound is ~1e-4)."""
+    qs with pn = exp(s - lse). Pass A recomputes K1's own s (the same
+    3xTF32 products of the same operands), but pass B computes s^T and
+    (g . v)^T with the operands' roles swapped, another order of the
+    truncating sums, and so a few ulps from the s that lse holds; the
+    plain version's cuBLAS s is another order again. The kernel's f32 dk
+    is then held to that cancellation's scale, sum_q |dpn| |qs| 2^-20
+    (|1 - pn| within a few ulps of |s| ~ 1, randn operands), not to the
+    plain version's own rounding of it (measured 1.08e-5 where the plain
+    version has 4.7e-6 at Tq = 200, dropout 0.4, against the scalar K1's
+    lse; the bound is ~1e-4)."""
     if q.dtype == torch.bfloat16:
         return _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
                               f32_gate)
@@ -554,67 +541,86 @@ def test_k1_bf16_dropout_lse_matches_plain(rate):
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
                                   with_lse=True, dropout_rate=rate, seed=11)
     assert got.dtype == torch.bfloat16
-    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 11)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 11)
 
 
-def _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate=0.0, seed=0):
-    """The bf16 K1's out against the bf16-dots plain version (1e-2) and the
-    f32-dots one (2e-2); its lse against the bf16-dots plain lse (1e-5 (1 +
-    |lse|))."""
+def _k1_gates(q, k, v, key_pad, static, got, lse, rate=0.0, seed=0):
+    """The tensor-core K1 in q's dtype against its plain version: f32
+    (3xTF32) out and lse within atol 1e-5 of ``attention_reference`` (the
+    module's note says why no relative term); bf16 out within 1e-2 (1 +
+    |plain|) of the bf16-dots plain version and 2e-2 (1 + |plain|) of the
+    f32-dots one, its lse within 1e-5 (1 + |lse|) of the bf16-dots plain
+    lse."""
     h = q.shape[-1] // D
     args = (q, k, v, key_pad, static, h, 1.0 / math.sqrt(D), True, rate,
             seed)
+    assert got.dtype == q.dtype and got.is_contiguous()
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    if q.dtype == torch.float32:
+        want, want_lse = tatt.attention_reference(*args)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0, msg="out")
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0,
+                                   msg="lse")
+        return
     want, want_lse = tatt.attention_reference(*args,
                                               dots_dtype=torch.bfloat16)
-    assert got.dtype == torch.bfloat16 and got.is_contiguous()
-    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
     _within(got, want, 1e-2, "out")
     _within(lse, want_lse, 1e-5, "lse")
     _within(got, tatt.attention_reference(*args)[0], 2e-2, "out f32")
 
 
+# both dtypes of the tensor-core K1
+K1_DTYPES = [torch.float32, torch.bfloat16]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (64, 64), (65, 65),
                                    (70, 70), (200, 200), (65, 200),
                                    (200, 17)])
-def test_k1_bf16_tensor_cores_at_tile_edges(tq, tk, rate):
-    """The tensor-core K1 at lengths below, at and past its 64-row tiles
-    (200 = 3 x 64 + 8, the model's), through the fused-QKV (self) or KV
-    (cross) column views, random masks, with lse."""
+def test_k1_tensor_cores_at_tile_edges(tq, tk, rate, dtype):
+    """The tensor-core K1 (f32: 3xTF32; bf16) at lengths below, at and past
+    its 64-row tiles (200 = 3 x 64 + 8, the model's), through the fused-QKV
+    (self) or KV (cross) column views, random masks, with lse."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _problem(tq, tk)
+    q, k, v, key_pad, static, _ = _problem(tq, tk, dtype=dtype)
     n0 = tatt.K1_LAUNCHES
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                   1.0 / math.sqrt(D), with_lse=True,
                                   dropout_rate=rate, seed=31)
     torch.cuda.synchronize()
     assert tatt.K1_LAUNCHES == n0 + 1
-    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 31)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 31)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-def test_k1_bf16_blocks_walking_several_heads(rate):
+def test_k1_blocks_walking_several_heads(rate, dtype):
     """At B = 256 a block of the tensor-core K1 walks all 4 heads of its
     (batch, row tile), drawing the next head's keep bits beside the
     current head's products; the smaller tests run one head a block."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _problem(200, 200, seed=7, b=256)
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=7, b=256,
+                                           dtype=dtype)
     got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
                                   1.0 / math.sqrt(D), with_lse=True,
                                   dropout_rate=rate, seed=17)
-    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 17)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 17)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-def test_k1_bf16_fully_masked_row_and_bit_equal(rate):
+def test_k1_fully_masked_row_and_bit_equal(rate, dtype):
     """A padded trial (every key masked, pad-only mask): its rows are the
-    mean of V (of the kept V / (1 - rate) with dropout) and their lse is
-    -1e6 + log(Tk); two launches give the same bits."""
+    mean of V (of the kept V / (1 - rate) with dropout; bf16: 1/(1 - rate)
+    rounded to bf16 as pd is) within 1e-5 (f32) or 1e-2 (1 + |mean|)
+    (bf16), and their lse is -1e6 + log(Tk); two launches give the same
+    bits."""
     _need_cuda()
-    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6)
+    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6, dtype=dtype)
     key_pad[1] = 0
     static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(D)
@@ -624,31 +630,36 @@ def test_k1_bf16_fully_masked_row_and_bit_equal(rate):
                              with_lse=True, dropout_rate=rate, seed=8)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
     got, lse = one
-    _k1_bf16_gates(q, k, v, key_pad, static, got, lse, rate, 8)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 8)
     floor = torch.tensor(-1e6) + torch.log(torch.tensor(200.0))
     torch.testing.assert_close(lse[1].cpu(), floor.expand(H, 200), atol=0.07,
                                rtol=0)
     vh = v[1].float().reshape(200, H, D).transpose(0, 1)    # (H, Tk, D)
     if rate > 0.0:
         keep = tatt.philox_keep(8, 2, H, 200, 200, rate, device="cuda")[1]
-        scale_kept = torch.tensor(1.0 / (1.0 - rate)).bfloat16().float()
+        scale_kept = torch.tensor(1.0 / (1.0 - rate)).to(dtype).float()
         mean = (keep.float() * scale_kept) @ vh / 200     # (H, Tq, D)
     else:
         mean = vh.mean(1, keepdim=True).expand(H, 200, D)
-    _within(got[1].float().reshape(200, H, D).transpose(0, 1), mean, 1e-2,
-            "padded trial")
+    row = got[1].float().reshape(200, H, D).transpose(0, 1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(row, mean, atol=1e-5, rtol=0)
+    else:
+        _within(row, mean, 1e-2, "padded trial")
 
 
 @pytest.mark.cuda
-def test_k1_bf16_rejects_misaligned_views():
-    """cp.async copies 16 bytes: a bf16 view whose data pointer or row
-    stride is not 16-byte aligned raises ValueError."""
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
+def test_k1_rejects_misaligned_views(dtype):
+    """cp.async copies 16 bytes: a view whose data pointer or row stride is
+    not 16-byte aligned raises ValueError, in f32 as in bf16."""
     _need_cuda()
-    q, k, v, key_pad, static, _ = _problem(17, 17)
-    wide = torch.zeros(3, 17, H * D + 8, device="cuda").bfloat16()
-    off = wide[..., 1:1 + H * D]                   # pointer 2 bytes off
-    odd = torch.zeros(3, 17, H * D + 4, device="cuda").bfloat16()
-    odd = odd[..., :H * D]                         # row stride 260
+    q, k, v, key_pad, static, _ = _problem(17, 17, dtype=dtype)
+    half = 8 // q.element_size()                   # half a 16-byte chunk
+    wide = torch.zeros(3, 17, H * D + 8, device="cuda", dtype=dtype)
+    off = wide[..., 1:1 + H * D]                   # pointer one element off
+    odd = torch.zeros(3, 17, H * D + half, device="cuda", dtype=dtype)
+    odd = odd[..., :H * D]                         # row stride 8 bytes off
     n0 = tatt.K1_LAUNCHES
     for bad in (off, odd):
         with pytest.raises(ValueError):
@@ -661,17 +672,18 @@ def test_k1_bf16_rejects_misaligned_views():
 
 
 @pytest.mark.cuda
-def test_k1_bf16_philox_bits_match_philox_keep():
-    """The bf16 K1's keep mask read back: q = 0 and all keys attended make
-    every probability 1 (before 1/l = 1/Tk); V's rows are one-hot per head
-    (Tk = D = 32), so out[b, q, h*D + k] > 0 exactly where Philox keeps
-    (b, h, q, k)."""
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
+def test_k1_philox_bits_match_philox_keep(dtype):
+    """Read the tensor-core K1's keep mask back: q = 0 and all keys
+    attended make every probability 1 (before 1/l = 1/Tk); V's rows are
+    one-hot per head (Tk = D = 32), so out[b, q, h*D + k] > 0 exactly where
+    Philox keeps (b, h, q, k)."""
     _need_cuda()
     tk, rate, seed = D, 0.4, 123456789
-    q = torch.zeros(B, T, H * D, device="cuda").bfloat16()
+    q = torch.zeros(B, T, H * D, device="cuda", dtype=dtype)
     v = torch.eye(D, device="cuda").repeat(1, H).expand(B, tk, H * D)
-    v = v.contiguous().bfloat16()
-    k = torch.zeros(B, tk, H * D, device="cuda").bfloat16()
+    v = v.contiguous().to(dtype)
+    k = torch.zeros(B, tk, H * D, device="cuda", dtype=dtype)
     key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
     static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
     out, _ = tatt.attention_fwd(q, k, v, key_pad, static, H, 1.0,

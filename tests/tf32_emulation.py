@@ -7,9 +7,13 @@ into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away
 bl, then ah . bh from zero on the tensor cores before an f32 add into the
 accumulator (``mma_3xtf32``). ``k2`` is K2's formula with every product
 through such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it
-is an f64 evaluation of the same formula. Imports torch and the port only,
-so ``scripts/torch_k2_f32_accuracy.py`` runs it on the card's inputs and
-``tests/test_torch_attention_bwd_f32.py`` on the CPU.
+is an f64 evaluation of the same formula. The f32 K1
+(``csrc/attention_fwd.cu``) takes the same products: ``k1`` is its formula
+with both products through ``dot`` and its online softmax over 64-key
+tiles. Imports torch and the port only, so
+``scripts/torch_k2_f32_accuracy.py`` runs it on the card's inputs and
+``tests/test_torch_attention_bwd_f32.py`` and
+``tests/test_torch_attention_fwd_f32.py`` on the CPU.
 """
 
 import torch
@@ -42,13 +46,16 @@ def split(x: torch.Tensor):
     return hi, tf32(x - hi)
 
 
-def dot_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernel's ``mma_3xtf32``: per k-step of 8 the terms
-    al . bh, ah . bl, then ah . bh summed from zero on the tensor cores,
-    then added to the f32 accumulator (rounded to nearest)."""
+def dot_3xtf32(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor = None) -> torch.Tensor:
+    """c + a @ b (c = 0 by default) as the kernel's ``mma_3xtf32``: per
+    k-step of 8 the terms al . bh, ah . bl, then ah . bh summed from zero
+    on the tensor cores, then added to the f32 accumulator c (rounded to
+    nearest)."""
     (ah, al), (bh, bl) = split(a), split(b)
-    c = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
-                    device=a.device)
+    if c is None:
+        c = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
+                        device=a.device)
     for k0 in range(0, a.shape[-1], 8):
         ks = slice(k0, k0 + 8)
         p = mma(torch.zeros_like(c), al[..., ks], bh[..., ks, :])
@@ -72,9 +79,48 @@ def dot_3xtf32_chained(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
-def dot_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with one TF32 term (plain TF32 tensor-core math)."""
-    return tf32(a) @ tf32(b)
+def dot_1xtf32(a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor = None) -> torch.Tensor:
+    """c + a @ b with one TF32 term (plain TF32 tensor-core math)."""
+    p = tf32(a) @ tf32(b)
+    return p if c is None else c + p
+
+
+def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
+       dot=dot_3xtf32):
+    """The f32 K1's formula (``csrc/attention_fwd.cu``'s note) on the
+    kernel's operands, as the kernel computes it: per tile of 64 keys, s =
+    (q * scale) . k through ``dot`` (q * scale rounded to f32 first), the
+    masked scores replaced by -1e30; an online softmax: the new row max m,
+    the correction exp(m_old - m) of l and of the O accumulator, p = exp(s
+    - m) summed undropped into l; then the dropped and rescaled pd . v
+    added to the rescaled accumulator through ``dot``. out = o / l, lse =
+    max(m, -1e6) + log(l). Returns (out (B, Tq, H*D) f32, lse (B, H, Tq))."""
+    B, Tq, _ = q.shape
+    Tk = k.shape[1]
+    qs = tatt._heads(q, n_heads) * scale
+    kh, vh = tatt._heads(k, n_heads), tatt._heads(v, n_heads)
+    attend = (static.bool()[None] | key_pad.bool()[:, None, :])[:, None]
+    keep = None
+    if rate > 0.0:
+        keep = tatt.philox_keep(seed, B, n_heads, Tq, Tk, rate, q.device)
+    m = torch.full(qs.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qs)
+    for k0 in range(0, Tk, 64):
+        ks = slice(k0, k0 + 64)
+        s = dot(qs, kh[..., ks, :].transpose(-1, -2))
+        s = torch.where(attend[..., ks], s, tatt.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., ks], p * (1.0 / (1.0 - rate)), 0.0)
+        o = dot(p, vh[..., ks, :], o * corr)
+        m = m_new
+    lse = (m.clamp_min(tatt._LSE_FLOOR) + torch.log(l))[..., 0]
+    return tatt._merge(o / l, torch.float32), lse
 
 
 def k2(q, k, v, key_pad, static, g, lse, n_heads, scale, rate=0.0, seed=0,
