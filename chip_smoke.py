@@ -20,10 +20,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``k1_lse_row_sums``), dropout 0 and 0.4 on the same Philox bits as the
    plain versions; K3/K4,
    the LayerNorm forward and backward
-   (``k3_k4_check``/``k3_k4_time``), at the B=256 step's 51,200 x 256
-   tokens, one row fewer and 1,001 x 64, f32 and bf16, with dweight/dbias
-   bit-equal from one launch to the next. Tolerances: f32 1e-5, bf16 2e-2
-   (see each check's docstring).
+   (``k3_k4_check``/``k3_k4_time``), at the B=256 and B=16 steps' 51,200
+   and 3,200 x 256 tokens, a row fewer each, one row and 1,001 x 64, f32
+   and bf16, with dx, dweight and dbias bit-equal from one launch to the
+   next; timed at 51,200 and 3,200 rows, K4 also kernel by kernel.
+   Tolerances: f32 1e-5, bf16 2e-2 (see each check's docstring).
 3. eval    — the serving path: ``co_smoothing_eval`` in all six modes on a
    full-width ``MultiModal`` (N=668 + 2 behavior, T=100, H=256, 8 heads,
    5+5 layers, random weights from a seed) over the port's synthetic test
@@ -58,8 +59,9 @@ The port never imports JAX, and neither does this script.
 compares this checkout's port with another's (say the parent commit's,
 unpacked by ``git archive`` into a git-ignored directory) on one card: four
 processes in the order other, this, this, other, each importing its own
-checkout's package and building its kernels, each timing the bf16 training
-step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward
+checkout's package and building its kernels, each timing K3 and K4 alone
+at 51,200 and 3,200 x 256 in f32 and bf16 (``ab_layernorm``), the bf16
+training step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward
 under ``"full"``, and the f32 sweep-chunk forward and training step at
 B=256 under the port's default LayerNorm mode (``ab_step`` /
 ``ab_sweep_chunk`` lines, with profiles).
@@ -155,20 +157,33 @@ def _device_events(prof):
             yield evt.name, evt.time_range.elapsed_us() / 1e3
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn``: the summed durations of the kernels
-    it launches, from a torch.profiler trace of ``reps`` calls. For kernels
-    of tens of microseconds, whose wrappers take about as long on the host,
-    CUDA events would time the host's launch rate instead."""
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn`` by kernel name: the durations of the
+    kernels it launches, from a torch.profiler trace of ``reps`` calls. For
+    kernels of tens of microseconds, whose wrappers take about as long on
+    the host, CUDA events would time the host's launch rate instead. A
+    trace that caught no kernel (seen once in ~400) is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for _, ms in _device_events(prof)) / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for name, ms in _device_events(prof):
+            by_name[name] = by_name.get(name, 0.0) + ms / reps
+        if by_name:
+            return by_name
+    raise RuntimeError("torch.profiler caught no kernel in three traces")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """``device_ms_by_kernel`` summed: device ms of every kernel a call of
+    ``fn`` launches."""
+    return sum(device_ms_by_kernel(fn, reps).values())
 
 
 def device_breakdown(fn, top: int = 6) -> dict:
@@ -622,93 +637,142 @@ def _ln_operands(rows, width, dtype, seed):
     return x.to(dtype), w, b, dy.to(dtype)
 
 
+def _normwise(a, r) -> float:
+    return ((a - r).abs().max() / r.abs().max()).item()
+
+
+def k4_gates(x, w, dy, got, again, tol: float, eps: float = 1e-5) -> dict:
+    """K4's outputs ``got`` = (dx, dweight, dbias) against
+    ``layer_norm_bwd_reference``: dx within tol (1 + |plain|) and in x's
+    dtype, dweight and dbias normwise within 1e-5 (max |kernel - plain| <=
+    1e-5 max |plain|: sums over every row), and the same bits as a second
+    launch ``again``."""
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    dx, dw, db = got
+    dx_ref, dw_ref, db_ref = ln.layer_norm_bwd_reference(x, w, dy, eps)
+    errs = dict(dx_max_abs_err=(dx.float() - dx_ref.float()).abs().max()
+                .item(), dw_normwise_err=_normwise(dw, dw_ref),
+                db_normwise_err=_normwise(db, db_ref))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    ok = (_excess(dx, dx_ref, tol) <= 0 and dx.dtype == x.dtype
+          and errs["dw_normwise_err"] <= 1e-5
+          and errs["db_normwise_err"] <= 1e-5 and same)
+    return dict(errs, bit_equal_across_launches=same, ok=ok)
+
+
+def k4_bound(rows: int, width: int, dtype) -> dict:
+    """K4's bound: x and g read and dx written once, the f32 scale read and
+    dscale and dbias written once; ~14 operations a value."""
+    n = rows * width
+    nbytes = 3 * n * torch.empty((), dtype=dtype).element_size() \
+        + 3 * width * 4
+    return dict(_bound(nbytes, 14 * n, dtype), bytes=nbytes)
+
+
+def ln_time(rows: int, width: int, dtype) -> dict:
+    """K3 and K4 at (rows, width) in ``dtype``, beside their plain versions
+    and the library's LayerNorm forward and backward: device ms of every
+    kernel a call launches, K4's also kernel by kernel
+    (``device_ms_by_kernel``), and the bounds, GB/s and shares of them."""
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    eps = 1e-5
+    x, w, b, dy = _ln_operands(rows, width, dtype, seed=5)
+    # library yardsticks (never called by the port): torch's own LayerNorm
+    # forward and backward (two-pass variance), parameters in x's dtype
+    wl, bl = w.to(dtype), b.to(dtype)
+    _, mean, rstd = torch.native_layer_norm(x, [width], wl, bl, eps)
+    calls = dict(
+        k3=lambda: ln.layernorm_fwd(x, w, b, eps, dtype),
+        k3_plain=lambda: ln.layer_norm(x, w, b, eps, dtype),
+        k3_library=lambda: F.layer_norm(x, (width,), wl, bl, eps),
+        k4=lambda: ln.layernorm_bwd(x, w, dy, eps),
+        k4_plain=lambda: ln.layer_norm_bwd_reference(x, w, dy, eps),
+        k4_library=lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [width], mean, rstd, wl, bl, [True, True, True]))
+    by_kernel = {k: device_ms_by_kernel(fn) for k, fn in calls.items()}
+    dev = {k: sum(v.values()) for k, v in by_kernel.items()}
+    # K3: x in and y out, the f32 parameters once; ~7 operations a value
+    # (the two sums and the affine map). K4: ``k4_bound``
+    n = rows * width
+    k3_b = _bound(2 * n * x.element_size() + 2 * width * 4, 7 * n, dtype)
+    k4_b = k4_bound(rows, width, dtype)
+    return dict(dev=dev, k4_by_kernel_ms=by_kernel["k4"], k3_bound=k3_b,
+                k4_bound=k4_b,
+                k4_gb_per_s=k4_b["bytes"] / dev["k4"] / 1e6,
+                k4_share_of_bound=k4_b["bound_ms"] / dev["k4"],
+                k3_share_of_bound=k3_b["bound_ms"] / dev["k3"])
+
+
 def ln_phase():
-    """K3 and K4 at the B=256 step's token count (51,200 x 256), one row
-    fewer, and 1,001 x 64, in f32 and bf16. y and dx: |kernel - plain| <=
-    tol (1 + |plain|), tol 1e-5 (f32) / 2e-2 (bf16), as the JAX package's
-    LayerNorm tests; dweight and dbias are sums over every row, held
-    normwise (max |kernel - plain| <= 1e-5 max |plain|) and bit-equal from
-    one launch to the next. Then timings at the training shape."""
+    """K3 and K4 at the training step's token counts, 51,200 x 256 (B=256)
+    and 3,200 x 256 (B=16), at 51,199 and 3,199 rows (K4's last tile
+    short), one row, and 1,001 x 64, in f32 and bf16. y and dx: |kernel -
+    plain| <= tol (1 + |plain|), tol 1e-5 (f32) / 2e-2 (bf16), as the JAX
+    package's LayerNorm tests; dweight and dbias are sums over every row,
+    held normwise (max |kernel - plain| <= 1e-5 max |plain|), and dx,
+    dweight and dbias are bit-equal from one launch to the next
+    (``k4_gates``). Then timings at both training shapes (``ln_time``)."""
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
     eps = 1e-5
     H = GEOMETRY["hidden_size"]
-    rows_main = BIG_B * len(GEOMETRY["n_channels"]) * GEOMETRY["max_F"]
+    tokens = len(GEOMETRY["n_channels"]) * GEOMETRY["max_F"]
+    rows_main, rows_b16 = BIG_B * tokens, TRAIN_B * tokens
     worst = {3: dict.fromkeys(DTYPES, 0.0), 4: dict.fromkeys(DTYPES, 0.0)}
     for dtype in DTYPES:
         tol = TOL[dtype]
-        for rows, width in ((rows_main, H), (rows_main - 1, H), (1001, 64)):
+        for rows, width in ((rows_main, H), (rows_main - 1, H),
+                            (rows_b16, H), (rows_b16 - 1, H), (1, H),
+                            (1001, 64)):
             x, w, b, dy = _ln_operands(rows, width, dtype, seed=rows)
             y = ln.layernorm_fwd(x, w, b, eps, dtype)
-            dx, dw, db = ln.layernorm_bwd(x, w, dy, eps)
-            dx2, dw2, db2 = ln.layernorm_bwd(x, w, dy, eps)
+            got = ln.layernorm_bwd(x, w, dy, eps)
+            again = ln.layernorm_bwd(x, w, dy, eps)
             torch.cuda.synchronize()
             y_ref = ln.layer_norm(x, w, b, eps, dtype)
-            dx_ref, dw_ref, db_ref = ln.layer_norm_bwd_reference(x, w, dy,
-                                                                 eps)
-
-            def normwise(a, r):
-                return ((a - r).abs().max() / r.abs().max()).item()
-
-            errs = dict(
-                y_max_abs_err=(y.float() - y_ref.float()).abs().max().item(),
-                dx_max_abs_err=(dx.float() - dx_ref.float()).abs().max()
-                .item(),
-                dw_normwise_err=normwise(dw, dw_ref),
-                db_normwise_err=normwise(db, db_ref))
-            reproducible = bool(torch.equal(dw, dw2) and torch.equal(db, db2)
-                                and torch.equal(dx, dx2))
-            ok = (_excess(y, y_ref, tol) <= 0
-                  and _excess(dx, dx_ref, tol) <= 0
-                  and errs["dw_normwise_err"] <= 1e-5
-                  and errs["db_normwise_err"] <= 1e-5 and reproducible
-                  and y.dtype == dx.dtype == dtype)
+            gates = k4_gates(x, w, dy, got, again, tol, eps)
+            y_err = (y.float() - y_ref.float()).abs().max().item()
+            ok = (gates["ok"] and _excess(y, y_ref, tol) <= 0
+                  and y.dtype == dtype)
             emit(phase="k3_k4_check", dtype=dtype_name(dtype),
-                 shape=[rows, width], tol=tol, **errs,
-                 dweight_dbias_bit_equal_across_launches=reproducible, ok=ok)
+                 shape=[rows, width], tol=tol, y_max_abs_err=y_err,
+                 **dict(gates, ok=ok))
             if not ok:
                 raise AssertionError(f"K3/K4 disagree with their plain "
                                      f"versions ({rows}, {width}, {dtype})")
-            worst[3][dtype] = max(worst[3][dtype], errs["y_max_abs_err"])
-            worst[4][dtype] = max(worst[4][dtype], errs["dx_max_abs_err"])
+            worst[3][dtype] = max(worst[3][dtype], y_err)
+            worst[4][dtype] = max(worst[4][dtype], gates["dx_max_abs_err"])
 
-    # device time of every kernel a call launches (``device_ms``), and the
-    # same calls timed with CUDA events (host launch gaps included)
-    rows3, rows4 = {}, {}
+    rows3, rows4, rows4_b16 = {}, {}, {}
     for dtype in DTYPES:
-        x, w, b, dy = _ln_operands(rows_main, H, dtype, seed=5)
-        elem = x.element_size()
-        # library yardsticks (never called by the port): torch's own
-        # LayerNorm forward and backward (two-pass variance), parameters in
-        # x's dtype
-        wl, bl = w.to(dtype), b.to(dtype)
-        _, mean, rstd = torch.native_layer_norm(x, [H], wl, bl, eps)
-        calls = dict(
-            k3=lambda: ln.layernorm_fwd(x, w, b, eps, dtype),
-            k3_plain=lambda: ln.layer_norm(x, w, b, eps, dtype),
-            k3_library=lambda: F.layer_norm(x, (H,), wl, bl, eps),
-            k4=lambda: ln.layernorm_bwd(x, w, dy, eps),
-            k4_plain=lambda: ln.layer_norm_bwd_reference(x, w, dy, eps),
-            k4_library=lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, x, [H], mean, rstd, wl, bl, [True, True, True]))
-        dev = {k: device_ms(fn) for k, fn in calls.items()}
-        event = {k: cuda_time_ms(fn) for k, fn in calls.items()}
-        k3_ms, k3_plain, k3_lib = dev["k3"], dev["k3_plain"], dev["k3_library"]
-        k4_ms, k4_plain, k4_lib = dev["k4"], dev["k4_plain"], dev["k4_library"]
-        n = rows_main * H
-        # bytes: x in and y out (K3); x and g in, dx out (K4); the f32
-        # parameters and parameter gradients once. Operations: ~7 a value
-        # forward (the two sums and the affine map), ~14 backward
-        k3_b = _bound(2 * n * elem + 2 * H * 4, 7 * n, dtype)
-        k4_b = _bound(3 * n * elem + 3 * H * 4, 14 * n, dtype)
-        emit(phase="k3_k4_time", dtype=dtype_name(dtype), shape=[rows_main, H],
-             device_ms=dev, event_ms=event, k3_bound_ms=k3_b["bound_ms"],
-             k4_bound_ms=k4_b["bound_ms"])
-        rows3[dtype] = dict(max_abs_err=worst[3][dtype], ms=k3_ms,
-                            plain_ms=k3_plain, library_ms=k3_lib, **k3_b)
-        rows4[dtype] = dict(max_abs_err=worst[4][dtype], ms=k4_ms,
-                            plain_ms=k4_plain, library_ms=k4_lib, **k4_b)
-    return rows3, rows4
+        for rows in (rows_main, rows_b16):
+            t = ln_time(rows, H, dtype)
+            n_sm, per_sm = ln._k4_card(ln._lib(), torch.device("cuda", 0),
+                                       H, dtype)
+            emit(phase="k3_k4_time", dtype=dtype_name(dtype),
+                 shape=[rows, H], device_ms=t["dev"],
+                 k4_by_kernel_ms=t["k4_by_kernel_ms"],
+                 k3_bound_ms=t["k3_bound"]["bound_ms"],
+                 k4_bound_ms=t["k4_bound"]["bound_ms"],
+                 k3_share_of_bound=t["k3_share_of_bound"],
+                 k4_share_of_bound=t["k4_share_of_bound"],
+                 k4_gb_per_s=t["k4_gb_per_s"],
+                 k4_plan=ln._k4_plan(rows, n_sm, per_sm)._asdict(),
+                 k4_blocks_per_sm=per_sm, sm_count=n_sm)
+            dev = t["dev"]
+            k4_row = dict(max_abs_err=worst[4][dtype], ms=dev["k4"],
+                          plain_ms=dev["k4_plain"],
+                          library_ms=dev["k4_library"], **t["k4_bound"])
+            if rows == rows_b16:
+                rows4_b16[dtype] = k4_row
+                continue
+            rows3[dtype] = dict(max_abs_err=worst[3][dtype], ms=dev["k3"],
+                                plain_ms=dev["k3_plain"],
+                                library_ms=dev["k3_library"], **t["k3_bound"])
+            rows4[dtype] = k4_row
+    return rows3, rows4, rows4_b16
 
 
 # ---------------------------------------------------------------------------
@@ -1205,8 +1269,32 @@ def _ab_sweep_chunk(side: str, where: str, dtype, mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _ab_layernorm(side: str, where: str) -> None:
+    """``ab_layernorm`` lines: K3 and K4 at the B=256 and B=16 steps' rows,
+    f32 and bf16, device ms of each kernel a call launches."""
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    H = GEOMETRY["hidden_size"]
+    tokens = len(GEOMETRY["n_channels"]) * GEOMETRY["max_F"]
+    for dtype in DTYPES:
+        for rows in (BIG_B * tokens, TRAIN_B * tokens):
+            x, w, b, dy = _ln_operands(rows, H, dtype, seed=5)
+            by_kernel = dict(
+                k3=device_ms_by_kernel(
+                    lambda: ln.layernorm_fwd(x, w, b, 1e-5, dtype)),
+                k4=device_ms_by_kernel(
+                    lambda: ln.layernorm_bwd(x, w, dy, 1e-5)))
+            emit(phase="ab_layernorm", side=side, package=where,
+                 dtype=dtype_name(dtype), shape=[rows, H],
+                 k3_ms=sum(by_kernel["k3"].values()),
+                 k4_ms=sum(by_kernel["k4"].values()),
+                 by_kernel_ms=by_kernel,
+                 k4_bound_ms=k4_bound(rows, H, dtype)["bound_ms"])
+
+
 def ab_worker(side: str, out: Path) -> None:
-    """One process of ``--ab``: the bf16 steps under "full" at B=16 and
+    """One process of ``--ab``: K3 and K4 alone (``_ab_layernorm``), the
+    bf16 steps under "full" at B=16 and
     B=256 (4 segments of 10 and 3 steps after 2 warm-ups, their median)
     and the bf16 sweep-chunk forward; then, under the port's default
     LayerNorm mode, the f32 sweep-chunk forward (where the f32 K1 of the
@@ -1218,6 +1306,7 @@ def ab_worker(side: str, out: Path) -> None:
 
     where = str(Path(pkg.__file__).resolve().parent)
     default = ln.PALLAS_LAYERNORM
+    _ab_layernorm(side, where)
     with ln_mode("full"):
         for B, reps in ((TRAIN_B, 10), (BIG_B, 3)):
             _ab_step(side, where, out, torch.bfloat16, "full", B, reps)
@@ -1274,7 +1363,7 @@ def main() -> int:
 
     k1 = k1_phase()
     k1_train, k2 = train_kernels_phase()
-    k3, k4 = ln_phase()
+    k3, k4, k4_b16 = ln_phase()
     out = root / "build"
     f32, bf16 = torch.float32, torch.bfloat16
     # f32 under the port's default LayerNorm mode, bf16 (mm.yaml) under
@@ -1328,11 +1417,17 @@ def main() -> int:
              launches=sum(c["k3"] for c in paths.values()),
              launches_by_path={k: c["k3"] for k, c in paths.items()},
              f32_ms=k3[f32]["ms"], **_row(k3[bf16])),
-        dict(name="layernorm_bwd (K4), bf16 at 51,200 x 256", route="cuda",
-             source=src + "layernorm.cu", replaces=ln_py + ":109",
+        dict(name="layernorm_bwd (K4), bf16 at 51,200 x 256: a grid of one "
+             "wave sized to the SMs, the next row loaded while a row is "
+             "reduced, a fixed-order column sum over 2H/8 blocks",
+             route="cuda", source=src + "layernorm.cu",
+             replaces=ln_py + ":109",
              launches=sum(c["k4"] for c in paths.values()),
              launches_by_path={k: c["k4"] for k, c in paths.items()},
-             f32_ms=k4[f32]["ms"], **_row(k4[bf16])),
+             f32_ms=k4[f32]["ms"],
+             b16_rows_3200={dtype_name(dt): _row(r)
+                            for dt, r in k4_b16.items()},
+             **_row(k4[bf16])),
     ]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel of the main paths never launched")

@@ -17,37 +17,59 @@
 // What bounds it on the H100: a handful of flops per value, so device
 // memory does (3.35 TB/s). K3 reads x once and writes y once; K4 reads x
 // and g once and writes dx once (the statistics are recomputed from x,
-// not saved, as on the TPU). The design keeps every row in registers:
+// not saved, as on the TPU). Both keep every row in registers:
 //   - one warp per row; a lane holds up to kEpl = H/32 (rounded up to a
 //     power of two) values of the row, loaded and stored 16 bytes at a time
 //     (V values per access, the lanes on neighbouring addresses);
 //   - the row sums go through warp shuffles (a butterfly, so every lane
-//     holds the same bits of the sum);
+//     holds the same bits of the sum).
+// K3 is one block of 8 warps per 8 rows and runs near its byte bound.
+//
 // K4 also sums dscale and dbias over the rows. JAX adds each grid step's
 // sum into one (1, H) block it revisits, which is right only because TPU
 // grid steps run in order (:121-130). Blocks on Hopper run in no order, so
-// K4 has two passes and no atomics, which makes dscale and dbias
-// bit-reproducible from run to run:
-//   pass 1 (ln_bwd_dx_kernel): a block of 8 warps walks kRowsPerBlock rows,
-//     each warp its own rows in a fixed order, writing dx and keeping its
-//     columns' sums of g * xhat and g in registers (xhat in f32, never
-//     rounded to bf16); the 8 warps' sums are added in warp order through
-//     shared memory into one row of an f32 (n_blocks, H) scratch per sum;
-//   pass 2 (ln_bwd_dwdb_kernel): the scratch rows are summed over the
-//     blocks in a fixed order.
-// Any row count works (ragged blocks are masked; nothing is padded). H must
-// be a multiple of 32 from 32 to 1024.
+// K4 has two kernels and no atomics, and dscale and dbias are the same
+// bits on every launch:
+//   pass 1 (ln_bwd_dx_kernel): the rows are cut into `grid` tiles of
+//     contiguous rows, one block of 8 warps a tile. The wrapper sizes the
+//     grid to the card (ops/layernorm.py `_k4_plan`): a block an SM at
+//     least, where there are as many rows, and never more blocks than the
+//     SMs hold at once, so no partial second wave. Warp w walks rows w,
+//     w + 8, ... of its tile in order; the next row's x and g are loaded
+//     before a row is reduced, and wait as raw 16-byte words until then.
+//     It writes dx and keeps its columns' sums of g * xhat and g in
+//     registers (xhat in f32, never rounded to bf16); the 8 warps' sums are
+//     added in warp order through shared memory into one row of an f32
+//     (2, grid, H) scratch;
+//   pass 2 (ln_bwd_colsum_kernel): each column's `grid` partial rows are
+//     summed over 2H/8 blocks: 32 splits each add every 32nd row in order,
+//     then the splits are added in order.
+// On the H100 at 51,200 x 256 (the B=256 step), bf16 pass 1 moves its bytes
+// at ~80% of the card's rate, and with every load served from L1 it still
+// takes over half its time: the arithmetic and shuffles of a row, over the
+// 24 warps an SM holds, are a limit next to memory. The first design took
+// 1.7x as long there and 3.8x at the B=16 step's 3,200 rows: a fixed 128
+// rows a block left 4/5 of the SMs idle at 3,200 rows and 4 blocks to a
+// second wave at 51,200, and a warp waited a whole memory round trip a row
+// (PERF.md; scripts/torch_k4_variants.py times the variants).
+// Nothing depends on the data or on a host read, so the pair can be
+// captured in a CUDA graph. Any row count works (the tiles differ by one
+// row at most; nothing is padded). H must be a multiple of 32 from 32 to
+// 1024.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
 constexpr int kWarps = 8;                    // warps per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;             // K4 pass 1
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kMaxH = 1024;
+constexpr int kSplits = 32;                  // K4 pass 2: splits a column
+constexpr int kSplitCols = kThreads / kSplits;  // K4 pass 2: columns a block
+constexpr int kSplitLoads = 8;               // K4 pass 2: loads in flight
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -149,11 +171,13 @@ __device__ __forceinline__ void store_row(T* row, int H, int lane,
   }
 }
 
-// mu and rsigma of a row held across the warp (zeros past H add nothing)
+// the sum and the sum of squares of a row held across the warp (zeros past
+// H add nothing)
 template <int kEpl>
-__device__ __forceinline__ void row_stats(const float* v, int H, float eps,
-                                          float& mu, float& rsigma) {
-  float s = 0.f, ss = 0.f;
+__device__ __forceinline__ void row_sums(const float* v, float& s,
+                                         float& ss) {
+  s = 0.f;
+  ss = 0.f;
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) {
     s += v[i];
@@ -161,6 +185,14 @@ __device__ __forceinline__ void row_stats(const float* v, int H, float eps,
   }
   s = warp_sum(s);
   ss = warp_sum(ss);
+}
+
+// mu and rsigma of a row held across the warp
+template <int kEpl>
+__device__ __forceinline__ void row_stats(const float* v, int H, float eps,
+                                          float& mu, float& rsigma) {
+  float s, ss;
+  row_sums<kEpl>(v, s, ss);
   mu = s / (float)H;
   const float var = fmaxf(ss / (float)H - mu * mu, 0.f);
   rsigma = rsqrtf(var + eps);
@@ -186,34 +218,124 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   store_row<T, kEpl>(y + row * H, H, lane, v);
 }
 
-// K4 pass 1: dx for kRowsPerBlock rows, and the block's column sums of
-// g * xhat and g
+// an unsigned word of 2, 4, 8 or 16 bytes
+template <int kBytes> struct Word;
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
+
+// K4 pass 1: a lane's share of one row of x or g as loaded, kNc accesses
+// of kV values (a chunk past H holds zeros and is never stored), kept as
+// raw words until the row is reduced. Kept as kV values of T, a bf16
+// access is split into its values right after its load, and the warp waits
+// for the load there instead of a row later (pass 1 ~20% slower in bf16 at
+// 51,200 x 256, and 91 registers where 80 give 3 blocks an SM).
 template <typename T, int kEpl>
-__global__ void __launch_bounds__(kThreads)
+struct RawRow {
+  using P = Pack<T, Layout<T, kEpl>::kV>;
+  using W = typename Word<sizeof(P)>::type;
+  W c[Layout<T, kEpl>::kNc];
+};
+
+template <typename T, int kEpl>
+__device__ __forceinline__ void fetch_row(const T* row, int H, int lane,
+                                          RawRow<T, kEpl>& r) {
+  using L = Layout<T, kEpl>;
+#pragma unroll
+  for (int j = 0; j < L::kNc; ++j) {
+    const int c0 = (lane + 32 * j) * L::kV;
+    using W = typename RawRow<T, kEpl>::W;
+    r.c[j] = c0 < H ? *reinterpret_cast<const W*>(row + c0) : W{};
+  }
+}
+
+template <typename T, int kEpl>
+__device__ __forceinline__ void unpack_row(const RawRow<T, kEpl>& r,
+                                           float* v) {
+  using L = Layout<T, kEpl>;
+#pragma unroll
+  for (int j = 0; j < L::kNc; ++j) {
+    typename RawRow<T, kEpl>::P pk;
+    memcpy(&pk, &r.c[j], sizeof(pk));
+#pragma unroll
+    for (int e = 0; e < L::kV; ++e) v[j * L::kV + e] = to_f32(pk.v[e]);
+  }
+}
+
+// one accumulator's column sums over a block's warps, added in warp order,
+// into one row of the partial sums
+template <typename T, int kEpl>
+__device__ __forceinline__ void block_sum(const float (&acc)[kEpl],
+                                          float (&red)[kWarps][kMaxH],
+                                          float* part, int H, int lane,
+                                          int warp) {
+  using L = Layout<T, kEpl>;
+#pragma unroll
+  for (int j = 0; j < L::kNc; ++j) {
+    const int c0 = (lane + 32 * j) * L::kV;
+    if (c0 < H) {
+#pragma unroll
+      for (int e = 0; e < L::kV; ++e) red[warp][c0 + e] = acc[j * L::kV + e];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < H; c += kThreads) {
+    float s = red[0][c];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi) s += red[wi][c];
+    part[c] = s;
+  }
+  __syncthreads();
+}
+
+// K4 pass 1: dx for one tile of rows, and the tile's column sums of
+// g * xhat and g into row blockIdx.x of parts (2, gridDim.x, H). Up to 128
+// registers at H <= 256 (2 blocks an SM at least): left free, ptxas took 80
+// for f32 and spilled. Its four means are products with 1 / H, the bits of a
+// division where H is a power of two.
+template <typename T, int kEpl>
+__global__ void __launch_bounds__(kThreads, kEpl <= 8 ? 2 : 1)
 ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                  const T* __restrict__ g, T* __restrict__ dx,
-                 float* __restrict__ part_dscale,
-                 float* __restrict__ part_dbias, int rows, int H, float eps) {
-  using L = Layout<T, kEpl>;
-  __shared__ float sum_dscale[kMaxH];
-  __shared__ float sum_dbias[kMaxH];
+                 float* __restrict__ parts, int rows, int rows_per_tile,
+                 int H, float eps) {
+  __shared__ float red[kWarps][kMaxH];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // tile t: rows_per_tile rows, one more for the first rows % grid tiles
+  const int t = blockIdx.x;
+  const int longer = rows - rows_per_tile * (int)gridDim.x;
+  const int begin = t * rows_per_tile + min(t, longer);
+  const int end = begin + rows_per_tile + (t < longer);
+  const float inv_h = 1.f / (float)H;
   float w[kEpl], acc_ds[kEpl], acc_db[kEpl];
   load_params<T, kEpl>(scale, H, lane, w);
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) acc_ds[i] = acc_db[i] = 0.f;
 
-  const long long row0 = (long long)blockIdx.x * kRowsPerBlock;
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    // the block's 8 warps take 8 neighbouring rows at a time
-    const long long row = row0 + (long long)r * kWarps + warp;
-    if (row >= rows) break;
+  // warp w's rows: begin + w, + kWarps, ... (the block's 8 warps on 8
+  // neighbouring rows); the next row's x and g are on their way while a
+  // row is reduced and stored
+  RawRow<T, kEpl> xr, gr;
+  int row = begin + warp;
+  if (row < end) {
+    fetch_row<T, kEpl>(x + (long long)row * H, H, lane, xr);
+    fetch_row<T, kEpl>(g + (long long)row * H, H, lane, gr);
+  }
+  for (; row < end; row += kWarps) {
     float xv[kEpl], gv[kEpl];
-    load_row<T, kEpl>(x + row * H, H, lane, xv);
-    load_row<T, kEpl>(g + row * H, H, lane, gv);
-    float mu, rsigma;
-    row_stats<kEpl>(xv, H, eps, mu, rsigma);
+    unpack_row<T, kEpl>(xr, xv);
+    unpack_row<T, kEpl>(gr, gv);
+    if (row + kWarps < end) {
+      const long long next = (long long)(row + kWarps) * H;
+      fetch_row<T, kEpl>(x + next, H, lane, xr);
+      fetch_row<T, kEpl>(g + next, H, lane, gr);
+    }
+    float s, ss;
+    row_sums<kEpl>(xv, s, ss);
+    const float mu = s * inv_h;
+    const float rsigma = rsqrtf(fmaxf(ss * inv_h - mu * mu, 0.f) + eps);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int i = 0; i < kEpl; ++i) {
@@ -223,8 +345,8 @@ ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       m1 += dxhat;
       m2 = fmaf(dxhat, xv[i], m2);
     }
-    m1 = warp_sum(m1) / (float)H;
-    m2 = warp_sum(m2) / (float)H;
+    m1 = warp_sum(m1) * inv_h;
+    m2 = warp_sum(m2) * inv_h;
     float out[kEpl];
 #pragma unroll
     for (int i = 0; i < kEpl; ++i) {
@@ -232,68 +354,49 @@ ln_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       acc_ds[i] = fmaf(gv[i], xv[i], acc_ds[i]);
       acc_db[i] += gv[i];
     }
-    store_row<T, kEpl>(dx + row * H, H, lane, out);
+    store_row<T, kEpl>(dx + (long long)row * H, H, lane, out);
   }
 
-  // the warps' column sums, added in warp order
-  for (int wi = 0; wi < kWarps; ++wi) {
-    if (warp == wi) {
-#pragma unroll
-      for (int j = 0; j < L::kNc; ++j) {
-        const int c0 = (lane + 32 * j) * L::kV;
-        if (c0 < H) {
-#pragma unroll
-          for (int e = 0; e < L::kV; ++e) {
-            const int i = j * L::kV + e;
-            sum_dscale[c0 + e] =
-                wi == 0 ? acc_ds[i] : sum_dscale[c0 + e] + acc_ds[i];
-            sum_dbias[c0 + e] =
-                wi == 0 ? acc_db[i] : sum_dbias[c0 + e] + acc_db[i];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int c = threadIdx.x; c < H; c += kThreads) {
-    part_dscale[(long long)blockIdx.x * H + c] = sum_dscale[c];
-    part_dbias[(long long)blockIdx.x * H + c] = sum_dbias[c];
-  }
+  float* part = parts + (long long)blockIdx.x * H;
+  block_sum<T, kEpl>(acc_ds, red, part, H, lane, warp);
+  block_sum<T, kEpl>(acc_db, red, part + (long long)gridDim.x * H, H, lane,
+                     warp);
 }
 
-// K4 pass 2: dscale and dbias from the pass-1 blocks' sums, in a fixed
-// order. A block takes 32 columns; its 8 warps each sum every 8th block row
-// and are then added in warp order.
+// K4 pass 2: dscale and dbias (out, (2, H)) from the n_parts partial rows of
+// each, in a fixed order: split s adds rows s, s + kSplits, ... in order,
+// then the splits are added in order. A block takes kSplitCols neighbouring
+// columns of out (all of one sum, as H is a multiple of 32), a thread one
+// split of one column, loading kSplitLoads of its rows at a time: one batch
+// up to 256 partial rows. (An unrolled loop leaves a remainder whose loads
+// wait one by one: 2.2 us at 134 rows against 1.5 at 256.)
 __global__ void __launch_bounds__(kThreads)
-ln_bwd_dwdb_kernel(const float* __restrict__ part_dscale,
-                   const float* __restrict__ part_dbias,
-                   float* __restrict__ dscale, float* __restrict__ dbias,
-                   int n_parts, int H) {
-  __shared__ float s_ds[kWarps][32];
-  __shared__ float s_db[kWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  float a = 0.f, b = 0.f;
-  if (col < H) {
-#pragma unroll 4
-    for (int p = warp; p < n_parts; p += kWarps) {
-      a += part_dscale[(long long)p * H + col];
-      b += part_dbias[(long long)p * H + col];
-    }
-  }
-  s_ds[warp][lane] = a;
-  s_db[warp][lane] = b;
-  __syncthreads();
-  if (warp == 0 && col < H) {
-    float ta = 0.f, tb = 0.f;
+ln_bwd_colsum_kernel(const float* __restrict__ parts, float* __restrict__ out,
+                     int n_parts, int H) {
+  __shared__ float s[kSplits][kSplitCols];
+  const int c = threadIdx.x % kSplitCols;
+  const int split = threadIdx.x / kSplitCols;
+  const int col = blockIdx.x * kSplitCols + c;
+  const int which = col >= H;                  // 0: dscale, 1: dbias
+  const float* p = parts + (long long)which * n_parts * H + (col - which * H);
+  float a = 0.f;
+  for (int i0 = split; i0 < n_parts; i0 += kSplitLoads * kSplits) {
+    float v[kSplitLoads];
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      ta += s_ds[i][lane];
-      tb += s_db[i][lane];
+    for (int k = 0; k < kSplitLoads; ++k) {
+      const int i = i0 + k * kSplits;
+      v[k] = i < n_parts ? p[(long long)i * H] : 0.f;
     }
-    dscale[col] = ta;
-    dbias[col] = tb;
+#pragma unroll
+    for (int k = 0; k < kSplitLoads; ++k) a += v[k];
+  }
+  s[split][c] = a;
+  __syncthreads();
+  if (threadIdx.x < kSplitCols) {
+    float t = s[0][c];
+#pragma unroll
+    for (int i = 1; i < kSplits; ++i) t += s[i][c];
+    out[col] = t;
   }
 }
 
@@ -310,17 +413,16 @@ cudaError_t fwd_launch(const void* x, const float* scale, const float* bias,
 
 template <typename T, int kEpl>
 cudaError_t bwd_launch(const void* x, const float* scale, const void* g,
-                       void* dx, float* part_dscale, float* part_dbias,
-                       float* dscale, float* dbias, int rows, int H, float eps,
+                       void* dx, float* out, float* parts, int grid,
+                       int rows_per_tile, int rows, int H, float eps,
                        cudaStream_t stream) {
-  const int n_parts = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  ln_bwd_dx_kernel<T, kEpl><<<(unsigned)n_parts, kThreads, 0, stream>>>(
+  ln_bwd_dx_kernel<T, kEpl><<<(unsigned)grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), scale, static_cast<const T*>(g),
-      static_cast<T*>(dx), part_dscale, part_dbias, rows, H, eps);
+      static_cast<T*>(dx), parts, rows, rows_per_tile, H, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_dwdb_kernel<<<(unsigned)((H + 31) / 32), kThreads, 0, stream>>>(
-      part_dscale, part_dbias, dscale, dbias, n_parts, H);
+  ln_bwd_colsum_kernel<<<(unsigned)(2 * H / kSplitCols), kThreads, 0,
+                         stream>>>(parts, out, grid, H);
   return cudaGetLastError();
 }
 
@@ -348,11 +450,19 @@ struct Fwd {
 template <typename T, int kEpl>
 struct Bwd {
   static cudaError_t run(const void* x, const float* scale, const void* g,
-                         void* dx, float* part_dscale, float* part_dbias,
-                         float* dscale, float* dbias, int rows, int H,
-                         float eps, cudaStream_t stream) {
-    return bwd_launch<T, kEpl>(x, scale, g, dx, part_dscale, part_dbias,
-                               dscale, dbias, rows, H, eps, stream);
+                         void* dx, float* out, float* parts, int grid,
+                         int rows_per_tile, int rows, int H, float eps,
+                         cudaStream_t stream) {
+    return bwd_launch<T, kEpl>(x, scale, g, dx, out, parts, grid,
+                               rows_per_tile, rows, H, eps, stream);
+  }
+};
+
+template <typename T, int kEpl>
+struct BwdBlocksPerSm {
+  static cudaError_t run(int* blocks) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ln_bwd_dx_kernel<T, kEpl>, kThreads, 0);
   }
 };
 
@@ -360,8 +470,17 @@ bool width_ok(int H) { return H >= 32 && H <= kMaxH && H % 32 == 0; }
 
 }  // namespace
 
-// Rows per pass-1 block of K4: the scratch holds ceil(rows / this) rows of H.
-extern "C" int mmfm_layernorm_bwd_rows_per_block() { return kRowsPerBlock; }
+// Blocks of K4's pass 1 (x and g of dtype, width H) that one SM holds at
+// once: the wrapper's plan keeps the grid within this times the SM count.
+// -1 on an error.
+extern "C" int mmfm_layernorm_bwd_blocks_per_sm(int H, int dtype) {
+  int n = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (width_ok(H) && dtype == 0) err = by_width<float, BwdBlocksPerSm>(H, &n);
+  if (width_ok(H) && dtype == 1)
+    err = by_width<__nv_bfloat16, BwdBlocksPerSm>(H, &n);
+  return err == cudaSuccess ? n : -1;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y). x and y contiguous (rows, H),
 // 16-byte aligned; scale and bias f32 (H,). Returns the launch's
@@ -380,22 +499,25 @@ extern "C" int mmfm_layernorm_fwd(const void* x, const float* scale,
 }
 
 // dtype as above for x, g and dx, all contiguous (rows, H) and 16-byte
-// aligned; scale f32 (H,); part_dscale and part_dbias f32 scratch of
-// (ceil(rows / rows_per_block), H); dscale and dbias f32 (H,).
+// aligned; scale f32 (H,); out f32 (2, H): dscale, then dbias; parts f32
+// scratch of (2, grid, H). The rows are cut into grid tiles of rows_per_tile
+// = rows / grid rows (the first rows % grid tiles one more), one a block of
+// pass 1: grid must be 1 to rows.
 extern "C" int mmfm_layernorm_bwd(const void* x, const float* scale,
-                                  const void* g, void* dx, float* part_dscale,
-                                  float* part_dbias, float* dscale,
-                                  float* dbias, int rows, int H, float eps,
-                                  int dtype, void* stream) {
+                                  const void* g, void* dx, float* out,
+                                  float* parts, int grid, int rows_per_tile,
+                                  int rows, int H, float eps, int dtype,
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!width_ok(H) || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (!width_ok(H) || rows <= 0 || grid <= 0 || grid > rows ||
+      rows_per_tile != rows / grid)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)by_width<float, Bwd>(H, x, scale, g, dx, part_dscale,
-                                     part_dbias, dscale, dbias, rows, H, eps,
-                                     s);
+    return (int)by_width<float, Bwd>(H, x, scale, g, dx, out, parts, grid,
+                                     rows_per_tile, rows, H, eps, s);
   if (dtype == 1)
-    return (int)by_width<__nv_bfloat16, Bwd>(H, x, scale, g, dx, part_dscale,
-                                             part_dbias, dscale, dbias, rows,
-                                             H, eps, s);
+    return (int)by_width<__nv_bfloat16, Bwd>(H, x, scale, g, dx, out, parts,
+                                             grid, rows_per_tile, rows, H,
+                                             eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,9 @@ last bits, so the formula is written out here and in the kernels.
   autograd) are the plain versions.
 - ``layernorm_fwd`` (K3) and ``layernorm_bwd`` (K4) launch the hand-written
   kernels of ``csrc/layernorm.cu`` on CUDA tensors, counted in
-  ``K3_LAUNCHES`` / ``K4_LAUNCHES`` where they launch.
+  ``K3_LAUNCHES`` / ``K4_LAUNCHES`` where they launch. K4's grid comes from
+  ``_k4_plan``, sized to the card's SMs and the blocks an SM holds
+  (``_k4_card``, read once for each device, width and dtype).
 - ``PALLAS_LAYERNORM`` is JAX's switch with its three values: ``"off"``
   (the plain form, forward and autograd backward), ``"bwd"`` (plain
   forward, K4 backward) and ``"full"`` (K3 forward, K4 backward), through
@@ -29,7 +31,7 @@ dtype (f32 or bf16) for x and the output, as every norm of the model has.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,6 +52,8 @@ K4_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_H = 1024
+# K4's pass 1: warps a block (kWarps in csrc/layernorm.cu)
+_K4_WARPS = 8
 
 
 def _out_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -105,11 +109,56 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mmfm_layernorm_fwd.argtypes = [p] * 4 + [i, i, f, i, p]
         lib.mmfm_layernorm_fwd.restype = i
-        lib.mmfm_layernorm_bwd.argtypes = [p] * 8 + [i, i, f, i, p]
+        lib.mmfm_layernorm_bwd.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
         lib.mmfm_layernorm_bwd.restype = i
-        lib.mmfm_layernorm_bwd_rows_per_block.argtypes = []
-        lib.mmfm_layernorm_bwd_rows_per_block.restype = i
+        lib.mmfm_layernorm_bwd_blocks_per_sm.argtypes = [i, i]
+        lib.mmfm_layernorm_bwd_blocks_per_sm.restype = i
     return lib
+
+
+class K4Plan(NamedTuple):
+    """K4's grid: ``grid`` blocks, each taking one tile of contiguous rows,
+    ``rows_per_tile`` = rows // grid of them (the first rows % grid tiles
+    one more), and ``parts`` partial rows of scratch for each of dscale and
+    dbias (one a block)."""
+    grid: int
+    rows_per_tile: int
+    parts: int
+
+
+def _k4_plan(rows: int, n_sm: int, blocks_per_sm: int) -> K4Plan:
+    """K4's grid for ``rows`` rows on a card of ``n_sm`` SMs, each holding
+    ``blocks_per_sm`` pass-1 blocks at once. A warp walks its rows one after
+    another, so the time goes with the most rows a warp gets: the fewest
+    that one wave of blocks allows, in as few blocks as give that (each
+    block adds a partial row to pass 2), and a block an SM at least
+    wherever there are that many rows. The grid is at most one wave
+    (``n_sm * blocks_per_sm``)."""
+    wave = n_sm * blocks_per_sm
+    warp_rows = max(1, -(-rows // (_K4_WARPS * wave)))
+    grid = -(-rows // (_K4_WARPS * warp_rows))
+    if rows >= n_sm:
+        grid = max(grid, n_sm)
+    return K4Plan(grid, rows // grid, grid)
+
+
+# (device index, H, dtype) -> (SMs, pass-1 blocks an SM)
+_K4_CARD: Dict[tuple, Tuple[int, int]] = {}
+
+
+def _k4_card(lib, dev: torch.device, H: int,
+             dtype: torch.dtype) -> Tuple[int, int]:
+    """The SM count of ``dev`` and the pass-1 blocks an SM holds at width
+    ``H``, read once for each device, width and dtype."""
+    key = (dev.index, H, dtype)
+    if key not in _K4_CARD:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        per_sm = lib.mmfm_layernorm_bwd_blocks_per_sm(H, _DTYPE_CODE[dtype])
+        if per_sm < 1:
+            raise RuntimeError(f"layernorm_bwd: no pass-1 block fits an SM "
+                               f"(H {H}, {dtype})")
+        _K4_CARD[key] = (n_sm, per_sm)
+    return _K4_CARD[key]
 
 
 def _rows(name: str, x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
@@ -173,7 +222,10 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     """Launch K4 on CUDA tensors; same contract as
     ``layer_norm_bwd_reference``, with g in x's dtype. Returns (dx in x's
     dtype and shape, dweight f32, dbias f32); dweight and dbias are summed
-    in a fixed order, so they are the same bits on every run."""
+    in a fixed order, so they are the same bits on every run. They are
+    views of one buffer that also holds the kernel's scratch. No host
+    synchronisation and no allocation that depends on the data: the launch
+    can be captured in a CUDA graph."""
     global K4_LAUNCHES
     x2 = _rows("layernorm_bwd", x, weight, g)
     if g.shape != x.shape or g.dtype != x.dtype:
@@ -184,25 +236,23 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     w = _param("layernorm_bwd", weight, H)
     dev = x2.device
     dx = torch.empty_like(x2)
-    dw = torch.empty(H, dtype=torch.float32, device=dev)
-    db = torch.empty(H, dtype=torch.float32, device=dev)
     if not rows:
-        dw.zero_()
-        db.zero_()
-    else:
-        lib = _lib()
-        per_block = lib.mmfm_layernorm_bwd_rows_per_block()
-        parts = torch.empty((2, -(-rows // per_block), H),
-                            dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            _check_rc("layernorm_bwd", lib.mmfm_layernorm_bwd(
-                x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-                parts[0].data_ptr(), parts[1].data_ptr(), dw.data_ptr(),
-                db.data_ptr(), rows, H, float(eps), _DTYPE_CODE[x2.dtype],
-                stream))
-        K4_LAUNCHES += 1
-    return dx.reshape(x.shape), dw, db
+        out = torch.zeros(2 * H, dtype=torch.float32, device=dev)
+        return dx.reshape(x.shape), out[:H], out[H:]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        plan = _k4_plan(rows, *_k4_card(lib, dev, H, x2.dtype))
+        # dscale and dbias (2, H), then the scratch (2, parts, H)
+        buf = torch.empty((2 + 2 * plan.parts) * H, dtype=torch.float32,
+                          device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check_rc("layernorm_bwd", lib.mmfm_layernorm_bwd(
+            x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+            buf.data_ptr(), buf[2 * H:].data_ptr(), plan.grid,
+            plan.rows_per_tile, rows, H, float(eps), _DTYPE_CODE[x2.dtype],
+            stream))
+    K4_LAUNCHES += 1
+    return dx.reshape(x.shape), buf[:H], buf[H:2 * H]
 
 
 # ---------------------------------------------------------------------------

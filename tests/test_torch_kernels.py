@@ -714,10 +714,13 @@ def _normwise(a, b):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,width", [(37 * 4, 256), (50 * 4, 64),
                                         (1001, 256), (129, 96),
-                                        (3, 1024)])
+                                        (3, 1024), (1, 256), (3200, 256),
+                                        (51200, 256), (51199, 256)])
 def test_k3_k4_match_plain(rows, width, dtype):
     """K3 and K4 against ``layer_norm`` / ``layer_norm_bwd_reference``:
-    odd row counts (ragged warps and blocks), H = 64, 96, 256, 1024."""
+    odd row counts (ragged warps and blocks), H = 64, 96, 256, 1024; one
+    row; the training step's 3,200 (B=16) and 51,200 (B=256) rows, and
+    51,199, whose last K4 tile is short."""
     _need_cuda()
     dt, tol = getattr(torch, dtype), LN_TOL[dtype]
     x, w, b, dy = _ln_operands(rows, width, dt)
@@ -740,6 +743,96 @@ def test_k3_k4_match_plain(rows, width, dtype):
     dx2, dw2, db2 = tln.layernorm_bwd(x, w, dy, 1e-5)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
     assert torch.equal(dx, dx2)
+
+
+def _k4_outputs_match(got, want, x, w, dy, tol):
+    """``got`` = (dx, dweight, dbias) against the plain version, and bit
+    for bit against ``want`` where given."""
+    ref = tln.layer_norm_bwd_reference(x, w, dy, 1e-5)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=tol,
+                               rtol=tol)
+    assert _normwise(got[1], ref[1]) <= 1e-5
+    assert _normwise(got[2], ref[2]) <= 1e-5
+    if want is not None:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_back_to_back_row_counts(dtype):
+    """K4 launched back to back at 51,200, 3, 3,200, 51,200, 3 and 3,200
+    rows with no synchronisation between: every result matches the plain
+    version and, at a row count seen before, the first launch's bits, so
+    neither the scratch nor the plan carries anything from one launch to
+    the next."""
+    _need_cuda()
+    dt, tol = getattr(torch, dtype), LN_TOL[dtype]
+    operands = {rows: _ln_operands(rows, 256, dt, seed=rows)
+                for rows in (51200, 3, 3200)}
+    got = []
+    for rows in (51200, 3, 3200, 51200, 3, 3200):
+        x, w, _, dy = operands[rows]
+        got.append((rows, tln.layernorm_bwd(x, w, dy, 1e-5)))
+    torch.cuda.synchronize()
+    first = {}
+    for rows, out in got:
+        x, w, _, dy = operands[rows]
+        _k4_outputs_match(out, first.get(rows), x, w, dy, tol)
+        first.setdefault(rows, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [3200, 51200])
+def test_k4_cuda_graph_replay_matches_eager(rows, dtype):
+    """K4 captured in a CUDA graph (no host synchronisation, no allocation
+    that depends on the data) and replayed three times, its outputs zeroed
+    before each replay: dx, dweight and dbias equal the eager launch's bit
+    for bit."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    x, w, _, dy = _ln_operands(rows, 256, dt, seed=rows)
+    eager = tln.layernorm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n4 = tln.K4_LAUNCHES
+    with torch.cuda.graph(graph):
+        out = tln.layernorm_bwd(x, w, dy, 1e-5)
+    assert tln.K4_LAUNCHES - n4 == 1
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [64, 256, 1024])
+def test_k4_plan_is_one_wave_on_the_card(width, dtype):
+    """The card holds at least one pass-1 block an SM, so the plan's grid
+    (at most SMs x blocks an SM) runs in one wave; the kernel refuses a
+    plan whose tiles leave rows out or hold none."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    lib = tln._lib()
+    n_sm, per_sm = tln._k4_card(lib, torch.device("cuda", 0), width, dt)
+    assert n_sm == torch.cuda.get_device_properties(0).multi_processor_count
+    assert per_sm >= 1
+    for rows in (3200, 51200):
+        plan = tln._k4_plan(rows, n_sm, per_sm)
+        assert min(n_sm, rows) <= plan.grid <= n_sm * per_sm
+    x, w, _, dy = _ln_operands(100, width, dt)
+    dx = torch.empty_like(x)
+    buf = torch.empty(2 * width * 40, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for grid, tile in ((9, 10), (11, 10), (10, 0)):
+        rc = lib.mmfm_layernorm_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            buf.data_ptr(), buf[2 * width:].data_ptr(), grid, tile, 100,
+            width, 1e-5, tln._DTYPE_CODE[dt], stream)
+        assert rc != 0
 
 
 @pytest.mark.cuda
