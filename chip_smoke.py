@@ -48,6 +48,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    "bwd" and "full" interleaved in one process (the LayerNorm A/B that set
    the port's default), with profiles that give K1, K2, K3, K4, GEMMs and
    the rest their own groups.
+5. dispatch — the trainer's host-dispatch options: ``host_split`` splits
+   the eager B=16 step's host time by kind (CPU side of torch.profiler)
+   beside its wall time with and without remat; ``dispatch`` trains the
+   resident path with K=10 steps a dispatch as CUDA graphs, f32 and bf16,
+   full MtM menu with mixed training, epoch 0, save, epoch 1, restore in
+   place, epoch 1 again, epoch 2, against the same steps run eagerly (per
+   step loss and per parameter, bit for bit or within the stated gates;
+   the graph path's launches counted by kernel name in a profile);
+   ``dispatch_time`` times the eager step against the graph step at B=16
+   and B=256, f32 and bf16, one variant, interleaved, with profiles, the
+   capture seconds and the peak memory; ``prefetch_check`` runs the
+   host-batch path with ``prefetch_depth=2`` against the same epochs
+   without it; ``philox_check`` holds the Philox draw kernel against its
+   plain version and times it. The SDPA
+   yardsticks run on a pinned backend (``SDPA_BACKEND``).
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -65,6 +80,11 @@ training step under ``"full"`` at B=16 and B=256, the bf16 sweep-chunk forward
 under ``"full"``, and the f32 sweep-chunk forward and training step at
 B=256 under the port's default LayerNorm mode (``ab_step`` /
 ``ab_sweep_chunk`` lines, with profiles).
+
+    python3 chip_smoke.py --host-split OTHER_CHECKOUT
+
+runs ``host_split`` (the eager B=16 step's host time by kind, f32 and
+bf16) on the other checkout's port, then on this one, one process each.
 """
 
 from __future__ import annotations
@@ -113,6 +133,21 @@ def emit(**record):
     print(json.dumps(record), flush=True)
 
 
+# the library yardstick's SDPA backend, pinned so that every run times the
+# same kernels (memory-efficient attention takes the additive bias and
+# dropout in f32 and bf16, forward and backward)
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
+
+
+def sdpa(*args, **kwargs):
+    """``F.scaled_dot_product_attention`` on ``SDPA_BACKEND`` only (it
+    raises if that backend cannot run the call)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([getattr(SDPBackend, SDPA_BACKEND)]):
+        return F.scaled_dot_product_attention(*args, **kwargs)
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -150,34 +185,90 @@ def _group(name: str) -> str:
 def _device_events(prof):
     """(name, ms) of every kernel in a profile; user annotations (e.g.
     "Optimizer.step#AdamW.step") also appear on the device timeline, and
-    span kernels counted on their own."""
+    span kernels counted on their own. The lead-in of ``traced`` is left
+    out."""
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(evt, "is_user_annotation", False):
+                and not getattr(evt, "is_user_annotation", False) \
+                and LEAD_IN_KERNEL not in evt.name:
             yield evt.name, evt.time_range.elapsed_us() / 1e3
+
+
+# torch.profiler (torch 2.11+cu128 on an H100 80GB HBM3) loses the first
+# device records of a trace, more the longer the process has run: of 20
+# short kernels it lost none at 3 s, 5 at 71 s, 9 at 132 s, 14 at 194 s,
+# up to 19 at 255 s (scripts/torch_profiler_loss.py); host sleep before
+# and after the traced work does not help. The loss is a count of records,
+# not a span of time: a lead-in of 100 us spin kernels lost as many as the
+# 1.4 us draws did. ``traced`` opens each trace with LEAD_IN spin kernels
+# (~10 us each) that take that loss, and refuses a trace that lost all of
+# them. Rarely a trace also loses records after a caught lead-in kernel
+# (in that script, once in 30 traces: all 20 draws), so each caller checks
+# what it counts as well and traces again: ``device_ms_by_kernel`` (each
+# kernel's count a multiple of the calls), ``device_breakdown`` (the fuller
+# of two kept traces), ``dispatch_phase`` (the launches a step).
+LEAD_IN = 256
+LEAD_IN_CYCLES = 20_000
+LEAD_IN_KERNEL = "spin_kernel"     # torch.cuda._sleep's kernel
+TRACE_LOSSES: list = []            # lead-in kernels lost, trace by trace
+
+
+class TraceLost(RuntimeError):
+    """A trace lost its whole lead-in, so it may have lost records of the
+    work it traced too."""
+
+
+@contextlib.contextmanager
+def traced(cpu: bool = False):
+    """``torch.profiler.profile`` of the body (device activity, the host's
+    too with ``cpu``), opened by the lead-in; raises ``TraceLost`` when no
+    lead-in kernel came back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+    caught = sum(1 for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA
+                 and LEAD_IN_KERNEL in evt.name)
+    TRACE_LOSSES.append(LEAD_IN - caught)
+    if caught == 0:
+        raise TraceLost(f"the trace lost all {LEAD_IN} lead-in kernels")
 
 
 def device_ms_by_kernel(fn, reps: int = 20) -> dict:
     """Device time per call of ``fn`` by kernel name: the durations of the
-    kernels it launches, from a torch.profiler trace of ``reps`` calls. For
+    kernels it launches, from a ``traced`` run of ``reps`` calls. For
     kernels of tens of microseconds, whose wrappers take about as long on
     the host, CUDA events would time the host's launch rate instead. A
-    trace that caught no kernel (seen once in ~400) is taken again."""
-    from torch.profiler import ProfilerActivity, profile
-
+    trace is taken again (up to 5 times) when it lost its lead-in or when
+    a kernel's count is not a multiple of ``reps`` (each call launches the
+    same kernels)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name: dict = {}
+    why = ""
+    for _ in range(5):
+        try:
+            with traced() as prof:
+                for _ in range(reps):
+                    fn()
+        except TraceLost as e:
+            why = str(e)
+            continue
+        ms_by: dict = {}
+        count: dict = {}
         for name, ms in _device_events(prof):
-            by_name[name] = by_name.get(name, 0.0) + ms / reps
-        if by_name:
-            return by_name
-    raise RuntimeError("torch.profiler caught no kernel in three traces")
+            ms_by[name] = ms_by.get(name, 0.0) + ms / reps
+            count[name] = count.get(name, 0) + 1
+        if ms_by and all(c % reps == 0 for c in count.values()):
+            return ms_by
+        why = f"kernel counts {count} over {reps} calls"
+    raise RuntimeError(f"no whole trace in five: {why}")
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -191,18 +282,29 @@ def device_breakdown(fn, top: int = 6) -> dict:
     tracing), grouped as K1 / K2 / K3 / K4 / GEMM / other by kernel name,
     beside the host wall time of the same profiled call (so the idle share
     includes profiler cost)."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    best, kept = None, 0
+    for _ in range(4):      # the fuller of two kept traces (see ``traced``)
+        try:
+            with traced(cpu=True) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        except TraceLost:
+            continue
+        events = list(_device_events(prof))
+        if best is None or len(events) > len(best[0]):
+            best = (events, wall_ms)
+        kept += 1
+        if kept == 2:
+            break
+    if best is None:
+        raise RuntimeError("device_breakdown: four traces were lost")
+    events, wall_ms = best
     by_name: dict = {}
-    for name, ms in _device_events(prof):
+    for name, ms in events:
         by_name[name] = by_name.get(name, 0.0) + ms
     groups = dict.fromkeys(("k1_ms", "k2_ms", "k3_ms", "k4_ms", "gemm_ms",
                             "other_ms"), 0.0)
@@ -272,16 +374,21 @@ def reset_counts() -> None:
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
+    from multi_modal_foundation_model_tpu_torch.ops import random as rnd
+
     att.K1_LAUNCHES = att.K2_LAUNCHES = 0
     ln.K3_LAUNCHES = ln.K4_LAUNCHES = 0
+    rnd.PHILOX_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
+    from multi_modal_foundation_model_tpu_torch.ops import random as rnd
+
     return dict(k1=att.K1_LAUNCHES, k2=att.K2_LAUNCHES, k3=ln.K3_LAUNCHES,
-                k4=ln.K4_LAUNCHES)
+                k4=ln.K4_LAUNCHES, philox=rnd.PHILOX_LAUNCHES)
 
 
 def _excess(got, want, tol: float) -> float:
@@ -441,8 +548,7 @@ def k1_phase():
         bias = bias[:, None].to(dtype)
         qh, kh, vh = (x.unflatten(-1, (H, D)).transpose(1, 2)
                       for x in (q, k, v))
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=bias))
+        library_ms = cuda_time_ms(lambda: sdpa(qh, kh, vh, attn_mask=bias))
         # least time for the same work: each input read once, the output
         # written once; the two products' flops as ``_tc_bound`` counts them
         elem = q.element_size()
@@ -452,7 +558,8 @@ def k1_phase():
         b = _tc_bound(bytes_moved, flops, dtype)
         emit(phase="k1_time", shape=[B, Tq, Tk, H, D],
              dtype=dtype_name(dtype), ms=ms, plain_ms=plain_ms,
-             library_ms=library_ms, bytes=bytes_moved, flops=flops, **b)
+             library_ms=library_ms, sdpa_backend=SDPA_BACKEND,
+             bytes=bytes_moved, flops=flops, **b)
         rows[dtype] = dict(max_abs_err=worst[dtype], ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms, **b)
     return rows
@@ -589,13 +696,12 @@ def train_kernels_phase():
                       .requires_grad_(True) for x in (q, k, v))
         gh = g.unflatten(-1, (H, D)).transpose(1, 2)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
-                                                  dropout_p=DROPOUT)
+        def lib():
+            return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
 
-        lib_fwd = cuda_time_ms(lambda: sdpa().detach())
+        lib_fwd = cuda_time_ms(lambda: lib().detach())
         lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-            sdpa(), (qh, kh, vh), gh))
+            lib(), (qh, kh, vh), gh))
         # bounds: each input read once, each output written once; the
         # products as ``_tc_bound`` counts them (the Philox draws not
         # counted)
@@ -610,12 +716,14 @@ def train_kernels_phase():
                          + masks, 10 * B * H * Tq * Tk * D, dtype)
         emit(phase="k1_train_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, with_lse=True,
-             ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b)
+             ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd,
+             sdpa_backend=SDPA_BACKEND, **k1_b)
         emit(phase="k2_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, ms=k2_ms,
              ms_dropout0=k2_ms_rate0, plain_ms=k2_plain,
              library_ms=lib_fwd_bwd - lib_fwd,
-             library_fwd_bwd_ms=lib_fwd_bwd, **k2_b)
+             library_fwd_bwd_ms=lib_fwd_bwd, sdpa_backend=SDPA_BACKEND,
+             **k2_b)
         k1_rows[dtype] = dict(max_abs_err=worst_k1[dtype], ms=k1_ms,
                               plain_ms=k1_plain, library_ms=lib_fwd, **k1_b)
         k2_rows[dtype] = dict(max_abs_err=worst_k2[dtype], ms=k2_ms,
@@ -936,16 +1044,18 @@ def step_flops(cfg, B: int) -> dict:
                 step_flops_with_remat=3 * fwd + enc + dec)
 
 
-def _trainer(cfg, loader, val_loader, epochs, log_dir, **model_kw):
+def _trainer(cfg, loader, val_loader, epochs, log_dir, tcfg_over=None,
+             **model_kw):
     from multi_modal_foundation_model_tpu_torch.models import MultiModal
     from multi_modal_foundation_model_tpu_torch.train import (
         MetricLogger, MultiModalTrainer, OptimizerConfig, TrainerConfig)
 
     model = MultiModal(cfg, generator=torch.Generator().manual_seed(SEED),
                        **model_kw)
-    tcfg = TrainerConfig(num_epochs=epochs, mask_type="input",
-                         mask_mode=MTM_MENU, mixed_training=True, seed=SEED,
-                         log_dir=str(log_dir))
+    tcfg = TrainerConfig(**{**dict(
+        num_epochs=epochs, mask_type="input", mask_mode=MTM_MENU,
+        mixed_training=True, seed=SEED, log_dir=str(log_dir)),
+        **(tcfg_over or {})})
     return MultiModalTrainer(model, loader, val_loader, OptimizerConfig(),
                              tcfg, logger=MetricLogger(str(log_dir),
                                                        stdout=False))
@@ -1018,7 +1128,9 @@ def train_phase(root: Path, dtype, mode: str):
         k4=K4_PER_STEP * steps if mode in ("bwd", "full") else 0)
     ok = (finite and falling and same and epoch == 1
           and restored_step == tr_a.step
-          and steps == counts["train"] == len(losses) and launches == want)
+          and steps == counts["train"] == len(losses)
+          and {k: launches[k] for k in want} == want
+          and launches["philox"] > 0)
     emit(phase="train", dtype=dtype_name(dtype), layernorm=mode,
          batch=TRAIN_B, steps=steps, epochs=3, restored_epoch=epoch,
          restored_params_equal=same, train_forwards=counts["train"],
@@ -1148,6 +1260,422 @@ def plain_step_time(root: Path):
              steps=reps, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del tr, step
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the host-dispatch options (resident split, CUDA-graph steps)
+# ---------------------------------------------------------------------------
+
+# the resident path's K (steps per dispatch) in this phase
+DISPATCH_K = 10
+# a name per launch of each wrapper (K2 and K4 launch two kernels each:
+# their first is counted)
+_KERNEL_GROUPS = (("k1", "attn_fwd_"), ("k2", "attn_bwd_dq_"),
+                  ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
+                  ("philox", "philox_"))
+
+
+def kernel_counts(prof) -> dict:
+    """Launches of the port's kernels in a profile, by kernel name (graph
+    replays included: the wrappers' counters see only Python calls)."""
+    counts = dict.fromkeys((g for g, _ in _KERNEL_GROUPS), 0)
+    for name, _ in _device_events(prof):
+        for group, key in _KERNEL_GROUPS:
+            if key in name:
+                counts[group] += 1
+    return counts
+
+
+def _launches_ok(counts: dict, steps: int, want: dict) -> bool:
+    """The profiled epoch launched ``want`` of K1-K4 a step, and Philox."""
+    return ({k: counts[k] / steps for k in want} == want
+            and counts["philox"] > 0)
+
+
+class _EagerSteps:
+    """The graph path's yardstick in this script only: a ``StepGraphs``
+    stand-in that runs every step of the resident path eagerly on the
+    current stream."""
+
+    def __init__(self):
+        self.graphs, self.capture_s, self.replays = {}, {}, 0
+
+    def run(self, key, step):
+        step()
+
+
+def _train_loaders(B: int = TRAIN_B):
+    from multi_modal_foundation_model_tpu_torch.data import (make_loader,
+                                                             synthetic_splits)
+
+    T, N = GEOMETRY["max_F"], GEOMETRY["n_channels"]["ap"]
+    splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
+                              n_timesteps=T)
+    kw = dict(batch_size=B, max_time_length=T, max_space_length=N)
+    return (make_loader(splits.train, seed=SEED, **kw),
+            make_loader(splits.val, shuffle=False, **kw))
+
+
+def dispatch_phase(root: Path, dtype, mode: str) -> dict:
+    """The resident path with K = 10 steps a dispatch at full width (B=16,
+    dropout 0.4, remat, the full MtM menu with mixed training), as CUDA
+    graphs and as the same steps run eagerly: epoch 0, save, epoch 1,
+    restore the save in place (the graphs are kept), epoch 1 again, epoch
+    2, then the resident eval. The graph run's repeated epoch 1 must equal
+    its first bit for bit (a replay after a restore), and the graph run
+    must equal the eager run per step loss and per parameter, bit for bit
+    or within the gates: f32 loss rtol 1e-5 and parameters atol 2e-5 (the
+    JAX lockstep's gate), bf16 loss rtol 1e-2 and each parameter within 5e-2
+    relative L2 (the bf16 kernel-vs-plain step gate); the attention key
+    biases, whose exact gradient is 0, are left out of the parameter gates.
+    The repeated epoch 1 is profiled: on the graph path all its steps are
+    replays, and its kernel counts by name are the graph path's launches.
+    Returns them."""
+    cfg = _cfg(dtype)
+    train_l, val_l = _train_loaders()
+    over = dict(device_resident_data=True, steps_per_dispatch=DISPATCH_K)
+    want = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                k3=K3_PER_STEP if mode == "full" else 0,
+                k4=K4_PER_STEP if mode in ("bwd", "full") else 0)
+    runs = {}
+    for path in ("graph", "eager"):
+        log_dir = root / f"dispatch_{path}_{dtype_name(dtype)}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        with ln_mode(mode):
+            tr = _trainer(cfg, train_l, val_l, 3, log_dir, tcfg_over=over)
+            if path == "eager":
+                tr.graphs = _EagerSteps()
+            t0 = time.perf_counter()
+            losses = tr.train_epoch(0)["step_losses"]
+            tr.save_model("last", epoch=0)
+            first = tr.train_epoch(1)["step_losses"]
+            # epoch 1 again: every variant it draws was captured the first
+            # time, so on the graph path each of its steps is a replay.
+            # Restored and run again (up to 3 times) when its trace lost
+            # launches (``traced``); the replays are exact, so the state
+            # after the last run is the same
+            counts = None
+            for _ in range(3):
+                epoch = tr.restore("last")
+                replays = tr.graphs.replays
+                try:
+                    with traced() as prof:
+                        again = tr.train_epoch(1)["step_losses"]
+                except TraceLost:
+                    continue
+                counts = kernel_counts(prof)
+                if _launches_ok(counts, len(again), want):
+                    break
+            replays = tr.graphs.replays - replays
+            last = tr.train_epoch(2)["step_losses"]
+            ev = tr.eval_epoch()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[path] = dict(
+            losses=losses + first + again + last, replay_exact=again == first,
+            restored_epoch=epoch, params={
+                n: p.detach().clone()
+                for n, p in tr.model.state_dict().items()},
+            counts=counts, steps_profiled=len(again),
+            replays_profiled=replays,
+            variants=len(tr.graphs.graphs), replays=tr.graphs.replays,
+            capture_s=list(tr.graphs.capture_s.values()), wall_s=wall,
+            eval_loss=ev["eval_loss"], eval_r2=ev["eval_trial_avg_r2"])
+        del tr
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    bit_losses = g["losses"] == e["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                       e["losses"]))
+    bit_params = sum(not torch.equal(g["params"][n], e["params"][n])
+                     for n in g["params"])
+    gated = [n for n in g["params"] if not n.endswith("key.bias")]
+    param_abs = max((g["params"][n].float() - e["params"][n].float())
+                    .abs().max().item() for n in gated)
+    param_rel = max(((g["params"][n].float() - e["params"][n].float())
+                     .norm() / e["params"][n].float().norm().clamp_min(
+                         1e-30)).item() for n in gated)
+    if dtype == torch.float32:
+        gate_ok = loss_rel <= 1e-5 and param_abs <= 2e-5
+        gate = dict(loss_rtol=1e-5, param_atol=2e-5)
+    else:
+        gate_ok = loss_rel <= 1e-2 and param_rel <= 5e-2
+        gate = dict(loss_rtol=1e-2, param_rel_l2=5e-2)
+    finite = all(math.isfinite(x) for x in g["losses"])
+    counts_ok = g["counts"] is not None and _launches_ok(
+        g["counts"], g["steps_profiled"], want)
+    per_step = {k: v / g["steps_profiled"]
+                for k, v in (g["counts"] or {}).items()}
+    ok = (finite and gate_ok and g["replay_exact"] and e["replay_exact"]
+          and g["replays_profiled"] == g["steps_profiled"] and counts_ok)
+    emit(phase="dispatch", dtype=dtype_name(dtype), layernorm=mode,
+         batch=TRAIN_B, steps_per_dispatch=DISPATCH_K,
+         steps=len(g["losses"]), graph_losses=g["losses"],
+         losses_bit_equal=bit_losses, loss_max_rel_err=loss_rel,
+         params_not_bit_equal=bit_params, n_params=len(g["params"]),
+         param_max_abs_err=param_abs, param_max_rel_l2=param_rel, **gate,
+         replay_after_restore_exact=g["replay_exact"],
+         eager_rerun_exact=e["replay_exact"], variants=g["variants"],
+         replays=g["replays"], capture_s=g["capture_s"],
+         graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+         launches_profiled_epoch=g["counts"],
+         replays_in_profiled_epoch=g["replays_profiled"],
+         launches_per_step=per_step,
+         launches_per_step_expected=want, eval_loss=g["eval_loss"],
+         eval_loss_eager=e["eval_loss"], eval_trial_avg_r2=g["eval_r2"],
+         device=torch.cuda.get_device_name(0), ok=ok)
+    if not ok:
+        raise AssertionError("dispatch phase: graph vs eager, replay after "
+                             "restore or launches off (see its line)")
+    return g["counts"]
+
+
+def dispatch_time(root: Path, dtype, mode: str) -> None:
+    """The eager step against the graph step at B=16 and B=256, one variant
+    (MtM ``temporal`` alone, no mixed training): one resident trainer whose
+    segments are a dispatch of K = 10 graph replays, one host-batch
+    trainer whose segments are 10 eager steps on a batch already on the
+    card, interleaved eager, graph, graph, eager (4 passes each); medians
+    and spreads of the segments' ms per step; a profile of one segment
+    each (device busy and idle share); capture seconds per variant, the
+    variant count and the peak memory of the graph path."""
+    cfg = _cfg(dtype)
+    one = dict(mask_mode=("temporal",), mixed_training=False)
+    for B in (TRAIN_B, BIG_B):
+        loader = _step_loaders(B)
+        with ln_mode(mode):
+            eager = _trainer(cfg, loader, None, 1, root / "dispatch_time",
+                             tcfg_over=one)
+            step = _step_fn(eager)
+            graph = _trainer(cfg, loader, None, 1, root / "dispatch_time",
+                             tcfg_over=dict(one, device_resident_data=True,
+                                            steps_per_dispatch=DISPATCH_K))
+            data = graph._device_data(loader)
+            idx, valid, _ = next(loader.iter_index_batches())
+            group = [(idx, valid, 0)] * DISPATCH_K
+
+            def seg_eager():
+                for _ in range(DISPATCH_K):
+                    step()
+
+            def seg_graph():
+                graph._dispatch(data, group, None)
+
+            for seg in (seg_eager, seg_graph, seg_eager, seg_graph):
+                seg()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            segs = {"eager": [], "graph": []}
+            for p in range(4):
+                for name in (("eager", "graph") if p % 2 == 0
+                             else ("graph", "eager")):
+                    fn = seg_eager if name == "eager" else seg_graph
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    segs[name].append((time.perf_counter() - t0) * 1e3
+                                      / DISPATCH_K)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            prof = {name: device_breakdown(fn, top=6) for name, fn in
+                    (("eager", seg_eager), ("graph", seg_graph))}
+        med = {k: float(np.median(v)) for k, v in segs.items()}
+        emit(phase="dispatch_time", dtype=dtype_name(dtype), layernorm=mode,
+             batch=B, steps_per_segment=DISPATCH_K, segments_ms=segs,
+             ms_per_step=med, spread_ms={k: max(v) - min(v)
+                                         for k, v in segs.items()},
+             seq_per_s={k: B / v * 1e3 for k, v in med.items()},
+             device_busy_ms_per_step={
+                 k: v["device_busy_ms"] / DISPATCH_K
+                 for k, v in prof.items()},
+             idle_share={k: v["idle_share"] for k, v in prof.items()},
+             variants=len(graph.graphs.graphs),
+             capture_s=list(graph.graphs.capture_s.values()),
+             peak_mem_gb=peak, device=torch.cuda.get_device_name(0))
+        for name, p in prof.items():
+            emit(phase="dispatch_profile", dtype=dtype_name(dtype),
+                 layernorm=mode, batch=B, path=name,
+                 steps=DISPATCH_K, **p)
+        del eager, graph, step, data
+        torch.cuda.empty_cache()
+
+
+# host time by kind, by the CPU events of torch.profiler: Python time lands
+# in the event around it (an autograd Function's, a backward node's: the
+# remat recompute runs inside the first backward node that needs a saved
+# tensor of its layer)
+_SPLIT = (("cuda_runtime", ("cuda", "cu")),
+          ("port_kernel_wrappers", ("_FlashAttention", "_KernelLayerNorm",
+                                    "_BwdKernelLayerNorm", "ops/attention.py",
+                                    "ops/layernorm.py", "ops/random.py")),
+          ("checkpoint", ("torch/utils/checkpoint.py", "Checkpoint")),
+          ("generator", ("Generator", "manual_seed")),
+          ("casts_copies", ("aten::to", "aten::_to_copy", "aten::copy_",
+                            "<built-in method to of")),
+          ("optimizer", ("train/schedule.py", "aten::_foreach", "optim/",
+                         "Optimizer")),
+          ("backward_nodes_and_remat", ("Backward",)),
+          ("autograd_engine", ("run_backward", "autograd::engine")),
+          ("aten_other", ("aten::",)))
+
+
+def _split_group(name: str) -> str:
+    for group, keys in _SPLIT:
+        if any(name.startswith(k) if k in ("cuda", "cu", "aten::",
+                                           "_FlashAttention",
+                                           "_KernelLayerNorm",
+                                           "_BwdKernelLayerNorm")
+               else k in name for k in keys):
+            return group
+    return "python_other"
+
+
+def _wall_ms(step, reps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def host_split(tag: str, step, dtype, no_remat_step=None,
+               reps: int = 3) -> dict:
+    """The eager step's host time by kind, from the CPU side of
+    torch.profiler: self CPU ms per step of every event, summed by
+    ``_split_group`` (the main thread and autograd's thread together, so
+    the sum can exceed the wall time, and the profiler slows the step:
+    the shares, not the sums, are the reading); beside it the untraced
+    wall ms per step and, with ``no_remat_step`` (the same step without
+    remat), both steps' wall ms in 3 interleaved rounds of 5 (what
+    ``torch.utils.checkpoint`` costs whole) and the number of kernel
+    launches a step (``cudaLaunchKernel`` and kin)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    wall = _wall_ms(step, reps)
+    remat = {}
+    if no_remat_step is not None:
+        no_remat_step()
+        rounds = {"remat": [], "no_remat": []}
+        for _ in range(3):
+            rounds["remat"].append(_wall_ms(step, 5))
+            rounds["no_remat"].append(_wall_ms(no_remat_step, 5))
+        remat = dict(wall_ms_rounds=rounds, wall_ms_median={
+            k: float(np.median(v)) for k, v in rounds.items()})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    groups = dict.fromkeys([g for g, _ in _SPLIT] + ["python_other"], 0.0)
+    top, launches = [], 0
+    for evt in prof.key_averages():
+        ms = evt.self_cpu_time_total / 1e3 / reps
+        group = _split_group(evt.key)
+        groups[group] += ms
+        if group == "cuda_runtime" and "Launch" in evt.key:
+            launches += evt.count
+        top.append((ms, evt.key[:80]))
+    total = sum(groups.values())
+    out = dict(wall_ms_per_step=wall, traced_self_cpu_ms_per_step=total,
+               launch_calls_per_step=launches / reps, self_cpu_ms=groups,
+               share={k: v / max(total, 1e-9) for k, v in groups.items()},
+               remat_ab=remat,
+               top_self_cpu_ms=[[k, v] for v, k in sorted(top)[::-1][:12]])
+    emit(phase="host_split", package=tag, dtype=dtype_name(dtype),
+         batch=TRAIN_B, **out)
+    return out
+
+
+def host_split_worker(side: str, out: Path) -> None:
+    """One process of ``--host-split``: the eager B=16 step's host split
+    in f32 and bf16, on the package first on ``sys.path``."""
+    import multi_modal_foundation_model_tpu_torch as pkg
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    where = f"{side}:{Path(pkg.__file__).resolve().parent}"
+    for dtype, mode in ((torch.float32, ln.PALLAS_LAYERNORM),
+                        (torch.bfloat16, "full")):
+        with ln_mode(mode):
+            tr = _trainer(_cfg(dtype), _step_loaders(TRAIN_B), None, 1,
+                          out / "chip_smoke_split")
+            flat = _trainer(_cfg(dtype, remat_layers=False),
+                            _step_loaders(TRAIN_B), None, 1,
+                            out / "chip_smoke_split")
+            host_split(where, _step_fn(tr), dtype, _step_fn(flat))
+        del tr, flat
+        torch.cuda.empty_cache()
+
+
+def prefetch_check(root: Path) -> None:
+    """The host-batch path with ``prefetch_depth=2`` (pinned copies on a
+    side stream) against the same epoch without it, f32 at B=16 under the
+    port's default LayerNorm mode: per step loss bit for bit or within the
+    f32 gate (rtol 1e-5), and both epochs' wall time (an epoch of 10
+    steps, the second of each run, interleaved)."""
+    cfg = _cfg(torch.float32)
+    train_l, _ = _train_loaders()
+    runs = {}
+    for depth in (0, 2, 2, 0):
+        tr = _trainer(cfg, train_l, None, 3, root / "chip_smoke_prefetch",
+                      tcfg_over=dict(prefetch_depth=depth))
+        losses = tr.train_epoch(0)["step_losses"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += tr.train_epoch(1)["step_losses"]
+        torch.cuda.synchronize()
+        run = runs.setdefault(depth, dict(losses=losses, epoch_s=[]))
+        run["epoch_s"].append(time.perf_counter() - t0)
+        del tr
+    a, b = runs[0]["losses"], runs[2]["losses"]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    ok = rel <= 1e-5
+    emit(phase="prefetch_check", dtype="float32", batch=TRAIN_B,
+         steps=len(a), losses_bit_equal=a == b, loss_max_rel_err=rel,
+         epoch_s={str(k): v["epoch_s"] for k, v in runs.items()},
+         device=torch.cuda.get_device_name(0), ok=ok)
+    if not ok:
+        raise AssertionError(f"prefetch changed the losses: {rel}")
+
+
+def philox_check() -> dict:
+    """The Philox draw kernel (``csrc/random.cu``) against its plain
+    version at the B=16 step's largest dropout (16 x 200 x 256 bytes) and
+    its masker draw (16 x 100 x 668 uniforms), bit for bit; timed beside
+    the plain version and, for reference, ``torch.randint``'s bytes (not
+    the same function: other bits), with the bound of writing the output
+    once (nothing is read but the key)."""
+    from multi_modal_foundation_model_tpu_torch.ops import random as rnd
+
+    key = torch.tensor([2 ** 40 + 123], dtype=torch.int64, device="cuda")
+    shapes = dict(u8=(TRAIN_B, 200, 256), uniform=(TRAIN_B, 100, 668))
+    out = {}
+    for kind, shape in shapes.items():
+        fn = rnd.u8_bits if kind == "u8" else rnd.uniform
+        ref = rnd.u8_bits_reference if kind == "u8" else \
+            rnd.uniform_reference
+        got = fn(key[0:1], shape, 1)
+        want = ref(key[0:1], shape, 1)
+        err = (got.float() - want.float()).abs().max().item()
+        n = got.numel()
+        ms = device_ms(lambda: fn(key[0:1], shape, 1))
+        plain_ms = cuda_time_ms(lambda: ref(key[0:1], shape, 1), 5, 1)
+        randint_ms = device_ms(lambda: torch.randint(
+            0, 256, shape, dtype=torch.uint8, device="cuda"))
+        # ten Philox rounds (~12 integer operations each) per 16 bytes or
+        # 4 uniforms, at the f32 CUDA-core rate as a stand-in
+        blocks = n / (16 if kind == "u8" else 4)
+        b = _bound(n * got.element_size(), blocks * 120.0)
+        out[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, torch_randint_ms=randint_ms,
+                         shape=list(shape), **b)
+        emit(phase="philox_check", kind=kind, **out[kind],
+             ok=err == 0.0)
+        if err != 0.0:
+            raise AssertionError(f"Philox {kind} kernel != plain: {err}")
+    return out
 
 
 def layernorm_ab(root: Path, dtype) -> str:
@@ -1329,6 +1857,19 @@ def ab(other: str) -> int:
     return 0
 
 
+def host_split_ab(other: str) -> int:
+    """``--host-split OTHER``: the eager step's host split on the other
+    checkout's package, then on this one, one process each."""
+    me = Path(__file__).resolve()
+    print(nvidia_smi(), flush=True)
+    for side, root in (("other", other), ("this", me.parent)):
+        rc = subprocess.run([sys.executable, str(me), "--split-worker", side,
+                             str(Path(root).resolve())]).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1336,7 +1877,9 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     if sys.argv[1:2] == ["--ab"]:
         return ab(sys.argv[2])
-    if sys.argv[1:2] == ["--ab-worker"]:
+    if sys.argv[1:2] == ["--host-split"]:
+        return host_split_ab(sys.argv[2])
+    if sys.argv[1:2] in (["--ab-worker"], ["--split-worker"]):
         # this script's helpers, on the other checkout's package
         sys.path.insert(0, sys.argv[3])
         from multi_modal_foundation_model_tpu_torch.ops import build
@@ -1344,7 +1887,9 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.build(build.kernel_sources())
-        ab_worker(sys.argv[2], root / "build")
+        worker = ab_worker if sys.argv[1] == "--ab-worker" else \
+            host_split_worker
+        worker(sys.argv[2], root / "build")
         return 0
     sys.path.insert(0, str(root))
     from multi_modal_foundation_model_tpu_torch.ops import build
@@ -1375,12 +1920,29 @@ def main() -> int:
     train_bf16 = train_phase(out, bf16, "full")
     kernel_vs_plain_step(out, f32, default)
     kernel_vs_plain_step(out, bf16, "full")
+    host_split_worker("this", out)
+    disp_f32 = dispatch_phase(out, f32, default)
+    disp_bf16 = dispatch_phase(out, bf16, "full")
+    dispatch_time(out, f32, default)
+    dispatch_time(out, bf16, "full")
+    prefetch_check(out)
+    philox = philox_check()
     plain_step_time(out)
     picks = {dtype_name(dt): layernorm_ab(out, dt) for dt in (f32, bf16)}
     emit(phase="layernorm_default", rule_pick_at_b256=picks,
          default_in_code=default)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16)
+    # the graph path's launches, counted by kernel name in a profile of
+    # one epoch of replays (the wrappers' counters see only Python calls)
+    graph_paths = dict(dispatch_graph_f32=disp_f32,
+                       dispatch_graph_bf16=disp_bf16)
+
+    def by_path(group, names):
+        got = {k: paths[k][group] for k in names if k in paths}
+        got.update({k: graph_paths[k][group] for k in names
+                    if k in graph_paths})
+        return got
 
     src = "multi_modal_foundation_model_tpu_torch/csrc/"
     attn_py = "multi_modal_foundation_model_tpu/ops/attention.py"
@@ -1399,23 +1961,34 @@ def main() -> int:
              "tensor cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, "
              "cp.async)", route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=train_f32["k1"],
+             launches_by_path=by_path("k1", ("train_f32",
+                                             "dispatch_graph_f32")),
              **_row(k1_train[f32])),
         dict(name="attention_fwd (K1, training), bf16: tensor cores "
              "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
-             launches=train_bf16["k1"], **_row(k1_train[bf16])),
+             launches=train_bf16["k1"],
+             launches_by_path=by_path("k1", ("train_bf16",
+                                             "dispatch_graph_bf16")),
+             **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
              source=src + "attention_bwd.cu", replaces=attn_py + ":221",
-             launches=train_f32["k2"], **_row(k2[f32])),
+             launches=train_f32["k2"],
+             launches_by_path=by_path("k2", ("train_f32",
+                                             "dispatch_graph_f32")),
+             **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "
              "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_bwd.cu", replaces=attn_py + ":221",
-             launches=train_bf16["k2"], **_row(k2[bf16])),
+             launches=train_bf16["k2"],
+             launches_by_path=by_path("k2", ("train_bf16",
+                                             "dispatch_graph_bf16")),
+             **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",
              launches=sum(c["k3"] for c in paths.values()),
-             launches_by_path={k: c["k3"] for k, c in paths.items()},
+             launches_by_path=by_path("k3", (*paths, *graph_paths)),
              f32_ms=k3[f32]["ms"], **_row(k3[bf16])),
         dict(name="layernorm_bwd (K4), bf16 at 51,200 x 256: a grid of one "
              "wave sized to the SMs, the next row loaded while a row is "
@@ -1423,12 +1996,23 @@ def main() -> int:
              route="cuda", source=src + "layernorm.cu",
              replaces=ln_py + ":109",
              launches=sum(c["k4"] for c in paths.values()),
-             launches_by_path={k: c["k4"] for k, c in paths.items()},
+             launches_by_path=by_path("k4", (*paths, *graph_paths)),
              f32_ms=k4[f32]["ms"],
              b16_rows_3200={dtype_name(dt): _row(r)
                             for dt, r in k4_b16.items()},
              **_row(k4[bf16])),
+        dict(name="philox_u8 / philox_uniform: layer and embedding "
+             "dropout's random bytes (16 x 200 x 256 at B=16) and the "
+             "masker's uniforms, keyed from the step's seed table on the "
+             "card", route="cuda", source=src + "random.cu",
+             replaces="multi_modal_foundation_model_tpu/models/layers.py"
+             ":227-240",
+             launches=train_f32["philox"] + train_bf16["philox"],
+             launches_by_path=by_path("philox", (*paths, *graph_paths)),
+             uniform=philox["uniform"], **_row(philox["u8"])),
     ]
+    emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
+         lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError("a kernel of the main paths never launched")
     emit(kernels=kernels)

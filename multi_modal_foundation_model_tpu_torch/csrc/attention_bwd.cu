@@ -115,9 +115,11 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       int hpb, long long q_sb, long long q_st, long long k_sb,
                       long long k_st, long long v_sb, long long v_st,
                       long long g_sb, long long g_st, float scale,
-                      unsigned seed, unsigned threshold, float keep_scale,
-                      bool vec) {
+                      const long long* __restrict__ seed_ptr,
+                      unsigned threshold, float keep_scale, bool vec) {
   using Ops = Tc<T>;
+  // the Philox key: the low 32 bits of the step's seed-table entry
+  const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
   constexpr int D = kHeadDim;
   constexpr int kPer = 16 / sizeof(T);             // elements a copy
   extern __shared__ __align__(16) unsigned char smem[];
@@ -452,8 +454,8 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
                       int H, long long q_sb, long long q_st, long long k_sb,
                       long long k_st, long long v_sb, long long v_st,
                       long long g_sb, long long g_st, float scale,
-                      unsigned seed, unsigned threshold, float keep_scale,
-                      cudaStream_t stream) {
+                      const long long* seed, unsigned threshold,
+                      float keep_scale, cudaStream_t stream) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -510,7 +512,7 @@ extern "C" int mmfm_attention_bwd(
     float* rowsum, void* dq, void* dk, void* dv, int B, int Tq, int Tk,
     int H, int D, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st, long long g_sb,
-    long long g_st, float scale, unsigned seed, unsigned threshold,
+    long long g_st, float scale, const long long* seed, unsigned threshold,
     float keep_scale, int dropout, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;

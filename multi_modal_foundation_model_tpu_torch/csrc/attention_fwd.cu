@@ -16,6 +16,9 @@
 // the numerator sees the dropped ones. keep[q,k] is a Philox draw keyed by
 // the seed with counter (b, h, q, k) alone (philox.cuh), so K2 replays it
 // at its own tiling; keep iff bits > uint32(rate * (2^32 - 1)), JAX's test.
+// The seed is read from device memory (an entry of the training step's seed
+// table, ops/attention.py), never passed by value, so a CUDA graph of the
+// step draws each replay's own key.
 // The bias is the finite -1e30 of the JAX package, never -inf: in f32
 // -1e30 + q.k rounds to -1e30, so a fully-masked row sees equal scores and
 // comes out as the mean of V (of the kept V with dropout), as in JAX, with
@@ -114,9 +117,11 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    float* __restrict__ lse, int Tq, int Tk, int H, int hpb,
                    long long q_sb, long long q_st, long long k_sb,
                    long long k_st, long long v_sb, long long v_st,
-                   float scale, unsigned seed, unsigned threshold,
-                   float keep_scale, bool vec) {
+                   float scale, const long long* __restrict__ seed_ptr,
+                   unsigned threshold, float keep_scale, bool vec) {
   using Ops = Tc<T>;
+  // the Philox key: the low 32 bits of the step's seed-table entry
+  const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
   constexpr int D = kHeadDim;
   constexpr int kPer = 16 / sizeof(T);             // elements a copy
   constexpr int kBufs = Ops::kFwdBufs;             // k/v tile buffers
@@ -322,8 +327,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       float* lse, int B, int Tq, int Tk, int H,
                       long long q_sb, long long q_st, long long k_sb,
                       long long k_st, long long v_sb, long long v_st,
-                      float scale, unsigned seed, unsigned threshold,
-                      float keep_scale, cudaStream_t stream) {
+                      float scale, const long long* seed,
+                      unsigned threshold, float keep_scale,
+                      cudaStream_t stream) {
   const int n_qt = (Tq + kTcRows - 1) / kTcRows;
   const int n_kt = (Tk + kTcRows - 1) / kTcRows;
   const size_t n_buf = kDropout ? 2 : 1;   // bit buffers
@@ -356,7 +362,7 @@ extern "C" int mmfm_attention_fwd(
     const int* static_mask, void* out, float* lse, int B, int Tq, int Tk,
     int H, int D, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st, float scale,
-    unsigned seed, unsigned threshold, float keep_scale, int dropout,
+    const long long* seed, unsigned threshold, float keep_scale, int dropout,
     int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;

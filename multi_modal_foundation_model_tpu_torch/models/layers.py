@@ -33,9 +33,13 @@ go to the attention kernels without a copy.
   iff a random byte >= t, t = round(rate * 256) clamped to 255, survivors
   divided by the exact keep probability (256 - t) / 256. Attention
   probabilities drop inside the kernel (``ops/attention.py``). A module
-  drops only when its forward gets a ``seed`` (a host int; ``None`` is the
-  eval forward); each site derives its own seed with ``fold_in``, so a
-  ``torch.utils.checkpoint`` recompute replays every draw.
+  drops only when its forward gets ``seeds`` (``None`` is the eval
+  forward): a slice of the step's seed table (``utils/rng.py``), one int64
+  entry per random site of the module in the order of its ``SEED_PATHS``,
+  on the device. The bytes are Philox draws keyed by the entry on the
+  device (``ops/random.py``; the kernel in ``csrc/random.cu``), so a
+  ``torch.utils.checkpoint`` recompute and a CUDA-graph replay draw what
+  the eager step with those seeds draws.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from torch import nn
 
 from ..ops.attention import MaskSpec, multi_head_attention
 from ..ops.layernorm import LayerNorm
-from ..utils.rng import fold_in
+from ..ops.random import SeedLike, u8_bits
 
 
 def _gelu_tanh(x):
@@ -124,25 +128,25 @@ def dropout_keep_threshold(rate: float):
 
 
 def dropout_u8(x: torch.Tensor, rate: float,
-               seed: Optional[int]) -> torch.Tensor:
+               seed: Optional[SeedLike]) -> torch.Tensor:
     """Layer dropout (JAX ``ReplayDropout`` under ``U8_DROPOUT_BITS``):
     identity without a seed or at rate 0, zeros at rate 1, else one random
-    byte per element from a generator seeded with ``seed``."""
+    Philox byte per element keyed by ``seed`` (a seed-table entry, or a
+    host int copied to x's device)."""
     if seed is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     t, keep_p = dropout_keep_threshold(rate)
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    bits = torch.randint(0, 256, x.shape, generator=gen, device=x.device,
-                         dtype=torch.uint8)
+    bits = u8_bits(seed, x.shape, device=x.device)
     return torch.where(bits >= t, x / keep_p, 0.0)
 
 
-def site_seed(seed: Optional[int], *site: int) -> Optional[int]:
-    """The seed of one random site under ``seed`` (None stays None: no
+def seed_at(seeds: Optional[torch.Tensor], i: int,
+            n: int = 1) -> Optional[torch.Tensor]:
+    """Entries ``[i, i + n)`` of a seed-table slice (None stays None: no
     draw)."""
-    return None if seed is None else fold_in(seed, *site)
+    return None if seeds is None else seeds[i:i + n]
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
@@ -205,20 +209,25 @@ class MLP(nn.Module):
         self.down_proj = Dense(inter_size, hidden_size, use_bias, dtype)
 
     def forward(self, x: torch.Tensor,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         return dropout_u8(self.down_proj(self.act(self.up_proj(x))),
-                          self.dropout, seed)
+                          self.dropout, seed_at(seeds, 0))
 
 
-def _attend(module, q, k, v, mask, seed):
-    """Fused attention with in-kernel probability dropout (site 0), then
-    the output dropout (site 1), as JAX ``Attention`` does (:404-409)."""
-    rate = module.dropout if seed is not None else 0.0
+# an attention's random sites: the in-kernel probability dropout, then the
+# output dropout
+_ATTN_PATHS = (((0,),), ((1,),))
+
+
+def _attend(module, q, k, v, mask, seeds):
+    """Fused attention with in-kernel probability dropout (entry 0), then
+    the output dropout (entry 1), as JAX ``Attention`` does (:404-409)."""
+    rate = module.dropout if seeds is not None else 0.0
     out = multi_head_attention(q, k, v, module.n_heads, mask_spec=mask,
                                dropout_rate=rate,
-                               seed=site_seed(seed, 0) if rate else None,
+                               seed=seed_at(seeds, 0) if rate else None,
                                impl=module.attn_impl)
-    return dropout_u8(out, module.dropout, site_seed(seed, 1))
+    return dropout_u8(out, module.dropout, seed_at(seeds, 1))
 
 
 class Attention(nn.Module):
@@ -237,9 +246,9 @@ class Attention(nn.Module):
         self.out_proj = Dense(hidden_size, hidden_size, use_bias, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = fused_linear(x, (self.query, self.key, self.value))
-        return self.out_proj(_attend(self, q, k, v, mask, seed))
+        return self.out_proj(_attend(self, q, k, v, mask, seeds))
 
 
 class CrossAttention(nn.Module):
@@ -259,10 +268,10 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[MaskSpec] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         q = self.query(x)
         k, v = fused_linear(context, (self.key, self.value))
-        return self.out_proj(_attend(self, q, k, v, mask, seed))
+        return self.out_proj(_attend(self, q, k, v, mask, seeds))
 
 
 def _norm(cfg, dtype: Optional[torch.dtype]) -> nn.Module:
@@ -271,8 +280,15 @@ def _norm(cfg, dtype: Optional[torch.dtype]) -> nn.Module:
     return LayerNorm(cfg.hidden_size, eps=1e-5, dtype=dtype)
 
 
+def _under(prefix, paths):
+    return tuple((prefix,) + p for p in paths)
+
+
 class EncoderLayer(nn.Module):
     """Pre-norm residual block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+
+    # the layer's random sites under its seed, in seed-table order
+    SEED_PATHS = _under((0,), _ATTN_PATHS) + (((1,),),)
 
     def __init__(self, cfg, attn_impl: str = "pallas",
                  dtype: Optional[torch.dtype] = None):
@@ -286,13 +302,16 @@ class EncoderLayer(nn.Module):
                        cfg.dropout, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask, site_seed(seed, 0))
-        return x + self.mlp(self.ln2(x), site_seed(seed, 1))
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), mask, seed_at(seeds, 0, 2))
+        return x + self.mlp(self.ln2(x), seed_at(seeds, 2))
 
 
 class DecoderLayer(nn.Module):
     """Self-attn + cross-attn (query_norm / context_norm) + MLP block."""
+
+    SEED_PATHS = (_under((0,), _ATTN_PATHS) + _under((1,), _ATTN_PATHS)
+                  + (((2,),),))
 
     def __init__(self, cfg, attn_impl: str = "pallas",
                  dtype: Optional[torch.dtype] = None):
@@ -313,12 +332,12 @@ class DecoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sa_mask: Optional[MaskSpec] = None,
                 xa_mask: Optional[MaskSpec] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), sa_mask, site_seed(seed, 0))
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), sa_mask, seed_at(seeds, 0, 2))
         x = x + self.cross_attn(self.query_norm(x),
                                 self.context_norm(context), xa_mask,
-                                site_seed(seed, 1))
-        return x + self.mlp(self.ln2(x), site_seed(seed, 2))
+                                seed_at(seeds, 2, 2))
+        return x + self.mlp(self.ln2(x), seed_at(seeds, 4))
 
 
 class ModalityTokenizer(nn.Module):
@@ -340,6 +359,6 @@ class ModalityTokenizer(nn.Module):
         self.projection = Dense(inter, hidden_size, True, dtype)
 
     def forward(self, inputs: torch.Tensor,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.act(self.token_embed(inputs)) * self.scale
         return dropout_u8(self.projection(x), self.dropout, seed)

@@ -19,14 +19,22 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   samples a targets mask with ``config.mask_mode``. Modalities without
   region info (behavior) run ``temporal`` where the menu names a region
   mode (JAX :345-347).
-- **Randomness from one host seed.** ``seed`` (a host int; the trainer
-  folds its step into it, as JAX folds ``fold_in(key, step)``) keys the
-  masker and, with ``training=True``, every dropout site; see
-  ``utils/rng.py``. Nothing random is drawn without it.
+- **Randomness from one seed table.** ``seed`` keys the masker and, with
+  ``training=True``, every dropout site. It is a ``StepSeeds``: the step's
+  seed table (``utils/rng.py``; one int64 entry per random site, in the
+  order of ``seed_paths``: the masker's two keys per modality, embedding
+  dropout per tokenizer, each layer's attention and MLP sites) and the
+  masker's host draws (``host_seeds``), both on the device; or a host int
+  (the trainer folds its step into its seed, as JAX folds ``fold_in(key,
+  step)``), from which the forward builds and uploads them. Every draw
+  reads its key from its table entry on the device, so a CUDA graph of a
+  training step, replayed with another step's table, draws that step's
+  bits. Nothing random is drawn without a seed.
 - **Remat.** With ``training=True`` and ``remat_layers`` each transformer
   layer runs under ``torch.utils.checkpoint(use_reentrant=False)``, as
-  JAX's ``nn.remat`` (:281-287); its dropout seeds are arguments of the
-  checkpointed call, so the recompute replays the same masks.
+  JAX's ``nn.remat`` (:281-287); its slice of the seed table is an
+  argument of the checkpointed call, so the recompute replays the same
+  masks.
 - **Attention masks as (key_pad, static) decompositions**: encoder
   ``eye | pad``, decoder pad / causal / modality-separation, fed to the
   fused attention (K1/K2 on the card).
@@ -49,7 +57,8 @@ Session stitching (``n_sessions > 1``) is a later slice and raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -59,12 +68,12 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import MaskSpec, create_context_mask
 from ..ops.layernorm import LayerNorm
 from ..ops.losses import masked_mse, masked_poisson_nll
-from ..ops.masking import MaskParams, RegionSets, apply_mask
+from ..ops.masking import (MaskParams, RegionSets, apply_mask, host_draws,
+                           mask_is_drawn)
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.rng import fold_in
+from ..utils.rng import SeedPath, seed_table
 from .layers import (Dense, DecoderLayer, EncoderLayer, ModalityTokenizer,
-                     fixup_init_, lecun_normal_, reset_parameters_,
-                     site_seed)
+                     fixup_init_, lecun_normal_, reset_parameters_, seed_at)
 
 MODALITY_LOSS = {"ap": "poisson_nll", "behavior": "mse"}
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -79,6 +88,19 @@ class ModalityInput:
     attn_mask: torch.Tensor                  # (B, T) int
     timestamps: torch.Tensor                 # (B, T) int
     eval_mask: Optional[torch.Tensor] = None  # (B, T, C) int
+
+
+class StepSeeds(NamedTuple):
+    """A step's randomness on the device: the seed table (``(n_sites,)``
+    int64, ``MultiModal.seed_paths`` order) and the masker's host draws
+    (``(n_modalities, n_draws)`` f32, ``ops.masking.host_draws``)."""
+
+    table: torch.Tensor
+    draws: torch.Tensor
+
+
+# one modality's mask plan: (mode, active, corrupt the inputs)
+MaskPlan = Optional[Tuple[str, bool, bool]]
 
 
 @dataclasses.dataclass
@@ -237,20 +259,102 @@ class MultiModal(nn.Module):
             for layer in self.decoder:
                 fixup_init_(layer, mc.n_dec_layers)
         self.to(dev)
+        self.seed_paths = self._build_seed_paths()
+
+    # ------------------------------------------------------------------
+    # the seed table
+    # ------------------------------------------------------------------
+
+    def _build_seed_paths(self) -> List[SeedPath]:
+        """Every random site's fold_in path under a step's seed, in table
+        order: per modality i the masker's (k_mask, k_corrupt) under
+        fold_in(seed, 0), i; then under fold_in(seed, 1) (dropout) the
+        encoder and decoder tokenizers of each modality (0, i) / (1, i),
+        the encoder layers (2, li) and the decoder layers (3, li), each
+        with its ``SEED_PATHS``."""
+        mc = self.config
+        M = len(mc.avail_mod)
+        paths: List[SeedPath] = []
+        for i in range(M):
+            paths += [((0,), (i,), (0,)), ((0,), (i,), (1,))]
+        for i in range(M):
+            paths += [((1,), (0, i)), ((1,), (1, i))]
+        for li in range(mc.n_enc_layers):
+            paths += [((1,), (2, li)) + p for p in EncoderLayer.SEED_PATHS]
+        for li in range(mc.n_dec_layers):
+            paths += [((1,), (3, li)) + p for p in DecoderLayer.SEED_PATHS]
+        self._enc_off = 4 * M
+        self._dec_off = 4 * M + len(EncoderLayer.SEED_PATHS) * mc.n_enc_layers
+        return paths
+
+    def mask_plan(self, has_eval_mask: Sequence[bool], masking_mode=None,
+                  mtm_modes: Sequence[str] = (),
+                  regions: Optional[RegionSets] = None,
+                  training: bool = False) -> List[MaskPlan]:
+        """Per modality, what the masker runs (JAX ``_resolve_masks``): a
+        ``masking_mode`` (a mode name, or a host int into ``mtm_modes``)
+        corrupts the inputs and takes precedence over ``eval_mask``;
+        without an ``eval_mask`` a targets mask of ``config.mask_mode`` is
+        sampled; else nothing (None). Modalities without region info
+        (behavior) run ``temporal`` where the menu names a region mode."""
+        mc = self.config
+        active = bool(mc.force_active) or training
+        plan: List[MaskPlan] = []
+        for mod, has_mask in zip(mc.avail_mod, has_eval_mask):
+            has_regions = regions is not None and mod == "ap"
+            if masking_mode is None:
+                plan.append(None if has_mask else (mc.mask_mode, active,
+                                                   False))
+            elif isinstance(masking_mode, str):
+                plan.append((masking_mode, active, True))
+            else:                         # host int into the MtM menu
+                mode = mtm_modes[int(masking_mode)]
+                if not has_regions and mode.endswith("region"):
+                    mode = "temporal"
+                # JAX's menu path (``apply_mask_by_id``) always masks,
+                # whatever force_active and training say
+                plan.append((mode, True, True))
+        return plan
+
+    def host_seeds(self, seed: int, plan: Sequence[MaskPlan],
+                   regions: Optional[RegionSets] = None):
+        """(seed table (n_sites,) int64, masker draws (n_modalities,
+        n_draws) f32) of one step under the host int ``seed``."""
+        mp = self.config.mask_params
+        table = seed_table(seed, self.seed_paths)
+        draws = np.stack([
+            host_draws(int(table[2 * i]), mp, entry[0],
+                       regions if mod == "ap" else None)
+            if entry is not None and mask_is_drawn(mp, entry[0], entry[1])
+            else host_draws(0, mp, None)
+            for i, (mod, entry) in enumerate(zip(self.config.avail_mod,
+                                                 plan))])
+        return table, draws
+
+    def step_seeds(self, seed: int, plan: Sequence[MaskPlan],
+                   regions: Optional[RegionSets], device) -> StepSeeds:
+        """``host_seeds`` uploaded to ``device`` (eagerly)."""
+        table, draws = self.host_seeds(seed, plan, regions)
+        return StepSeeds(torch.from_numpy(table).to(device),
+                         torch.from_numpy(draws).to(device))
 
     # ------------------------------------------------------------------
     # mask plumbing
     # ------------------------------------------------------------------
 
-    def _resolve_masks(self, mod: str, d: ModalityInput, masking_mode,
-                       mtm_modes: Sequence[str],
-                       regions: Optional[RegionSets], training: bool,
-                       seed: Optional[int]):
+    def _resolve_masks(self, mod: str, d: ModalityInput, plan: MaskPlan,
+                       regions: Optional[RegionSets],
+                       keys: Optional[torch.Tensor],
+                       draws: Optional[torch.Tensor]):
         """(inputs, possibly corrupted; token_mask (B, T) int32; element
-        mask (B, T, C) int32 or None), JAX ``_resolve_masks``."""
-        mc = self.config
-        active = bool(mc.force_active) or training
+        mask (B, T, C) int32 or None) of one modality under its ``plan``,
+        with its masker ``keys`` ([k_mask, k_corrupt]) and host ``draws``
+        from the step's seeds (JAX ``_resolve_masks``)."""
         attn = d.attn_mask.to(torch.int32)
+        if plan is None:
+            return (d.inputs, d.eval_mask[:, :, 0].to(torch.int32) & attn,
+                    None)
+        mode, active, corrupt = plan
         if regions is not None and mod != "ap":
             regions = None
         if regions is not None \
@@ -258,29 +362,12 @@ class MultiModal(nn.Module):
             regions = dataclasses.replace(
                 regions, region_ids=regions.region_ids[
                     ..., :d.inputs.shape[-1]])
-        if masking_mode is not None or d.eval_mask is None:
-            if seed is None:
-                raise ValueError("sampling a mask needs a seed")
-        if masking_mode is not None:
-            if isinstance(masking_mode, str):
-                mode, mode_active = masking_mode, active
-            else:                         # host int into the MtM menu
-                mode = mtm_modes[int(masking_mode)]
-                if regions is None and mode.endswith("region"):
-                    mode = "temporal"
-                # JAX's menu path (``apply_mask_by_id``) always masks,
-                # whatever force_active and training say
-                mode_active = True
-            corrupted, spike_mask = apply_mask(seed, d.inputs, mc.mask_params,
-                                               mode, regions=regions,
-                                               active=mode_active)
-            return corrupted, spike_mask[:, :, 0] & attn, spike_mask
-        if d.eval_mask is None:
-            _, mask = apply_mask(seed, d.inputs, mc.mask_params, mc.mask_mode,
-                                 regions=regions, active=active)
-        else:
-            mask = d.eval_mask
-        return d.inputs, mask[:, :, 0].to(torch.int32) & attn, None
+        corrupted, mask = apply_mask(keys, d.inputs, self.config.mask_params,
+                                     mode, regions=regions, active=active,
+                                     draws=draws)
+        if corrupt:
+            return corrupted, mask[:, :, 0] & attn, mask
+        return d.inputs, mask[:, :, 0] & attn, None
 
     # ------------------------------------------------------------------
     # attention-mask construction
@@ -305,10 +392,12 @@ class MultiModal(nn.Module):
             static = create_context_mask(0, -1, N, device=dev)
             key_pad = None                 # causal replaces the pad term
         if mc.decoder_sep_mask:
-            mod_of_token = np.repeat(np.arange(len(mc.avail_mod)), mc.max_F)
-            sep = torch.as_tensor(
-                mod_of_token[:, None] != mod_of_token[None, :],
-                device=dev).to(torch.int32)
+            # built on the device: a step copies nothing from the host
+            mod_of_token = torch.arange(len(mc.avail_mod),
+                                        device=dev).repeat_interleave(
+                                            mc.max_F)
+            sep = (mod_of_token[:, None] != mod_of_token[None, :]).to(
+                torch.int32)
             static = sep if static is None else (static.bool()
                                                  | sep.bool()).int()
         if mc.decoder_causal_mask and key_pad is None and static is not None:
@@ -324,28 +413,37 @@ class MultiModal(nn.Module):
                 masking_mode=None, mtm_modes: Sequence[str] = (),
                 regions: Optional[RegionSets] = None,
                 training: bool = False, token_zero_groups: int = 1,
-                seed: Optional[int] = None) -> MultiModalOutput:
+                seed: Union[int, StepSeeds, None] = None
+                ) -> MultiModalOutput:
         """``masking_mode``: None, a mode name, or a host int into
-        ``mtm_modes``. ``seed``: host int keying the masker and (with
-        ``training``) dropout; required whenever a mask is sampled."""
+        ``mtm_modes``. ``seed``: the step's ``StepSeeds`` or a host int,
+        keying the masker and (with ``training``) dropout; required
+        whenever a mask is sampled."""
         mc = self.config
         cdt = self.compute_dtype
         T = mc.max_F
-        mask_seed = drop_seed = None
-        if seed is not None:
-            mask_seed, drop_seed = fold_in(seed, 0), fold_in(seed, 1)
-        if not training:
-            drop_seed = None
-        elif drop_seed is None and (mc.dropout > 0 or mc.embed_dropout > 0):
-            raise ValueError("training with dropout needs a seed")
+        plan = self.mask_plan(
+            [mod_inputs[m].eval_mask is not None for m in mc.avail_mod],
+            masking_mode, mtm_modes, regions, training)
+        if seed is None:
+            if any(p is not None for p in plan):
+                raise ValueError("sampling a mask needs a seed")
+            if training and (mc.dropout > 0 or mc.embed_dropout > 0):
+                raise ValueError("training with dropout needs a seed")
+        elif not isinstance(seed, StepSeeds):
+            seed = self.step_seeds(int(seed), plan, regions,
+                                   mod_inputs[mc.avail_mod[0]].inputs.device)
+        table = None if seed is None else seed.table
+        drop = table if training else None
+        M = len(mc.avail_mod)
 
         tokens_e, tokens_d, embs_e, embs_d = [], [], [], []
         token_masks, attn_tokens, gts, spike_masks = [], [], {}, {}
         for i, mod in enumerate(mc.avail_mod):
             d = mod_inputs[mod]
             inputs, token_mask, spike_masks[mod] = self._resolve_masks(
-                mod, d, masking_mode, mtm_modes, regions, training,
-                site_seed(mask_seed, i))
+                mod, d, plan[i], regions, seed_at(table, 2 * i, 2),
+                None if seed is None else seed.draws[i])
             token_masks.append(token_mask)
             attn_tokens.append(d.attn_mask.to(torch.int32))
             gts[mod] = d.targets
@@ -359,9 +457,9 @@ class MultiModal(nn.Module):
                 e_emb = e_emb + enc.pos_embed(ts)
                 d_emb = d_emb + dec.pos_embed(ts)
             x = inputs.to(cdt)
-            tokens_e.append(enc(x, site_seed(drop_seed, 0, i)))
+            tokens_e.append(enc(x, seed_at(drop, 2 * M + 2 * i)))
             # decoder tokens are embedded from the inputs too
-            tokens_d.append(dec(x, site_seed(drop_seed, 1, i)))
+            tokens_d.append(dec(x, seed_at(drop, 2 * M + 2 * i + 1)))
             embs_e.append(e_emb)
             embs_d.append(d_emb)
 
@@ -390,22 +488,26 @@ class MultiModal(nn.Module):
 
         def run(layer, *args):
             if remat:
-                # the layer's seeds are arguments: the recompute replays
-                # its dropout draws, so the default RNG state is not needed
+                # the layer's seed-table slice is an argument: the
+                # recompute replays its dropout draws, so the default RNG
+                # state is not needed
                 return checkpoint(layer, *args, use_reentrant=False,
                                   preserve_rng_state=False)
             return layer(*args)
 
         x = enc_tokens + enc_emb
+        n_enc, n_dec = (len(EncoderLayer.SEED_PATHS),
+                        len(DecoderLayer.SEED_PATHS))
         for li, layer in enumerate(self.encoder):
-            x = run(layer, x, enc_attn, site_seed(drop_seed, 2, li))
+            x = run(layer, x, enc_attn,
+                    seed_at(drop, self._enc_off + n_enc * li, n_enc))
         x = self.encoder_norm(x.float()).to(cdt)
 
         context = self.decoder_proj_context(x) + enc_emb
         y = dec_tokens + dec_emb
         for li, layer in enumerate(self.decoder):
             y = run(layer, y, context, dec_attn, enc_attn,
-                    site_seed(drop_seed, 3, li))
+                    seed_at(drop, self._dec_off + n_dec * li, n_dec))
         y = self.decoder_norm(y.float())                  # stays f32
 
         mod_loss, mod_n, mod_preds, mod_targets = {}, {}, {}, {}

@@ -17,7 +17,10 @@ Port of ``multi_modal_foundation_model_tpu/ops/attention.py``. What stays:
   draws the TPU's own bits per grid step; here the keep decision of score
   (b, h, q, k) is Philox4x32-10 keyed by the call's seed with counter
   (k // 4, q, h, b) (``csrc/philox.cuh``), so K2 replays K1's mask at any
-  tiling and ``philox_keep`` draws the same bits on any device. JAX's
+  tiling and ``philox_keep`` draws the same bits on any device. The seed
+  is an entry of the step's seed table (``utils/rng.py``), a one-element
+  int64 tensor the kernels read on the device, so a CUDA graph of the step
+  replays with each step's own key. JAX's
   threshold (keep iff bits > uint32(rate * (2^32 - 1)), :129-133) and
   normalisation (``l`` sums the undropped probabilities, the numerator the
   dropped ones scaled by 1/(1 - rate), :196, :206-216) carry over.
@@ -39,6 +42,8 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .random import SeedLike, philox4x32_10, seed_tensor
 
 NEG_INF = -1e30
 # floor of the row max in the lse statistic: max(m, _LSE_FLOOR) + log(l).
@@ -125,36 +130,6 @@ def spec_to_bias(spec: MaskSpec, B: int, Tq: int, Tk: int,
 # dropout bits: Philox4x32-10 in torch integer operations
 # ---------------------------------------------------------------------------
 
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo32(a: int, b: torch.Tensor):
-    """(hi, lo) 32-bit halves of the 64-bit product of the constant ``a``
-    and the uint32 values held in int64 ``b``. The product would overflow
-    int64, so both operands are split into 16-bit halves."""
-    ah, al = a >> 16, a & 0xFFFF
-    bh, bl = b >> 16, b & 0xFFFF
-    mid = ah * bl + al * bh                     # < 2^33
-    low = al * bl + ((mid & 0xFFFF) << 16)      # < 2^33
-    hi = ah * bh + (mid >> 16) + (low >> 32)
-    return hi & _MASK32, low & _MASK32
-
-
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 (Salmon et al., SC'11) of counters held in int64
-    tensors (uint32 values, broadcastable) under the key (k0, k1); returns
-    the four output words as int64 tensors of uint32 values."""
-    k0, k1 = int(k0) & _MASK32, int(k1) & _MASK32
-    for _ in range(10):
-        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _PHILOX_W[0]) & _MASK32
-        k1 = (k1 + _PHILOX_W[1]) & _MASK32
-    return c0, c1, c2, c3
-
-
 def dropout_threshold(rate: float) -> int:
     """JAX's keep test is ``bits > uint32(rate * (2^32 - 1))``."""
     if not 0.0 <= rate < 1.0:
@@ -162,12 +137,17 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * float(2 ** 32 - 1))
 
 
-def philox_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+def philox_bits(seed: SeedLike, B: int, H: int, Tq: int, Tk: int,
                 device=None) -> torch.Tensor:
     """(B, H, Tq, Tk) int64 tensor of the uint32 Philox words the kernels
     draw for score (b, h, q, k): word k % 4 of philox(counter =
-    (k // 4, q, h, b), key = (seed, 0))."""
+    (k // 4, q, h, b), key = (seed's low 32 bits, 0)). ``seed``: a host int
+    or a seed-table entry (a one-element int64 tensor)."""
     nw = -(-Tk // 4)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(device) & _MASK32
+    else:
+        seed = int(seed) & _MASK32
 
     def ar(n, dim):
         shape = [1, 1, 1, 1]
@@ -177,11 +157,11 @@ def philox_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
     full = (B, H, Tq, nw)
     words = philox4x32_10(ar(nw, 3).expand(full), ar(Tq, 2).expand(full),
                           ar(H, 1).expand(full), ar(B, 0).expand(full),
-                          int(seed) & _MASK32, 0)
+                          seed, 0)
     return torch.stack(words, dim=-1).reshape(B, H, Tq, 4 * nw)[..., :Tk]
 
 
-def philox_keep(seed: int, B: int, H: int, Tq: int, Tk: int, rate: float,
+def philox_keep(seed: SeedLike, B: int, H: int, Tq: int, Tk: int, rate: float,
                 device=None) -> torch.Tensor:
     """(B, H, Tq, Tk) bool keep mask of K1/K2's dropout: the same bits as
     the kernels' Philox (``csrc/philox.cuh``)."""
@@ -204,7 +184,7 @@ def _merge(o: torch.Tensor, dtype) -> torch.Tensor:
 
 def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
                       with_lse: bool, dropout_rate: float = 0.0,
-                      seed: int = 0, dots_dtype=torch.float32):
+                      seed: SeedLike = 0, dots_dtype=torch.float32):
     """Softmax attention of (B, T, H*D) operands under an additive
     ``bias`` broadcastable to (B, Tq, Tk); f32 math, q pre-scaled as K1
     does; probability dropout from ``philox_keep``. The operands of the two
@@ -240,7 +220,7 @@ def _attend_bias(key_pad, static) -> torch.Tensor:
 
 def attention_reference(q, k, v, key_pad, static, n_heads: int,
                         scale: float, with_lse: bool = False,
-                        dropout_rate: float = 0.0, seed: int = 0,
+                        dropout_rate: float = 0.0, seed: SeedLike = 0,
                         dots_dtype=torch.float32):
     """Plain PyTorch version of K1 on the kernel's operands: q (B, Tq, H*D),
     k/v (B, Tk, H*D), key_pad (B, Tk) int, static (Tq, Tk) int. Returns
@@ -261,7 +241,7 @@ def attention_reference(q, k, v, key_pad, static, n_heads: int,
 
 def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
                             scale: float, dropout_rate: float = 0.0,
-                            seed: int = 0, dots_dtype=torch.float32):
+                            seed: SeedLike = 0, dots_dtype=torch.float32):
     """Plain PyTorch version of K2 (JAX ``_attn_bwd_kernel``, :221-307):
     probabilities recovered from the forward's ``lse``, dropout replayed
     from ``philox_keep``. Returns (dq, dk, dv) in q's dtype.
@@ -316,7 +296,7 @@ def _k1_lib():
                        ctypes.c_uint)
         f = ctypes.c_float
         fn.argtypes = ([p] * 7 + [i] * 5 + [ll] * 6
-                       + [f, u, u, f, i, i, p])
+                       + [f, p, u, f, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -330,7 +310,7 @@ def _k2_lib():
                        ctypes.c_uint)
         f = ctypes.c_float
         fn.argtypes = ([p] * 11 + [i] * 5 + [ll] * 8
-                       + [f, u, u, f, i, i, p])
+                       + [f, p, u, f, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -388,24 +368,35 @@ def _check_aligned(name, **tensors):
                 f"{t.data_ptr() % 16} and strides {t.stride()[:2]}")
 
 
-def _dropout_args(dropout_rate: float, seed: int):
-    """(seed, threshold, keep_scale, on) as the kernels take them."""
-    if dropout_rate == 0.0:
-        return 0, 0, 1.0, 0
-    return (int(seed) & _MASK32, dropout_threshold(dropout_rate),
+def _dropout_key(dropout_rate: float, seed: SeedLike, dev):
+    """The Philox key the kernels read, a one-element int64 tensor on
+    ``dev`` (a seed-table entry as it is; a host int copied there), or None
+    without dropout."""
+    return None if dropout_rate == 0.0 else seed_tensor(seed, dev)
+
+
+def _dropout_args(dropout_rate: float, key: Optional[torch.Tensor]):
+    """(key pointer, threshold, keep_scale, on) as the kernels take them:
+    the kernels read the low 32 bits of ``key`` on the device."""
+    if key is None:
+        return None, 0, 1.0, 0
+    return (key.data_ptr(), dropout_threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate), 1)
 
 
 def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                   with_lse: bool = False, dropout_rate: float = 0.0,
-                  seed: int = 0):
+                  seed: SeedLike = 0):
     """Launch K1 on CUDA tensors.
 
     q/k/v: f32 or bf16, one dtype, unit stride in the last dimension; any
     batch and row strides (the column views of a fused (B, T, 3*H*D) QKV
     product go in without a copy). key_pad (B, Tk) and static (Tq, Tk):
-    contiguous int32. Head width D = 32. ``seed`` is a host integer (its
-    low 32 bits key the Philox draw). Returns a contiguous output in q's
+    contiguous int32. Head width D = 32. ``seed`` is a seed-table entry (a
+    one-element int64 tensor on q's device) or a host int copied there; the
+    kernel reads its low 32 bits, the Philox key, from device memory, so a
+    CUDA graph of the launch draws the key the entry holds at replay.
+    Returns a contiguous output in q's
     dtype and, with ``with_lse``, an f32 (B, H, Tq) lse.
 
     Both dtypes run on the tensor cores. f32 computes each product as
@@ -424,6 +415,7 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                                         static, n_heads, _DTYPE_CODE)
     _check_aligned("attention_fwd", q=q, k=k, v=v)
     dev = q.device
+    key = _dropout_key(dropout_rate, seed, dev)
     fn = _k1_lib()
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
@@ -436,7 +428,7 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                 B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), float(scale),
-                *_dropout_args(dropout_rate, seed), _DTYPE_CODE[q.dtype],
+                *_dropout_args(dropout_rate, key), _DTYPE_CODE[q.dtype],
                 stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd: kernel launch failed "
@@ -446,7 +438,8 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
 
 
 def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
-                  scale: float, dropout_rate: float = 0.0, seed: int = 0):
+                  scale: float, dropout_rate: float = 0.0,
+                  seed: SeedLike = 0):
     """Launch K2 on CUDA tensors. q/k/v/g share one dtype, f32 or bf16, with
     unit inner stride and any batch and row strides; lse the f32
     (B, H, Tq) of K1 on the same operands, dropout rate and seed. Returns
@@ -475,6 +468,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
             or lse.device != dev or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous f32 "
                          "(B, H, Tq)")
+    key = _dropout_key(dropout_rate, seed, dev)
     fn = _k2_lib()
     dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
@@ -489,7 +483,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                 dv.data_ptr(), B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), g.stride(0), g.stride(1),
-                float(scale), *_dropout_args(dropout_rate, seed),
+                float(scale), *_dropout_args(dropout_rate, key),
                 _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd: kernel launch failed "
@@ -502,8 +496,9 @@ class _FlashAttention(torch.autograd.Function):
     """K1 (with ``lse``) forward, K2 backward: the port of JAX's
     ``_flash_mha`` custom VJP (:394-456). ``use_kernel=False`` runs the
     plain versions in the same two places (CPU tensors, ``impl="xla"``).
-    Saves the operands, the masks and ``lse``; seed and rate ride along as
-    host values, so the backward replays the forward's dropout."""
+    Saves the operands, the masks, ``lse`` and the dropout key (the seed
+    table's entry, a tensor), so the backward replays the forward's
+    dropout."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_pad, static, n_heads, scale, dropout_rate,
@@ -511,14 +506,14 @@ class _FlashAttention(torch.autograd.Function):
         fwd = attention_fwd if use_kernel else attention_reference
         out, lse = fwd(q, k, v, key_pad, static, n_heads, scale,
                        with_lse=True, dropout_rate=dropout_rate, seed=seed)
-        ctx.save_for_backward(q, k, v, key_pad, static, lse)
-        ctx.args = (n_heads, scale, dropout_rate, seed, use_kernel)
+        ctx.save_for_backward(q, k, v, key_pad, static, lse, seed)
+        ctx.args = (n_heads, scale, dropout_rate, use_kernel)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_pad, static, lse = ctx.saved_tensors
-        n_heads, scale, dropout_rate, seed, use_kernel = ctx.args
+        q, k, v, key_pad, static, lse, seed = ctx.saved_tensors
+        n_heads, scale, dropout_rate, use_kernel = ctx.args
         bwd = attention_bwd if use_kernel else attention_bwd_reference
         dq, dk, dv = bwd(q, k, v, key_pad, static, g, lse, n_heads, scale,
                          dropout_rate, seed)
@@ -538,7 +533,7 @@ def multi_head_attention(
     bias: Optional[torch.Tensor] = None,     # additive, overrides mask
     mask_spec: Optional[MaskSpec] = None,    # decomposed (kernel-native)
     dropout_rate: float = 0.0,
-    seed: Optional[int] = None,              # host int, keys the dropout
+    seed: Optional[SeedLike] = None,         # keys the dropout
     impl: str = "pallas",
 ) -> torch.Tensor:
     """MHA over already-projected q/k/v; returns (B, Tq, hidden).
@@ -546,7 +541,8 @@ def multi_head_attention(
     ``impl="pallas"`` (the default, the JAX package's name) runs the
     kernels on CUDA tensors and the plain versions on CPU tensors;
     ``"xla"`` takes the plain versions on either device. Dropout needs a
-    ``seed`` (JAX needs a ``dropout_key``)."""
+    ``seed`` (JAX needs a ``dropout_key``): a seed-table entry (a
+    one-element int64 tensor on q's device) or a host int."""
     B, Tq, hidden = q.shape
     Tk = k.shape[1]
     if hidden % n_heads:
@@ -556,7 +552,8 @@ def multi_head_attention(
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 requires a seed")
     dropout_rate = float(dropout_rate)
-    seed = int(seed or 0)
+    # the key as a tensor on q's device (a host int is copied there)
+    seed = seed_tensor(seed, q.device) if dropout_rate > 0.0 else None
     scale = 1.0 / math.sqrt(hidden // n_heads)
 
     if mask is not None or bias is not None:       # full masks: plain path

@@ -21,16 +21,23 @@ Masked positions are corrupted BERT-style (``_corrupt``): of the masked
 set ``zero_ratio`` is zeroed, of the rest ``random_ratio`` replaced by
 ``U[0, max(spikes))``.
 
-Randomness: JAX splits a PRNG key; here every function takes a host
-integer ``seed`` and derives what it needs with ``utils.rng.fold_in``. The
-element masks are drawn on the spikes' device from a ``torch.Generator``
-seeded that way. The scalars a Python branch reads (``expand``,
-``timespan``) and the region draws are made on the host from a numpy
-generator of the same seed, so no device value is ever read back (a branch
-on a CUDA scalar would stall the stream). ``apply_mask_by_id`` is a
+Randomness: JAX splits a PRNG key; here every draw is keyed by two
+entries of the step's seed table (``utils/rng.py``), ``keys = [k_mask,
+k_corrupt]`` (an int64 tensor on the spikes' device), and the element masks
+are Philox uniforms keyed by them on the device (``ops/random.py``). The
+draws a Python branch or a host array would need (``timespan``, ``expand``
+and the ratio they set, the sampled regions) are made on the host, from a
+numpy generator seeded from ``k_mask`` (``host_draws``), and travel with the
+step's inputs as a small f32 vector, ``draws = [width, ratio, region ids]``:
+the temporal modes always dilate by the device-side ``width`` (1 is the
+identity), and the region modes read their sampled ids from it. So nothing
+is read back and nothing is copied from the host while a step runs, and a
+CUDA graph of the step, replayed with another step's keys and draws, masks
+as the eager step with those would. ``apply_mask`` with a host int seed
+derives the keys and draws itself (eagerly). ``apply_mask_by_id`` is a
 Python dispatch on the host mode id where JAX has ``lax.switch``.
 
-jax.random and torch streams differ, so the random modes agree with JAX
+jax.random and Philox streams differ, so the random modes agree with JAX
 by rate, shape and invariant; ``co-smooth``, ``forward-pred``,
 ``expand_timesteps``, ``_member``, the causal extension and ``_corrupt``
 at ``zero_ratio >= 1`` agree exactly (tests/test_torch_masking.py).
@@ -39,12 +46,13 @@ at ``zero_ratio >= 1`` agree exactly (tests/test_torch_masking.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.rng import fold_in
+from .random import uniform
 
 MASK_MODES = (
     "random",
@@ -117,45 +125,61 @@ class RegionSets:
 # helpers
 # ---------------------------------------------------------------------------
 
-def _bernoulli(gen: torch.Generator, p, shape, device) -> torch.Tensor:
+# host draws travel as [width, ratio, region ids...] (f32)
+_WIDTH, _RATIO, _REGIONS = 0, 1, 2
+_TEMPORAL = ("temporal", "random_token", "causal")
+
+
+def n_draws(params: MaskParams) -> int:
+    """Length of one modality's host-draw vector."""
+    return _REGIONS + int(params.n_mask_regions)
+
+
+def mask_keys(seed: int):
+    """(k_mask, k_corrupt) of a mask seed, JAX's ``split`` of its key."""
+    return fold_in(seed, 0), fold_in(seed, 1)
+
+
+def _bernoulli(key: torch.Tensor, p, shape, stream: int = 0) -> torch.Tensor:
     """Bool draws, True with probability ``p`` (a float or a tensor
-    broadcastable to ``shape``): uniform < p, as jax.random.bernoulli."""
-    return torch.rand(shape, generator=gen, device=device) < p
+    broadcastable to ``shape``): Philox uniform < p, as
+    jax.random.bernoulli."""
+    return uniform(key, shape, stream) < p
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def expand_timesteps(mask: torch.Tensor, width: int) -> torch.Tensor:
-    """Dilate a (B, T) 0/1 mask with a centred window of ``width``:
-    out[t] = any(mask[t - pad : t - pad + width]), pad = (width - 1) // 2,
-    the banded-matrix product of JAX :186-201."""
+def expand_timesteps(mask: torch.Tensor, width) -> torch.Tensor:
+    """Dilate a (B, T) 0/1 mask with a centred window of ``width`` (a host
+    int, or a device scalar): out[t] = any(mask[t - pad : t - pad + width]),
+    pad = (width - 1) // 2, the banded-matrix product of JAX :186-201. A
+    width of 1 is the identity."""
     T = mask.shape[-1]
-    pad = (int(width) - 1) // 2
+    if isinstance(width, torch.Tensor):
+        width = width.to(torch.int64)
+    else:
+        width = int(width)
+    pad = (width - 1) // 2
     t = torch.arange(T, device=mask.device)
     off = t[None, :] - t[:, None] + pad              # [t_out, t_in]
     band = ((off >= 0) & (off < width)).to(mask.dtype)
     return (mask @ band.T) >= 1
 
 
-def _corrupt(seed: int, spikes: torch.Tensor, mask: torch.Tensor,
+def _corrupt(key: torch.Tensor, spikes: torch.Tensor, mask: torch.Tensor,
              params: MaskParams) -> torch.Tensor:
-    """BERT-style corruption of masked positions (JAX :204-228). The
-    default ``zero_ratio >= 1`` zeroes every masked element without a
-    draw, a static short cut as in JAX."""
+    """BERT-style corruption of masked positions (JAX :204-228), three
+    draws under ``key`` (streams 0, 1, 2). The default ``zero_ratio >= 1``
+    zeroes every masked element without a draw, a static short cut as in
+    JAX."""
     if params.zero_ratio >= 1.0:
         return torch.where(mask, 0.0, spikes)
-    dev = spikes.device
-    gen = _generator(seed, dev)
-    zero_idx = _bernoulli(gen, params.zero_ratio, spikes.shape, dev) & mask
+    zero_idx = _bernoulli(key, params.zero_ratio, spikes.shape, 0) & mask
     out = torch.where(zero_idx, 0.0, spikes)
     if params.random_ratio <= 0.0:
         return out
-    random_idx = (_bernoulli(gen, params.random_ratio, spikes.shape, dev)
+    random_idx = (_bernoulli(key, params.random_ratio, spikes.shape, 1)
                   & mask & ~zero_idx)
-    random_vals = spikes.max() * torch.rand(spikes.shape, generator=gen,
-                                            device=dev, dtype=spikes.dtype)
+    random_vals = spikes.max() * uniform(key, spikes.shape, 2).to(
+        spikes.dtype)
     return torch.where(random_idx, random_vals, out)
 
 
@@ -179,15 +203,26 @@ def _member(region_ids: torch.Tensor, sampled: torch.Tensor) -> torch.Tensor:
     return hit.any(dim=0)
 
 
+_INDEX_MASKS: Dict[tuple, torch.Tensor] = {}
+
+
 def _index_mask(n: int, idx: Sequence[int], device) -> torch.Tensor:
     """(n,) bool with ``idx`` set, as JAX's ``zeros(n).at[idx].set(True)``:
     negative indices wrap once, indices still out of range are dropped
-    (under MtM the 2-channel behavior modality gets the ap channel list)."""
-    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
-    idx = np.where(idx < 0, idx + n, idx)
-    idx = idx[(idx >= 0) & (idx < n)]
-    out = torch.zeros(n, dtype=torch.bool, device=device)
-    out[torch.as_tensor(idx, device=device)] = True
+    (under MtM the 2-channel behavior modality gets the ap channel list).
+    Built on the host once per (n, idx, device) and kept there: a step
+    that reads it copies nothing from the host."""
+    dev = torch.device(device)
+    key = (int(n), tuple(int(i) for i in np.asarray(idx).reshape(-1)),
+           str(dev))
+    out = _INDEX_MASKS.get(key)
+    if out is None:
+        flat = np.asarray(key[1], dtype=np.int64)
+        flat = np.where(flat < 0, flat + n, flat)
+        flat = flat[(flat >= 0) & (flat < n)]
+        host = np.zeros(n, dtype=bool)
+        host[flat] = True
+        out = _INDEX_MASKS[key] = torch.from_numpy(host).to(dev)
     return out
 
 
@@ -204,21 +239,48 @@ def causal_extend(pre: torch.Tensor) -> torch.Tensor:
     return pre | (t[None, :] >= first[:, None])
 
 
-def _mask_temporal(seed, spikes, params: MaskParams, mode: str):
-    B, T, N = spikes.shape
-    host = np.random.default_rng(fold_in(seed, 0))
+def _temporal_draws(rng: np.random.Generator, params: MaskParams,
+                    mode: str) -> Tuple[int, float]:
+    """(timespan, ratio) of a temporal mask, drawn on the host as JAX's
+    Python-level draws are (the ratio over the span rounded there)."""
     if mode == "causal":
         ratio = 0.01                      # hard-set, as the reference does
-        timespan = int(host.integers(1, params.max_timespan + 1))
+        timespan = int(rng.integers(1, params.max_timespan + 1))
     else:
-        expand = host.random() < params.expand_prob
-        timespan = (int(host.integers(1, params.max_timespan + 1))
+        expand = rng.random() < params.expand_prob
+        timespan = (int(rng.integers(1, params.max_timespan + 1))
                     if expand else 1)
         ratio = params.ratio / timespan
-    gen = _generator(fold_in(seed, 1), spikes.device)
-    token_mask = _bernoulli(gen, ratio, (B, T), spikes.device)
-    if timespan > 1:
-        token_mask = expand_timesteps(token_mask.float(), timespan)
+    return timespan, ratio
+
+
+def host_draws(k_mask: int, params: MaskParams, mode: Optional[str],
+               regions: Optional[RegionSets] = None) -> np.ndarray:
+    """The host's draws for one mask under ``k_mask``, as the f32 vector
+    the device reads: ``[width, ratio, region ids (-1 padded)]``. Width 1
+    and ``params.ratio`` where the mode (or ``None``, no mask) draws nothing
+    on the host."""
+    out = np.full(n_draws(params), -1.0, dtype=np.float32)
+    out[_WIDTH], out[_RATIO] = 1.0, params.ratio
+    if mode in _TEMPORAL:
+        out[_WIDTH], out[_RATIO] = _temporal_draws(
+            np.random.default_rng(fold_in(k_mask, 0)), params, mode)
+    elif mode in _REGION_FNS:
+        if regions is None:
+            raise ValueError(f"{mode} masking needs RegionSets")
+        inter = mode == "inter-region"
+        picked = _sample_regions(
+            np.random.default_rng(k_mask if inter else fold_in(k_mask, 0)),
+            regions.mask_candidates if inter else regions.target_candidates,
+            params.n_mask_regions)
+        out[_REGIONS:_REGIONS + len(picked)] = picked
+    return out
+
+
+def _mask_temporal(key, draws, spikes, params: MaskParams, mode: str):
+    B, T, N = spikes.shape
+    token_mask = _bernoulli(key, draws[_RATIO], (B, T))
+    token_mask = expand_timesteps(token_mask.float(), draws[_WIDTH])
 
     if mode == "causal" and params.causal_zero:
         mask = causal_extend(token_mask)[:, :, None].expand(B, T, N)
@@ -227,21 +289,19 @@ def _mask_temporal(seed, spikes, params: MaskParams, mode: str):
     return mask, mask
 
 
-def _mask_neuron(seed, spikes, params: MaskParams):
+def _mask_neuron(key, draws, spikes, params: MaskParams):
     B, T, N = spikes.shape
-    m = _bernoulli(_generator(seed, spikes.device), params.ratio, (B, N),
-                   spikes.device)
+    m = _bernoulli(key, params.ratio, (B, N))
     mask = m[:, None, :].expand(B, T, N)
     return mask, mask
 
 
-def _mask_random(seed, spikes, params: MaskParams):
-    mask = _bernoulli(_generator(seed, spikes.device), params.ratio,
-                      spikes.shape, spikes.device)
+def _mask_random(key, draws, spikes, params: MaskParams):
+    mask = _bernoulli(key, params.ratio, spikes.shape)
     return mask, mask
 
 
-def _mask_co_smooth(seed, spikes, params: MaskParams):
+def _mask_co_smooth(key, draws, spikes, params: MaskParams):
     B, T, N = spikes.shape
     if params.channels is None:
         raise ValueError("co-smooth masking needs MaskParams.channels")
@@ -250,7 +310,7 @@ def _mask_co_smooth(seed, spikes, params: MaskParams):
     return mask, mask
 
 
-def _mask_forward_pred(seed, spikes, params: MaskParams):
+def _mask_forward_pred(key, draws, spikes, params: MaskParams):
     B, T, N = spikes.shape
     if params.timesteps is None:
         raise ValueError("forward-pred masking needs MaskParams.timesteps")
@@ -259,95 +319,104 @@ def _mask_forward_pred(seed, spikes, params: MaskParams):
     return mask, mask
 
 
-def _region_member(seed, spikes, candidates: np.ndarray,
-                   region_ids: torch.Tensor, n_regions: int):
-    """(B, N) bool membership after ONE draw of ``n_regions`` region ids
-    shared by the batch (the reference samples regions once per batch)."""
+def _region_member(draws, spikes, region_ids: torch.Tensor):
+    """(B, N) bool membership of the region ids the host sampled once for
+    the batch (the reference samples regions once per batch)."""
     B, _, N = spikes.shape
-    sampled = _sample_regions(np.random.default_rng(seed), candidates,
-                              n_regions)
-    member = _member(region_ids,
-                     torch.as_tensor(sampled, device=region_ids.device))
+    member = _member(region_ids, draws[_REGIONS:].to(torch.int32))
     return member[None, :].expand(B, N)
 
 
-def _mask_inter_region(seed, spikes, params: MaskParams,
+def _mask_inter_region(key, draws, spikes, params: MaskParams,
                        regions: RegionSets):
     B, T, N = spikes.shape
-    member = _region_member(seed, spikes, regions.mask_candidates,
-                            regions.region_ids, params.n_mask_regions)
+    member = _region_member(draws, spikes, regions.region_ids)
     mask = member[:, None, :].expand(B, T, N)
     return mask, mask
 
 
-def _mask_intra_region(seed, spikes, params: MaskParams,
+def _mask_intra_region(key, draws, spikes, params: MaskParams,
                        regions: RegionSets):
     B, T, N = spikes.shape
-    member = _region_member(fold_in(seed, 0), spikes,
-                            regions.target_candidates, regions.region_ids,
-                            params.n_mask_regions)
+    member = _region_member(draws, spikes, regions.region_ids)
     # inside the target regions Bernoulli(ratio); everything outside is
     # masked (probability 1), as the reference does
     probs = torch.where(member, params.ratio, 1.0)
-    m = _bernoulli(_generator(fold_in(seed, 1), spikes.device), probs,
-                   (B, N), spikes.device)
+    m = _bernoulli(key, probs, (B, N))
     mask = m[:, None, :].expand(B, T, N)
     return mask, mask & member[:, None, :]
+
+
+_REGION_FNS = {"inter-region": _mask_inter_region,
+               "intra-region": _mask_intra_region}
+_PLAIN_FNS = {"neuron": _mask_neuron, "random": _mask_random,
+              "co-smooth": _mask_co_smooth,
+              "forward-pred": _mask_forward_pred}
 
 
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
+def mask_is_drawn(params: MaskParams, mode: str, active: bool = True) -> bool:
+    """Whether ``apply_mask`` draws a mask at all (else it returns the
+    inputs untouched with a zero targets mask, JAX :377-418)."""
+    if mode not in MASK_MODES:
+        raise ValueError(f"Masking mode {mode!r} not implemented")
+    return active and not (params.ratio == 0 and mode not in
+                           ("co-smooth", "forward-pred", "inter-region"))
+
+
 def apply_mask(
-    seed: int,
+    seed,
     spikes: torch.Tensor,                # (B, T, N)
     params: MaskParams,
     mode: str,
     regions: Optional[RegionSets] = None,
     active: bool = True,
+    draws: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask + corrupt ``spikes``; returns (corrupted, targets mask int32).
 
-    ``active=False`` (eval without ``force_active``), or ratio 0 in a mode
-    that reads it, returns the inputs untouched with a zero targets mask
-    (JAX :377-418)."""
-    if mode not in MASK_MODES:
-        raise ValueError(f"Masking mode {mode!r} not implemented")
-    if not active or (params.ratio == 0 and mode not in
-                      ("co-smooth", "forward-pred", "inter-region")):
+    ``seed``: a host int (the keys are ``mask_keys(seed)`` and the host
+    draws ``host_draws`` of ``k_mask``, both copied to the spikes' device
+    here), or the step's ``keys`` tensor ``[k_mask, k_corrupt]`` (int64 on
+    the spikes' device) with ``draws``, the vector ``host_draws`` made for
+    this mode. ``active=False`` (eval without ``force_active``), or ratio 0
+    in a mode that reads it, returns the inputs untouched with a zero
+    targets mask (JAX :377-418)."""
+    if not mask_is_drawn(params, mode, active):
         return spikes, torch.zeros_like(spikes, dtype=torch.int32)
-
-    k_mask, k_corrupt = fold_in(seed, 0), fold_in(seed, 1)
-    if mode in ("temporal", "random_token", "causal"):
-        mask, targets = _mask_temporal(k_mask, spikes, params, mode)
-    elif mode == "neuron":
-        mask, targets = _mask_neuron(k_mask, spikes, params)
-    elif mode == "random":
-        mask, targets = _mask_random(k_mask, spikes, params)
-    elif mode == "co-smooth":
-        mask, targets = _mask_co_smooth(k_mask, spikes, params)
-    elif mode == "forward-pred":
-        mask, targets = _mask_forward_pred(k_mask, spikes, params)
-    else:                                    # the two region modes
-        if regions is None:
-            raise ValueError(f"{mode} masking needs RegionSets")
-        fn = (_mask_inter_region if mode == "inter-region"
-              else _mask_intra_region)
-        mask, targets = fn(k_mask, spikes, params, regions)
-
-    corrupted = _corrupt(k_corrupt, spikes, mask, params)
+    if regions is None and mode in _REGION_FNS:
+        raise ValueError(f"{mode} masking needs RegionSets")
+    if not isinstance(seed, torch.Tensor):
+        k_mask, k_corrupt = mask_keys(seed)
+        draws = torch.from_numpy(
+            host_draws(k_mask, params, mode, regions)).to(spikes.device)
+        seed = torch.tensor([k_mask, k_corrupt], dtype=torch.int64,
+                            device=spikes.device)
+    elif draws is None:
+        raise ValueError("apply_mask with a keys tensor needs its draws")
+    args = (seed[0:1], draws, spikes, params)
+    if mode in _TEMPORAL:
+        mask, targets = _mask_temporal(*args, mode)
+    elif mode in _REGION_FNS:
+        mask, targets = _REGION_FNS[mode](*args, regions)
+    else:
+        mask, targets = _PLAIN_FNS[mode](*args)
+    corrupted = _corrupt(seed[1:2], spikes, mask, params)
     return corrupted, targets.to(torch.int32)
 
 
 def apply_mask_by_id(
-    seed: int,
+    seed,
     spikes: torch.Tensor,
     params: MaskParams,
     mode_id: int,                        # host int index into ``modes``
     modes: Sequence[str],
     regions: Optional[RegionSets] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MtM per-step scheme choice: ``apply_mask`` of ``modes[mode_id]``."""
+    """MtM per-step scheme choice: ``apply_mask`` of ``modes[mode_id]``
+    (a host int seed)."""
     return apply_mask(seed, spikes, params, modes[int(mode_id)],
                       regions=regions)

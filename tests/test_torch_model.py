@@ -196,7 +196,7 @@ def test_unported_paths_raise(toy):
     train = loader.make_loader(sess, **kw)
     with pytest.raises(NotImplementedError):
         MultiModalTrainer(tmodel, train, None, OptimizerConfig(),
-                          TrainerConfig(device_resident_data=True,
+                          TrainerConfig(mixed_session_batches=True,
                                         log_dir="unused"))
     # the masker and training, unported in the first slice, now run
     spikes, beh, attn, ts = make_batch(16, 2)

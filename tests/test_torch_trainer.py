@@ -218,10 +218,9 @@ def test_train_runs_eval_and_keeps_best(tmp_path):
 def test_unported_trainer_options_raise(tmp_path):
     train, val = _loaders(tloader, tsession)
     model = tmm.MultiModal(tmm.MultiModalConfig(**TOY), device="cpu")
-    for over in (dict(device_resident_data=True), dict(prefetch_depth=2),
-                 dict(steps_per_dispatch=4), dict(compile_retries=1),
-                 dict(save_plot_every_n_epochs=5),
-                 dict(mixed_session_batches=True)):
+    for over in (dict(compile_retries=1), dict(save_plot_every_n_epochs=5),
+                 dict(mixed_session_batches=True),
+                 dict(shard_resident_sessions=True)):
         with pytest.raises(NotImplementedError):
             MultiModalTrainer(model, train, val, OptimizerConfig(),
                               _tcfg(TrainerConfig, tmp_path, **over))
