@@ -63,6 +63,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
    without it; ``philox_check`` holds the Philox draw kernel against its
    plain version and times it. The SDPA
    yardsticks run on a pinned backend (``SDPA_BACKEND``).
+6. baseline — the linear baselines (``BaselineTrainer``) at trainer.yaml's
+   width and the scripts' defaults (N=668, T=100, 2 behaviors, 400 trials
+   split 320/40/40, B=16, f32): in each direction one initial state_dict
+   trains 2 epochs on the CPU and on the card, per-step losses within rtol
+   1e-4 and ``eval_trial_avg_r2`` within 1e-4; then
+   ``co_smoothing_eval_baseline`` on the card. Median step time (CUDA
+   events), epoch and eval wall times.
+7. entry_points — the four entry scripts' ``main(argv)`` on the card
+   (``--synthetic --device cuda``): both baselines trained and evaluated,
+   ``train_multi_modal`` (mm.yaml's bf16, MtM, mixed objectives, the
+   resident path, 10 steps a dispatch) and ``eval_multi_modal`` in all six
+   modes; finite metrics and results, and K1, K2, K3, K4 and Philox
+   launched (the counters set to 0 before each script and read after it)
+   on the training script, K1 and K3 on the eval script; wall time of each.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -376,7 +390,7 @@ def reset_counts() -> None:
 
     from multi_modal_foundation_model_tpu_torch.ops import random as rnd
 
-    att.K1_LAUNCHES = att.K2_LAUNCHES = 0
+    att.K1_LAUNCHES = att.K1_LSE_LAUNCHES = att.K2_LAUNCHES = 0
     ln.K3_LAUNCHES = ln.K4_LAUNCHES = 0
     rnd.PHILOX_LAUNCHES = 0
 
@@ -387,8 +401,9 @@ def read_counts() -> dict:
 
     from multi_modal_foundation_model_tpu_torch.ops import random as rnd
 
-    return dict(k1=att.K1_LAUNCHES, k2=att.K2_LAUNCHES, k3=ln.K3_LAUNCHES,
-                k4=ln.K4_LAUNCHES, philox=rnd.PHILOX_LAUNCHES)
+    return dict(k1=att.K1_LAUNCHES, k1_lse=att.K1_LSE_LAUNCHES,
+                k2=att.K2_LAUNCHES, k3=ln.K3_LAUNCHES, k4=ln.K4_LAUNCHES,
+                philox=rnd.PHILOX_LAUNCHES)
 
 
 def _excess(got, want, tol: float) -> float:
@@ -1736,6 +1751,239 @@ def layernorm_ab(root: Path, dtype) -> str:
     return choice
 
 
+# the linear baselines at trainer.yaml's width and the scripts' defaults:
+# N = 668 neurons, T = 100, 2 behaviors, 400 trials split 320/40/40, B = 16
+BASELINE_TRIALS, BASELINE_EPOCHS = 400, 2
+BASELINE_LOSS_RTOL, BASELINE_R2_ATOL = 1e-4, 1e-4
+BASELINE_FILTERS = {"encoding": {"input": ["behavior"], "output": ["ap"]},
+                    "decoding": {"input": ["ap"], "output": ["behavior"]}}
+
+
+def baseline_phase(root: Path) -> float:
+    """``BaselineTrainer`` in each direction from one initial state_dict,
+    2 epochs on the CPU and on the card (f32, TF32 off), settings from the
+    port's trainer.yaml: per-step losses within rtol 1e-4 (f32 sums in
+    other orders, 40 AdamW updates) and ``eval_trial_avg_r2`` within 1e-4
+    absolute; then ``co_smoothing_eval_baseline`` on the card in the
+    direction's mode (finite metrics). Prints the median step time (CUDA
+    events over the second epoch), the epoch's wall time and the eval's.
+    Returns the phase's wall seconds."""
+    from multi_modal_foundation_model_tpu_torch.config import (
+        default_config_path, update_config, config_from_kwargs)
+    from multi_modal_foundation_model_tpu_torch.data import (
+        DEFAULT_TARGETS, make_loader, synthetic_splits)
+    from multi_modal_foundation_model_tpu_torch.eval import (
+        co_smoothing_eval_baseline)
+    from multi_modal_foundation_model_tpu_torch.models.baseline import (
+        BaselineDecoder, BaselineEncoder)
+    from multi_modal_foundation_model_tpu_torch.train import (
+        BaselineTrainer, MetricLogger, OptimizerConfig, TrainerConfig)
+
+    t_phase = time.perf_counter()
+    config = update_config(default_config_path("trainer.yaml"),
+                           config_from_kwargs({"model": "include:"
+                                               + default_config_path(
+                                                   "baseline.yaml")}))
+    T = int(config.data.max_time_length)
+    N = int(config.data.max_space_length)
+    B = int(config.training.train_batch_size)
+    n_beh = len(DEFAULT_TARGETS)
+    splits = synthetic_splits(seed=SEED, n_trials=BASELINE_TRIALS,
+                              n_neurons=N, n_timesteps=T)
+    ocfg = OptimizerConfig.from_config(config.optimizer)
+    failed = []
+    for direction, modal_filter in BASELINE_FILTERS.items():
+        def build(device):
+            if direction == "encoding":
+                return BaselineEncoder(n_beh, N, seq_len=T, device=device)
+            return BaselineDecoder(N, n_beh, device=device)
+
+        init = build("cpu").state_dict()
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model = build(device)
+            model.load_state_dict(init)
+            kw = dict(batch_size=B, max_time_length=T, max_space_length=N,
+                      seed=SEED)
+            log_dir = root / f"chip_smoke_baseline_{direction}_{device}"
+            shutil.rmtree(log_dir, ignore_errors=True)
+            tr = BaselineTrainer(
+                model, make_loader(splits.train, **kw),
+                make_loader(splits.val, shuffle=False, **kw), ocfg,
+                TrainerConfig.from_config(
+                    config, num_epochs=BASELINE_EPOCHS, seed=SEED,
+                    save_plot_every_n_epochs=0, log_dir=str(log_dir)),
+                modal_filter=modal_filter,
+                logger=MetricLogger(str(log_dir), stdout=False))
+            events = []
+            if device == "cuda":
+                inner = tr.train_step
+
+                def timed(data, inner=inner):
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    loss = inner(data)
+                    end.record()
+                    events.append((start, end))
+                    return loss
+
+                tr.train_step = timed
+            losses, epoch_s = [], []
+            for epoch in range(BASELINE_EPOCHS):
+                events.clear()
+                t0 = time.perf_counter()
+                losses += tr.train_epoch(epoch)["step_losses"]
+                epoch_s.append(time.perf_counter() - t0)
+            step_ms = [a.elapsed_time(b) for a, b in events]
+            t0 = time.perf_counter()
+            ev = tr.eval_epoch()
+            eval_epoch_s = time.perf_counter() - t0
+            runs[device] = dict(tr=tr, losses=losses, epoch_s=epoch_s,
+                                step_ms=step_ms, eval=ev,
+                                eval_epoch_s=eval_epoch_s)
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        lc, lg = np.asarray(cpu["losses"]), np.asarray(gpu["losses"])
+        rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+        r2_key = "eval_trial_avg_r2"
+        r2_diff = abs(float(gpu["eval"][r2_key]) - float(cpu["eval"][r2_key]))
+
+        mode = ("modal_spike" if direction == "encoding"
+                else "modal_behavior")
+        test_l = make_loader(splits.test, batch_size=splits.test.n_trials,
+                             target=list(DEFAULT_TARGETS), max_time_length=T,
+                             max_space_length=N, shuffle=False, seed=SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = co_smoothing_eval_baseline(
+            gpu["tr"].model, test_l, mode, modal_filter=modal_filter,
+            save_path=str(root / f"chip_smoke_baseline_{direction}_eval"),
+            held_out_list=list(range(T)), avail_beh=list(DEFAULT_TARGETS),
+            n_time_steps=T)
+        eval_s = time.perf_counter() - t0
+        flat = [v for r in res.values()
+                for v in (r.values() if isinstance(r, dict) else [r])]
+        finite = (all(math.isfinite(float(v)) for v in flat)
+                  and bool(np.isfinite(lc).all() and np.isfinite(lg).all()))
+        ok = (finite and len(lc) == len(lg) > 0
+              and bool(np.allclose(lg, lc, rtol=BASELINE_LOSS_RTOL, atol=0))
+              and r2_diff <= BASELINE_R2_ATOL)
+        emit(phase="baseline", direction=direction, neurons=N, T=T,
+             trials=BASELINE_TRIALS, batch=B, steps=len(lg),
+             params=sum(p.numel() for p in gpu["tr"].model.parameters()),
+             max_rel_step_loss_diff=rel, loss_rtol=BASELINE_LOSS_RTOL,
+             eval_r2_cpu=float(cpu["eval"][r2_key]),
+             eval_r2_cuda=float(gpu["eval"][r2_key]), eval_r2_abs_diff=r2_diff,
+             r2_atol=BASELINE_R2_ATOL,
+             median_step_ms=float(np.median(gpu["step_ms"])),
+             epoch_wall_s=gpu["epoch_s"], cpu_epoch_wall_s=cpu["epoch_s"],
+             eval_epoch_wall_s=gpu["eval_epoch_s"], harness_mode=mode,
+             harness_wall_s=eval_s, metrics=res,
+             device=torch.cuda.get_device_name(0), ok=ok)
+        if not ok:
+            failed.append(direction)
+    wall = time.perf_counter() - t_phase
+    emit(phase="baseline_wall", wall_s=wall)
+    if failed:
+        raise AssertionError(f"baseline phase failed: {failed} (see the "
+                             "baseline lines)")
+    return wall
+
+
+def _finite_tree(v) -> bool:
+    if isinstance(v, dict):
+        return all(_finite_tree(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(_finite_tree(x) for x in v)
+    if isinstance(v, bool) or isinstance(v, str) or v is None:
+        return True
+    return math.isfinite(float(v))
+
+
+def entry_points_phase(root: Path):
+    """The four entry scripts' ``main(argv)`` in this process on the card
+    (``--synthetic --device cuda --overwrite``, the default 668 neurons
+    and 400 trials, results under ``build/``): both baseline directions
+    trained 2 epochs and evaluated; the MultiModal trainer at mm.yaml's
+    bf16 with the MtM menu, mixed objectives, the resident path and 10
+    steps a dispatch for 1 epoch; its eval in all six modes. Each run's
+    metrics rows and ``results.json`` must be finite, and the kernels'
+    counters, set to 0 before each run and read after it, must show K1,
+    K2, K3, K4 and the Philox draws on the training script and K1 and K3
+    on the eval script. Returns (launch counts by script, wall seconds)."""
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        eval_baseline, eval_multi_modal, train_baseline, train_multi_modal)
+    from multi_modal_foundation_model_tpu_torch.scripts._common import (
+        DEFAULT_EID, log_dir_for)
+
+    t_phase = time.perf_counter()
+    base = root / "chip_smoke_scripts"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--synthetic", "--device", "cuda", "--overwrite",
+              "--base_path", str(base)]
+    mm = ["--use_MtM", "--mixed_training"]
+    mm_dir = log_dir_for(str(base), DEFAULT_EID,
+                         {"input": ["ap", "behavior"],
+                          "output": ["ap", "behavior"]},
+                         "mask-temporal_ratio-0.1_mixed-True")
+    runs = []
+    for direction, modal_filter in BASELINE_FILTERS.items():
+        d = log_dir_for(str(base), DEFAULT_EID, modal_filter, "linear")
+        runs.append((f"train_baseline_{direction}", train_baseline.main,
+                     common + ["--direction", direction, "--num_epochs",
+                               "2"], d, ()))
+        runs.append((f"eval_baseline_{direction}", eval_baseline.main,
+                     common + ["--direction", direction], d, ()))
+    runs.append(("train_multi_modal", train_multi_modal.main,
+                 common + mm + ["--num_epochs", "1", "--device_resident",
+                                "--set", "training.steps_per_dispatch=10"],
+                 mm_dir, ("k1", "k2", "k3", "k4", "philox")))
+    runs.append(("eval_multi_modal", eval_multi_modal.main,
+                 common + mm + ["--co_smooth", "--forward_pred",
+                                "--inter_region", "--intra_region"],
+                 mm_dir, ("k1", "k3")))
+    counts, walls, failed = {}, {}, []
+    for name, main, argv, log_dir, need in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = read_counts()
+        log_dir = Path(log_dir)
+        if name.startswith("train"):
+            rows = [json.loads(line) for line in
+                    (log_dir / "metrics.jsonl").read_text().splitlines()]
+            written = {"rows": rows}
+            files = ["model_best.pt", "model_last.pt"]
+        else:
+            written = json.loads((log_dir / "eval" / "results.json")
+                                 .read_text())
+            files = ["eval/results.json"]
+        present = all((log_dir / f).exists() for f in files)
+        finite = _finite_tree(written)
+        launched = all(counts[name][k] > 0 for k in need)
+        ok = present and finite and launched
+        if name.endswith("multi_modal"):
+            dtype = json.loads((log_dir / "model_config.json")
+                               .read_text())["compute_dtype"]
+            ok = ok and dtype == "bfloat16"       # mm.yaml's default
+            written = dict(written, compute_dtype=dtype)
+        emit(phase="entry_point", script=name, argv=argv,
+             wall_s=walls[name], launches=counts[name],
+             launches_required=list(need), files_present=present,
+             finite=finite, written=written, ok=ok)
+        if not ok:
+            failed.append(name)
+    wall = time.perf_counter() - t_phase
+    emit(phase="entry_points_wall", wall_s=wall, by_script=walls,
+         device=torch.cuda.get_device_name(0))
+    if failed:
+        raise AssertionError(f"entry points failed: {failed} (see the "
+                             "entry_point lines)")
+    return counts, wall
+
+
 def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
              reps: int) -> None:
     """One ``ab_step`` line: 4 segments of ``reps`` kernel-path steps after
@@ -1931,6 +2179,10 @@ def main() -> int:
     picks = {dtype_name(dt): layernorm_ab(out, dt) for dt in (f32, bf16)}
     emit(phase="layernorm_default", rule_pick_at_b256=picks,
          default_in_code=default)
+    baseline_s = baseline_phase(out)
+    entry, entry_s = entry_points_phase(out)
+    emit(phase="slice_11_phases_wall", baseline_s=baseline_s,
+         entry_points_s=entry_s, total_s=baseline_s + entry_s)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16)
     # the graph path's launches, counted by kernel name in a profile of
@@ -2011,6 +2263,22 @@ def main() -> int:
              launches_by_path=by_path("philox", (*paths, *graph_paths)),
              uniform=philox["uniform"], **_row(philox["u8"])),
     ]
+    # the MultiModal entry scripts' launches, on the rows of what they ran:
+    # mm.yaml's bf16 (entry_points_phase checks it), the training K1 (with
+    # lse) apart from the eval K1. Counters, so the graph replays of the
+    # resident training script are not in them: its first eager step and
+    # capture are. The f32 rows get none: the scripts ran no f32 kernel.
+    by_kind = {
+        "eval_k1": lambda c: c["k1"] - c["k1_lse"],
+        "train_k1": lambda c: c["k1_lse"],
+        **{k: (lambda c, k=k: c[k]) for k in ("k2", "k3", "k4", "philox")}}
+    for row, kind in zip(kernels, (None, "eval_k1", None, "train_k1", None,
+                                   "k2", "k3", "k4", "philox"),
+                          strict=True):
+        if kind is not None:
+            row["launches_by_entry_point"] = {
+                name: by_kind[kind](c) for name, c in entry.items()
+                if name.endswith("multi_modal")}
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):

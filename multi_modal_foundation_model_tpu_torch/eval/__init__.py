@@ -1,3 +1,4 @@
+from .baseline_harness import co_smoothing_eval_baseline
 from .harness import EvalForward, co_smoothing_eval
 from .heldout import heldout_mask
 from .loading import (load_model_config, load_model_data_local,
@@ -18,6 +19,7 @@ from .metrics import (
 __all__ = [
     "EvalForward",
     "co_smoothing_eval",
+    "co_smoothing_eval_baseline",
     "heldout_mask",
     "load_model_config",
     "load_model_data_local",

@@ -159,6 +159,63 @@ class MultiModalConfig:
     remat_layers: bool = True
     n_sessions: int = 1
 
+    @classmethod
+    def from_config(cls, cfg, n_channels: Dict[str, int],
+                    avail_mod: Sequence[str] = ("ap", "behavior"),
+                    **overrides) -> "MultiModalConfig":
+        """From a loaded mm.yaml node, as JAX's
+        ``MultiModalConfig.from_config`` (``models/multimodal.py:135``);
+        ``compute.compute_dtype`` and ``compute.attn_impl`` are the port's
+        string fields (``param_dtype`` is f32 in both packages)."""
+        enc_t = cfg.encoder.transformer
+        dec_t = cfg.decoder.transformer
+        emb = cfg.encoder.embedder
+        compute = cfg.get("compute", {}) or {}
+        compute_dtype = str(compute.get("compute_dtype", "float32"))
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute.compute_dtype {compute_dtype!r}: "
+                             f"one of {sorted(_COMPUTE_DTYPES)}")
+        kw = dict(
+            avail_mod=tuple(avail_mod),
+            n_channels=dict(n_channels),
+            max_F=int(emb["max_F"]),
+            hidden_size=int(enc_t["hidden_size"]),
+            n_enc_layers=int(enc_t["n_layers"]),
+            n_dec_layers=int(dec_t["n_layers"]),
+            n_heads=int(enc_t["n_heads"]),
+            inter_size=int(enc_t["inter_size"]),
+            act=enc_t["act"],
+            use_scalenorm=bool(enc_t["use_scalenorm"]),
+            attention_bias=bool(enc_t["attention_bias"]),
+            mlp_bias=bool(enc_t["mlp_bias"]),
+            dropout=float(enc_t["dropout"]),
+            fixup_init=bool(enc_t["fixup_init"]),
+            n_modality=int(emb["n_modality"]),
+            mult=int(emb["mult"]),
+            embed_act=emb["act"],
+            embed_scale=float(emb["scale"]) if emb["scale"] is not None
+            else float(enc_t["hidden_size"]) ** 0.5,
+            embed_bias=bool(emb["bias"]),
+            embed_dropout=float(emb["dropout"]),
+            use_pos=bool(emb["pos"]),
+            decoder_sep_mask=bool(cfg.decoder["decoder_sep_mask"]),
+            decoder_causal_mask=bool(cfg.decoder["decoder_causal_mask"]),
+            context_forward=int(cfg.context["forward"]),
+            context_backward=int(cfg.context["backward"]),
+            mask_params=MaskParams.from_config(cfg.masker),
+            mask_mode=cfg.masker["mode"],
+            force_active=bool(cfg.masker["force_active"]),
+            attn_impl=compute.get("attn_impl", "pallas"),
+            compute_dtype=compute_dtype,
+        )
+        # per-modality loss weights, reachable from the command line as
+        # --set model.mod_loss_weights.behavior=20
+        lw = cfg.get("mod_loss_weights", None)
+        if lw:
+            kw["mod_loss_weights"] = {k: float(v) for k, v in dict(lw).items()}
+        kw.update(overrides)
+        return cls(**kw)
+
     def to_json_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 

@@ -51,8 +51,10 @@ NEG_INF = -1e30
 _LSE_FLOOR = -1e6
 
 # launches of the K1 / K2 kernels, counted by their wrappers where they
-# launch
+# launch; K1_LSE_LAUNCHES counts the K1 launches that write the lse (the
+# training forward, whose lse K2 reads), of those in K1_LAUNCHES
 K1_LAUNCHES = 0
+K1_LSE_LAUNCHES = 0
 K2_LAUNCHES = 0
 
 _HEAD_DIM = 32                     # the head width the kernels take
@@ -410,7 +412,7 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""
-    global K1_LAUNCHES
+    global K1_LAUNCHES, K1_LSE_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
     _check_aligned("attention_fwd", q=q, k=k, v=v)
@@ -434,6 +436,7 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
         raise RuntimeError(f"attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
     K1_LAUNCHES += 1
+    K1_LSE_LAUNCHES += with_lse
     return out, lse
 
 

@@ -81,6 +81,25 @@ class MaskParams:
     n_mask_regions: int = 1
     causal_zero: bool = True
 
+    @classmethod
+    def from_config(cls, cfg) -> "MaskParams":
+        """From a loaded ``masker:`` node (mm.yaml), as JAX's
+        ``MaskParams.from_config``."""
+        def tup(v):
+            return tuple(v) if v is not None else None
+
+        return cls(
+            ratio=float(cfg.ratio),
+            zero_ratio=float(cfg.zero_ratio),
+            random_ratio=float(cfg.random_ratio),
+            expand_prob=float(cfg.expand_prob),
+            max_timespan=int(cfg.max_timespan),
+            channels=tup(cfg.get("channels")),
+            timesteps=tup(cfg.get("timesteps")),
+            n_mask_regions=int(cfg.n_mask_regions),
+            causal_zero=bool(cfg.get("causal_zero", True)),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class RegionSets:

@@ -1,0 +1,127 @@
+"""Evaluate a trained MultiModal checkpoint on one session.
+
+    python -m multi_modal_foundation_model_tpu_torch.scripts.eval_multi_modal \\
+        --synthetic --use_MtM --mixed_training --co_smooth --forward_pred \\
+        --inter_region --intra_region [--device cpu]
+
+The port of the JAX package's ``scripts/eval_multi_modal.py`` on its
+single-session path: ``modal_spike`` and ``modal_behavior`` by default,
+the other co-smoothing modes by flag, ``bps.npy``/``r2.npy`` per mode
+under ``<model_dir>/eval/<mode>/`` (``eval_unaligned`` with
+``--unaligned``) and the metrics in ``results.json`` there. Not ported
+yet, each raising: ``--multi_session``, ``--reference_ckpt`` and
+``--save_plot``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from ..data.session import DEFAULT_TARGETS
+from ..eval import co_smoothing_eval, load_model_data_local
+from ..utils.device import resolve_device
+from ._common import (add_common_args, get_session, log_dir_for,
+                      warn_unsupported)
+
+
+def build_modes(args, T):
+    """The eval modes the flags ask for (modal_spike and modal_behavior
+    on by default, the co-smoothing modes opt-in)."""
+    modes = []
+    if args.co_smooth:
+        modes.append(("per_neuron", {}))
+    if args.forward_pred:
+        modes.append(("forward_pred",
+                      {"held_out_list": list(range(int(0.7 * T), T))}))
+    if args.inter_region:
+        modes.append(("inter_region", {}))
+    if args.intra_region:
+        modes.append(("intra_region", {}))
+    if not args.no_modal_spike:
+        modes.append(("modal_spike", {"held_out_list": list(range(T))}))
+    if not args.no_modal_behavior:
+        modes.append(("modal_behavior", {"held_out_list": list(range(T))}))
+    return modes
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    add_common_args(ap)
+    ap.add_argument("--mask_ratio", type=float, default=0.1)
+    ap.add_argument("--mask_mode", type=str, default="temporal")
+    ap.add_argument("--mixed_training", action="store_true")
+    ap.add_argument("--use_MtM", action="store_true",
+                    help="mask model inputs at eval (co-smoothing proper)")
+    ap.add_argument("--model_dir", type=str, default=None,
+                    help="checkpoint dir; default derives from the train layout")
+    ap.add_argument("--checkpoint", type=str, default="best")
+    ap.add_argument("--reference_ckpt", type=str, default=None,
+                    help="evaluate a reference-trained torch checkpoint "
+                         "(not ported yet: raises)")
+    ap.add_argument("--reference_src", type=str, default=None,
+                    help="reference source root for --reference_ckpt")
+    ap.add_argument("--co_smooth", action="store_true")
+    ap.add_argument("--forward_pred", action="store_true")
+    ap.add_argument("--inter_region", action="store_true")
+    ap.add_argument("--intra_region", action="store_true")
+    ap.add_argument("--no_modal_spike", action="store_true")
+    ap.add_argument("--no_modal_behavior", action="store_true")
+    ap.add_argument("--n_time_steps", type=int, default=100)
+    ap.add_argument("--save_plot", action="store_true",
+                    help="per-neuron diagnostic figures (not ported yet: "
+                         "raises)")
+    ap.add_argument("--unaligned", action="store_true",
+                    help="plain R² instead of task-condition PSTHs "
+                         "(harness is_aligned=False); results under "
+                         "eval_unaligned/")
+    ap.add_argument("--multi_session", action="store_true",
+                    help="evaluate a session-stitched checkpoint (not "
+                         "ported yet: raises)")
+    args = ap.parse_args(argv)
+    warn_unsupported(args, "dp", "tp", "device_resident")
+    for flag, item in (("multi_session", "multi-session (ROADMAP queue 1 "
+                        "item 5)"),
+                       ("reference_ckpt", "reference checkpoints (ROADMAP "
+                        "queue 1 item 4)"),
+                       ("save_plot", "eval plots (ROADMAP queue 1 item 4)")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {item} not ported yet")
+    device = resolve_device(args.device)
+
+    modal_filter = {"input": ["ap", "behavior"], "output": ["ap", "behavior"]}
+    model_dir = args.model_dir or log_dir_for(
+        args.base_path, args.eid, modal_filter,
+        f"mask-{args.mask_mode}_ratio-{args.mask_ratio}"
+        f"_mixed-{args.mixed_training}")
+
+    splits = get_session(args)
+    model, test_loader = load_model_data_local(
+        model_dir=model_dir, test_session=splits.test,
+        checkpoint_name=args.checkpoint,
+        max_time_length=args.n_time_steps,
+        max_space_length=splits.n_neurons, seed=args.seed, device=device)
+
+    T = args.n_time_steps
+    sub = "eval_unaligned" if args.unaligned else "eval"
+    results = {}
+    for mode, kw in build_modes(args, T):
+        res = co_smoothing_eval(
+            model, test_loader, mode=mode, use_mtm=args.use_MtM,
+            save_path=os.path.join(model_dir, sub, mode), n_time_steps=T,
+            save_plot=args.save_plot, is_aligned=not args.unaligned,
+            avail_beh=list(DEFAULT_TARGETS), **kw)
+        results.update({k: (v if isinstance(v, dict) else float(v))
+                        for k, v in res.items()})
+        print(f"[{mode}]", json.dumps(results, default=float)[:400])
+
+    os.makedirs(os.path.join(model_dir, sub), exist_ok=True)
+    with open(os.path.join(model_dir, sub, "results.json"), "w") as f:
+        json.dump(results, f, indent=1, default=float)
+    print("saved:", os.path.join(model_dir, sub, "results.json"))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -2,14 +2,18 @@ from .checkpoint import (load_checkpoint_meta, restore_checkpoint,
                          save_checkpoint)
 from .logging import MetricLogger
 from .schedule import Optimizer, OptimizerConfig
-from .trainer import MultiModalTrainer, TrainerConfig
+from .trainer import (BaselineTrainer, MultiModalTrainer, TrainerConfig,
+                      make_baseline_trainer, make_multimodal_trainer)
 
 __all__ = [
+    "BaselineTrainer",
     "MetricLogger",
     "MultiModalTrainer",
     "Optimizer",
     "OptimizerConfig",
     "TrainerConfig",
+    "make_baseline_trainer",
+    "make_multimodal_trainer",
     "load_checkpoint_meta",
     "restore_checkpoint",
     "save_checkpoint",

@@ -10,11 +10,18 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class MetricLogger:
+    """JAX's ``MetricLogger`` signature (``train/logging.py:18-22``);
+    ``wandb_project``, ``wandb_run_name`` and ``config`` only ever reach
+    wandb, so they are accepted and unused."""
+
     def __init__(self, log_dir: str, use_wandb: bool = False,
+                 wandb_project: Optional[str] = None,
+                 wandb_run_name: Optional[str] = None,
+                 config: Optional[Dict[str, Any]] = None,
                  stdout: bool = True):
         if use_wandb:
             raise NotImplementedError("wandb logging is not ported")

@@ -73,6 +73,24 @@ class OptimizerConfig:
     gradient_accumulation_steps: int = 1
     max_grad_norm: Optional[float] = None
 
+    @classmethod
+    def from_config(cls, cfg) -> "OptimizerConfig":
+        """From a loaded ``optimizer:`` node (trainer.yaml,
+        trainer_mm.yaml), as JAX's ``OptimizerConfig.from_config``."""
+        return cls(
+            lr=float(cfg.lr),
+            wd=float(cfg.wd),
+            eps=float(cfg.eps),
+            warmup_pct=float(cfg.get("warmup_pct", 0.15)),
+            div_factor=float(cfg.get("div_factor", 10.0)),
+            scheduler=str(cfg.get("scheduler", "cosine")),
+            cycle_momentum=bool(cfg.get("cycle_momentum", True)),
+            base_momentum=float(cfg.get("base_momentum", 0.85)),
+            max_momentum=float(cfg.get("max_momentum", 0.95)),
+            gradient_accumulation_steps=int(
+                cfg.get("gradient_accumulation_steps", 1)),
+        )
+
 
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor],
@@ -240,12 +258,16 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> bool:
         """``apply`` with this mini-step's scalars, copied into ``hyper``
-        eagerly, then ``advance``."""
+        (on the card from pinned memory, without waiting for the device),
+        then ``advance``."""
         for p in self.params:
             if p.grad is None:            # optax decays params without grad
                 p.grad = torch.zeros_like(p)
         update = self.will_update()
-        self.hyper.copy_(torch.from_numpy(self.host_hyper()))
+        host = torch.from_numpy(self.host_hyper())
+        if self.hyper.is_cuda:
+            host = host.pin_memory()
+        self.hyper.copy_(host, non_blocking=True)
         self.apply(self.hyper, update)
         self.advance()
         return update

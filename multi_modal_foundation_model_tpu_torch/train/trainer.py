@@ -1,4 +1,5 @@
-"""The MultiModal trainer: MtM + mixed objectives, eval, checkpoints.
+"""The trainers: MultiModal (MtM + mixed objectives) and the linear
+baselines, with eval and checkpoints.
 
 Port of ``MultiModalTrainer`` (``multi_modal_foundation_model_tpu/train/
 trainer.py:194``) with its three host-dispatch options:
@@ -46,6 +47,9 @@ trainer.py:194``) with its three host-dispatch options:
 - **Resume** (``restore``): params, optimizer state and step, copied into
   the tensors the captured graphs read; with the per-epoch host reseeding
   and the per-step seed tables the resumed run is the uninterrupted one.
+
+``BaselineTrainer`` (JAX :896-1089) trains the linear baselines eagerly
+on the same optimizer and checkpoint layout.
 
 Not ported, each raising ``NotImplementedError`` when asked for: the
 multi-session options, ``mesh`` (DP/TP), ``compile_retries`` (a
@@ -104,6 +108,49 @@ class TrainerConfig:
     mixed_session_batches: bool = False
     shard_resident_sessions: bool = False
     compile_retries: int = 0
+
+    @classmethod
+    def from_config(cls, cfg, **overrides) -> "TrainerConfig":
+        """From a loaded trainer YAML (trainer.yaml, trainer_mm.yaml), as
+        JAX's ``TrainerConfig.from_config`` (``train/trainer.py:124``):
+        every key under ``training:`` with the dataclass defaults, the
+        masker's region lists and ``dirs.log_dir``; keyword arguments
+        override. ``training.stacked_scan`` (multi-session only) is
+        dropped: this class has no such field."""
+        t = cfg.training
+        eval_every = t.get("eval_every", None)
+        kw = dict(
+            num_epochs=int(t.num_epochs),
+            mask_type=str(t.get("mask_type", "embd")),
+            mask_mode=tuple(t.get("mask_mode", ["temporal"])),
+            mixed_training=bool(t.get("mixed_training", False)),
+            save_every=int(t.get("save_every", 100)),
+            # null in the YAML: every epoch
+            eval_every=int(eval_every) if eval_every is not None else 1,
+            save_plot_every_n_epochs=int(
+                t.get("save_plot_every_n_epochs", 0) or 0),
+            metric=str(t.get("metric", "r2")),
+            seed=int(cfg.get("seed", 42)),
+            device_resident_data=bool(t.get("device_resident_data", False)),
+            prefetch_depth=int(t.get("prefetch_depth", 0)),
+            steps_per_dispatch=int(t.get("steps_per_dispatch", 1)),
+            mixed_session_batches=bool(
+                t.get("mixed_session_batches", False)),
+            shard_resident_sessions=bool(
+                t.get("shard_resident_sessions", False)),
+            compile_retries=int(t.get("compile_retries", 0)),
+        )
+        masker = (cfg.get("model", {}) or {}).get("masker", None)
+        if masker is not None:
+            kw["mask_regions"] = tuple(masker.get("mask_regions", ["all"])
+                                       or ["all"])
+            kw["target_regions"] = tuple(masker.get("target_regions", ["all"])
+                                         or ["all"])
+        dirs = cfg.get("dirs", None)
+        if dirs is not None and dirs.get("log_dir"):
+            kw["log_dir"] = str(dirs["log_dir"])
+        kw.update(overrides)
+        return cls(**kw)
 
     def unported(self) -> List[str]:
         """The options set here that the port does not run."""
@@ -587,3 +634,164 @@ class MultiModalTrainer:
         meta = load_checkpoint_meta(self.tcfg.log_dir, name) or {}
         return int(meta.get("epoch", 0))
 
+
+
+class BaselineTrainer:
+    """Trains ``BaselineEncoder`` / ``BaselineDecoder`` (JAX
+    ``BaselineTrainer``, ``train/trainer.py:896-1089``) on the model's
+    device.
+
+    The batch's spikes and behavior are routed into ``inputs`` and
+    ``targets`` by ``modal_filter`` (JAX ``_data_dict``, :930-938). Each
+    step runs eagerly: forward, backward, ``Optimizer.step``; per-step
+    losses stay on the device until the epoch ends (one host sync per
+    epoch, :970-979). Checkpoints have the ``MultiModalTrainer``'s layout,
+    so ``restore`` is shared, as JAX shares it (:1012). Epoch plots and
+    DP/TP meshes are not ported and raise."""
+
+    def __init__(
+        self,
+        model,
+        train_dataloader: DataLoader,
+        eval_dataloader: Optional[DataLoader],
+        optimizer_config: OptimizerConfig,
+        trainer_config: TrainerConfig,
+        *,
+        modal_filter: Dict[str, List[str]],
+        mesh=None,
+        logger: Optional[MetricLogger] = None,
+    ):
+        if trainer_config.save_plot_every_n_epochs > 0:
+            raise NotImplementedError(
+                "trainer options not ported yet: save_plot_every_n_epochs > 0")
+        if mesh is not None:
+            raise NotImplementedError("DP/TP meshes are not ported yet")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.train_dataloader = train_dataloader
+        self.eval_dataloader = eval_dataloader
+        self.ocfg = optimizer_config
+        self.tcfg = trainer_config
+        self.modal_filter = modal_filter
+        self.logger = logger or MetricLogger(trainer_config.log_dir)
+        self.metric = trainer_config.metric
+        total_steps = (trainer_config.num_epochs * len(train_dataloader)
+                       // optimizer_config.gradient_accumulation_steps)
+        self.optimizer = Optimizer(model.parameters(), optimizer_config,
+                                   max(total_steps, 1))
+        self.step = 0                 # train steps taken (JAX state.step)
+
+    def _data_dict(self, batch) -> Dict[str, torch.Tensor]:
+        src = {"ap": "spikes_data", "behavior": "target"}
+        return {
+            "inputs": torch.as_tensor(
+                batch[src[self.modal_filter["input"][0]]]).to(self.device),
+            "targets": torch.as_tensor(
+                batch[src[self.modal_filter["output"][0]]]).to(self.device),
+        }
+
+    def train_step(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Forward, backward and update of one batch; returns the loss
+        (on the device)."""
+        out = self.model(data)
+        out.loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return out.loss.detach()
+
+    def train_epoch(self, epoch: int) -> Dict[str, Any]:
+        self.train_dataloader.set_epoch(epoch)
+        losses = [self.train_step(self._data_dict(batch))
+                  for batch in self.train_dataloader]
+        per_step = torch.stack(losses).tolist() if losses else []
+        train_loss = float(sum(per_step))
+        return {"train_loss": train_loss,
+                "train_loss_avg": train_loss / max(len(per_step), 1),
+                "step_losses": per_step}
+
+    @torch.no_grad()
+    def eval_epoch(self) -> Optional[Dict[str, Any]]:
+        """JAX ``eval_epoch`` (:981-1007): the loss over every batch,
+        padded tail trials included; the metric over the real trials
+        (``n_real``), for spikes the R² of the 50 most active neurons
+        after ``exp``."""
+        if self.eval_dataloader is None:
+            return None
+        losses, gts, preds = [], [], []
+        for batch in self.eval_dataloader:
+            out = self.model(self._data_dict(batch))
+            n_real = int(batch.get("n_real", len(batch["spikes_data"])))
+            losses.append(out.loss)
+            gts.append(out.targets[:n_real])
+            preds.append(out.preds[:n_real])
+        eval_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        gt = torch.cat(gts).cpu().numpy()
+        pr = torch.cat(preds).cpu().numpy()
+        if self.modal_filter["output"][0] == "ap":
+            pr = np.exp(pr)
+            active = np.argsort(gt.sum((0, 1)))[::-1][:50].tolist()
+            res = metrics_list(gt[:, :, active].transpose(2, 1, 0),
+                               pr[:, :, active].transpose(2, 1, 0),
+                               metrics=["r2"])
+        else:
+            res = metrics_list(gt, pr, metrics=[self.metric])
+        return {"eval_loss": eval_loss,
+                f"eval_trial_avg_{self.metric}": res[self.metric],
+                "eval_gt": gt, "eval_preds": pr}
+
+    restore = MultiModalTrainer.restore
+
+    def train(self, start_epoch: int = 0) -> Dict[str, Any]:
+        """All epochs from ``start_epoch`` (> 0 resumes after
+        ``restore('last')``, the best watermark read back from the
+        ``best`` meta file), as JAX's ``train`` (:1014-1053)."""
+        key = f"eval_trial_avg_{self.metric}"
+        best_metric, best_epoch = -float("inf"), -1
+        if start_epoch:
+            meta = load_checkpoint_meta(self.tcfg.log_dir, "best") or {}
+            if meta.get("metric") is not None:
+                best_metric = float(meta["metric"])
+                best_epoch = int(meta.get("epoch", -1))
+        history = []
+        for epoch in range(start_epoch, self.tcfg.num_epochs):
+            train_res = self.train_epoch(epoch)
+            eval_res = self.eval_epoch()
+            row = {"epoch": epoch, "train_loss": train_res["train_loss"]}
+            if eval_res:
+                row["eval_loss"] = eval_res["eval_loss"]
+                row[key] = eval_res[key]
+                if eval_res[key] > best_metric:
+                    best_metric, best_epoch = eval_res[key], epoch
+                    self.save_model("best", epoch=epoch, metric=best_metric)
+            self.logger.log(row)
+            history.append(dict(row, step_losses=train_res["step_losses"]))
+            if (self.tcfg.save_every and epoch
+                    and epoch % self.tcfg.save_every == 0):
+                self.save_model("last", epoch=epoch)
+        self.save_model("last", epoch=self.tcfg.num_epochs - 1)
+        return {f"best_{key}": best_metric, "best_epoch": best_epoch,
+                "history": history}
+
+    def save_model(self, name: str = "last", epoch: int = 0,
+                   metric: Optional[float] = None) -> str:
+        tree = {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+        meta = {"epoch": epoch, "step": self.step}
+        if metric is not None:
+            meta["metric"] = float(metric)
+        return save_checkpoint(self.tcfg.log_dir, name, tree, meta)
+
+
+def make_multimodal_trainer(model, train_dataloader, eval_dataloader,
+                            optimizer_config, trainer_config, **kwargs
+                            ) -> MultiModalTrainer:
+    return MultiModalTrainer(model, train_dataloader, eval_dataloader,
+                             optimizer_config, trainer_config, **kwargs)
+
+
+def make_baseline_trainer(model, train_dataloader, eval_dataloader,
+                          optimizer_config, trainer_config, **kwargs
+                          ) -> BaselineTrainer:
+    return BaselineTrainer(model, train_dataloader, eval_dataloader,
+                           optimizer_config, trainer_config, **kwargs)

@@ -1,5 +1,7 @@
-from .convert import params_from_jax
+from .convert import baseline_params_from_jax, params_from_jax
 from .device import resolve_device
 from .rng import fold_in
+from .seeding import set_seed
 
-__all__ = ["fold_in", "params_from_jax", "resolve_device"]
+__all__ = ["baseline_params_from_jax", "fold_in", "params_from_jax",
+           "resolve_device", "set_seed"]

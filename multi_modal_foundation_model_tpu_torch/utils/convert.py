@@ -1,4 +1,4 @@
-"""JAX param tree -> the port's ``state_dict``.
+"""JAX param trees -> the port's ``state_dict``.
 
 The port's own copy of the JAX package's ``params_to_reference_state_dict``
 (``utils/torch_convert.py:159-221`` there): the port's modules carry the
@@ -8,6 +8,7 @@ nested dict of numpy arrays) map onto them and load with
 Linear weights ``(out, in)``; LayerNorm ``scale`` is ``weight``. With
 shared modality embeddings the table is emitted under both the encoder and
 the decoder key, as the port's shared ``nn.Embedding`` appears under both.
+``baseline_params_from_jax`` does the same for the linear baselines.
 """
 
 from __future__ import annotations
@@ -87,3 +88,14 @@ def params_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
 
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def baseline_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` (f32 CPU tensors) of a port ``BaselineEncoder`` /
+    ``BaselineDecoder`` from the JAX model's params: ``layer.kernel (in,
+    out)`` -> ``layer.weight (out, in)``, ``layer.bias`` -> ``layer.bias``."""
+    layer = params["layer"]
+    return {"layer.weight": torch.from_numpy(np.array(
+                np.asarray(layer["kernel"]).T, dtype=np.float32)),
+            "layer.bias": torch.from_numpy(np.array(
+                layer["bias"], dtype=np.float32))}

@@ -1,0 +1,223 @@
+"""The port's four entry scripts against the JAX package's.
+
+The port's ``train_baseline``, ``eval_baseline`` (both directions),
+``train_multi_modal`` and ``eval_multi_modal`` run through ``main(argv)``
+on the CPU (``--device cpu --synthetic --n_neurons 24 --n_trials 40
+--num_epochs 1``; the MultiModal model cut by ``--set`` to one encoder and
+one decoder layer and a narrow width). The JAX baseline scripts run with
+the same arguments in one subprocess (``JAX_PLATFORMS=cpu``). Their log
+dirs, ``baseline_config.json`` and the key sets of ``results.json`` are
+equal; so is the MultiModal scripts' log dir (JAX's ``log_dir_for``, read
+in that subprocess). Every flag that is not ported raises
+``NotImplementedError``, and ``--device cuda`` without a card raises.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per xdist worker)
+from multi_modal_foundation_model_tpu_torch.scripts import (
+    eval_baseline, eval_multi_modal, train_baseline, train_multi_modal)
+
+ROOT = Path(__file__).resolve().parents[1]
+COMMON = ["--synthetic", "--n_neurons", "24", "--n_trials", "40"]
+SMALL_MM = ["--set", "model.encoder.transformer.n_layers=1",
+            "--set", "model.decoder.transformer.n_layers=1",
+            "--set", "model.encoder.transformer.hidden_size=64",
+            "--set", "model.encoder.transformer.inter_size=128",
+            "--set", "model.encoder.transformer.n_heads=2"]
+MM_FLAGS = ["--use_MtM", "--mixed_training"]
+EVAL_MODES = ["--co_smooth", "--forward_pred", "--inter_region",
+              "--intra_region"]
+DIRECTIONS = ("encoding", "decoding")
+BASELINE_DIR = {
+    "encoding": "results/ses-{eid}/set-train/inModal-behavior/outModal-ap/"
+                "linear",
+    "decoding": "results/ses-{eid}/set-train/inModal-ap/outModal-behavior/"
+                "linear"}
+
+
+def _baseline_runs(base):
+    runs = []
+    for d in DIRECTIONS:
+        args = COMMON + ["--base_path", str(base), "--direction", d]
+        runs.append(("train_baseline.py", args + ["--num_epochs", "1"]))
+        runs.append(("eval_baseline.py", args))
+    return runs
+
+
+_JAX_DRIVER = """
+import json, os, runpy, sys
+sys.path.insert(0, os.path.join(os.getcwd(), "scripts"))
+for script, argv in json.loads(sys.argv[1]):
+    sys.argv = [script] + argv
+    runpy.run_path(os.path.join("scripts", script), run_name="__main__")
+import _common
+print("LOG_DIR=" + _common.log_dir_for(
+    "B", _common.DEFAULT_EID, {"input": ["ap", "behavior"],
+                               "output": ["ap", "behavior"]},
+    "mask-temporal_ratio-0.1_mixed-True"))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_base(tmp_path_factory):
+    base = tmp_path_factory.mktemp("jax_scripts")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", MMFM_PLATFORM="cpu",
+               MMFM_COMPILE_CACHE="", MPLBACKEND="Agg")
+    out = subprocess.run(
+        [sys.executable, "-c", _JAX_DRIVER,
+         json.dumps(_baseline_runs(base))],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    log_dir = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("LOG_DIR=")][-1][len("LOG_DIR="):]
+    return base, log_dir
+
+
+@pytest.fixture(scope="module")
+def port_base(tmp_path_factory):
+    base = tmp_path_factory.mktemp("port_scripts")
+    mains = {"train_baseline.py": train_baseline.main,
+             "eval_baseline.py": eval_baseline.main}
+    for script, argv in _baseline_runs(base):
+        mains[script](argv + ["--device", "cpu"])
+    mm = COMMON + MM_FLAGS + ["--base_path", str(base), "--device", "cpu"]
+    summary = train_multi_modal.main(
+        mm + SMALL_MM + ["--num_epochs", "1", "--device_resident",
+                         "--set", "training.steps_per_dispatch=2"])
+    results = eval_multi_modal.main(mm + EVAL_MODES)
+    return base, summary, results
+
+
+def _files(base):
+    return sorted(str(p.relative_to(base)) for p in Path(base).rglob("*")
+                  if p.is_file())
+
+
+def _keys(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= _keys(v, prefix + k + ".")
+    return out
+
+
+def _eid():
+    from multi_modal_foundation_model_tpu_torch.scripts._common import (
+        DEFAULT_EID)
+    return DEFAULT_EID
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_baseline_scripts_match_jax(jax_base, port_base, direction):
+    jbase, _ = jax_base
+    tbase = port_base[0]
+    rel = BASELINE_DIR[direction].format(eid=_eid())
+    jdir, tdir = Path(jbase) / rel, Path(tbase) / rel
+    assert jdir.is_dir() and tdir.is_dir()
+    # the same layout: sidecars, metrics, the eval's per-mode artifacts
+    # (checkpoints are the port's .pt files, orbax directories in JAX)
+    shared = {"baseline_config.json", "metrics.jsonl", "model_best.json",
+              "model_last.json", "eval/results.json"}
+    mode = "modal_spike" if direction == "encoding" else "modal_behavior"
+    shared |= {f"eval/{mode}/bps.npy", f"eval/{mode}/r2.npy"}
+    assert shared <= set(_files(jdir)) and shared <= set(_files(tdir))
+    assert {"model_best.pt", "model_last.pt"} <= set(_files(tdir))
+    assert json.loads((tdir / "baseline_config.json").read_text()) == \
+        json.loads((jdir / "baseline_config.json").read_text())
+    tres = json.loads((tdir / "eval/results.json").read_text())
+    jres = json.loads((jdir / "eval/results.json").read_text())
+    assert _keys(tres) == _keys(jres)
+    row = json.loads((tdir / "metrics.jsonl").read_text().splitlines()[0])
+    jrow = json.loads((jdir / "metrics.jsonl").read_text().splitlines()[0])
+    assert set(row) == set(jrow)
+
+
+def _finite_or_nan(v):
+    if isinstance(v, dict):
+        return all(_finite_or_nan(x) for x in v.values())
+    return isinstance(v, float) and (math.isfinite(v) or math.isnan(v))
+
+
+def test_multi_modal_scripts_write_their_results(jax_base, port_base):
+    _, jlog = jax_base
+    tbase, summary, results = port_base
+    log_dir = Path(tbase) / os.path.relpath(jlog, "B")
+    assert log_dir.is_dir()
+    for name in ("model_best.pt", "model_last.pt", "model_config.json",
+                 "metrics.jsonl", "eval/results.json"):
+        assert (log_dir / name).exists(), name
+    modes = ("per_neuron", "forward_pred", "inter_region", "intra_region",
+             "modal_spike")
+    want = {f"{m}_mean_{s}" for m in modes
+            for s in ("bps", "r2_psth", "r2_trial")}
+    want.add("modal_behavior_behav_results")
+    assert set(results) == want
+    assert json.loads((log_dir / "eval/results.json").read_text()).keys() \
+        == want
+    for m in modes + ("modal_behavior",):
+        assert (log_dir / "eval" / m / "bps.npy").exists()
+    assert all(_finite_or_nan(v) for v in results.values())
+    assert math.isfinite(summary["best_eval_trial_avg_r2"])
+    cfg = json.loads((log_dir / "model_config.json").read_text())
+    assert cfg["compute_dtype"] == "bfloat16"      # mm.yaml's default
+    assert cfg["n_enc_layers"] == cfg["n_dec_layers"] == 1
+
+
+def _script_args(script, tmp_path):
+    base = ["--base_path", str(tmp_path), "--device", "cpu"]
+    return {"train_baseline": train_baseline.main,
+            "eval_baseline": eval_baseline.main,
+            "train_multi_modal": train_multi_modal.main,
+            "eval_multi_modal": eval_multi_modal.main}[script], base
+
+
+UNPORTED = [
+    ("eval_multi_modal", ["--synthetic", "--multi_session",
+                          "--model_dir", "x"]),
+    ("eval_multi_modal", ["--synthetic", "--reference_ckpt", "x.pt"]),
+    ("eval_multi_modal", ["--synthetic", "--save_plot"]),
+    ("eval_baseline", ["--synthetic", "--save_plot"]),
+    ("train_baseline", ["--synthetic", "--dp", "2"]),
+    ("train_multi_modal", ["--synthetic", "--dp", "2"]),
+    ("train_multi_modal", ["--synthetic", "--tp", "2"]),
+    ("train_baseline", []),
+    ("eval_baseline", []),
+    ("train_multi_modal", []),
+    ("eval_multi_modal", []),
+]
+
+
+@pytest.mark.parametrize("script,argv", UNPORTED,
+                         ids=[f"{s}:{' '.join(a) or 'no --synthetic'}"
+                              for s, a in UNPORTED])
+def test_unported_flags_raise(script, argv, tmp_path):
+    main, base = _script_args(script, tmp_path)
+    with pytest.raises(NotImplementedError):
+        main(argv + base)
+
+
+@pytest.mark.parametrize("script", ["train_baseline", "eval_baseline",
+                                    "train_multi_modal", "eval_multi_modal"])
+def test_cuda_without_a_card_raises(script, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    main, _ = _script_args(script, tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(COMMON + ["--base_path", str(tmp_path)])
+
+
+def test_overwrite_guard(port_base):
+    tbase = port_base[0]
+    with pytest.raises(FileExistsError):
+        train_baseline.main(COMMON + ["--base_path", str(tbase), "--device",
+                                      "cpu", "--direction", "decoding"])
