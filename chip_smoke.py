@@ -77,6 +77,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
    modes; finite metrics and results, and K1, K2, K3, K4 and Philox
    launched (the counters set to 0 before each script and read after it)
    on the training script, K1 and K3 on the eval script; wall time of each.
+8. multisession — the session-stitched model at full width: 10 synthetic
+   sessions of 668 + 37 i neurons (668-1001), 400 trials each, padded to
+   N_max = 1024 (13.2M stitched parameters), B=16, dropout 0.4, the MtM
+   menu with the region modes and mixed training, f32 (the port's default
+   LayerNorm mode) and bf16 (``"full"``): ``multisession`` runs one epoch
+   of the resident path with K = 10 over the stacked block as CUDA graphs
+   against the same steps run eagerly (bit for bit, else the
+   ``dispatch`` gates), profiles a group's launches (K1 30, K2 15, K3 62,
+   K4 32 a step, Philox) and runs the per-session ``eval_epoch``;
+   ``multisession_buckets`` trains ``n_buckets=2`` (two widths, a graph
+   key each) and holds the stitched forward at a session's bucket width
+   against N_max (f32, atol 1e-5); ``multisession_kernel_vs_plain_step``
+   one stitched step kernel path vs plain path (the step gates);
+   ``multisession_time`` the multi-session graph step against the
+   single-session one at B=16 and B=256, interleaved, with profiles and
+   peak memory.
+9. multisession_entry — ``train_multi_session`` at its defaults but 2
+   sessions (bf16, MtM, mixed objectives, resident, K = 10, 1 epoch) and
+   ``eval_multi_modal --multi_session`` in all six modes: finite rows and
+   per-session results, launches by script, wall time.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -1208,6 +1228,14 @@ def kernel_vs_plain_step(root: Path, dtype, mode: str):
             n: p.grad.detach().clone()
             for n, p in tr.model.named_parameters()}))
     (lk, gk), (lp, gp) = results
+    _step_gates("kernel_vs_plain_step", dtype, mode, lk, gk, lp, gp)
+
+
+def _step_gates(phase: str, dtype, mode: str, lk: float, gk: dict,
+                lp: float, gp: dict, **extra) -> None:
+    """One step's loss and gradients, kernel path against plain path,
+    under ``kernel_vs_plain_step``'s gates; emits the phase's line and
+    raises when a gate fails."""
     worst = max((gk[n] - gp[n]).abs().max().item() for n in gk)
     loss_rel = abs(lk - lp) / abs(lp)
     if dtype == torch.float32:
@@ -1223,13 +1251,13 @@ def kernel_vs_plain_step(root: Path, dtype, mode: str):
         ok = loss_rel <= 1e-2 and rel <= 5e-2
         tol = dict(loss_rtol=1e-2, grad_rel_l2=5e-2,
                    grad_rel_l2_worst=rel)
-    emit(phase="kernel_vs_plain_step", dtype=dtype_name(dtype),
-         layernorm=mode, batch=TRAIN_B, dropout=DROPOUT, loss_kernel=lk,
-         loss_plain=lp, loss_rel_err=loss_rel, grad_max_abs_err=worst,
-         n_params=len(gk), ok=ok, **tol)
+    emit(phase=phase, dtype=dtype_name(dtype), layernorm=mode,
+         batch=TRAIN_B, dropout=DROPOUT, loss_kernel=lk, loss_plain=lp,
+         loss_rel_err=loss_rel, grad_max_abs_err=worst, n_params=len(gk),
+         ok=ok, **tol, **extra)
     if not ok:
-        raise AssertionError(f"kernel vs plain step ({dtype}): loss "
-                             f"{loss_rel}, grads {worst}")
+        raise AssertionError(f"{phase} ({dtype}): loss {loss_rel}, grads "
+                             f"{worst}")
 
 
 def _step_loaders(B: int):
@@ -1984,6 +2012,468 @@ def entry_points_phase(root: Path):
     return counts, wall
 
 
+# ---------------------------------------------------------------------------
+# phase 8: multi-session pretraining (the session-stitched model)
+# ---------------------------------------------------------------------------
+
+# 10 synthetic sessions of 668 + 37 i neurons (668-1001), 400 trials each,
+# padded to multiples of 128: one bucket of N_max = 1024
+MS_SESSIONS, MS_TRIALS, MS_PAD = 10, 400, 128
+MS_DEVICE = "cuda"
+
+
+def ms_sessions() -> dict:
+    """The phase's sessions (seed ``SEED + i``), made in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multi_modal_foundation_model_tpu_torch.data import synthetic_splits
+
+    T, N = GEOMETRY["max_F"], GEOMETRY["n_channels"]["ap"]
+
+    def make(i):
+        eid = f"ms-{i}"
+        return eid, synthetic_splits(seed=SEED + i, n_trials=MS_TRIALS,
+                                     n_neurons=N + 37 * i, n_timesteps=T,
+                                     eid=eid)
+
+    with ThreadPoolExecutor(8) as ex:
+        return dict(ex.map(make, range(MS_SESSIONS)))
+
+
+def ms_loaders(sessions: dict, n_buckets: int = 1):
+    from multi_modal_foundation_model_tpu_torch.train import (
+        build_multisession_loaders)
+
+    train, val, test, meta = build_multisession_loaders(
+        sessions, batch_size=TRAIN_B, max_time_length=GEOMETRY["max_F"],
+        pad_multiple=MS_PAD, n_buckets=n_buckets, seed=SEED)
+    return dict(train=train, val=val, test=test, meta=meta)
+
+
+def ms_model(meta: dict, dtype, **over):
+    from multi_modal_foundation_model_tpu_torch.models import (
+        MultiModal, MultiModalConfig)
+
+    cfg = MultiModalConfig(**{
+        **GEOMETRY, "n_channels": {"ap": meta["n_max"], "behavior": 2},
+        "n_sessions": len(meta["eids"]), "compute_dtype": dtype_name(dtype),
+        **over})
+    return MultiModal(cfg, generator=torch.Generator().manual_seed(SEED))
+
+
+def ms_trainer(loaders: dict, dtype, log_dir, tcfg_over=None, **model_over):
+    """A ``MultiSessionTrainer`` on the resident path, K = 10 steps a
+    dispatch, dropout 0.4, the MtM menu with the region modes and mixed
+    training (trainer_mm.yaml's B=16)."""
+    from multi_modal_foundation_model_tpu_torch.ops.masking import (
+        RegionTable)
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MetricLogger, MultiSessionTrainer, OptimizerConfig, TrainerConfig)
+
+    meta = loaders["meta"]
+    table = RegionTable.build(meta["per_session_region_ids"],
+                              region_vocab=meta["region_vocab"],
+                              device=MS_DEVICE)
+    tcfg = TrainerConfig(**{**dict(
+        num_epochs=1, mask_type="input", mask_mode=MTM_MENU,
+        mixed_training=True, seed=SEED, log_dir=str(log_dir),
+        device_resident_data=True, steps_per_dispatch=DISPATCH_K),
+        **(tcfg_over or {})})
+    return MultiSessionTrainer(
+        ms_model(meta, dtype, **model_over), loaders["train"],
+        loaders["val"], OptimizerConfig(), tcfg, region_table=table,
+        eid_to_sid=meta["eid_to_sid"],
+        logger=MetricLogger(str(log_dir), stdout=False))
+
+
+def _ms_group(tr, B: int = TRAIN_B):
+    """K steps of the resident path over the stacked block, one for each
+    of the first K sessions (its first B trials), schemes in turn."""
+    blocks = tr._blocks()          # one bucket: every eid shares a block
+    eids = list(tr.train_loaders)
+    group = []
+    for k in range(DISPATCH_K):
+        eid = eids[k % len(eids)]
+        group.append((np.arange(B) + blocks[eid][1], np.ones(B, np.int32),
+                      k % len(tr.mtm_modes), tr.eid_to_sid[eid]))
+    return blocks[eids[0]][0], group
+
+
+def multisession_phase(root: Path, loaders: dict, dtype, mode: str) -> dict:
+    """The session-stitched model at full width (10 sessions, N_max 1024,
+    13.2M stitched parameters) on the resident path, K = 10: one epoch
+    (200 steps, every session's batches interleaved, groups crossing
+    sessions over one stacked block) as CUDA graphs and the same steps
+    run eagerly, per step loss and per parameter bit for bit or within the
+    ``dispatch`` gates; one group of 10 steps over 10 sessions profiled
+    (launches a step of K1-K4 and Philox, by kernel name); then the
+    per-session ``eval_epoch`` on the graph trainer, every metric finite.
+    Returns the profiled group's launch counts."""
+    want = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                k3=K3_PER_STEP if mode == "full" else 0,
+                k4=K4_PER_STEP if mode in ("bwd", "full") else 0)
+    runs = {}
+    for path in ("graph", "eager"):
+        log_dir = root / f"multisession_{path}_{dtype_name(dtype)}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        with ln_mode(mode):
+            tr = ms_trainer(loaders, dtype, log_dir)
+            if path == "eager":
+                tr.graphs = _EagerSteps()
+            t0 = time.perf_counter()
+            losses = tr.train_epoch(0)["step_losses"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = dict(losses=losses, wall_s=wall, params={
+                n: p.detach().clone()
+                for n, p in tr.model.state_dict().items()},
+                variants=sorted(map(str, tr.graphs.graphs)),
+                capture_s=list(tr.graphs.capture_s.values()))
+            if path == "graph":
+                data, group = _ms_group(tr)
+                counts = None
+                for _ in range(3):
+                    try:
+                        with traced() as prof:
+                            tr._dispatch(data, group, "token_masking")
+                    except TraceLost:
+                        continue
+                    counts = kernel_counts(prof)
+                    if _launches_ok(counts, DISPATCH_K, want):
+                        break
+                t0 = time.perf_counter()
+                ev = tr.eval_epoch()
+                torch.cuda.synchronize()
+                run.update(counts=counts, eval_s=time.perf_counter() - t0,
+                           eval_per_session=ev["eval_per_session"],
+                           eval_loss=ev["eval_loss"],
+                           stitched_params=sum(
+                               p.numel() for n, p in
+                               tr.model.named_parameters()
+                               if "token_embed_" in n or ".ap.out." in n))
+        runs[path] = run
+        del tr
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    bit_losses = g["losses"] == e["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                       e["losses"]))
+    bit_params = sum(not torch.equal(g["params"][n], e["params"][n])
+                     for n in g["params"])
+    gated = [n for n in g["params"] if not n.endswith("key.bias")]
+    param_abs = max((g["params"][n].float() - e["params"][n].float())
+                    .abs().max().item() for n in gated)
+    param_rel = max(((g["params"][n].float() - e["params"][n].float())
+                     .norm() / e["params"][n].float().norm().clamp_min(
+                         1e-30)).item() for n in gated)
+    if dtype == torch.float32:
+        gate_ok = loss_rel <= 1e-5 and param_abs <= 2e-5
+        gate = dict(loss_rtol=1e-5, param_atol=2e-5)
+    else:
+        gate_ok = loss_rel <= 1e-2 and param_rel <= 5e-2
+        gate = dict(loss_rtol=1e-2, param_rel_l2=5e-2)
+    n_steps = sum(len(l) for l in loaders["train"].values())
+    finite = (all(math.isfinite(x) for x in g["losses"])
+              and len(g["losses"]) == n_steps
+              and _finite_tree(g["eval_per_session"])
+              and len(g["eval_per_session"]) == MS_SESSIONS)
+    counts_ok = g["counts"] is not None and _launches_ok(
+        g["counts"], DISPATCH_K, want)
+    ok = finite and gate_ok and counts_ok
+    meta = loaders["meta"]
+    emit(phase="multisession", dtype=dtype_name(dtype), layernorm=mode,
+         batch=TRAIN_B, steps_per_dispatch=DISPATCH_K,
+         sessions=MS_SESSIONS, num_neurons=meta["num_neurons"],
+         n_max=meta["n_max"], stitched_params=g["stitched_params"],
+         steps=len(g["losses"]), graph_losses=g["losses"],
+         losses_bit_equal=bit_losses, loss_max_rel_err=loss_rel,
+         params_not_bit_equal=bit_params, n_params=len(g["params"]),
+         param_max_abs_err=param_abs, param_max_rel_l2=param_rel, **gate,
+         variants=len(g["variants"]), capture_s=g["capture_s"],
+         graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+         launches_profiled_group=g["counts"],
+         launches_per_step={k: v / DISPATCH_K
+                            for k, v in (g["counts"] or {}).items()},
+         launches_per_step_expected=want, eval_s=g["eval_s"],
+         eval_loss=g["eval_loss"], eval_per_session=g["eval_per_session"],
+         device=torch.cuda.get_device_name(0), ok=ok)
+    if not ok:
+        raise AssertionError("multisession phase: graph vs eager, "
+                             "launches or eval off (see its line)")
+    return g["counts"]
+
+
+def multisession_buckets(root: Path, sessions: dict, loaders1: dict,
+                         dtype, mode: str, f32_mode: str) -> None:
+    """``n_buckets=2``: two bucket widths, one graph key per (width,
+    variant), one epoch on the per-session K-group path (the buckets
+    cannot share one block); then the width invariance of the stitched
+    forward, f32 under ``f32_mode``: a session's test trials at its
+    bucket width against the same trials at N_max, atol 1e-5."""
+    loaders2 = ms_loaders(sessions, n_buckets=2)
+    log_dir = root / "multisession_buckets"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with ln_mode(mode):
+        tr = ms_trainer(loaders2, dtype, log_dir)
+        t0 = time.perf_counter()
+        losses = tr.train_epoch(0)["step_losses"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    widths = sorted(set(loaders2["meta"]["bucket_widths"].values()))
+    keys = list(tr.graphs.graphs)
+    key_widths = sorted({k[0] for k in keys})
+    capture_s = list(tr.graphs.capture_s.values())
+    finite = all(math.isfinite(x) for x in losses)
+    del tr
+    torch.cuda.empty_cache()
+
+    # width invariance, f32, the kernel path
+    from multi_modal_foundation_model_tpu_torch.models import ModalityInput
+
+    meta = loaders2["meta"]
+    eid = min(meta["eids"], key=lambda e: meta["bucket_widths"][e])
+    w, sid = meta["bucket_widths"][eid], meta["eid_to_sid"][eid]
+    with ln_mode(f32_mode):
+        model = ms_model(loaders1["meta"], torch.float32)
+        preds = []
+        for arrays in (loaders2["test"][eid].arrays,
+                       loaders1["test"][eid].arrays):
+            def t(k):
+                return torch.as_tensor(arrays[k][:TRAIN_B], device=MS_DEVICE)
+            spikes, beh = t("spikes_data"), t("target")
+            attn, ts = t("time_attn_mask"), t("spikes_timestamps")
+            inputs = {m: ModalityInput(
+                inputs=x, targets=x, attn_mask=attn, timestamps=ts,
+                eval_mask=torch.zeros_like(x, dtype=torch.int32))
+                for m, x in (("ap", spikes), ("behavior", beh))}
+            with torch.no_grad():
+                out = model(inputs, session_id=sid,
+                            space_attn_mask=t("space_attn_mask"))
+            preds.append((out.mod_preds["ap"][..., :w],
+                          out.mod_preds["behavior"]))
+    (ap_w, beh_w), (ap_n, beh_n) = preds
+    inv_err = max((ap_w - ap_n).abs().max().item(),
+                  (beh_w - beh_n).abs().max().item())
+    ok = (finite and len(widths) == 2 and key_widths == widths
+          and inv_err <= 1e-5)
+    emit(phase="multisession_buckets", dtype=dtype_name(dtype),
+         layernorm=mode, n_buckets=2, bucket_widths=meta["bucket_widths"],
+         widths=widths, graph_key_widths=key_widths,
+         variants_captured=[str(k) for k in keys],
+         capture_s=capture_s,
+         steps=len(losses), epoch_wall_s=wall,
+         width_invariance=dict(eid=eid, bucket_width=w, n_max=meta["n_max"],
+                               dtype="float32", preds_max_abs_err=inv_err,
+                               atol=1e-5),
+         ok=ok)
+    if not ok:
+        raise AssertionError("multisession buckets: widths, graph keys or "
+                             "width invariance off (see its line)")
+
+
+def multisession_step_check(root: Path, loaders: dict, dtype,
+                            mode: str) -> None:
+    """One stitched step's loss and gradients, kernel path against plain
+    path (``kernel_vs_plain_step``'s gates): same weights, the widest
+    session's first B=16 train trials, token masking with
+    ``intra-region``, dropout 0.4, the same step seed."""
+    results = []
+    for impl, m in (("pallas", mode), ("xla", "off")):
+        with ln_mode(m):
+            tr = ms_trainer(loaders, dtype, root / "multisession_step",
+                            attn_impl=impl)
+            eid = list(tr.train_loaders)[-1]
+            arrays = tr.train_loaders[eid].arrays
+            batch = tr._device_batch({k: arrays[k][:TRAIN_B]
+                                      for k in tr._BATCH_KEYS})
+            sid = tr.eid_to_sid[eid]
+            out = tr.step_loss(batch, "token_masking",
+                               MTM_MENU.index("intra-region"), step=5,
+                               session=sid)
+            out.loss.backward()
+        results.append((out.loss.item(), {
+            n: p.grad.detach().clone()
+            for n, p in tr.model.named_parameters()}))
+        del tr
+    (lk, gk), (lp, gp) = results
+    _step_gates("multisession_kernel_vs_plain_step", dtype, mode, lk, gk,
+                lp, gp, session=sid)
+
+
+def multisession_time(root: Path, loaders: dict, dtype, mode: str) -> None:
+    """The multi-session graph step against the single-session graph step
+    at B=16 and B=256, one variant each (MtM ``temporal``, no mixed
+    training), interleaved in this process: single, multi, multi, single
+    (4 passes each, a segment a dispatch of K = 10 replays of the first B
+    trials: of the single session, and of the first multi-session
+    session); medians and spreads; a profile of one segment each (device
+    busy, idle share); the peak memory with both trainers resident."""
+    one = dict(mask_mode=("temporal",), mixed_training=False)
+    loader = _step_loaders(TRAIN_B)
+    with ln_mode(mode):
+        single = _trainer(_cfg(dtype), loader, None, 1,
+                          root / "multisession_time",
+                          tcfg_over=dict(one, device_resident_data=True,
+                                         steps_per_dispatch=DISPATCH_K))
+        s_data = single._device_data(loader)
+        multi = ms_trainer(loaders, dtype, root / "multisession_time",
+                           tcfg_over=one)
+        m_data, off = multi._blocks()[list(multi.train_loaders)[0]]
+        for B in (TRAIN_B, BIG_B):
+            valid = np.ones(B, np.int32)
+            s_group = [(np.arange(B), valid, 0)] * DISPATCH_K
+            m_group = [(np.arange(B) + off, valid, 0, 0)] * DISPATCH_K
+            segs_fn = {
+                "single": lambda: single._dispatch(s_data, s_group, None),
+                "multi": lambda: multi._dispatch(m_data, m_group, None)}
+            for name in ("single", "multi"):      # captures, warm-up
+                segs_fn[name]()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            segs = {"single": [], "multi": []}
+            for p in range(4):
+                for name in (("single", "multi") if p % 2 == 0
+                             else ("multi", "single")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    segs_fn[name]()
+                    torch.cuda.synchronize()
+                    segs[name].append((time.perf_counter() - t0) * 1e3
+                                      / DISPATCH_K)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            prof = {name: device_breakdown(fn, top=6)
+                    for name, fn in segs_fn.items()}
+            med = {k: float(np.median(v)) for k, v in segs.items()}
+            emit(phase="multisession_time", dtype=dtype_name(dtype),
+                 layernorm=mode, batch=B, steps_per_segment=DISPATCH_K,
+                 segments_ms=segs, ms_per_step=med,
+                 spread_ms={k: max(v) - min(v) for k, v in segs.items()},
+                 multi_minus_single_ms=med["multi"] - med["single"],
+                 seq_per_s={k: B / v * 1e3 for k, v in med.items()},
+                 device_busy_ms_per_step={
+                     k: v["device_busy_ms"] / DISPATCH_K
+                     for k, v in prof.items()},
+                 idle_share={k: v["idle_share"] for k, v in prof.items()},
+                 capture_s={
+                     "single": list(single.graphs.capture_s.values()),
+                     "multi": list(multi.graphs.capture_s.values())},
+                 peak_mem_gb_both=peak,
+                 device=torch.cuda.get_device_name(0))
+            for name, pr in prof.items():
+                emit(phase="multisession_profile", dtype=dtype_name(dtype),
+                     layernorm=mode, batch=B, path=name, steps=DISPATCH_K,
+                     **pr)
+    del single, multi, s_data, m_data, segs_fn
+    torch.cuda.empty_cache()
+
+
+# the entry phase's session count: the scripts' default is 4, but the
+# eval's six modes take ~10 s a session (41.7 s for 4 on an H100 80GB
+# HBM3), the long pole of the phase
+MS_ENTRY_SESSIONS = 2
+
+
+def multisession_entry_phase(root: Path):
+    """``train_multi_session`` at its defaults but ``--num_sessions 2``
+    (``MS_ENTRY_SESSIONS``: synthetic sessions of 668 and 705 neurons, 400
+    trials, mm.yaml's bf16) with the MtM menu, mixed objectives, the
+    resident path and 10 steps a dispatch, 1 epoch; then
+    ``eval_multi_modal --multi_session`` in all six modes on that
+    checkpoint. Finite metrics rows and per-session results, the
+    counters (set to 0 before each script, read after it) showing K1, K2,
+    K3, K4 and Philox on the training script and K1 and K3 on the eval.
+    Returns (launch counts by script, wall seconds)."""
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        eval_multi_modal, train_multi_session)
+    from multi_modal_foundation_model_tpu_torch.scripts._common import (
+        log_dir_for)
+
+    t_phase = time.perf_counter()
+    base = root / "chip_smoke_multisession_scripts"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--synthetic", "--device", "cuda", "--overwrite",
+              "--base_path", str(base)]
+    log_dir = Path(log_dir_for(str(base), f"multi{MS_ENTRY_SESSIONS}",
+                               {"input": ["ap", "behavior"],
+                                "output": ["ap", "behavior"]},
+                               "stitched_ratio-0.3"))
+    runs = [("train_multi_session", train_multi_session.main,
+             common + ["--use_MtM", "--mixed_training", "--num_epochs", "1",
+                       "--device_resident", "--steps_per_dispatch", "10",
+                       "--num_sessions", str(MS_ENTRY_SESSIONS)],
+             ("k1", "k2", "k3", "k4", "philox")),
+            ("eval_multi_session", eval_multi_modal.main,
+             common + ["--multi_session", "--model_dir", str(log_dir),
+                       "--use_MtM", "--co_smooth", "--forward_pred",
+                       "--inter_region", "--intra_region"],
+             ("k1", "k3"))]
+    counts, walls, failed = {}, {}, []
+    for name, main, argv, need in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = read_counts()
+        if name.startswith("train"):
+            written = {"rows": [json.loads(line) for line in (
+                log_dir / "metrics.jsonl").read_text().splitlines()],
+                "sessions": json.loads((log_dir / "sessions.json")
+                                       .read_text())}
+            files = ["model_best.pt", "model_last.pt", "sessions.json"]
+        else:
+            written = json.loads((log_dir / "eval" / "results.json")
+                                 .read_text())
+            eids = [e for e in written if e != "mean_over_sessions"]
+            files = [f"eval/{e}/{m}/bps.npy" for e in eids
+                     for m in ("per_neuron", "forward_pred", "inter_region",
+                               "intra_region", "modal_spike",
+                               "modal_behavior")]
+        present = all((log_dir / f).exists() for f in files)
+        finite = _finite_tree(written)
+        launched = all(counts[name][k] > 0 for k in need)
+        ok = present and finite and launched
+        if name.startswith("eval"):
+            ok = ok and len(eids) == MS_ENTRY_SESSIONS
+        emit(phase="multisession_entry_point", script=name, argv=argv,
+             wall_s=walls[name], launches=counts[name],
+             launches_required=list(need), files_present=present,
+             finite=finite, written=written, ok=ok)
+        if not ok:
+            failed.append(name)
+    wall = time.perf_counter() - t_phase
+    emit(phase="multisession_entry_wall", wall_s=wall, by_script=walls,
+         device=torch.cuda.get_device_name(0))
+    if failed:
+        raise AssertionError(f"multi-session entry points failed: {failed}")
+    return counts, wall
+
+
+def multisession_phases(root: Path, default: str):
+    """Phases 8 and 9; returns (graph launch counts by dtype, entry
+    launch counts by script, wall seconds)."""
+    t0 = time.perf_counter()
+    sessions = ms_sessions()
+    loaders = ms_loaders(sessions)
+    emit(phase="multisession_data", sessions=MS_SESSIONS,
+         trials=MS_TRIALS, num_neurons=loaders["meta"]["num_neurons"],
+         n_max=loaders["meta"]["n_max"],
+         wall_s=time.perf_counter() - t0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    counts = {"f32": multisession_phase(root, loaders, f32, default),
+              "bf16": multisession_phase(root, loaders, bf16, "full")}
+    multisession_buckets(root, sessions, loaders, bf16, "full", default)
+    multisession_step_check(root, loaders, f32, default)
+    multisession_step_check(root, loaders, bf16, "full")
+    multisession_time(root, loaders, f32, default)
+    multisession_time(root, loaders, bf16, "full")
+    del sessions, loaders
+    entry, entry_s = multisession_entry_phase(root)
+    wall = time.perf_counter() - t0
+    emit(phase="slice_12_phases_wall", total_s=wall, entry_s=entry_s)
+    return counts, entry, wall
+
+
 def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
              reps: int) -> None:
     """One ``ab_step`` line: 4 segments of ``reps`` kernel-path steps after
@@ -2183,12 +2673,15 @@ def main() -> int:
     entry, entry_s = entry_points_phase(out)
     emit(phase="slice_11_phases_wall", baseline_s=baseline_s,
          entry_points_s=entry_s, total_s=baseline_s + entry_s)
+    ms_counts, ms_entry, _ = multisession_phases(out, default)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16)
     # the graph path's launches, counted by kernel name in a profile of
     # one epoch of replays (the wrappers' counters see only Python calls)
     graph_paths = dict(dispatch_graph_f32=disp_f32,
-                       dispatch_graph_bf16=disp_bf16)
+                       dispatch_graph_bf16=disp_bf16,
+                       multisession_graph_f32=ms_counts["f32"],
+                       multisession_graph_bf16=ms_counts["bf16"])
 
     def by_path(group, names):
         got = {k: paths[k][group] for k in names if k in paths}
@@ -2214,28 +2707,32 @@ def main() -> int:
              "cp.async)", route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=train_f32["k1"],
              launches_by_path=by_path("k1", ("train_f32",
-                                             "dispatch_graph_f32")),
+                                             "dispatch_graph_f32",
+                                             "multisession_graph_f32")),
              **_row(k1_train[f32])),
         dict(name="attention_fwd (K1, training), bf16: tensor cores "
              "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_fwd.cu", replaces=attn_py + ":144",
              launches=train_bf16["k1"],
              launches_by_path=by_path("k1", ("train_bf16",
-                                             "dispatch_graph_bf16")),
+                                             "dispatch_graph_bf16",
+                                             "multisession_graph_bf16")),
              **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
              source=src + "attention_bwd.cu", replaces=attn_py + ":221",
              launches=train_f32["k2"],
              launches_by_path=by_path("k2", ("train_f32",
-                                             "dispatch_graph_f32")),
+                                             "dispatch_graph_f32",
+                                             "multisession_graph_f32")),
              **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "
              "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
              source=src + "attention_bwd.cu", replaces=attn_py + ":221",
              launches=train_bf16["k2"],
              launches_by_path=by_path("k2", ("train_bf16",
-                                             "dispatch_graph_bf16")),
+                                             "dispatch_graph_bf16",
+                                             "multisession_graph_bf16")),
              **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",
@@ -2263,7 +2760,8 @@ def main() -> int:
              launches_by_path=by_path("philox", (*paths, *graph_paths)),
              uniform=philox["uniform"], **_row(philox["u8"])),
     ]
-    # the MultiModal entry scripts' launches, on the rows of what they ran:
+    # the MultiModal entry scripts' launches (the multi-session ones too),
+    # on the rows of what they ran:
     # mm.yaml's bf16 (entry_points_phase checks it), the training K1 (with
     # lse) apart from the eval K1. Counters, so the graph replays of the
     # resident training script are not in them: its first eager step and
@@ -2277,8 +2775,9 @@ def main() -> int:
                           strict=True):
         if kind is not None:
             row["launches_by_entry_point"] = {
-                name: by_kind[kind](c) for name, c in entry.items()
-                if name.endswith("multi_modal")}
+                name: by_kind[kind](c)
+                for name, c in {**entry, **ms_entry}.items()
+                if name.endswith(("multi_modal", "multi_session"))}
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):

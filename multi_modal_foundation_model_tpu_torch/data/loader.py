@@ -8,21 +8,58 @@ from ``np.random.default_rng((seed, epoch))``, the epoch advancing after
 each pass, so both packages yield the same batches. The last batch is
 padded up to ``batch_size`` with its ``time/space_attn_mask`` zeroed and
 ``n_real`` telling the real count (``pad_last``), or dropped
-(``drop_last``). The batch keys are the JAX loader's. The length-grouped
-and stitch samplers and the NEMO unit filter are later slices and raise
-``NotImplementedError``.
+(``drop_last``). The batch keys are the JAX loader's. ``sampler`` (or
+``make_loader``'s ``stitching``) orders the trials as the JAX samplers do
+(``get_length_grouped_indices``, ``get_length_grouped_indices_stitched``,
+JAX :76-125, from the same ``(seed, epoch)`` generator), index for index.
+The NEMO unit filter is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from .session import SessionData
 
 Batch = Dict[str, np.ndarray]
+
+
+def get_length_grouped_indices(lengths: Sequence[int], batch_size: int,
+                               shuffle: bool = True,
+                               mega_batch_mult: Optional[int] = None,
+                               generator: Optional[np.random.Generator] = None,
+                               ) -> List[int]:
+    """Hugging Face-style megabatch length grouping: megabatches of
+    ``mega_batch_mult * batch_size`` trials, each sorted longest first, the
+    longest trial of all swapped to the front."""
+    if mega_batch_mult is None:
+        mega_batch_mult = min(len(lengths) // (batch_size * 4), 50) or 1
+    gen = generator or np.random.default_rng()
+    indices = (gen.permutation(len(lengths)) if shuffle
+               else np.arange(len(lengths)))
+    size = mega_batch_mult * batch_size
+    megabatches = [sorted(indices[i:i + size].tolist(),
+                          key=lambda i: lengths[i], reverse=True)
+                   for i in range(0, len(lengths), size)]
+    longest = int(np.argmax([lengths[mb[0]] for mb in megabatches]))
+    megabatches[0][0], megabatches[longest][0] = (
+        megabatches[longest][0], megabatches[0][0])
+    return sum(megabatches, [])
+
+
+def get_length_grouped_indices_stitched(
+        lengths: Sequence[int], batch_size: int,
+        generator: Optional[np.random.Generator] = None) -> List[int]:
+    """Trials grouped by equal length (neuron count), cut into batches in
+    that order, the batches shuffled."""
+    order = np.argsort(np.asarray(lengths), kind="stable").tolist()
+    batches = [order[i:i + batch_size]
+               for i in range(0, len(order), batch_size)]
+    (generator or np.random.default_rng()).shuffle(batches)
+    return [int(i) for batch in batches for i in batch]
 
 
 def attention_mask(seq_length: int, pad_length: int) -> np.ndarray:
@@ -137,11 +174,7 @@ _SHARED_KEYS = ("neuron_regions", "neuron_depths", "region_ids",
                 "region_vocab", "eid", "nemo_rep")
 
 
-def _check_sampler(sampler: Optional[str]) -> None:
-    if sampler is not None:
-        raise NotImplementedError(
-            f"sampler={sampler!r}: the length-grouped and stitch samplers "
-            "are not ported yet")
+SAMPLERS = (None, "length_grouped", "stitch")
 
 
 @dataclasses.dataclass(eq=False)  # identity eq/hash: loaders are stateful
@@ -154,10 +187,11 @@ class DataLoader:
     seed: int = 42
     pad_last: bool = True
     drop_last: bool = False
-    sampler: Optional[str] = None
+    sampler: Optional[str] = None     # None | "length_grouped" | "stitch"
 
     def __post_init__(self):
-        _check_sampler(self.sampler)
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"sampler {self.sampler!r}: one of {SAMPLERS}")
         self._epoch = 0
         self._n = int(self.arrays["spikes_data"].shape[0])
 
@@ -174,8 +208,17 @@ class DataLoader:
         self._epoch = int(epoch)
 
     def _order(self) -> np.ndarray:
+        gen = np.random.default_rng((self.seed, self._epoch))
+        if self.sampler == "stitch":
+            lengths = self.arrays["space_attn_mask"].sum(axis=1).astype(int)
+            return np.asarray(get_length_grouped_indices_stitched(
+                lengths.tolist(), self.batch_size, gen))
+        if self.sampler == "length_grouped":
+            lengths = self.arrays["time_attn_mask"].sum(axis=1).astype(int)
+            return np.asarray(get_length_grouped_indices(
+                lengths.tolist(), self.batch_size, shuffle=self.shuffle,
+                generator=gen))
         if self.shuffle:
-            gen = np.random.default_rng((self.seed, self._epoch))
             return gen.permutation(self._n)
         return np.arange(self._n)
 
@@ -232,12 +275,13 @@ def make_loader(
     region_vocab: Optional[Dict[str, int]] = None,
     drop_last: bool = False,
     sampler: Optional[str] = None,
+    stitching: bool = False,
 ) -> DataLoader:
     """Loader over one session split with JAX ``make_loader``'s batching
     arguments (:392-464); ``target`` selects behavior covariates by name
-    (default: the session's stored ones). A ``sampler`` is not ported and
-    raises."""
-    _check_sampler(sampler)
+    (default: the session's stored ones). ``sampler`` picks the batching
+    order (None | "length_grouped" | "stitch"); ``stitching=True`` is the
+    reference's flag for the stitch sampler."""
     if target is not None and tuple(target) != tuple(session.target_names):
         name_to_idx = {n: i for i, n in enumerate(session.target_names)}
         cols = [name_to_idx[t] for t in target]
@@ -256,5 +300,7 @@ def make_loader(
         region_vocab=region_vocab,
     )
     arrays["nemo_rep"] = np.array([np.nan], dtype=np.float32)
+    if sampler is None and stitching:
+        sampler = "stitch"
     return DataLoader(arrays=arrays, batch_size=batch_size, shuffle=shuffle,
                       seed=seed, drop_last=drop_last, sampler=sampler)

@@ -28,6 +28,10 @@ share one forward per distinct token mask.
 Artifacts: ``bps.npy``/``r2.npy`` per mode and the ``{mode}_mean_bps`` /
 ``{mode}_mean_r2_psth`` / ``{mode}_mean_r2_trial`` result keys. Plotting
 (``save_plot=True``) is not ported yet.
+
+A session-stitched model (``n_sessions > 1``) is scored one session at a
+time: ``session_id`` (JAX :61-93, :209-233) routes every forward through
+that session's stitched tokenizer and head, as it trained.
 """
 
 from __future__ import annotations
@@ -46,11 +50,14 @@ from .metrics import (bits_per_spike, create_behavior_conditions,
 
 class EvalForward:
     """Full-test-set forwards and a chunked channel sweep of ``model`` on
-    the device its parameters live on."""
+    the device its parameters live on; ``session_id`` (a host int) selects
+    a stitched model's session, None keeps the single-session path."""
 
-    def __init__(self, model: torch.nn.Module, batch, chunk: int = 16):
+    def __init__(self, model: torch.nn.Module, batch, chunk: int = 16,
+                 session_id: Optional[int] = None):
         self.model = model
         self.chunk = chunk
+        self.session_id = session_id
         dev = next(model.parameters()).device
         self.spikes = torch.as_tensor(batch["spikes_data"],
                                       dtype=torch.float32, device=dev)
@@ -77,7 +84,8 @@ class EvalForward:
                                       attn_mask=attn, timestamps=ts,
                                       eval_mask=beh_eval),
         }
-        out = self.model(mod_inputs, training=False, token_zero_groups=groups)
+        out = self.model(mod_inputs, training=False, token_zero_groups=groups,
+                         session_id=self.session_id)
         return out.mod_preds["ap"], out.mod_preds["behavior"]
 
     # -- single forward ---------------------------------------------------
@@ -184,10 +192,13 @@ def co_smoothing_eval(
     avail_beh: Sequence[str] = ("wheel-speed", "whisker-motion-energy"),
     chunk: int = 16,
     save_plot: bool = False,
+    session_id: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Run one eval mode over the full test split (the loader's first
     batch) on the model's device; returns the metric dict and saves
-    ``bps.npy``/``r2.npy`` under ``save_path``."""
+    ``bps.npy``/``r2.npy`` under ``save_path``. ``session_id``: the
+    session of a session-stitched model (required there, ignored
+    otherwise)."""
     if save_plot:
         raise NotImplementedError("eval plotting is not ported yet")
     batch = _first_batch(test_dataloader)
@@ -201,7 +212,7 @@ def co_smoothing_eval(
         X, var_name2idx, var_tasklist, _, _ = create_behavior_conditions(
             batch["choice"], batch["reward"], batch["block"], T=T)
 
-    fwd = EvalForward(model, batch, chunk=chunk)
+    fwd = EvalForward(model, batch, chunk=chunk, session_id=session_id)
     N_total = spikes.shape[-1]
 
     def _r2_pair(y, y_pred, t_idx=None) -> np.ndarray:

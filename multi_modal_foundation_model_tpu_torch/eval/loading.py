@@ -5,7 +5,9 @@ The port's copy of ``multi_modal_foundation_model_tpu/eval/loading.py``:
 port and the JAX package read each other's file) and
 ``load_model_data_local`` (:39-73), which rebuilds a trained model from a
 port checkpoint with the masker disabled by configuration (``ratio=0``,
-``force_active=False``) and builds the full-test-set loader in trial order.
+``force_active=False``) and builds the full-test-set loader in trial order;
+``load_multisession_model_data_local`` (:76-129) does the same for a
+session-stitched checkpoint and its ``sessions.json`` sidecar.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..data.loader import DataLoader, make_loader
 from ..data.session import SessionData
@@ -34,6 +36,23 @@ def load_model_config(log_dir: str) -> MultiModalConfig:
         return MultiModalConfig.from_json_dict(json.load(f))
 
 
+def _eval_model(model_dir: str, config: MultiModalConfig,
+                checkpoint_name: str, device: DeviceLike) -> MultiModal:
+    """``config``'s model, masker off, carrying the checkpoint's weights."""
+    # imported here: the train package imports this module
+    from ..train.checkpoint import restore_checkpoint
+
+    config = dataclasses.replace(
+        config,
+        mask_params=dataclasses.replace(config.mask_params, ratio=0.0),
+        force_active=False)
+    model = MultiModal(config, device=device)
+    tree = restore_checkpoint(model_dir, checkpoint_name,
+                              map_location=next(model.parameters()).device)
+    model.load_state_dict(tree["model"])
+    return model
+
+
 def load_model_data_local(
     *,
     model_dir: str,
@@ -50,18 +69,8 @@ def load_model_data_local(
     JAX returns (model, params, loader); the port's model holds its
     parameters. Held-out masking at eval time arrives through explicit
     ``eval_mask`` tensors, so the masker is switched off."""
-    # imported here: the train package imports this module
-    from ..train.checkpoint import restore_checkpoint
-
     config = load_model_config(model_dir)
-    config = dataclasses.replace(
-        config,
-        mask_params=dataclasses.replace(config.mask_params, ratio=0.0),
-        force_active=False)
-    model = MultiModal(config, device=device)
-    tree = restore_checkpoint(model_dir, checkpoint_name,
-                              map_location=next(model.parameters()).device)
-    model.load_state_dict(tree["model"])
+    model = _eval_model(model_dir, config, checkpoint_name, device)
     n_space = max_space_length or config.n_channels["ap"]
     loader = make_loader(
         test_session,
@@ -72,3 +81,41 @@ def load_model_data_local(
         seed=seed,
     )
     return model, loader
+
+
+def load_multisession_model_data_local(
+    *,
+    model_dir: str,
+    test_sessions: Dict[str, SessionData],
+    checkpoint_name: str = "best",
+    max_time_length: int = 100,
+    seed: int = 42,
+    device: DeviceLike = None,
+) -> Tuple[MultiModal, Dict[str, DataLoader], Dict[str, int]]:
+    """(model carrying a session-stitched checkpoint's weights, {eid:
+    full-test-set loader}, eid_to_sid) from ``model_dir`` and its
+    ``sessions.json`` sidecar (written by ``train_multi_session``): every
+    session padded to the checkpoint's ``N_max``, so the stitched forward
+    runs at its trained width. Raises ``ValueError`` for a single-session
+    checkpoint and for an eid the checkpoint did not train on."""
+    config = load_model_config(model_dir)
+    if config.n_sessions <= 1:
+        raise ValueError(
+            f"{model_dir} holds a single-session checkpoint "
+            "(n_sessions=1); use load_model_data_local")
+    with open(os.path.join(model_dir, "sessions.json")) as f:
+        meta = json.load(f)
+    eid_to_sid = {e: i for i, e in enumerate(meta["eids"])}
+    missing = set(test_sessions) - set(eid_to_sid)
+    if missing:
+        raise ValueError(
+            f"sessions {sorted(missing)} not in the checkpoint's "
+            f"sessions.json (trained eids: {meta['eids']})")
+    model = _eval_model(model_dir, config, checkpoint_name, device)
+    loaders = {
+        eid: make_loader(
+            sess, batch_size=sess.n_trials,
+            max_time_length=max_time_length,
+            max_space_length=int(meta["n_max"]), shuffle=False, seed=seed)
+        for eid, sess in test_sessions.items()}
+    return model, loaders, eid_to_sid

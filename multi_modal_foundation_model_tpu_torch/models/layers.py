@@ -362,3 +362,95 @@ class ModalityTokenizer(nn.Module):
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.act(self.token_embed(inputs)) * self.scale
         return dropout_u8(self.projection(x), self.dropout, seed)
+
+
+def _session_row(stack: torch.Tensor, session_id: torch.Tensor
+                 ) -> torch.Tensor:
+    """Row ``session_id`` (a one-element int tensor on the stack's device)
+    of a stitched parameter stack, gathered on the device. Its backward
+    adds the row's gradient into a zero stack, one addition an element, so
+    it is deterministic, and every other session's slice gets a zero
+    gradient (AdamW still updates the whole stack, as optax does)."""
+    return stack.index_select(0, session_id.reshape(1))[0]
+
+
+class SessionStitchedTokenizer(nn.Module):
+    """The session-stitched ``ap`` token path (JAX
+    ``SessionStitchedTokenizer``, :604-664): one ``(S, N_max, mult * H)``
+    input kernel and an ``(S, mult * H)`` bias, row ``session_id`` of each
+    applied, then act -> *scale -> ``projection`` (a shared Dense to H) ->
+    dropout. The intermediate width is ``mult * hidden_size``, not
+    ``mult * N``. An input narrower than ``N_max`` (a width bucket) runs on
+    the static slice ``W[:, :n_in]``: its padded columns are zero, so the
+    rows cut away never contribute. The products are ``torch.matmul`` in
+    the compute dtype, as JAX computes them outside any Pallas kernel.
+    Init (``reset_stitched_``): the kernel and bias U(+-1/sqrt(N_max)), the
+    projection torch's default."""
+
+    def __init__(self, n_sessions: int, n_channels: int, hidden_size: int,
+                 mult: int, act: str, scale: float, use_bias: bool,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        inter = mult * hidden_size
+        self.n_channels = n_channels
+        self.act = ACT2FN[act]
+        self.scale = scale
+        self.dropout = dropout
+        self.compute_dtype = dtype
+        self.token_embed_kernel = nn.Parameter(
+            torch.empty(n_sessions, n_channels, inter))
+        self.token_embed_bias = (nn.Parameter(torch.empty(n_sessions, inter))
+                                 if use_bias else None)
+        self.projection = Dense(inter, hidden_size, True, dtype)
+
+    @torch.no_grad()
+    def reset_stitched_(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.n_channels)
+        self.token_embed_kernel.uniform_(-bound, bound, generator=generator)
+        if self.token_embed_bias is not None:
+            self.token_embed_bias.uniform_(-bound, bound,
+                                           generator=generator)
+
+    def forward(self, inputs: torch.Tensor, session_id: torch.Tensor,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n_in = inputs.shape[-1]
+        if n_in > self.n_channels:
+            raise ValueError(f"input width {n_in} exceeds the stitched "
+                             f"width {self.n_channels}")
+        w = _session_row(self.token_embed_kernel, session_id)[:n_in]
+        x = torch.matmul(inputs, w.to(self.compute_dtype or inputs.dtype))
+        if self.token_embed_bias is not None:
+            x = x + _session_row(self.token_embed_bias, session_id).to(
+                x.dtype)
+        x = self.act(x) * self.scale
+        return dropout_u8(self.projection(x), self.dropout, seed)
+
+
+class SessionStitchedHead(nn.Module):
+    """The session-stitched ``ap`` output head (JAX ``SessionStitchedHead``,
+    :667-690): an ``(S, H, N_max)`` kernel and an ``(S, N_max)`` bias, row
+    ``session_id`` of each, sliced to ``n_out`` columns for a width
+    bucket, applied in the input's dtype (the decoder norm's f32). Init
+    (``reset_stitched_``): both U(+-1/sqrt(H)), JAX's own ``kernel_init``
+    (no fixup rescale and no lecun normal reach it)."""
+
+    def __init__(self, n_sessions: int, n_channels: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.kernel = nn.Parameter(
+            torch.empty(n_sessions, hidden_size, n_channels))
+        self.bias = nn.Parameter(torch.empty(n_sessions, n_channels))
+
+    @torch.no_grad()
+    def reset_stitched_(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        self.kernel.uniform_(-bound, bound, generator=generator)
+        self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, y: torch.Tensor, session_id: torch.Tensor,
+                n_out: Optional[int] = None) -> torch.Tensor:
+        w = _session_row(self.kernel, session_id)
+        b = _session_row(self.bias, session_id)
+        if n_out is not None:
+            w, b = w[:, :n_out], b[:n_out]
+        return torch.matmul(y, w.to(y.dtype)) + b.to(y.dtype)

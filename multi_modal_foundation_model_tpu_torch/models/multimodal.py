@@ -49,9 +49,17 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   projection compute in it; ``encoder_norm`` runs on ``x.float()`` and is
   cast back, ``decoder_norm`` runs on ``y.float()`` and stays f32, so the
   heads are f32 Linears; preds and targets are f32. Parameters stay f32.
-
-Session stitching (``n_sessions > 1``) is a later slice and raises
-``NotImplementedError``.
+- **Session stitching** (``n_sessions > 1``, JAX :233-254, :439-452,
+  :499-518): the ``ap`` tokenizers and head become session-stitched stacks
+  (``SessionStitchedTokenizer``/``SessionStitchedHead``) indexed by the
+  forward's ``session_id`` (a host int, or a one-element int tensor on the
+  device, so one captured step serves every session), and a session
+  embedding (``session_emb``, N(0, 1)) is added to the ``ap`` tokens'
+  encoder and decoder embeddings. ``ap`` inputs narrower than ``N_max`` (a
+  width bucket) run on static slices of the stacks, the head predicting
+  ``n_in`` channels. ``space_attn_mask`` (B, N) takes padded neurons out
+  of the ``ap`` loss. Per-sample ``(B,)`` session ids (mixed-session
+  batches) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from ..ops.masking import (MaskParams, RegionSets, apply_mask, host_draws,
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import SeedPath, seed_table
 from .layers import (Dense, DecoderLayer, EncoderLayer, ModalityTokenizer,
+                     SessionStitchedHead, SessionStitchedTokenizer,
                      fixup_init_, lecun_normal_, reset_parameters_, seed_at)
 
 MODALITY_LOSS = {"ap": "poisson_nll", "behavior": "mse"}
@@ -253,7 +262,8 @@ class MultiModal(nn.Module):
     for) with JAX's initialization drawn from ``generator`` (default: a
     generator seeded with 0): torch-default Linears and N(0, 1) tables,
     ``lecun_normal_`` context projection and output heads, fixup-rescaled
-    when ``config.fixup_init`` (``models/layers.py``)."""
+    when ``config.fixup_init`` (``models/layers.py``); the stitched stacks
+    U(+-1/sqrt(fan_in)) of their own."""
 
     def __init__(self, config: MultiModalConfig, *,
                  device: DeviceLike = None,
@@ -261,17 +271,20 @@ class MultiModal(nn.Module):
         super().__init__()
         mc = config
         dev = resolve_device(device)
-        if mc.n_sessions != 1:
-            raise NotImplementedError(
-                "session stitching (n_sessions > 1) is a later slice")
         if mc.compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {mc.compute_dtype!r} not in "
                              f"{tuple(_COMPUTE_DTYPES)}")
         self.config = mc
         self.compute_dtype = cdt = _COMPUTE_DTYPES[mc.compute_dtype]
         H = mc.hidden_size
+        self.stitched = mc.n_sessions > 1
 
         def tokenizer(mod):
+            if self.stitched and mod == "ap":
+                return SessionStitchedTokenizer(
+                    mc.n_sessions, mc.n_channels[mod], H, mc.mult,
+                    mc.embed_act, mc.embed_scale, mc.embed_bias,
+                    mc.embed_dropout, cdt)
             return ModalityTokenizer(mc.n_channels[mod], H, mc.mult,
                                      mc.embed_act, mc.embed_scale,
                                      mc.embed_bias, mc.embed_dropout, cdt)
@@ -291,7 +304,12 @@ class MultiModal(nn.Module):
             self.encoder_embeddings[mod] = _Embeddings(enc)
             # the heads read decoder_norm's f32 output: f32 Linears
             self.decoder_embeddings[mod] = _Embeddings(
-                dec, out=nn.Linear(H, mc.n_channels[mod]))
+                dec, out=(SessionStitchedHead(mc.n_sessions,
+                                              mc.n_channels[mod], H)
+                          if self.stitched and mod == "ap"
+                          else nn.Linear(H, mc.n_channels[mod])))
+        if self.stitched:
+            self.session_emb = nn.Embedding(mc.n_sessions, H)
 
         self.encoder = nn.ModuleList(
             EncoderLayer(mc, mc.attn_impl, cdt)
@@ -309,7 +327,13 @@ class MultiModal(nn.Module):
         # JAX builds these two as plain MXUDense: flax's default init
         lecun_normal_(self.decoder_proj_context, gen)
         for mod in mc.avail_mod:
-            lecun_normal_(self.decoder_embeddings[mod].out, gen)
+            out = self.decoder_embeddings[mod].out
+            if isinstance(out, nn.Linear):
+                lecun_normal_(out, gen)
+        for m in self.modules():
+            if isinstance(m, (SessionStitchedTokenizer,
+                              SessionStitchedHead)):
+                m.reset_stitched_(gen)
         if mc.fixup_init:
             for layer in self.encoder:
                 fixup_init_(layer, mc.n_enc_layers)
@@ -395,6 +419,20 @@ class MultiModal(nn.Module):
         return StepSeeds(torch.from_numpy(table).to(device),
                          torch.from_numpy(draws).to(device))
 
+    def _session_tensor(self, session_id, device) -> torch.Tensor:
+        """A stitched forward's session id as a one-element int tensor on
+        ``device`` (a host int is copied there, eagerly)."""
+        if session_id is None:
+            raise ValueError("a session-stitched model needs a session_id")
+        if not isinstance(session_id, torch.Tensor):
+            return torch.tensor([int(session_id)], dtype=torch.int64,
+                                device=device)
+        if session_id.numel() != 1:
+            raise NotImplementedError(
+                "per-sample session ids (mixed-session batches) are not "
+                "ported yet (ROADMAP queue 1 item 5b)")
+        return session_id.reshape(1)
+
     # ------------------------------------------------------------------
     # mask plumbing
     # ------------------------------------------------------------------
@@ -470,12 +508,17 @@ class MultiModal(nn.Module):
                 masking_mode=None, mtm_modes: Sequence[str] = (),
                 regions: Optional[RegionSets] = None,
                 training: bool = False, token_zero_groups: int = 1,
-                seed: Union[int, StepSeeds, None] = None
+                seed: Union[int, StepSeeds, None] = None,
+                session_id: Union[int, torch.Tensor, None] = None,
+                space_attn_mask: Optional[torch.Tensor] = None
                 ) -> MultiModalOutput:
         """``masking_mode``: None, a mode name, or a host int into
         ``mtm_modes``. ``seed``: the step's ``StepSeeds`` or a host int,
         keying the masker and (with ``training``) dropout; required
-        whenever a mask is sampled."""
+        whenever a mask is sampled. ``session_id`` (stitched models only,
+        required there): a host int or a one-element int tensor on the
+        device. ``space_attn_mask`` (B, N_in): 0 marks padded ``ap``
+        channels, which carry no loss."""
         mc = self.config
         cdt = self.compute_dtype
         T = mc.max_F
@@ -493,6 +536,9 @@ class MultiModal(nn.Module):
         table = None if seed is None else seed.table
         drop = table if training else None
         M = len(mc.avail_mod)
+        sid = (self._session_tensor(
+            session_id, mod_inputs[mc.avail_mod[0]].inputs.device)
+            if self.stitched else None)
 
         tokens_e, tokens_d, embs_e, embs_d = [], [], [], []
         token_masks, attn_tokens, gts, spike_masks = [], [], {}, {}
@@ -514,9 +560,18 @@ class MultiModal(nn.Module):
                 e_emb = e_emb + enc.pos_embed(ts)
                 d_emb = d_emb + dec.pos_embed(ts)
             x = inputs.to(cdt)
-            tokens_e.append(enc(x, seed_at(drop, 2 * M + 2 * i)))
-            # decoder tokens are embedded from the inputs too
-            tokens_d.append(dec(x, seed_at(drop, 2 * M + 2 * i + 1)))
+            seeds_e = seed_at(drop, 2 * M + 2 * i)
+            seeds_d = seed_at(drop, 2 * M + 2 * i + 1)
+            if sid is not None and mod == "ap":
+                s_emb = self.session_emb(sid)                # (1, H) f32
+                e_emb = e_emb + s_emb
+                d_emb = d_emb + s_emb
+                tokens_e.append(enc(x, sid, seeds_e))
+                tokens_d.append(dec(x, sid, seeds_d))
+            else:
+                tokens_e.append(enc(x, seeds_e))
+                # decoder tokens are embedded from the inputs too
+                tokens_d.append(dec(x, seeds_d))
             embs_e.append(e_emb)
             embs_d.append(d_emb)
 
@@ -570,11 +625,21 @@ class MultiModal(nn.Module):
         mod_loss, mod_n, mod_preds, mod_targets = {}, {}, {}, {}
         for i, mod in enumerate(mc.avail_mod):
             head = self.decoder_embeddings[mod].out
-            preds = head(y[:, i * T:(i + 1) * T]).float()
+            y_mod = y[:, i * T:(i + 1) * T]
+            if sid is not None and mod == "ap":
+                # the head's width follows the (bucket-narrowed) input's
+                preds = head(y_mod, sid,
+                             n_out=mod_inputs[mod].inputs.shape[-1]).float()
+            else:
+                preds = head(y_mod).float()
             targets = gts[mod].float()
             elem_mask = spike_masks[mod]
             if elem_mask is None:
                 elem_mask = token_masks[i][:, :, None].expand(targets.shape)
+            if mod == "ap" and space_attn_mask is not None:
+                # padded neurons (a session's N_max padding) carry no loss
+                elem_mask = elem_mask * space_attn_mask[:, None, :].to(
+                    elem_mask.dtype)
             if MODALITY_LOSS.get(mod, "mse") == "poisson_nll":
                 loss_sum, n = masked_poisson_nll(preds, targets, elem_mask)
             else:

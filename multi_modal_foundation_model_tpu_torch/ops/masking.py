@@ -108,11 +108,12 @@ class RegionSets:
     ``region_ids``: (N,) int32 tensor on the model's device, the region id
     of each neuron (-1 for padding). ``mask_candidates`` /
     ``target_candidates``: host int32 arrays of the region ids inter- and
-    intra-region masking sample from ('all' expanded on the host)."""
+    intra-region masking sample from ('all' expanded on the host); ``None``
+    in a ``RegionTable`` row selected by a device session id."""
 
     region_ids: torch.Tensor
-    mask_candidates: np.ndarray
-    target_candidates: np.ndarray
+    mask_candidates: Optional[np.ndarray]
+    target_candidates: Optional[np.ndarray]
 
     @classmethod
     def build(cls, region_ids: np.ndarray,
@@ -138,6 +139,70 @@ class RegionSets:
                    mask_candidates=resolve(mask_regions).astype(np.int32),
                    target_candidates=resolve(target_regions).astype(
                        np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionTable:
+    """Per-session region information stacked for session indexing (JAX
+    ``RegionTable``, :134-180): ``region_ids`` (S, N_max) int32 on the
+    model's device, -1 as padding; the candidate ids each session's
+    inter- and intra-region masking draw from, (S, R_max) int32 host
+    arrays padded with -1.
+
+    ``select`` takes a session's row. With a device session id (a
+    one-element tensor) the row of ``region_ids`` is gathered on the device,
+    so a captured step serves every session; its candidates are ``None``,
+    as the step reads the regions the host drew. With a host int it also
+    gives the session's candidate rows, padded to ``R_max`` as JAX pads
+    them, so ``host_draws`` draws ``min(n_mask_regions, R_max)`` slots for
+    every session, the surplus as -1 (JAX ``_sample_regions``)."""
+
+    region_ids: torch.Tensor
+    mask_candidates: np.ndarray
+    target_candidates: np.ndarray
+
+    @classmethod
+    def build(cls, per_session_region_ids: Sequence[np.ndarray],
+              mask_regions: Optional[Sequence] = ("all",),
+              target_regions: Optional[Sequence] = ("all",),
+              region_vocab: Optional[dict] = None,
+              device=None) -> "RegionTable":
+        sets = [RegionSets.build(ids, mask_regions, target_regions,
+                                 region_vocab, device="cpu")
+                for ids in per_session_region_ids]
+        n_max = max(int(s.region_ids.shape[0]) for s in sets)
+        r_max = max(max(len(s.mask_candidates), len(s.target_candidates))
+                    for s in sets)
+
+        def pad(a, n):
+            a = np.asarray(a, dtype=np.int32)
+            return np.pad(a, (0, n - len(a)), constant_values=-1)
+
+        ids = np.stack([pad(s.region_ids.numpy(), n_max) for s in sets])
+        return cls(
+            region_ids=torch.as_tensor(ids, device=device),
+            mask_candidates=np.stack([pad(s.mask_candidates, r_max)
+                                      for s in sets]),
+            target_candidates=np.stack([pad(s.target_candidates, r_max)
+                                        for s in sets]))
+
+    def to(self, device) -> "RegionTable":
+        return dataclasses.replace(self,
+                                   region_ids=self.region_ids.to(device))
+
+    def select(self, session_id) -> RegionSets:
+        """The ``RegionSets`` of one session: ``session_id`` a host int, or
+        a one-element int tensor on the table's device (class
+        docstring)."""
+        if isinstance(session_id, torch.Tensor):
+            return RegionSets(
+                region_ids=self.region_ids.index_select(
+                    0, session_id.reshape(1))[0],
+                mask_candidates=None, target_candidates=None)
+        sid = int(session_id)
+        return RegionSets(region_ids=self.region_ids[sid],
+                          mask_candidates=self.mask_candidates[sid],
+                          target_candidates=self.target_candidates[sid])
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +350,9 @@ def host_draws(k_mask: int, params: MaskParams, mode: Optional[str],
         out[_WIDTH], out[_RATIO] = _temporal_draws(
             np.random.default_rng(fold_in(k_mask, 0)), params, mode)
     elif mode in _REGION_FNS:
-        if regions is None:
-            raise ValueError(f"{mode} masking needs RegionSets")
+        if regions is None or regions.mask_candidates is None:
+            raise ValueError(f"{mode} masking needs RegionSets with the "
+                             "host's candidate ids")
         inter = mode == "inter-region"
         picked = _sample_regions(
             np.random.default_rng(k_mask if inter else fold_in(k_mask, 0)),

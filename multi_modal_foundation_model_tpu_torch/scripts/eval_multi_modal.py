@@ -1,16 +1,22 @@
-"""Evaluate a trained MultiModal checkpoint on one session.
+"""Evaluate a trained MultiModal checkpoint.
 
     python -m multi_modal_foundation_model_tpu_torch.scripts.eval_multi_modal \\
         --synthetic --use_MtM --mixed_training --co_smooth --forward_pred \\
         --inter_region --intra_region [--device cpu]
+    python -m multi_modal_foundation_model_tpu_torch.scripts.eval_multi_modal \\
+        --synthetic --multi_session --model_dir DIR --co_smooth ...
 
-The port of the JAX package's ``scripts/eval_multi_modal.py`` on its
-single-session path: ``modal_spike`` and ``modal_behavior`` by default,
-the other co-smoothing modes by flag, ``bps.npy``/``r2.npy`` per mode
-under ``<model_dir>/eval/<mode>/`` (``eval_unaligned`` with
-``--unaligned``) and the metrics in ``results.json`` there. Not ported
-yet, each raising: ``--multi_session``, ``--reference_ckpt`` and
-``--save_plot``.
+The port of the JAX package's ``scripts/eval_multi_modal.py``:
+``modal_spike`` and ``modal_behavior`` by default, the other co-smoothing
+modes by flag, ``bps.npy``/``r2.npy`` per mode under
+``<model_dir>/eval/<mode>/`` (``eval_unaligned`` with ``--unaligned``) and
+the metrics in ``results.json`` there. ``--multi_session`` evaluates a
+session-stitched checkpoint (``train_multi_session``): every mode once per
+trained session, artifacts under ``<model_dir>/eval/<eid>/<mode>/`` and
+``results.json`` keyed by eid with the mean over sessions; the sessions
+come from the checkpoint's ``sessions.json`` and are regenerated with the
+train script's synthetic convention. Not ported yet, each raising:
+``--reference_ckpt``, ``--save_plot`` and real (non-synthetic) sessions.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ import argparse
 import json
 import os
 
-from ..data.session import DEFAULT_TARGETS
-from ..eval import co_smoothing_eval, load_model_data_local
+import numpy as np
+
+from ..data.session import DEFAULT_TARGETS, synthetic_splits
+from ..eval import (co_smoothing_eval, load_model_data_local,
+                    load_multisession_model_data_local)
 from ..utils.device import resolve_device
 from ._common import (add_common_args, get_session, log_dir_for,
                       warn_unsupported)
@@ -44,6 +53,67 @@ def build_modes(args, T):
     if not args.no_modal_behavior:
         modes.append(("modal_behavior", {"held_out_list": list(range(T))}))
     return modes
+
+
+def eval_multi_session(args, device):
+    """Every mode over every session of a stitched checkpoint (JAX
+    :43-140). Synthetic sessions are regenerated as the train script made
+    them: seed ``--seed + g`` for the eid's generation suffix ``-g``."""
+    if not args.synthetic:
+        raise NotImplementedError(
+            "real sessions need the network (IBL loading is not ported); "
+            "pass --synthetic")
+    with open(os.path.join(args.model_dir, "sessions.json")) as f:
+        meta = json.load(f)
+    test_sessions = {}
+    for i, eid in enumerate(meta["eids"]):
+        # meta["eids"] is sorted ("x-10" < "x-2"): the suffix, not the
+        # position, is the generation index
+        gen = eid.rsplit("-", 1)[-1]
+        g = int(gen) if gen.isdigit() else i
+        test_sessions[eid] = synthetic_splits(
+            seed=args.seed + g, n_trials=args.n_trials,
+            n_neurons=int(meta["num_neurons"][i]), eid=eid).test
+
+    model, loaders, eid_to_sid = load_multisession_model_data_local(
+        model_dir=args.model_dir, test_sessions=test_sessions,
+        checkpoint_name=args.checkpoint, max_time_length=args.n_time_steps,
+        seed=args.seed, device=device)
+    T = args.n_time_steps
+    results = {}
+    for eid, loader in loaders.items():
+        per_eid = {}
+        for mode, kw in build_modes(args, T):
+            res = co_smoothing_eval(
+                model, loader, mode=mode, use_mtm=args.use_MtM,
+                save_path=os.path.join(args.model_dir, "eval", eid, mode),
+                n_time_steps=T, save_plot=args.save_plot,
+                is_aligned=not args.unaligned,
+                avail_beh=list(DEFAULT_TARGETS),
+                session_id=eid_to_sid[eid], **kw)
+            per_eid.update({k: (v if isinstance(v, dict) else float(v))
+                            for k, v in res.items()})
+            print(f"[{eid}][{mode}]",
+                  json.dumps(per_eid, default=float)[:300])
+        results[eid] = per_eid
+
+    # the mean over sessions of each scalar
+    summary = {}
+    for per_eid in results.values():
+        for k, v in per_eid.items():
+            if isinstance(v, dict):
+                for bk, bv in v.items():
+                    summary.setdefault(f"{k}.{bk}", []).append(float(bv))
+            else:
+                summary.setdefault(k, []).append(float(v))
+    results["mean_over_sessions"] = {k: float(np.nanmean(v))
+                                     for k, v in summary.items()}
+    out = os.path.join(args.model_dir, "eval", "results.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(results, f, indent=1, default=float)
+    print("saved:", out)
+    return results
 
 
 def main(argv=None):
@@ -77,18 +147,23 @@ def main(argv=None):
                          "(harness is_aligned=False); results under "
                          "eval_unaligned/")
     ap.add_argument("--multi_session", action="store_true",
-                    help="evaluate a session-stitched checkpoint (not "
-                         "ported yet: raises)")
+                    help="evaluate a session-stitched checkpoint "
+                         "(train_multi_session): every mode once per "
+                         "trained session, artifacts under "
+                         "<model_dir>/eval/<eid>/<mode>/; needs "
+                         "--model_dir")
     args = ap.parse_args(argv)
     warn_unsupported(args, "dp", "tp", "device_resident")
-    for flag, item in (("multi_session", "multi-session (ROADMAP queue 1 "
-                        "item 5)"),
-                       ("reference_ckpt", "reference checkpoints (ROADMAP "
+    for flag, item in (("reference_ckpt", "reference checkpoints (ROADMAP "
                         "queue 1 item 4)"),
                        ("save_plot", "eval plots (ROADMAP queue 1 item 4)")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {item} not ported yet")
     device = resolve_device(args.device)
+    if args.multi_session:
+        if not args.model_dir:
+            raise ValueError("--multi_session requires --model_dir")
+        return eval_multi_session(args, device)
 
     modal_filter = {"input": ["ap", "behavior"], "output": ["ap", "behavior"]}
     model_dir = args.model_dir or log_dir_for(

@@ -1,0 +1,436 @@
+"""Multi-session pretraining: session-stitched model, interleaved loaders.
+
+Port of ``multi_modal_foundation_model_tpu/train/multisession.py``:
+
+- **Loaders** (``build_multisession_loaders``, JAX :94-153): one region
+  vocabulary shared by all sessions, each session's space axis padded to
+  its bucket's width (``_bucket_session_widths``, :42-91: sessions sorted
+  by neuron count, cut into at most ``n_buckets`` contiguous groups by an
+  exact DP over padded cells), and the ``meta`` dict.
+- **Schedule** (``MultiSessionTrainer``, :156): every batch holds one
+  session's trials; an epoch interleaves every session's batches in the
+  order ``np.random.default_rng((seed, epoch, 7))`` shuffles them to
+  (``_epoch_schedule``), and the one-cycle schedule counts every session's
+  batches (``_steps_per_epoch``).
+- **Streaming** (the default): host batches, each step run eagerly with
+  its session id in the step's row.
+- **Resident** (``device_resident_data``): each shape bucket's train splits
+  are stacked into ONE resident block with per-session trial offsets
+  (``_stacked_train_data``, :393), and every step gathers from its
+  bucket's block by offset-shifted indices, its session id riding in the
+  step's row (``train/trainer.py`` ``_RowLayout``). The stitched
+  tokenizers' and head's rows, the session embedding and the region
+  table's row are gathered on the device by that id, so one captured
+  graph serves every session of a bucket: graphs are keyed by (bucket
+  width, batch, variant). The schedules are JAX's: K = 1 runs the
+  interleave step by step; ``steps_per_dispatch = K > 1`` with
+  ``stacked_scan`` and one bucket keeps the K = 1 interleave in groups of
+  K crossing sessions (:848-900), so without mixed training its
+  trajectory is K = 1's step for step; otherwise each session's batches
+  form K-groups, shuffled by ``(seed, epoch, 7)`` (:902-941). Steps left
+  over from a group run as single steps.
+- **Eval** (``eval_epoch``, :943-1028): per session, the fixed eval
+  stream; 'ap' metrics over the session's real neurons (bits/spike and
+  the R² of the 50 most active), behavior R²; keyed by eid.
+
+AdamW updates the whole stitched stacks every step, weight decay included,
+as optax does: the other sessions' slices get zero gradients, not a
+skipped update. ``mixed_session_batches`` and ``shard_resident_sessions``
+are not ported (ROADMAP queue 1 items 5b and 6) and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.loader import DataLoader, make_loader
+from ..data.prefetch import DevicePrefetcher, pinned_batch_placer
+from ..data.session import SessionSplits
+from ..eval.metrics import bits_per_spike, metrics_list
+from ..ops.masking import RegionSets, RegionTable
+from ..utils.rng import fold_in
+from .logging import MetricLogger
+from .schedule import OptimizerConfig
+from .trainer import (_BATCH_KEYS, _EVAL_STEP, MultiModalTrainer,
+                      TrainerConfig)
+
+
+def _bucket_session_widths(
+    num_neurons: Sequence[int], num_trials: Sequence[int],
+    pad_multiple: int, n_buckets: int,
+) -> List[int]:
+    """Per-session padded widths for at most ``n_buckets`` shape buckets:
+    the sessions sorted by neuron count, cut into contiguous groups, each
+    padded to its widest member's width rounded up to ``pad_multiple``; the
+    cut minimises the padded cells (``(width - n_neurons) * n_trials``
+    summed over sessions) by exact dynamic programming."""
+    S = len(num_neurons)
+    order = sorted(range(S), key=lambda i: num_neurons[i])
+
+    def q(w: int) -> int:
+        return -(-w // pad_multiple) * pad_multiple
+
+    INF = float("inf")
+    nb = min(n_buckets, S)
+    dp = [[INF] * (nb + 1) for _ in range(S + 1)]
+    back = [[0] * (nb + 1) for _ in range(S + 1)]
+    dp[0][0] = 0.0
+    for i in range(1, S + 1):
+        w_i = q(num_neurons[order[i - 1]])
+        for k in range(1, nb + 1):
+            cost = 0.0
+            for j in range(i - 1, -1, -1):
+                if j < i - 1:
+                    s = order[j]
+                    cost += (w_i - num_neurons[s]) * num_trials[s]
+                # sorted sessions j..i-1 form one bucket of width w_i
+                e = order[i - 1]
+                total = cost + (w_i - num_neurons[e]) * num_trials[e]
+                if dp[j][k - 1] + total < dp[i][k]:
+                    dp[i][k] = dp[j][k - 1] + total
+                    back[i][k] = j
+    k_best = min(range(1, nb + 1), key=lambda k: dp[S][k])
+    widths = [0] * S
+    i, k = S, k_best
+    while i > 0:
+        j = back[i][k]
+        w = q(num_neurons[order[i - 1]])
+        for t in range(j, i):
+            widths[order[t]] = w
+        i, k = j, k - 1
+    return widths
+
+
+def build_multisession_loaders(
+    sessions: Dict[str, SessionSplits],
+    batch_size: int,
+    *,
+    max_time_length: int = 100,
+    pad_multiple: int = 128,
+    n_buckets: int = 1,
+    target: Optional[Sequence[str]] = None,
+    seed: int = 42,
+) -> Tuple[Dict[str, DataLoader], Dict[str, DataLoader],
+           Dict[str, DataLoader], dict]:
+    """(train, val, test) loader dicts by eid (sorted) and ``meta``: the
+    eids, ``eid_to_sid``, the neuron counts, ``n_max``, the per-session
+    ``bucket_widths``, the shared ``region_vocab`` and each session's
+    train ``region_ids`` (for ``RegionTable.build``)."""
+    eids = sorted(sessions.keys())
+    widths = _bucket_session_widths(
+        [sessions[e].n_neurons for e in eids],
+        [sessions[e].train.n_trials for e in eids],
+        pad_multiple, n_buckets)
+
+    region_vocab: Dict[str, int] = {}
+    for e in eids:
+        for r in sorted(set(sessions[e].train.neuron_regions.astype(str))):
+            region_vocab.setdefault(r, len(region_vocab))
+
+    train, val, test = {}, {}, {}
+    for e, w in zip(eids, widths):
+        kw = dict(batch_size=batch_size, target=target,
+                  max_time_length=max_time_length, max_space_length=w,
+                  region_vocab=region_vocab, seed=seed)
+        train[e] = make_loader(sessions[e].train, **kw)
+        val[e] = make_loader(sessions[e].val, shuffle=False, **kw)
+        test[e] = make_loader(sessions[e].test, shuffle=False, **kw)
+
+    meta = {
+        "eids": eids,
+        "eid_to_sid": {e: i for i, e in enumerate(eids)},
+        "num_neurons": [sessions[e].n_neurons for e in eids],
+        "n_max": max(widths),
+        "bucket_widths": dict(zip(eids, widths)),
+        "region_vocab": region_vocab,
+        "per_session_region_ids": [train[e].arrays["region_ids"]
+                                   for e in eids],
+    }
+    return train, val, test, meta
+
+
+class MultiSessionTrainer(MultiModalTrainer):
+    """``MultiModalTrainer`` over a dict of per-session loaders. The model
+    is built with ``n_sessions = len(train_loaders)`` and
+    ``n_channels['ap'] = N_max``."""
+
+    _BATCH_KEYS = _BATCH_KEYS + ("space_attn_mask",)
+
+    def __init__(
+        self,
+        model,
+        train_loaders: Dict[str, DataLoader],
+        eval_loaders: Optional[Dict[str, DataLoader]],
+        optimizer_config: OptimizerConfig,
+        trainer_config: TrainerConfig,
+        *,
+        region_table: RegionTable,
+        eid_to_sid: Dict[str, int],
+        mesh=None,
+        logger: Optional[MetricLogger] = None,
+        modal_filter=None,
+    ):
+        self.train_loaders = dict(train_loaders)
+        self.eval_loaders = dict(eval_loaders or {})
+        self.eid_to_sid = dict(eid_to_sid)
+        first = next(iter(self.train_loaders))
+        super().__init__(
+            model, self.train_loaders[first], self.eval_loaders.get(first),
+            optimizer_config, trainer_config, modal_filter=modal_filter,
+            mesh=mesh, logger=logger)
+        self.region_table = region_table.to(self.device)
+        self._stacked_cache: Dict[tuple, tuple] = {}
+
+    def _steps_per_epoch(self) -> int:
+        """Every session's batches (the one-cycle schedule's length)."""
+        return sum(len(loader) for loader in self.train_loaders.values())
+
+    # ------------------------------------------------------------------
+    # per-session regions and forward arguments
+    # ------------------------------------------------------------------
+
+    def _host_regions(self, session: int) -> RegionSets:
+        return self.region_table.select(int(session))
+
+    def _forward_kwargs(self, batch, session) -> Dict[str, Any]:
+        return {"regions": self.region_table.select(session),
+                "session_id": session,
+                "space_attn_mask": batch["space_attn_mask"]}
+
+    # ------------------------------------------------------------------
+    # schedules
+    # ------------------------------------------------------------------
+
+    def _epoch_schedule(self, epoch: int) -> List[str]:
+        """Each eid once per batch its loader yields this epoch, shuffled
+        by ``(seed, epoch, 7)``."""
+        eids = []
+        for e, loader in self.train_loaders.items():
+            eids.extend([e] * len(loader))
+        np.random.default_rng((self.tcfg.seed, epoch, 7)).shuffle(eids)
+        return eids
+
+    def _stack_groups(self) -> List[Tuple[str, ...]]:
+        """Train eids grouped by the trailing shapes and dtypes of their
+        per-trial arrays (one group a width bucket), in loader order."""
+        groups: Dict[tuple, List[str]] = {}
+        for e, loader in self.train_loaders.items():
+            sig = tuple((loader.arrays[k].shape[1:], loader.arrays[k].dtype.str)
+                        for k in self._BATCH_KEYS)
+            groups.setdefault(sig, []).append(e)
+        return [tuple(v) for v in groups.values()]
+
+    def _can_stack(self) -> bool:
+        return len(self._stack_groups()) == 1
+
+    def _stacked_train_data(self, eids: Tuple[str, ...]):
+        """``eids``' train splits (one stack group: equal shapes)
+        concatenated along the trial axis in one resident block, and each
+        eid's trial offset in it. Cached per eid tuple against the loader
+        objects."""
+        loaders = tuple(self.train_loaders[e] for e in eids)
+        hit = self._stacked_cache.get(eids)
+        if hit is not None and all(a is b for a, b in zip(hit[0], loaders)):
+            return hit[1], hit[2]
+        data = {k: torch.from_numpy(np.concatenate(
+                    [np.asarray(l.arrays[k]) for l in loaders])).to(
+                        self.device)
+                for k in self._BATCH_KEYS}
+        offsets, pos = {}, 0
+        for e, loader in zip(eids, loaders):
+            offsets[e] = pos
+            pos += loader.n_trials
+        self._stacked_cache[eids] = (loaders, data, offsets)
+        return data, offsets
+
+    def _blocks(self) -> Dict[str, Tuple[Dict[str, torch.Tensor], int]]:
+        """Per eid: its bucket's resident block and its offset there."""
+        out = {}
+        for group in self._stack_groups():
+            data, offsets = self._stacked_train_data(group)
+            out.update({e: (data, offsets[e]) for e in group})
+        return out
+
+    # ------------------------------------------------------------------
+    # epochs
+    # ------------------------------------------------------------------
+
+    def train_epoch(self, epoch: int) -> Dict[str, Any]:
+        self._reseed_host_rng(epoch)     # exact resume (train/trainer.py)
+        if self.tcfg.device_resident_data:
+            losses = self._train_epoch_dr(epoch)
+        else:
+            losses = self._train_epoch_streaming(epoch)
+        # one host sync per epoch
+        per_step = torch.cat(losses).tolist() if losses else []
+        train_loss = float(sum(per_step))
+        return {"train_loss": train_loss,
+                "train_loss_avg": train_loss / max(len(per_step), 1),
+                "step_losses": per_step}
+
+    def _train_epoch_streaming(self, epoch: int) -> List[torch.Tensor]:
+        iters = {}
+        for e, loader in self.train_loaders.items():
+            loader.set_epoch(epoch)
+            iters[e] = iter(loader)
+
+        def host_batches():
+            for eid in self._epoch_schedule(epoch):
+                yield eid, next(iters[eid])
+
+        if self.tcfg.prefetch_depth > 0:
+            place = pinned_batch_placer(self._BATCH_KEYS, self.device)
+            batches = DevicePrefetcher(
+                host_batches(), lambda t: (t[0], place(t[1])),
+                depth=self.tcfg.prefetch_depth, device=self.device)
+        else:
+            batches = ((eid, self._device_batch(b))
+                       for eid, b in host_batches())
+        losses = []
+        for eid, batch in batches:
+            training_mode, scheme_id = self._sample_modes()
+            losses.append(self.train_step(
+                batch, training_mode, scheme_id,
+                self.eid_to_sid[eid]).reshape(1))
+        return losses
+
+    def _index_batches(self, epoch: int):
+        out = {}
+        for e, loader in self.train_loaders.items():
+            loader.set_epoch(epoch)
+            out[e] = loader.iter_index_batches()
+        return out
+
+    def _train_epoch_dr(self, epoch: int) -> List[torch.Tensor]:
+        """The resident epoch: the K = 1 interleave, in groups of K across
+        sessions when they share one block (``stacked_scan``), else
+        per-session K-groups (``_train_epoch_dr_scan``)."""
+        K = max(1, self.tcfg.steps_per_dispatch)
+        if K > 1 and not (self.tcfg.stacked_scan and self._can_stack()):
+            return self._train_epoch_dr_scan(epoch, K)
+        blocks = self._blocks()
+        iters = self._index_batches(epoch)
+        steps = []
+        for eid in self._epoch_schedule(epoch):
+            idx, valid, _ = next(iters[eid])
+            data, off = blocks[eid]
+            steps.append((data, idx + off, valid, self.eid_to_sid[eid]))
+        losses = []
+        for start in range(0, len(steps), K):
+            chunk = steps[start:start + K]
+            if len(chunk) < K or K == 1:      # single steps
+                for data, idx, valid, sid in chunk:
+                    training_mode, scheme_id = self._sample_modes()
+                    losses.append(self._dispatch(
+                        data, [(idx, valid, scheme_id, sid)], training_mode))
+                continue
+            training_mode, schemes = self._sample_group_modes(K)
+            losses.append(self._dispatch(
+                chunk[0][0], [(idx, valid, scheme, sid) for
+                              (_, idx, valid, sid), scheme
+                              in zip(chunk, schemes)], training_mode))
+        return losses
+
+    def _train_epoch_dr_scan(self, epoch: int, K: int
+                             ) -> List[torch.Tensor]:
+        """Per-session K-groups (several buckets, or ``stacked_scan``
+        off): each session's batches in groups of K, the groups shuffled
+        by ``(seed, epoch, 7)``; a short group runs as single steps."""
+        blocks = self._blocks()
+        groups = []
+        for e, batches in self._index_batches(epoch).items():
+            batches = [(idx, valid) for idx, valid, _ in batches]
+            for i in range(0, len(batches), K):
+                groups.append((e, batches[i:i + K]))
+        np.random.default_rng((self.tcfg.seed, epoch, 7)).shuffle(groups)
+        losses = []
+        for eid, chunk in groups:
+            data, off = blocks[eid]
+            sid = self.eid_to_sid[eid]
+            if len(chunk) < K:
+                for idx, valid in chunk:
+                    training_mode, scheme_id = self._sample_modes()
+                    losses.append(self._dispatch(
+                        data, [(idx + off, valid, scheme_id, sid)],
+                        training_mode))
+                continue
+            training_mode, schemes = self._sample_group_modes(K)
+            losses.append(self._dispatch(
+                data, [(idx + off, valid, scheme, sid)
+                       for (idx, valid), scheme in zip(chunk, schemes)],
+                training_mode))
+        return losses
+
+    @torch.no_grad()
+    def eval_epoch(self) -> Optional[Dict[str, Any]]:
+        """Per-session metrics (JAX :943-1028; eids are the analog of the
+        reference's neuron-count keys)."""
+        if not self.eval_loaders:
+            return None
+        self._reseed_host_rng(0, tag=1)       # the same stream every epoch
+        eval_seed = fold_in(self.tcfg.seed, _EVAL_STEP)
+        outputs = self.modal_filter["output"]
+        losses, results_list = [], []
+        per_session: Dict[str, Dict[str, float]] = {}
+        gt_all: Dict[str, dict] = {}
+        preds_all: Dict[str, dict] = {}
+        for eid, loader in self.eval_loaders.items():
+            sid = self.eid_to_sid[eid]
+            space = np.asarray(loader.arrays["space_attn_mask"][0])
+            zeros = np.nonzero(space == 0)[0]
+            n_real_neurons = int(zeros.min()) if len(zeros) else len(space)
+            if self.tcfg.device_resident_data:
+                data = self._device_data(loader)
+                batches = (
+                    (self._gather_batch(
+                        data, torch.from_numpy(idx).to(self.device),
+                        torch.from_numpy(valid).to(self.device)), n_real)
+                    for idx, valid, n_real in loader.iter_index_batches())
+            else:
+                batches = ((self._device_batch(b),
+                            int(b.get("n_real", len(b["spikes_data"]))))
+                           for b in loader)
+            acc = {mod: {"gt": [], "preds": []} for mod in outputs}
+            for batch, n_real in batches:
+                training_mode, scheme_id = self._sample_modes()
+                out = self.model(
+                    self._build_mod_inputs(batch, training_mode),
+                    masking_mode=scheme_id, mtm_modes=self.mtm_modes,
+                    training=False, seed=eval_seed,
+                    **self._forward_kwargs(batch, sid))
+                losses.append(out.loss)
+                for mod in outputs:
+                    acc[mod]["gt"].append(out.mod_targets[mod][:n_real])
+                    acc[mod]["preds"].append(out.mod_preds[mod][:n_real])
+
+            gt_all[eid], preds_all[eid], per_session[eid] = {}, {}, {}
+            for mod in outputs:
+                _gt = torch.cat(acc[mod]["gt"]).cpu().numpy()
+                _pr = torch.cat(acc[mod]["preds"]).cpu().numpy()
+                if mod == "ap":
+                    _gt = _gt[:, :, :n_real_neurons]
+                    _pr = np.exp(_pr[:, :, :n_real_neurons])
+                    active = np.argsort(_gt.sum((0, 1)))[::-1][:50].tolist()
+                    res = metrics_list(_gt[:, :, active].transpose(2, 1, 0),
+                                       _pr[:, :, active].transpose(2, 1, 0),
+                                       metrics=["r2"])
+                    per_session[eid]["ap_bps"] = bits_per_spike(_pr, _gt)
+                    per_session[eid]["ap_r2"] = res["r2"]
+                else:
+                    res = metrics_list(_gt, _pr, metrics=[self.metric])
+                    per_session[eid][f"{mod}_{self.metric}"] = \
+                        res[self.metric]
+                gt_all[eid][mod], preds_all[eid][mod] = _gt, _pr
+                results_list.append(res[self.metric])
+
+        eval_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        return {
+            "eval_loss": eval_loss,
+            f"eval_trial_avg_{self.metric}": float(np.nanmean(results_list)),
+            "eval_per_session": per_session,
+            "eval_gt": gt_all,
+            "eval_preds": preds_all,
+        }

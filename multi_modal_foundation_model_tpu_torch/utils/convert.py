@@ -9,6 +9,17 @@ Linear weights ``(out, in)``; LayerNorm ``scale`` is ``weight``. With
 shared modality embeddings the table is emitted under both the encoder and
 the decoder key, as the port's shared ``nn.Embedding`` appears under both.
 ``baseline_params_from_jax`` does the same for the linear baselines.
+
+A session-stitched model (``n_sessions > 1``) has parameters the reference
+has no model for, so no reference ``state_dict`` name exists for them: the
+port names them after their flax paths, and the JAX package's
+``utils/torch_convert.py`` does not map them; they are mapped here straight
+from the JAX params. The ``ap`` tokenizers' ``token_embed_kernel`` (S,
+N_max, mult * H) and ``token_embed_bias`` (S, mult * H) keep their flax
+names and layouts under ``<side>_embeddings.ap.embedder.``, beside the
+shared ``projection`` Linear; the stitched head's ``kernel`` (S, H, N_max)
+and ``bias`` (S, N_max) sit under ``decoder_embeddings.ap.out.``; the
+session table ``session_emb/embedding`` is ``session_emb.weight``.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ def params_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
             sd[ref_key + ".weight"] = scale
             sd[ref_key + ".bias"] = flat[path + ("bias",)]
 
+    stitched = config.n_sessions > 1
     for m in config.avail_mod:
         for side, tok, mod_emb, pos_emb in (
                 ("encoder_embeddings", f"encoder_tokenizers_{m}",
@@ -58,14 +70,26 @@ def params_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
                 ("decoder_embeddings", f"decoder_tokenizers_{m}",
                  f"dec_mod_emb_{m}", f"dec_pos_emb_{m}")):
             emb = f"{side}.{m}.embedder"
-            linear(f"{emb}.token_embed", (tok, "token_embed"))
+            if stitched and m == "ap":
+                for leaf in ("token_embed_kernel", "token_embed_bias"):
+                    if (tok, leaf) in flat:
+                        sd[f"{emb}.{leaf}"] = flat[(tok, leaf)]
+            else:
+                linear(f"{emb}.token_embed", (tok, "token_embed"))
             linear(f"{emb}.projection", (tok, "projection"))
             src = (f"enc_mod_emb_{m}" if config.share_modality_embeddings
                    else mod_emb)
             sd[f"{emb}.mod_emb.weight"] = flat[(src, "embedding")]
             if config.use_pos:
                 sd[f"{emb}.pos_embed.weight"] = flat[(pos_emb, "embedding")]
-        linear(f"decoder_embeddings.{m}.out", (f"out_proj_{m}",))
+        if stitched and m == "ap":
+            for leaf in ("kernel", "bias"):
+                sd[f"decoder_embeddings.{m}.out.{leaf}"] = \
+                    flat[(f"out_proj_{m}", leaf)]
+        else:
+            linear(f"decoder_embeddings.{m}.out", (f"out_proj_{m}",))
+    if stitched:
+        sd["session_emb.weight"] = flat[("session_emb", "embedding")]
 
     for i in range(config.n_enc_layers):
         for n in ("ln1", "ln2"):

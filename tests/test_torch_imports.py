@@ -85,6 +85,10 @@ def test_entry_points_need_an_explicit_cpu():
     with pytest.raises(RuntimeError):
         tmm.MultiModal(tmm.MultiModalConfig(hidden_size=32, n_heads=2,
                                             n_enc_layers=1, n_dec_layers=1))
+    with pytest.raises(RuntimeError):       # the session-stitched model too
+        tmm.MultiModal(tmm.MultiModalConfig(hidden_size=32, n_heads=2,
+                                            n_enc_layers=1, n_dec_layers=1,
+                                            n_sessions=3))
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
 
 

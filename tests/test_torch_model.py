@@ -166,18 +166,29 @@ def test_config_json_round_trip_both_ways(tmp_path):
 
 
 def test_unported_paths_raise(toy):
-    """What is still unported raises: session stitching, the
-    device-resident trainer data and the loader's samplers. bf16 compute,
-    unported in the first two slices, now builds; another compute dtype
-    is refused."""
+    """What is still unported raises: per-sample session ids (mixed-session
+    batches) and the trainer's ``mixed_session_batches``. Session
+    stitching and the loader's samplers, unported until the multi-session
+    port, now run: a stitched model builds and needs a session id, and
+    both samplers give JAX's order. bf16 compute, unported in the first two slices, now
+    builds; another compute dtype is refused."""
+    from multi_modal_foundation_model_tpu.data import loader as jloader
+    from multi_modal_foundation_model_tpu.data import session as jsession
     from multi_modal_foundation_model_tpu_torch.data import loader, session
     from multi_modal_foundation_model_tpu_torch.train import (
         MultiModalTrainer, OptimizerConfig, TrainerConfig)
 
     _, _, tmodel = toy
-    with pytest.raises(NotImplementedError):
-        tmm.MultiModal(tmm.MultiModalConfig(**TOY, n_sessions=2),
-                       device="cpu")
+    stitched = tmm.MultiModal(tmm.MultiModalConfig(**TOY, n_sessions=2),
+                              device="cpu")
+    spikes, beh, attn, ts = make_batch(16, 2)
+    st_inputs = torch_inputs(spikes, beh, attn, ts,
+                             *_eval_masks("none", spikes, beh, None))
+    with pytest.raises(ValueError):                 # needs a session id
+        stitched(st_inputs)
+    assert torch.isfinite(stitched(st_inputs, session_id=1).loss)
+    with pytest.raises(NotImplementedError):        # per-sample ids
+        stitched(st_inputs, session_id=torch.tensor([0, 1]))
     bf16 = tmm.MultiModal(tmm.MultiModalConfig(**TOY,
                                                compute_dtype="bfloat16"),
                           device="cpu")
@@ -185,14 +196,17 @@ def test_unported_paths_raise(toy):
     with pytest.raises(ValueError):
         tmm.MultiModal(tmm.MultiModalConfig(**TOY, compute_dtype="float16"),
                        device="cpu")
-    sess = session.synthetic_session(seed=0, n_trials=8,
-                                     n_neurons=TOY["n_channels"]["ap"],
-                                     n_timesteps=TOY["max_F"])
+    skw = dict(seed=0, n_trials=8, n_neurons=TOY["n_channels"]["ap"],
+               n_timesteps=TOY["max_F"])
+    sess = session.synthetic_session(**skw)
     kw = dict(batch_size=4, max_time_length=TOY["max_F"],
               max_space_length=TOY["n_channels"]["ap"])
     for sampler in ("length_grouped", "stitch"):
-        with pytest.raises(NotImplementedError):
-            loader.make_loader(sess, sampler=sampler, **kw)
+        got = loader.make_loader(sess, sampler=sampler, **kw)
+        want = jloader.make_loader(jsession.synthetic_session(**skw),
+                                   sampler=sampler, **kw)
+        for a, b in zip(want.iter_index_batches(), got.iter_index_batches()):
+            np.testing.assert_array_equal(b[0], a[0])
     train = loader.make_loader(sess, **kw)
     with pytest.raises(NotImplementedError):
         MultiModalTrainer(tmodel, train, None, OptimizerConfig(),

@@ -1,0 +1,545 @@
+"""Multi-session pretraining in the port against the JAX package.
+
+Three synthetic sessions of 24-61 neurons (``torch_parity.MS_SESSIONS``),
+T=20, H=32, 2+2 layers; the same numpy inputs and converted weights on
+both sides, JAX's attention through Pallas (interpret mode). Tolerances:
+
+- ``_bucket_session_widths``, the samplers, ``build_multisession_loaders``
+  (meta and arrays) and ``RegionTable.select``: exact;
+- the stitched eval forward per session: preds atol 1e-4, loss rtol 1e-5
+  (``tests/test_torch_model.py``'s);
+- width invariance (a session at its bucket width against N_max, the
+  port alone): atol 1e-6; padded neurons carry no loss: exact;
+- the trainer lockstep on the streaming path (mixed objectives over the
+  deterministic menu co-smooth / forward-pred, dropout 0, 11 AdamW steps
+  at lr 1e-3, remat off on both sides to keep JAX's compile short): the
+  same epoch schedule and host draws exactly, per-step losses rtol 2e-5,
+  final parameters atol 2e-5 except the attention key biases
+  (``tests/test_torch_trainer.py``'s gates and why);
+- in the port: the stacked K=3 epoch equals K=1 bit for bit, resume is
+  exact, ``n_buckets=2`` runs one graph key per (width, variant).
+
+The resident paths' lockstep with JAX (K=1, stacked K=2) and the
+per-session ``eval_epoch`` are in ``test_torch_multisession_resident.py``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (MS_T, assert_params_close, jax_inputs, jax_trainer,
+                          ms_build as _build, ms_config, port_trainer,
+                          record_modes, torch_inputs)
+from multi_modal_foundation_model_tpu.data import loader as jloader
+from multi_modal_foundation_model_tpu.data import session as jsession
+from multi_modal_foundation_model_tpu.models import multimodal as jmm
+from multi_modal_foundation_model_tpu.ops import masking as jmasking
+from multi_modal_foundation_model_tpu.train import multisession as jms
+from multi_modal_foundation_model_tpu_torch.data import loader as tloader
+from multi_modal_foundation_model_tpu_torch.data import session as tsession
+from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
+from multi_modal_foundation_model_tpu_torch.ops import masking as tmasking
+from multi_modal_foundation_model_tpu_torch.train import multisession as tms
+from multi_modal_foundation_model_tpu_torch.utils.convert import (
+    params_from_jax)
+
+PRED_ATOL, LOSS_RTOL = 1e-4, 1e-5
+STEP_RTOL = 2e-5
+
+
+# ---------------------------------------------------------------------------
+# data: bucket widths, samplers, loaders, region table (exact)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("neurons,trials,pad,nb", [
+    # JAX's test_bucket_partition_minimizes_padded_cells
+    ((100, 120, 600, 640), (50, 50, 50, 50), 128, 2),
+    ((100, 120, 600, 640), (50, 50, 50, 50), 128, 1),
+    ((24, 41, 61), (28, 24, 28), 32, 2),
+    ((668 + 37 * i for i in range(10)), (320,) * 10, 128, 2),
+    ((5, 300, 17, 290, 140, 9, 64), (10, 400, 30, 5, 80, 700, 40), 16, 3),
+    ((7,), (3,), 8, 4),
+])
+def test_bucket_session_widths_match_jax(neurons, trials, pad, nb):
+    neurons, trials = list(neurons), list(trials)
+    got = tms._bucket_session_widths(neurons, trials, pad, nb)
+    assert got == jms._bucket_session_widths(neurons, trials, pad, nb)
+    assert all(w >= n and w % pad == 0 for w, n in zip(got, neurons))
+    assert len(set(got)) <= nb
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_samplers_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 6, int(rng.integers(5, 200))).tolist()
+    B = int(rng.integers(1, 17))
+    for shuffle in (True, False):
+        assert tloader.get_length_grouped_indices(
+            lengths, B, shuffle=shuffle,
+            generator=np.random.default_rng(seed)) == \
+            jloader.get_length_grouped_indices(
+                lengths, B, shuffle=shuffle,
+                generator=np.random.default_rng(seed))
+    assert tloader.get_length_grouped_indices_stitched(
+        lengths, B, np.random.default_rng(seed)) == \
+        jloader.get_length_grouped_indices_stitched(
+            lengths, B, np.random.default_rng(seed))
+
+
+@pytest.mark.parametrize("kw", [dict(stitching=True),
+                                dict(sampler="length_grouped"),
+                                dict(sampler="stitch", shuffle=False)])
+def test_loader_samplers_order_match_jax(kw):
+    """A loader with a sampler yields JAX's trials index for index, over
+    epochs (the ``(seed, epoch)`` generator)."""
+    lkw = dict(batch_size=5, max_time_length=10, max_space_length=12)
+    j = jloader.make_loader(jsession.synthetic_session(
+        seed=3, n_trials=23, n_neurons=12, n_timesteps=10), **lkw, **kw)
+    t = tloader.make_loader(tsession.synthetic_session(
+        seed=3, n_trials=23, n_neurons=12, n_timesteps=10), **lkw, **kw)
+    assert t.sampler == j.sampler
+    for _ in range(3):
+        for a, b in zip(j.iter_index_batches(), t.iter_index_batches()):
+            np.testing.assert_array_equal(b[0], a[0])
+            np.testing.assert_array_equal(b[1], a[1])
+
+
+@pytest.mark.parametrize("n_buckets", [1, 2])
+def test_build_multisession_loaders_match_jax(n_buckets):
+    jt, jv, jte, jmeta = _build("jax", n_buckets)
+    tt, tv, tte, tmeta = _build("port", n_buckets)
+    assert tmeta.keys() == jmeta.keys()
+    for k in jmeta:
+        if k == "per_session_region_ids":
+            for a, b in zip(jmeta[k], tmeta[k]):
+                np.testing.assert_array_equal(b, a)
+        else:
+            assert tmeta[k] == jmeta[k], k
+    assert len(set(tmeta["bucket_widths"].values())) == n_buckets
+    for jd, td in ((jt, tt), (jv, tv), (jte, tte)):
+        assert list(td) == list(jd)
+        for e in jd:
+            for k, a in jd[e].arrays.items():
+                if k == "nemo_rep":
+                    continue
+                b = td[e].arrays[k]
+                if isinstance(a, np.ndarray):
+                    assert a.dtype == b.dtype, k
+                    np.testing.assert_array_equal(b, a, err_msg=k)
+                else:
+                    assert a == b, k
+            for a, b in zip(jd[e].iter_index_batches(),
+                            td[e].iter_index_batches()):
+                np.testing.assert_array_equal(b[0], a[0])
+                np.testing.assert_array_equal(b[1], a[1])
+
+
+def test_region_table_select_matches_jax():
+    _, _, _, meta = _build("port")
+    ids = meta["per_session_region_ids"]
+    # a session with fewer regions than the others, and region names
+    ids = [ids[0], np.where(ids[1] >= 2, -1, ids[1]), ids[2]]
+    for names in (("all",), ("CA1", "DG", "PO")):
+        kw = dict(mask_regions=names, target_regions=("all",),
+                  region_vocab=meta["region_vocab"])
+        jt = jmasking.RegionTable.build(ids, **kw)
+        tt = tmasking.RegionTable.build(ids, **kw, device="cpu")
+        np.testing.assert_array_equal(tt.region_ids.numpy(),
+                                      np.asarray(jt.region_ids))
+        np.testing.assert_array_equal(tt.mask_candidates,
+                                      np.asarray(jt.mask_candidates))
+        np.testing.assert_array_equal(tt.target_candidates,
+                                      np.asarray(jt.target_candidates))
+        for sid in range(len(ids)):
+            j = jt.select(jnp.asarray(sid, jnp.int32))
+            host = tt.select(sid)
+            dev = tt.select(torch.tensor([sid]))
+            np.testing.assert_array_equal(host.region_ids.numpy(),
+                                          np.asarray(j.region_ids))
+            np.testing.assert_array_equal(dev.region_ids.numpy(),
+                                          np.asarray(j.region_ids))
+            np.testing.assert_array_equal(host.mask_candidates,
+                                          np.asarray(j.mask_candidates))
+            np.testing.assert_array_equal(host.target_candidates,
+                                          np.asarray(j.target_candidates))
+            assert dev.mask_candidates is None
+
+
+@pytest.mark.parametrize("mode", ["inter-region", "intra-region"])
+def test_region_draws_keep_jax_slot_count(mode):
+    """A session with fewer valid regions than ``n_mask_regions`` draws
+    ``min(n, R_max)`` slots, the surplus -1, as JAX's ``_sample_regions``
+    on the padded row does; the picks are distinct valid regions of the
+    session. JAX's own picks (another generator) are held by the same
+    count and invariants."""
+    ids = [np.array([0, 0, 1, 1, -1]), np.array([0, 1, 2, 3, 4])]
+    tt = tmasking.RegionTable.build(ids, device="cpu")
+    jt = jmasking.RegionTable.build(ids)
+    params = tmasking.MaskParams(n_mask_regions=3)
+    for k in range(20):
+        regions = tt.select(0)
+        draws = tmasking.host_draws(1000 + k, params, mode, regions)
+        picked = draws[2:].astype(int)
+        assert len(picked) == 3
+        assert sorted(picked[picked >= 0].tolist()) == [0, 1]
+        assert (picked == -1).sum() == 1
+        cands = (jt.select(jnp.asarray(0)).mask_candidates
+                 if mode == "inter-region"
+                 else jt.select(jnp.asarray(0)).target_candidates)
+        jpick = np.asarray(jmasking._sample_regions(
+            jax.random.PRNGKey(k), cands, 3))
+        assert len(jpick) == 3 and (jpick == -1).sum() == 1
+        assert sorted(jpick[jpick >= 0].tolist()) == [0, 1]
+    full = tmasking.host_draws(7, params, mode, tt.select(1))[2:]
+    assert len(set(full.tolist())) == 3 and (full >= 0).all()
+    with pytest.raises(ValueError):        # a device row has no candidates
+        tmasking.host_draws(7, params, mode,
+                            tt.select(torch.tensor([1])))
+
+
+# ---------------------------------------------------------------------------
+# the stitched model
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def stitched():
+    """A JAX stitched model (Pallas attention) over the three sessions'
+    N_max, its params, and the port's model on the converted weights."""
+    _, _, test, meta = _build("port")
+    jcfg = ms_config(jmm, meta)
+    rng = np.random.default_rng(0)
+    spikes = rng.poisson(1.0, (2, MS_T, meta["n_max"])).astype(np.float32)
+    beh = rng.normal(size=(2, MS_T, 2)).astype(np.float32)
+    attn = np.ones((2, MS_T), np.int64)
+    ts = np.tile(np.arange(MS_T), (2, 1))
+    init_model = jmm.MultiModal(dataclasses.replace(jcfg, attn_impl="xla"))
+    params = jax.jit(init_model.init)(
+        {"params": jax.random.PRNGKey(0)},
+        jax_inputs(spikes, beh, attn, ts, np.zeros_like(spikes, np.int32),
+                   np.zeros_like(beh, np.int32)),
+        session_id=jnp.asarray(0, jnp.int32))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tcfg = ms_config(tmm, meta)
+    tmodel = tmm.MultiModal(tcfg, device="cpu")
+    tmodel.load_state_dict(params_from_jax(params, tcfg), strict=True)
+    return jmm.MultiModal(jcfg), params, tmodel, test, meta
+
+
+def _arrays(loader, n=3):
+    a = loader.arrays
+    return (a["spikes_data"][:n], a["target"][:n], a["time_attn_mask"][:n],
+            a["spikes_timestamps"][:n], a["space_attn_mask"][:n])
+
+
+def _eval_masks(spikes, beh):
+    ap_eval = np.zeros_like(spikes, np.int32)
+    ap_eval[:, 12:] = 1                    # the last 8 bins held out
+    return ap_eval, np.zeros_like(beh, np.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_forwards(stitched):
+    """JAX's eval forward of each session's first test trials, one jitted
+    program for every session (a traced session id)."""
+    jmodel, params, _, test, meta = stitched
+
+    @jax.jit
+    def fwd(spikes, beh, attn, ts, ap_eval, beh_eval, sid, space):
+        out = jmodel.apply({"params": params},
+                           jax_inputs(spikes, beh, attn, ts, ap_eval,
+                                      beh_eval),
+                           session_id=sid, space_attn_mask=space)
+        return out.mod_preds, out.mod_n_examples, out.loss
+
+    out = {}
+    for eid, sid in meta["eid_to_sid"].items():
+        spikes, beh, attn, ts, space = _arrays(test[eid])
+        out[eid] = jax.tree_util.tree_map(np.asarray, fwd(
+            spikes, beh, attn, ts, *_eval_masks(spikes, beh),
+            jnp.asarray(sid, jnp.int32), space))
+    return out
+
+
+@pytest.mark.parametrize("eid", ["s0", "s1", "s2"])
+def test_stitched_eval_forward_matches_jax(stitched, jax_forwards, eid):
+    """Each session's test trials through its own stitched rows: preds,
+    loss (padded neurons masked out by ``space_attn_mask``), counts."""
+    _, _, tmodel, test, meta = stitched
+    sid = meta["eid_to_sid"][eid]
+    spikes, beh, attn, ts, space = _arrays(test[eid])
+    preds, n_examples, loss = jax_forwards[eid]
+    with torch.no_grad():
+        got = tmodel(torch_inputs(spikes, beh, attn, ts,
+                                  *_eval_masks(spikes, beh)),
+                     session_id=sid, space_attn_mask=torch.as_tensor(space))
+    for mod in ("ap", "behavior"):
+        np.testing.assert_allclose(got.mod_preds[mod].numpy(), preds[mod],
+                                   atol=PRED_ATOL, rtol=0, err_msg=mod)
+        assert float(got.mod_n_examples[mod]) == float(n_examples[mod])
+    n_real = meta["num_neurons"][sid]
+    assert float(got.mod_n_examples["ap"]) == len(spikes) * 8 * n_real
+    np.testing.assert_allclose(float(got.loss), float(loss), rtol=LOSS_RTOL)
+
+
+def test_sessions_use_their_own_rows(stitched):
+    """One batch through two sessions' rows: different predictions; the
+    trunk is shared (only the stitched rows and the session embedding
+    tell them apart)."""
+    _, _, tmodel, test, _ = stitched
+    spikes, beh, attn, ts, _ = _arrays(test["s2"])
+    inputs = torch_inputs(spikes, beh, attn, ts,
+                          np.zeros_like(spikes, np.int32),
+                          np.zeros_like(beh, np.int32))
+    with torch.no_grad():
+        p0 = tmodel(inputs, session_id=0).mod_preds["ap"]
+        p1 = tmodel(inputs, session_id=torch.tensor([1])).mod_preds["ap"]
+        p1b = tmodel(inputs, session_id=1).mod_preds["ap"]
+    assert not torch.allclose(p0, p1)
+    torch.testing.assert_close(p1, p1b, atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        tmodel(inputs)                      # a stitched model needs an id
+    with pytest.raises(NotImplementedError):
+        tmodel(inputs, session_id=torch.tensor([0, 1, 2, 0, 1, 2]))
+
+
+def test_width_invariance(stitched):
+    """A session at its bucket width (static slices of the stacks) equals
+    the same trials padded to N_max (atol 1e-6; the padded columns are
+    zero and carry no loss)."""
+    _, _, tmodel, test, meta = stitched
+    _, _, test2, meta2 = _build("port", n_buckets=2)
+    eid = "s0"
+    w = meta2["bucket_widths"][eid]
+    assert w < meta["n_max"]
+    outs = []
+    for loader in (test2[eid], test[eid]):
+        spikes, beh, attn, ts, space = _arrays(loader)
+        ap_eval = np.zeros_like(spikes, np.int32)
+        ap_eval[:, 15:] = 1
+        with torch.no_grad():
+            outs.append(tmodel(
+                torch_inputs(spikes, beh, attn, ts, ap_eval,
+                             np.zeros_like(beh, np.int32)),
+                session_id=meta["eid_to_sid"][eid],
+                space_attn_mask=torch.as_tensor(space)))
+    narrow, full = outs
+    assert narrow.mod_preds["ap"].shape[-1] == w
+    torch.testing.assert_close(narrow.mod_preds["ap"],
+                               full.mod_preds["ap"][..., :w], atol=1e-6,
+                               rtol=0)
+    torch.testing.assert_close(narrow.mod_preds["behavior"],
+                               full.mod_preds["behavior"], atol=1e-6, rtol=0)
+    torch.testing.assert_close(narrow.loss, full.loss, atol=1e-6, rtol=0)
+    assert float(narrow.mod_n_examples["ap"]) == \
+        float(full.mod_n_examples["ap"])
+
+
+def test_padded_neurons_carry_no_loss(stitched):
+    _, _, tmodel, test, meta = stitched
+    spikes, beh, attn, ts, space = _arrays(test["s0"])
+    n_real = meta["num_neurons"][0]
+    ap_eval = np.ones_like(spikes, np.int32)
+    inputs = torch_inputs(spikes, beh, attn, ts, ap_eval,
+                          np.zeros_like(beh, np.int32))
+    space_t = torch.as_tensor(space)
+    with torch.no_grad():
+        a = tmodel(inputs, session_id=0, space_attn_mask=space_t)
+        inputs["ap"].targets = inputs["ap"].targets.clone()
+        inputs["ap"].targets[..., n_real:] = 77.0
+        b = tmodel(inputs, session_id=0, space_attn_mask=space_t)
+        c = tmodel(inputs, session_id=0)
+    K = len(spikes)
+    assert float(a.mod_n_examples["ap"]) == K * MS_T * n_real
+    torch.testing.assert_close(a.loss, b.loss, atol=0, rtol=0)
+    assert float(c.mod_n_examples["ap"]) == K * MS_T * meta["n_max"]
+    assert not torch.isclose(b.loss, c.loss)
+
+
+def test_stitched_init_bounds_match_jax(stitched):
+    """JAX's own inits: the stitched tokenizer's kernel and bias
+    U(+-1/sqrt(N_max)), the stitched head's U(+-1/sqrt(H)) (no fixup, no
+    lecun normal), the session table N(0, 1); the port draws the same
+    laws (its generator, not JAX's)."""
+    _, params, _, _, meta = stitched
+    model = tmm.MultiModal(ms_config(tmm, meta), device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    sd = model.state_dict()
+    n_max, H = meta["n_max"], model.config.hidden_size
+    for side in ("encoder", "decoder"):
+        for leaf in ("token_embed_kernel", "token_embed_bias"):
+            got = sd[f"{side}_embeddings.ap.embedder.{leaf}"]
+            want = params[f"{side}_tokenizers_ap"][leaf]
+            assert got.shape == want.shape
+            for a in (got.numpy(), want):
+                assert np.abs(a).max() <= 1 / np.sqrt(n_max)
+                assert np.abs(a).max() > 0.9 / np.sqrt(n_max)
+    for leaf in ("kernel", "bias"):
+        got = sd[f"decoder_embeddings.ap.out.{leaf}"].numpy()
+        want = params["out_proj_ap"][leaf]
+        assert got.shape == want.shape
+        for a in (got, want):
+            assert 0.9 / np.sqrt(H) < np.abs(a).max() <= 1 / np.sqrt(H)
+    for a in (sd["session_emb.weight"].numpy(),
+              params["session_emb"]["embedding"]):
+        assert a.shape == (3, H) and 0.7 < a.std() < 1.3
+
+
+def test_region_lookup_matches_jax():
+    from multi_modal_foundation_model_tpu.models.region_lookup import (
+        RegionLookup as JLookup)
+    from multi_modal_foundation_model_tpu_torch.models import RegionLookup
+
+    rows = np.array([["CA1", "nan", "DG"], ["LP", "CA1", "zz"]])
+    for acronyms in (None, ("DG", "CA1")):
+        j, t = JLookup(acronyms), RegionLookup(acronyms)
+        np.testing.assert_array_equal(t(rows), j(rows))
+        assert t.region_to_indx == j.region_to_indx
+        assert t.max_region_indx == j.max_region_indx
+        ids = t(rows)
+        np.testing.assert_array_equal(t.lookup_regions(ids),
+                                      j.lookup_regions(ids))
+
+
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+
+def test_streaming_lockstep_with_jax(tmp_path):
+    """The host-batch path with mixed objectives: one epoch of 11 steps
+    interleaving the three sessions (a padded tail batch each for s0 and
+    s2), against JAX's ``MultiSessionTrainer``."""
+    j = jax_trainer(tmp_path / "j", mixed_training=True)
+    init = jax.tree_util.tree_map(np.asarray, j.state.params)
+    jlosses, jmodes = [], record_modes(j)
+    get_step = j._get_train_step
+
+    def recording(training_mode, use_mtm):
+        step = get_step(training_mode, use_mtm)
+
+        def run(*args):
+            state, loss = step(*args)
+            jlosses.append(float(loss))
+            return state, loss
+        return run
+
+    j._get_train_step = recording
+    j.train_epoch(0)
+    t = port_trainer(tmp_path / "t", init, mixed_training=True)
+    assert t._epoch_schedule(0) == j._epoch_schedule(0)
+    assert t._steps_per_epoch() == j._steps_per_epoch() == 11
+    tmodes = record_modes(t)
+    losses = t.train_epoch(0)["step_losses"]
+    assert tmodes == jmodes
+    assert len({m for m, _ in tmodes}) == 3      # every objective ran
+    np.testing.assert_allclose(losses, jlosses, rtol=STEP_RTOL, atol=0)
+    assert_params_close(t, jax.tree_util.tree_map(np.asarray,
+                                                  j.state.params))
+
+
+def _port_epoch(tmp, **over):
+    tr = port_trainer(tmp, **over)
+    losses = tr.train_epoch(0)["step_losses"]
+    return tr, losses
+
+
+def test_stacked_k_equals_k1_bit_for_bit(tmp_path):
+    """Without mixed objectives the stacked path's K=3 groups (crossing
+    sessions, the last step alone) run the K=1 interleave: the same
+    losses and parameters, bit for bit; the per-session K-group path
+    (``stacked_scan=False``) runs every step too."""
+    res = resident = dict(device_resident_data=True,
+                          mask_mode=("co-smooth", "forward-pred",
+                                     "inter-region"))
+    k1, l1 = _port_epoch(tmp_path / "k1", **resident)
+    k3, l3 = _port_epoch(tmp_path / "k3", **res, steps_per_dispatch=3)
+    assert l3 == l1 and len(l1) == 11
+    for (n, a), b in zip(k1.model.state_dict().items(),
+                         k3.model.state_dict().values()):
+        torch.testing.assert_close(b, a, atol=0, rtol=0, msg=n)
+    sched = k3._epoch_schedule(0)
+    assert any(len(set(sched[i:i + 3])) > 1 for i in range(0, 9, 3))
+    ps, lps = _port_epoch(tmp_path / "ps", **res, steps_per_dispatch=3,
+                          stacked_scan=False)
+    assert len(lps) == 11 and np.isfinite(lps).all()
+
+
+def test_bucketed_trainer_keys_graphs_by_width(tmp_path):
+    """``n_buckets=2``: two resident blocks, and every step's graph key
+    leads with its bucket's width (one graph per width and variant)."""
+    tr = port_trainer(tmp_path, n_buckets=2, device_resident_data=True,
+                      steps_per_dispatch=2, mixed_training=True)
+    keys = []
+    run = tr.graphs.run
+    tr.graphs.run = lambda key, step: (keys.append(key), run(key, step))
+    losses = tr.train_epoch(0)["step_losses"]
+    assert len(losses) == 11 and np.isfinite(losses).all()
+    widths = sorted(set(tr.train_loaders[e].arrays["spikes_data"].shape[-1]
+                        for e in tr.train_loaders))
+    assert len(widths) == 2 and not tr._can_stack()
+    assert sorted({k[0] for k in keys}) == widths
+    assert all(k[1] == 8 for k in keys)
+    blocks = tr._blocks()
+    assert len({id(d) for d, _ in blocks.values()}) == 2
+
+
+def _dropout_trainer(tmp):
+    """Dropout 0.4 with remat, random and region MtM schemes, mixed
+    objectives, the resident stacked path."""
+    return port_trainer(
+        tmp, model_over=dict(dropout=0.4, embed_dropout=0.2,
+                             remat_layers=True),
+        mixed_training=True, device_resident_data=True,
+        steps_per_dispatch=3,
+        mask_mode=("temporal", "neuron", "inter-region", "intra-region"))
+
+
+def test_resume_is_exact(tmp_path):
+    a = _dropout_trainer(tmp_path / "a")
+    la = a.train_epoch(0)["step_losses"] + a.train_epoch(1)["step_losses"]
+    b = _dropout_trainer(tmp_path / "b")
+    lb = b.train_epoch(0)["step_losses"]
+    b.save_model("last", epoch=0)
+    c = _dropout_trainer(tmp_path / "b")
+    assert c.restore("last") == 0 and c.step == b.step
+    lb += c.train_epoch(1)["step_losses"]
+    assert lb == la
+    for (n, pa), pc in zip(a.model.state_dict().items(),
+                           c.model.state_dict().values()):
+        torch.testing.assert_close(pc, pa, atol=0, rtol=0, msg=n)
+    # the other sessions' stitched rows moved (AdamW's decay of the whole
+    # stack), as optax updates them
+    k = "encoder_embeddings.ap.embedder.token_embed_kernel"
+    assert not torch.equal(c.model.state_dict()[k],
+                           _dropout_trainer(tmp_path / "d")
+                           .model.state_dict()[k])
+
+
+def test_unported_options_raise(tmp_path):
+    for over in (dict(mixed_session_batches=True),
+                 dict(shard_resident_sessions=True)):
+        with pytest.raises(NotImplementedError):
+            port_trainer(tmp_path, device_resident_data=True, **over)
+
+
+def test_adamw_decays_every_session_row(tmp_path):
+    """A step of one session moves the other sessions' stitched rows by
+    AdamW's decoupled decay alone (their gradient is zero; their update is
+    not skipped), as optax's ``adamw`` does; its own rows move further."""
+    tr = port_trainer(tmp_path, device_resident_data=True,
+                      mask_mode=("co-smooth",))
+    key = "encoder_embeddings.ap.embedder.token_embed_kernel"
+    before = tr.model.state_dict()[key].clone()
+    decay = 1.0 - tr.optimizer.lr * tr.optimizer.cfg.wd
+    data, off = tr._blocks()["s1"]
+    tr._dispatch(data, [(np.arange(8) + off, np.ones(8, np.int32), 0, 1)],
+                 None)
+    after = tr.model.state_dict()[key]
+    for sid in (0, 2):
+        torch.testing.assert_close(after[sid], before[sid] * decay,
+                                   atol=1e-9, rtol=1e-6)
+        assert not torch.equal(after[sid], before[sid])
+    assert (after[1] - before[1] * decay).abs().max() > 1e-5

@@ -152,15 +152,26 @@ def test_loader_order_matches_jax_over_three_epochs(shuffle, drop_last):
 
 
 def test_loader_unported_samplers_raise():
+    """The samplers, unported until the multi-session port, order the
+    trials as JAX's do (``stitching=True`` is the stitch sampler); an
+    unknown sampler name raises."""
     sess = tsession.synthetic_session(seed=0, n_trials=4, n_neurons=8,
                                       n_timesteps=5)
+    jsess = jsession.synthetic_session(seed=0, n_trials=4, n_neurons=8,
+                                       n_timesteps=5)
     kw = dict(batch_size=2, max_time_length=5, max_space_length=8)
-    for bad in (dict(sampler="length_grouped"), dict(sampler="stitch")):
-        with pytest.raises(NotImplementedError):
-            tloader.make_loader(sess, **kw, **bad)
+    for ok in (dict(sampler="length_grouped"), dict(sampler="stitch"),
+               dict(stitching=True)):
+        t = tloader.make_loader(sess, **kw, **ok)
+        j = jloader.make_loader(jsess, **kw, **ok)
+        assert t.sampler == j.sampler
+        for a, b in zip(j.iter_index_batches(), t.iter_index_batches()):
+            np.testing.assert_array_equal(b[0], a[0])
     arrays = tloader.make_loader(sess, **kw).arrays
-    with pytest.raises(NotImplementedError):
-        tloader.DataLoader(arrays, 2, sampler="stitch")
+    assert tloader.DataLoader(arrays, 2, sampler="stitch").sampler == \
+        "stitch"
+    with pytest.raises(ValueError):
+        tloader.DataLoader(arrays, 2, sampler="bogus")
 
 
 MTM_MENU = ("forward-pred", "inter-region")

@@ -1,15 +1,19 @@
-"""The port's four entry scripts against the JAX package's.
+"""The port's entry scripts against the JAX package's.
 
 The port's ``train_baseline``, ``eval_baseline`` (both directions),
-``train_multi_modal`` and ``eval_multi_modal`` run through ``main(argv)``
-on the CPU (``--device cpu --synthetic --n_neurons 24 --n_trials 40
+``train_multi_modal`` and ``eval_multi_modal``, and ``train_multi_session``
+with ``eval_multi_modal --multi_session``, run through ``main(argv)`` on
+the CPU (``--device cpu --synthetic --n_neurons 24 --n_trials 40
 --num_epochs 1``; the MultiModal model cut by ``--set`` to one encoder and
 one decoder layer and a narrow width). The JAX baseline scripts run with
 the same arguments in one subprocess (``JAX_PLATFORMS=cpu``). Their log
 dirs, ``baseline_config.json`` and the key sets of ``results.json`` are
 equal; so is the MultiModal scripts' log dir (JAX's ``log_dir_for``, read
-in that subprocess). Every flag that is not ported raises
-``NotImplementedError``, and ``--device cuda`` without a card raises.
+in that subprocess). The multi-session scripts write JAX's
+``sessions.json`` (the eids, neuron counts and ``n_max`` of JAX's
+``build_multisession_loaders`` on the same sessions) and per-session
+results. Every flag that is not ported raises ``NotImplementedError``, and
+``--device cuda`` without a card raises.
 """
 
 import json
@@ -24,7 +28,8 @@ import torch
 
 import torch_parity  # noqa: F401  (one torch thread per xdist worker)
 from multi_modal_foundation_model_tpu_torch.scripts import (
-    eval_baseline, eval_multi_modal, train_baseline, train_multi_modal)
+    eval_baseline, eval_multi_modal, train_baseline, train_multi_modal,
+    train_multi_session)
 
 ROOT = Path(__file__).resolve().parents[1]
 COMMON = ["--synthetic", "--n_neurons", "24", "--n_trials", "40"]
@@ -173,17 +178,68 @@ def test_multi_modal_scripts_write_their_results(jax_base, port_base):
     assert cfg["n_enc_layers"] == cfg["n_dec_layers"] == 1
 
 
+def test_multi_session_scripts_write_their_results(tmp_path):
+    """``train_multi_session`` (2 sessions of 24 and 61 neurons, MtM,
+    mixed objectives, resident, 2 steps a dispatch) and ``eval_multi_modal
+    --multi_session`` (every mode a session) on the CPU."""
+    from multi_modal_foundation_model_tpu.data.session import (
+        synthetic_splits as jax_splits)
+    from multi_modal_foundation_model_tpu.train.multisession import (
+        build_multisession_loaders as jax_build)
+
+    argv = COMMON + MM_FLAGS + ["--base_path", str(tmp_path), "--device",
+                                "cpu", "--num_sessions", "2", "--eid", "x"]
+    summary = train_multi_session.main(
+        argv + SMALL_MM + ["--n_neurons", "24", "--num_epochs", "1",
+                           "--device_resident", "--steps_per_dispatch", "2",
+                           "--pad_multiple", "32", "--n_buckets", "2"])
+    log_dir = (tmp_path / "results/ses-multi2/set-train/"
+               "inModal-ap-behavior/outModal-ap-behavior/"
+               "stitched_ratio-0.3")
+    sessions = json.loads((log_dir / "sessions.json").read_text())
+    _, _, _, meta = jax_build(
+        {f"x-{i}": jax_splits(seed=42 + i, n_trials=40,
+                              n_neurons=24 + 37 * i, eid=f"x-{i}")
+         for i in range(2)}, batch_size=16, pad_multiple=32, n_buckets=2)
+    assert sessions == {"eids": meta["eids"],
+                        "num_neurons": meta["num_neurons"],
+                        "n_max": meta["n_max"]} == {
+        "eids": ["x-0", "x-1"], "num_neurons": [24, 61], "n_max": 64}
+    cfg = json.loads((log_dir / "model_config.json").read_text())
+    assert cfg["n_sessions"] == 2 and cfg["n_channels"]["ap"] == 64
+    assert math.isfinite(summary["best_eval_trial_avg_r2"])
+    results = eval_multi_modal.main(
+        ["--synthetic", "--n_trials", "40", "--device", "cpu",
+         "--multi_session", "--model_dir", str(log_dir), "--use_MtM"]
+        + EVAL_MODES)
+    assert set(results) == {"x-0", "x-1", "mean_over_sessions"}
+    for eid in ("x-0", "x-1"):
+        assert "modal_behavior_behav_results" in results[eid]
+        assert all(_finite_or_nan(v) for v in results[eid].values())
+        for m in ("per_neuron", "forward_pred", "inter_region",
+                  "intra_region", "modal_spike", "modal_behavior"):
+            assert (log_dir / "eval" / eid / m / "bps.npy").exists()
+    assert json.loads((log_dir / "eval/results.json").read_text()).keys() \
+        == results.keys()
+
+
 def _script_args(script, tmp_path):
     base = ["--base_path", str(tmp_path), "--device", "cpu"]
     return {"train_baseline": train_baseline.main,
             "eval_baseline": eval_baseline.main,
             "train_multi_modal": train_multi_modal.main,
-            "eval_multi_modal": eval_multi_modal.main}[script], base
+            "eval_multi_modal": eval_multi_modal.main,
+            "train_multi_session": train_multi_session.main}[script], base
 
 
 UNPORTED = [
-    ("eval_multi_modal", ["--synthetic", "--multi_session",
-                          "--model_dir", "x"]),
+    # real (not synthetic) sessions need the network
+    ("eval_multi_modal", ["--multi_session", "--model_dir", "x"]),
+    ("train_multi_session", ["--eids", "x"]),
+    ("train_multi_session", ["--synthetic", "--mixed_session_batches"]),
+    ("train_multi_session", ["--synthetic", "--shard_sessions"]),
+    ("train_multi_session", ["--synthetic", "--compile_retries", "1"]),
+    ("train_multi_session", ["--synthetic", "--dp", "2"]),
     ("eval_multi_modal", ["--synthetic", "--reference_ckpt", "x.pt"]),
     ("eval_multi_modal", ["--synthetic", "--save_plot"]),
     ("eval_baseline", ["--synthetic", "--save_plot"]),
@@ -207,7 +263,8 @@ def test_unported_flags_raise(script, argv, tmp_path):
 
 
 @pytest.mark.parametrize("script", ["train_baseline", "eval_baseline",
-                                    "train_multi_modal", "eval_multi_modal"])
+                                    "train_multi_modal", "eval_multi_modal",
+                                    "train_multi_session"])
 def test_cuda_without_a_card_raises(script, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

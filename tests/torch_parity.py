@@ -15,8 +15,19 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from multi_modal_foundation_model_tpu.data import session as jsession
 from multi_modal_foundation_model_tpu.models import multimodal as jmm
+from multi_modal_foundation_model_tpu.ops import masking as jmasking
+from multi_modal_foundation_model_tpu.train import multisession as jms
+from multi_modal_foundation_model_tpu.train import trainer as jtrainer
+from multi_modal_foundation_model_tpu.train.schedule import (
+    OptimizerConfig as JOC)
+from multi_modal_foundation_model_tpu_torch.data import session as tsession
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
+from multi_modal_foundation_model_tpu_torch.ops import masking as tmasking
+from multi_modal_foundation_model_tpu_torch.train import (
+    MultiSessionTrainer, OptimizerConfig, TrainerConfig)
+from multi_modal_foundation_model_tpu_torch.train import multisession as tms
 from multi_modal_foundation_model_tpu_torch.utils.convert import (
     params_from_jax)
 
@@ -111,3 +122,112 @@ def load_flax_params(module: torch.nn.Module, params) -> None:
             value = node[leaf]
         sd[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     module.load_state_dict(sd, strict=True)
+
+
+# --- multi-session (tests/test_torch_*multisession*.py) ---------------------
+
+# three sessions of 24-61 neurons (neurons, trials): s1's 24 train trials
+# fill 3 batches of 8, s0's and s2's 28 end in a padded batch
+MS_SESSIONS = ((24, 36), (41, 30), (61, 36))
+MS_T = 20
+MS_GEOMETRY = dict(max_F=MS_T, hidden_size=32, n_heads=2, n_enc_layers=2,
+                   n_dec_layers=2, inter_size=64)
+
+
+def ms_sessions(session_module) -> dict:
+    """The three synthetic sessions (seed = index) from either package's
+    ``data.session`` (bit-identical arrays)."""
+    return {f"s{i}": session_module.synthetic_splits(
+                seed=i, n_trials=nt, n_neurons=n, n_timesteps=MS_T,
+                eid=f"s{i}")
+            for i, (n, nt) in enumerate(MS_SESSIONS)}
+
+
+def ms_config(module, meta: dict, **over):
+    """``module.MultiModalConfig`` (either package's) of the stitched toy
+    model over ``meta``'s sessions."""
+    return module.MultiModalConfig(**{
+        **MS_GEOMETRY, "n_channels": {"ap": meta["n_max"], "behavior": 2},
+        "n_sessions": len(meta["eids"]), **over})
+
+# the trainers' lockstep: a deterministic MtM menu, dropout 0
+MS_MASK = dict(channels=(1, 5, 20, 30), timesteps=(12, 15, 19))
+MS_MENU = ("co-smooth", "forward-pred")
+MS_PARAM_ATOL = 2e-5
+
+
+def ms_build(side: str, n_buckets: int = 1, batch_size: int = 8):
+    """``build_multisession_loaders`` of ``side`` ("jax" or "port") over
+    the three sessions, padded to multiples of 32."""
+    ms, session = ((jms, jsession) if side == "jax" else (tms, tsession))
+    return ms.build_multisession_loaders(
+        ms_sessions(session), batch_size=batch_size, max_time_length=MS_T,
+        pad_multiple=32, n_buckets=n_buckets)
+
+
+def jax_trainer(tmp, **over):
+    """JAX's ``MultiSessionTrainer`` of the lockstep (Pallas attention,
+    dropout 0, remat off, lr 1e-3), ``over`` on its ``TrainerConfig``."""
+    train, val, _, meta = ms_build("jax")
+    table = jmasking.RegionTable.build(meta["per_session_region_ids"],
+                                       region_vocab=meta["region_vocab"])
+    model = jmm.MultiModal(ms_config(
+        jmm, meta, dropout=0.0, embed_dropout=0.0, remat_layers=False,
+        mask_params=jmasking.MaskParams(**MS_MASK)))
+    tcfg = jtrainer.TrainerConfig(**{**dict(
+        num_epochs=2, log_dir=str(tmp), seed=0, mask_type="input",
+        mask_mode=MS_MENU, eval_every=10 ** 9), **over})
+    return jms.MultiSessionTrainer(model, train, val, JOC(lr=1e-3), tcfg,
+                                   region_table=table,
+                                   eid_to_sid=meta["eid_to_sid"])
+
+
+def port_trainer(tmp, init=None, n_buckets=1, model_over=None, **over):
+    """The port's ``MultiSessionTrainer`` of the lockstep on the CPU,
+    carrying JAX's ``init`` params when given (else seeded from 0)."""
+    train, val, _, meta = ms_build("port", n_buckets)
+    table = tmasking.RegionTable.build(meta["per_session_region_ids"],
+                                       region_vocab=meta["region_vocab"],
+                                       device="cpu")
+    kw = dict(dropout=0.0, embed_dropout=0.0, remat_layers=False,
+              mask_params=tmasking.MaskParams(**MS_MASK))
+    kw.update(model_over or {})
+    cfg = ms_config(tmm, meta, **kw)
+    model = tmm.MultiModal(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    if init is not None:
+        model.load_state_dict(params_from_jax(init, cfg), strict=True)
+    tcfg = TrainerConfig(**{**dict(
+        num_epochs=2, log_dir=str(tmp), seed=0, mask_type="input",
+        mask_mode=MS_MENU, eval_every=10 ** 9), **over})
+    return MultiSessionTrainer(model, train, val, OptimizerConfig(lr=1e-3),
+                               tcfg, region_table=table,
+                               eid_to_sid=meta["eid_to_sid"])
+
+
+def record_modes(tr) -> list:
+    """Record the trainer's host draws (both packages' trainers)."""
+    modes = []
+    one, group = tr._sample_modes, tr._sample_group_modes
+
+    def sample():
+        modes.append(one())
+        return modes[-1]
+
+    def sample_group(n):
+        modes.append(group(n))
+        return modes[-1]
+
+    tr._sample_modes, tr._sample_group_modes = sample, sample_group
+    return modes
+
+
+def assert_params_close(tr, jparams):
+    want = params_from_jax(jparams, tr.model.config)
+    for name, p in tr.model.state_dict().items():
+        if name.endswith("key.bias"):
+            continue        # exact gradient 0: Adam steps on f32 noise
+        np.testing.assert_allclose(p.numpy(), want[name].numpy(),
+                                   atol=MS_PARAM_ATOL, rtol=0, err_msg=name)
+
+
