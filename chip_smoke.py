@@ -78,11 +78,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    launched (the counters set to 0 before each script and read after it)
    on the training script, K1 and K3 on the eval script; wall time of each.
 8. multisession — the session-stitched model at full width: 10 synthetic
-   sessions of 668 + 37 i neurons (668-1001), 400 trials each, padded to
-   N_max = 1024 (13.2M stitched parameters), B=16, dropout 0.4, the MtM
-   menu with the region modes and mixed training, f32 (the port's default
-   LayerNorm mode) and bf16 (``"full"``): ``multisession`` runs one epoch
-   of the resident path with K = 10 over the stacked block as CUDA graphs
+   sessions of 668 + 37 i neurons (668-1001), 100 trials each (400 for
+   the timing phases), padded to N_max = 1024 (13.2M stitched
+   parameters), B=16, dropout 0.4, the MtM menu with the region modes and
+   mixed training, f32 (the port's default LayerNorm mode) and bf16
+   (``"full"``): ``multisession`` runs one epoch (50 steps) of the
+   resident path with K = 10 over the stacked block as CUDA graphs
    against the same steps run eagerly (bit for bit, else the
    ``dispatch`` gates), profiles a group's launches (K1 30, K2 15, K3 62,
    K4 32 a step, Philox) and runs the per-session ``eval_epoch``;
@@ -91,12 +92,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    against N_max (f32, atol 1e-5); ``multisession_kernel_vs_plain_step``
    one stitched step kernel path vs plain path (the step gates);
    ``multisession_time`` the multi-session graph step against the
-   single-session one at B=16 and B=256, interleaved, with profiles and
-   peak memory.
-9. multisession_entry — ``train_multi_session`` at its defaults but 2
-   sessions (bf16, MtM, mixed objectives, resident, K = 10, 1 epoch) and
-   ``eval_multi_modal --multi_session`` in all six modes: finite rows and
+   single-session one at B=16 and B=256, and the session-mixed graph step
+   against the unmixed one (``multisession_mixed_time``), all three
+   interleaved, with profiles, the session-rows kernel's and the
+   gathers' device time, and each path's peak memory.
+9. multisession_mixed — session-mixed batches (per-sample session ids):
+   ``session_rows_check`` holds the kernel of the gathers' fixed-order
+   backward (``csrc/session_rows.cu``) against its plain version at the
+   B=16 step's shapes, bit for bit, timed beside ``index_add_``;
+   ``multisession_mixed`` trains one mixed epoch (50 steps, K = 10, f32
+   and bf16) as CUDA graphs, eagerly and eagerly again: all three bit for
+   bit, and a profiled group launches K1 30, K2 15, K3 62, K4 32 and the
+   session-rows kernel 7 times a step; ``multisession_mixed_forward``
+   holds a batch of one trial a session against each sample's scalar-id
+   forward (f32, atol 1e-5); ``multisession_mixed_buckets`` trains
+   ``n_buckets=2`` with mixed batches (a graph set a width).
+10. multisession_entry — ``train_multi_session`` at its defaults but 2
+   sessions (bf16, MtM, mixed objectives, resident, K = 10, 1 epoch),
+   ``eval_multi_modal --multi_session`` in all six modes, then
+   ``train_multi_session --mixed_session_batches``: finite rows and
    per-session results, launches by script, wall time.
+11. reference_ckpt — a full-width f32 model saved in the reference's
+   names as a ``state_dict``, under ``'state_dict'`` and as a whole-module
+   pickle, each loaded by ``load_reference_checkpoint`` with a bit-equal
+   eval forward; ``eval_multi_modal --reference_ckpt`` in all six modes;
+   ``convert_checkpoint`` ``to-port`` then ``to-reference``, bit for bit.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -311,11 +331,12 @@ def device_ms(fn, reps: int = 20) -> float:
     return sum(device_ms_by_kernel(fn, reps).values())
 
 
-def device_breakdown(fn, top: int = 6) -> dict:
+def device_breakdown(fn, top: int = 6, match=None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler, CUPTI
     tracing), grouped as K1 / K2 / K3 / K4 / GEMM / other by kernel name,
     beside the host wall time of the same profiled call (so the idle share
-    includes profiler cost)."""
+    includes profiler cost); ``match`` ({label: name substrings}) adds the
+    ms of the kernels whose names hold any of the substrings."""
     fn()
     torch.cuda.synchronize()
     best, kept = None, 0
@@ -345,7 +366,10 @@ def device_breakdown(fn, top: int = 6) -> dict:
     for name, ms in by_name.items():
         groups[_group(name)] += ms
     busy = sum(by_name.values())
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+    matched = {label: sum(ms for n, ms in by_name.items()
+                          if any(k in n for k in keys))
+               for label, keys in (match or {}).items()}
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, **matched,
                 idle_share=(1.0 - busy / wall_ms) if busy else None,
                 **groups, top_kernels_ms=[
                     [n[:90], ms] for n, ms in sorted(
@@ -409,10 +433,12 @@ def reset_counts() -> None:
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
     from multi_modal_foundation_model_tpu_torch.ops import random as rnd
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
 
     att.K1_LAUNCHES = att.K1_LSE_LAUNCHES = att.K2_LAUNCHES = 0
     ln.K3_LAUNCHES = ln.K4_LAUNCHES = 0
     rnd.PHILOX_LAUNCHES = 0
+    sr.SESSION_ROWS_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -420,10 +446,12 @@ def read_counts() -> dict:
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
     from multi_modal_foundation_model_tpu_torch.ops import random as rnd
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
 
     return dict(k1=att.K1_LAUNCHES, k1_lse=att.K1_LSE_LAUNCHES,
                 k2=att.K2_LAUNCHES, k3=ln.K3_LAUNCHES, k4=ln.K4_LAUNCHES,
-                philox=rnd.PHILOX_LAUNCHES)
+                philox=rnd.PHILOX_LAUNCHES,
+                session_rows=sr.SESSION_ROWS_LAUNCHES)
 
 
 def _excess(got, want, tol: float) -> float:
@@ -1315,7 +1343,8 @@ DISPATCH_K = 10
 # their first is counted)
 _KERNEL_GROUPS = (("k1", "attn_fwd_"), ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
-                  ("philox", "philox_"))
+                  ("philox", "philox_"),
+                  ("session_rows", "session_rows_grad_kernel"))
 
 
 def kernel_counts(prof) -> dict:
@@ -2022,7 +2051,7 @@ MS_SESSIONS, MS_TRIALS, MS_PAD = 10, 400, 128
 MS_DEVICE = "cuda"
 
 
-def ms_sessions() -> dict:
+def ms_sessions(n_trials: int = MS_TRIALS) -> dict:
     """The phase's sessions (seed ``SEED + i``), made in threads."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2032,7 +2061,7 @@ def ms_sessions() -> dict:
 
     def make(i):
         eid = f"ms-{i}"
-        return eid, synthetic_splits(seed=SEED + i, n_trials=MS_TRIALS,
+        return eid, synthetic_splits(seed=SEED + i, n_trials=n_trials,
                                      n_neurons=N + 37 * i, n_timesteps=T,
                                      eid=eid)
 
@@ -2102,8 +2131,9 @@ def _ms_group(tr, B: int = TRAIN_B):
 def multisession_phase(root: Path, loaders: dict, dtype, mode: str) -> dict:
     """The session-stitched model at full width (10 sessions, N_max 1024,
     13.2M stitched parameters) on the resident path, K = 10: one epoch
-    (200 steps, every session's batches interleaved, groups crossing
-    sessions over one stacked block) as CUDA graphs and the same steps
+    (every session's batches interleaved, 50 steps at 100 trials a
+    session, groups crossing sessions over one stacked block) as CUDA
+    graphs and the same steps
     run eagerly, per step loss and per parameter bit for bit or within the
     ``dispatch`` gates; one group of 10 steps over 10 sessions profiled
     (launches a step of K1-K4 and Philox, by kernel name); then the
@@ -2301,15 +2331,26 @@ def multisession_step_check(root: Path, loaders: dict, dtype,
 
 
 def multisession_time(root: Path, loaders: dict, dtype, mode: str) -> None:
-    """The multi-session graph step against the single-session graph step
-    at B=16 and B=256, one variant each (MtM ``temporal``, no mixed
-    training), interleaved in this process: single, multi, multi, single
-    (4 passes each, a segment a dispatch of K = 10 replays of the first B
-    trials: of the single session, and of the first multi-session
-    session); medians and spreads; a profile of one segment each (device
-    busy, idle share); the peak memory with both trainers resident."""
+    """Three graph steps at B=16 and B=256, one variant each (MtM
+    ``temporal``, no mixed training), interleaved in this process: the
+    single-session step, the multi-session step and the session-mixed
+    multi-session step (one multi-session trainer: the mixed graphs are
+    keyed apart), in the order single, multi, mixed, mixed, multi,
+    single (4 segments each, a segment a dispatch of K = 10 replays:
+    the first B trials of the single session, of the first multi-session
+    session, and for the mixed step B trials strided over all ten
+    sessions); medians and spreads; a profile of one segment each
+    (device busy, idle share, the session-rows kernel and the gathers);
+    the peak memory of each path's first step at each B (its eager run
+    and capture: a replay allocates nothing, so a peak read around
+    replays shows only what stays resident). Emits
+    ``multisession_time`` (multi against single, the peak with both
+    trainers resident) and ``multisession_mixed_time`` (mixed against
+    multi)."""
     one = dict(mask_mode=("temporal",), mixed_training=False)
     loader = _step_loaders(TRAIN_B)
+    match = {"session_rows_grad_ms": ("session_rows_grad",),
+             "gather_ms": ("indexSelect", "index_select", "gather")}
     with ln_mode(mode):
         single = _trainer(_cfg(dtype), loader, None, 1,
                           root / "multisession_time",
@@ -2318,52 +2359,88 @@ def multisession_time(root: Path, loaders: dict, dtype, mode: str) -> None:
         s_data = single._device_data(loader)
         multi = ms_trainer(loaders, dtype, root / "multisession_time",
                            tcfg_over=one)
-        m_data, off = multi._blocks()[list(multi.train_loaders)[0]]
+        eids = multi._stack_groups()[0]
+        m_data, off = multi._blocks()[eids[0]]
+        x_data, sids = multi._mixed_block(eids)
         for B in (TRAIN_B, BIG_B):
             valid = np.ones(B, np.int32)
             s_group = [(np.arange(B), valid, 0)] * DISPATCH_K
             m_group = [(np.arange(B) + off, valid, 0, 0)] * DISPATCH_K
+            x_group = _ms_mixed_group(multi, x_data, sids, B, schemes=False)
             segs_fn = {
                 "single": lambda: single._dispatch(s_data, s_group, None),
-                "multi": lambda: multi._dispatch(m_data, m_group, None)}
-            for name in ("single", "multi"):      # captures, warm-up
-                segs_fn[name]()
-            torch.cuda.synchronize()
+                "multi": lambda: multi._dispatch(m_data, m_group, None),
+                "mixed": lambda: multi._dispatch(x_data, x_group, None)}
+            peak = {}
+            for name, fn in segs_fn.items():      # eager run and capture
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak[name] = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
-            segs = {"single": [], "multi": []}
+            resident = torch.cuda.max_memory_allocated() / 1e9
+            segs = {name: [] for name in segs_fn}
+            order = ("single", "multi", "mixed")
             for p in range(4):
-                for name in (("single", "multi") if p % 2 == 0
-                             else ("multi", "single")):
+                for name in (order if p % 2 == 0 else order[::-1]):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     segs_fn[name]()
                     torch.cuda.synchronize()
                     segs[name].append((time.perf_counter() - t0) * 1e3
                                       / DISPATCH_K)
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            prof = {name: device_breakdown(fn, top=6)
+            prof = {name: device_breakdown(fn, top=6, match=match)
                     for name, fn in segs_fn.items()}
             med = {k: float(np.median(v)) for k, v in segs.items()}
+            spread = {k: max(v) - min(v) for k, v in segs.items()}
+            busy = {k: v["device_busy_ms"] / DISPATCH_K
+                    for k, v in prof.items()}
+            idle = {k: v["idle_share"] for k, v in prof.items()}
+            capture = {"single": list(single.graphs.capture_s.values()),
+                       "multi": [v for k, v in multi.graphs.capture_s.items()
+                                 if not k[2]],
+                       "mixed": [v for k, v in multi.graphs.capture_s.items()
+                                 if k[2]]}
+            pair = ("single", "multi")
             emit(phase="multisession_time", dtype=dtype_name(dtype),
                  layernorm=mode, batch=B, steps_per_segment=DISPATCH_K,
-                 segments_ms=segs, ms_per_step=med,
-                 spread_ms={k: max(v) - min(v) for k, v in segs.items()},
+                 segments_ms={k: segs[k] for k in pair},
+                 ms_per_step={k: med[k] for k in pair},
+                 spread_ms={k: spread[k] for k in pair},
                  multi_minus_single_ms=med["multi"] - med["single"],
-                 seq_per_s={k: B / v * 1e3 for k, v in med.items()},
-                 device_busy_ms_per_step={
-                     k: v["device_busy_ms"] / DISPATCH_K
-                     for k, v in prof.items()},
-                 idle_share={k: v["idle_share"] for k, v in prof.items()},
-                 capture_s={
-                     "single": list(single.graphs.capture_s.values()),
-                     "multi": list(multi.graphs.capture_s.values())},
-                 peak_mem_gb_both=peak,
+                 seq_per_s={k: B / med[k] * 1e3 for k in pair},
+                 device_busy_ms_per_step={k: busy[k] for k in pair},
+                 idle_share={k: idle[k] for k in pair},
+                 capture_s={k: capture[k] for k in pair},
+                 peak_mem_gb_both=resident,
+                 peak_mem_gb_first_step={k: peak[k] for k in pair},
+                 device=torch.cuda.get_device_name(0))
+            pair = ("multi", "mixed")
+            emit(phase="multisession_mixed_time", dtype=dtype_name(dtype),
+                 layernorm=mode, batch=B, steps_per_segment=DISPATCH_K,
+                 segments_ms={k: segs[k] for k in pair},
+                 ms_per_step={k: med[k] for k in pair},
+                 spread_ms={k: spread[k] for k in pair},
+                 mixed_minus_unmixed_ms=med["mixed"] - med["multi"],
+                 mixed_over_unmixed=med["mixed"] / med["multi"],
+                 seq_per_s={k: B / med[k] * 1e3 for k in pair},
+                 device_busy_ms_per_step={k: busy[k] for k in pair},
+                 idle_share={k: idle[k] for k in pair},
+                 session_rows_grad_ms_per_step={
+                     k: prof[k]["session_rows_grad_ms"] / DISPATCH_K
+                     for k in pair},
+                 gather_ms_per_step={
+                     k: prof[k]["gather_ms"] / DISPATCH_K for k in pair},
+                 peak_mem_gb_first_step={k: peak[k] for k in pair},
+                 mixed_minus_unmixed_peak_gb=peak["mixed"] - peak["multi"],
+                 capture_s={k: capture[k] for k in pair},
                  device=torch.cuda.get_device_name(0))
             for name, pr in prof.items():
                 emit(phase="multisession_profile", dtype=dtype_name(dtype),
                      layernorm=mode, batch=B, path=name, steps=DISPATCH_K,
                      **pr)
-    del single, multi, s_data, m_data, segs_fn
+    del single, multi, s_data, m_data, x_data, segs_fn
     torch.cuda.empty_cache()
 
 
@@ -2379,10 +2456,12 @@ def multisession_entry_phase(root: Path):
     trials, mm.yaml's bf16) with the MtM menu, mixed objectives, the
     resident path and 10 steps a dispatch, 1 epoch; then
     ``eval_multi_modal --multi_session`` in all six modes on that
-    checkpoint. Finite metrics rows and per-session results, the
-    counters (set to 0 before each script, read after it) showing K1, K2,
-    K3, K4 and Philox on the training script and K1 and K3 on the eval.
-    Returns (launch counts by script, wall seconds)."""
+    checkpoint; then ``train_multi_session --mixed_session_batches`` (the
+    same run with batches mixing the two sessions). Finite metrics rows
+    and per-session results, the counters (set to 0 before each script,
+    read after it) showing K1, K2, K3, K4 and Philox on the training
+    scripts (and the session-rows kernel on the mixed one) and K1 and K3
+    on the eval. Returns (launch counts by script, wall seconds)."""
     from multi_modal_foundation_model_tpu_torch.scripts import (
         eval_multi_modal, train_multi_session)
     from multi_modal_foundation_model_tpu_torch.scripts._common import (
@@ -2406,7 +2485,14 @@ def multisession_entry_phase(root: Path):
              common + ["--multi_session", "--model_dir", str(log_dir),
                        "--use_MtM", "--co_smooth", "--forward_pred",
                        "--inter_region", "--intra_region"],
-             ("k1", "k3"))]
+             ("k1", "k3")),
+            # session-mixed batches (writes over the first run's dir)
+            ("train_mixed_multi_session", train_multi_session.main,
+             common + ["--use_MtM", "--mixed_training", "--num_epochs", "1",
+                       "--device_resident", "--steps_per_dispatch", "10",
+                       "--num_sessions", str(MS_ENTRY_SESSIONS),
+                       "--mixed_session_batches"],
+             ("k1", "k2", "k3", "k4", "philox", "session_rows"))]
     counts, walls, failed = {}, {}, []
     for name, main, argv, need in runs:
         reset_counts()
@@ -2449,29 +2535,423 @@ def multisession_entry_phase(root: Path):
     return counts, wall
 
 
-def multisession_phases(root: Path, default: str):
-    """Phases 8 and 9; returns (graph launch counts by dtype, entry
-    launch counts by script, wall seconds)."""
+# ---------------------------------------------------------------------------
+# phase 10: session-mixed batches (slice 13)
+# ---------------------------------------------------------------------------
+
+# the same ten sessions at 100 trials each (80 train): one mixed epoch of
+# B = 16 is 50 steps
+MS_MIXED_TRIALS = 100
+# launches of the session-rows kernel a mixed step: the encoder's and the
+# decoder's stitched tokenizer (kernel, bias), the head (kernel, bias) and
+# the session table
+SESSION_ROWS_PER_STEP = 7
+
+
+def session_rows_check() -> dict:
+    """The fixed-order row-sum kernel (``csrc/session_rows.cu``, the
+    backward of the mixed step's per-sample gathers) against its plain
+    version at the B=16 mixed step's shapes, 10 sessions: the stitched
+    tokenizer kernel's gradient (16 x 1024 x 512, f32 and bf16), the
+    head's (16 x 256 x 1024, f32), the biases' and the session table's.
+    Bit for bit (both add each session's rows in sample order from 0),
+    and bit-equal from one launch to the next. Timed at the tokenizer
+    kernel's shape beside the plain version and ``index_add_`` (the
+    library call for the same sums, atomics in any order); the bound is
+    the bytes (the gradient read once, the sums written once)."""
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    S, B = MS_SESSIONS, TRAIN_B
+    ids = torch.randint(0, S - 2, (B,), device="cuda", generator=gen)
+    cases = [("tokenizer_kernel", (1024, 512), torch.float32),
+             ("tokenizer_kernel", (1024, 512), torch.bfloat16),
+             ("head_kernel", (256, 1024), torch.float32),
+             ("tokenizer_bias", (512,), torch.float32),
+             ("tokenizer_bias", (512,), torch.bfloat16),
+             ("head_bias", (1024,), torch.float32),
+             ("session_table", (256,), torch.float32)]
+    errs, out = {}, {}
+    for name, shape, dtype in cases:
+        g = torch.randn((B,) + shape, device="cuda", generator=gen).to(dtype)
+        got = sr.session_rows_grad(g, ids, S)
+        again = sr.session_rows_grad(g, ids, S)
+        want = sr.session_rows_grad_reference(g, ids, S)
+        key = f"{name}_{dtype_name(dtype)}"
+        errs[key] = (got - want).abs().max().item()
+        if not torch.equal(got, again) or errs[key] != 0.0 \
+                or (got[S - 2:] != 0).any():
+            emit(phase="session_rows_check", case=key, max_abs_err=errs[key],
+                 ok=False)
+            raise AssertionError(f"session rows kernel {key}: not bit-equal "
+                                 "to its plain version or to itself")
+        if name == "tokenizer_kernel":
+            g2 = g.reshape(B, -1)
+            n_bytes = g.numel() * g.element_size() + S * g2.shape[1] * 4
+            out[dtype] = dict(
+                max_abs_err=errs[key],
+                ms=device_ms(lambda: sr.session_rows_grad(g, ids, S)),
+                plain_ms=cuda_time_ms(
+                    lambda: sr.session_rows_grad_reference(g, ids, S), 5, 1),
+                library_ms=device_ms(lambda: torch.zeros(
+                    S, g2.shape[1], dtype=g.dtype, device="cuda").index_add_(
+                        0, ids, g2)),
+                library_call="torch.zeros(S, M).index_add_(0, ids, g) (in "
+                             "g's dtype)",
+                shape=[B, *shape], sessions=S,
+                **_bound(n_bytes + B * 8, g.numel(), torch.float32))
+    emit(phase="session_rows_check", max_abs_err_by_case=errs,
+         timed={dtype_name(k): v for k, v in out.items()}, ok=True)
+    return out
+
+
+def _ms_mixed_group(tr, data: dict, sids: np.ndarray, B: int,
+                    schemes: bool = True):
+    """K mixed steps over a block: trials spread over the whole block (a
+    stride through it, so every session is in each batch), schemes of
+    the MtM menu in turn."""
+    stride = max(1, len(sids) // B)
+    group = []
+    for k in range(DISPATCH_K):
+        idx = (np.arange(B) * stride + k) % len(sids)
+        group.append((idx, np.ones(B, np.int32),
+                      k % len(tr.mtm_modes) if schemes else 0, sids[idx]))
+    return group
+
+
+def multisession_mixed_phase(root: Path, loaders: dict, dtype,
+                             mode: str) -> dict:
+    """Session-mixed batches at full width (10 sessions, N_max 1024, B=16,
+    dropout 0.4, the MtM menu with the region modes and mixed training,
+    resident, K = 10): one epoch (50 steps: 100 trials a session) as CUDA
+    graphs, the same steps run eagerly, and run eagerly again; the graph
+    run must equal the eager one and the two eager runs each other, per
+    step loss and per parameter, bit for bit (the gathers' backward sums
+    repeated session ids in a fixed order). A group of 10 mixed steps is
+    profiled: K1 30, K2 15, K3 62, K4 32 and 7 session-rows launches a
+    step, and Philox. Returns the profiled group's launch counts."""
+    want = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                k3=K3_PER_STEP if mode == "full" else 0,
+                k4=K4_PER_STEP if mode in ("bwd", "full") else 0,
+                session_rows=SESSION_ROWS_PER_STEP)
+    runs = {}
+    for path in ("graph", "eager", "eager_again"):
+        log_dir = root / f"multisession_mixed_{path}_{dtype_name(dtype)}"
+        shutil.rmtree(log_dir, ignore_errors=True)
+        with ln_mode(mode):
+            tr = ms_trainer(loaders, dtype, log_dir,
+                            tcfg_over=dict(mixed_session_batches=True))
+            if path != "graph":
+                tr.graphs = _EagerSteps()
+            t0 = time.perf_counter()
+            losses = tr.train_epoch(0)["step_losses"]
+            torch.cuda.synchronize()
+            run = dict(losses=losses, wall_s=time.perf_counter() - t0,
+                       params={n: p.detach().clone()
+                               for n, p in tr.model.state_dict().items()},
+                       variants=sorted(map(str, tr.graphs.graphs)),
+                       capture_s=list(tr.graphs.capture_s.values()),
+                       steps_per_epoch=tr._steps_per_epoch())
+            if path == "graph":
+                data, sids = tr._mixed_block(tr._stack_groups()[0])
+                group = _ms_mixed_group(tr, data, sids, TRAIN_B)
+                counts = None
+                for _ in range(3):
+                    try:
+                        with traced() as prof:
+                            tr._dispatch(data, group, "token_masking")
+                    except TraceLost:
+                        continue
+                    counts = kernel_counts(prof)
+                    if _launches_ok(counts, DISPATCH_K, want):
+                        break
+                run.update(counts=counts, keys_mixed=all(
+                    k[2] is True for k in tr.graphs.graphs))
+        runs[path] = run
+        del tr
+        torch.cuda.empty_cache()
+    g, e, e2 = runs["graph"], runs["eager"], runs["eager_again"]
+
+    def same(a, b):
+        return a["losses"] == b["losses"] and all(
+            torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+
+    bit_graph, bit_eager = same(g, e), same(e, e2)
+    n_steps = len(g["losses"])
+    counts_ok = g["counts"] is not None and _launches_ok(
+        g["counts"], DISPATCH_K, want)
+    finite = all(math.isfinite(x) for x in g["losses"])
+    ok = (bit_graph and bit_eager and counts_ok and finite
+          and n_steps == g["steps_per_epoch"] and g["keys_mixed"])
+    emit(phase="multisession_mixed", dtype=dtype_name(dtype),
+         layernorm=mode, batch=TRAIN_B, steps_per_dispatch=DISPATCH_K,
+         sessions=MS_SESSIONS, trials_per_session=MS_MIXED_TRIALS,
+         n_max=loaders["meta"]["n_max"], steps=n_steps,
+         steps_per_epoch=g["steps_per_epoch"], graph_losses=g["losses"],
+         graph_equals_eager_bit_for_bit=bit_graph,
+         eager_equals_eager_bit_for_bit=bit_eager,
+         params_not_bit_equal_graph_eager=sum(
+             not torch.equal(g["params"][n], e["params"][n])
+             for n in g["params"]),
+         variants=len(g["variants"]), graph_keys_mixed=g["keys_mixed"],
+         capture_s=g["capture_s"], graph_wall_s=g["wall_s"],
+         eager_wall_s=e["wall_s"], launches_profiled_group=g["counts"],
+         launches_per_step={k: v / DISPATCH_K
+                            for k, v in (g["counts"] or {}).items()},
+         launches_per_step_expected=want,
+         device=torch.cuda.get_device_name(0), ok=ok)
+    if not ok:
+        raise AssertionError("multisession_mixed: graph vs eager, eager vs "
+                             "eager or launches off (see its line)")
+    return g["counts"]
+
+
+def multisession_mixed_forward(loaders: dict, mode: str) -> None:
+    """A batch of 10 test trials, one from each session, through the
+    stitched model with per-sample ids, against each sample's own
+    scalar-id forward of the same batch (f32, the kernel path, atol
+    1e-5)."""
+    from multi_modal_foundation_model_tpu_torch.models import ModalityInput
+
+    meta = loaders["meta"]
+    arrays = [loaders["test"][e].arrays for e in meta["eids"]]
+
+    def t(k):
+        return torch.as_tensor(np.stack([a[k][0] for a in arrays]),
+                               device=MS_DEVICE)
+    spikes, beh = t("spikes_data"), t("target")
+    attn, ts, space = (t("time_attn_mask"), t("spikes_timestamps"),
+                       t("space_attn_mask"))
+    ap_eval = torch.zeros_like(spikes, dtype=torch.int32)
+    ap_eval[:, 70:] = 1
+    inputs = {m: ModalityInput(inputs=x, targets=x, attn_mask=attn,
+                               timestamps=ts, eval_mask=ev)
+              for m, x, ev in (("ap", spikes, ap_eval),
+                               ("behavior", beh,
+                                torch.zeros_like(beh, dtype=torch.int32)))}
+    sids = torch.tensor([meta["eid_to_sid"][e] for e in meta["eids"]],
+                        device=MS_DEVICE)
+    with ln_mode(mode), torch.no_grad():
+        model = ms_model(meta, torch.float32)
+        mixed = model(inputs, session_id=sids,
+                      space_attn_mask=space).mod_preds["ap"]
+        err = max((mixed[i] - model(inputs, session_id=int(s),
+                                    space_attn_mask=space).mod_preds["ap"][i]
+                   ).abs().max().item()
+                  for i, s in enumerate(sids.tolist()))
+    ok = err <= 1e-5 and bool(torch.isfinite(mixed).all())
+    emit(phase="multisession_mixed_forward", dtype="float32", layernorm=mode,
+         batch=len(sids), sessions=len(sids), preds_max_abs_err=err,
+         atol=1e-5, ok=ok)
+    if not ok:
+        raise AssertionError(f"mixed forward != scalar-id forward: {err}")
+
+
+def multisession_mixed_buckets(root: Path, sessions: dict, dtype,
+                               mode: str) -> None:
+    """``n_buckets=2`` with mixed batches: one block and one graph set a
+    bucket width, every key a mixed one; one epoch, losses finite."""
+    loaders2 = ms_loaders(sessions, n_buckets=2)
+    log_dir = root / "multisession_mixed_buckets"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with ln_mode(mode):
+        tr = ms_trainer(loaders2, dtype, log_dir,
+                        tcfg_over=dict(mixed_session_batches=True))
+        t0 = time.perf_counter()
+        losses = tr.train_epoch(0)["step_losses"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    widths = sorted(set(loaders2["meta"]["bucket_widths"].values()))
+    keys = list(tr.graphs.graphs)
+    ok = (len(widths) == 2 and sorted({k[0] for k in keys}) == widths
+          and all(k[2] is True for k in keys)
+          and len(losses) == tr._steps_per_epoch()
+          and all(math.isfinite(x) for x in losses))
+    emit(phase="multisession_mixed_buckets", dtype=dtype_name(dtype),
+         layernorm=mode, n_buckets=2, widths=widths,
+         variants_captured=[str(k) for k in keys],
+         capture_s=list(tr.graphs.capture_s.values()), steps=len(losses),
+         steps_per_epoch=tr._steps_per_epoch(), epoch_wall_s=wall, ok=ok)
+    del tr
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("multisession_mixed_buckets: widths, keys or "
+                             "losses off (see its line)")
+
+
+def multisession_mixed_phases(root: Path, sessions: dict, loaders: dict,
+                              default: str) -> dict:
+    """Phase 10 over ``sessions`` (100 trials each) and their one-bucket
+    ``loaders``; returns the profiled mixed groups' launch counts by
+    dtype, the wrappers' counts over the mixed epochs and the
+    session-rows kernel's row."""
     t0 = time.perf_counter()
-    sessions = ms_sessions()
-    loaders = ms_loaders(sessions)
+    rows = session_rows_check()
+    f32, bf16 = torch.float32, torch.bfloat16
+    reset_counts()
+    counts = {"f32": multisession_mixed_phase(root, loaders, f32, default),
+              "bf16": multisession_mixed_phase(root, loaders, bf16, "full")}
+    wrapper_counts = read_counts()
+    multisession_mixed_forward(loaders, default)
+    multisession_mixed_buckets(root, sessions, bf16, "full")
+    emit(phase="slice_13_mixed_wall", total_s=time.perf_counter() - t0,
+         wrapper_counts=wrapper_counts)
+    return dict(counts=counts, rows=rows, wrapper_counts=wrapper_counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a checkpoint the PyTorch reference trained (slice 13)
+# ---------------------------------------------------------------------------
+
+def reference_ckpt_phase(root: Path) -> dict:
+    """The port's full-width model (N=668 + 2 behavior, f32, random weights
+    from a seed) saved in the reference's names in its file forms: a plain
+    ``state_dict``, ``{'state_dict': sd}`` and the whole-module pickle
+    ``{'model': <nn.Module>}`` (the port's model itself: its names are the
+    reference's). Each loads through ``load_reference_checkpoint`` onto the
+    card, and its eval forward (16 test trials, the last 30 bins held out)
+    equals the original model's bit for bit. Then ``eval_multi_modal
+    --reference_ckpt`` runs all six modes on the plain file (finite
+    results; K1 and K3 launched), and ``convert_checkpoint to-port`` then
+    ``to-reference`` gives back every tensor bit for bit. Returns the eval
+    script's launch counts."""
+    import copy
+    import warnings
+
+    from multi_modal_foundation_model_tpu_torch.data import (make_loader,
+                                                             synthetic_splits)
+    from multi_modal_foundation_model_tpu_torch.eval import (
+        load_reference_checkpoint)
+    from multi_modal_foundation_model_tpu_torch.models import (
+        ModalityInput, MultiModal)
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        convert_checkpoint, eval_multi_modal)
+
+    t_phase = time.perf_counter()
+    base = root / "chip_smoke_reference_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    model = MultiModal(_cfg(torch.float32),
+                       generator=torch.Generator().manual_seed(SEED + 7))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    forms = {"plain": sd, "state_dict": {"state_dict": sd},
+             "pickle": {"model": copy.deepcopy(model).cpu(), "epoch": 0}}
+    for name, obj in forms.items():
+        torch.save(obj, base / f"{name}.pt")
+
+    N, T = GEOMETRY["n_channels"]["ap"], GEOMETRY["max_F"]
+    test = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
+                            n_timesteps=T).test
+    batch = next(iter(make_loader(test, batch_size=TRAIN_B, shuffle=False,
+                                  max_time_length=T, max_space_length=N)))
+
+    def forward(m):
+        def t(k):
+            return torch.as_tensor(batch[k], device="cuda")
+        spikes, beh = t("spikes_data"), t("target")
+        ap_eval = torch.zeros_like(spikes, dtype=torch.int32)
+        ap_eval[:, 70:] = 1
+        inputs = {k: ModalityInput(inputs=x, targets=x,
+                                   attn_mask=t("time_attn_mask"),
+                                   timestamps=t("spikes_timestamps"),
+                                   eval_mask=ev)
+                  for k, x, ev in (("ap", spikes, ap_eval),
+                                   ("behavior", beh, torch.zeros_like(
+                                       beh, dtype=torch.int32)))}
+        with torch.no_grad():
+            out = m(inputs)
+        return out.mod_preds["ap"], out.mod_preds["behavior"]
+
+    want = forward(model)
+    channels = dict(GEOMETRY["n_channels"])
+    bit_equal, warned = {}, {}
+    for name in forms:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loaded = load_reference_checkpoint(str(base / f"{name}.pt"),
+                                               channels, max_F=T)
+        warned[name] = any("weights_only=False" in str(w.message)
+                           for w in caught)
+        got = forward(loaded)
+        bit_equal[name] = all(torch.equal(a, b) for a, b in zip(got, want))
+        del loaded
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = eval_multi_modal.main(
+        ["--synthetic", "--device", "cuda", "--base_path", str(base),
+         "--reference_ckpt", str(base / "plain.pt"), "--use_MtM",
+         "--co_smooth", "--forward_pred", "--inter_region",
+         "--intra_region"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = read_counts()
+    modes = ("per_neuron", "forward_pred", "inter_region", "intra_region",
+             "modal_spike", "modal_behavior")
+    files = all((base / "reference_ckpt_eval" / "eval" / m / "bps.npy")
+                .exists() for m in modes)
+    finite = _finite_tree(results)
+
+    port_dir = base / "converted"
+    convert_checkpoint.main(["to-port", str(base / "plain.pt"),
+                             str(port_dir), "--n-neurons", str(N),
+                             "--max-F", str(T)])
+    convert_checkpoint.main(["to-reference", str(port_dir / "model_best.pt"),
+                             str(base / "back.pt")])
+    back = torch.load(base / "back.pt", weights_only=True)
+    round_trip = set(back) == set(sd) and all(
+        torch.equal(back[k], sd[k]) for k in sd)
+    ok = (all(bit_equal.values()) and warned == {
+        "plain": False, "state_dict": False, "pickle": True}
+        and files and finite and counts["k1"] > 0 and counts["k3"] > 0
+        and round_trip)
+    emit(phase="reference_ckpt", dtype="float32", n_channels=channels,
+         forms=list(forms), forward_bit_equal=bit_equal,
+         full_unpickling_warned=warned, eval_script_s=eval_s,
+         eval_script_launches=counts, eval_files_present=files,
+         eval_results_finite=finite, results=results,
+         converter_round_trip_bit_equal=round_trip, n_tensors=len(sd),
+         wall_s=time.perf_counter() - t_phase,
+         device=torch.cuda.get_device_name(0), ok=ok)
+    del model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("reference_ckpt: forward, eval script or "
+                             "converter off (see its line)")
+    return counts
+
+
+def multisession_phases(root: Path, default: str):
+    """Phases 8-10 over the ten sessions: at 400 trials (320 train, so a
+    B=256 batch fits one session) for the timing phases, at 100 trials
+    (``MS_MIXED_TRIALS``: 50-step epochs) for the rest. Returns (graph
+    launch counts by dtype, phase 10's results, entry launch counts by
+    script, wall seconds)."""
+    t0 = time.perf_counter()
+    sessions, short = ms_sessions(), ms_sessions(MS_MIXED_TRIALS)
+    loaders, short_loaders = ms_loaders(sessions), ms_loaders(short)
     emit(phase="multisession_data", sessions=MS_SESSIONS,
-         trials=MS_TRIALS, num_neurons=loaders["meta"]["num_neurons"],
+         trials=[MS_TRIALS, MS_MIXED_TRIALS],
+         num_neurons=loaders["meta"]["num_neurons"],
          n_max=loaders["meta"]["n_max"],
          wall_s=time.perf_counter() - t0)
     f32, bf16 = torch.float32, torch.bfloat16
-    counts = {"f32": multisession_phase(root, loaders, f32, default),
-              "bf16": multisession_phase(root, loaders, bf16, "full")}
-    multisession_buckets(root, sessions, loaders, bf16, "full", default)
-    multisession_step_check(root, loaders, f32, default)
-    multisession_step_check(root, loaders, bf16, "full")
+    counts = {"f32": multisession_phase(root, short_loaders, f32, default),
+              "bf16": multisession_phase(root, short_loaders, bf16, "full")}
+    multisession_buckets(root, short, short_loaders, bf16, "full", default)
+    multisession_step_check(root, short_loaders, f32, default)
+    multisession_step_check(root, short_loaders, bf16, "full")
+    t_time = time.perf_counter()
     multisession_time(root, loaders, f32, default)
     multisession_time(root, loaders, bf16, "full")
+    emit(phase="multisession_time_wall", total_s=time.perf_counter() - t_time)
     del sessions, loaders
+    mixed = multisession_mixed_phases(root, short, short_loaders, default)
+    del short, short_loaders
     entry, entry_s = multisession_entry_phase(root)
     wall = time.perf_counter() - t0
-    emit(phase="slice_12_phases_wall", total_s=wall, entry_s=entry_s)
-    return counts, entry, wall
+    emit(phase="slice_12_13_phases_wall", total_s=wall, entry_s=entry_s)
+    return counts, mixed, entry, wall
 
 
 def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
@@ -2673,7 +3153,8 @@ def main() -> int:
     entry, entry_s = entry_points_phase(out)
     emit(phase="slice_11_phases_wall", baseline_s=baseline_s,
          entry_points_s=entry_s, total_s=baseline_s + entry_s)
-    ms_counts, ms_entry, _ = multisession_phases(out, default)
+    ms_counts, mixed, ms_entry, _ = multisession_phases(out, default)
+    ref_counts = reference_ckpt_phase(out)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16)
     # the graph path's launches, counted by kernel name in a profile of
@@ -2681,7 +3162,9 @@ def main() -> int:
     graph_paths = dict(dispatch_graph_f32=disp_f32,
                        dispatch_graph_bf16=disp_bf16,
                        multisession_graph_f32=ms_counts["f32"],
-                       multisession_graph_bf16=ms_counts["bf16"])
+                       multisession_graph_bf16=ms_counts["bf16"],
+                       multisession_mixed_graph_f32=mixed["counts"]["f32"],
+                       multisession_mixed_graph_bf16=mixed["counts"]["bf16"])
 
     def by_path(group, names):
         got = {k: paths[k][group] for k in names if k in paths}
@@ -2708,7 +3191,8 @@ def main() -> int:
              replaces=attn_py + ":144", launches=train_f32["k1"],
              launches_by_path=by_path("k1", ("train_f32",
                                              "dispatch_graph_f32",
-                                             "multisession_graph_f32")),
+                                             "multisession_graph_f32",
+                                             "multisession_mixed_graph_f32")),
              **_row(k1_train[f32])),
         dict(name="attention_fwd (K1, training), bf16: tensor cores "
              "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
@@ -2716,7 +3200,8 @@ def main() -> int:
              launches=train_bf16["k1"],
              launches_by_path=by_path("k1", ("train_bf16",
                                              "dispatch_graph_bf16",
-                                             "multisession_graph_bf16")),
+                                             "multisession_graph_bf16",
+                                             "multisession_mixed_graph_bf16")),
              **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
@@ -2724,7 +3209,8 @@ def main() -> int:
              launches=train_f32["k2"],
              launches_by_path=by_path("k2", ("train_f32",
                                              "dispatch_graph_f32",
-                                             "multisession_graph_f32")),
+                                             "multisession_graph_f32",
+                                             "multisession_mixed_graph_f32")),
              **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "
              "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
@@ -2732,7 +3218,8 @@ def main() -> int:
              launches=train_bf16["k2"],
              launches_by_path=by_path("k2", ("train_bf16",
                                              "dispatch_graph_bf16",
-                                             "multisession_graph_bf16")),
+                                             "multisession_graph_bf16",
+                                             "multisession_mixed_graph_bf16")),
              **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",
@@ -2759,6 +3246,18 @@ def main() -> int:
              launches=train_f32["philox"] + train_bf16["philox"],
              launches_by_path=by_path("philox", (*paths, *graph_paths)),
              uniform=philox["uniform"], **_row(philox["u8"])),
+        dict(name="session_rows_grad: the fixed-order backward of the "
+             "session-mixed step's per-sample gathers of the stitched "
+             "stacks, f32 sums in sample order, at 16 x 1024 x 512 f32 "
+             "(the tokenizer kernel's gradient at B=16)", route="cuda",
+             source=src + "session_rows.cu",
+             replaces="multi_modal_foundation_model_tpu/models/layers.py"
+             ":651-658 (no Pallas source: XLA's scatter-add, the transpose "
+             "of jnp.take)",
+             launches=mixed["wrapper_counts"]["session_rows"],
+             launches_by_path=by_path("session_rows", tuple(graph_paths)),
+             bf16=_row(mixed["rows"][bf16]),
+             **_row(mixed["rows"][f32])),
     ]
     # the MultiModal entry scripts' launches (the multi-session ones too),
     # on the rows of what they ran:
@@ -2769,14 +3268,18 @@ def main() -> int:
     by_kind = {
         "eval_k1": lambda c: c["k1"] - c["k1_lse"],
         "train_k1": lambda c: c["k1_lse"],
-        **{k: (lambda c, k=k: c[k]) for k in ("k2", "k3", "k4", "philox")}}
+        **{k: (lambda c, k=k: c[k])
+           for k in ("k2", "k3", "k4", "philox", "session_rows")}}
     for row, kind in zip(kernels, (None, "eval_k1", None, "train_k1", None,
-                                   "k2", "k3", "k4", "philox"),
+                                   "k2", "k3", "k4", "philox",
+                                   "session_rows"),
                           strict=True):
         if kind is not None:
             row["launches_by_entry_point"] = {
                 name: by_kind[kind](c)
-                for name, c in {**entry, **ms_entry}.items()
+                for name, c in {**entry, **ms_entry,
+                            "reference_ckpt_eval_multi_modal":
+                                ref_counts}.items()
                 if name.endswith(("multi_modal", "multi_session"))}
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)

@@ -2,7 +2,8 @@ from .baseline_harness import co_smoothing_eval_baseline
 from .harness import EvalForward, co_smoothing_eval
 from .heldout import heldout_mask
 from .loading import (load_model_config, load_model_data_local,
-                      load_multisession_model_data_local, save_model_config)
+                      load_multisession_model_data_local,
+                      load_reference_checkpoint, save_model_config)
 from .metrics import (
     bits_per_spike,
     compute_PSTH,
@@ -24,6 +25,7 @@ __all__ = [
     "load_model_config",
     "load_model_data_local",
     "load_multisession_model_data_local",
+    "load_reference_checkpoint",
     "save_model_config",
     "bits_per_spike",
     "compute_PSTH",

@@ -54,6 +54,7 @@ from torch import nn
 from ..ops.attention import MaskSpec, multi_head_attention
 from ..ops.layernorm import LayerNorm
 from ..ops.random import SeedLike, u8_bits
+from ..ops.session_rows import session_rows
 
 
 def _gelu_tanh(x):
@@ -364,14 +365,22 @@ class ModalityTokenizer(nn.Module):
         return dropout_u8(self.projection(x), self.dropout, seed)
 
 
-def _session_row(stack: torch.Tensor, session_id: torch.Tensor
-                 ) -> torch.Tensor:
-    """Row ``session_id`` (a one-element int tensor on the stack's device)
-    of a stitched parameter stack, gathered on the device. Its backward
-    adds the row's gradient into a zero stack, one addition an element, so
-    it is deterministic, and every other session's slice gets a zero
-    gradient (AdamW still updates the whole stack, as optax does)."""
-    return stack.index_select(0, session_id.reshape(1))[0]
+def _session_row(stack: torch.Tensor, session_id: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The rows of a stitched parameter stack that ``session_id`` selects,
+    gathered on the device, in ``dtype`` (default the stack's).
+
+    A one-element int tensor selects one row for the whole batch: its
+    backward adds the row's gradient into a zero stack, one addition an
+    element, so it is deterministic. Per-sample ids ``(B,)`` (session-mixed
+    batches) give ``(B, ...)`` rows through ``ops.session_rows``, the stack
+    cast before the gather, whose backward sums repeated ids in a fixed
+    order. Either way every session not selected gets a zero gradient
+    (AdamW still updates the whole stack, as optax does)."""
+    if session_id.numel() > 1:
+        return session_rows(stack, session_id, dtype)
+    row = stack.index_select(0, session_id.reshape(1))[0]
+    return row if dtype is None else row.to(dtype)
 
 
 class SessionStitchedTokenizer(nn.Module):
@@ -382,7 +391,10 @@ class SessionStitchedTokenizer(nn.Module):
     dropout. The intermediate width is ``mult * hidden_size``, not
     ``mult * N``. An input narrower than ``N_max`` (a width bucket) runs on
     the static slice ``W[:, :n_in]``: its padded columns are zero, so the
-    rows cut away never contribute. The products are ``torch.matmul`` in
+    rows cut away never contribute. Per-sample ids ``(B,)`` (session-mixed
+    batches) gather a ``(B, n_in, mult * H)`` kernel and ``(B, mult * H)``
+    bias, cast to the compute dtype before the gather, and the product is a
+    batched GEMM (JAX :651-658). The products are ``torch.matmul`` in
     the compute dtype, as JAX computes them outside any Pallas kernel.
     Init (``reset_stitched_``): the kernel and bias U(+-1/sqrt(N_max)), the
     projection torch's default."""
@@ -417,11 +429,21 @@ class SessionStitchedTokenizer(nn.Module):
         if n_in > self.n_channels:
             raise ValueError(f"input width {n_in} exceeds the stitched "
                              f"width {self.n_channels}")
-        w = _session_row(self.token_embed_kernel, session_id)[:n_in]
-        x = torch.matmul(inputs, w.to(self.compute_dtype or inputs.dtype))
-        if self.token_embed_bias is not None:
-            x = x + _session_row(self.token_embed_bias, session_id).to(
-                x.dtype)
+        cdt = self.compute_dtype or inputs.dtype
+        if session_id.numel() > 1:
+            # (B,) ids: a (B, n_in, mult * H) gather, a batched GEMM
+            w = _session_row(self.token_embed_kernel[:, :n_in], session_id,
+                             cdt)
+            x = torch.matmul(inputs, w)
+            if self.token_embed_bias is not None:
+                x = x + _session_row(self.token_embed_bias, session_id,
+                                     cdt)[:, None, :]
+        else:
+            w = _session_row(self.token_embed_kernel, session_id)[:n_in]
+            x = torch.matmul(inputs, w.to(cdt))
+            if self.token_embed_bias is not None:
+                x = x + _session_row(self.token_embed_bias, session_id).to(
+                    x.dtype)
         x = self.act(x) * self.scale
         return dropout_u8(self.projection(x), self.dropout, seed)
 
@@ -430,7 +452,9 @@ class SessionStitchedHead(nn.Module):
     """The session-stitched ``ap`` output head (JAX ``SessionStitchedHead``,
     :667-690): an ``(S, H, N_max)`` kernel and an ``(S, N_max)`` bias, row
     ``session_id`` of each, sliced to ``n_out`` columns for a width
-    bucket, applied in the input's dtype (the decoder norm's f32). Init
+    bucket, applied in the input's dtype (the decoder norm's f32);
+    per-sample ids ``(B,)`` gather ``(B, H, n_out)`` and ``(B, n_out)``
+    rows for a batched GEMM (JAX :686-690). Init
     (``reset_stitched_``): both U(+-1/sqrt(H)), JAX's own ``kernel_init``
     (no fixup rescale and no lecun normal reach it)."""
 
@@ -449,6 +473,14 @@ class SessionStitchedHead(nn.Module):
 
     def forward(self, y: torch.Tensor, session_id: torch.Tensor,
                 n_out: Optional[int] = None) -> torch.Tensor:
+        if session_id.numel() > 1:
+            # (B,) ids: a (B, H, n_out) gather, a batched GEMM
+            kernel, bias = self.kernel, self.bias
+            if n_out is not None:
+                kernel, bias = kernel[:, :, :n_out], bias[:, :n_out]
+            w = _session_row(kernel, session_id, y.dtype)
+            b = _session_row(bias, session_id, y.dtype)
+            return torch.matmul(y, w) + b[:, None, :]
         w = _session_row(self.kernel, session_id)
         b = _session_row(self.bias, session_id)
         if n_out is not None:

@@ -58,8 +58,13 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   encoder and decoder embeddings. ``ap`` inputs narrower than ``N_max`` (a
   width bucket) run on static slices of the stacks, the head predicting
   ``n_in`` channels. ``space_attn_mask`` (B, N) takes padded neurons out
-  of the ``ap`` loss. Per-sample ``(B,)`` session ids (mixed-session
-  batches) are not ported and raise.
+  of the ``ap`` loss. Per-sample ``(B,)`` session ids (session-mixed
+  batches, JAX :442-448, :468-480): each sample runs its own session's
+  stitched rows (batched GEMMs over gathered rows, ``ops/session_rows.py``,
+  whose backward sums repeated ids in a fixed order), its own session
+  embedding, and its tokens are zeroed by its own token-mask row, not row
+  0 (the region draws are per sample there). A one-element id is the
+  batch's session: row-0 zeroing, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ from ..ops.attention import MaskSpec, create_context_mask
 from ..ops.layernorm import LayerNorm
 from ..ops.losses import masked_mse, masked_poisson_nll
 from ..ops.masking import (MaskParams, RegionSets, apply_mask, host_draws,
-                           mask_is_drawn)
+                           mask_is_drawn, region_batch)
+from ..ops.session_rows import session_rows
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import SeedPath, seed_table
 from .layers import (Dense, DecoderLayer, EncoderLayer, ModalityTokenizer,
@@ -403,11 +409,12 @@ class MultiModal(nn.Module):
         n_draws) f32) of one step under the host int ``seed``."""
         mp = self.config.mask_params
         table = seed_table(seed, self.seed_paths)
+        batch = region_batch(regions)
         draws = np.stack([
             host_draws(int(table[2 * i]), mp, entry[0],
-                       regions if mod == "ap" else None)
+                       regions if mod == "ap" else None, batch)
             if entry is not None and mask_is_drawn(mp, entry[0], entry[1])
-            else host_draws(0, mp, None)
+            else host_draws(0, mp, None, batch=batch)
             for i, (mod, entry) in enumerate(zip(self.config.avail_mod,
                                                  plan))])
         return table, draws
@@ -419,19 +426,22 @@ class MultiModal(nn.Module):
         return StepSeeds(torch.from_numpy(table).to(device),
                          torch.from_numpy(draws).to(device))
 
-    def _session_tensor(self, session_id, device) -> torch.Tensor:
-        """A stitched forward's session id as a one-element int tensor on
-        ``device`` (a host int is copied there, eagerly)."""
+    def _session_tensor(self, session_id, device, batch: int
+                        ) -> torch.Tensor:
+        """A stitched forward's session ids as an int tensor on ``device``:
+        one element (the batch's session), or ``(batch,)`` (a session a
+        sample). Host ints and arrays are copied there, eagerly."""
         if session_id is None:
             raise ValueError("a session-stitched model needs a session_id")
         if not isinstance(session_id, torch.Tensor):
-            return torch.tensor([int(session_id)], dtype=torch.int64,
-                                device=device)
-        if session_id.numel() != 1:
-            raise NotImplementedError(
-                "per-sample session ids (mixed-session batches) are not "
-                "ported yet (ROADMAP queue 1 item 5b)")
-        return session_id.reshape(1)
+            session_id = torch.as_tensor(np.asarray(session_id),
+                                         dtype=torch.int64).to(device)
+        if session_id.numel() == 1:
+            return session_id.reshape(1)
+        if session_id.shape != (batch,):
+            raise ValueError(f"session ids of shape {tuple(session_id.shape)}"
+                             f" for a batch of {batch}")
+        return session_id
 
     # ------------------------------------------------------------------
     # mask plumbing
@@ -517,8 +527,10 @@ class MultiModal(nn.Module):
         keying the masker and (with ``training``) dropout; required
         whenever a mask is sampled. ``session_id`` (stitched models only,
         required there): a host int or a one-element int tensor on the
-        device. ``space_attn_mask`` (B, N_in): 0 marks padded ``ap``
-        channels, which carry no loss."""
+        device (the batch's session), or ``(B,)`` ids, a session a sample
+        (with ``regions`` from ``RegionTable.select`` of the same ids).
+        ``space_attn_mask`` (B, N_in): 0 marks padded ``ap`` channels,
+        which carry no loss."""
         mc = self.config
         cdt = self.compute_dtype
         T = mc.max_F
@@ -536,9 +548,10 @@ class MultiModal(nn.Module):
         table = None if seed is None else seed.table
         drop = table if training else None
         M = len(mc.avail_mod)
-        sid = (self._session_tensor(
-            session_id, mod_inputs[mc.avail_mod[0]].inputs.device)
-            if self.stitched else None)
+        first = mod_inputs[mc.avail_mod[0]].inputs
+        sid = (self._session_tensor(session_id, first.device, first.shape[0])
+               if self.stitched else None)
+        per_sample = sid is not None and sid.numel() > 1
 
         tokens_e, tokens_d, embs_e, embs_d = [], [], [], []
         token_masks, attn_tokens, gts, spike_masks = [], [], {}, {}
@@ -563,7 +576,9 @@ class MultiModal(nn.Module):
             seeds_e = seed_at(drop, 2 * M + 2 * i)
             seeds_d = seed_at(drop, 2 * M + 2 * i + 1)
             if sid is not None and mod == "ap":
-                s_emb = self.session_emb(sid)                # (1, H) f32
+                s_emb = (session_rows(self.session_emb.weight,
+                                      sid)[:, None, :]   # (B, 1, H) f32
+                         if per_sample else self.session_emb(sid))  # (1, H)
                 e_emb = e_emb + s_emb
                 d_emb = d_emb + s_emb
                 tokens_e.append(enc(x, sid, seeds_e))
@@ -582,13 +597,14 @@ class MultiModal(nn.Module):
         token_mask = torch.cat(token_masks, dim=1)        # (B, M*T)
         attn_token = torch.cat(attn_tokens, dim=1)
 
-        # token zeroing by each group's first row (module docstring)
+        # token zeroing by each group's first row, or by each sample's own
+        # row for per-sample session ids (module docstring)
         B = token_mask.shape[0]
-        G = token_zero_groups
+        G = B if per_sample else token_zero_groups
         if G < 1 or B % G:
             raise ValueError(f"batch {B} is not {G} equal groups")
-        first = token_mask.reshape(G, B // G, -1)[:, :1]
-        keep = (1 - first).expand(G, B // G, -1).reshape(B, -1)
+        lead = token_mask.reshape(G, B // G, -1)[:, :1]
+        keep = (1 - lead).expand(G, B // G, -1).reshape(B, -1)
         zero = keep.to(enc_tokens.dtype)[:, :, None]
         enc_tokens = enc_tokens * zero
         dec_tokens = dec_tokens * zero

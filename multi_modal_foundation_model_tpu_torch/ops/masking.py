@@ -155,7 +155,13 @@ class RegionTable:
     as the step reads the regions the host drew. With a host int it also
     gives the session's candidate rows, padded to ``R_max`` as JAX pads
     them, so ``host_draws`` draws ``min(n_mask_regions, R_max)`` slots for
-    every session, the surplus as -1 (JAX ``_sample_regions``)."""
+    every session, the surplus as -1 (JAX ``_sample_regions``).
+
+    Per-sample ids (a session-mixed batch, JAX :171-180) select a row a
+    sample: ``(B,)`` device ids give ``(B, N_max)`` region ids gathered on
+    the device (candidates ``None``); a host ``(B,)`` array also gives the
+    ``(B, R_max)`` candidate rows, from which ``host_draws`` draws one row
+    of picks per sample."""
 
     region_ids: torch.Tensor
     mask_candidates: np.ndarray
@@ -190,16 +196,35 @@ class RegionTable:
         return dataclasses.replace(self,
                                    region_ids=self.region_ids.to(device))
 
+    def host_rows(self, session_ids) -> RegionSets:
+        """The candidate rows of host ``(B,)`` ids, for ``host_draws``
+        only (``region_ids`` ``None``): no device work, so the host can
+        draw a step's regions while the card runs earlier steps."""
+        ids = np.asarray(session_ids, dtype=np.int64).reshape(-1)
+        return RegionSets(region_ids=None,
+                          mask_candidates=self.mask_candidates[ids],
+                          target_candidates=self.target_candidates[ids])
+
     def select(self, session_id) -> RegionSets:
         """The ``RegionSets`` of one session: ``session_id`` a host int, or
         a one-element int tensor on the table's device (class
         docstring)."""
         if isinstance(session_id, torch.Tensor):
+            if session_id.numel() > 1:
+                return RegionSets(
+                    region_ids=self.region_ids.index_select(0, session_id),
+                    mask_candidates=None, target_candidates=None)
             return RegionSets(
                 region_ids=self.region_ids.index_select(
                     0, session_id.reshape(1))[0],
                 mask_candidates=None, target_candidates=None)
-        sid = int(session_id)
+        if np.size(session_id) > 1:
+            ids = torch.as_tensor(np.asarray(session_id, dtype=np.int64))
+            return dataclasses.replace(
+                self.host_rows(session_id),
+                region_ids=self.region_ids.index_select(
+                    0, ids.reshape(-1).to(self.region_ids.device)))
+        sid = int(np.asarray(session_id).reshape(-1)[0])
         return RegionSets(region_ids=self.region_ids[sid],
                           mask_candidates=self.mask_candidates[sid],
                           target_candidates=self.target_candidates[sid])
@@ -214,9 +239,19 @@ _WIDTH, _RATIO, _REGIONS = 0, 1, 2
 _TEMPORAL = ("temporal", "random_token", "causal")
 
 
-def n_draws(params: MaskParams) -> int:
-    """Length of one modality's host-draw vector."""
-    return _REGIONS + int(params.n_mask_regions)
+def n_draws(params: MaskParams, batch: int = 1) -> int:
+    """Length of one modality's host-draw vector: ``batch`` rows of region
+    picks (more than one for per-sample region draws)."""
+    return _REGIONS + int(batch) * int(params.n_mask_regions)
+
+
+def region_batch(regions: Optional[RegionSets]) -> int:
+    """The rows of region picks a step draws: one per sample when
+    ``regions`` holds per-sample candidate rows (``RegionTable.select`` of
+    host ``(B,)`` ids), else one."""
+    cands = None if regions is None else regions.mask_candidates
+    return int(cands.shape[0]) if cands is not None and cands.ndim == 2 \
+        else 1
 
 
 def mask_keys(seed: int):
@@ -339,12 +374,18 @@ def _temporal_draws(rng: np.random.Generator, params: MaskParams,
 
 
 def host_draws(k_mask: int, params: MaskParams, mode: Optional[str],
-               regions: Optional[RegionSets] = None) -> np.ndarray:
+               regions: Optional[RegionSets] = None,
+               batch: int = 1) -> np.ndarray:
     """The host's draws for one mask under ``k_mask``, as the f32 vector
-    the device reads: ``[width, ratio, region ids (-1 padded)]``. Width 1
-    and ``params.ratio`` where the mode (or ``None``, no mask) draws nothing
-    on the host."""
-    out = np.full(n_draws(params), -1.0, dtype=np.float32)
+    the device reads: ``[width, ratio, region ids (-1 padded)]``, the
+    region ids ``batch`` rows of ``n_mask_regions``. Width 1 and
+    ``params.ratio`` where the mode (or ``None``, no mask) draws nothing
+    on the host. With per-sample candidate rows (``(B, R_max)``, a
+    session-mixed batch) the region modes draw one row of picks per
+    sample from its own session's row, sample b from a generator of its
+    own (seeded ``fold_in(key, b)``, as JAX splits the key per row,
+    :330-349), so no sample's picks depend on another's session."""
+    out = np.full(n_draws(params, batch), -1.0, dtype=np.float32)
     out[_WIDTH], out[_RATIO] = 1.0, params.ratio
     if mode in _TEMPORAL:
         out[_WIDTH], out[_RATIO] = _temporal_draws(
@@ -354,11 +395,22 @@ def host_draws(k_mask: int, params: MaskParams, mode: Optional[str],
             raise ValueError(f"{mode} masking needs RegionSets with the "
                              "host's candidate ids")
         inter = mode == "inter-region"
-        picked = _sample_regions(
-            np.random.default_rng(k_mask if inter else fold_in(k_mask, 0)),
-            regions.mask_candidates if inter else regions.target_candidates,
-            params.n_mask_regions)
-        out[_REGIONS:_REGIONS + len(picked)] = picked
+        key = k_mask if inter else fold_in(k_mask, 0)
+        cands = (regions.mask_candidates if inter
+                 else regions.target_candidates)
+        n = int(params.n_mask_regions)
+        if cands.ndim == 1:
+            picked = _sample_regions(np.random.default_rng(key), cands, n)
+            out[_REGIONS:_REGIONS + len(picked)] = picked
+            return out
+        if len(cands) != batch:
+            raise ValueError(f"{len(cands)} candidate rows for {batch} rows "
+                             "of region picks")
+        for b, row in enumerate(cands):
+            picked = _sample_regions(
+                np.random.default_rng(fold_in(key, b)), row, n)
+            start = _REGIONS + b * n
+            out[start:start + len(picked)] = picked
     return out
 
 
@@ -405,10 +457,18 @@ def _mask_forward_pred(key, draws, spikes, params: MaskParams):
 
 
 def _region_member(draws, spikes, region_ids: torch.Tensor):
-    """(B, N) bool membership of the region ids the host sampled once for
-    the batch (the reference samples regions once per batch)."""
+    """(B, N) bool membership of the region ids the host sampled: once for
+    the batch against ``region_ids`` (N,) (the reference samples regions
+    once per batch), or a row of picks per sample against per-sample
+    ``region_ids`` (B, N) (session-mixed batches, JAX :330-349)."""
     B, _, N = spikes.shape
-    member = _member(region_ids, draws[_REGIONS:].to(torch.int32))
+    picks = draws[_REGIONS:].to(torch.int32)
+    if region_ids.ndim == 2:
+        picks = picks.reshape(B, -1)                           # (B, n)
+        hit = ((region_ids[:, None, :] == picks[:, :, None])
+               & (picks[:, :, None] >= 0))
+        return hit.any(dim=1)
+    member = _member(region_ids, picks)
     return member[None, :].expand(B, N)
 
 
@@ -477,7 +537,8 @@ def apply_mask(
     if not isinstance(seed, torch.Tensor):
         k_mask, k_corrupt = mask_keys(seed)
         draws = torch.from_numpy(
-            host_draws(k_mask, params, mode, regions)).to(spikes.device)
+            host_draws(k_mask, params, mode, regions,
+                       region_batch(regions))).to(spikes.device)
         seed = torch.tensor([k_mask, k_corrupt], dtype=torch.int64,
                             device=spikes.device)
     elif draws is None:

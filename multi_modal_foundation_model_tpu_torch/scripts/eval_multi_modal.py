@@ -5,6 +5,8 @@
         --inter_region --intra_region [--device cpu]
     python -m multi_modal_foundation_model_tpu_torch.scripts.eval_multi_modal \\
         --synthetic --multi_session --model_dir DIR --co_smooth ...
+    python -m multi_modal_foundation_model_tpu_torch.scripts.eval_multi_modal \\
+        --synthetic --reference_ckpt model_best.pt [--reference_src SRC] ...
 
 The port of the JAX package's ``scripts/eval_multi_modal.py``:
 ``modal_spike`` and ``modal_behavior`` by default, the other co-smoothing
@@ -15,8 +17,12 @@ session-stitched checkpoint (``train_multi_session``): every mode once per
 trained session, artifacts under ``<model_dir>/eval/<eid>/<mode>/`` and
 ``results.json`` keyed by eid with the mean over sessions; the sessions
 come from the checkpoint's ``sessions.json`` and are regenerated with the
-train script's synthetic convention. Not ported yet, each raising:
-``--reference_ckpt``, ``--save_plot`` and real (non-synthetic) sessions.
+train script's synthetic convention. ``--reference_ckpt`` evaluates a
+checkpoint the PyTorch reference trained (``load_reference_checkpoint``)
+on the session's test split, artifacts under
+``<base_path>/reference_ckpt_eval`` unless ``--model_dir`` is given. Not
+ported yet, each raising: ``--save_plot`` and real (non-synthetic)
+sessions.
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ import os
 
 import numpy as np
 
+from ..data.loader import make_loader
 from ..data.session import DEFAULT_TARGETS, synthetic_splits
 from ..eval import (co_smoothing_eval, load_model_data_local,
-                    load_multisession_model_data_local)
+                    load_multisession_model_data_local,
+                    load_reference_checkpoint)
 from ..utils.device import resolve_device
 from ._common import (add_common_args, get_session, log_dir_for,
                       warn_unsupported)
@@ -128,8 +136,9 @@ def main(argv=None):
                     help="checkpoint dir; default derives from the train layout")
     ap.add_argument("--checkpoint", type=str, default="best")
     ap.add_argument("--reference_ckpt", type=str, default=None,
-                    help="evaluate a reference-trained torch checkpoint "
-                         "(not ported yet: raises)")
+                    help="evaluate a checkpoint the PyTorch reference "
+                         "trained (a state_dict .pt or its whole-module "
+                         "pickle)")
     ap.add_argument("--reference_src", type=str, default=None,
                     help="reference source root for --reference_ckpt")
     ap.add_argument("--co_smooth", action="store_true")
@@ -154,11 +163,9 @@ def main(argv=None):
                          "--model_dir")
     args = ap.parse_args(argv)
     warn_unsupported(args, "dp", "tp", "device_resident")
-    for flag, item in (("reference_ckpt", "reference checkpoints (ROADMAP "
-                        "queue 1 item 4)"),
-                       ("save_plot", "eval plots (ROADMAP queue 1 item 4)")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {item} not ported yet")
+    if args.save_plot:
+        raise NotImplementedError(
+            "--save_plot: eval plots (ROADMAP queue 1 item 4) not ported yet")
     device = resolve_device(args.device)
     if args.multi_session:
         if not args.model_dir:
@@ -172,11 +179,26 @@ def main(argv=None):
         f"_mixed-{args.mixed_training}")
 
     splits = get_session(args)
-    model, test_loader = load_model_data_local(
-        model_dir=model_dir, test_session=splits.test,
-        checkpoint_name=args.checkpoint,
-        max_time_length=args.n_time_steps,
-        max_space_length=splits.n_neurons, seed=args.seed, device=device)
+    if args.reference_ckpt:                       # JAX :178-193
+        model = load_reference_checkpoint(
+            args.reference_ckpt,
+            n_channels={"ap": splits.n_neurons,
+                        "behavior": len(DEFAULT_TARGETS)},
+            max_F=args.n_time_steps, reference_src=args.reference_src,
+            device=device)
+        test_loader = make_loader(
+            splits.test, batch_size=splits.test.n_trials,
+            max_time_length=args.n_time_steps,
+            max_space_length=splits.n_neurons, shuffle=False)
+        model_dir = args.model_dir or os.path.join(args.base_path,
+                                                   "reference_ckpt_eval")
+    else:
+        model, test_loader = load_model_data_local(
+            model_dir=model_dir, test_session=splits.test,
+            checkpoint_name=args.checkpoint,
+            max_time_length=args.n_time_steps,
+            max_space_length=splits.n_neurons, seed=args.seed,
+            device=device)
 
     T = args.n_time_steps
     sub = "eval_unaligned" if args.unaligned else "eval"

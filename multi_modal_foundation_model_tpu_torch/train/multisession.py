@@ -29,14 +29,24 @@ Port of ``multi_modal_foundation_model_tpu/train/multisession.py``:
   trajectory is K = 1's step for step; otherwise each session's batches
   form K-groups, shuffled by ``(seed, epoch, 7)`` (:902-941). Steps left
   over from a group run as single steps.
+- **Session-mixed batches** (``mixed_session_batches``, resident only, JAX
+  :726-789): per bucket one permutation of the block's trials from
+  ``(seed, epoch, 11[, bucket])``, cut into full B-batches with one
+  valid-masked tail, in K-groups; with several buckets the groups are
+  shuffled by ``(seed, epoch, 13)``. A batch's per-sample session ids are
+  gathered on the device from the block's per-trial ``session_ids`` by the
+  step's indices (JAX :500); the host keeps a copy to draw each sample's
+  regions from its own session's candidates. The epoch, and so OneCycle,
+  is ``sum over buckets of ceil(bucket trials / B)`` steps (:184-202).
+  Without ``device_resident_data`` it raises ``ValueError``, as JAX does.
 - **Eval** (``eval_epoch``, :943-1028): per session, the fixed eval
   stream; 'ap' metrics over the session's real neurons (bits/spike and
   the R² of the 50 most active), behavior R²; keyed by eid.
 
 AdamW updates the whole stitched stacks every step, weight decay included,
 as optax does: the other sessions' slices get zero gradients, not a
-skipped update. ``mixed_session_batches`` and ``shard_resident_sessions``
-are not ported (ROADMAP queue 1 items 5b and 6) and raise.
+skipped update. ``shard_resident_sessions`` is not ported (ROADMAP queue
+1 item 6) and raises.
 """
 
 from __future__ import annotations
@@ -177,6 +187,11 @@ class MultiSessionTrainer(MultiModalTrainer):
         self.eval_loaders = dict(eval_loaders or {})
         self.eid_to_sid = dict(eid_to_sid)
         first = next(iter(self.train_loaders))
+        # a mixed epoch draws from one trial pool a bucket (JAX :184-192)
+        B = self.train_loaders[first].batch_size
+        self._mixed_batches = sum(
+            -(-sum(self.train_loaders[e].n_trials for e in grp) // B)
+            for grp in self._stack_groups())
         super().__init__(
             model, self.train_loaders[first], self.eval_loaders.get(first),
             optimizer_config, trainer_config, modal_filter=modal_filter,
@@ -185,17 +200,26 @@ class MultiSessionTrainer(MultiModalTrainer):
         self._stacked_cache: Dict[tuple, tuple] = {}
 
     def _steps_per_epoch(self) -> int:
-        """Every session's batches (the one-cycle schedule's length)."""
+        """The one-cycle schedule's epoch: every session's batches, or
+        with mixed batches each bucket's ``ceil(trials / B)``."""
+        if self.tcfg.mixed_session_batches:
+            return self._mixed_batches
         return sum(len(loader) for loader in self.train_loaders.values())
 
     # ------------------------------------------------------------------
     # per-session regions and forward arguments
     # ------------------------------------------------------------------
 
-    def _host_regions(self, session: int) -> RegionSets:
+    def _host_regions(self, session) -> RegionSets:
+        """The session's candidates, or per sample for a mixed batch's
+        host ids (B,)."""
+        if np.ndim(session) > 0:
+            return self.region_table.host_rows(session)
         return self.region_table.select(int(session))
 
     def _forward_kwargs(self, batch, session) -> Dict[str, Any]:
+        # a mixed batch carries its per-sample ids, gathered on the device
+        session = batch.get("session_ids", session)
         return {"regions": self.region_table.select(session),
                 "session_id": session,
                 "space_attn_mask": batch["space_attn_mask"]}
@@ -231,10 +255,16 @@ class MultiSessionTrainer(MultiModalTrainer):
         concatenated along the trial axis in one resident block, and each
         eid's trial offset in it. Cached per eid tuple against the loader
         objects."""
+        hit = self._stacked(eids)
+        return hit[1], hit[2]
+
+    def _stacked(self, eids: Tuple[str, ...]):
+        """(loaders, block, offsets, per-trial session ids on the host and
+        on the device) of ``eids``, cached against the loader objects."""
         loaders = tuple(self.train_loaders[e] for e in eids)
         hit = self._stacked_cache.get(eids)
         if hit is not None and all(a is b for a, b in zip(hit[0], loaders)):
-            return hit[1], hit[2]
+            return hit
         data = {k: torch.from_numpy(np.concatenate(
                     [np.asarray(l.arrays[k]) for l in loaders])).to(
                         self.device)
@@ -243,8 +273,20 @@ class MultiSessionTrainer(MultiModalTrainer):
         for e, loader in zip(eids, loaders):
             offsets[e] = pos
             pos += loader.n_trials
-        self._stacked_cache[eids] = (loaders, data, offsets)
-        return data, offsets
+        sids = np.concatenate([np.full(l.n_trials, self.eid_to_sid[e],
+                                       np.int64)
+                               for e, l in zip(eids, loaders)])
+        hit = self._stacked_cache[eids] = (
+            loaders, data, offsets, sids,
+            torch.from_numpy(sids).to(self.device))
+        return hit
+
+    def _mixed_block(self, eids: Tuple[str, ...]):
+        """``eids``' resident block with its per-trial ``session_ids`` on
+        the device (a mixed step gathers them by its indices, JAX :500),
+        and the host's copy of those ids."""
+        _, data, _, sids, sids_dev = self._stacked(eids)
+        return {**data, "session_ids": sids_dev}, sids
 
     def _blocks(self) -> Dict[str, Tuple[Dict[str, torch.Tensor], int]]:
         """Per eid: its bucket's resident block and its offset there."""
@@ -262,6 +304,10 @@ class MultiSessionTrainer(MultiModalTrainer):
         self._reseed_host_rng(epoch)     # exact resume (train/trainer.py)
         if self.tcfg.device_resident_data:
             losses = self._train_epoch_dr(epoch)
+        elif self.tcfg.mixed_session_batches:
+            raise ValueError(
+                "mixed_session_batches requires device_resident_data=True "
+                "(the streaming path has no cross-session gather)")
         else:
             losses = self._train_epoch_streaming(epoch)
         # one host sync per epoch
@@ -309,6 +355,8 @@ class MultiSessionTrainer(MultiModalTrainer):
         sessions when they share one block (``stacked_scan``), else
         per-session K-groups (``_train_epoch_dr_scan``)."""
         K = max(1, self.tcfg.steps_per_dispatch)
+        if self.tcfg.mixed_session_batches:
+            return self._train_epoch_dr_mixed(epoch, K)
         if K > 1 and not (self.tcfg.stacked_scan and self._can_stack()):
             return self._train_epoch_dr_scan(epoch, K)
         blocks = self._blocks()
@@ -361,6 +409,53 @@ class MultiSessionTrainer(MultiModalTrainer):
             losses.append(self._dispatch(
                 data, [(idx + off, valid, scheme, sid)
                        for (idx, valid), scheme in zip(chunk, schemes)],
+                training_mode))
+        return losses
+
+    def _train_epoch_dr_mixed(self, epoch: int, K: int
+                              ) -> List[torch.Tensor]:
+        """Session-mixed batches (JAX ``_train_epoch_dr_mixed``): per
+        bucket one permutation of its block's trials, full B-batches with
+        one valid-masked tail (padded with trial 0, as JAX pads), K-groups
+        (one objective a group, a scheme a step); several buckets' groups
+        shuffled together. A short group runs as single steps."""
+        groups = self._stack_groups()
+        B = self.train_dataloader.batch_size
+        seed = self.tcfg.seed
+        blocks, step_groups = {}, []
+        for gi, eids in enumerate(groups):
+            data, sids = self._mixed_block(eids)
+            blocks[gi] = (data, sids)
+            rng = np.random.default_rng(
+                (seed, epoch, 11) if len(groups) == 1
+                else (seed, epoch, 11, gi))
+            perm = rng.permutation(len(sids))
+            batches = []
+            for s in range(0, len(sids), B):
+                chunk = perm[s:s + B]
+                valid = np.ones(B, np.float32)
+                if len(chunk) < B:
+                    valid[len(chunk):] = 0.0
+                    chunk = np.pad(chunk, (0, B - len(chunk)))
+                batches.append((chunk.astype(np.int64), valid))
+            for start in range(0, len(batches), K):
+                step_groups.append((gi, batches[start:start + K]))
+        if len(groups) > 1:
+            np.random.default_rng((seed, epoch, 13)).shuffle(step_groups)
+        losses = []
+        for gi, group in step_groups:
+            data, sids = blocks[gi]
+            if len(group) < K or K == 1:
+                for idx, valid in group:
+                    training_mode, scheme_id = self._sample_modes()
+                    losses.append(self._dispatch(
+                        data, [(idx, valid, scheme_id, sids[idx])],
+                        training_mode))
+                continue
+            training_mode, schemes = self._sample_group_modes(len(group))
+            losses.append(self._dispatch(
+                data, [(idx, valid, scheme, sids[idx])
+                       for (idx, valid), scheme in zip(group, schemes)],
                 training_mode))
         return losses
 

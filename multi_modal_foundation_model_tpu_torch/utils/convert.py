@@ -10,6 +10,15 @@ shared modality embeddings the table is emitted under both the encoder and
 the decoder key, as the port's shared ``nn.Embedding`` appears under both.
 ``baseline_params_from_jax`` does the same for the linear baselines.
 
+``reference_state_dict_select`` takes a reference-trained ``state_dict``
+(its names are the port's) to the port's, reading only the keys the JAX
+package's ``reference_state_dict_to_params`` reads
+(``utils/torch_convert.py:88-147`` there): extra keys are ignored,
+``pos_embed`` is read where present, a bias where present, a missing key
+raises ``KeyError``, and with shared modality embeddings the encoder's and
+the decoder's ``mod_emb`` tables must be equal (``ValueError``). The port
+then loads the result with ``load_state_dict(strict=True)``.
+
 A session-stitched model (``n_sessions > 1``) has parameters the reference
 has no model for, so no reference ``state_dict`` name exists for them: the
 port names them after their flax paths, and the JAX package's
@@ -112,6 +121,70 @@ def params_from_jax(params: Mapping, config) -> Dict[str, torch.Tensor]:
 
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def reference_state_dict_select(
+    sd: Mapping, avail_mod=("ap", "behavior"), n_enc_layers: int = 5,
+    n_dec_layers: int = 5, share_modality_embeddings: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (f32 CPU tensors) from a reference
+    ``state_dict`` (tensors or numpy arrays): the keys the JAX package's
+    ``reference_state_dict_to_params`` reads, in its order (module
+    docstring)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(key):
+        v = sd[key]
+        v = v.detach().cpu() if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.asarray(v))
+        out[key] = v.to(torch.float32).clone()
+
+    def linear(key):
+        take(key + ".weight")
+        if key + ".bias" in sd:
+            take(key + ".bias")
+
+    def norm(key):
+        if key + ".weight" in sd:                       # LayerNorm
+            take(key + ".weight")
+            take(key + ".bias")
+        else:                                           # ScaleNorm
+            take(key + ".scale")
+
+    for m in avail_mod:
+        for side in ("encoder_embeddings", "decoder_embeddings"):
+            emb = f"{side}.{m}.embedder"
+            linear(f"{emb}.token_embed")
+            linear(f"{emb}.projection")
+            take(f"{emb}.mod_emb.weight")
+            if side == "decoder_embeddings" and share_modality_embeddings:
+                enc = out[f"encoder_embeddings.{m}.embedder.mod_emb.weight"]
+                if not torch.equal(enc, out[f"{emb}.mod_emb.weight"]):
+                    raise ValueError(
+                        f"share_modality_embeddings=True but encoder/decoder "
+                        f"mod_emb for '{m}' differ in the state_dict")
+            if f"{emb}.pos_embed.weight" in sd:
+                take(f"{emb}.pos_embed.weight")
+        linear(f"decoder_embeddings.{m}.out")
+    for i in range(n_enc_layers):
+        for n in ("ln1", "ln2"):
+            norm(f"encoder.{i}.{n}")
+        for n in ("query", "key", "value", "out_proj"):
+            linear(f"encoder.{i}.attn.{n}")
+        for n in ("up_proj", "down_proj"):
+            linear(f"encoder.{i}.mlp.{n}")
+    norm("encoder_norm")
+    linear("decoder_proj_context")
+    for i in range(n_dec_layers):
+        for n in _NORM_NAMES:
+            norm(f"decoder.{i}.{n}")
+        for blk in ("attn", "cross_attn"):
+            for n in ("query", "key", "value", "out_proj"):
+                linear(f"decoder.{i}.{blk}.{n}")
+        for n in ("up_proj", "down_proj"):
+            linear(f"decoder.{i}.mlp.{n}")
+    norm("decoder_norm")
+    return out
 
 
 def baseline_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -390,5 +390,7 @@ def test_trainer_config_runs_the_three_options(tmp_path):
     assert tr.tcfg.unported() == []
     res = tr.train_epoch(0)
     assert np.isfinite(res["train_loss"]) and len(res["step_losses"]) == 4
-    bad = dataclasses.replace(tr.tcfg, mixed_session_batches=True)
-    assert bad.unported() == ["mixed_session_batches"]
+    bad = dataclasses.replace(tr.tcfg, shard_resident_sessions=True)
+    assert bad.unported() == ["shard_resident_sessions"]
+    assert dataclasses.replace(tr.tcfg,
+                               mixed_session_batches=True).unported() == []

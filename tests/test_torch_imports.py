@@ -118,8 +118,8 @@ def test_kernel_sources_and_build_key(tmp_path, monkeypatch):
     """Every CUDA source is listed; its library name carries a hash of
     the source and the shared headers, so an edited source or header
     builds a new library."""
-    assert {"attention_fwd", "attention_bwd", "layernorm"} <= set(
-        build.kernel_sources())
+    assert {"attention_fwd", "attention_bwd", "layernorm", "random",
+            "session_rows"} <= set(build.kernel_sources())
     path = build.library_path("attention_fwd")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libattention_fwd-")

@@ -1113,3 +1113,59 @@ def test_prefetched_toy_epoch_equals_the_plain_epoch(tmp_path):
                          pre.model.state_dict().values()):
         if not n.endswith("key.bias"):
             torch.testing.assert_close(b, a, atol=2e-5, rtol=0, msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the session-rows kernel (the fixed-order backward of per-sample gathers)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,shape", [(16, (1024, 512)), (1, (7,)),
+                                     (33, (3, 5)), (256, (256,)),
+                                     (40, (13, 1))])
+def test_session_rows_grad_matches_plain(B, shape, dtype):
+    """Bit for bit against the plain version (both add each session's
+    rows in sample order from 0), on the 16-byte path and the element
+    path (odd widths), with sessions absent from the batch exactly 0, and
+    bit-equal from one launch to the next."""
+    _need_cuda()
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
+
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    S = 6
+    ids = torch.randint(0, S - 1, (B,), device="cuda", generator=gen)
+    g = torch.randn((B,) + shape, device="cuda", generator=gen).to(dtype)
+    got = sr.session_rows_grad(g, ids, S)
+    assert got.dtype == torch.float32 and got.shape == (S,) + shape
+    assert torch.equal(got, sr.session_rows_grad_reference(g, ids, S))
+    assert torch.equal(got, sr.session_rows_grad(g, ids, S))
+    assert (got[S - 1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_session_rows_grad_misaligned_view_and_graph_replay():
+    """A view that starts off a 16-byte boundary takes the element path;
+    a CUDA-graph replay with new ids and gradients sums what an eager
+    launch sums."""
+    _need_cuda()
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
+
+    S, B = 4, 9
+    base = torch.randn(B * 64 + 1, device="cuda")
+    g = base[1:].reshape(B, 64)
+    ids = torch.tensor([3, 0, 3, 1, 3, 0, 2, 3, 1], device="cuda")
+    assert torch.equal(sr.session_rows_grad(g, ids, S),
+                       sr.session_rows_grad_reference(g, ids, S))
+    g_buf = torch.randn(B, 128, device="cuda")
+    ids_buf = ids.clone()
+    sr.session_rows_grad(g_buf, ids_buf, S)         # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sr.session_rows_grad(g_buf, ids_buf, S)
+    g_buf.copy_(torch.randn(B, 128, device="cuda"))
+    ids_buf.copy_(torch.tensor([1, 1, 1, 0, 2, 2, 0, 1, 3], device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, sr.session_rows_grad_reference(g_buf, ids_buf, S))

@@ -166,11 +166,12 @@ def test_config_json_round_trip_both_ways(tmp_path):
 
 
 def test_unported_paths_raise(toy):
-    """What is still unported raises: per-sample session ids (mixed-session
-    batches) and the trainer's ``mixed_session_batches``. Session
-    stitching and the loader's samplers, unported until the multi-session
-    port, now run: a stitched model builds and needs a session id, and
-    both samplers give JAX's order. bf16 compute, unported in the first two slices, now
+    """What is still unported raises: the trainer's
+    ``shard_resident_sessions``. Session stitching and the loader's
+    samplers, unported until the multi-session port, now run: a stitched
+    model builds and needs a session id, and both samplers give JAX's
+    order; per-sample session ids (session-mixed batches) run, and ids of
+    another batch's size are refused. bf16 compute, unported in the first two slices, now
     builds; another compute dtype is refused."""
     from multi_modal_foundation_model_tpu.data import loader as jloader
     from multi_modal_foundation_model_tpu.data import session as jsession
@@ -187,8 +188,10 @@ def test_unported_paths_raise(toy):
     with pytest.raises(ValueError):                 # needs a session id
         stitched(st_inputs)
     assert torch.isfinite(stitched(st_inputs, session_id=1).loss)
-    with pytest.raises(NotImplementedError):        # per-sample ids
-        stitched(st_inputs, session_id=torch.tensor([0, 1]))
+    assert torch.isfinite(                           # per-sample ids
+        stitched(st_inputs, session_id=torch.tensor([0, 1])).loss)
+    with pytest.raises(ValueError):
+        stitched(st_inputs, session_id=torch.tensor([0, 1, 1]))
     bf16 = tmm.MultiModal(tmm.MultiModalConfig(**TOY,
                                                compute_dtype="bfloat16"),
                           device="cpu")
@@ -210,7 +213,7 @@ def test_unported_paths_raise(toy):
     train = loader.make_loader(sess, **kw)
     with pytest.raises(NotImplementedError):
         MultiModalTrainer(tmodel, train, None, OptimizerConfig(),
-                          TrainerConfig(mixed_session_batches=True,
+                          TrainerConfig(shard_resident_sessions=True,
                                         log_dir="unused"))
     # the masker and training, unported in the first slice, now run
     spikes, beh, attn, ts = make_batch(16, 2)

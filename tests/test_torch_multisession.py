@@ -302,8 +302,13 @@ def test_sessions_use_their_own_rows(stitched):
     torch.testing.assert_close(p1, p1b, atol=0, rtol=0)
     with pytest.raises(ValueError):
         tmodel(inputs)                      # a stitched model needs an id
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):       # ids of another batch's size
         tmodel(inputs, session_id=torch.tensor([0, 1, 2, 0, 1, 2]))
+    with torch.no_grad():                  # a session a sample
+        mixed = tmodel(inputs,
+                       session_id=torch.tensor([1, 0, 1])).mod_preds["ap"]
+    for i, want in enumerate((p1b, p0, p1b)):
+        torch.testing.assert_close(mixed[i], want[i], atol=1e-6, rtol=0)
 
 
 def test_width_invariance(stitched):
@@ -519,10 +524,14 @@ def test_resume_is_exact(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    for over in (dict(mixed_session_batches=True),
-                 dict(shard_resident_sessions=True)):
-        with pytest.raises(NotImplementedError):
-            port_trainer(tmp_path, device_resident_data=True, **over)
+    """``shard_resident_sessions`` (DP) raises; ``mixed_session_batches``
+    builds and, without resident data, refuses to train (as JAX does)."""
+    with pytest.raises(NotImplementedError):
+        port_trainer(tmp_path, device_resident_data=True,
+                     shard_resident_sessions=True)
+    tr = port_trainer(tmp_path, mixed_session_batches=True)
+    with pytest.raises(ValueError, match="device_resident_data"):
+        tr.train_epoch(0)
 
 
 def test_adamw_decays_every_session_row(tmp_path):

@@ -223,6 +223,35 @@ def test_multi_session_scripts_write_their_results(tmp_path):
         == results.keys()
 
 
+def test_mixed_session_batches_script_runs(tmp_path):
+    """``train_multi_session --mixed_session_batches`` (2 sessions of 24
+    and 61 neurons in one bucket, resident, 2 steps a dispatch, 1 epoch)
+    on the CPU: finite rows, the mixed epoch's length (ceil(train trials /
+    16), both sessions in one pool), checkpoints; without ``--device_resident`` it
+    refuses, as JAX does."""
+    argv = COMMON + MM_FLAGS + SMALL_MM + [
+        "--base_path", str(tmp_path), "--device", "cpu", "--num_sessions",
+        "2", "--eid", "x", "--n_neurons", "24", "--num_epochs", "1",
+        "--pad_multiple", "32", "--mixed_session_batches"]
+    summary = train_multi_session.main(
+        argv + ["--device_resident", "--steps_per_dispatch", "2"])
+    log_dir = (tmp_path / "results/ses-multi2/set-train/"
+               "inModal-ap-behavior/outModal-ap-behavior/"
+               "stitched_ratio-0.3")
+    from multi_modal_foundation_model_tpu_torch.data.session import (
+        synthetic_splits)
+
+    trials = sum(synthetic_splits(seed=42 + i, n_trials=40,
+                                  n_neurons=24 + 37 * i).train.n_trials
+                 for i in range(2))
+    (row,) = summary["history"]
+    assert len(row["step_losses"]) == -(-trials // 16) == 4
+    assert all(math.isfinite(x) for x in row["step_losses"])
+    assert (log_dir / "model_last.pt").exists()
+    with pytest.raises(ValueError, match="device_resident_data"):
+        train_multi_session.main(argv + ["--overwrite"])
+
+
 def _script_args(script, tmp_path):
     base = ["--base_path", str(tmp_path), "--device", "cpu"]
     return {"train_baseline": train_baseline.main,
@@ -236,11 +265,14 @@ UNPORTED = [
     # real (not synthetic) sessions need the network
     ("eval_multi_modal", ["--multi_session", "--model_dir", "x"]),
     ("train_multi_session", ["--eids", "x"]),
-    ("train_multi_session", ["--synthetic", "--mixed_session_batches"]),
+    # DP-sharded resident sessions (JAX: with mixed batches)
+    ("train_multi_session", ["--synthetic", "--mixed_session_batches",
+                             "--shard_sessions"]),
     ("train_multi_session", ["--synthetic", "--shard_sessions"]),
     ("train_multi_session", ["--synthetic", "--compile_retries", "1"]),
     ("train_multi_session", ["--synthetic", "--dp", "2"]),
-    ("eval_multi_modal", ["--synthetic", "--reference_ckpt", "x.pt"]),
+    # a reference checkpoint on a real (IBL) session
+    ("eval_multi_modal", ["--reference_ckpt", "x.pt"]),
     ("eval_multi_modal", ["--synthetic", "--save_plot"]),
     ("eval_baseline", ["--synthetic", "--save_plot"]),
     ("train_baseline", ["--synthetic", "--dp", "2"]),

@@ -219,7 +219,6 @@ def test_unported_trainer_options_raise(tmp_path):
     train, val = _loaders(tloader, tsession)
     model = tmm.MultiModal(tmm.MultiModalConfig(**TOY), device="cpu")
     for over in (dict(compile_retries=1), dict(save_plot_every_n_epochs=5),
-                 dict(mixed_session_batches=True),
                  dict(shard_resident_sessions=True)):
         with pytest.raises(NotImplementedError):
             MultiModalTrainer(model, train, val, OptimizerConfig(),
@@ -227,6 +226,10 @@ def test_unported_trainer_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         MultiModalTrainer(model, train, val, OptimizerConfig(),
                           _tcfg(TrainerConfig, tmp_path), mesh=object())
+    # ported: a single-session trainer ignores it, as JAX's does
+    MultiModalTrainer(model, train, val, OptimizerConfig(),
+                      _tcfg(TrainerConfig, tmp_path,
+                            mixed_session_batches=True))
 
 
 def test_eval_reload_needs_an_explicit_cpu(tmp_path):

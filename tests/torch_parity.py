@@ -165,10 +165,10 @@ def ms_build(side: str, n_buckets: int = 1, batch_size: int = 8):
         pad_multiple=32, n_buckets=n_buckets)
 
 
-def jax_trainer(tmp, **over):
+def jax_trainer(tmp, n_buckets=1, **over):
     """JAX's ``MultiSessionTrainer`` of the lockstep (Pallas attention,
     dropout 0, remat off, lr 1e-3), ``over`` on its ``TrainerConfig``."""
-    train, val, _, meta = ms_build("jax")
+    train, val, _, meta = ms_build("jax", n_buckets)
     table = jmasking.RegionTable.build(meta["per_session_region_ids"],
                                        region_vocab=meta["region_vocab"])
     model = jmm.MultiModal(ms_config(
@@ -231,3 +231,38 @@ def assert_params_close(tr, jparams):
                                    atol=MS_PARAM_ATOL, rtol=0, err_msg=name)
 
 
+# session-mixed batches (tests/test_torch_mixed_sessions*.py)
+MS_MIXED = dict(device_resident_data=True, mixed_session_batches=True)
+MS_STEP_RTOL = 2e-5
+
+
+def mixed_lockstep(K, n_buckets, tmp_path):
+    """One mixed epoch of JAX's resident trainer and the port's from the
+    same weights: the same host draws, per-step losses and final
+    parameters within the lockstep's gates."""
+    over = dict(MS_MIXED, steps_per_dispatch=K)
+    j = jax_trainer(tmp_path / "j", n_buckets=n_buckets, **over)
+    init = jax.tree_util.tree_map(np.asarray, j.state.params)
+    jmodes = record_modes(j)
+    jlosses = []
+    get_step = j._get_mixed_step_dr
+
+    def recording(*args, **kwargs):
+        step = get_step(*args, **kwargs)
+
+        def run(*a):
+            state, loss = step(*a)
+            jlosses.extend(np.atleast_1d(np.asarray(loss)).tolist())
+            return state, loss
+        return run
+
+    j._get_mixed_step_dr = recording
+    j.train_epoch(0)
+    t = port_trainer(tmp_path / "t", init, n_buckets=n_buckets, **over)
+    tmodes = record_modes(t)
+    losses = t.train_epoch(0)["step_losses"]
+    assert tmodes == jmodes
+    assert len(losses) == t._steps_per_epoch() == j._steps_per_epoch()
+    np.testing.assert_allclose(losses, jlosses, rtol=MS_STEP_RTOL, atol=0)
+    assert_params_close(t, jax.tree_util.tree_map(np.asarray,
+                                                  j.state.params))
