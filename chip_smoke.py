@@ -117,6 +117,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    pickle, each loaded by ``load_reference_checkpoint`` with a bit-equal
    eval forward; ``eval_multi_modal --reference_ckpt`` in all six modes;
    ``convert_checkpoint`` ``to-port`` then ``to-reference``, bit for bit.
+12. real_data — the real-data path on stand-in sessions made from the seed
+   (no IBL session is in the repository; nothing is downloaded): raw spike
+   times of 708 clusters (668 kept by the region selection; a second
+   session of 560 / 520) over 240 trials, wheel speed at 1 kHz and whisker
+   motion energy at 60 Hz with NaN gaps, through the port's numpy ETL into
+   the hub's CSR rows, ``_rows_to_session`` and ``load_ibl_dataset`` (its
+   seams; the session count asserted), host seconds by ETL stage; bf16
+   under ``"full"``: the full-width trainer (N=668) on the graph path with
+   the launches a step of the synthetic step, two eval modes, multi-session
+   graph steps over both sessions, the NEMO filter (narrowed on a session
+   with uuids, refused on a hub session), ``decode_spikes_on_device`` bit
+   for bit against the host decode (device time beside its bound), the
+   ETL'd graph step against the synthetic one, and ``train_multi_modal
+   --eid`` / ``eval_multi_modal --eid`` without ``--synthetic`` through a
+   stand-in ``datasets`` module.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -2921,6 +2936,467 @@ def reference_ckpt_phase(root: Path) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the real-data path (raw session -> ETL -> hub rows -> trainers)
+# ---------------------------------------------------------------------------
+
+REAL_BINSIZE, REAL_WINDOW = 0.02, (-0.5, 1.5)      # 100 bins a trial
+REAL_REGIONS = ("CA1", "DG", "LP", "PO", "VISa", "VISam", "MRN", "APN")
+# two stand-in sessions: 708 clusters of which the region selection keeps
+# 668 (the reference width), and a narrower one
+REAL_SESSIONS = {
+    "etl-0": dict(seed=SEED, n_clusters=708, n_kept=668, n_trials=240),
+    "etl-1": dict(seed=SEED + 1, n_clusters=560, n_kept=520, n_trials=240)}
+REAL_ORG = "neurofm123"                 # load_ibl_session's default org
+HUB_PACKAGES = ("pandas", "datasets", "huggingface_hub", "h5py", "one",
+                "brainbox", "iblatlas")
+
+
+def raw_session(seed: int, n_clusters: int, n_kept: int, n_trials: int,
+                rate_hz: float = 4.0, nan_trials: int = 3) -> dict:
+    """A raw IBL-like session from ``seed`` (numpy, float64 times), in the
+    shapes ``prepare_data`` hands the binning: Poisson spike trains of
+    ``n_clusters`` clusters (rates log-normal about ``rate_hz``, time
+    sorted), of which ``n_clusters - n_kept`` sit in "root", outside
+    ``REAL_REGIONS``; trials 2.5-3.5 s apart with ``stimOn_times`` and the
+    trial table's scalars; ``wheel-speed`` at 1 kHz and
+    ``whisker-motion-energy`` at 60 Hz (NaN for 0.3 s after stimulus onset
+    in ``nan_trials`` trials); cluster depths and uuids."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.uniform(2.5, 3.5, n_trials)
+    stim_on = 2.0 + np.cumsum(gaps) - gaps[0]
+    t_end = float(stim_on[-1] + 4.0)
+    regions = np.concatenate([np.full(n_clusters - n_kept, "root"),
+                              rng.choice(REAL_REGIONS, n_kept)])
+    rng.shuffle(regions)
+    rates = rng.lognormal(np.log(rate_hz), 0.8, n_clusters)
+    counts = rng.poisson(rates * t_end)
+    clusters = np.repeat(np.arange(n_clusters), counts)
+    times = rng.uniform(0.0, t_end, int(counts.sum()))
+    order = np.argsort(times, kind="stable")
+    trials = {
+        "stimOn_times": stim_on,
+        "choice": rng.choice([-1.0, 1.0], n_trials),
+        "probabilityLeft": rng.choice([0.2, 0.5, 0.8], n_trials),
+        "rewardVolume": rng.choice([0.0, 1.5], n_trials, p=[0.3, 0.7]),
+        "contrastLeft": np.where(rng.random(n_trials) < 0.5, 0.25, np.nan),
+        "contrastRight": np.where(rng.random(n_trials) < 0.5, 1.0, np.nan)}
+    wheel_t = np.arange(0.0, t_end, 1e-3)
+    wheel = np.abs(np.sin(wheel_t * rng.uniform(0.5, 2.0))
+                   + 0.1 * rng.standard_normal(len(wheel_t)))
+    me_t = np.arange(0.0, t_end, 1.0 / 60.0)
+    me = rng.gamma(2.0, 1.0, len(me_t))
+    for k in rng.choice(n_trials, nan_trials, replace=False):
+        me[(me_t >= stim_on[k]) & (me_t < stim_on[k] + 0.3)] = np.nan
+    return dict(spike_times=times[order], spike_clusters=clusters[order],
+                cluster_regions=regions,
+                cluster_depths=rng.uniform(0.0, 3840.0, n_clusters),
+                cluster_uuids=np.array([f"{seed:02d}-{i:05d}"
+                                        for i in range(n_clusters)]),
+                trials=trials,
+                signals={"wheel-speed": (wheel_t, wheel),
+                         "whisker-motion-energy": (me_t, me)})
+
+
+def etl_rows(raw: dict, eid: str, etl, sparse,
+             window=REAL_WINDOW) -> tuple:
+    """``raw`` through the ETL (``etl``/``sparse``: either package's
+    modules) with ``window`` about stimulus onset in ``REAL_BINSIZE`` bins:
+    ``trial_intervals``, the region selection,
+    ``bin_spiking_data``, ``bin_behaviors`` (a NaN sample fails a trial),
+    ``align_spike_behavior``, then the hub's splits (a permutation from
+    ``SEED``: 70 / 10 / 20 %) encoded by ``dense_to_sparse_rows``
+    into the hub's columns, as the dict of lists ``ds[split][:]`` returns.
+    Returns (rows by split, host seconds by stage, counts)."""
+    sec = {}
+    t0 = time.perf_counter()
+    intervals = etl.trial_intervals(raw["trials"]["stimOn_times"], window)
+    keep = etl.select_brain_regions(raw["cluster_regions"],
+                                    list(REAL_REGIONS))
+    spikes, clu_ids = etl.bin_spiking_data(
+        keep, raw["spike_times"], raw["spike_clusters"], intervals=intervals,
+        binsize=REAL_BINSIZE)
+    sec["binning_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    behave, _ = etl.bin_behaviors(raw["signals"], trials_df=raw["trials"],
+                                  time_window=window, binsize=REAL_BINSIZE,
+                                  allow_nans=False)
+    sec["behaviors_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scalars, traces = ("choice", "reward", "block"), tuple(raw["signals"])
+    spikes, behs = etl.align_spike_behavior(spikes, behave,
+                                            beh_names=scalars + traces)
+    sec["align_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K = len(spikes)
+    perm = np.random.default_rng(SEED).permutation(K)
+    meta = {"cluster_regions": raw["cluster_regions"][clu_ids].tolist(),
+            "cluster_depths": raw["cluster_depths"][clu_ids].tolist(),
+            "cluster_uuids": raw["cluster_uuids"][clu_ids].tolist()}
+    rows = {}
+    for split, idx in zip(("train", "val", "test"),
+                          np.split(perm, [int(0.7 * K), int(0.8 * K)])):
+        idx = np.sort(idx)
+        data, indices, indptr, shape = sparse.dense_to_sparse_rows(
+            spikes[idx])
+        n = len(idx)
+        rows[split] = {
+            "spikes_sparse_data": data, "spikes_sparse_indices": indices,
+            "spikes_sparse_indptr": indptr,
+            "spikes_sparse_shape": [list(s) for s in shape],
+            **{k: behs[k][idx].tolist() for k in traces},
+            **{k: behs[k][idx, 0].tolist() for k in scalars},
+            "binsize": [REAL_BINSIZE] * n,
+            "interval_len": [window[1] - window[0]] * n,
+            "eid": [eid] * n, **{k: [v] * n for k, v in meta.items()}}
+    sec["csr_encode_s"] = time.perf_counter() - t0
+    counts = dict(trials=len(intervals), trials_aligned=K,
+                  clusters=len(raw["cluster_regions"]),
+                  clusters_kept=len(clu_ids),
+                  spikes=len(raw["spike_times"]),
+                  spikes_binned=int(spikes.sum()))
+    return rows, sec, counts
+
+
+@contextlib.contextmanager
+def hub_stand_in(rows_by_name: dict):
+    """For the body, ``datasets`` in ``sys.modules`` is a stand-in that
+    serves rows built in this process and downloads nothing:
+    ``load_dataset(name)`` returns ``{split: view}`` for a name in
+    ``rows_by_name`` (``"<org>/<eid>_aligned"``), where ``view[:]`` is that
+    split's dict of lists; any other name raises ``FileNotFoundError``.
+    Yields the stand-in, whose ``loaded`` lists the names asked for; the
+    package (or its absence) is put back after the body."""
+    import types
+
+    mod = types.ModuleType("datasets")
+    mod.loaded = []
+
+    class _Split:
+        def __init__(self, rows):
+            self._rows = rows
+
+        def __getitem__(self, key):
+            if key != slice(None):
+                raise TypeError("the stand-in serves whole splits only")
+            return self._rows
+
+    def load_dataset(path, cache_dir=None, **_):
+        mod.loaded.append(path)
+        if path not in rows_by_name:
+            raise FileNotFoundError(f"{path}: not in the stand-in")
+        return {s: _Split(r) for s, r in rows_by_name[path].items()}
+
+    mod.load_dataset = load_dataset
+    had, old = "datasets" in sys.modules, sys.modules.get("datasets")
+    sys.modules["datasets"] = mod
+    try:
+        yield mod
+    finally:
+        if had:
+            sys.modules["datasets"] = old
+        else:
+            sys.modules.pop("datasets", None)
+
+
+def _decode_check(rows: dict) -> dict:
+    """``decode_spikes_on_device`` on the card over the first 16 trials of
+    ``rows`` against ``sparse_rows_to_dense``: bit for bit; its device time
+    (every kernel of the call, ``traced``) beside the bound of its bytes
+    (the COO inputs read once, the dense f32 output written once)."""
+    from multi_modal_foundation_model_tpu_torch.data import (
+        decode_spikes_on_device, flatten_csr_rows, sparse_rows_to_dense)
+
+    cols = [rows[k][:TRAIN_B] for k in (
+        "spikes_sparse_data", "spikes_sparse_indices",
+        "spikes_sparse_indptr", "spikes_sparse_shape")]
+    T, N = (int(x) for x in cols[3][0])
+    nnz = max(len(d) for d in cols[0])
+    coo = [torch.as_tensor(a, device="cuda")
+           for a in flatten_csr_rows(*cols, max_nnz=nnz)]
+    got = decode_spikes_on_device(*coo, T=T, N=N)
+    torch.cuda.synchronize()
+    want = sparse_rows_to_dense(*cols).astype(np.float32)
+    bit_equal = bool(np.array_equal(got.cpu().numpy(), want))
+    ms = device_ms(lambda: decode_spikes_on_device(*coo, T=T, N=N))
+    bytes_moved = sum(t.numel() * t.element_size() for t in coo) \
+        + got.numel() * got.element_size()
+    return dict(shape=[TRAIN_B, T, N], max_nnz=nnz, bit_equal=bit_equal,
+                device_ms=ms, bytes=bytes_moved, **_bound(bytes_moved, 0.0))
+
+
+def _real_vs_synthetic_time(root: Path, real_loader) -> dict:
+    """The bf16 B=16 graph step (``"full"``, MtM ``temporal`` alone) on the
+    ETL'd session against the same step on the synthetic session of the
+    same width, one resident trainer each, a segment a dispatch of K = 10
+    replays over the loader's first batch (``dispatch_time``'s group),
+    interleaved real, synthetic, synthetic, real (4 passes); medians and
+    spreads of ms a step."""
+    cfg = _cfg(torch.bfloat16)
+    one = dict(mask_mode=("temporal",), mixed_training=False,
+               device_resident_data=True, steps_per_dispatch=DISPATCH_K)
+    segs, fns = {"real": [], "synthetic": []}, {}
+    with ln_mode("full"):
+        for name, loader in (("real", real_loader),
+                             ("synthetic", _step_loaders(TRAIN_B))):
+            tr = _trainer(cfg, loader, None, 1, root / f"time_{name}",
+                          tcfg_over=one)
+            data = tr._device_data(loader)
+            idx, valid, _ = next(loader.iter_index_batches())
+            group = [(idx, valid, 0)] * DISPATCH_K
+            fns[name] = (lambda tr=tr, data=data, group=group:
+                         tr._dispatch(data, group, None))
+            fns[name]()
+            fns[name]()
+        for p in range(4):
+            for name in (("real", "synthetic") if p % 2 == 0
+                         else ("synthetic", "real")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                segs[name].append((time.perf_counter() - t0) * 1e3
+                                  / DISPATCH_K)
+    del fns
+    torch.cuda.empty_cache()
+    return dict(segments_ms=segs,
+                ms_per_step={k: float(np.median(v)) for k, v in segs.items()},
+                spread_ms={k: max(v) - min(v) for k, v in segs.items()})
+
+
+def real_data_phase(root: Path) -> dict:
+    """The real-data path on stand-in sessions (no IBL session is in the
+    repository and nothing is downloaded): ``REAL_SESSIONS`` built from the
+    seed (``raw_session``) go through the port's numpy ETL (``etl_rows``),
+    ``_rows_to_session`` and ``load_ibl_dataset(split_method=
+    "predefined")`` through its ``_load_session`` / ``_list_datasets``
+    seams (the session count asserted: a session that fails to load is
+    skipped, not raised). Then, bf16 under ``"full"``, the counters set to
+    0 before and read after: ``MultiModalTrainer`` at full width (N=668) on
+    the resident graph path (K = 10) for 2 epochs, epoch 1 run again after
+    a restore under a profile (K1 30, K2 15, K3 62, K4 32 a step and
+    Philox, as on the synthetic step), ``co_smoothing_eval`` in two modes;
+    ``MultiSessionTrainer`` for one graph epoch over both sessions; the
+    NEMO filter on a session with ``cluster_uuids`` set (the space axis
+    narrowed) and refused on a hub session (JAX's ``_rows_to_session``
+    drops the uuids); ``decode_spikes_on_device`` bit for bit against the
+    host decode; the ETL'd graph step against the synthetic one;
+    ``train_multi_modal --eid`` and ``eval_multi_modal --eid`` with no
+    ``--synthetic`` through ``hub_stand_in``. Host seconds of each ETL
+    stage are printed. Returns the single-session path's counter launches
+    and its profiled kernel counts."""
+    import importlib.util
+    import pickle
+
+    from multi_modal_foundation_model_tpu_torch.data import (
+        SessionSplits, etl, load_ibl_dataset, make_loader, sparse)
+    from multi_modal_foundation_model_tpu_torch.data.session import (
+        _rows_to_session)
+    from multi_modal_foundation_model_tpu_torch.eval import (
+        co_smoothing_eval)
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        eval_multi_modal, train_multi_modal)
+    from multi_modal_foundation_model_tpu_torch.train import (
+        build_multisession_loaders)
+
+    t_phase = time.perf_counter()
+    base = root / "chip_smoke_real_data"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    T, N = GEOMETRY["max_F"], GEOMETRY["n_channels"]["ap"]
+    have = {p: importlib.util.find_spec(p) is not None for p in HUB_PACKAGES}
+
+    # raw sessions through the ETL into the hub's rows
+    rows_by_name, sessions = {}, {}
+    for eid, spec in REAL_SESSIONS.items():
+        t0 = time.perf_counter()
+        raw = raw_session(**spec)
+        raw_s = time.perf_counter() - t0
+        rows, sec, counts = etl_rows(raw, eid, etl, sparse)
+        t0 = time.perf_counter()
+        sessions[eid] = SessionSplits(**{
+            s: _rows_to_session(r, eid) for s, r in rows.items()})
+        sec["rows_to_session_s"] = time.perf_counter() - t0
+        rows_by_name[f"{REAL_ORG}/{eid}_aligned"] = rows
+        emit(phase="real_data_etl", eid=eid, raw_session_s=raw_s,
+             host_s_by_stage=sec, **counts,
+             splits={s: getattr(sessions[eid], s).n_trials
+                     for s in ("train", "val", "test")},
+             n_neurons=sessions[eid].n_neurons)
+        del raw
+
+    # multi-session assembly through the seams, then the loaders
+    t0 = time.perf_counter()
+    listed = list(rows_by_name) + [f"{REAL_ORG}/etl-0_unaligned"]
+    train, _, _, meta = load_ibl_dataset(
+        None, user_or_org_name=REAL_ORG, num_sessions=len(REAL_SESSIONS),
+        split_method="predefined", batch_size=TRAIN_B,
+        _load_session=sessions.__getitem__, _list_datasets=lambda _: listed)
+    s0 = train["etl-0"]
+    kw = dict(batch_size=TRAIN_B, max_time_length=T, max_space_length=N)
+    train_l = make_loader(s0.train, seed=SEED, **kw)
+    val_l = make_loader(s0.val, shuffle=False, **kw)
+    test_l = make_loader(s0.test, shuffle=False,
+                         **dict(kw, batch_size=s0.test.n_trials))
+    loader_s = time.perf_counter() - t0
+    assembled = (meta["num_sessions"] == len(REAL_SESSIONS)
+                 and meta["eids"] == list(REAL_SESSIONS)
+                 and s0.n_neurons == N
+                 and all(s.train.n_trials % TRAIN_B == 0
+                         for s in train.values()))
+
+    # single session, full width, on the graph path
+    cfg = _cfg(torch.bfloat16)
+    want = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                k3=K3_PER_STEP, k4=K4_PER_STEP)
+    with ln_mode("full"):
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = _trainer(cfg, train_l, val_l, 2, base / "single",
+                      tcfg_over=dict(device_resident_data=True,
+                                     steps_per_dispatch=DISPATCH_K))
+        losses = tr.train_epoch(0)["step_losses"]
+        tr.save_model("last", epoch=0)
+        losses += tr.train_epoch(1)["step_losses"]
+        # epoch 1 again after a restore: every variant it draws was
+        # captured, so each of its steps is a replay (``dispatch_phase``)
+        prof_counts, again = None, []
+        for _ in range(3):
+            tr.restore("last")
+            try:
+                with traced() as prof:
+                    again = tr.train_epoch(1)["step_losses"]
+            except TraceLost:
+                continue
+            prof_counts = kernel_counts(prof)
+            if _launches_ok(prof_counts, len(again), want):
+                break
+        ev = tr.eval_epoch()
+        evals = {mode: co_smoothing_eval(
+            tr.model, test_l, mode, use_mtm=True, chunk=CHUNK,
+            n_time_steps=T, held_out_list=held,
+            save_path=str(base / "eval" / mode))
+            for mode, held in (("modal_spike", list(range(T))),
+                               ("forward_pred",
+                                list(range(7 * T // 10, T))))}
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        counts = read_counts()
+    del tr
+    torch.cuda.empty_cache()
+    single_ok = (all(math.isfinite(x) for x in losses + again)
+                 and len(losses) == 2 * len(train_l) and _finite_tree(evals)
+                 and math.isfinite(ev["eval_loss"])
+                 and prof_counts is not None
+                 and _launches_ok(prof_counts, len(again), want)
+                 and all(counts[k] > 0
+                         for k in ("k1", "k2", "k3", "k4", "philox")))
+
+    # multi-session graph steps over both ETL'd sessions
+    with ln_mode("full"):
+        t0 = time.perf_counter()
+        ms_train, ms_val, _, ms_meta = build_multisession_loaders(
+            train, batch_size=TRAIN_B, max_time_length=T,
+            pad_multiple=MS_PAD, seed=SEED)
+        ms = ms_trainer(dict(train=ms_train, val=ms_val, meta=ms_meta),
+                        torch.bfloat16, base / "multi")
+        ms_losses = ms.train_epoch(0)["step_losses"]
+        ms_eval = ms.eval_epoch()["eval_per_session"]
+        torch.cuda.synchronize()
+        ms_s = time.perf_counter() - t0
+        ms_replays = ms.graphs.replays
+    del ms
+    torch.cuda.empty_cache()
+    ms_ok = (all(math.isfinite(x) for x in ms_losses)
+             and len(ms_losses) == sum(len(v) for v in ms_train.values())
+             and ms_replays > 0 and _finite_tree(ms_eval)
+             and sorted(ms_eval) == sorted(REAL_SESSIONS))
+
+    # NEMO: a pickle of the phase's own, covering 3 units in 4
+    rng = np.random.default_rng(SEED)
+    uuids = np.asarray(rows_by_name[f"{REAL_ORG}/etl-0_aligned"]["train"]
+                       ["cluster_uuids"][0])
+    kept = np.flatnonzero(np.arange(len(uuids)) % 4 != 0)
+    table = np.concatenate([uuids[kept], [f"absent-{i}" for i in range(16)]])
+    nemo_path = base / "MtM_unit_embed.pkl"
+    with open(nemo_path, "wb") as f:
+        pickle.dump({"uuids": table,
+                     "wvf_rep": rng.standard_normal((len(table), 32)),
+                     "acg_rep": rng.standard_normal((len(table), 16))}, f)
+    with_uuids = dataclasses.replace(s0.train, cluster_uuids=uuids)
+    nemo_l = make_loader(with_uuids, use_nemo=True, nemo_path=str(nemo_path),
+                         shuffle=False, **kw)
+    nemo_ok = (nemo_l.arrays["spikes_data"].shape[-1] == len(kept)
+               and nemo_l.arrays["nemo_rep"].shape == (len(kept), 48)
+               and np.array_equal(nemo_l.arrays["spikes_data"],
+                                  s0.train.spikes[:, :, kept]))
+    try:
+        make_loader(s0.train, use_nemo=True, nemo_path=str(nemo_path), **kw)
+        hub_refused = False
+    except AssertionError:
+        hub_refused = True
+
+    decode = _decode_check(rows_by_name[f"{REAL_ORG}/etl-0_aligned"]
+                           ["train"])
+    timing = _real_vs_synthetic_time(base, train_l)
+
+    # the scripts' real-data branch, the download replaced
+    scripts = {}
+    argv = ["--eid", "etl-0", "--device", "cuda", "--overwrite",
+            "--base_path", str(base / "scripts"), "--use_MtM",
+            "--mixed_training"]
+    with hub_stand_in(rows_by_name) as hub:
+        emit(phase="real_data_hub_stand_in", replaces="datasets",
+             serves=sorted(rows_by_name),
+             real_datasets_package_present=have["datasets"])
+        for name, main, extra, need in (
+                ("train_multi_modal", train_multi_modal.main,
+                 ["--num_epochs", "1", "--device_resident", "--set",
+                  "training.steps_per_dispatch=10"],
+                 ("k1", "k2", "k3", "k4", "philox")),
+                ("eval_multi_modal", eval_multi_modal.main, [],
+                 ("k1", "k3"))):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = main(argv + extra)
+            torch.cuda.synchronize()
+            c = read_counts()
+            scripts[name] = dict(wall_s=time.perf_counter() - t0,
+                                 launches=c, finite=_finite_tree(out),
+                                 launched=all(c[k] > 0 for k in need))
+        loaded = list(hub.loaded)
+    scripts_ok = (all(s["finite"] and s["launched"]
+                      for s in scripts.values())
+                  and loaded == [f"{REAL_ORG}/etl-0_aligned"] * 2)
+
+    checks = dict(assembled=assembled, single_session=single_ok,
+                  multisession=ms_ok, nemo=nemo_ok,
+                  nemo_refused_on_hub_session=hub_refused,
+                  decode_bit_equal=decode["bit_equal"], scripts=scripts_ok)
+    ok = all(checks.values())
+    emit(phase="real_data", checks=checks, sessions=meta["eids"],
+         num_neurons=meta["num_neurons"], num_sessions=meta["num_sessions"],
+         assembled=assembled, loader_s=loader_s, host_packages=have,
+         dtype="bfloat16", layernorm="full", batch=TRAIN_B,
+         steps_per_dispatch=DISPATCH_K, single_losses=losses,
+         single_s=single_s, launches_counters=counts,
+         launches_profiled_epoch=prof_counts,
+         launches_per_step={k: v / max(len(again), 1)
+                            for k, v in (prof_counts or {}).items()},
+         launches_per_step_expected=want, eval_loss=ev["eval_loss"],
+         evals=evals, multisession_losses=ms_losses,
+         multisession_n_max=ms_meta["n_max"], multisession_s=ms_s,
+         multisession_replays=ms_replays, multisession_eval=ms_eval,
+         nemo_units=len(kept), decode=decode, step_time_real_vs_synthetic=timing,
+         scripts=scripts, hub_loaded=loaded,
+         wall_s=time.perf_counter() - t_phase,
+         device=torch.cuda.get_device_name(0), ok=ok)
+    if not ok:
+        raise AssertionError("real_data: assembly, training, NEMO, decode "
+                             "or scripts off (see its line)")
+    return dict(counters=counts, graph=prof_counts)
+
+
 def multisession_phases(root: Path, default: str):
     """Phases 8-10 over the ten sessions: at 400 trials (320 train, so a
     B=256 batch fits one session) for the timing phases, at 100 trials
@@ -3155,8 +3631,10 @@ def main() -> int:
          entry_points_s=entry_s, total_s=baseline_s + entry_s)
     ms_counts, mixed, ms_entry, _ = multisession_phases(out, default)
     ref_counts = reference_ckpt_phase(out)
+    real = real_data_phase(out)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
-                 train_f32=train_f32, train_bf16=train_bf16)
+                 train_f32=train_f32, train_bf16=train_bf16,
+                 real_data_bf16=real["counters"])
     # the graph path's launches, counted by kernel name in a profile of
     # one epoch of replays (the wrappers' counters see only Python calls)
     graph_paths = dict(dispatch_graph_f32=disp_f32,
@@ -3164,7 +3642,8 @@ def main() -> int:
                        multisession_graph_f32=ms_counts["f32"],
                        multisession_graph_bf16=ms_counts["bf16"],
                        multisession_mixed_graph_f32=mixed["counts"]["f32"],
-                       multisession_mixed_graph_bf16=mixed["counts"]["bf16"])
+                       multisession_mixed_graph_bf16=mixed["counts"]["bf16"],
+                       real_data_graph_bf16=real["graph"])
 
     def by_path(group, names):
         got = {k: paths[k][group] for k in names if k in paths}
@@ -3201,7 +3680,9 @@ def main() -> int:
              launches_by_path=by_path("k1", ("train_bf16",
                                              "dispatch_graph_bf16",
                                              "multisession_graph_bf16",
-                                             "multisession_mixed_graph_bf16")),
+                                             "multisession_mixed_graph_bf16",
+                                             "real_data_bf16",
+                                             "real_data_graph_bf16")),
              **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
@@ -3219,7 +3700,9 @@ def main() -> int:
              launches_by_path=by_path("k2", ("train_bf16",
                                              "dispatch_graph_bf16",
                                              "multisession_graph_bf16",
-                                             "multisession_mixed_graph_bf16")),
+                                             "multisession_mixed_graph_bf16",
+                                             "real_data_bf16",
+                                             "real_data_graph_bf16")),
              **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",

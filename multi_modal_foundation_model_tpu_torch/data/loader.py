@@ -12,7 +12,10 @@ padded up to ``batch_size`` with its ``time/space_attn_mask`` zeroed and
 ``make_loader``'s ``stitching``) orders the trials as the JAX samplers do
 (``get_length_grouped_indices``, ``get_length_grouped_indices_stitched``,
 JAX :76-125, from the same ``(seed, epoch)`` generator), index for index.
-The NEMO unit filter is not ported.
+The NEMO unit filter (``load_nemo_units``, ``make_loader(use_nemo=True)``,
+JAX :261-283, :432-441) keeps the units whose uuid is in the unit-embedding
+pickle, narrows the space axis to them and carries their representation
+rows as ``nemo_rep``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,36 @@ def get_length_grouped_indices_stitched(
     return [int(i) for batch in batches for i in batch]
 
 
+def pad_seq_right_to_n(seq: np.ndarray, n: int,
+                       pad_value: float = 0.0) -> np.ndarray:
+    """``seq`` padded along its first axis to ``n`` at the end (the
+    reference's ``loader/base.py:9-118`` helpers, JAX :36-61)."""
+    if n == len(seq):
+        return seq
+    pad = np.ones((n - len(seq), *np.asarray(seq[0]).shape)) * pad_value
+    return np.concatenate([seq, pad], axis=0)
+
+
+def pad_seq_left_to_n(seq: np.ndarray, n: int,
+                      pad_value: float = 0.0) -> np.ndarray:
+    if n == len(seq):
+        return seq
+    pad = np.ones((n - len(seq), *np.asarray(seq[0]).shape)) * pad_value
+    return np.concatenate([pad, seq], axis=0)
+
+
+def wrap_pad_temporal_right_to_n(seq: np.ndarray, n: int) -> np.ndarray:
+    if n == len(seq):
+        return seq
+    return np.pad(seq, ((0, n - seq.shape[0]), (0, 0)), mode="wrap")
+
+
+def wrap_pad_neuron_up_to_n(seq: np.ndarray, n: int) -> np.ndarray:
+    if n == len(seq[0]):
+        return seq
+    return np.pad(seq, ((0, 0), (0, n - seq.shape[1])), mode="wrap")
+
+
 def attention_mask(seq_length: int, pad_length: int) -> np.ndarray:
     mask = np.ones(seq_length)
     if pad_length:
@@ -79,17 +112,27 @@ def prepare_split(
     sort_by_region: bool = False,
     brain_region: str = "all",
     region_vocab: Optional[Dict[str, int]] = None,
+    unit_filter: Optional[np.ndarray] = None,
 ) -> Dict[str, np.ndarray]:
     """Pad/truncate time to ``max_time_length`` and space to
     ``max_space_length``, optionally subset one brain region and sort
     neurons by depth or region, over the whole split at once. Also emits
-    integer ``region_ids`` (padding = -1)."""
+    integer ``region_ids`` (padding = -1). ``unit_filter`` (a boolean mask
+    or an index array) selects neurons first: the NEMO filter's units."""
     assert not (sort_by_depth and sort_by_region), \
         "Can only sort either by depth or region."
 
     spikes = session.spikes
     regions = session.neuron_regions.astype(str)
     depths = session.neuron_depths
+
+    if unit_filter is not None:
+        unit_filter = np.asarray(unit_filter)
+        keep = (np.argwhere(unit_filter).flatten()
+                if unit_filter.dtype == bool else unit_filter)
+        spikes = spikes[:, :, keep]
+        regions = regions[keep]
+        depths = depths[keep]
 
     if brain_region != "all":
         keep = np.argwhere(regions == brain_region).flatten()
@@ -165,6 +208,29 @@ def prepare_split(
         "region_vocab": region_vocab,        # host-side dict
         "eid": session.eid,
     }
+
+
+def load_nemo_units(nemo_path: str, cluster_uuids: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The NEMO unit-embedding filter (the reference's
+    ``loader/base.py:331-343``): reads the pickle (``{'uuids', 'wvf_rep',
+    'acg_rep'}``), intersects its uuids with the session's, and returns
+    ``(unit_ids, nemo_rep)``: the indices of the session's units to keep
+    and their waveform + ACG representation rows in the table's order. The
+    pickle is the program's own data: unpickling runs code, so pass only a
+    file of trusted origin."""
+    import pickle
+
+    with open(nemo_path, "rb") as f:
+        nemo = pickle.load(f)
+    nemo_uuids = np.asarray(nemo["uuids"]).astype(str)
+    rep = np.concatenate(
+        [np.asarray(nemo["wvf_rep"]), np.asarray(nemo["acg_rep"])], axis=1)
+    cluster_uuids = np.asarray(cluster_uuids).astype(str)
+    include = np.intersect1d(cluster_uuids, nemo_uuids)
+    unit_ids = np.flatnonzero(np.isin(cluster_uuids, include)).astype(np.int64)
+    nemo_rep = rep[np.isin(nemo_uuids, include)].astype(np.float32)
+    return unit_ids, nemo_rep
 
 
 _PER_TRIAL_KEYS = ("spikes_data", "target", "time_attn_mask",
@@ -270,24 +336,41 @@ def make_loader(
     max_time_length: int = 100,
     max_space_length: int = 668,
     brain_region: str = "all",
+    load_meta: bool = True,
+    stitching: bool = False,
     shuffle: bool = True,
     seed: int = 42,
     region_vocab: Optional[Dict[str, int]] = None,
     drop_last: bool = False,
     sampler: Optional[str] = None,
-    stitching: bool = False,
+    use_nemo: bool = False,
+    nemo_path: str = "data/MtM_unit_embed.pkl",
+    unit_filter: Optional[np.ndarray] = None,
 ) -> DataLoader:
-    """Loader over one session split with JAX ``make_loader``'s batching
-    arguments (:392-464); ``target`` selects behavior covariates by name
-    (default: the session's stored ones). ``sampler`` picks the batching
-    order (None | "length_grouped" | "stitch"); ``stitching=True`` is the
-    reference's flag for the stitch sampler."""
+    """Loader over one session split with JAX ``make_loader``'s arguments
+    (:392-464, in its order); ``target`` selects behavior covariates by
+    name (default: the session's stored ones). ``sampler`` picks the
+    batching order (None | "length_grouped" | "stitch"); ``stitching=True``
+    is the reference's flag for the stitch sampler. ``load_meta`` is the
+    reference's flag, accepted and unread as in JAX (the metadata is always
+    loaded). ``use_nemo`` applies the NEMO filter from ``nemo_path``
+    (needs ``session.cluster_uuids``; excludes ``unit_filter``) and narrows
+    ``max_space_length`` to the kept units, as the reference does;
+    ``unit_filter`` selects neurons directly."""
     if target is not None and tuple(target) != tuple(session.target_names):
         name_to_idx = {n: i for i, n in enumerate(session.target_names)}
         cols = [name_to_idx[t] for t in target]
         session = dataclasses.replace(
             session, behavior=session.behavior[:, :, cols],
             target_names=tuple(target))
+    nemo_rep = np.array([np.nan], dtype=np.float32)
+    if use_nemo:
+        assert session.cluster_uuids is not None, \
+            "use_nemo requires session.cluster_uuids"
+        assert unit_filter is None, "use_nemo computes its own unit_filter"
+        unit_filter, nemo_rep = load_nemo_units(nemo_path,
+                                                session.cluster_uuids)
+        max_space_length = len(unit_filter)
     arrays = prepare_split(
         session,
         max_time_length=max_time_length,
@@ -298,8 +381,9 @@ def make_loader(
         sort_by_region=sort_by_region,
         brain_region=brain_region,
         region_vocab=region_vocab,
+        unit_filter=unit_filter,
     )
-    arrays["nemo_rep"] = np.array([np.nan], dtype=np.float32)
+    arrays["nemo_rep"] = nemo_rep
     if sampler is None and stitching:
         sampler = "stitch"
     return DataLoader(arrays=arrays, batch_size=batch_size, shuffle=shuffle,

@@ -1,14 +1,15 @@
 from .baseline import BaselineDecoder, BaselineEncoder, BaselineOutput
 from .layers import (Attention, CrossAttention, DecoderLayer, EncoderLayer,
-                     MLP, ModalityTokenizer, ScaleNorm, SessionStitchedHead,
-                     SessionStitchedTokenizer)
+                     FactorsProjection, MLP, ModalityTokenizer, ScaleNorm,
+                     SessionStitchedHead, SessionStitchedTokenizer)
 from .multimodal import (ModalityInput, MultiModal, MultiModalConfig,
                          MultiModalOutput)
 from .region_lookup import RegionLookup
 
 __all__ = [
     "BaselineDecoder", "BaselineEncoder", "BaselineOutput",
-    "Attention", "CrossAttention", "DecoderLayer", "EncoderLayer", "MLP",
+    "Attention", "CrossAttention", "DecoderLayer", "EncoderLayer",
+    "FactorsProjection", "MLP",
     "ModalityTokenizer", "ScaleNorm", "SessionStitchedHead",
     "SessionStitchedTokenizer", "ModalityInput", "MultiModal",
     "MultiModalConfig", "MultiModalOutput", "RegionLookup",

@@ -486,3 +486,42 @@ class SessionStitchedHead(nn.Module):
         if n_out is not None:
             w, b = w[:, :n_out], b[:n_out]
         return torch.matmul(y, w.to(y.dtype)) + b.to(y.dtype)
+
+
+class FactorsProjection(nn.Module):
+    """The optional bottleneck head (JAX ``FactorsProjection``, :693-716;
+    the reference's ``mm_utils.py:55-73``): layer dropout, then (when
+    ``active``) the Linear ``proj`` and the activation. ``proj`` is drawn
+    from U(-init_range, init_range) with a zero bias, the reference's init
+    (flax's ``uniform(2 * init_range)`` in JAX draws from [0, 2 *
+    init_range)). No model builds it, in either package; it is exported
+    for API parity, and ``utils/convert.py::factors_projection_params_from_jax``
+    loads JAX's ``proj`` tree into it."""
+
+    SEED_PATHS = (((0,),),)
+
+    def __init__(self, hidden_size: int, size: int, act: str = "relu",
+                 use_bias: bool = True, dropout: float = 0.0,
+                 active: bool = True, init_range: float = 0.02,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = ACT2FN[act]
+        self.dropout = dropout
+        self.active = active
+        # inactive, JAX builds no ``proj`` (nothing to load, nothing to train)
+        self.proj = Dense(hidden_size, size, use_bias, dtype) if active \
+            else None
+        if active:
+            with torch.no_grad():
+                self.proj.weight.uniform_(-init_range, init_range,
+                                          generator=generator)
+                if self.proj.bias is not None:
+                    self.proj.bias.zero_()
+
+    def forward(self, x: torch.Tensor,
+                seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = dropout_u8(x, self.dropout, seed_at(seeds, 0))
+        if not self.active:
+            return x
+        return self.act(self.proj(x))

@@ -5,10 +5,11 @@ same flags and defaults (``add_common_args``) plus ``--device`` (default
 ``cuda``: the scripts run on the card unless asked for the CPU, and with
 no card ``cuda`` raises), ``--set`` overrides, the reference's results
 layout (``log_dir_for``) and the overwrite guard. Sessions come from the
-offline synthetic generator (``--synthetic``); loading IBL sessions needs
-the network and is not ported, so without ``--synthetic`` the scripts
-raise. DP/TP meshes are not ported either: ``--dp`` and ``--tp`` take
-their single-device values only.
+offline synthetic generator (``--synthetic``) or, without it, from the
+hub: ``load_ibl_session(--eid)`` (``<eid>_aligned``, or ``<eid>_unaligned``
+with an ``--unaligned`` flag), which needs ``datasets`` and the hub or a
+warm Hugging Face cache. DP/TP meshes are not ported: ``--dp`` and
+``--tp`` take their single-device values only.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import warnings
 
 from ..config import config_from_kwargs, update_config
-from ..data.session import SessionSplits, synthetic_splits
+from ..data.session import SessionSplits, load_ibl_session, synthetic_splits
 from ..train.checkpoint import checkpoint_path
 
 DEFAULT_EID = "db4df448-e449-4a6f-a0e7-288711e7a75a"
@@ -46,8 +47,8 @@ def add_common_args(ap):
     ap.add_argument("--overwrite", action="store_true")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--synthetic", action="store_true",
-                    help="use an offline synthetic session (required: "
-                         "loading IBL sessions is not ported)")
+                    help="use an offline synthetic session instead of the "
+                         "IBL session --eid from the hub")
     ap.add_argument("--n_neurons", type=int, default=668,
                     help="synthetic session size (ignored with real data)")
     ap.add_argument("--n_trials", type=int, default=400)
@@ -79,14 +80,16 @@ def warn_unsupported(args, *flags: str) -> None:
 
 
 def get_session(args) -> SessionSplits:
+    """The synthetic session (``--synthetic``) or the IBL session ``--eid``
+    from the hub, aligned unless the script has ``--unaligned`` set (JAX
+    ``scripts/_common.py:102-110``)."""
     if args.synthetic:
         # synthetic "unaligned" sessions are the same generator; the
         # distinction is in the eval path (harness is_aligned=False)
         return synthetic_splits(seed=args.seed, n_trials=args.n_trials,
                                 n_neurons=args.n_neurons, eid=args.eid)
-    raise NotImplementedError(
-        "loading IBL sessions needs the network (the ONE API and the "
-        "Hugging Face hub) and is not ported; pass --synthetic")
+    unaligned = bool(getattr(args, "unaligned", False))
+    return load_ibl_session(args.eid, aligned=not unaligned)
 
 
 def build_mesh(dp: int, tp: int = 1):

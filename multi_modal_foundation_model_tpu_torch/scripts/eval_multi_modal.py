@@ -16,13 +16,15 @@ the metrics in ``results.json`` there. ``--multi_session`` evaluates a
 session-stitched checkpoint (``train_multi_session``): every mode once per
 trained session, artifacts under ``<model_dir>/eval/<eid>/<mode>/`` and
 ``results.json`` keyed by eid with the mean over sessions; the sessions
-come from the checkpoint's ``sessions.json`` and are regenerated with the
-train script's synthetic convention. ``--reference_ckpt`` evaluates a
-checkpoint the PyTorch reference trained (``load_reference_checkpoint``)
-on the session's test split, artifacts under
-``<base_path>/reference_ckpt_eval`` unless ``--model_dir`` is given. Not
-ported yet, each raising: ``--save_plot`` and real (non-synthetic)
-sessions.
+come from the checkpoint's ``sessions.json``, regenerated with the train
+script's synthetic convention (``--synthetic``) or loaded from the hub by
+eid. Without ``--synthetic`` the session is the IBL session ``--eid``
+(``<eid>_unaligned`` with ``--unaligned``), loaded through
+``load_ibl_session`` (``datasets`` and the hub or a warm cache).
+``--reference_ckpt`` evaluates a checkpoint the PyTorch reference trained
+(``load_reference_checkpoint``) on the session's test split, artifacts
+under ``<base_path>/reference_ckpt_eval`` unless ``--model_dir`` is given.
+Not ported yet, raising: ``--save_plot``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import os
 import numpy as np
 
 from ..data.loader import make_loader
-from ..data.session import DEFAULT_TARGETS, synthetic_splits
+from ..data.session import (DEFAULT_TARGETS, load_ibl_session,
+                             synthetic_splits)
 from ..eval import (co_smoothing_eval, load_model_data_local,
                     load_multisession_model_data_local,
                     load_reference_checkpoint)
@@ -66,15 +69,16 @@ def build_modes(args, T):
 def eval_multi_session(args, device):
     """Every mode over every session of a stitched checkpoint (JAX
     :43-140). Synthetic sessions are regenerated as the train script made
-    them: seed ``--seed + g`` for the eid's generation suffix ``-g``."""
-    if not args.synthetic:
-        raise NotImplementedError(
-            "real sessions need the network (IBL loading is not ported); "
-            "pass --synthetic")
+    them: seed ``--seed + g`` for the eid's generation suffix ``-g``; real
+    sessions are loaded from the hub by eid (aligned, as JAX :75 loads
+    them)."""
     with open(os.path.join(args.model_dir, "sessions.json")) as f:
         meta = json.load(f)
     test_sessions = {}
     for i, eid in enumerate(meta["eids"]):
+        if not args.synthetic:
+            test_sessions[eid] = load_ibl_session(eid).test
+            continue
         # meta["eids"] is sorted ("x-10" < "x-2"): the suffix, not the
         # position, is the generation index
         gen = eid.rsplit("-", 1)[-1]
@@ -152,9 +156,10 @@ def main(argv=None):
                     help="per-neuron diagnostic figures (not ported yet: "
                          "raises)")
     ap.add_argument("--unaligned", action="store_true",
-                    help="plain R² instead of task-condition PSTHs "
-                         "(harness is_aligned=False); results under "
-                         "eval_unaligned/")
+                    help="the unaligned (chunked) session <eid>_unaligned "
+                         "from the hub, and plain R² instead of "
+                         "task-condition PSTHs (harness is_aligned=False); "
+                         "results under eval_unaligned/")
     ap.add_argument("--multi_session", action="store_true",
                     help="evaluate a session-stitched checkpoint "
                          "(train_multi_session): every mode once per "

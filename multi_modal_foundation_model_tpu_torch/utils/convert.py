@@ -8,7 +8,8 @@ nested dict of numpy arrays) map onto them and load with
 Linear weights ``(out, in)``; LayerNorm ``scale`` is ``weight``. With
 shared modality embeddings the table is emitted under both the encoder and
 the decoder key, as the port's shared ``nn.Embedding`` appears under both.
-``baseline_params_from_jax`` does the same for the linear baselines.
+``baseline_params_from_jax`` does the same for the linear baselines, and
+``factors_projection_params_from_jax`` for a ``FactorsProjection``.
 
 ``reference_state_dict_select`` takes a reference-trained ``state_dict``
 (its names are the port's) to the port's, reading only the keys the JAX
@@ -196,3 +197,20 @@ def baseline_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 np.asarray(layer["kernel"]).T, dtype=np.float32)),
             "layer.bias": torch.from_numpy(np.array(
                 layer["bias"], dtype=np.float32))}
+
+
+def factors_projection_params_from_jax(params: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """``state_dict`` (f32 CPU tensors) of a port ``FactorsProjection`` from
+    the JAX module's params: ``proj.kernel (in, out)`` -> ``proj.weight
+    (out, in)``, ``proj.bias`` -> ``proj.bias`` where present (an inactive
+    module has no params)."""
+    if "proj" not in params:
+        return {}
+    proj = params["proj"]
+    out = {"proj.weight": torch.from_numpy(np.array(
+        np.asarray(proj["kernel"]).T, dtype=np.float32))}
+    if "bias" in proj:
+        out["proj.bias"] = torch.from_numpy(np.array(proj["bias"],
+                                                     dtype=np.float32))
+    return out

@@ -1,6 +1,9 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package,
-its entry points refuse to fall back to the CPU, and ``chip_smoke.py``
-fails (printing no result) where there is no card or no repo."""
+and the data side's optional packages (pandas, ``datasets``,
+``huggingface_hub``, h5py and the IBL stack) only inside the functions that
+use them; its entry points refuse to fall back to the CPU, and
+``chip_smoke.py`` fails (printing no result) where there is no card or no
+repo."""
 
 import ast
 import os
@@ -40,11 +43,18 @@ def _imported_names(path: Path):
             yield node.module
 
 
+# imported lazily, inside the functions that need them (JAX's data side
+# does the same)
+LAZY = ["pandas", "datasets", "huggingface_hub", "h5py", "one", "brainbox",
+        "iblatlas"]
+
+
 def test_port_imports_with_jax_blocked():
     """Every port module imports in a process where importing jax, flax,
-    optax, orbax or the JAX package raises."""
+    optax, orbax, the JAX package or one of the data side's optional
+    packages raises."""
     blocked = ["jax", "jaxlib", "flax", "optax", "orbax",
-               "multi_modal_foundation_model_tpu"]
+               "multi_modal_foundation_model_tpu"] + LAZY
     code = "\n".join(
         ["import importlib, sys"]
         + [f"sys.modules[{m!r}] = None" for m in blocked]
@@ -55,6 +65,20 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_imports_pull_in_no_data_packages():
+    """Importing every port module (nothing blocked) loads none of the data
+    side's optional packages, though this box has pandas, ``datasets``,
+    ``huggingface_hub`` and h5py."""
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"importlib.import_module({m!r})" for m in _port_modules()]
+        + ["print(sorted(m for m in %r if m in sys.modules))" % LAZY])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(

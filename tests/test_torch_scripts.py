@@ -12,8 +12,15 @@ equal; so is the MultiModal scripts' log dir (JAX's ``log_dir_for``, read
 in that subprocess). The multi-session scripts write JAX's
 ``sessions.json`` (the eids, neuron counts and ``n_max`` of JAX's
 ``build_multisession_loaders`` on the same sessions) and per-session
-results. Every flag that is not ported raises ``NotImplementedError``, and
-``--device cuda`` without a card raises.
+results. Without ``--synthetic`` the scripts load IBL sessions through
+``load_ibl_session``: with a stand-in ``datasets`` module in
+``sys.modules`` (``chip_smoke.hub_stand_in``, serving hub rows that the
+port's ETL made from seeded raw sessions; nothing is downloaded) both
+baselines, ``train_multi_modal --eid``, ``eval_multi_modal --eid`` (and
+``--unaligned``), ``train_multi_session --eids A B`` and ``eval_multi_modal
+--multi_session`` run and give finite results; with no ``datasets`` they
+raise ``ImportError``. Every flag that is not ported raises
+``NotImplementedError``, and ``--device cuda`` without a card raises.
 """
 
 import json
@@ -26,6 +33,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 import torch_parity  # noqa: F401  (one torch thread per xdist worker)
 from multi_modal_foundation_model_tpu_torch.scripts import (
     eval_baseline, eval_multi_modal, train_baseline, train_multi_modal,
@@ -262,26 +270,17 @@ def _script_args(script, tmp_path):
 
 
 UNPORTED = [
-    # real (not synthetic) sessions need the network
-    ("eval_multi_modal", ["--multi_session", "--model_dir", "x"]),
-    ("train_multi_session", ["--eids", "x"]),
     # DP-sharded resident sessions (JAX: with mixed batches)
     ("train_multi_session", ["--synthetic", "--mixed_session_batches",
                              "--shard_sessions"]),
     ("train_multi_session", ["--synthetic", "--shard_sessions"]),
     ("train_multi_session", ["--synthetic", "--compile_retries", "1"]),
     ("train_multi_session", ["--synthetic", "--dp", "2"]),
-    # a reference checkpoint on a real (IBL) session
-    ("eval_multi_modal", ["--reference_ckpt", "x.pt"]),
     ("eval_multi_modal", ["--synthetic", "--save_plot"]),
     ("eval_baseline", ["--synthetic", "--save_plot"]),
     ("train_baseline", ["--synthetic", "--dp", "2"]),
     ("train_multi_modal", ["--synthetic", "--dp", "2"]),
     ("train_multi_modal", ["--synthetic", "--tp", "2"]),
-    ("train_baseline", []),
-    ("eval_baseline", []),
-    ("train_multi_modal", []),
-    ("eval_multi_modal", []),
 ]
 
 
@@ -310,3 +309,117 @@ def test_overwrite_guard(port_base):
     with pytest.raises(FileExistsError):
         train_baseline.main(COMMON + ["--base_path", str(tbase), "--device",
                                       "cpu", "--direction", "decoding"])
+
+
+# ---------------------------------------------------------------------------
+# real (IBL) sessions: the scripts without --synthetic
+# ---------------------------------------------------------------------------
+
+REAL = ["etl-0", "etl-1"]
+
+
+def _real_rows():
+    """Hub rows of two stand-in sessions (24 and 30 of 34 clusters kept,
+    100 trials, 100 bins) made by the port's ETL, by dataset name."""
+    from multi_modal_foundation_model_tpu_torch.data import etl, sparse
+
+    out = {}
+    for i, (eid, kept) in enumerate(zip(REAL, (24, 30))):
+        raw = chip_smoke.raw_session(seed=i, n_clusters=34, n_kept=kept,
+                                     n_trials=100)
+        rows, _, _ = chip_smoke.etl_rows(raw, eid, etl, sparse)
+        for suffix in ("aligned", "unaligned"):
+            out[f"neurofm123/{eid}_{suffix}"] = rows
+    return out
+
+
+@pytest.fixture(scope="module")
+def real_runs(tmp_path_factory):
+    """Every script's real-session branch, run once through the stand-in:
+    results by run name, and the dataset names the stand-in served."""
+    base = str(tmp_path_factory.mktemp("real_scripts"))
+    one = ["--eid", REAL[0], "--base_path", base, "--device", "cpu"]
+    mm = one + MM_FLAGS
+    multi_dir = (Path(base) / "results/ses-multi2/set-train/"
+                 "inModal-ap-behavior/outModal-ap-behavior/"
+                 "stitched_ratio-0.3")
+    runs = [
+        ("train_baseline", train_baseline.main,
+         one + ["--direction", "decoding", "--num_epochs", "1"]),
+        ("eval_baseline", eval_baseline.main,
+         one + ["--direction", "decoding"]),
+        ("train_multi_modal", train_multi_modal.main,
+         mm + SMALL_MM + ["--num_epochs", "1"]),
+        ("eval_multi_modal", eval_multi_modal.main, mm + ["--co_smooth"]),
+        ("eval_multi_modal_unaligned", eval_multi_modal.main,
+         mm + ["--unaligned"]),
+        ("train_multi_session", train_multi_session.main,
+         ["--eids", *REAL, "--base_path", base, "--device", "cpu",
+          "--num_epochs", "1", "--pad_multiple", "32"] + MM_FLAGS
+         + SMALL_MM),
+        ("eval_multi_modal_multi_session", eval_multi_modal.main,
+         ["--multi_session", "--model_dir", str(multi_dir), "--device",
+          "cpu", "--use_MtM"]),
+    ]
+    out, served = {}, {}
+    with chip_smoke.hub_stand_in(_real_rows()) as hub:
+        for name, main, argv in runs:
+            n = len(hub.loaded)
+            out[name] = main(argv)
+            served[name] = hub.loaded[n:]
+    return out, served, base, multi_dir
+
+
+REAL_SERVED = {
+    "train_baseline": ["etl-0_aligned"],
+    "eval_baseline": ["etl-0_aligned"],
+    "train_multi_modal": ["etl-0_aligned"],
+    "eval_multi_modal": ["etl-0_aligned"],
+    "eval_multi_modal_unaligned": ["etl-0_unaligned"],
+    "train_multi_session": ["etl-0_aligned", "etl-1_aligned"],
+    "eval_multi_modal_multi_session": ["etl-0_aligned", "etl-1_aligned"],
+}
+
+
+@pytest.mark.parametrize("run", list(REAL_SERVED))
+def test_real_session_scripts_run(real_runs, run):
+    """Without ``--synthetic`` each script loads its sessions from the
+    hub's rows (here the stand-in's) and gives finite results."""
+    out, served, base, multi_dir = real_runs
+    assert served[run] == [f"neurofm123/{n}" for n in REAL_SERVED[run]]
+    result = out[run]
+    if run.startswith("train"):
+        best = [v for k, v in result.items()
+                if k.startswith("best_") and k != "best_epoch"]
+        assert best and all(math.isfinite(v) for v in best)
+        assert all(math.isfinite(x) for row in result["history"]
+                   for x in row.get("step_losses", [row["train_loss"]]))
+    else:
+        assert result and all(_finite_or_nan(v) for v in (
+            result.values() if "multi_session" not in run
+            else result["mean_over_sessions"].values()))
+    if run == "eval_multi_modal_unaligned":
+        assert set(result) == set(out["eval_multi_modal"]) - {
+            k for k in out["eval_multi_modal"] if k.startswith("per_neuron")}
+    if run == "train_multi_session":
+        sessions = json.loads((multi_dir / "sessions.json").read_text())
+        assert sessions == {"eids": REAL, "num_neurons": [24, 30],
+                            "n_max": 32}
+    if run == "eval_multi_modal_multi_session":
+        assert set(result) == {*REAL, "mean_over_sessions"}
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("train_baseline", []), ("eval_baseline", []),
+    ("train_multi_modal", []), ("eval_multi_modal", []),
+    ("eval_multi_modal", ["--unaligned"]),
+    ("eval_multi_modal", ["--reference_ckpt", "x.pt"]),
+    ("train_multi_session", ["--eids", "x", "y"])],
+    ids=lambda v: " ".join(v) if isinstance(v, list) else v)
+def test_real_sessions_need_datasets(script, argv, tmp_path, monkeypatch):
+    """No fallback to synthetic data: without ``datasets`` a real session
+    raises ``ImportError``."""
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    main, base = _script_args(script, tmp_path)
+    with pytest.raises(ImportError):
+        main(argv + base)
