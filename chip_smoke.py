@@ -132,6 +132,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ETL'd graph step against the synthetic one, and ``train_multi_modal
    --eid`` / ``eval_multi_modal --eid`` without ``--synthetic`` through a
    stand-in ``datasets`` module.
+13. parallel — data and tensor parallelism, as ranks that share the card:
+   K1 and K2 at a tensor-parallel rank's shape (B=8 of 16, 200 tokens, 4
+   heads of 32 as column views of the rank's fused q/k/v product, draw
+   offsets (8, 4)) against their plain versions and bit-equal to the same
+   rows and heads of the whole call, timed beside SDPA
+   (``parallel_rank_kernels_*``); the single-process step as the
+   yardstick; then dp=2 and tp=2 started together, and dp=2 x tp=2 with
+   the script's four ranks beside it, at full width (B=16, f32 and bf16
+   under ``"full"``) as 2-4 processes each on ``cuda:0`` over gloo
+   (``--parallel-worker``; the steps timed one layout at a time with
+   nothing else running): the step-0 loss and every gradient (dropout 0
+   with the deterministic menu, dropout 0.4 with the MtM menu; mixed
+   objectives) and the parameters after three AdamW steps against the
+   single process (f32 loss 1e-5 max(1, |loss|), tensors rtol 2e-3 /
+   atol 1e-5; bf16 loss 1e-2, tensors 5e-2 relative L2), replicated
+   gradients bit-equal over the model group, parameters over the data
+   group, K1 30, K2 15, K3 62, K4 32 a step a rank and the single
+   process's Philox count, the per-rank eager step and the collectives'
+   time a step (``parallel`` lines); the dp2 x tp2 checkpoint's eval
+   forward in one process (f32 1e-5, ``parallel_checkpoint``); NCCL at a
+   world of one, and its refusal of two ranks on one card
+   (``parallel_nccl``); ``train_multi_modal --dp 2 --tp 2`` as four
+   torchrun ranks (``parallel_script``). The ranks share one card and
+   gloo goes through the host: none of these times is scaling.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -511,7 +535,7 @@ def k1_inputs(case: str, dtype, B=320, T=200, H=8, D=32, seed=1,
 
 
 def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
-             seed=0) -> dict:
+             seed=0, draw_offset=(0, 0)) -> dict:
     """K1's output and lse against its plain versions on the same inputs
     and Philox bits. f32 (3xTF32): out and lse atol 1e-5 (f32 products to
     about f32 accuracy, summed in other orders; out is a convex combination
@@ -525,7 +549,8 @@ def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     args = (q, k, v, key_pad, static, H, scale, True, rate, seed)
-    ref, ref_lse = att.attention_reference(*args)
+    kw = dict(draw_offset=draw_offset)
+    ref, ref_lse = att.attention_reference(*args, **kw)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
@@ -533,7 +558,8 @@ def k1_gates(q, k, v, key_pad, static, H, scale, out, lse, rate=0.0,
         return dict(max_abs_err=err, lse_max_abs_err=lse_err,
                     tolerance="atol 1e-5",
                     ok=err <= 1e-5 and lse_err <= 1e-5 and finite)
-    bf, bf_lse = att.attention_reference(*args, dots_dtype=torch.bfloat16)
+    bf, bf_lse = att.attention_reference(*args, dots_dtype=torch.bfloat16,
+                                         **kw)
     ex_bf = _excess(out, bf, 1e-2)
     ex_f32 = _excess(out, ref, 2e-2)
     ex_lse = _excess(lse, bf_lse, 1e-5)
@@ -3397,6 +3423,790 @@ def real_data_phase(root: Path) -> dict:
     return dict(counters=counts, graph=prof_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data and tensor parallelism, as ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (dp, tp) layouts of the phase, each run as dp * tp processes over gloo on
+# the one card (NCCL refuses two ranks on one GPU: ``nccl_checks``); the
+# layouts of a group are started together, four ranks at a time
+PAR_LAYOUTS = (((2, 1), (1, 2)), ((2, 2),))
+PAR_STEPS, PAR_TIMED = 3, 3
+# the two cases: dropout 0 with the deterministic menu, and the training
+# step's dropout with the random MtM menu; mixed objectives in both
+PAR_CASES = {
+    "det": dict(dropout=0.0, embed_dropout=0.0,
+                menu=("co-smooth", "forward-pred")),
+    "drop": dict(dropout=DROPOUT, embed_dropout=0.2, menu=MTM_MENU),
+}
+PAR_MASK = dict(channels=tuple(range(0, 668, 7)),
+                timesteps=tuple(range(70, 100)))
+PAR_SPEC = dict(geometry=GEOMETRY, device="cuda", n_trials=N_TRIALS,
+                batch=TRAIN_B, layernorm="full", backend="gloo")
+_PAR_SPLITS: dict = {}
+
+
+def par_trainer(spec: dict, dtype, case: str, mesh, log_dir: Path):
+    """The phase's full-width trainer of ``case`` under ``mesh`` (None: one
+    process), weights from ``SEED``, on the spec's device."""
+    from multi_modal_foundation_model_tpu_torch.data import (make_loader,
+                                                             synthetic_splits)
+    from multi_modal_foundation_model_tpu_torch.models import (
+        MultiModal, MultiModalConfig)
+    from multi_modal_foundation_model_tpu_torch.ops.masking import MaskParams
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MetricLogger, MultiModalTrainer, OptimizerConfig, TrainerConfig)
+
+    c = PAR_CASES[case]
+    g = spec["geometry"]
+    N, T = g["n_channels"]["ap"], g["max_F"]
+    key = (spec["n_trials"], N, T)
+    if key not in _PAR_SPLITS:          # every trainer of a rank: one draw
+        _PAR_SPLITS[key] = synthetic_splits(seed=SEED, n_trials=key[0],
+                                            n_neurons=N, n_timesteps=T)
+    splits = _PAR_SPLITS[key]
+    mask = MaskParams(channels=tuple(i for i in PAR_MASK["channels"]
+                                     if i < N),
+                      timesteps=tuple(i for i in PAR_MASK["timesteps"]
+                                      if i < T) or (T - 1,))
+    cfg = MultiModalConfig(**g, compute_dtype=dtype_name(dtype),
+                           dropout=c["dropout"],
+                           embed_dropout=c["embed_dropout"], mask_params=mask)
+    kw = dict(batch_size=spec["batch"], max_time_length=T,
+              max_space_length=N)
+    model = MultiModal(cfg, device=spec["device"],
+                       generator=torch.Generator().manual_seed(SEED))
+    tcfg = TrainerConfig(num_epochs=2, mask_type="input",
+                         mask_mode=c["menu"], mixed_training=True, seed=SEED,
+                         log_dir=str(log_dir), eval_every=10 ** 9)
+    return MultiModalTrainer(
+        model, make_loader(splits.train, seed=SEED, **kw),
+        make_loader(splits.val, shuffle=False, **kw), OptimizerConfig(),
+        tcfg, mesh=mesh, logger=MetricLogger(str(log_dir), stdout=False))
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _CollectiveClock:
+    """Host seconds inside ``torch.distributed``'s ``all_reduce``,
+    ``broadcast`` and ``all_gather`` (the device synchronised before each,
+    so earlier work is not counted), and their count, while on."""
+
+    NAMES = ("all_reduce", "broadcast", "all_gather")
+
+    def __init__(self, device):
+        import torch.distributed as dist
+
+        self.dist, self.device, self.s, self.n = dist, device, 0.0, 0
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.saved.items():
+            def timed(*a, _fn=fn, **k):
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                _sync(self.device)
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+            setattr(self.dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _equal_over(tensors, group) -> bool:
+    """Whether each of ``tensors`` is bit-equal on every rank of
+    ``group``: one ``all_gather`` of them packed."""
+    from multi_modal_foundation_model_tpu_torch.parallel.mesh import (
+        all_gather_cat)
+
+    if group is None or not tensors:
+        return True
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    parts = all_gather_cat(flat[None], group)
+    return bool((parts == parts[:1]).all())
+
+
+def _gather_to_cpu(named, dims, mesh) -> dict:
+    """``{name: tensor}`` in the single-device layout, copied to the CPU:
+    the shards (``dims[name]`` not None) gathered over the model group in
+    one ``all_gather`` of them packed."""
+    from multi_modal_foundation_model_tpu_torch.parallel.mesh import (
+        all_gather_cat)
+
+    out = {n: t.detach().to("cpu", copy=True) for n, t in named.items()
+           if mesh is None or dims.get(n) is None}
+    sharded = [n for n in named if n not in out]
+    if sharded:
+        flat = torch.cat([named[n].detach().reshape(-1) for n in sharded])
+        parts = all_gather_cat(flat[None], mesh.model_group).cpu()
+        at = 0
+        for n in sharded:
+            t = named[n]
+            cut = parts[:, at:at + t.numel()].reshape(-1, *t.shape)
+            out[n] = torch.cat(list(cut), dim=dims[n])
+            at += t.numel()
+    return out
+
+
+def _wait_for(path: Path, timeout: float = 600.0) -> None:
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path.name} after {timeout} s")
+        time.sleep(0.05)
+
+
+@contextlib.contextmanager
+def _timing_turn(spec: dict, mesh):
+    """Layouts run side by side (``spec["side_by_side"]``, their names in
+    turn order) time their steps one at a time, and only once every one of
+    them is done with its checks: no other rank runs on the card while a
+    layout is timed."""
+    names = spec.get("side_by_side")
+    if not names:
+        yield
+        return
+    turns, me = Path(spec["turn_dir"]), spec["name"]
+    torch.distributed.barrier()
+    if mesh.rank == 0:
+        (turns / f"checked_{me}").touch()
+    for n in names:
+        _wait_for(turns / f"checked_{n}")
+    for n in names[:names.index(me)]:
+        _wait_for(turns / f"timed_{n}")
+    yield
+    _sync(spec["device"])
+    torch.distributed.barrier()
+    if mesh.rank == 0:
+        (turns / f"timed_{me}").touch()
+
+
+def par_run(spec: dict, mesh, out_dir: Path) -> dict:
+    """One rank's part of the phase (every rank runs it; ``mesh`` None is
+    the single-process yardstick), per dtype and case: the step-0 loss and
+    gradients (summed over the data group, the shards gathered), whether
+    the replicated gradients are bit-equal over the model group, the
+    launches of the step's forward and backward; for ``drop`` three
+    optimizer steps (their launches, the parameters after them gathered,
+    bit-equal over the data group). The f32 ``drop`` run saves a ``last``
+    checkpoint (gathered). Then, for each ``drop`` trainer, the eager step
+    time over ``PAR_TIMED`` steps and, in another pass, the collectives'
+    time a step (``_timing_turn``). ``seconds`` splits the rank's time."""
+    from multi_modal_foundation_model_tpu_torch.parallel import (
+        full_state_dict)
+    from multi_modal_foundation_model_tpu_torch.parallel.mesh import (
+        all_reduce_many_)
+
+    dev = spec["device"]
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
+    res, to_time = {}, []
+    for dtype in DTYPES:
+        for case in PAR_CASES:
+            key = f"{dtype_name(dtype)}_{case}"
+            log_dir = out_dir / key
+            secs = {}
+            t0 = time.perf_counter()
+            with ln_mode(spec["layernorm"]):
+                tr = par_trainer(spec, dtype, case, mesh, log_dir)
+                tr.train_dataloader.set_epoch(0)
+                tr._reseed_host_rng(0)
+                steps = [(tr._device_batch(b), tr._sample_modes())
+                         for b, _ in zip(tr.train_dataloader,
+                                         range(PAR_STEPS + PAR_TIMED))]
+                params = dict(tr.model.named_parameters())
+                dims = {n: getattr(p, "tp_dim", None)
+                        for n, p in params.items()}
+                batch, (mode, scheme) = steps[0]
+                _sync(dev)
+                secs["build"] = time.perf_counter() - t0
+                reset_counts()
+                out = tr.step_loss(batch, mode, scheme, step=0)
+                grads = torch.autograd.grad(out.loss, list(params.values()),
+                                            allow_unused=True)
+                _sync(dev)
+                fwd_bwd = read_counts()
+                secs["fwd_bwd"] = time.perf_counter() - t0 - secs["build"]
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params.values(), grads)]
+                if mesh is not None:
+                    all_reduce_many_(grads, data_group)
+                r = dict(loss0=float(out.loss.detach()), fwd_bwd=fwd_bwd,
+                         replicated_equal=_equal_over(
+                             [g for n, g in zip(params, grads)
+                              if dims[n] is None], model_group),
+                         grads=_gather_to_cpu(dict(zip(params, grads)),
+                                              dims, mesh))
+                del out, grads
+                if case == "drop":
+                    reset_counts()
+                    r["losses"] = [float(tr.train_step(b, m, s))
+                                   for b, (m, s) in steps[:PAR_STEPS]]
+                    _sync(dev)
+                    r["step_launches"] = read_counts()
+                    r["data_equal"] = _equal_over(list(params.values()),
+                                                  data_group)
+                    # copies: the timed steps below move the live ones
+                    r["params"] = {k: v.to("cpu", copy=True)
+                                   for k, v in full_state_dict(
+                                       tr.model, mesh).items()}
+                    if dtype == torch.float32:
+                        tr.save_model("last", epoch=0)
+                    to_time.append((key, tr, steps[PAR_STEPS:]))
+                _sync(dev)
+                secs["checks_and_steps"] = (time.perf_counter() - t0
+                                            - secs["build"]
+                                            - secs["fwd_bwd"])
+                r["seconds"] = secs
+                res[key] = r
+                del tr, steps, params
+                if torch.device(dev).type == "cuda":
+                    torch.cuda.empty_cache()
+    with _timing_turn(spec, mesh):
+        for key, tr, timed in to_time:
+            r = res[key]
+            with ln_mode(spec["layernorm"]):
+                _sync(dev)
+                t0 = time.perf_counter()
+                for b, (m, s) in timed:
+                    tr.train_step(b, m, s)
+                _sync(dev)
+                r["step_ms"] = (time.perf_counter() - t0) * 1e3 / len(timed)
+                with _CollectiveClock(dev) as clock:
+                    for b, (m, s) in timed:
+                        tr.train_step(b, m, s)
+            r["collectives_ms"] = clock.s * 1e3 / len(timed)
+            r["collectives_a_step"] = clock.n / len(timed)
+            r["seconds"]["timed"] = time.perf_counter() - t0
+    return res
+
+
+def parallel_worker(spec_path: str, rank: str, world: str, port: str
+                    ) -> None:
+    """``--parallel-worker``: one rank of the phase; rank 0 writes the
+    result beside the spec."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from multi_modal_foundation_model_tpu_torch.ops import build
+    from multi_modal_foundation_model_tpu_torch.parallel import (
+        build_mesh, initialize_multihost, rank_device)
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(spec["device"]).type == "cuda":
+        build.build(build.kernel_sources())     # built: loads them
+        rank_device("cuda:0")
+    initialize_multihost(f"localhost:{port}", int(world), int(rank),
+                         backend=spec["backend"], device=spec["device"])
+    mesh = build_mesh(spec["dp"], spec["tp"])
+    startup_s = time.time() - spec["spawn_t"]
+    out_dir = Path(spec["out"]).parent
+    res = par_run(spec, mesh, out_dir)
+    res["mesh"] = [mesh.dp, mesh.tp]
+    res["startup_s"] = startup_s
+    if int(rank) == 0:
+        torch.save(res, spec["out"])
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv_of, world: int, timeout: float, port: int = None):
+    """``world`` processes (``argv_of(rank, port)``), waited for; returns
+    (return codes, outputs, seconds). Every process is ended."""
+    port = _free_port() if port is None else port
+    procs = [subprocess.Popen(argv_of(r, port), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                outs.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[killed at timeout]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return ([p.returncode for p in procs], outs,
+            time.perf_counter() - t0)
+
+
+def par_layouts(spec: dict, layouts, out: Path, beside=None):
+    """The phase's ranks of ``layouts``, all started together, and
+    ``beside()`` run here meanwhile: each layout's rank 0 result, and
+    ``beside``'s. The layouts time their steps one at a time, after every
+    layout's checks and after ``beside`` has ended (``_timing_turn``). A
+    rank that fails fails the phase, with its output."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = [f"dp{dp}_tp{tp}" for dp, tp in layouts]
+    turns = names if beside is None else ["beside"] + names
+    ports = set()
+    while len(ports) < len(layouts):
+        ports.add(_free_port())
+    script = str(Path(__file__).resolve())
+
+    def run(name, layout, port):
+        dp, tp = layout
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / "spec.json"
+        path.write_text(json.dumps(dict(
+            spec, dp=dp, tp=tp, out=str(d / "rank0.pt"), name=name,
+            side_by_side=turns if len(turns) > 1 else None,
+            turn_dir=str(out), spawn_t=time.time())))
+        return spawn_ranks(
+            lambda r, port: [sys.executable, script, "--parallel-worker",
+                             str(path), str(r), str(dp * tp), str(port)],
+            dp * tp, timeout=600, port=port)
+
+    other = None
+    with ThreadPoolExecutor(len(layouts)) as pool:
+        runs = pool.map(run, names, layouts, sorted(ports))
+        if beside is not None:
+            try:
+                other = beside()
+            finally:               # ended, even failed: the layouts go on
+                for stage in ("checked", "timed"):
+                    (out / f"{stage}_beside").touch()
+        runs = list(runs)
+    results = []
+    for name, (rcs, outs, secs) in zip(names, runs):
+        if any(rcs):
+            bad = [i for i, rc in enumerate(rcs) if rc]
+            raise AssertionError(f"parallel {name}: ranks {bad} exited "
+                                 f"{rcs}:\n{outs[bad[0]][-6000:]}")
+        res = torch.load(out / name / "rank0.pt", weights_only=False)
+        res["wall_s"] = secs
+        results.append(res)
+    return results, other
+
+
+def _par_gates(dtype, loss, want_loss, got: dict, want: dict) -> dict:
+    """Loss and per-tensor gates, against the single process: f32 loss
+    within 1e-5 max(1, |loss|), each tensor within rtol 2e-3 / atol 1e-5
+    (JAX's ``test_tp_matches_single_device``); bf16 loss within 1e-2
+    relative, each tensor within 5e-2 relative L2. The attention key biases
+    are left out: their exact gradient is 0 (softmax is shift-invariant),
+    so both sides hold rounding noise there, which AdamW's steps scale up
+    (as the trainer lockstep tests leave them out)."""
+    loss_err = abs(loss - want_loss)
+    names = [n for n in want if not n.endswith("key.bias")]
+    if dtype == torch.float32:
+        loss_ok = loss_err <= 1e-5 * max(1.0, abs(want_loss))
+        excess = max(((got[n].float() - want[n].float()).abs() - 1e-5
+                      - 2e-3 * want[n].float().abs()).max().item()
+                     for n in names)
+        return dict(loss_abs_err=loss_err, excess=excess,
+                    ok=loss_ok and excess <= 0.0)
+    rel = max(((got[n].float() - want[n].float()).norm()
+               / want[n].float().norm().clamp_min(1e-30)).item()
+              for n in names)
+    loss_ok = loss_err <= 1e-2 * abs(want_loss)
+    return dict(loss_abs_err=loss_err, rel_l2_worst=rel,
+                ok=loss_ok and rel <= 5e-2)
+
+
+def _par_launches_ok(launches: dict, want: dict, steps: int) -> bool:
+    return all(launches[k] == want[k] * steps for k in ("k1", "k2", "k3",
+                                                        "k4"))
+
+
+def par_compare(spec: dict, layout, got: dict, ref: dict) -> dict:
+    """Every gate of one layout against the single process; emits a line
+    per dtype and case, raises when a gate fails. Returns rank 0's
+    launches by dtype."""
+    dp, tp = layout
+    on_card = torch.device(spec["device"]).type == "cuda"
+    want_step = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                     k3=K3_PER_STEP, k4=K4_PER_STEP)
+    launches = {}
+    for dtype in DTYPES:
+        for case in PAR_CASES:
+            key = f"{dtype_name(dtype)}_{case}"
+            g, w = got[key], ref[key]
+            grads = _par_gates(dtype, g["loss0"], w["loss0"], g["grads"],
+                               w["grads"])
+            ok = grads["ok"] and g["replicated_equal"]
+            line = dict(phase="parallel", dp=dp, tp=tp,
+                        dtype=dtype_name(dtype), case=case,
+                        dropout=PAR_CASES[case]["dropout"],
+                        loss=g["loss0"], loss_single=w["loss0"],
+                        grads=grads,
+                        replicated_grads_equal=g["replicated_equal"],
+                        fwd_bwd_launches=g["fwd_bwd"])
+            if on_card:
+                fb_ok = (_par_launches_ok(g["fwd_bwd"], want_step, 1)
+                         and g["fwd_bwd"]["philox"]
+                         == w["fwd_bwd"]["philox"])
+                line["fwd_bwd_launches_ok"] = fb_ok
+                ok = ok and fb_ok
+            if case == "drop":
+                params = _par_gates(dtype, g["losses"][-1], w["losses"][-1],
+                                    g["params"], w["params"])
+                step_ok = (params["ok"] and g["data_equal"]
+                           and all(math.isfinite(x) for x in g["losses"]))
+                line.update(losses=g["losses"], losses_single=w["losses"],
+                            params_after_steps=params,
+                            params_equal_over_data=g["data_equal"],
+                            step_launches=g["step_launches"],
+                            step_ms_per_rank=g["step_ms"],
+                            step_ms_single=w["step_ms"],
+                            collectives_ms_a_step=g["collectives_ms"],
+                            collectives_a_step=g["collectives_a_step"])
+                if on_card:
+                    st_ok = (_par_launches_ok(g["step_launches"], want_step,
+                                              PAR_STEPS)
+                             and g["step_launches"]["philox"]
+                             == w["step_launches"]["philox"])
+                    line["step_launches_ok"] = st_ok
+                    step_ok = step_ok and st_ok
+                ok = ok and step_ok
+                launches[dtype] = g["step_launches"]
+            line["ok"] = ok
+            emit(**line)
+            if not ok:
+                raise AssertionError(f"parallel dp={dp} tp={tp} {key}: a "
+                                     "gate failed (see the parallel line)")
+    return launches
+
+
+def par_checkpoint(spec: dict, out: Path) -> dict:
+    """The dp 2 x tp 2 run's f32 checkpoint, loaded into a one-process eval
+    model, against the single process's after the same steps: the eval
+    forward of one test batch within 1e-5."""
+    from multi_modal_foundation_model_tpu_torch.data import synthetic_splits
+    from multi_modal_foundation_model_tpu_torch.eval import (
+        load_model_data_local)
+    from multi_modal_foundation_model_tpu_torch.models import ModalityInput
+
+    g, dev = spec["geometry"], spec["device"]
+    N, T = g["n_channels"]["ap"], g["max_F"]
+    test = synthetic_splits(seed=SEED, n_trials=spec["n_trials"],
+                            n_neurons=N, n_timesteps=T).test
+    preds = []
+    for side in ("single", "dp2_tp2"):
+        model, loader = load_model_data_local(
+            model_dir=str(out / side / "float32_drop"),
+            test_session=test, checkpoint_name="last", max_time_length=T,
+            max_space_length=N, batch_size=spec["batch"], device=dev)
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in next(iter(loader)).items()
+                 if k in ("spikes_data", "target", "time_attn_mask",
+                          "spikes_timestamps")}
+
+        def mi(x):
+            ev = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+            ev[:, :, :2] = 1            # the first two channels held out
+            return ModalityInput(inputs=x, targets=x,
+                                 attn_mask=batch["time_attn_mask"],
+                                 timestamps=batch["spikes_timestamps"],
+                                 eval_mask=ev)
+
+        with torch.no_grad(), ln_mode(spec["layernorm"]):
+            o = model({"ap": mi(batch["spikes_data"]),
+                       "behavior": mi(batch["target"])})
+        preds.append({m: v.float().cpu() for m, v in o.mod_preds.items()})
+    err = max((preds[0][m] - preds[1][m]).abs().max().item()
+              for m in preds[0])
+    ok = err <= 1e-5
+    emit(phase="parallel_checkpoint", dtype="float32", layout=[2, 2],
+         eval_forward_max_abs_err=err, tolerance="atol 1e-5", ok=ok)
+    if not ok:
+        raise AssertionError("the dp 2 x tp 2 checkpoint's eval forward is "
+                             f"off by {err}")
+    return dict(max_abs_err=err)
+
+
+def nccl_collectives(rank: int, world: int, port: int) -> dict:
+    """``all_reduce``, ``broadcast`` and ``all_gather`` of f32 and bf16
+    tensors on ``cuda:0`` over NCCL in a world of ``world``; returns what
+    came back (rank + 1 summed, rank world - 1's value, every rank's)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    got = {}
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            t = torch.full((1 << 20,), float(rank + 1), device="cuda",
+                           dtype=dt)
+            dist.all_reduce(t)
+            b = torch.full((8,), float(rank), device="cuda", dtype=dt)
+            dist.broadcast(b, src=world - 1)
+            parts = [torch.empty(4, device="cuda", dtype=dt)
+                     for _ in range(world)]
+            dist.all_gather(parts, torch.full((4,), float(rank),
+                                              device="cuda", dtype=dt))
+            torch.cuda.synchronize()
+            got[dtype_name(dt)] = [float(t[0]), float(b[0]),
+                                   [float(p[0]) for p in parts]]
+    finally:
+        dist.destroy_process_group()
+    return got
+
+
+def nccl_checks() -> dict:
+    """NCCL on the card: a world of one (this process) runs
+    ``all_reduce``, ``broadcast`` and ``all_gather`` on card tensors (the
+    path a rank a card takes); two ranks on the one card, as the gloo
+    layouts run, are refused (recorded, not gated: the finding that sends
+    them to gloo)."""
+    t0 = time.perf_counter()
+    one = nccl_collectives(0, 1, _free_port())
+    secs = time.perf_counter() - t0
+    ok = all(v[0] == 1.0 and v[1] == 0.0 and v[2] == [0.0]
+             for v in one.values())
+    script = str(Path(__file__).resolve())
+    rcs2, outs2, secs2 = spawn_ranks(
+        lambda r, port: [sys.executable, script, "--nccl-worker", str(r),
+                         "2", str(port)], 2, timeout=120)
+    dup = ["Duplicate GPU detected" in o for o in outs2]
+    emit(phase="parallel_nccl", world_1=dict(results=one, seconds=secs,
+                                             ok=ok),
+         world_2_one_card=dict(rcs=rcs2, seconds=secs2,
+                               duplicate_gpu_refused=dup,
+                               tail=[o[-600:] for o in outs2]))
+    if not ok:
+        raise AssertionError(f"NCCL at a world of one gave {one}")
+    return dict(world_1_ok=ok, two_ranks_refused=all(dup))
+
+
+def par_script(root: Path) -> dict:
+    """``train_multi_modal --dp 2 --tp 2`` as four ranks on the card
+    (torchrun, gloo): one epoch at its defaults on 60 synthetic trials (3
+    steps of 16 and the eval); the loss finite, the checkpoint loading into
+    one process."""
+    from multi_modal_foundation_model_tpu_torch.data import synthetic_splits
+    from multi_modal_foundation_model_tpu_torch.eval import (
+        load_model_data_local)
+
+    base = root / "chip_smoke_parallel_script"
+    shutil.rmtree(base, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "4", "-m",
+           "multi_modal_foundation_model_tpu_torch.scripts.train_multi_modal",
+           "--synthetic", "--use_MtM", "--mixed_training", "--dp", "2",
+           "--tp", "2", "--backend", "gloo", "--n_trials", "60",
+           "--num_epochs", "1", "--base_path", str(base)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(Path(__file__).resolve().parent),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError("train_multi_modal --dp 2 --tp 2 failed:\n"
+                             + (out.stdout + out.stderr)[-6000:])
+    (metrics,) = base.rglob("metrics.jsonl")
+    rows = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    epochs = [r for r in rows if "epoch" in r]
+    finite = len(epochs) == 1 and math.isfinite(epochs[0]["train_loss"])
+    model, _ = load_model_data_local(
+        model_dir=str(metrics.parent), checkpoint_name="last",
+        test_session=synthetic_splits(seed=42, n_trials=60,
+                                      n_neurons=668).test,
+        max_time_length=100)
+    whole = model.encoder[0].attn.n_heads == GEOMETRY["n_heads"]
+    emit(phase="parallel_script", argv=cmd[6:], wall_s=wall,
+         train_loss=epochs[-1]["train_loss"] if epochs else None,
+         finite=finite, checkpoint_loads_whole=whole, ok=finite and whole)
+    if not (finite and whole):
+        raise AssertionError("train_multi_modal --dp 2 --tp 2: loss or "
+                             "checkpoint off")
+    return dict(wall_s=wall)
+
+
+def rank_kernels_check() -> dict:
+    """K1 (dropout, lse) and K2 at a tensor-parallel rank's shape under
+    tp=2 at B=16 and dp=2: (B=8, 200, 128), 4 heads of 32, the q/k/v
+    column views of the rank's (8, 200, 384) fused product, the draw
+    offsets of rank (d, m) = (1, 1), (8, 4). Each against its plain
+    version with the same offsets (the gates of ``train_kernels_phase``),
+    and bit-equal to the same rows and heads of the whole (16, 200, 256)
+    call; timed beside the plain version and SDPA (memory-efficient) at
+    the same shape, with the bound."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    rows = {}
+    B, T, H, D, off = 8, 200, 4, 32, (8, 4)
+    for dtype in DTYPES:
+        g = torch.Generator(device="cuda").manual_seed(11)
+        qkv = torch.randn(2 * B, T, 3 * 2 * H * D, device="cuda",
+                          generator=g).to(dtype)
+        go = torch.randn(2 * B, T, 2 * H * D, device="cuda",
+                         generator=g).to(dtype)
+        pad = torch.ones(2 * B, T, dtype=torch.int32, device="cuda")
+        pad[::5, T - 30:] = 0
+        static = torch.eye(T, dtype=torch.int32, device="cuda")
+        scale = D ** -0.5
+        # the whole call, and rank (1, 1)'s slice of its fused product
+        wq, wk, wv = qkv.split(2 * H * D, dim=-1)
+        whole_o, whole_lse = att.attention_fwd(wq, wk, wv, pad, static,
+                                               2 * H, scale, True, DROPOUT,
+                                               77)
+        whole_g = att.attention_bwd(wq, wk, wv, pad, static, go, whole_lse,
+                                    2 * H, scale, DROPOUT, 77)
+        cols = torch.cat([x[B:, :, H * D:] for x in (wq, wk, wv)], dim=-1)
+        q, k, v = cols.split(H * D, dim=-1)            # column views
+        key_pad = pad[B:].contiguous()
+        gr = go[B:, :, H * D:].contiguous()
+        worst1 = worst2 = 0.0
+        for rate in (0.0, DROPOUT):
+            o, lse = att.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                       True, rate, 77, draw_offset=off)
+            grads = att.attention_bwd(q, k, v, key_pad, static, gr, lse, H,
+                                      scale, rate, 77, draw_offset=off)
+            k1 = k1_gates(q, k, v, key_pad, static, H, scale, o, lse, rate,
+                          77, off)
+            ref = att.attention_bwd_reference(q, k, v, key_pad, static, gr,
+                                              lse, H, scale, rate, 77,
+                                              draw_offset=off)
+            gerr = [(a.float() - b.float()).abs().max().item()
+                    for a, b in zip(grads, ref)]
+            if dtype == torch.float32:
+                ok2 = max(gerr) <= 1e-5
+            else:
+                bf = att.attention_bwd_reference(
+                    q, k, v, key_pad, static, gr, lse, H, scale, rate, 77,
+                    dots_dtype=torch.bfloat16, draw_offset=off)
+                ok2 = (max(_excess(a, b, 1e-2) for a, b in zip(grads, bf))
+                       <= 0.0 and max(_excess(a, b, 2e-2)
+                                      for a, b in zip(grads, ref)) <= 0.0)
+            sliced = True
+            if rate == DROPOUT:
+                sl = (slice(B, None), slice(None), slice(H * D, None))
+                sliced = (torch.equal(o, whole_o[sl])
+                          and torch.equal(lse, whole_lse[B:, H:])
+                          and all(torch.equal(a, b[sl])
+                                  for a, b in zip(grads, whole_g)))
+            ok = k1["ok"] and ok2 and sliced
+            emit(phase="parallel_rank_kernels_check",
+                 dtype=dtype_name(dtype), shape=[B, T, H * D], heads=H,
+                 draw_offset=list(off), dropout=rate, k1=k1,
+                 k2_dq_dk_dv_max_abs_err=gerr,
+                 bit_equal_to_the_whole_call=sliced, ok=ok)
+            if not ok:
+                raise AssertionError(f"per-rank K1/K2 ({dtype}, {rate}) "
+                                     "off (see the line)")
+            worst1 = max(worst1, k1["max_abs_err"])
+            worst2 = max(worst2, *gerr)
+        # timings at dropout 0.4, the training step's
+        k1_ms = cuda_time_ms(lambda: att.attention_fwd(
+            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
+            draw_offset=off))
+        k2_ms = cuda_time_ms(lambda: att.attention_bwd(
+            q, k, v, key_pad, static, gr, lse, H, scale, DROPOUT, 7,
+            draw_offset=off))
+        k1_plain = cuda_time_ms(lambda: att.attention_reference(
+            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
+            dots_dtype=dtype, draw_offset=off), 5, 1)
+        k2_plain = cuda_time_ms(lambda: att.attention_bwd_reference(
+            q, k, v, key_pad, static, gr, lse, H, scale, DROPOUT, 7,
+            dots_dtype=dtype, draw_offset=off), 5, 1)
+        bias = att.mask_to_bias(static.bool()[None]
+                                | key_pad.bool()[:, None])[:, None].to(dtype)
+        qh, kh, vh = (x.detach().unflatten(-1, (H, D)).transpose(1, 2)
+                      .requires_grad_(True) for x in (q, k, v))
+        gh = gr.unflatten(-1, (H, D)).transpose(1, 2)
+
+        def lib():
+            return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
+
+        lib_fwd = cuda_time_ms(lambda: lib().detach())
+        lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+            lib(), (qh, kh, vh), gh))
+        elem, hidden = q.element_size(), H * D
+        masks = key_pad.numel() * 4 + static.numel() * 4
+        lse_bytes = B * H * T * 4
+        k1_b = _tc_bound(B * 4 * T * hidden * elem + lse_bytes + masks,
+                         4 * B * H * T * T * D, dtype)
+        k2_b = _tc_bound(B * 7 * T * hidden * elem + lse_bytes + masks,
+                         10 * B * H * T * T * D, dtype)
+        emit(phase="parallel_rank_kernels_time", dtype=dtype_name(dtype),
+             shape=[B, T, T, H, D], dropout=DROPOUT, k1_ms=k1_ms,
+             k1_plain_ms=k1_plain, k1_library_ms=lib_fwd, k1_bound=k1_b,
+             k2_ms=k2_ms, k2_plain_ms=k2_plain,
+             k2_library_ms=lib_fwd_bwd - lib_fwd, k2_bound=k2_b,
+             sdpa_backend=SDPA_BACKEND)
+        rows[dtype] = (
+            dict(max_abs_err=worst1, ms=k1_ms, plain_ms=k1_plain,
+                 library_ms=lib_fwd, **k1_b),
+            dict(max_abs_err=worst2, ms=k2_ms, plain_ms=k2_plain,
+                 library_ms=lib_fwd_bwd - lib_fwd, **k2_b))
+    return rows
+
+
+def parallel_phase(root: Path, spec: dict = PAR_SPEC) -> dict:
+    """Phase 13 (module docstring): the per-rank kernels, the single-process
+    yardstick, the three layouts as ranks over gloo on the card, the
+    checkpoint, NCCL, and the script as four ranks. Returns the launches by
+    path and the per-rank kernel rows for the kernels line."""
+    t0 = time.perf_counter()
+    on_card = torch.device(spec["device"]).type == "cuda"
+    rank_rows = rank_kernels_check() if on_card else None
+    split = dict(rank_kernels=time.perf_counter() - t0)
+    out = root / "chip_smoke_parallel"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "single").mkdir(parents=True)
+    ref = par_run(spec, None, out / "single")
+    split["single"] = time.perf_counter() - t0 - sum(split.values())
+    launches, script = {}, None
+    for group in PAR_LAYOUTS:
+        # the script's four ranks run beside the last group's checks
+        beside = (lambda: par_script(root)) if (
+            on_card and group == PAR_LAYOUTS[-1]) else None
+        results, other = par_layouts(spec, group, out, beside)
+        script = other if beside is not None else script
+        for (dp, tp), got in zip(group, results):
+            emit(phase="parallel_layout", dp=dp, tp=tp, ranks=dp * tp,
+                 started_with=[list(x) for x in group],
+                 script_beside=beside is not None, wall_s=got["wall_s"],
+                 rank0_startup_s=got["startup_s"],
+                 rank0_seconds={k: v["seconds"] for k, v in got.items()
+                                if isinstance(v, dict) and "seconds" in v},
+                 backend=spec["backend"],
+                 card=nvidia_smi() if on_card else "cpu",
+                 note="the ranks share one card and gloo goes through the "
+                      "host: these times are not scaling; layouts started "
+                      "together are timed one at a time, after the script")
+            for dtype, c in par_compare(spec, (dp, tp), got, ref).items():
+                launches[f"parallel_dp{dp}_tp{tp}_{dtype_name(dtype)}"] = c
+    split["layouts_and_script"] = time.perf_counter() - t0 - sum(
+        split.values())
+    ckpt = par_checkpoint(spec, out)
+    nccl = nccl_checks() if on_card else None
+    wall = time.perf_counter() - t0
+    split["checkpoint_nccl"] = wall - sum(split.values())
+    emit(phase="parallel_phase_wall", wall_s=wall, split_s=split,
+         single_seconds={k: v["seconds"] for k, v in ref.items()},
+         nccl=nccl, script=script, checkpoint=ckpt)
+    return dict(launches=launches, rank_rows=rank_rows)
+
+
 def multisession_phases(root: Path, default: str):
     """Phases 8-10 over the ten sessions: at 400 trials (320 train, so a
     B=256 batch fits one session) for the timing phases, at 100 trials
@@ -3565,6 +4375,12 @@ def host_split_ab(other: str) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(*sys.argv[2:6])
+        return 0
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        print(json.dumps(nccl_collectives(*map(int, sys.argv[2:5]))))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3632,9 +4448,12 @@ def main() -> int:
     ms_counts, mixed, ms_entry, _ = multisession_phases(out, default)
     ref_counts = reference_ckpt_phase(out)
     real = real_data_phase(out)
+    par = parallel_phase(out)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16,
-                 real_data_bf16=real["counters"])
+                 real_data_bf16=real["counters"], **par["launches"])
+    par_f32 = tuple(k for k in par["launches"] if k.endswith("float32"))
+    par_bf16 = tuple(k for k in par["launches"] if k.endswith("bfloat16"))
     # the graph path's launches, counted by kernel name in a profile of
     # one epoch of replays (the wrappers' counters see only Python calls)
     graph_paths = dict(dispatch_graph_f32=disp_f32,
@@ -3671,7 +4490,8 @@ def main() -> int:
              launches_by_path=by_path("k1", ("train_f32",
                                              "dispatch_graph_f32",
                                              "multisession_graph_f32",
-                                             "multisession_mixed_graph_f32")),
+                                             "multisession_mixed_graph_f32",
+                                             *par_f32)),
              **_row(k1_train[f32])),
         dict(name="attention_fwd (K1, training), bf16: tensor cores "
              "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
@@ -3682,7 +4502,8 @@ def main() -> int:
                                              "multisession_graph_bf16",
                                              "multisession_mixed_graph_bf16",
                                              "real_data_bf16",
-                                             "real_data_graph_bf16")),
+                                             "real_data_graph_bf16",
+                                             *par_bf16)),
              **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
@@ -3691,7 +4512,8 @@ def main() -> int:
              launches_by_path=by_path("k2", ("train_f32",
                                              "dispatch_graph_f32",
                                              "multisession_graph_f32",
-                                             "multisession_mixed_graph_f32")),
+                                             "multisession_mixed_graph_f32",
+                                             *par_f32)),
              **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "
              "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
@@ -3702,7 +4524,8 @@ def main() -> int:
                                              "multisession_graph_bf16",
                                              "multisession_mixed_graph_bf16",
                                              "real_data_bf16",
-                                             "real_data_graph_bf16")),
+                                             "real_data_graph_bf16",
+                                             *par_bf16)),
              **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",
@@ -3764,6 +4587,24 @@ def main() -> int:
                             "reference_ckpt_eval_multi_modal":
                                 ref_counts}.items()
                 if name.endswith(("multi_modal", "multi_session"))}
+    # K1 and K2 at a tensor-parallel rank's shape (tp=2: 4 heads), their
+    # launches on the tp > 1 layouts' ranks 0 (three steps a layout)
+    tp_paths = tuple(k for k in par["launches"] if "_tp1_" not in k)
+    rank_rows = par["rank_rows"]
+    for i, (kname, short, line, cu) in enumerate((
+            ("k1", "attention_fwd (K1)", ":144", "attention_fwd.cu"),
+            ("k2", "attention_bwd (K2)", ":221", "attention_bwd.cu"))):
+        kernels.append(dict(
+            name=f"{short} at a tensor-parallel rank's shape under tp=2 "
+                 "(B=8 of 16 under dp=2, 200 tokens, 4 heads of 32: 128 "
+                 "columns of the rank's fused q/k/v product), draw offsets "
+                 "(8, 4), f32 (3xTF32); bf16 beside it",
+            route="cuda", source=src + cu,
+            replaces=attn_py + f"{line} (per shard under _flash_mha_tp, "
+                     ":528-555)",
+            launches=sum(paths[k][kname] for k in tp_paths),
+            launches_by_path={k: paths[k][kname] for k in tp_paths},
+            bf16=_row(rank_rows[bf16][i]), **_row(rank_rows[f32][i])))
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):

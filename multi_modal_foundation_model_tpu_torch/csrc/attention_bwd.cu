@@ -116,7 +116,8 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       long long k_st, long long v_sb, long long v_st,
                       long long g_sb, long long g_st, float scale,
                       const long long* __restrict__ seed_ptr,
-                      unsigned threshold, float keep_scale, bool vec) {
+                      unsigned threshold, float keep_scale, int b_off,
+                      int h_off, bool vec) {
   using Ops = Tc<T>;
   // the Philox key: the low 32 bits of the step's seed-table entry
   const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
@@ -176,8 +177,8 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const unsigned att =
         attend_nibble(static_mask, pad, Tq, Tk, q0 + r, k0, vec);
     bits[i] = (unsigned char)(att ? att | keep_nibble<kDropout>(
-                                              seed, threshold, b, h0, q0 + r,
-                                              k0)
+                                              seed, threshold, b + b_off,
+                                              h0 + h_off, q0 + r, k0)
                                   : 0u);
   }
 
@@ -233,8 +234,8 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const unsigned att = src[i] & 0xF0u;
           const int r = i / bstride, k0 = (i - r * bstride) * 4;
           dst[i] = (unsigned char)(att ? att | keep_nibble<kDropout>(
-                                                   seed, threshold, b, h + 1,
-                                                   q0 + r, k0)
+                                                   seed, threshold, b + b_off,
+                                                   h + 1 + h_off, q0 + r, k0)
                                        : 0u);
         }
       }
@@ -455,7 +456,8 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
                       long long k_st, long long v_sb, long long v_st,
                       long long g_sb, long long g_st, float scale,
                       const long long* seed, unsigned threshold,
-                      float keep_scale, cudaStream_t stream) {
+                      float keep_scale, int b_off, int h_off,
+                      cudaStream_t stream) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -483,7 +485,7 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
   attn_bwd_dq_tc_kernel<T, kDropout><<<grid_a, kTcThreads, smem_a, stream>>>(
       q, k, v, g, key_pad, static_mask, lse, static_cast<T*>(dq_), rowsum,
       mask, Tq, Tk, H, hpb_a, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st,
-      scale, seed, threshold, keep_scale, vec);
+      scale, seed, threshold, keep_scale, b_off, h_off, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int hpb_b = heads_per_block(B, n_kt, H);
@@ -504,7 +506,8 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
 // (B, Tk, H*D) contiguous. The f32 scratch holds rowsum (B, H, Tq), written
 // by pass A and read by pass B, then, 16-byte aligned, pass A's mask bytes
 // for pass B: B * H * Tq * ceil(Tk / 64) * 16 bytes
-// (ops/attention.py::_k2_scratch_floats).
+// (ops/attention.py::_k2_scratch_floats). b_off and h_off offset the (b, h)
+// of the dropout bits as K1's do.
 // Returns the first launch error (0 = ok).
 extern "C" int mmfm_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
@@ -513,13 +516,15 @@ extern "C" int mmfm_attention_bwd(
     int H, int D, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st, long long g_sb,
     long long g_st, float scale, const long long* seed, unsigned threshold,
-    float keep_scale, int dropout, int dtype, void* stream) {
+    float keep_scale, int dropout, int b_off, int h_off, int dtype,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;
 #define MMFM_K2_LAUNCH(T, DROP)                                              \
   launch_tc<T, DROP>(q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk,  \
                      dv, B, Tq, Tk, H, q_sb, q_st, k_sb, k_st, v_sb, v_st,   \
-                     g_sb, g_st, scale, seed, threshold, keep_scale, s)
+                     g_sb, g_st, scale, seed, threshold, keep_scale, b_off,  \
+                     h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);

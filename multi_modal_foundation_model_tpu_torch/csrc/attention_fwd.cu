@@ -118,7 +118,8 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    long long q_sb, long long q_st, long long k_sb,
                    long long k_st, long long v_sb, long long v_st,
                    float scale, const long long* __restrict__ seed_ptr,
-                   unsigned threshold, float keep_scale, bool vec) {
+                   unsigned threshold, float keep_scale, int b_off,
+                   int h_off, bool vec) {
   using Ops = Tc<T>;
   // the Philox key: the low 32 bits of the step's seed-table entry
   const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
@@ -181,7 +182,8 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // row, masked or not (a fully-masked row is the mean of the kept V)
   auto keep_of = [&](int h, int r, int k0) -> unsigned {
     return q0 + r < Tq && k0 < Tk
-               ? keep_nibble<kDropout>(seed, threshold, b, h, q0 + r, k0)
+               ? keep_nibble<kDropout>(seed, threshold, b + b_off, h + h_off,
+                                       q0 + r, k0)
                : 0u;
   };
   const int* pad = key_pad + (long long)b * Tk;
@@ -328,8 +330,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       long long q_sb, long long q_st, long long k_sb,
                       long long k_st, long long v_sb, long long v_st,
                       float scale, const long long* seed,
-                      unsigned threshold, float keep_scale,
-                      cudaStream_t stream) {
+                      unsigned threshold, float keep_scale, int b_off,
+                      int h_off, cudaStream_t stream) {
   const int n_qt = (Tq + kTcRows - 1) / kTcRows;
   const int n_kt = (Tk + kTcRows - 1) / kTcRows;
   const size_t n_buf = kDropout ? 2 : 1;   // bit buffers
@@ -346,7 +348,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), key_pad, static_mask, static_cast<T*>(out),
       lse, Tq, Tk, H, hpb, q_sb, q_st, k_sb, k_st, v_sb, v_st, scale, seed,
-      threshold, keep_scale, vec);
+      threshold, keep_scale, b_off, h_off, vec);
   return cudaGetLastError();
 }
 
@@ -356,20 +358,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // be 32; data pointers and batch and row strides of q, k, v 16-byte
 // aligned. lse may be null. Strides in elements. dropout != 0 drops p[q,k]
 // unless its Philox bits exceed `threshold` and scales survivors by
-// `keep_scale`. Returns the launch's cudaGetLastError() (0 = ok).
+// `keep_scale`; the bits of (b, h) are drawn as those of (b + b_off,
+// h + h_off), so a rank holding a slice of the batch (data parallel) and
+// of the heads (tensor parallel) draws its slice of the whole call's bits.
+// Returns the launch's cudaGetLastError() (0 = ok).
 extern "C" int mmfm_attention_fwd(
     const void* q, const void* k, const void* v, const int* key_pad,
     const int* static_mask, void* out, float* lse, int B, int Tq, int Tk,
     int H, int D, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st, float scale,
     const long long* seed, unsigned threshold, float keep_scale, int dropout,
-    int dtype, void* stream) {
+    int b_off, int h_off, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != kHeadDim) return (int)cudaErrorInvalidValue;
 #define MMFM_K1_LAUNCH(T, DROP)                                              \
   launch_tc<T, DROP>(q, k, v, key_pad, static_mask, out, lse, B, Tq, Tk, H,  \
                      q_sb, q_st, k_sb, k_st, v_sb, v_st, scale, seed,        \
-                     threshold, keep_scale, s)
+                     threshold, keep_scale, b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K1_LAUNCH(float, true) : MMFM_K1_LAUNCH(float, false);

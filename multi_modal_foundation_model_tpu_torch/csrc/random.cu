@@ -47,41 +47,51 @@ __device__ __forceinline__ Philox4 draw(const long long* seed, long long n,
                        stream, kind, (uint32_t)s, (uint32_t)(s >> 32));
 }
 
+// Elements [e0, e0 + n) of the draw into out[0, n): a data-parallel rank
+// holding rows [r0, r0 + rows) of the global batch passes e0 = r0 * row
+// size and gets its slice of the single-process draw. One thread a counter
+// of [e0 / 16, (e0 + n + 15) / 16); a counter's 16 bytes go out in one
+// 16-byte store where they all fall inside and the output is aligned, else
+// byte by byte.
 __global__ void __launch_bounds__(kThreads)
 philox_u8_kernel(const long long* __restrict__ seed, unsigned stream,
-                 uint8_t* __restrict__ out, long long n) {
-  const long long n_blk = (n + 15) / 16;
-  for (long long blk = (long long)blockIdx.x * kThreads + threadIdx.x;
-       blk < n_blk; blk += (long long)gridDim.x * kThreads) {
+                 uint8_t* __restrict__ out, long long n, long long e0) {
+  const long long first = e0 / 16, n_blk = (e0 + n + 15) / 16 - first;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < n_blk; i += (long long)gridDim.x * kThreads) {
+    const long long blk = first + i;
     const Philox4 r = draw(seed, blk, stream, 0u);
-    const long long e = blk * 16;
+    const long long e = blk * 16 - e0;          // index in out of byte 0
     uint8_t* o = out + e;
-    if (e + 16 <= n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    if (e >= 0 && e + 16 <= n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
       *reinterpret_cast<uint4*>(o) = make_uint4(r.x, r.y, r.z, r.w);
     } else {
       const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-      for (int j = 0; j < 16 && e + j < n; ++j)
-        o[j] = (uint8_t)(w[j >> 2] >> (8 * (j & 3)));
+      for (int j = 0; j < 16; ++j)
+        if (e + j >= 0 && e + j < n)
+          out[e + j] = (uint8_t)(w[j >> 2] >> (8 * (j & 3)));
     }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 philox_uniform_kernel(const long long* __restrict__ seed, unsigned stream,
-                      float* __restrict__ out, long long n) {
-  const long long n_blk = (n + 3) / 4;
-  for (long long blk = (long long)blockIdx.x * kThreads + threadIdx.x;
-       blk < n_blk; blk += (long long)gridDim.x * kThreads) {
+                      float* __restrict__ out, long long n, long long e0) {
+  const long long first = e0 / 4, n_blk = (e0 + n + 3) / 4 - first;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < n_blk; i += (long long)gridDim.x * kThreads) {
+    const long long blk = first + i;
     const Philox4 r = draw(seed, blk, stream, 1u);
     const float k = 1.0f / 16777216.0f;
     const float u[4] = {(r.x >> 8) * k, (r.y >> 8) * k, (r.z >> 8) * k,
                         (r.w >> 8) * k};
-    const long long e = blk * 4;
+    const long long e = blk * 4 - e0;           // index in out of word 0
     float* o = out + e;
-    if (e + 4 <= n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    if (e >= 0 && e + 4 <= n && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
       *reinterpret_cast<float4*>(o) = make_float4(u[0], u[1], u[2], u[3]);
     } else {
-      for (int j = 0; j < 4 && e + j < n; ++j) o[j] = u[j];
+      for (int j = 0; j < 4; ++j)
+        if (e + j >= 0 && e + j < n) out[e + j] = u[j];
     }
   }
 }
@@ -93,23 +103,27 @@ unsigned grid_for(long long n_blk) {
 
 }  // namespace
 
-// seed: one int64 on the device (the table entry); n elements of out.
-// Return the launch's cudaGetLastError() (0 = ok).
+// seed: one int64 on the device (the table entry); n elements of out, the
+// draw's elements [e0, e0 + n) (e0 >= 0). Return the launch's
+// cudaGetLastError() (0 = ok).
 extern "C" int mmfm_philox_u8(const long long* seed, unsigned stream,
-                              void* out, long long n, void* cuda_stream) {
+                              void* out, long long n, long long e0,
+                              void* cuda_stream) {
   if (n <= 0) return 0;
-  philox_u8_kernel<<<grid_for((n + 15) / 16), kThreads, 0,
+  if (e0 < 0) return (int)cudaErrorInvalidValue;
+  philox_u8_kernel<<<grid_for((e0 + n + 15) / 16 - e0 / 16), kThreads, 0,
                      static_cast<cudaStream_t>(cuda_stream)>>>(
-      seed, stream, static_cast<uint8_t*>(out), n);
+      seed, stream, static_cast<uint8_t*>(out), n, e0);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mmfm_philox_uniform(const long long* seed, unsigned stream,
-                                   float* out, long long n,
+                                   float* out, long long n, long long e0,
                                    void* cuda_stream) {
   if (n <= 0) return 0;
-  philox_uniform_kernel<<<grid_for((n + 3) / 4), kThreads, 0,
+  if (e0 < 0) return (int)cudaErrorInvalidValue;
+  philox_uniform_kernel<<<grid_for((e0 + n + 3) / 4 - e0 / 4), kThreads, 0,
                           static_cast<cudaStream_t>(cuda_stream)>>>(
-      seed, stream, out, n);
+      seed, stream, out, n, e0);
   return (int)cudaGetLastError();
 }

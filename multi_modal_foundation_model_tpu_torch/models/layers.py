@@ -40,12 +40,30 @@ go to the attention kernels without a copy.
   device (``ops/random.py``; the kernel in ``csrc/random.cu``), so a
   ``torch.utils.checkpoint`` recompute and a CUDA-graph replay draw what
   the eager step with those seeds draws.
+- **Data and tensor parallelism** (``parallel/``): ``shard_module`` slices
+  the parameters and sets ``mesh`` on every module. A column-parallel
+  ``Dense`` (``tp = "col"``: attention ``query``/``key``/``value``, MLP
+  ``up_proj``, the tokenizer's ``token_embed``) holds a slice of the
+  output features and passes its input through Megatron's f; a
+  row-parallel one (``tp = "row"``: ``out_proj``, ``down_proj``, the
+  tokenizer's ``projection``) holds a slice of the input features, sums
+  its partial products over the model group (Megatron's g) and adds its
+  bias once, after the sum. A sharded attention runs K1/K2 on its
+  ``n_heads / tp`` local heads (JAX ``_flash_mha_tp``). A data rank
+  draws the rows of the global draw it holds (an element offset of
+  ``d * numel``). The layer and embedding dropout sites are on
+  replicated, hidden-width activations, so every model rank draws the
+  same bits there. The attention output's dropout comes before
+  ``out_proj``, as in JAX, on this rank's heads' columns: it draws the
+  full-width rows and keeps those columns. The probability dropout draws
+  its (batch, head) slice (``draw_offset``). So a dp x tp step draws what
+  the single-process step draws.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +73,7 @@ from ..ops.attention import MaskSpec, multi_head_attention
 from ..ops.layernorm import LayerNorm
 from ..ops.random import SeedLike, u8_bits
 from ..ops.session_rows import session_rows
+from ..parallel.mesh import copy_to_group, reduce_from_group
 
 
 def _gelu_tanh(x):
@@ -129,18 +148,43 @@ def dropout_keep_threshold(rate: float):
 
 
 def dropout_u8(x: torch.Tensor, rate: float,
-               seed: Optional[SeedLike]) -> torch.Tensor:
+               seed: Optional[SeedLike], offset: int = 0,
+               cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Layer dropout (JAX ``ReplayDropout`` under ``U8_DROPOUT_BITS``):
     identity without a seed or at rate 0, zeros at rate 1, else one random
     Philox byte per element keyed by ``seed`` (a seed-table entry, or a
-    host int copied to x's device)."""
+    host int copied to x's device), elements ``offset`` on of the draw.
+    ``cols = (c0, width)``: ``x`` holds columns ``[c0, c0 + x.shape[-1])``
+    of a draw ``width`` wide; its rows are drawn whole and cut."""
     if seed is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     t, keep_p = dropout_keep_threshold(rate)
-    bits = u8_bits(seed, x.shape, device=x.device)
+    if cols is None:
+        bits = u8_bits(seed, x.shape, device=x.device, offset=offset)
+    else:
+        c0, width = cols
+        bits = u8_bits(seed, x.shape[:-1] + (width,), device=x.device,
+                       offset=offset)[..., c0:c0 + x.shape[-1]]
     return torch.where(bits >= t, x / keep_p, 0.0)
+
+
+def _mesh(module: nn.Module):
+    """The mesh ``parallel.shard_module`` set on ``module``, or None."""
+    return getattr(module, "mesh", None)
+
+
+def row_offset(module: nn.Module, x: torch.Tensor) -> int:
+    """The element offset of ``x``, this data rank's rows of a batch-first
+    activation, in the global batch's draw: ``d * numel``."""
+    mesh = _mesh(module)
+    return 0 if mesh is None else mesh.d * x.numel()
+
+
+def _model_group(module: nn.Module):
+    mesh = _mesh(module)
+    return None if mesh is None else mesh.model_group
 
 
 def seed_at(seeds: Optional[torch.Tensor], i: int,
@@ -162,21 +206,35 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``dtype`` (``MXUDense``'s ``dtype``)."""
+    """``nn.Linear`` computing in ``dtype`` (``MXUDense``'s ``dtype``).
+    ``tp`` (set by ``parallel.shard_module``): None, or "col" / "row" for a
+    column- / row-parallel shard over the model group (module
+    docstring)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.tp: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp == "col":
+            x = copy_to_group(x, _model_group(self))
+        elif self.tp == "row":
+            y = reduce_from_group(dense(x, self.weight, None,
+                                        self.compute_dtype),
+                                  _model_group(self))
+            return y if self.bias is None else y + self.bias.to(y.dtype)
         return dense(x, self.weight, self.bias, self.compute_dtype)
 
 
 def fused_linear(x: torch.Tensor, linears: Sequence[Dense]):
     """Several same-input projections as one GEMM in their compute dtype;
     returns the per-projection column views of the (..., sum(out))
-    product."""
+    product. Column-parallel shards (all or none of them) give the views
+    of this rank's ``(..., sum(out) / tp)`` product."""
+    if linears[0].tp == "col":
+        x = copy_to_group(x, _model_group(linears[0]))
     w = torch.cat([lin.weight for lin in linears])
     b = (torch.cat([lin.bias for lin in linears])
          if linears[0].bias is not None else None)
@@ -211,8 +269,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return dropout_u8(self.down_proj(self.act(self.up_proj(x))),
-                          self.dropout, seed_at(seeds, 0))
+        y = self.down_proj(self.act(self.up_proj(x)))
+        return dropout_u8(y, self.dropout, seed_at(seeds, 0),
+                          row_offset(self, y))
 
 
 # an attention's random sites: the in-kernel probability dropout, then the
@@ -221,14 +280,27 @@ _ATTN_PATHS = (((0,),), ((1,),))
 
 
 def _attend(module, q, k, v, mask, seeds):
-    """Fused attention with in-kernel probability dropout (entry 0), then
-    the output dropout (entry 1), as JAX ``Attention`` does (:404-409)."""
+    """Fused attention with in-kernel probability dropout (entry 0), the
+    output dropout (entry 1), then ``out_proj``, as JAX ``Attention`` does
+    (:404-413). The dropout bits are this rank's rows' and heads' of the
+    global draw: under TP the attention output holds this rank's heads'
+    columns of the (B, T, hidden) output, so the output dropout draws the
+    rows at full width and keeps those columns."""
     rate = module.dropout if seeds is not None else 0.0
+    mesh = _mesh(module)
+    b0 = 0 if mesh is None else mesh.d * q.shape[0]
     out = multi_head_attention(q, k, v, module.n_heads, mask_spec=mask,
                                dropout_rate=rate,
                                seed=seed_at(seeds, 0) if rate else None,
-                               impl=module.attn_impl)
-    return dropout_u8(out, module.dropout, seed_at(seeds, 1))
+                               impl=module.attn_impl,
+                               draw_offset=(b0, module.head0))
+    width = module.out_proj.out_features
+    rows = out.numel() // out.shape[-1]
+    cols = (None if out.shape[-1] == width else
+            (module.head0 * (out.shape[-1] // module.n_heads), width))
+    out = dropout_u8(out, module.dropout, seed_at(seeds, 1),
+                     0 if mesh is None else mesh.d * rows * width, cols)
+    return module.out_proj(out)
 
 
 class Attention(nn.Module):
@@ -241,6 +313,7 @@ class Attention(nn.Module):
         self.n_heads = n_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
+        self.head0 = 0           # the first local head under TP
         self.query = Dense(hidden_size, hidden_size, use_bias, dtype)
         self.key = Dense(hidden_size, hidden_size, use_bias, dtype)
         self.value = Dense(hidden_size, hidden_size, use_bias, dtype)
@@ -249,7 +322,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[MaskSpec] = None,
                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = fused_linear(x, (self.query, self.key, self.value))
-        return self.out_proj(_attend(self, q, k, v, mask, seeds))
+        return _attend(self, q, k, v, mask, seeds)
 
 
 class CrossAttention(nn.Module):
@@ -262,6 +335,7 @@ class CrossAttention(nn.Module):
         self.n_heads = n_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
+        self.head0 = 0           # the first local head under TP
         self.query = Dense(hidden_size, hidden_size, use_bias, dtype)
         self.key = Dense(hidden_size, hidden_size, use_bias, dtype)
         self.value = Dense(hidden_size, hidden_size, use_bias, dtype)
@@ -272,7 +346,7 @@ class CrossAttention(nn.Module):
                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         q = self.query(x)
         k, v = fused_linear(context, (self.key, self.value))
-        return self.out_proj(_attend(self, q, k, v, mask, seeds))
+        return _attend(self, q, k, v, mask, seeds)
 
 
 def _norm(cfg, dtype: Optional[torch.dtype]) -> nn.Module:
@@ -361,8 +435,8 @@ class ModalityTokenizer(nn.Module):
 
     def forward(self, inputs: torch.Tensor,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.act(self.token_embed(inputs)) * self.scale
-        return dropout_u8(self.projection(x), self.dropout, seed)
+        x = self.projection(self.act(self.token_embed(inputs)) * self.scale)
+        return dropout_u8(x, self.dropout, seed, row_offset(self, x))
 
 
 def _session_row(stack: torch.Tensor, session_id: torch.Tensor,
@@ -444,8 +518,8 @@ class SessionStitchedTokenizer(nn.Module):
             if self.token_embed_bias is not None:
                 x = x + _session_row(self.token_embed_bias, session_id).to(
                     x.dtype)
-        x = self.act(x) * self.scale
-        return dropout_u8(self.projection(x), self.dropout, seed)
+        x = self.projection(self.act(x) * self.scale)
+        return dropout_u8(x, self.dropout, seed, row_offset(self, x))
 
 
 class SessionStitchedHead(nn.Module):
@@ -521,7 +595,8 @@ class FactorsProjection(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = dropout_u8(x, self.dropout, seed_at(seeds, 0))
+        x = dropout_u8(x, self.dropout, seed_at(seeds, 0),
+                       row_offset(self, x))
         if not self.active:
             return x
         return self.act(self.proj(x))

@@ -65,6 +65,17 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   embedding, and its tokens are zeroed by its own token-mask row, not row
   0 (the region draws are per sample there). A one-element id is the
   batch's session: row-0 zeroing, bit for bit as before.
+- **Data parallelism** (``parallel/``; the mesh ``shard_module`` sets as
+  ``self.mesh``): the forward gets this data rank's rows of the global
+  batch and computes what the single-process forward computes on them.
+  The masker draws the global rows' draws (``row0``); the token zeroing
+  reads the GLOBAL row 0 (broadcast from data rank 0 over the data
+  group); the loss divides the local masked sum by the global masked
+  count (``mod_n`` summed over the data group, JAX :528-535) and is then
+  summed over the data group with an identity backward, so its value is
+  the global loss on every rank and its gradient this rank's part of the
+  global gradient: the trainer SUMS gradients over the data group. The
+  mean of per-rank means (DDP's default) would be another loss.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ from ..ops.losses import masked_mse, masked_poisson_nll
 from ..ops.masking import (MaskParams, RegionSets, apply_mask, host_draws,
                            mask_is_drawn, region_batch)
 from ..ops.session_rows import session_rows
+from ..parallel.mesh import all_reduce_, broadcast_, reduce_from_group
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.rng import SeedPath, seed_table
 from .layers import (Dense, DecoderLayer, EncoderLayer, ModalityTokenizer,
@@ -467,9 +479,12 @@ class MultiModal(nn.Module):
             regions = dataclasses.replace(
                 regions, region_ids=regions.region_ids[
                     ..., :d.inputs.shape[-1]])
-        corrupted, mask = apply_mask(keys, d.inputs, self.config.mask_params,
-                                     mode, regions=regions, active=active,
-                                     draws=draws)
+        mesh = getattr(self, "mesh", None)
+        corrupted, mask = apply_mask(
+            keys, d.inputs, self.config.mask_params, mode, regions=regions,
+            active=active, draws=draws,
+            row0=0 if mesh is None else mesh.d * d.inputs.shape[0],
+            data_group=None if mesh is None else mesh.data_group)
         if corrupt:
             return corrupted, mask[:, :, 0] & attn, mask
         return d.inputs, mask[:, :, 0] & attn, None
@@ -604,6 +619,13 @@ class MultiModal(nn.Module):
         if G < 1 or B % G:
             raise ValueError(f"batch {B} is not {G} equal groups")
         lead = token_mask.reshape(G, B // G, -1)[:, :1]
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and mesh.dp > 1:
+            if G != 1:
+                raise NotImplementedError(
+                    "token zeroing by groups under data parallelism")
+            # the global batch's row 0 lies on data rank 0
+            lead = broadcast_(lead.clone(), mesh.data_group, mesh.m)
         keep = (1 - lead).expand(G, B // G, -1).reshape(B, -1)
         zero = keep.to(enc_tokens.dtype)[:, :, None]
         enc_tokens = enc_tokens * zero
@@ -665,13 +687,22 @@ class MultiModal(nn.Module):
             mod_preds[mod] = preds
             mod_targets[mod] = targets
 
+        # under DP the local sums over the GLOBAL counts (mod_loss and
+        # mod_n_examples stay this rank's)
+        group = None if mesh is None else mesh.data_group
+        n_all = mod_n
+        if group is not None:
+            counts = all_reduce_(torch.stack([mod_n[m] for m in mc.avail_mod]),
+                                 group)
+            n_all = dict(zip(mc.avail_mod, counts.unbind()))
         if mc.mod_loss_weights is not None:
             loss = sum(mc.mod_loss_weights.get(mod, 1.0)
-                       * mod_loss[mod] / mod_n[mod].clamp_min(1.0)
+                       * mod_loss[mod] / n_all[mod].clamp_min(1.0)
                        for mod in mc.avail_mod)
         else:
-            total_n = sum(mod_n.values())
+            total_n = sum(n_all.values())
             loss = sum(mod_loss.values()) / total_n.clamp_min(1.0)
+        loss = reduce_from_group(loss, group)
 
         return MultiModalOutput(
             loss=loss, mod_loss=mod_loss, mod_n_examples=mod_n,

@@ -20,7 +20,11 @@ Port of ``multi_modal_foundation_model_tpu/ops/attention.py``. What stays:
   tiling and ``philox_keep`` draws the same bits on any device. The seed
   is an entry of the step's seed table (``utils/rng.py``), a one-element
   int64 tensor the kernels read on the device, so a CUDA graph of the step
-  replays with each step's own key. JAX's
+  replays with each step's own key. A rank holding a slice of the batch
+  and of the heads (``parallel/``) passes their offsets ``(b0, h0)``
+  (``draw_offset``) and draws the bits of (b + b0, h + h0): its slice of
+  the single-process draw, where JAX folds the shard's coordinates into
+  the seed (``_fold_shard_seed``, :515-525). JAX's
   threshold (keep iff bits > uint32(rate * (2^32 - 1)), :129-133) and
   normalisation (``l`` sums the undropped probabilities, the numerator the
   dropped ones scaled by 1/(1 - rate), :196, :206-216) carry over.
@@ -140,34 +144,36 @@ def dropout_threshold(rate: float) -> int:
 
 
 def philox_bits(seed: SeedLike, B: int, H: int, Tq: int, Tk: int,
-                device=None) -> torch.Tensor:
+                device=None, b0: int = 0, h0: int = 0) -> torch.Tensor:
     """(B, H, Tq, Tk) int64 tensor of the uint32 Philox words the kernels
     draw for score (b, h, q, k): word k % 4 of philox(counter =
-    (k // 4, q, h, b), key = (seed's low 32 bits, 0)). ``seed``: a host int
-    or a seed-table entry (a one-element int64 tensor)."""
+    (k // 4, q, h0 + h, b0 + b), key = (seed's low 32 bits, 0)). ``seed``: a
+    host int or a seed-table entry (a one-element int64 tensor)."""
     nw = -(-Tk // 4)
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(()).to(device) & _MASK32
     else:
         seed = int(seed) & _MASK32
 
-    def ar(n, dim):
+    def ar(n, dim, start=0):
         shape = [1, 1, 1, 1]
         shape[dim] = n
-        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+        return torch.arange(start, start + n, dtype=torch.int64,
+                            device=device).view(shape)
 
     full = (B, H, Tq, nw)
     words = philox4x32_10(ar(nw, 3).expand(full), ar(Tq, 2).expand(full),
-                          ar(H, 1).expand(full), ar(B, 0).expand(full),
+                          ar(H, 1, h0).expand(full), ar(B, 0, b0).expand(full),
                           seed, 0)
     return torch.stack(words, dim=-1).reshape(B, H, Tq, 4 * nw)[..., :Tk]
 
 
 def philox_keep(seed: SeedLike, B: int, H: int, Tq: int, Tk: int, rate: float,
-                device=None) -> torch.Tensor:
+                device=None, b0: int = 0, h0: int = 0) -> torch.Tensor:
     """(B, H, Tq, Tk) bool keep mask of K1/K2's dropout: the same bits as
-    the kernels' Philox (``csrc/philox.cuh``)."""
-    return philox_bits(seed, B, H, Tq, Tk, device) > dropout_threshold(rate)
+    the kernels' Philox (``csrc/philox.cuh``), offset by ``(b0, h0)``."""
+    return philox_bits(seed, B, H, Tq, Tk, device, b0, h0) \
+        > dropout_threshold(rate)
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +192,16 @@ def _merge(o: torch.Tensor, dtype) -> torch.Tensor:
 
 def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
                       with_lse: bool, dropout_rate: float = 0.0,
-                      seed: SeedLike = 0, dots_dtype=torch.float32):
+                      seed: SeedLike = 0, dots_dtype=torch.float32,
+                      draw_offset: Tuple[int, int] = (0, 0)):
     """Softmax attention of (B, T, H*D) operands under an additive
     ``bias`` broadcastable to (B, Tq, Tk); f32 math, q pre-scaled as K1
     does; probability dropout from ``philox_keep``. The operands of the two
     products are rounded to ``dots_dtype`` where JAX's K1 on its hardware
     rounds them (``q * scale``, k, v, and the dropped, rescaled p), both
-    products accumulating in f32. Returns (out in q's dtype, lse (B, H, Tq)
-    f32 or None)."""
+    products accumulating in f32; ``draw_offset`` (b0, h0) offsets the
+    dropout bits. Returns (out in q's dtype, lse (B, H, Tq) f32 or
+    None)."""
     B, Tq, _ = q.shape
     Tk = k.shape[1]
 
@@ -207,7 +215,8 @@ def _biased_attention(q, k, v, bias, n_heads: int, scale: float,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device)
+        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device,
+                           *draw_offset)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     o = (rnd(p) @ rnd(_heads(v, n_heads))) / l
     lse = None
@@ -223,10 +232,12 @@ def _attend_bias(key_pad, static) -> torch.Tensor:
 def attention_reference(q, k, v, key_pad, static, n_heads: int,
                         scale: float, with_lse: bool = False,
                         dropout_rate: float = 0.0, seed: SeedLike = 0,
-                        dots_dtype=torch.float32):
+                        dots_dtype=torch.float32,
+                        draw_offset: Tuple[int, int] = (0, 0)):
     """Plain PyTorch version of K1 on the kernel's operands: q (B, Tq, H*D),
     k/v (B, Tk, H*D), key_pad (B, Tk) int, static (Tq, Tk) int. Returns
     (out, lse or None); ``lse`` (B, H, Tq) = max(m, -1e6) + log(l).
+    ``draw_offset`` (b0, h0): the dropout bits of (b0 + b, h0 + h).
 
     ``dots_dtype`` rounds the products' operands as JAX's K1 on its
     hardware does: there its DEFAULT-precision f32 dots feed the matrix
@@ -238,15 +249,17 @@ def attention_reference(q, k, v, key_pad, static, n_heads: int,
     bf16 is what the tensor-core bf16 K1 computes."""
     return _biased_attention(q, k, v, _attend_bias(key_pad, static),
                              n_heads, scale, with_lse, dropout_rate, seed,
-                             dots_dtype)
+                             dots_dtype, draw_offset)
 
 
 def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
                             scale: float, dropout_rate: float = 0.0,
-                            seed: SeedLike = 0, dots_dtype=torch.float32):
+                            seed: SeedLike = 0, dots_dtype=torch.float32,
+                            draw_offset: Tuple[int, int] = (0, 0)):
     """Plain PyTorch version of K2 (JAX ``_attn_bwd_kernel``, :221-307):
     probabilities recovered from the forward's ``lse``, dropout replayed
-    from ``philox_keep``. Returns (dq, dk, dv) in q's dtype.
+    from ``philox_keep`` (offset by ``draw_offset``, as K1's). Returns
+    (dq, dk, dv) in q's dtype.
 
     ``dots_dtype`` is JAX's (:224): the operands of the five products are
     rounded to it where JAX's kernel rounds them (``q * scale``, k, v, g,
@@ -272,7 +285,8 @@ def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
     pn = torch.exp(s - lse.float()[..., None])
     dpd = gh @ vh.transpose(-1, -2)
     if dropout_rate > 0.0:
-        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device)
+        keep = philox_keep(seed, B, n_heads, Tq, Tk, dropout_rate, q.device,
+                           *draw_offset)
         ms = torch.where(keep, 1.0 / (1.0 - dropout_rate), 0.0)
         pd, dpn = pn * ms, dpd * ms
     else:
@@ -298,7 +312,7 @@ def _k1_lib():
                        ctypes.c_uint)
         f = ctypes.c_float
         fn.argtypes = ([p] * 7 + [i] * 5 + [ll] * 6
-                       + [f, p, u, f, i, i, p])
+                       + [f, p, u, f, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -312,7 +326,7 @@ def _k2_lib():
                        ctypes.c_uint)
         f = ctypes.c_float
         fn.argtypes = ([p] * 11 + [i] * 5 + [ll] * 8
-                       + [f, p, u, f, i, i, p])
+                       + [f, p, u, f, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -377,18 +391,22 @@ def _dropout_key(dropout_rate: float, seed: SeedLike, dev):
     return None if dropout_rate == 0.0 else seed_tensor(seed, dev)
 
 
-def _dropout_args(dropout_rate: float, key: Optional[torch.Tensor]):
-    """(key pointer, threshold, keep_scale, on) as the kernels take them:
-    the kernels read the low 32 bits of ``key`` on the device."""
+def _dropout_args(dropout_rate: float, key: Optional[torch.Tensor],
+                  draw_offset: Tuple[int, int]):
+    """(key pointer, threshold, keep_scale, on, b0, h0) as the kernels take
+    them: the kernels read the low 32 bits of ``key`` on the device."""
+    b0, h0 = (int(x) for x in draw_offset)
+    if b0 < 0 or h0 < 0:
+        raise ValueError(f"draw offset {draw_offset} must be >= 0")
     if key is None:
-        return None, 0, 1.0, 0
+        return None, 0, 1.0, 0, b0, h0
     return (key.data_ptr(), dropout_threshold(dropout_rate),
-            1.0 / (1.0 - dropout_rate), 1)
+            1.0 / (1.0 - dropout_rate), 1, b0, h0)
 
 
 def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                   with_lse: bool = False, dropout_rate: float = 0.0,
-                  seed: SeedLike = 0):
+                  seed: SeedLike = 0, draw_offset: Tuple[int, int] = (0, 0)):
     """Launch K1 on CUDA tensors.
 
     q/k/v: f32 or bf16, one dtype, unit stride in the last dimension; any
@@ -398,7 +416,9 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     one-element int64 tensor on q's device) or a host int copied there; the
     kernel reads its low 32 bits, the Philox key, from device memory, so a
     CUDA graph of the launch draws the key the entry holds at replay.
-    Returns a contiguous output in q's
+    ``draw_offset`` (b0, h0) draws the bits of (b0 + b, h0 + h), a rank's
+    slice of the whole batch's and heads' bits. Returns a contiguous
+    output in q's
     dtype and, with ``with_lse``, an f32 (B, H, Tq) lse.
 
     Both dtypes run on the tensor cores. f32 computes each product as
@@ -430,8 +450,8 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
                 B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), float(scale),
-                *_dropout_args(dropout_rate, key), _DTYPE_CODE[q.dtype],
-                stream)
+                *_dropout_args(dropout_rate, key, draw_offset),
+                _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd: kernel launch failed "
                            f"(cudaError {rc})")
@@ -442,10 +462,11 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
 
 def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                   scale: float, dropout_rate: float = 0.0,
-                  seed: SeedLike = 0):
+                  seed: SeedLike = 0, draw_offset: Tuple[int, int] = (0, 0)):
     """Launch K2 on CUDA tensors. q/k/v/g share one dtype, f32 or bf16, with
     unit inner stride and any batch and row strides; lse the f32
-    (B, H, Tq) of K1 on the same operands, dropout rate and seed. Returns
+    (B, H, Tq) of K1 on the same operands, dropout rate, seed and draw
+    offset. Returns
     contiguous (dq, dk, dv) in q's dtype.
 
     Both dtypes run on the tensor cores. f32 computes each product as
@@ -486,7 +507,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
                 dv.data_ptr(), B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), g.stride(0), g.stride(1),
-                float(scale), *_dropout_args(dropout_rate, key),
+                float(scale), *_dropout_args(dropout_rate, key, draw_offset),
                 _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd: kernel launch failed "
@@ -505,22 +526,23 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_pad, static, n_heads, scale, dropout_rate,
-                seed, use_kernel):
+                seed, use_kernel, draw_offset):
         fwd = attention_fwd if use_kernel else attention_reference
         out, lse = fwd(q, k, v, key_pad, static, n_heads, scale,
-                       with_lse=True, dropout_rate=dropout_rate, seed=seed)
+                       with_lse=True, dropout_rate=dropout_rate, seed=seed,
+                       draw_offset=draw_offset)
         ctx.save_for_backward(q, k, v, key_pad, static, lse, seed)
-        ctx.args = (n_heads, scale, dropout_rate, use_kernel)
+        ctx.args = (n_heads, scale, dropout_rate, use_kernel, draw_offset)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_pad, static, lse, seed = ctx.saved_tensors
-        n_heads, scale, dropout_rate, use_kernel = ctx.args
+        n_heads, scale, dropout_rate, use_kernel, draw_offset = ctx.args
         bwd = attention_bwd if use_kernel else attention_bwd_reference
         dq, dk, dv = bwd(q, k, v, key_pad, static, g, lse, n_heads, scale,
-                         dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                         dropout_rate, seed, draw_offset=draw_offset)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +560,7 @@ def multi_head_attention(
     dropout_rate: float = 0.0,
     seed: Optional[SeedLike] = None,         # keys the dropout
     impl: str = "pallas",
+    draw_offset: Tuple[int, int] = (0, 0),   # (b0, h0) of the dropout bits
 ) -> torch.Tensor:
     """MHA over already-projected q/k/v; returns (B, Tq, hidden).
 
@@ -545,7 +568,10 @@ def multi_head_attention(
     kernels on CUDA tensors and the plain versions on CPU tensors;
     ``"xla"`` takes the plain versions on either device. Dropout needs a
     ``seed`` (JAX needs a ``dropout_key``): a seed-table entry (a
-    one-element int64 tensor on q's device) or a host int."""
+    one-element int64 tensor on q's device) or a host int. ``draw_offset``
+    (b0, h0): the operands are rows ``b0..`` and heads ``h0..`` of a larger
+    call (a data- and tensor-parallel rank's slice), whose dropout bits
+    they draw."""
     B, Tq, hidden = q.shape
     Tk = k.shape[1]
     if hidden % n_heads:
@@ -563,13 +589,16 @@ def multi_head_attention(
         if bias is None:
             bias = mask_to_bias(mask)
         return _biased_attention(q, k, v, bias, n_heads, scale, False,
-                                 dropout_rate, seed)[0]
+                                 dropout_rate, seed,
+                                 draw_offset=draw_offset)[0]
 
     key_pad, static = spec_operands(mask_spec, B, Tq, Tk, q.device)
     use_kernel = impl == "pallas" and q.device.type == "cuda"
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, key_pad, static, n_heads,
-                                     scale, dropout_rate, seed, use_kernel)
+                                     scale, dropout_rate, seed, use_kernel,
+                                     tuple(draw_offset))
     fwd = attention_fwd if use_kernel else attention_reference
     return fwd(q, k, v, key_pad, static, n_heads, scale,
-               dropout_rate=dropout_rate, seed=seed)[0]
+               dropout_rate=dropout_rate, seed=seed,
+               draw_offset=tuple(draw_offset))[0]

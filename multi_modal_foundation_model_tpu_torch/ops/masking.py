@@ -41,6 +41,13 @@ jax.random and Philox streams differ, so the random modes agree with JAX
 by rate, shape and invariant; ``co-smooth``, ``forward-pred``,
 ``expand_timesteps``, ``_member``, the causal extension and ``_corrupt``
 at ``zero_ratio >= 1`` agree exactly (tests/test_torch_masking.py).
+
+Under data parallelism (``parallel/``) a rank holds rows ``[row0, row0 +
+B)`` of the global batch: every device draw takes the element offset of
+those rows (``row0`` times a row's elements), so the rank draws its rows of
+the single-process draw, and the one reduction over the batch, the
+corruption's ``max(spikes)``, is taken over the data group. The host
+draws are the same on every rank (one generator, seeded from the step).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_
 from ..utils.rng import fold_in
 from .random import uniform
 
@@ -259,11 +267,16 @@ def mask_keys(seed: int):
     return fold_in(seed, 0), fold_in(seed, 1)
 
 
-def _bernoulli(key: torch.Tensor, p, shape, stream: int = 0) -> torch.Tensor:
+def _bernoulli(key: torch.Tensor, p, shape, stream: int = 0,
+               row0: int = 0) -> torch.Tensor:
     """Bool draws, True with probability ``p`` (a float or a tensor
     broadcastable to ``shape``): Philox uniform < p, as
-    jax.random.bernoulli."""
-    return uniform(key, shape, stream) < p
+    jax.random.bernoulli; ``shape``'s rows are rows ``row0..`` of the
+    draw."""
+    row = 1
+    for n in shape[1:]:
+        row *= int(n)
+    return uniform(key, shape, stream, offset=row0 * row) < p
 
 
 def expand_timesteps(mask: torch.Tensor, width) -> torch.Tensor:
@@ -284,20 +297,26 @@ def expand_timesteps(mask: torch.Tensor, width) -> torch.Tensor:
 
 
 def _corrupt(key: torch.Tensor, spikes: torch.Tensor, mask: torch.Tensor,
-             params: MaskParams) -> torch.Tensor:
+             params: MaskParams, row0: int = 0,
+             data_group=None) -> torch.Tensor:
     """BERT-style corruption of masked positions (JAX :204-228), three
     draws under ``key`` (streams 0, 1, 2). The default ``zero_ratio >= 1``
     zeroes every masked element without a draw, a static short cut as in
-    JAX."""
+    JAX. The random values' scale is the global batch's ``max(spikes)``
+    (over ``data_group``)."""
     if params.zero_ratio >= 1.0:
         return torch.where(mask, 0.0, spikes)
-    zero_idx = _bernoulli(key, params.zero_ratio, spikes.shape, 0) & mask
+    zero_idx = _bernoulli(key, params.zero_ratio, spikes.shape, 0,
+                          row0) & mask
     out = torch.where(zero_idx, 0.0, spikes)
     if params.random_ratio <= 0.0:
         return out
-    random_idx = (_bernoulli(key, params.random_ratio, spikes.shape, 1)
+    random_idx = (_bernoulli(key, params.random_ratio, spikes.shape, 1, row0)
                   & mask & ~zero_idx)
-    random_vals = spikes.max() * uniform(key, spikes.shape, 2).to(
+    top = all_reduce_(spikes.max().reshape(1), data_group,
+                      torch.distributed.ReduceOp.MAX)[0]
+    offset = row0 * spikes[0].numel()
+    random_vals = top * uniform(key, spikes.shape, 2, offset=offset).to(
         spikes.dtype)
     return torch.where(random_idx, random_vals, out)
 
@@ -414,9 +433,10 @@ def host_draws(k_mask: int, params: MaskParams, mode: Optional[str],
     return out
 
 
-def _mask_temporal(key, draws, spikes, params: MaskParams, mode: str):
+def _mask_temporal(key, draws, spikes, params: MaskParams, row0: int,
+                   mode: str):
     B, T, N = spikes.shape
-    token_mask = _bernoulli(key, draws[_RATIO], (B, T))
+    token_mask = _bernoulli(key, draws[_RATIO], (B, T), 0, row0)
     token_mask = expand_timesteps(token_mask.float(), draws[_WIDTH])
 
     if mode == "causal" and params.causal_zero:
@@ -426,19 +446,19 @@ def _mask_temporal(key, draws, spikes, params: MaskParams, mode: str):
     return mask, mask
 
 
-def _mask_neuron(key, draws, spikes, params: MaskParams):
+def _mask_neuron(key, draws, spikes, params: MaskParams, row0: int):
     B, T, N = spikes.shape
-    m = _bernoulli(key, params.ratio, (B, N))
+    m = _bernoulli(key, params.ratio, (B, N), 0, row0)
     mask = m[:, None, :].expand(B, T, N)
     return mask, mask
 
 
-def _mask_random(key, draws, spikes, params: MaskParams):
-    mask = _bernoulli(key, params.ratio, spikes.shape)
+def _mask_random(key, draws, spikes, params: MaskParams, row0: int):
+    mask = _bernoulli(key, params.ratio, spikes.shape, 0, row0)
     return mask, mask
 
 
-def _mask_co_smooth(key, draws, spikes, params: MaskParams):
+def _mask_co_smooth(key, draws, spikes, params: MaskParams, row0: int):
     B, T, N = spikes.shape
     if params.channels is None:
         raise ValueError("co-smooth masking needs MaskParams.channels")
@@ -447,7 +467,7 @@ def _mask_co_smooth(key, draws, spikes, params: MaskParams):
     return mask, mask
 
 
-def _mask_forward_pred(key, draws, spikes, params: MaskParams):
+def _mask_forward_pred(key, draws, spikes, params: MaskParams, row0: int):
     B, T, N = spikes.shape
     if params.timesteps is None:
         raise ValueError("forward-pred masking needs MaskParams.timesteps")
@@ -472,7 +492,7 @@ def _region_member(draws, spikes, region_ids: torch.Tensor):
     return member[None, :].expand(B, N)
 
 
-def _mask_inter_region(key, draws, spikes, params: MaskParams,
+def _mask_inter_region(key, draws, spikes, params: MaskParams, row0: int,
                        regions: RegionSets):
     B, T, N = spikes.shape
     member = _region_member(draws, spikes, regions.region_ids)
@@ -480,14 +500,14 @@ def _mask_inter_region(key, draws, spikes, params: MaskParams,
     return mask, mask
 
 
-def _mask_intra_region(key, draws, spikes, params: MaskParams,
+def _mask_intra_region(key, draws, spikes, params: MaskParams, row0: int,
                        regions: RegionSets):
     B, T, N = spikes.shape
     member = _region_member(draws, spikes, regions.region_ids)
     # inside the target regions Bernoulli(ratio); everything outside is
     # masked (probability 1), as the reference does
     probs = torch.where(member, params.ratio, 1.0)
-    m = _bernoulli(key, probs, (B, N))
+    m = _bernoulli(key, probs, (B, N), 0, row0)
     mask = m[:, None, :].expand(B, T, N)
     return mask, mask & member[:, None, :]
 
@@ -520,6 +540,8 @@ def apply_mask(
     regions: Optional[RegionSets] = None,
     active: bool = True,
     draws: Optional[torch.Tensor] = None,
+    row0: int = 0,
+    data_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask + corrupt ``spikes``; returns (corrupted, targets mask int32).
 
@@ -529,7 +551,9 @@ def apply_mask(
     the spikes' device) with ``draws``, the vector ``host_draws`` made for
     this mode. ``active=False`` (eval without ``force_active``), or ratio 0
     in a mode that reads it, returns the inputs untouched with a zero
-    targets mask (JAX :377-418)."""
+    targets mask (JAX :377-418). ``row0``: the global row of ``spikes``'
+    first row (a data-parallel rank's), ``data_group`` the group the
+    batch is split over (module docstring)."""
     if not mask_is_drawn(params, mode, active):
         return spikes, torch.zeros_like(spikes, dtype=torch.int32)
     if regions is None and mode in _REGION_FNS:
@@ -543,14 +567,15 @@ def apply_mask(
                             device=spikes.device)
     elif draws is None:
         raise ValueError("apply_mask with a keys tensor needs its draws")
-    args = (seed[0:1], draws, spikes, params)
+    args = (seed[0:1], draws, spikes, params, int(row0))
     if mode in _TEMPORAL:
         mask, targets = _mask_temporal(*args, mode)
     elif mode in _REGION_FNS:
         mask, targets = _REGION_FNS[mode](*args, regions)
     else:
         mask, targets = _PLAIN_FNS[mode](*args)
-    corrupted = _corrupt(seed[1:2], spikes, mask, params)
+    corrupted = _corrupt(seed[1:2], spikes, mask, params, int(row0),
+                         data_group)
     return corrupted, targets.to(torch.int32)
 
 

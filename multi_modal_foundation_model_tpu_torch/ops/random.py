@@ -12,7 +12,11 @@ pure function of (key, stream, element index):
   draws what the eager step with those seeds draws, and a
   ``torch.utils.checkpoint`` recompute draws the forward's bits again;
 - the **stream** is a small constant of the call site, so one key can feed
-  several independent draws (the masker's corruption draws three).
+  several independent draws (the masker's corruption draws three);
+- the **offset** is the index of the draw's first element in a larger
+  draw: a data-parallel rank holding rows ``[r0, r0 + n)`` of the global
+  batch draws with offset ``r0 * row_size`` and gets exactly its slice of
+  the single-process draw (``parallel/``).
 
 Element e comes from Philox4x32-10 (Salmon et al., SC'11) with counter
 (n lo, n hi, stream, kind) and key (key lo, key hi): bytes (kind 0) take
@@ -94,34 +98,49 @@ def _key(seed: SeedLike, device) -> torch.Tensor:
     return seed_tensor(seed, device if device is not None else "cpu")
 
 
-def _words(key: torch.Tensor, n_blocks: int, stream: int, kind: int):
-    """(n_blocks, 4) int64 uint32 words of counters 0..n_blocks-1."""
+def _words(key: torch.Tensor, first: int, n_blocks: int, stream: int,
+           kind: int):
+    """(n_blocks, 4) int64 uint32 words of counters first..first +
+    n_blocks - 1."""
     s = key.reshape(())
-    blk = torch.arange(n_blocks, dtype=torch.int64, device=key.device)
+    blk = torch.arange(first, first + n_blocks, dtype=torch.int64,
+                       device=key.device)
     zero = torch.zeros_like(blk)
     words = philox4x32_10(blk & _MASK32, blk >> 32, zero + int(stream),
                           zero + int(kind), s & _MASK32, (s >> 32) & _MASK32)
     return torch.stack(words, dim=-1)
 
 
+def _span(offset: int, n: int, per: int):
+    """(first counter, counters, index of element ``offset`` in the first
+    counter's output) of elements [offset, offset + n), ``per`` a
+    counter."""
+    first = offset // per
+    return first, -(-(offset + n) // per) - first, offset - first * per
+
+
 def u8_bits_reference(seed: SeedLike, shape: Sequence[int], stream: int = 0,
-                      device=None) -> torch.Tensor:
-    """Plain version of the byte draw: a uint8 tensor of ``shape``."""
+                      device=None, offset: int = 0) -> torch.Tensor:
+    """Plain version of the byte draw: a uint8 tensor of ``shape``, elements
+    ``offset`` on of the draw."""
     key = _key(seed, device)
     n = _numel(shape)
-    words = _words(key, -(-n // 16), stream, 0)              # (nb, 4)
+    first, nb, skip = _span(int(offset), n, 16)
+    words = _words(key, first, nb, stream, 0)                 # (nb, 4)
     shifts = torch.arange(0, 32, 8, device=key.device)
     data = (words[..., None] >> shifts) & 0xFF                 # (nb, 4, 4)
-    return data.reshape(-1)[:n].to(torch.uint8).reshape(tuple(shape))
+    return data.reshape(-1)[skip:skip + n].to(torch.uint8).reshape(
+        tuple(shape))
 
 
 def uniform_reference(seed: SeedLike, shape: Sequence[int], stream: int = 0,
-                      device=None) -> torch.Tensor:
+                      device=None, offset: int = 0) -> torch.Tensor:
     """Plain version of the uniform draw: an f32 tensor of ``shape`` in
-    [0, 1)."""
+    [0, 1), elements ``offset`` on of the draw."""
     key = _key(seed, device)
     n = _numel(shape)
-    words = _words(key, -(-n // 4), stream, 1).reshape(-1)[:n]
+    first, nb, skip = _span(int(offset), n, 4)
+    words = _words(key, first, nb, stream, 1).reshape(-1)[skip:skip + n]
     return ((words >> 8).to(torch.float32) * 2.0 ** -24).reshape(
         tuple(shape))
 
@@ -140,13 +159,14 @@ def _lib():
     for fn in (lib.mmfm_philox_u8, lib.mmfm_philox_uniform):
         if fn.argtypes is None:
             p = ctypes.c_void_p
-            fn.argtypes = [p, ctypes.c_uint, p, ctypes.c_longlong, p]
+            fn.argtypes = [p, ctypes.c_uint, p, ctypes.c_longlong,
+                           ctypes.c_longlong, p]
             fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(name: str, key: torch.Tensor, stream: int,
-            out: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, key: torch.Tensor, stream: int, out: torch.Tensor,
+            offset: int) -> torch.Tensor:
     global PHILOX_LAUNCHES
     if not key.is_contiguous():
         raise ValueError("philox draw: the key must be contiguous")
@@ -154,7 +174,7 @@ def _launch(name: str, key: torch.Tensor, stream: int,
     with torch.cuda.device(out.device):
         cs = torch.cuda.current_stream(out.device).cuda_stream
         rc = fn(key.data_ptr(), int(stream) & _MASK32, out.data_ptr(),
-                out.numel(), cs)
+                out.numel(), int(offset), cs)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     PHILOX_LAUNCHES += 1
@@ -162,23 +182,24 @@ def _launch(name: str, key: torch.Tensor, stream: int,
 
 
 def u8_bits(seed: SeedLike, shape: Sequence[int], stream: int = 0,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """Random bytes of ``shape`` under ``seed`` (a table entry, or a host
-    int copied to ``device``): the kernel for a CUDA key, the plain version
-    for a CPU one."""
+    int copied to ``device``), elements ``offset`` on of the draw: the
+    kernel for a CUDA key, the plain version for a CPU one."""
     key = _key(seed, device)
     if key.device.type != "cuda":
-        return u8_bits_reference(key, shape, stream)
+        return u8_bits_reference(key, shape, stream, offset=offset)
     out = torch.empty(tuple(shape), dtype=torch.uint8, device=key.device)
-    return _launch("mmfm_philox_u8", key, stream, out)
+    return _launch("mmfm_philox_u8", key, stream, out, offset)
 
 
 def uniform(seed: SeedLike, shape: Sequence[int], stream: int = 0,
-            device=None) -> torch.Tensor:
-    """f32 uniforms in [0, 1) of ``shape`` under ``seed``: the kernel for a
-    CUDA key, the plain version for a CPU one."""
+            device=None, offset: int = 0) -> torch.Tensor:
+    """f32 uniforms in [0, 1) of ``shape`` under ``seed``, elements
+    ``offset`` on of the draw: the kernel for a CUDA key, the plain version
+    for a CPU one."""
     key = _key(seed, device)
     if key.device.type != "cuda":
-        return uniform_reference(key, shape, stream)
+        return uniform_reference(key, shape, stream, offset=offset)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=key.device)
-    return _launch("mmfm_philox_uniform", key, stream, out)
+    return _launch("mmfm_philox_uniform", key, stream, out, offset)

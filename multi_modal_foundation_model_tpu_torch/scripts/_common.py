@@ -8,8 +8,21 @@ layout (``log_dir_for``) and the overwrite guard. Sessions come from the
 offline synthetic generator (``--synthetic``) or, without it, from the
 hub: ``load_ibl_session(--eid)`` (``<eid>_aligned``, or ``<eid>_unaligned``
 with an ``--unaligned`` flag), which needs ``datasets`` and the hub or a
-warm Hugging Face cache. DP/TP meshes are not ported: ``--dp`` and
-``--tp`` take their single-device values only.
+warm Hugging Face cache.
+
+Data and tensor parallelism (``--dp``, ``--tp``; ``train_multi_modal`` and
+``train_baseline``): each rank is a process, started by torchrun::
+
+    torchrun --nproc_per_node 4 -m \
+        multi_modal_foundation_model_tpu_torch.scripts.train_multi_modal \
+        --synthetic --dp 2 --tp 2 [--device cpu] [--backend gloo]
+
+``start_ranks`` joins the process group torchrun describes
+(``WORLD_SIZE`` set; NCCL on the card, gloo on the CPU, or ``--backend``:
+ranks that share one card need gloo) and picks
+the rank's device (card ``LOCAL_RANK % device_count``);
+``parallel.build_mesh`` needs ``dp * tp`` to be the world, ``--dp -1``
+filling it.
 """
 
 from __future__ import annotations
@@ -17,9 +30,14 @@ from __future__ import annotations
 import os
 import warnings
 
+import torch
+import torch.distributed as dist
+
 from ..config import config_from_kwargs, update_config
 from ..data.session import SessionSplits, load_ibl_session, synthetic_splits
+from ..parallel import initialize_multihost, rank_device
 from ..train.checkpoint import checkpoint_path
+from ..utils.device import resolve_device
 
 DEFAULT_EID = "db4df448-e449-4a6f-a0e7-288711e7a75a"
 
@@ -55,18 +73,39 @@ def add_common_args(ap):
     ap.add_argument("--num_epochs", type=int, default=None,
                     help="override config num_epochs")
     ap.add_argument("--dp", type=int, default=-1,
-                    help="data-parallel devices; -1 = all, 1 = single "
-                         "(the port runs on one device)")
+                    help="data-parallel ranks; -1 = every rank not taken by "
+                         "--tp (dp * tp must be the torchrun world)")
     ap.add_argument("--device_resident", action="store_true",
                     help="keep each split resident on the card and gather "
                          "batches there (removes the per-batch host->device "
                          "copy from the training loop)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel size (the port runs tp=1 only)")
+                    help="tensor-parallel ranks (the 'model' axis: "
+                         "attention heads, MLP and tokenizer widths split)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on: cuda (default; raises "
                          "without a card) or cpu")
+    ap.add_argument("--backend", type=str, default=None,
+                    choices=("nccl", "gloo"),
+                    help="torch.distributed backend under torchrun "
+                         "(default: nccl on cuda, gloo on cpu; ranks "
+                         "sharing one card need gloo)")
     return ap
+
+
+def start_ranks(args) -> torch.device:
+    """This process's device: under torchrun (``WORLD_SIZE`` set) after
+    joining its process group (``--backend``), card ``LOCAL_RANK %
+    device_count`` or the CPU; alone, ``--device``."""
+    if "WORLD_SIZE" not in os.environ:
+        return resolve_device(args.device)
+    initialize_multihost(backend=args.backend, device=args.device)
+    return rank_device(args.device)
+
+
+def is_main_rank() -> bool:
+    """Rank 0, or no process group: the process that prints."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def warn_unsupported(args, *flags: str) -> None:
@@ -90,16 +129,6 @@ def get_session(args) -> SessionSplits:
                                 n_neurons=args.n_neurons, eid=args.eid)
     unaligned = bool(getattr(args, "unaligned", False))
     return load_ibl_session(args.eid, aligned=not unaligned)
-
-
-def build_mesh(dp: int, tp: int = 1):
-    """None (one device) for ``dp`` in (-1, 1) with ``tp == 1``; DP/TP
-    meshes are not ported and raise."""
-    if dp in (-1, 1) and tp == 1:
-        return None
-    raise NotImplementedError(
-        f"--dp {dp} --tp {tp}: DP/TP meshes are not ported yet; the port "
-        "runs on one device (--dp -1 or 1, --tp 1)")
 
 
 def log_dir_for(base_path: str, eid: str, modal_filter, model_name: str) -> str:

@@ -3,6 +3,9 @@ spikes -> behavior).
 
     python -m multi_modal_foundation_model_tpu_torch.scripts.train_baseline \\
         --synthetic --direction encoding [--device cpu]
+    torchrun --nproc_per_node 2 -m \\
+        multi_modal_foundation_model_tpu_torch.scripts.train_baseline \\
+        --synthetic --dp 2 [--device cpu]      # data parallel
 
 The port of the JAX package's ``scripts/train_baseline.py``: the same
 flags and defaults, the same log dir (``<base_path>/results/ses-<eid>/
@@ -22,12 +25,12 @@ from ..config import config_from_kwargs, default_config_path, update_config
 from ..data.loader import make_loader
 from ..data.session import DEFAULT_TARGETS
 from ..models.baseline import BaselineDecoder, BaselineEncoder
+from ..parallel import build_mesh
 from ..train import (BaselineTrainer, MetricLogger, OptimizerConfig,
                      TrainerConfig)
-from ..utils.device import resolve_device
-from ._common import (add_common_args, apply_config_overrides, build_mesh,
-                      get_session, guard_overwrite, log_dir_for,
-                      no_epoch_plots, warn_unsupported)
+from ._common import (add_common_args, apply_config_overrides, get_session,
+                      guard_overwrite, is_main_rank, log_dir_for,
+                      no_epoch_plots, start_ranks, warn_unsupported)
 
 
 def main(argv=None):
@@ -40,8 +43,8 @@ def main(argv=None):
                     help="restore model_last from log_dir and continue")
     args = ap.parse_args(argv)
     warn_unsupported(args, "device_resident")
+    device = start_ranks(args)
     mesh = build_mesh(args.dp, args.tp)
-    device = resolve_device(args.device)
 
     config = config_from_kwargs(
         {"model": f"include:{default_config_path('baseline.yaml')}"})
@@ -94,13 +97,14 @@ def main(argv=None):
         print(f"resumed from epoch {start_epoch - 1}")
     summary = trainer.train(start_epoch=start_epoch)
 
-    # what eval needs to rebuild the model
-    os.makedirs(log_dir, exist_ok=True)
-    with open(os.path.join(log_dir, "baseline_config.json"), "w") as f:
-        json.dump({"direction": args.direction, "n_neurons": n_neurons,
-                   "n_behaviors": len(avail_beh), "seq_len": T,
-                   "modal_filter": modal_filter}, f)
-    print("best:", {k: v for k, v in summary.items() if k != "history"})
+    if is_main_rank():
+        # what eval needs to rebuild the model
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "baseline_config.json"), "w") as f:
+            json.dump({"direction": args.direction, "n_neurons": n_neurons,
+                       "n_behaviors": len(avail_beh), "seq_len": T,
+                       "modal_filter": modal_filter}, f)
+        print("best:", {k: v for k, v in summary.items() if k != "history"})
     return summary
 
 

@@ -3,13 +3,19 @@
     python -m multi_modal_foundation_model_tpu_torch.scripts.train_multi_modal \\
         --synthetic --use_MtM --mixed_training [--device_resident] \\
         [--set training.steps_per_dispatch=10] [--device cpu]
+    torchrun --nproc_per_node 4 -m \\
+        multi_modal_foundation_model_tpu_torch.scripts.train_multi_modal \\
+        --synthetic --dp 2 --tp 2 [--device cpu] [--backend gloo]
 
 The port of the JAX package's ``scripts/train_multi_modal.py``: the same
 flags and defaults, settings from the port's copies of ``mm.yaml`` and
 ``trainer_mm.yaml`` (bf16 compute by default) with ``--set`` overrides
 (every trainer knob, ``steps_per_dispatch`` and ``prefetch_depth``
 included, reads from ``training:``), the same log dir, checkpoints as the
-port's ``.pt`` files beside ``model_config.json``.
+port's ``.pt`` files beside ``model_config.json``. Under torchrun the
+ranks train one model data- and tensor-parallel (``--dp``, ``--tp``; host
+batches only: ``--device_resident`` and ``steps_per_dispatch > 1`` raise
+there), rank 0 logging and writing (``scripts/_common.py``).
 """
 
 from __future__ import annotations
@@ -22,12 +28,12 @@ from ..config import config_from_kwargs, default_config_path, update_config
 from ..data.loader import make_loader
 from ..data.session import DEFAULT_TARGETS
 from ..models.multimodal import MultiModal, MultiModalConfig
+from ..parallel import build_mesh
 from ..train import (MetricLogger, MultiModalTrainer, OptimizerConfig,
                      TrainerConfig)
-from ..utils.device import resolve_device
-from ._common import (add_common_args, apply_config_overrides, build_mesh,
-                      get_session, guard_overwrite, log_dir_for,
-                      no_epoch_plots)
+from ._common import (add_common_args, apply_config_overrides, get_session,
+                      guard_overwrite, is_main_rank, log_dir_for,
+                      no_epoch_plots, start_ranks)
 
 MTM_MENU = ("inter-region", "intra-region", "neuron", "temporal")
 
@@ -43,8 +49,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="restore model_last from log_dir and continue")
     args = ap.parse_args(argv)
+    device = start_ranks(args)
     mesh = build_mesh(args.dp, args.tp)
-    device = resolve_device(args.device)
 
     config = config_from_kwargs(
         {"model": f"include:{default_config_path('multi_modal/mm.yaml')}"})
@@ -113,7 +119,8 @@ def main(argv=None):
         start_epoch = trainer.restore("last") + 1
         print(f"resumed from epoch {start_epoch - 1}")
     summary = trainer.train(start_epoch=start_epoch)
-    print("best:", {k: v for k, v in summary.items() if k != "history"})
+    if is_main_rank():
+        print("best:", {k: v for k, v in summary.items() if k != "history"})
     return summary
 
 

@@ -53,3 +53,11 @@ def _scalar(v):
     if hasattr(v, "item") and not isinstance(v, (int, float, str, bool)):
         return v.item()
     return v
+
+
+class NullLogger:
+    """The logger of a rank that does not log (every rank but 0 under a
+    mesh): ``log`` does nothing."""
+
+    def log(self, row: Dict[str, Any]) -> None:
+        pass

@@ -45,8 +45,8 @@ Port of ``multi_modal_foundation_model_tpu/train/multisession.py``:
 
 AdamW updates the whole stitched stacks every step, weight decay included,
 as optax does: the other sessions' slices get zero gradients, not a
-skipped update. ``shard_resident_sessions`` is not ported (ROADMAP queue
-1 item 6) and raises.
+skipped update. ``shard_resident_sessions`` and a DP/TP ``mesh`` are not
+ported (ROADMAP queue 1 item 6, its next slice) and raise.
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ from ..ops.masking import RegionSets, RegionTable
 from ..utils.rng import fold_in
 from .logging import MetricLogger
 from .schedule import OptimizerConfig
-from .trainer import (_BATCH_KEYS, _EVAL_STEP, MultiModalTrainer,
-                      TrainerConfig)
+from .trainer import (_BATCH_KEYS, _EVAL_STEP, _NEXT_SLICE,
+                      MultiModalTrainer, TrainerConfig)
 
 
 def _bucket_session_widths(
@@ -183,6 +183,9 @@ class MultiSessionTrainer(MultiModalTrainer):
         logger: Optional[MetricLogger] = None,
         modal_filter=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "MultiSessionTrainer under a DP/TP mesh: " + _NEXT_SLICE)
         self.train_loaders = dict(train_loaders)
         self.eval_loaders = dict(eval_loaders or {})
         self.eid_to_sid = dict(eid_to_sid)

@@ -16,6 +16,12 @@ update runs on torch's own pieces:
 - ``MultiSteps`` accumulation: the running mean of ``k`` mini-step
   gradients, one optimizer update (and one schedule step) every ``k``.
 
+Under tensor parallelism (``parallel/``) the parameters are this rank's
+shards and the update runs on them as it is; only the clipping norm needs
+the other ranks: the sharded leaves' sum of squares is summed over the
+model group, the replicated leaves (equal on every model rank) counted
+once, so the norm is the single-device one.
+
 The update itself is written in torch's foreach operations and reads
 every per-update scalar from a small f32 device buffer (``hyper``): the
 decay factor 1 - lr * wd, beta1 and 1 - beta1, the step size -lr / (1 -
@@ -50,6 +56,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_reduce_
 
 BETA2 = 0.999
 # the per-update scalars of the ``hyper`` buffer
@@ -93,11 +101,19 @@ class OptimizerConfig:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         model_group=None) -> torch.Tensor:
     """optax ``clip_by_global_norm``, in place, without a host sync:
-    returns the global norm (a device scalar)."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    returns the global norm (a device scalar). ``sharded[i]``: grads[i] is
+    a tensor-parallel shard, whose sum of squares is summed over
+    ``model_group``."""
+    squares = [(g * g).sum() for g in grads]
+    if sharded is not None and any(sharded):
+        part = torch.stack([q for q, on in zip(squares, sharded) if on])
+        part = all_reduce_(part.sum().reshape(1), model_group)[0]
+        squares = [part] + [q for q, on in zip(squares, sharded) if not on]
+    norm = torch.sqrt(sum(squares))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm
@@ -112,11 +128,15 @@ class Optimizer:
     updated. A captured training step splits it: the host takes
     ``will_update()`` and ``host_hyper()`` before the step and ``advance()``
     after it, and the step itself runs ``apply(hyper, update)``, device
-    operations only."""
+    operations only. ``model_group``: the tensor-parallel group whose
+    shards (parameters with a ``tp_dim``) this rank holds."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 cfg: OptimizerConfig, total_steps: int):
+                 cfg: OptimizerConfig, total_steps: int, model_group=None):
         self.params = [p for p in params if p.requires_grad]
+        self.sharded = [getattr(p, "tp_dim", None) is not None
+                        for p in self.params]
+        self.model_group = model_group
         self.cfg = cfg
         self.total_steps = max(int(total_steps), 1)
         self.k = int(cfg.gradient_accumulation_steps)
@@ -227,7 +247,8 @@ class Optimizer:
                 return
             grads = self.acc                 # the mean is the update's
         if self.cfg.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.cfg.max_grad_norm)
+            clip_by_global_norm_(grads, self.cfg.max_grad_norm, self.sharded,
+                                 self.model_group)
         torch._foreach_mul_(self.params, hyper[_DECAY])
         torch._foreach_mul_(self.exp_avg, hyper[_BETA1])
         torch._foreach_add_(self.exp_avg,

@@ -35,6 +35,7 @@ from multi_modal_foundation_model_tpu.train.schedule import (
 from multi_modal_foundation_model_tpu_torch.data import loader as tloader
 from multi_modal_foundation_model_tpu_torch.data import session as tsession
 from multi_modal_foundation_model_tpu_torch.models import baseline as tbaseline
+from multi_modal_foundation_model_tpu_torch.parallel import make_mesh
 from multi_modal_foundation_model_tpu_torch.train import (
     BaselineTrainer, OptimizerConfig, TrainerConfig, load_checkpoint_meta)
 from multi_modal_foundation_model_tpu_torch.utils.convert import (
@@ -209,14 +210,26 @@ def test_train_writes_best_and_last_and_resumes_the_watermark(tmp_path):
 
 @pytest.mark.parametrize("what", ["plots", "mesh"])
 def test_unported_options_raise(what, tmp_path):
-    over = {"save_plot_every_n_epochs": 5} if what == "plots" else {}
+    """Epoch plots raise. A mesh is ported (data parallelism,
+    ``tests/test_torch_parallel_lockstep.py``): a one-rank mesh trains as
+    no mesh does, bit for bit."""
     train, val = _loaders(tloader, tsession)
-    with pytest.raises(NotImplementedError):
-        BaselineTrainer(_port_model("decoding"), train, val,
-                        OptimizerConfig(), _tcfg(TrainerConfig, tmp_path,
-                                                 **over),
-                        modal_filter=FILTERS["decoding"],
-                        mesh=object() if what == "mesh" else None)
+    if what == "plots":
+        with pytest.raises(NotImplementedError):
+            BaselineTrainer(_port_model("decoding"), train, val,
+                            OptimizerConfig(),
+                            _tcfg(TrainerConfig, tmp_path,
+                                  save_plot_every_n_epochs=5),
+                            modal_filter=FILTERS["decoding"])
+        return
+    runs = []
+    for mesh in (None, make_mesh(1, 1)):
+        tr = BaselineTrainer(_port_model("decoding"), train, val,
+                             OptimizerConfig(), _tcfg(TrainerConfig,
+                                                      tmp_path),
+                             modal_filter=FILTERS["decoding"], mesh=mesh)
+        runs.append(tr.train_epoch(0)["step_losses"])
+    assert runs[0] == runs[1]
 
 
 def test_device_none_without_a_card_raises():

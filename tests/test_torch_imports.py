@@ -67,6 +67,26 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_parallel_package_is_scanned():
+    """``parallel/`` is among the modules the import tests load with JAX
+    blocked, and its rank workers (``tests/torch_parallel_workers.py``)
+    run the port without JAX as well."""
+    assert {"multi_modal_foundation_model_tpu_torch.parallel",
+            "multi_modal_foundation_model_tpu_torch.parallel.mesh",
+            "multi_modal_foundation_model_tpu_torch.parallel.partition"} <= \
+        set(_port_modules())
+    blocked = ["jax", "jaxlib", "flax", "optax", "orbax",
+               "multi_modal_foundation_model_tpu"]
+    code = "\n".join(
+        ["import sys"] + [f"sys.modules[{m!r}] = None" for m in blocked]
+        + ["sys.path.insert(0, 'tests')", "import torch_parallel_workers",
+           "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_port_imports_pull_in_no_data_packages():
     """Importing every port module (nothing blocked) loads none of the data
     side's optional packages, though this box has pandas, ``datasets``,
@@ -83,7 +103,7 @@ def test_port_imports_pull_in_no_data_packages():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tests/torch_parallel_workers.py"]))
 def test_source_imports_no_jax_package(path):
     """Source scan: no import of jax/flax/optax/orbax or of the JAX
     package; the port's own name (``..._tpu_torch``) shares the JAX

@@ -526,7 +526,7 @@ def test_resume_is_exact(tmp_path):
 def test_unported_options_raise(tmp_path):
     """``shard_resident_sessions`` (DP) raises; ``mixed_session_batches``
     builds and, without resident data, refuses to train (as JAX does)."""
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="next slice"):
         port_trainer(tmp_path, device_resident_data=True,
                      shard_resident_sessions=True)
     tr = port_trainer(tmp_path, mixed_session_batches=True)
@@ -552,3 +552,14 @@ def test_adamw_decays_every_session_row(tmp_path):
                                    atol=1e-9, rtol=1e-6)
         assert not torch.equal(after[sid], before[sid])
     assert (after[1] - before[1] * decay).abs().max() > 1e-5
+
+
+def test_mesh_raises_naming_the_next_slice(tmp_path):
+    """The multi-session trainer under a DP/TP mesh is the next slice."""
+    from multi_modal_foundation_model_tpu_torch.parallel import Mesh
+    two = Mesh(dp=2, tp=1, rank=0, data_group=None, model_group=None)
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MultiSessionTrainer)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        MultiSessionTrainer(None, {}, None, None, None, region_table=None,
+                            eid_to_sid={}, mesh=two)

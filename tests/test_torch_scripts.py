@@ -282,13 +282,24 @@ UNPORTED = [
     ("train_multi_modal", ["--synthetic", "--dp", "2"]),
     ("train_multi_modal", ["--synthetic", "--tp", "2"]),
 ]
+# ported since: a mesh that is not the world of ranks (one process here)
+WRONG_WORLD = {"train_baseline:--synthetic --dp 2",
+               "train_multi_modal:--synthetic --dp 2",
+               "train_multi_modal:--synthetic --tp 2"}
 
 
 @pytest.mark.parametrize("script,argv", UNPORTED,
                          ids=[f"{s}:{' '.join(a) or 'no --synthetic'}"
                               for s, a in UNPORTED])
 def test_unported_flags_raise(script, argv, tmp_path):
+    """Each flag that is not ported raises ``NotImplementedError``;
+    ``--dp``/``--tp`` of the single-session train scripts are ported and
+    raise ``ValueError`` when dp * tp is not the world of ranks."""
     main, base = _script_args(script, tmp_path)
+    if f"{script}:{' '.join(argv)}" in WRONG_WORLD:
+        with pytest.raises(ValueError, match="world"):
+            main(argv + base)
+        return
     with pytest.raises(NotImplementedError):
         main(argv + base)
 
@@ -423,3 +434,46 @@ def test_real_sessions_need_datasets(script, argv, tmp_path, monkeypatch):
     main, base = _script_args(script, tmp_path)
     with pytest.raises(ImportError):
         main(argv + base)
+
+
+TORCHRUN = [
+    ("train_multi_modal", COMMON + MM_FLAGS + SMALL_MM + ["--tp", "2"]),
+    ("train_baseline", COMMON + ["--dp", "2", "--direction", "decoding"]),
+]
+
+
+@pytest.mark.parametrize("script,argv", TORCHRUN,
+                         ids=[s for s, _ in TORCHRUN])
+def test_train_scripts_as_two_gloo_ranks(script, argv, tmp_path):
+    """torchrun starts two ranks on the CPU (``--backend gloo``): one epoch
+    of ``train_multi_modal --tp 2`` or ``train_baseline --dp 2``, one
+    metrics file written by rank 0 with a finite loss, and a checkpoint in
+    the single-device layout that one process loads."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m",
+           f"multi_modal_foundation_model_tpu_torch.scripts.{script}"]
+    cmd += argv + ["--num_epochs", "1", "--device", "cpu", "--backend",
+                   "gloo", "--base_path", str(tmp_path)]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    (metrics,) = Path(tmp_path).rglob("metrics.jsonl")
+    rows = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    epochs = [r for r in rows if "epoch" in r]
+    assert len(epochs) == 1 and math.isfinite(epochs[0]["train_loss"])
+    tree = torch.load(metrics.parent / "model_last.pt", weights_only=True)
+    if script == "train_multi_modal":
+        from multi_modal_foundation_model_tpu_torch.eval import loading
+        from multi_modal_foundation_model_tpu_torch.data.session import (
+            synthetic_splits)
+        model, _ = loading.load_model_data_local(
+            model_dir=str(metrics.parent), checkpoint_name="last",
+            test_session=synthetic_splits(seed=42, n_trials=40,
+                                          n_neurons=24).test,
+            device="cpu")
+        assert model.encoder[0].attn.n_heads == 2     # the whole model
+        assert all(torch.equal(model.state_dict()[k], v)
+                   for k, v in tree["model"].items())
+    else:
+        assert tree["model"]["layer.weight"].shape == (2, 24)

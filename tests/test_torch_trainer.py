@@ -44,6 +44,7 @@ from multi_modal_foundation_model_tpu_torch.eval import loading as tload
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
 from multi_modal_foundation_model_tpu_torch.ops.masking import (
     MaskParams as TMP)
+from multi_modal_foundation_model_tpu_torch.parallel import Mesh
 from multi_modal_foundation_model_tpu_torch.train import (
     MultiModalTrainer, OptimizerConfig, TrainerConfig)
 from multi_modal_foundation_model_tpu_torch.utils.convert import (
@@ -223,9 +224,15 @@ def test_unported_trainer_options_raise(tmp_path):
         with pytest.raises(NotImplementedError):
             MultiModalTrainer(model, train, val, OptimizerConfig(),
                               _tcfg(TrainerConfig, tmp_path, **over))
-    with pytest.raises(NotImplementedError):
-        MultiModalTrainer(model, train, val, OptimizerConfig(),
-                          _tcfg(TrainerConfig, tmp_path), mesh=object())
+    # under a mesh of more than one rank the resident (CUDA-graph) path
+    # is the next slice's: refused before any collective runs
+    two = Mesh(dp=2, tp=1, rank=0, data_group=None, model_group=None)
+    for over in (dict(device_resident_data=True),
+                 dict(device_resident_data=True, steps_per_dispatch=2)):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            MultiModalTrainer(model, train, val, OptimizerConfig(),
+                              _tcfg(TrainerConfig, tmp_path, **over),
+                              mesh=two)
     # ported: a single-session trainer ignores it, as JAX's does
     MultiModalTrainer(model, train, val, OptimizerConfig(),
                       _tcfg(TrainerConfig, tmp_path,
