@@ -90,12 +90,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``multisession_buckets`` trains ``n_buckets=2`` (two widths, a graph
    key each) and holds the stitched forward at a session's bucket width
    against N_max (f32, atol 1e-5); ``multisession_kernel_vs_plain_step``
-   one stitched step kernel path vs plain path (the step gates);
-   ``multisession_time`` the multi-session graph step against the
-   single-session one at B=16 and B=256, and the session-mixed graph step
-   against the unmixed one (``multisession_mixed_time``), all three
-   interleaved, with profiles, the session-rows kernel's and the
-   gathers' device time, and each path's peak memory.
+   one stitched step kernel path vs plain path (the step gates). The
+   timing-only ``multisession_time`` (the multi-session graph step
+   against the single-session one at B=16 and B=256, the session-mixed
+   one against the unmixed one, interleaved, with profiles and peak
+   memory) is not run here: ``scripts/torch_multisession_time.py`` runs
+   it.
 9. multisession_mixed — session-mixed batches (per-sample session ids):
    ``session_rows_check`` holds the kernel of the gathers' fixed-order
    backward (``csrc/session_rows.cu``) against its plain version at the
@@ -154,8 +154,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
    forward in one process (f32 1e-5, ``parallel_checkpoint``); NCCL at a
    world of one, and its refusal of two ranks on one card
    (``parallel_nccl``); ``train_multi_modal --dp 2 --tp 2`` as four
-   torchrun ranks (``parallel_script``). The ranks share one card and
-   gloo goes through the host: none of these times is scaling.
+   torchrun ranks (``parallel_script``). In the same rank processes, the
+   multi-session trainer under the mesh (``parallel_multisession``): the
+   session-stitched full-width model over 5 sessions of 668 + 37 i
+   neurons (N_max 1024, 20.2M parameters), B=16 global, f32 and bf16:
+   host batches at dropout 0 on every layout, resident session-mixed
+   batches at dropout 0.4 on every layout, and ``shard_resident_sessions``
+   at dp=2 and dp=2 x tp=2 (shards of 3 and 2 sessions, 96 rows each,
+   the lighter zero-padded), three eager steps each, against the single
+   process (its resident steps eager too) fed the same global rows: the
+   step-0 loss and gradients and the parameters after the steps at the
+   gates above, each step's loss (f32 1e-5, bf16 1e-2 relative),
+   replicated gradients and parameters bit-equal as above, the launches
+   a step a rank the single process's (session rows 7 a resident step),
+   a sharded rank's block its shard's rows, the rank's step and
+   collectives timed as above; and the session-rows kernel at a rank's
+   shape (8, 1024, 256) bit for bit against its plain version, timed
+   with the L2 flushed (``parallel_session_rows_check``). The ranks share
+   one card and gloo goes through the host: none of these times is
+   scaling.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -1759,11 +1776,16 @@ def philox_check() -> dict:
     its masker draw (16 x 100 x 668 uniforms), bit for bit; timed beside
     the plain version and, for reference, ``torch.randint``'s bytes (not
     the same function: other bits), with the bound of writing the output
-    once (nothing is read but the key)."""
+    once (nothing is read but the key) and the launch floor: the device
+    time of a one-element ``fill_``, timed the same way, which no kernel
+    launch goes under."""
     from multi_modal_foundation_model_tpu_torch.ops import random as rnd
 
     key = torch.tensor([2 ** 40 + 123], dtype=torch.int64, device="cuda")
     shapes = dict(u8=(TRAIN_B, 200, 256), uniform=(TRAIN_B, 100, 668))
+    # the launch floor: a one-element fill_, timed the same way
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(lambda: one.fill_(1.0))
     out = {}
     for kind, shape in shapes.items():
         fn = rnd.u8_bits if kind == "u8" else rnd.uniform
@@ -1783,7 +1805,7 @@ def philox_check() -> dict:
         b = _bound(n * got.element_size(), blocks * 120.0)
         out[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, torch_randint_ms=randint_ms,
-                         shape=list(shape), **b)
+                         launch_floor_ms=floor_ms, shape=list(shape), **b)
         emit(phase="philox_check", kind=kind, **out[kind],
              ok=err == 0.0)
         if err != 0.0:
@@ -3660,7 +3682,9 @@ def par_run(spec: dict, mesh, out_dir: Path) -> dict:
                                        tr.model, mesh).items()}
                     if dtype == torch.float32:
                         tr.save_model("last", epoch=0)
-                    to_time.append((key, tr, steps[PAR_STEPS:]))
+                    to_time.append((key, [
+                        lambda tr=tr, b=b, m=m, s=s: tr.train_step(b, m, s)
+                        for b, (m, s) in steps[PAR_STEPS:]]))
                 _sync(dev)
                 secs["checks_and_steps"] = (time.perf_counter() - t0
                                             - secs["build"]
@@ -3670,23 +3694,262 @@ def par_run(spec: dict, mesh, out_dir: Path) -> dict:
                 del tr, steps, params
                 if torch.device(dev).type == "cuda":
                     torch.cuda.empty_cache()
+    par_ms_run(spec, mesh, out_dir, res, to_time)
     with _timing_turn(spec, mesh):
-        for key, tr, timed in to_time:
+        for key, timed in to_time:
             r = res[key]
             with ln_mode(spec["layernorm"]):
                 _sync(dev)
                 t0 = time.perf_counter()
-                for b, (m, s) in timed:
-                    tr.train_step(b, m, s)
+                for step in timed:
+                    step()
                 _sync(dev)
                 r["step_ms"] = (time.perf_counter() - t0) * 1e3 / len(timed)
                 with _CollectiveClock(dev) as clock:
-                    for b, (m, s) in timed:
-                        tr.train_step(b, m, s)
+                    for step in timed:
+                        step()
             r["collectives_ms"] = clock.s * 1e3 / len(timed)
             r["collectives_a_step"] = clock.n / len(timed)
             r["seconds"]["timed"] = time.perf_counter() - t0
     return res
+
+
+# multi-session pretraining under the mesh, in the same rank processes:
+# five synthetic sessions of 668 + 37 i neurons (668-816), padded to
+# multiples of 128: one bucket of N_max = 1024 (20.2M parameters, 10.3M of
+# them stitched), 40 trials each (32 train), B=16 global. Shard assignment
+# at dp=2: three sessions (96 rows) and two (64, padded to 96)
+PAR_MS_SESSIONS, PAR_MS_TRIALS, PAR_MS_PAD, PAR_MS_STEPS = 5, 40, 128, 3
+_MIXED = dict(device_resident_data=True, mixed_session_batches=True)
+PAR_MS_CASES = {
+    "host": dict(dropout=0.0, embed_dropout=0.0,
+                 menu=("co-smooth", "forward-pred"), tcfg={}),
+    "mixed": dict(dropout=DROPOUT, embed_dropout=0.2, menu=MTM_MENU,
+                  tcfg=_MIXED),
+    "sharded": dict(dropout=DROPOUT, embed_dropout=0.2, menu=MTM_MENU,
+                    tcfg=dict(_MIXED, shard_resident_sessions=True)),
+}
+_PAR_MS_LOADERS: dict = {}
+
+
+def par_ms_loaders(spec: dict):
+    """The phase's multi-session loaders (made once a process)."""
+    from multi_modal_foundation_model_tpu_torch.data import synthetic_splits
+    from multi_modal_foundation_model_tpu_torch.train import (
+        build_multisession_loaders)
+
+    g = spec["geometry"]
+    N, T = g["n_channels"]["ap"], g["max_F"]
+    key = (N, T, spec["batch"])
+    if key not in _PAR_MS_LOADERS:
+        sessions = {f"ms-{i}": synthetic_splits(
+                        seed=SEED + i, n_trials=PAR_MS_TRIALS,
+                        n_neurons=N + 37 * i, n_timesteps=T, eid=f"ms-{i}")
+                    for i in range(PAR_MS_SESSIONS)}
+        _PAR_MS_LOADERS[key] = build_multisession_loaders(
+            sessions, batch_size=spec["batch"], max_time_length=T,
+            pad_multiple=PAR_MS_PAD, seed=SEED)
+    return _PAR_MS_LOADERS[key]
+
+
+def par_ms_trainer(spec: dict, dtype, case: str, mesh, log_dir: Path):
+    """The session-stitched full-width ``MultiSessionTrainer`` of ``case``
+    under ``mesh`` (None: one process, which runs the sharded case's
+    global rows on the replicated block), weights from ``SEED``."""
+    from multi_modal_foundation_model_tpu_torch.models import (
+        MultiModal, MultiModalConfig)
+    from multi_modal_foundation_model_tpu_torch.ops.masking import (
+        MaskParams, RegionTable)
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MetricLogger, MultiSessionTrainer, OptimizerConfig, TrainerConfig)
+    from multi_modal_foundation_model_tpu_torch.train.cuda_graph import (
+        StepGraphs)
+
+    c = PAR_MS_CASES[case]
+    train, val, _, meta = par_ms_loaders(spec)
+    g = spec["geometry"]
+    N, T = g["n_channels"]["ap"], g["max_F"]
+    mask = MaskParams(channels=tuple(i for i in PAR_MASK["channels"]
+                                     if i < N),
+                      timesteps=tuple(i for i in PAR_MASK["timesteps"]
+                                      if i < T) or (T - 1,))
+    cfg = MultiModalConfig(**{**g, "n_channels": {"ap": meta["n_max"],
+                                                  "behavior": 2}},
+                           n_sessions=len(meta["eids"]),
+                           compute_dtype=dtype_name(dtype),
+                           dropout=c["dropout"],
+                           embed_dropout=c["embed_dropout"], mask_params=mask)
+    model = MultiModal(cfg, device=spec["device"],
+                       generator=torch.Generator().manual_seed(SEED))
+    table = RegionTable.build(meta["per_session_region_ids"],
+                              region_vocab=meta["region_vocab"],
+                              device=next(model.parameters()).device)
+    over = dict(c["tcfg"])
+    if mesh is None:
+        over.pop("shard_resident_sessions", None)
+    tcfg = TrainerConfig(num_epochs=2, mask_type="input", mask_mode=c["menu"],
+                         mixed_training=True, seed=SEED, log_dir=str(log_dir),
+                         eval_every=10 ** 9, **over)
+    tr = MultiSessionTrainer(
+        model, train, val, OptimizerConfig(), tcfg, region_table=table,
+        eid_to_sid=meta["eid_to_sid"], mesh=mesh,
+        logger=MetricLogger(str(log_dir), stdout=False))
+    # the single process's resident steps eager too, as a rank's are: the
+    # same launches a step, and its step time a rank's less collectives
+    tr.graphs = StepGraphs(tr.device, capture=False)
+    return tr
+
+
+def par_ms_steps(tr, case: str, mesh, dp: int):
+    """The first ``PAR_MS_STEPS`` resident steps of ``case`` as
+    ``_dispatch`` calls: the session-mixed epoch's (its permutation of the
+    block's trials), or the sharded epoch's (``sharded_schedule`` at
+    ``dp``; a rank gathers from its own shard's block, one process the same
+    global rows from the replicated block), with the epoch's host draws.
+    Also the shard layout (rows a shard, pools) of the sharded case."""
+    from multi_modal_foundation_model_tpu_torch.train.multisession import (
+        shard_assignment, sharded_schedule)
+
+    tr._reseed_host_rng(0)
+    B = tr.train_dataloader.batch_size
+    (eids,) = tr._stack_groups()
+    valid = np.ones(B, np.float32)
+    # the replicated block's rows on the host (a sharded rank uploads only
+    # its shard's block)
+    n_trials = {e: tr.train_loaders[e].n_trials for e in eids}
+    starts = np.cumsum([0] + [n_trials[e] for e in eids])
+    sids = np.concatenate([np.full(n_trials[e], tr.eid_to_sid[e], np.int64)
+                           for e in eids])
+    if case == "sharded" and mesh is not None:
+        data = tr._sharded_block(eids)[0]
+    else:
+        data = tr._mixed_block(eids)[0]
+    out, layout = [], None
+    if case == "mixed":
+        perm = np.random.default_rng((SEED, 0, 11)).permutation(len(sids))
+        batches = [(perm[t * B:(t + 1) * B].astype(np.int64), None)
+                   for t in range(PAR_MS_STEPS)]
+    else:
+        shards, L = shard_assignment(n_trials, eids, dp)
+        pools = [sum(n_trials[e] for e in grp) for grp in shards]
+        offsets = dict(zip(eids, starts[:-1]))
+        rows = [np.concatenate([offsets[e] + np.arange(n_trials[e])
+                                for e in grp]) for grp in shards]
+        bq = B // dp
+        batches = []
+        for _, (idx,) in sharded_schedule([pools], B, dp, 1, SEED,
+                                          0)[:PAR_MS_STEPS]:
+            whole = np.concatenate([rows[s][idx[s * bq:(s + 1) * bq]]
+                                    for s in range(dp)])
+            batches.append((whole, idx))
+        layout = dict(rows=L, pools=pools, total=len(sids))
+    for whole, local in batches:
+        mode, scheme = tr._sample_modes()
+        idx = whole if local is None or mesh is None else local
+        out.append((data, [(idx, valid, scheme, sids[whole])], mode))
+    return out, layout
+
+
+def par_ms_run(spec: dict, mesh, out_dir: Path, res: dict,
+               to_time: list) -> None:
+    """Multi-session pretraining under ``mesh`` in this rank (None: the
+    single-process yardstick), per dtype and ``PAR_MS_CASES`` case: host
+    batches at dropout 0 (the step-0 loss and gradients, then
+    ``PAR_MS_STEPS`` steps), and at dropout 0.4 the session-mixed and (dp
+    = 2) the sharded resident steps, each step eager; the losses, the
+    launches, the parameters after the steps (gathered), their equality
+    over the data group, and the sharded rank's resident bytes. The
+    resident trainers' steps go to ``to_time``."""
+    from multi_modal_foundation_model_tpu_torch.parallel import (
+        full_state_dict, shard_rows)
+    from multi_modal_foundation_model_tpu_torch.parallel.mesh import (
+        all_reduce_many_)
+
+    dev = spec["device"]
+    dp = 2 if mesh is None else mesh.dp
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
+    for dtype in DTYPES:
+        for case in PAR_MS_CASES:
+            if case == "sharded" and dp != 2:
+                continue
+            key = f"ms_{dtype_name(dtype)}_{case}"
+            t0 = time.perf_counter()
+            r = {}
+            with ln_mode(spec["layernorm"]):
+                tr = par_ms_trainer(spec, dtype, case, mesh, out_dir / key)
+                params = dict(tr.model.named_parameters())
+                dims = {n: getattr(p, "tp_dim", None)
+                        for n, p in params.items()}
+
+                def step0(batch, mode, scheme, session):
+                    """The step-0 loss and gradients (summed over the
+                    data group, gathered), no update."""
+                    reset_counts()
+                    out = tr.step_loss(batch, mode, scheme, step=0,
+                                       session=session)
+                    grads = torch.autograd.grad(
+                        out.loss, list(params.values()), allow_unused=True)
+                    _sync(dev)
+                    r["fwd_bwd"] = read_counts()
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params.values(), grads)]
+                    if mesh is not None:
+                        all_reduce_many_(grads, data_group)
+                    r.update(loss0=float(out.loss.detach()),
+                             replicated_equal=_equal_over(
+                                 [g for n, g in zip(params, grads)
+                                  if dims[n] is None], model_group),
+                             grads=_gather_to_cpu(dict(zip(params, grads)),
+                                                  dims, mesh))
+
+                if case == "host":
+                    tr._reseed_host_rng(0)
+                    order = tr._epoch_schedule(0)[:PAR_MS_STEPS]
+                    iters = {}
+                    for e in set(order):
+                        tr.train_loaders[e].set_epoch(0)
+                        iters[e] = iter(tr.train_loaders[e])
+                    steps = [(e, tr._device_batch(next(iters[e])),
+                              tr._sample_modes()) for e in order]
+                    e, batch, (mode, scheme) = steps[0]
+                    step0(batch, mode, scheme, tr.eid_to_sid[e])
+                    reset_counts()
+                    r["losses"] = [float(tr.train_step(
+                        b, m, s, tr.eid_to_sid[e]))
+                        for e, b, (m, s) in steps]
+                else:
+                    steps, layout = par_ms_steps(tr, case, mesh, dp)
+                    data, [(idx, valid, scheme, ids)], mode = steps[0]
+                    step0(tr._gather_batch(data, *(
+                        torch.from_numpy(shard_rows(x, mesh)).to(dev)
+                        for x in (idx, valid))), mode, scheme, ids)
+                    reset_counts()
+                    r["losses"] = [float(tr._dispatch(*st)[0])
+                                   for st in steps]
+                    if layout is not None:
+                        block = steps[0][0]
+                        r["resident"] = dict(
+                            layout, block_rows=int(
+                                block["spikes_data"].shape[0]),
+                            bytes=sum(t.numel() * t.element_size()
+                                      for t in block.values()),
+                            replicated_uploaded=bool(tr._stacked_cache))
+                    to_time.append((key, [
+                        lambda tr=tr, st=st: tr._dispatch(*st)
+                        for st in steps]))
+                _sync(dev)
+                r["step_launches"] = read_counts()
+                r["data_equal"] = _equal_over(list(params.values()),
+                                              data_group)
+                r["params"] = {k: v.to("cpu", copy=True) for k, v in
+                               full_state_dict(tr.model, mesh).items()}
+                r["seconds"] = dict(checks_and_steps=time.perf_counter()
+                                    - t0)
+                res[key] = r
+                del tr, params
+                if case == "host" and torch.device(dev).type == "cuda":
+                    torch.cuda.empty_cache()
 
 
 def parallel_worker(spec_path: str, rank: str, world: str, port: str
@@ -3820,11 +4083,12 @@ def _par_gates(dtype, loss, want_loss, got: dict, want: dict) -> dict:
                      for n in names)
         return dict(loss_abs_err=loss_err, excess=excess,
                     ok=loss_ok and excess <= 0.0)
-    rel = max(((got[n].float() - want[n].float()).norm()
-               / want[n].float().norm().clamp_min(1e-30)).item()
-              for n in names)
+    rel, worst = max(
+        (((got[n].float() - want[n].float()).norm()
+          / want[n].float().norm().clamp_min(1e-30)).item(), n)
+        for n in names)
     loss_ok = loss_err <= 1e-2 * abs(want_loss)
-    return dict(loss_abs_err=loss_err, rel_l2_worst=rel,
+    return dict(loss_abs_err=loss_err, rel_l2_worst=rel, worst=worst,
                 ok=loss_ok and rel <= 5e-2)
 
 
@@ -3890,6 +4154,138 @@ def par_compare(spec: dict, layout, got: dict, ref: dict) -> dict:
                 raise AssertionError(f"parallel dp={dp} tp={tp} {key}: a "
                                      "gate failed (see the parallel line)")
     return launches
+
+
+def par_ms_compare(spec: dict, layout, got: dict, ref: dict) -> dict:
+    """Every gate of the multi-session cases of one layout against the
+    single process fed the same global rows (``_par_gates`` after the
+    steps; on host batches the step-0 loss and gradients too), the
+    replicated gradients bit-equal over the model group and the
+    parameters over the data group, the launches a step a rank those of
+    the single process (K1 30, K2 15, K3 62, K4 32, its Philox count, the
+    session-rows kernel 7 a resident mixed step), and a sharded rank's
+    block its shard's ``L`` rows (not the replicated block's); emits a
+    ``parallel_multisession`` line a case, raises when a gate fails.
+    Returns rank 0's launches by dtype, summed over the cases."""
+    dp, tp = layout
+    on_card = torch.device(spec["device"]).type == "cuda"
+    want_step = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
+                     k3=K3_PER_STEP, k4=K4_PER_STEP)
+    launches = {}
+    for dtype in DTYPES:
+        total: dict = {}
+        for case, c in PAR_MS_CASES.items():
+            key = f"ms_{dtype_name(dtype)}_{case}"
+            if key not in got:
+                continue
+            g, w = got[key], ref[key]
+            grads = _par_gates(dtype, g["loss0"], w["loss0"], g["grads"],
+                               w["grads"])
+            params = _par_gates(dtype, g["losses"][-1], w["losses"][-1],
+                                g["params"], w["params"])
+            rel = 1e-5 if dtype == torch.float32 else 1e-2
+            losses_ok = all(abs(a - b) <= rel * max(1.0, abs(b))
+                            for a, b in zip(g["losses"], w["losses"]))
+            ok = (grads["ok"] and g["replicated_equal"] and losses_ok
+                  and params["ok"] and g["data_equal"]
+                  and all(math.isfinite(x) for x in g["losses"]))
+            line = dict(phase="parallel_multisession", dp=dp, tp=tp,
+                        dtype=dtype_name(dtype), case=case,
+                        dropout=c["dropout"], steps=PAR_MS_STEPS,
+                        loss=g["loss0"], loss_single=w["loss0"],
+                        grads=grads,
+                        replicated_grads_equal=g["replicated_equal"],
+                        losses=g["losses"], losses_single=w["losses"],
+                        losses_ok=losses_ok, params_after_steps=params,
+                        params_equal_over_data=g["data_equal"],
+                        fwd_bwd_launches=g["fwd_bwd"],
+                        step_launches=g["step_launches"],
+                        step_launches_single=w["step_launches"])
+            if "resident" in g:
+                rr = g["resident"]
+                row_bytes = rr["bytes"] / rr["block_rows"]
+                res_ok = (rr["block_rows"] == rr["rows"] == max(rr["pools"])
+                          < rr["total"] and not rr["replicated_uploaded"])
+                line["resident"] = dict(
+                    rr, replicated_block_bytes=row_bytes * rr["total"],
+                    share_of_replicated=rr["rows"] / rr["total"], ok=res_ok)
+                ok = ok and res_ok
+            if on_card:
+                sl, wl = g["step_launches"], w["step_launches"]
+                rows = 0 if case == "host" else SESSION_ROWS_PER_STEP
+                l_ok = (_par_launches_ok(sl, want_step, PAR_MS_STEPS)
+                        and sl["philox"] == wl["philox"]
+                        and sl["session_rows"] == wl["session_rows"]
+                        == rows * PAR_MS_STEPS)
+                line["step_launches_ok"] = l_ok
+                ok = ok and l_ok
+            if "step_ms" in g:
+                line.update(step_ms_per_rank=g["step_ms"],
+                            step_ms_single=w.get("step_ms"),
+                            collectives_ms_a_step=g["collectives_ms"],
+                            collectives_a_step=g["collectives_a_step"])
+            line["ok"] = ok
+            emit(**line)
+            if not ok:
+                raise AssertionError(f"parallel multi-session dp={dp} tp={tp}"
+                                     f" {key}: a gate failed (see its line)")
+            for k, v in g["step_launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches[dtype] = total
+    return launches
+
+
+def session_rows_rank_check() -> dict:
+    """The session-rows kernel at a dp 2 x tp 2 rank's shape of the
+    multi-session mesh phase: the stitched tokenizer kernel's gradient of
+    B=8 samples (16 global over dp=2) at N_max 1024 and 256 of its 512
+    columns (tp=2), 5 sessions, f32 and bf16; bit for bit against its
+    plain version and from one launch to the next, timed beside the plain
+    version and ``index_add_`` with the L2 flushed before each launch
+    (and warm, as a second reading), with the byte bound."""
+    from multi_modal_foundation_model_tpu_torch.ops import session_rows as sr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    S, B, shape = PAR_MS_SESSIONS, TRAIN_B // 2, (1024, 256)
+    ids = torch.randint(0, S - 1, (B,), device="cuda", generator=gen)
+    # its 13.6 MB (f32) fit the 50 MB L2: a 64 MB copy before each timed
+    # launch sends them back to HBM, and the copy's own time (a device
+    # "Memcpy DtoD") is left out
+    src = torch.empty(1 << 24, device="cuda")
+    dst = torch.empty_like(src)
+
+    def cold_ms(fn) -> float:
+        by = device_ms_by_kernel(lambda: (dst.copy_(src), fn()))
+        return sum(ms for name, ms in by.items()
+                   if "memcpy" not in name.lower())
+
+    out = {}
+    for dtype in DTYPES:
+        g = torch.randn((B,) + shape, device="cuda", generator=gen).to(dtype)
+        got = sr.session_rows_grad(g, ids, S)
+        again = sr.session_rows_grad(g, ids, S)
+        want = sr.session_rows_grad_reference(g, ids, S)
+        err = (got - want).abs().max().item()
+        ok = torch.equal(got, again) and err == 0.0
+        g2 = g.reshape(B, -1)
+        n_bytes = g.numel() * g.element_size() + S * g2.shape[1] * 4
+        out[dtype] = dict(
+            max_abs_err=err,
+            ms=cold_ms(lambda: sr.session_rows_grad(g, ids, S)),
+            plain_ms=cuda_time_ms(
+                lambda: sr.session_rows_grad_reference(g, ids, S), 5, 1),
+            library_ms=cold_ms(lambda: torch.zeros(
+                S, g2.shape[1], dtype=g.dtype, device="cuda").index_add_(
+                    0, ids, g2)),
+            **_bound(n_bytes + B * 8, g.numel(), torch.float32))
+        emit(phase="parallel_session_rows_check", dtype=dtype_name(dtype),
+             shape=[B, *shape], sessions=S, **out[dtype],
+             warm_l2_ms=device_ms(lambda: sr.session_rows_grad(g, ids, S)),
+             library_call="torch.zeros(S, M).index_add_(0, ids, g)", ok=ok)
+        if not ok:
+            raise AssertionError(f"session rows kernel at the rank shape "
+                                 f"({dtype}): not bit-equal ({err})")
+    return out
 
 
 def par_checkpoint(spec: dict, out: Path) -> dict:
@@ -4168,6 +4564,7 @@ def parallel_phase(root: Path, spec: dict = PAR_SPEC) -> dict:
     t0 = time.perf_counter()
     on_card = torch.device(spec["device"]).type == "cuda"
     rank_rows = rank_kernels_check() if on_card else None
+    rows_rank = session_rows_rank_check() if on_card else None
     split = dict(rank_kernels=time.perf_counter() - t0)
     out = root / "chip_smoke_parallel"
     shutil.rmtree(out, ignore_errors=True)
@@ -4195,6 +4592,10 @@ def parallel_phase(root: Path, spec: dict = PAR_SPEC) -> dict:
                       "together are timed one at a time, after the script")
             for dtype, c in par_compare(spec, (dp, tp), got, ref).items():
                 launches[f"parallel_dp{dp}_tp{tp}_{dtype_name(dtype)}"] = c
+            for dtype, c in par_ms_compare(spec, (dp, tp), got,
+                                           ref).items():
+                launches[f"parallel_multisession_dp{dp}_tp{tp}_"
+                         f"{dtype_name(dtype)}"] = c
     split["layouts_and_script"] = time.perf_counter() - t0 - sum(
         split.values())
     ckpt = par_checkpoint(spec, out)
@@ -4204,22 +4605,24 @@ def parallel_phase(root: Path, spec: dict = PAR_SPEC) -> dict:
     emit(phase="parallel_phase_wall", wall_s=wall, split_s=split,
          single_seconds={k: v["seconds"] for k, v in ref.items()},
          nccl=nccl, script=script, checkpoint=ckpt)
-    return dict(launches=launches, rank_rows=rank_rows)
+    return dict(launches=launches, rank_rows=rank_rows,
+                session_rows_rank=rows_rank)
 
 
 def multisession_phases(root: Path, default: str):
-    """Phases 8-10 over the ten sessions: at 400 trials (320 train, so a
-    B=256 batch fits one session) for the timing phases, at 100 trials
-    (``MS_MIXED_TRIALS``: 50-step epochs) for the rest. Returns (graph
-    launch counts by dtype, phase 10's results, entry launch counts by
-    script, wall seconds)."""
+    """Phases 8-10 over the ten sessions at 100 trials
+    (``MS_MIXED_TRIALS``: 50-step epochs); the timing phase at 400 trials
+    (320 train, so a B=256 batch fits one session) runs in
+    ``scripts/torch_multisession_time.py``. Returns (graph launch counts
+    by dtype, phase 10's results, entry launch counts by script, wall
+    seconds)."""
     t0 = time.perf_counter()
-    sessions, short = ms_sessions(), ms_sessions(MS_MIXED_TRIALS)
-    loaders, short_loaders = ms_loaders(sessions), ms_loaders(short)
+    short = ms_sessions(MS_MIXED_TRIALS)
+    short_loaders = ms_loaders(short)
     emit(phase="multisession_data", sessions=MS_SESSIONS,
-         trials=[MS_TRIALS, MS_MIXED_TRIALS],
-         num_neurons=loaders["meta"]["num_neurons"],
-         n_max=loaders["meta"]["n_max"],
+         trials=[MS_MIXED_TRIALS],
+         num_neurons=short_loaders["meta"]["num_neurons"],
+         n_max=short_loaders["meta"]["n_max"],
          wall_s=time.perf_counter() - t0)
     f32, bf16 = torch.float32, torch.bfloat16
     counts = {"f32": multisession_phase(root, short_loaders, f32, default),
@@ -4227,11 +4630,8 @@ def multisession_phases(root: Path, default: str):
     multisession_buckets(root, short, short_loaders, bf16, "full", default)
     multisession_step_check(root, short_loaders, f32, default)
     multisession_step_check(root, short_loaders, bf16, "full")
-    t_time = time.perf_counter()
-    multisession_time(root, loaders, f32, default)
-    multisession_time(root, loaders, bf16, "full")
-    emit(phase="multisession_time_wall", total_s=time.perf_counter() - t_time)
-    del sessions, loaders
+    # multisession_time (timing only) runs in
+    # scripts/torch_multisession_time.py
     mixed = multisession_mixed_phases(root, short, short_loaders, default)
     del short, short_loaders
     entry, entry_s = multisession_entry_phase(root)
@@ -4551,7 +4951,9 @@ def main() -> int:
              ":227-240",
              launches=train_f32["philox"] + train_bf16["philox"],
              launches_by_path=by_path("philox", (*paths, *graph_paths)),
-             uniform=philox["uniform"], **_row(philox["u8"])),
+             uniform=philox["uniform"],
+             launch_floor_ms=philox["u8"]["launch_floor_ms"],
+             **_row(philox["u8"])),
         dict(name="session_rows_grad: the fixed-order backward of the "
              "session-mixed step's per-sample gathers of the stitched "
              "stacks, f32 sums in sample order, at 16 x 1024 x 512 f32 "
@@ -4587,6 +4989,23 @@ def main() -> int:
                             "reference_ckpt_eval_multi_modal":
                                 ref_counts}.items()
                 if name.endswith(("multi_modal", "multi_session"))}
+    # the session-rows kernel at a dp 2 x tp 2 rank's shape, its launches
+    # on the multi-session layouts' ranks 0
+    ms_par = tuple(k for k in par["launches"]
+                   if k.startswith("parallel_multisession"))
+    rows_rank = par["session_rows_rank"]
+    kernels.append(dict(
+        name="session_rows_grad at a data- and tensor-parallel rank's "
+             "shape of the multi-session mesh phase (8 of 16 samples under "
+             "dp=2, the stitched tokenizer kernel's 1024 x 256 columns of "
+             "512 under tp=2, 5 sessions), f32; bf16 beside it",
+        route="cuda", source=src + "session_rows.cu",
+        replaces="multi_modal_foundation_model_tpu/models/layers.py"
+        ":651-658 (no Pallas source: XLA's scatter-add, the transpose of "
+        "jnp.take; per shard under the model axis)",
+        launches=sum(paths[k]["session_rows"] for k in ms_par),
+        launches_by_path={k: paths[k]["session_rows"] for k in ms_par},
+        bf16=_row(rows_rank[bf16]), **_row(rows_rank[f32])))
     # K1 and K2 at a tensor-parallel rank's shape (tp=2: 4 heads), their
     # launches on the tp > 1 layouts' ranks 0 (three steps a layout)
     tp_paths = tuple(k for k in par["launches"] if "_tp1_" not in k)

@@ -43,8 +43,9 @@ go to the attention kernels without a copy.
 - **Data and tensor parallelism** (``parallel/``): ``shard_module`` slices
   the parameters and sets ``mesh`` on every module. A column-parallel
   ``Dense`` (``tp = "col"``: attention ``query``/``key``/``value``, MLP
-  ``up_proj``, the tokenizer's ``token_embed``) holds a slice of the
-  output features and passes its input through Megatron's f; a
+  ``up_proj``, the tokenizer's ``token_embed``; the stitched tokenizer's
+  kernel and bias likewise) holds a slice of the output features and
+  passes its input through Megatron's f; a
   row-parallel one (``tp = "row"``: ``out_proj``, ``down_proj``, the
   tokenizer's ``projection``) holds a slice of the input features, sums
   its partial products over the model group (Megatron's g) and adds its
@@ -470,8 +471,12 @@ class SessionStitchedTokenizer(nn.Module):
     bias, cast to the compute dtype before the gather, and the product is a
     batched GEMM (JAX :651-658). The products are ``torch.matmul`` in
     the compute dtype, as JAX computes them outside any Pallas kernel.
-    Init (``reset_stitched_``): the kernel and bias U(+-1/sqrt(N_max)), the
-    projection torch's default."""
+    Under tensor parallelism (``tp = "col"``, set by
+    ``parallel.shard_module``) the kernel and bias hold this rank's
+    ``mult * H / tp`` columns, the input passes Megatron's f and the
+    row-parallel ``projection`` sums over the model group; both id paths
+    run on the shard. Init (``reset_stitched_``): the kernel and bias
+    U(+-1/sqrt(N_max)), the projection torch's default."""
 
     def __init__(self, n_sessions: int, n_channels: int, hidden_size: int,
                  mult: int, act: str, scale: float, use_bias: bool,
@@ -488,6 +493,7 @@ class SessionStitchedTokenizer(nn.Module):
         self.token_embed_bias = (nn.Parameter(torch.empty(n_sessions, inter))
                                  if use_bias else None)
         self.projection = Dense(inter, hidden_size, True, dtype)
+        self.tp: Optional[str] = None
 
     @torch.no_grad()
     def reset_stitched_(self, generator: torch.Generator) -> None:
@@ -504,6 +510,9 @@ class SessionStitchedTokenizer(nn.Module):
             raise ValueError(f"input width {n_in} exceeds the stitched "
                              f"width {self.n_channels}")
         cdt = self.compute_dtype or inputs.dtype
+        if self.tp == "col":
+            # this rank's columns of inter: Megatron's f on the input
+            inputs = copy_to_group(inputs, _model_group(self))
         if session_id.numel() > 1:
             # (B,) ids: a (B, n_in, mult * H) gather, a batched GEMM
             w = _session_row(self.token_embed_kernel[:, :n_in], session_id,

@@ -70,7 +70,8 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   batch and computes what the single-process forward computes on them.
   The masker draws the global rows' draws (``row0``); the token zeroing
   reads the GLOBAL row 0 (broadcast from data rank 0 over the data
-  group); the loss divides the local masked sum by the global masked
+  group; with per-sample session ids each sample's own row, on its rank);
+  the loss divides the local masked sum by the global masked
   count (``mod_n`` summed over the data group, JAX :528-535) and is then
   summed over the data group with an identity backward, so its value is
   the global loss on every rank and its gradient this rank's part of the
@@ -620,7 +621,7 @@ class MultiModal(nn.Module):
             raise ValueError(f"batch {B} is not {G} equal groups")
         lead = token_mask.reshape(G, B // G, -1)[:, :1]
         mesh = getattr(self, "mesh", None)
-        if mesh is not None and mesh.dp > 1:
+        if mesh is not None and mesh.dp > 1 and not per_sample:
             if G != 1:
                 raise NotImplementedError(
                     "token zeroing by groups under data parallelism")

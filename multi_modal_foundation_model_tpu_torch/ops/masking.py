@@ -253,6 +253,16 @@ def n_draws(params: MaskParams, batch: int = 1) -> int:
     return _REGIONS + int(batch) * int(params.n_mask_regions)
 
 
+def draw_rows(draws: np.ndarray, params: MaskParams, row0: int,
+              rows: int) -> np.ndarray:
+    """Host draws (..., ``n_draws(params, B)``) of a batch's B rows of
+    region picks cut to rows ``[row0, row0 + rows)`` (a data-parallel
+    rank's samples), (..., ``n_draws(params, rows)``)."""
+    n = int(params.n_mask_regions)
+    picks = draws[..., _REGIONS + row0 * n:_REGIONS + (row0 + rows) * n]
+    return np.concatenate([draws[..., :_REGIONS], picks], axis=-1)
+
+
 def region_batch(regions: Optional[RegionSets]) -> int:
     """The rows of region picks a step draws: one per sample when
     ``regions`` holds per-sample candidate rows (``RegionTable.select`` of

@@ -137,21 +137,18 @@ def shard_module(model: torch.nn.Module, mesh: Optional[Mesh]
     shards), mark each sharded one with ``tp_dim``, and tell the modules
     how they are split: every module gets ``mesh`` (the draw offsets of
     dropout and the masker), a sharded ``Dense`` its ``tp`` ("col" or
-    "row") and new width, an attention its local heads and their offset.
-    Returns the placements. A session-stitched model under a ``model``
-    axis raises: its stitched tokenizers' tensor parallelism is the next
-    slice's."""
+    "row") and new width, an attention its local heads and their offset,
+    a session-stitched tokenizer ``tp = "col"`` when its ``(S, N, inter)``
+    kernel and ``(S, inter)`` bias keep this rank's columns of ``inter``
+    (JAX ``partition.py:64-69``; its ``projection`` is the row-parallel
+    ``Dense`` after it, the stitched head stays replicated). Returns the
+    placements."""
     from ..models.layers import (Attention, CrossAttention, Dense,
                                  SessionStitchedTokenizer)
 
     if mesh is None:
         return {}
     placements = module_placements(model, mesh)
-    if mesh.tp > 1 and any(isinstance(m, SessionStitchedTokenizer)
-                           for m in model.modules()):
-        raise NotImplementedError(
-            "tensor parallelism of the session-stitched model is not ported "
-            "yet (next slice: the multi-session trainer under a mesh)")
     for mod in model.modules():
         mod.mesh = mesh
     for name, p in model.named_parameters():
@@ -169,6 +166,9 @@ def shard_module(model: torch.nn.Module, mesh: Optional[Mesh]
                 and getattr(mod.query.weight, "tp_dim", None) is not None:
             mod.n_heads //= mesh.tp
             mod.head0 = mesh.m * mod.n_heads
+        elif isinstance(mod, SessionStitchedTokenizer) and getattr(
+                mod.token_embed_kernel, "tp_dim", None) is not None:
+            mod.tp = "col"
     return placements
 
 

@@ -13,9 +13,9 @@ flags and defaults, settings from the port's copies of ``mm.yaml`` and
 (every trainer knob, ``steps_per_dispatch`` and ``prefetch_depth``
 included, reads from ``training:``), the same log dir, checkpoints as the
 port's ``.pt`` files beside ``model_config.json``. Under torchrun the
-ranks train one model data- and tensor-parallel (``--dp``, ``--tp``; host
-batches only: ``--device_resident`` and ``steps_per_dispatch > 1`` raise
-there), rank 0 logging and writing (``scripts/_common.py``).
+ranks train one model data- and tensor-parallel (``--dp``, ``--tp``; with
+``--device_resident`` each rank runs its steps eagerly from the resident
+split, no CUDA graph), rank 0 logging and writing (``scripts/_common.py``).
 """
 
 from __future__ import annotations

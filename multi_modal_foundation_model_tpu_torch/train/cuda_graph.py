@@ -23,8 +23,12 @@ one upload of K rows and K replays with no host work between them.
 Every graph shares one memory pool: they replay in sequence on one stream,
 and nothing a step allocates outlives it. A capture or a replay that fails
 raises; there is no eager way around the graph on the card. On the CPU
-(where CUDA graphs do not exist) the step runs eagerly every time, from
-the same buffers.
+(where CUDA graphs do not exist), and for a rank of a DP/TP mesh
+(``StepGraphs(capture=False)``), the step runs eagerly every time, from
+the same buffers. A capture in a process group of more than one rank
+raises: it would capture the step's collectives, which needs NCCL with a
+card a rank (ROADMAP queue 1 item 3b); the ranks of one card run over
+gloo, which a graph cannot capture.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Callable, Dict, Hashable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class StepInputs:
@@ -88,14 +93,15 @@ class StepInputs:
 
 
 class StepGraphs:
-    """One CUDA graph per step variant on ``device``; eager on the CPU."""
+    """One CUDA graph per step variant on ``device``; eager on the CPU and
+    without ``capture``."""
 
-    def __init__(self, device):
+    def __init__(self, device, capture: bool = True):
         self.device = torch.device(device)
         self.graphs: Dict[Hashable, torch.cuda.CUDAGraph] = {}
         self.capture_s: Dict[Hashable, float] = {}
         self.replays = 0
-        self._cuda = self.device.type == "cuda"
+        self._cuda = self.device.type == "cuda" and capture
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
 
@@ -111,6 +117,12 @@ class StepGraphs:
             graph.replay()
             self.replays += 1
             return
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "a CUDA-graph capture of a training step under a process "
+                "group of more than one rank (ROADMAP queue 1 item 3b: its "
+                "collectives need NCCL with a card a rank; ranks sharing "
+                "one card run over gloo, which a graph cannot capture)")
         cur = torch.cuda.current_stream(self.device)
         side = self._stream
         side.wait_stream(cur)

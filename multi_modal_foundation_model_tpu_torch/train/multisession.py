@@ -42,11 +42,29 @@ Port of ``multi_modal_foundation_model_tpu/train/multisession.py``:
 - **Eval** (``eval_epoch``, :943-1028): per session, the fixed eval
   stream; 'ap' metrics over the session's real neurons (bits/spike and
   the R² of the 50 most active), behavior R²; keyed by eid.
+- **Under a DP/TP mesh** (``mesh=``, JAX :163-226): every path above runs
+  on a rank, eagerly (``train/trainer.py``). A streaming batch keeps the
+  rank's rows, ``space_attn_mask`` included (JAX ``_device_batch``,
+  :222-226); a resident block is uploaded whole on every rank and each
+  step gathers the rank's rows of the global batch; a session-mixed step
+  draws its region picks for the global batch and keeps the rank's; eval
+  gathers the predictions over the data group. Checkpoints hold the
+  single-device layout.
+- **Sharded resident sessions** (``shard_resident_sessions``, with
+  session-mixed batches under a mesh, JAX :530-724): each bucket's
+  sessions are dealt to the dp data shards (``shard_assignment``: largest
+  first into the lightest shard), and a rank uploads only its shard's
+  sessions' rows, zero-padded to the heaviest shard's ``L`` (the tp ranks
+  of a data row hold the same shard), so its resident bytes are about
+  1/dp of the replicated block. A step takes ``B / dp`` rows from each
+  shard's without-replacement stream (``sharded_schedule``, JAX's
+  schedule exactly); a rank gathers its rows from its own block, with no
+  collective for data. ``B % dp`` raises ``ValueError``, as does the
+  option without a mesh.
 
 AdamW updates the whole stitched stacks every step, weight decay included,
 as optax does: the other sessions' slices get zero gradients, not a
-skipped update. ``shard_resident_sessions`` and a DP/TP ``mesh`` are not
-ported (ROADMAP queue 1 item 6, its next slice) and raise.
+skipped update.
 """
 
 from __future__ import annotations
@@ -64,8 +82,9 @@ from ..ops.masking import RegionSets, RegionTable
 from ..utils.rng import fold_in
 from .logging import MetricLogger
 from .schedule import OptimizerConfig
-from .trainer import (_BATCH_KEYS, _EVAL_STEP, _NEXT_SLICE,
-                      MultiModalTrainer, TrainerConfig)
+from ..parallel.mesh import all_gather_cat, shard_batch
+from .trainer import (_BATCH_KEYS, _EVAL_STEP, MultiModalTrainer,
+                      TrainerConfig)
 
 
 def _bucket_session_widths(
@@ -162,6 +181,61 @@ def build_multisession_loaders(
     return train, val, test, meta
 
 
+def shard_assignment(n_trials: Dict[str, int], eids: Sequence[str],
+                     dp: int) -> Tuple[List[Tuple[str, ...]], int]:
+    """``eids`` dealt to ``dp`` data shards (JAX ``_shard_assignment``,
+    :530-545): sessions by trial count, largest first (ties by eid), each
+    into the lightest shard (ties by shard index). Returns the shards' eids
+    and ``L``, the heaviest shard's trials (at least 1): every shard's
+    block is padded to ``L`` rows."""
+    order = sorted(eids, key=lambda e: (-n_trials[e], e))
+    shards: List[List[str]] = [[] for _ in range(dp)]
+    load = [0] * dp
+    for e in order:
+        s = min(range(dp), key=lambda t: (load[t], t))
+        shards[s].append(e)
+        load[s] += n_trials[e]
+    return [tuple(x) for x in shards], max(max(load), 1)
+
+
+def sharded_schedule(bucket_pools: Sequence[Sequence[int]], B: int,
+                     dp: int, K: int, seed: int, epoch: int
+                     ) -> List[Tuple[int, List[np.ndarray]]]:
+    """The sharded mixed epoch's steps (JAX
+    ``_train_epoch_dr_mixed_sharded``, :655-690): per bucket ``gi`` (its
+    shards' trial counts ``bucket_pools[gi]``) ``ceil(total / B)`` steps,
+    each of ``B / dp`` rows from every shard's without-replacement stream
+    (a permutation of the shard's pool from ``default_rng((seed, epoch,
+    17, gi, s, cycle))``, renewed each cycle); a step's (B,) indices are
+    the shards' segments in shard order, each a row offset into its own
+    shard's block. Steps form K-groups per bucket; with several buckets
+    the groups are shuffled by ``(seed, epoch, 13)``. Returns (bucket,
+    [indices of each step]) per group."""
+    if B % dp:
+        raise ValueError(f"batch_size {B} must divide by dp={dp}")
+    bq = B // dp
+    step_groups: List[Tuple[int, List[np.ndarray]]] = []
+    for gi, pools in enumerate(bucket_pools):
+        n_steps = -(-sum(pools) // B)
+        streams = []
+        for s, pool in enumerate(pools):
+            rows: List[int] = []
+            cyc = 0
+            while len(rows) < n_steps * bq:
+                rng = np.random.default_rng((seed, epoch, 17, gi, s, cyc))
+                rows.extend(rng.permutation(max(pool, 1)).tolist())
+                cyc += 1
+            streams.append(rows)
+        batches = [np.concatenate([
+            np.asarray(streams[s][t * bq:(t + 1) * bq], np.int64)
+            for s in range(dp)]) for t in range(n_steps)]
+        for start in range(0, len(batches), K):
+            step_groups.append((gi, batches[start:start + K]))
+    if len(bucket_pools) > 1:
+        np.random.default_rng((seed, epoch, 13)).shuffle(step_groups)
+    return step_groups
+
+
 class MultiSessionTrainer(MultiModalTrainer):
     """``MultiModalTrainer`` over a dict of per-session loaders. The model
     is built with ``n_sessions = len(train_loaders)`` and
@@ -183,9 +257,6 @@ class MultiSessionTrainer(MultiModalTrainer):
         logger: Optional[MetricLogger] = None,
         modal_filter=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiSessionTrainer under a DP/TP mesh: " + _NEXT_SLICE)
         self.train_loaders = dict(train_loaders)
         self.eval_loaders = dict(eval_loaders or {})
         self.eid_to_sid = dict(eid_to_sid)
@@ -201,6 +272,7 @@ class MultiSessionTrainer(MultiModalTrainer):
             mesh=mesh, logger=logger)
         self.region_table = region_table.to(self.device)
         self._stacked_cache: Dict[tuple, tuple] = {}
+        self._sharded_cache: Dict[tuple, tuple] = {}
 
     def _steps_per_epoch(self) -> int:
         """The one-cycle schedule's epoch: every session's batches, or
@@ -284,6 +356,44 @@ class MultiSessionTrainer(MultiModalTrainer):
             torch.from_numpy(sids).to(self.device))
         return hit
 
+    def _sharded_block(self, eids: Tuple[str, ...]):
+        """This rank's shard of ``eids``' block (JAX
+        ``_sharded_train_data``, :547-600): the sessions
+        ``shard_assignment`` gives data rank ``d``, their rows concatenated
+        and zero-padded to ``L``, with their per-trial ``session_ids``, on
+        the device; every shard's host session ids padded to ``L`` (the
+        host draws each sample's regions from its own session's); and the
+        shards' trial counts. Cached against the loader objects."""
+        loaders = tuple(self.train_loaders[e] for e in eids)
+        hit = self._sharded_cache.get(eids)
+        if hit is not None and all(a is b for a, b in zip(hit[0], loaders)):
+            return hit[1:]
+        n_trials = {e: l.n_trials for e, l in zip(eids, loaders)}
+        shards, L = shard_assignment(n_trials, eids, self.mesh.dp)
+        mine = [self.train_loaders[e] for e in shards[self.mesh.d]]
+        data = {}
+        for k in self._BATCH_KEYS:
+            ref = loaders[0].arrays[k]
+            block = np.zeros((L,) + ref.shape[1:], ref.dtype)
+            if mine:
+                rows = np.concatenate([np.asarray(l.arrays[k]) for l in mine])
+                block[:len(rows)] = rows
+            data[k] = torch.from_numpy(block).to(self.device)
+        host_sids = []
+        for grp in shards:
+            sids = np.zeros(L, np.int64)
+            ids = [np.full(n_trials[e], self.eid_to_sid[e], np.int64)
+                   for e in grp]
+            if ids:
+                ids = np.concatenate(ids)
+                sids[:len(ids)] = ids
+            host_sids.append(sids)
+        data["session_ids"] = torch.from_numpy(host_sids[self.mesh.d]).to(
+            self.device)
+        pools = [sum(n_trials[e] for e in grp) for grp in shards]
+        hit = self._sharded_cache[eids] = (loaders, data, host_sids, pools)
+        return hit[1:]
+
     def _mixed_block(self, eids: Tuple[str, ...]):
         """``eids``' resident block with its per-trial ``session_ids`` on
         the device (a mixed step gathers them by its indices, JAX :500),
@@ -333,7 +443,9 @@ class MultiSessionTrainer(MultiModalTrainer):
         if self.tcfg.prefetch_depth > 0:
             place = pinned_batch_placer(self._BATCH_KEYS, self.device)
             batches = DevicePrefetcher(
-                host_batches(), lambda t: (t[0], place(t[1])),
+                host_batches(),
+                lambda t: (t[0], place(shard_batch(t[1], self.mesh,
+                                                   self._BATCH_KEYS))),
                 depth=self.tcfg.prefetch_depth, device=self.device)
         else:
             batches = ((eid, self._device_batch(b))
@@ -359,6 +471,12 @@ class MultiSessionTrainer(MultiModalTrainer):
         per-session K-groups (``_train_epoch_dr_scan``)."""
         K = max(1, self.tcfg.steps_per_dispatch)
         if self.tcfg.mixed_session_batches:
+            if self.tcfg.shard_resident_sessions:
+                if self.mesh is None:
+                    raise ValueError(
+                        "shard_resident_sessions needs a mesh with a "
+                        "'data' axis (build_mesh)")
+                return self._train_epoch_dr_mixed_sharded(epoch, K)
             return self._train_epoch_dr_mixed(epoch, K)
         if K > 1 and not (self.tcfg.stacked_scan and self._can_stack()):
             return self._train_epoch_dr_scan(epoch, K)
@@ -445,22 +563,53 @@ class MultiSessionTrainer(MultiModalTrainer):
                 step_groups.append((gi, batches[start:start + K]))
         if len(groups) > 1:
             np.random.default_rng((seed, epoch, 13)).shuffle(step_groups)
+        return self._dispatch_mixed(
+            [(blocks[gi][0], [(idx, valid, blocks[gi][1][idx])
+                              for idx, valid in group])
+             for gi, group in step_groups], K)
+
+    def _dispatch_mixed(self, step_groups, K: int) -> List[torch.Tensor]:
+        """Run session-mixed step groups (block, [(idx, valid, the global
+        batch's host session ids)]): a whole K-group as one dispatch (one
+        objective a group, a scheme a step), a short group or K = 1 as
+        single steps."""
         losses = []
-        for gi, group in step_groups:
-            data, sids = blocks[gi]
+        for data, group in step_groups:
             if len(group) < K or K == 1:
-                for idx, valid in group:
+                for idx, valid, sids in group:
                     training_mode, scheme_id = self._sample_modes()
                     losses.append(self._dispatch(
-                        data, [(idx, valid, scheme_id, sids[idx])],
+                        data, [(idx, valid, scheme_id, sids)],
                         training_mode))
                 continue
             training_mode, schemes = self._sample_group_modes(len(group))
             losses.append(self._dispatch(
-                data, [(idx, valid, scheme, sids[idx])
-                       for (idx, valid), scheme in zip(group, schemes)],
+                data, [(idx, valid, scheme, sids)
+                       for (idx, valid, sids), scheme in zip(group, schemes)],
                 training_mode))
         return losses
+
+    def _train_epoch_dr_mixed_sharded(self, epoch: int, K: int
+                                      ) -> List[torch.Tensor]:
+        """Session-mixed batches over sharded blocks (JAX
+        ``_train_epoch_dr_mixed_sharded``): ``sharded_schedule``'s steps,
+        every batch full; this rank gathers its segment of each step's
+        indices from its own block, and the host draws the global batch's
+        regions from every shard's session ids."""
+        B, dp = self.train_dataloader.batch_size, self.mesh.dp
+        blocks = [self._sharded_block(eids) for eids in self._stack_groups()]
+        schedule = sharded_schedule([b[2] for b in blocks], B, dp, K,
+                                    self.tcfg.seed, epoch)
+        valid, bq = np.ones(B, np.float32), B // dp
+
+        def host_ids(sids, idx):
+            return np.concatenate([sids[s][idx[s * bq:(s + 1) * bq]]
+                                   for s in range(dp)])
+
+        return self._dispatch_mixed(
+            [(blocks[gi][0], [(idx, valid, host_ids(blocks[gi][1], idx))
+                              for idx in group])
+             for gi, group in schedule], K)
 
     @torch.no_grad()
     def eval_epoch(self) -> Optional[Dict[str, Any]]:
@@ -475,18 +624,14 @@ class MultiSessionTrainer(MultiModalTrainer):
         per_session: Dict[str, Dict[str, float]] = {}
         gt_all: Dict[str, dict] = {}
         preds_all: Dict[str, dict] = {}
+        group = None if self.mesh is None else self.mesh.data_group
         for eid, loader in self.eval_loaders.items():
             sid = self.eid_to_sid[eid]
             space = np.asarray(loader.arrays["space_attn_mask"][0])
             zeros = np.nonzero(space == 0)[0]
             n_real_neurons = int(zeros.min()) if len(zeros) else len(space)
             if self.tcfg.device_resident_data:
-                data = self._device_data(loader)
-                batches = (
-                    (self._gather_batch(
-                        data, torch.from_numpy(idx).to(self.device),
-                        torch.from_numpy(valid).to(self.device)), n_real)
-                    for idx, valid, n_real in loader.iter_index_batches())
+                batches = self._resident_eval_batches(loader)
             else:
                 batches = ((self._device_batch(b),
                             int(b.get("n_real", len(b["spikes_data"]))))
@@ -501,8 +646,11 @@ class MultiSessionTrainer(MultiModalTrainer):
                     **self._forward_kwargs(batch, sid))
                 losses.append(out.loss)
                 for mod in outputs:
-                    acc[mod]["gt"].append(out.mod_targets[mod][:n_real])
-                    acc[mod]["preds"].append(out.mod_preds[mod][:n_real])
+                    # the global batch's rows, in order, on every rank
+                    acc[mod]["gt"].append(all_gather_cat(
+                        out.mod_targets[mod], group)[:n_real])
+                    acc[mod]["preds"].append(all_gather_cat(
+                        out.mod_preds[mod], group)[:n_real])
 
             gt_all[eid], preds_all[eid], per_session[eid] = {}, {}, {}
             for mod in outputs:

@@ -390,7 +390,10 @@ def test_trainer_config_runs_the_three_options(tmp_path):
     assert tr.tcfg.unported() == []
     res = tr.train_epoch(0)
     assert np.isfinite(res["train_loss"]) and len(res["step_losses"]) == 4
-    bad = dataclasses.replace(tr.tcfg, shard_resident_sessions=True)
-    assert bad.unported() == ["shard_resident_sessions"]
+    # sharded sessions are ported (a single-session trainer ignores them)
+    assert dataclasses.replace(tr.tcfg,
+                               shard_resident_sessions=True).unported() == []
+    bad = dataclasses.replace(tr.tcfg, compile_retries=1)
+    assert bad.unported() == ["compile_retries > 0"]
     assert dataclasses.replace(tr.tcfg,
                                mixed_session_batches=True).unported() == []

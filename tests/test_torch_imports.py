@@ -87,6 +87,51 @@ def test_parallel_package_is_scanned():
     assert out.stdout.strip() == "ok"
 
 
+def test_multisession_mesh_path_runs_without_jax(tmp_path):
+    """The modules of the multi-session trainer under a mesh (the trainer,
+    its resident buffers, the sharded schedule, the stitched tensor
+    parallelism, the masker's per-rank draws, the script) are among those
+    loaded with JAX blocked, and the rank workers' multi-session run
+    (``run_ms``: a resident K = 2 epoch and the sharded schedule) goes
+    through them in a process where importing JAX raises."""
+    assert {f"multi_modal_foundation_model_tpu_torch.{m}" for m in (
+        "train.trainer", "train.multisession", "train.cuda_graph",
+        "parallel.partition", "ops.masking", "models.layers",
+        "scripts.train_multi_session")} <= set(_port_modules())
+    blocked = ["jax", "jaxlib", "flax", "optax", "orbax",
+               "multi_modal_foundation_model_tpu"]
+    code = "\n".join(
+        ["import sys"] + [f"sys.modules[{m!r}] = None" for m in blocked]
+        + ["sys.path.insert(0, 'tests')",
+           "import torch",
+           "import torch_parallel_workers as w",
+           "from multi_modal_foundation_model_tpu_torch.models import "
+           "multimodal as tmm",
+           "from multi_modal_foundation_model_tpu_torch.train import "
+           "multisession as ms",
+           "g = dict(max_F=20, hidden_size=32, n_heads=2, n_enc_layers=1, "
+           "n_dec_layers=1, inter_size=64)",
+           "spec = dict(geometry=g, dropout=0.0, embed_dropout=0.0, "
+           "mask=dict(channels=(1,)), menu=['co-smooth'], mixed=False, "
+           "batch_size=8, log_dir=%r)" % str(tmp_path),
+           "cfg = tmm.MultiModalConfig(**g, n_sessions=3, "
+           "n_channels={'ap': 64, 'behavior': 2})",
+           "torch.save(tmm.MultiModal(cfg, device='cpu').state_dict(), "
+           "%r)" % str(tmp_path / "init.pt"),
+           "spec.update(init=%r, paths=[dict(name='k2', over=dict("
+           "device_resident_data=True, steps_per_dispatch=2))])"
+           % str(tmp_path / "init.pt"),
+           "r = w.run_ms(spec, None)['k2']",
+           "assert len(r['losses']) == 6",
+           "assert len(ms.sharded_schedule([[11, 22]], 8, 2, 2, 0, 0)) == 3",
+           "assert not any(sys.modules.get(m) for m in %r)" % blocked,
+           "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_port_imports_pull_in_no_data_packages():
     """Importing every port module (nothing blocked) loads none of the data
     side's optional packages, though this box has pandas, ``datasets``,

@@ -165,9 +165,10 @@ def test_config_json_round_trip_both_ways(tmp_path):
     assert tmm.MultiModalConfig.from_json_dict(tcfg.to_json_dict()) == tcfg
 
 
-def test_unported_paths_raise(toy):
-    """What is still unported raises: the trainer's
-    ``shard_resident_sessions``. Session stitching and the loader's
+def test_unported_paths_raise(toy, tmp_path):
+    """What is still unported raises: the trainer's ``compile_retries``
+    (``shard_resident_sessions``, ported, is ignored by a single-session
+    trainer, as JAX's ignores it). Session stitching and the loader's
     samplers, unported until the multi-session port, now run: a stitched
     model builds and needs a session id, and both samplers give JAX's
     order; per-sample session ids (session-mixed batches) run, and ids of
@@ -213,8 +214,12 @@ def test_unported_paths_raise(toy):
     train = loader.make_loader(sess, **kw)
     with pytest.raises(NotImplementedError):
         MultiModalTrainer(tmodel, train, None, OptimizerConfig(),
-                          TrainerConfig(shard_resident_sessions=True,
+                          TrainerConfig(compile_retries=1,
                                         log_dir="unused"))
+    # sharded sessions, ported: a single-session trainer ignores them
+    MultiModalTrainer(tmodel, train, None, OptimizerConfig(),
+                      TrainerConfig(shard_resident_sessions=True,
+                                    log_dir=str(tmp_path)))
     # the masker and training, unported in the first slice, now run
     spikes, beh, attn, ts = make_batch(16, 2)
     inputs = torch_inputs(spikes, beh, attn, ts,

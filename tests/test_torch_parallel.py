@@ -214,10 +214,28 @@ def test_shard_module_cuts_and_full_state_dict_restores():
             torch.testing.assert_close(
                 torch.cat([p[1][name] for p in parts], dim), t, rtol=0,
                 atol=0)
-    stitched = tmm.MultiModal(tmm.MultiModalConfig(**TOY, n_sessions=2),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpar.shard_module(stitched, _fake_mesh(1, 2))
+    # the session-stitched tokenizer: its (S, N, inter) kernel and (S,
+    # inter) bias keep the rank's columns of inter, column-parallel; the
+    # projection row-parallel; the stitched head replicated
+    cfg = tmm.MultiModalConfig(**TOY, n_sessions=2)
+    whole = tmm.MultiModal(cfg, device="cpu").state_dict()
+    tok = "encoder_embeddings.ap.embedder."
+    for rank in range(2):
+        stitched = tmm.MultiModal(cfg, device="cpu")
+        placements = tpar.shard_module(stitched, _fake_mesh(1, 2, rank))
+        emb = stitched.encoder_embeddings["ap"].embedder
+        assert emb.tp == "col" and emb.projection.tp == "row"
+        assert placements[tok + "token_embed_kernel"] == 2
+        assert placements[tok + "token_embed_bias"] == 1
+        assert placements["decoder_embeddings.ap.out.kernel"] is None
+        inter = whole[tok + "token_embed_bias"].shape[1]
+        cols = slice(rank * inter // 2, (rank + 1) * inter // 2)
+        torch.testing.assert_close(emb.token_embed_kernel.data,
+                                   whole[tok + "token_embed_kernel"][..., cols],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(emb.token_embed_bias.data,
+                                   whole[tok + "token_embed_bias"][:, cols],
+                                   rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -17,13 +17,17 @@ in a module that only ``reference_src`` makes importable. Tolerances:
   (``to-port`` then ``to-reference``): bit for bit;
 - the refusals (``ap`` width, a missing key, unequal shared tables): the
   exception types JAX raises;
-- ``eval_multi_modal --reference_ckpt`` on the CPU: finite results.
+- ``eval_multi_modal --reference_ckpt`` on the CPU: finite results;
+- a trainer resumed from the converted, params-only checkpoint (a
+  warning, a fresh optimizer, the stored step) against JAX's: the trainer
+  lockstep's gates over the first epoch; a truncated file raises.
 """
 
 import math
 import sys
 import warnings
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -259,3 +263,115 @@ def test_eval_script_reference_ckpt_on_cpu(tmp_path):
         assert all(math.isfinite(x) or math.isnan(x) for x in vals)
     assert any(math.isfinite(v) for v in results.values()
                if not isinstance(v, dict))
+
+
+def test_params_only_checkpoint_resumes_as_jax(tmp_path):
+    """Both trainers resume from a converted reference checkpoint (the
+    port's ``to-port`` output, JAX's ``to-flax`` form: params only): each
+    restores the params, keeps a fresh optimizer and warns; the first
+    epoch after that (dropout 0, the co-smooth / forward-pred menu) holds
+    the trainer lockstep's gates (losses rtol 2e-5, params atol 2e-5, the
+    key biases left out). A step stored beside the params is restored on
+    both sides; a truncated file still raises."""
+    from multi_modal_foundation_model_tpu.data import loader as jloader
+    from multi_modal_foundation_model_tpu.data import session as jsession
+    from multi_modal_foundation_model_tpu.models import multimodal as jmm
+    from multi_modal_foundation_model_tpu.ops.masking import MaskParams as JMP
+    from multi_modal_foundation_model_tpu.train import trainer as jtrainer
+    from multi_modal_foundation_model_tpu.train.checkpoint import (
+        save_checkpoint as jax_save)
+    from multi_modal_foundation_model_tpu.train.schedule import (
+        OptimizerConfig as JOC)
+    from multi_modal_foundation_model_tpu_torch.data import loader as tloader
+    from multi_modal_foundation_model_tpu_torch.data import session as tsession
+    from multi_modal_foundation_model_tpu_torch.ops.masking import MaskParams
+    from multi_modal_foundation_model_tpu_torch.train import (
+        MultiModalTrainer, OptimizerConfig, TrainerConfig)
+    from multi_modal_foundation_model_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+
+    mask = dict(channels=(1, 5, 20, 30), timesteps=(12, 15, 19))
+    menu = ("co-smooth", "forward-pred")
+
+    def tcfg(cls, log_dir):
+        return cls(num_epochs=2, log_dir=str(log_dir), seed=0,
+                   mask_type="input", mask_mode=menu, mixed_training=True,
+                   eval_every=10 ** 9)
+
+    def loaders(loader_mod, session_mod):
+        sp = session_mod.synthetic_splits(seed=0, n_trials=64,
+                                          n_neurons=N_AP, n_timesteps=T)
+        kw = dict(batch_size=8, max_time_length=T, max_space_length=N_AP)
+        return (loader_mod.make_loader(sp.train, **kw),
+                loader_mod.make_loader(sp.val, shuffle=False, **kw))
+
+    torch.save(_reference_sd(True), tmp_path / "ref.pt")
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    convert_checkpoint.main(["to-port", str(tmp_path / "ref.pt"),
+                             str(port_dir), "--n-neurons", str(N_AP),
+                             "--max-F", str(T), "--name", "last",
+                             "--device", "cpu"])
+    # JAX's to-flax: the reference's params, nothing else
+    _, jparams = jax_load(str(tmp_path / "ref.pt"), n_channels=CHANNELS,
+                          max_F=T)
+    jax_save(str(jax_dir), "last", {"params": jparams})
+
+    cfg = tmm.MultiModalConfig(**TOY, dropout=0.0, embed_dropout=0.0,
+                               mask_params=MaskParams(**mask),
+                               remat_layers=False)
+    port = MultiModalTrainer(tmm.MultiModal(cfg, device="cpu"),
+                             *loaders(tloader, tsession),
+                             OptimizerConfig(lr=1e-3),
+                             tcfg(TrainerConfig, port_dir))
+    with pytest.warns(UserWarning, match="params-only"):
+        assert port.restore("last") == 0
+    assert port.step == 0 and port.optimizer.count == 0
+    jcfg = jmm.MultiModalConfig(**TOY, dropout=0.0, embed_dropout=0.0,
+                                mask_params=JMP(**mask), remat_layers=False)
+    jtr = jtrainer.MultiModalTrainer(
+        jmm.MultiModal(jcfg), *loaders(jloader, jsession), JOC(lr=1e-3),
+        tcfg(jtrainer.TrainerConfig, jax_dir))
+    with pytest.warns(UserWarning, match="params-only"):
+        jtr.restore("last")
+    jlosses = []
+    get_step = jtr._get_train_step
+
+    def recording(*a):
+        step = get_step(*a)
+
+        def run(*args):
+            state, loss = step(*args)
+            jlosses.append(float(loss))
+            return state, loss
+        return run
+
+    jtr._get_train_step = recording
+    jtr.train_epoch(0)
+    losses = port.train_epoch(0)["step_losses"]
+    np.testing.assert_allclose(losses, jlosses, rtol=2e-5, atol=0)
+    from multi_modal_foundation_model_tpu_torch.utils.convert import (
+        params_from_jax)
+    want = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jtr.state.params), cfg)
+    for name, p in port.model.state_dict().items():
+        if not name.endswith("key.bias"):
+            np.testing.assert_allclose(p.numpy(), want[name].numpy(),
+                                       atol=2e-5, rtol=0, err_msg=name)
+
+    # a stored step comes back with the params (JAX: state.step)
+    tree = torch.load(port_dir / "model_last.pt", weights_only=True)
+    save_checkpoint(str(port_dir), "stepped", dict(tree, step=5))
+    jax_save(str(jax_dir), "stepped", {"params": jparams, "step": 5})
+    with pytest.warns(UserWarning, match="params-only"):
+        port.restore("stepped")
+    with pytest.warns(UserWarning, match="params-only"):
+        jtr.restore("stepped")
+    assert port.step == int(jtr.state.step) == 5
+    # a file that cannot be read raises, and is not taken for params-only
+    raw = (port_dir / "model_last.pt").read_bytes()
+    (port_dir / "model_cut.pt").write_bytes(raw[:len(raw) // 2])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(Exception) as err:
+            port.restore("cut")
+    assert not isinstance(err.value, UserWarning)

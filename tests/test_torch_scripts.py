@@ -21,6 +21,8 @@ baselines, ``train_multi_modal --eid``, ``eval_multi_modal --eid`` (and
 --multi_session`` run and give finite results; with no ``datasets`` they
 raise ``ImportError``. Every flag that is not ported raises
 ``NotImplementedError``, and ``--device cuda`` without a card raises.
+``train_multi_session --dp 2 --tp 2`` as ranks is in
+``tests/test_torch_ms_mesh_scripts.py``.
 """
 
 import json
@@ -270,7 +272,7 @@ def _script_args(script, tmp_path):
 
 
 UNPORTED = [
-    # DP-sharded resident sessions (JAX: with mixed batches)
+    # DP-sharded resident sessions (JAX: with mixed batches), ported since
     ("train_multi_session", ["--synthetic", "--mixed_session_batches",
                              "--shard_sessions"]),
     ("train_multi_session", ["--synthetic", "--shard_sessions"]),
@@ -285,7 +287,15 @@ UNPORTED = [
 # ported since: a mesh that is not the world of ranks (one process here)
 WRONG_WORLD = {"train_baseline:--synthetic --dp 2",
                "train_multi_modal:--synthetic --dp 2",
-               "train_multi_modal:--synthetic --tp 2"}
+               "train_multi_modal:--synthetic --tp 2",
+               "train_multi_session:--synthetic --dp 2"}
+# ported since: sharded sessions in one process, as JAX runs them (a tiny
+# run): ignored without mixed batches; with mixed batches but no resident
+# data the first epoch refuses, as it does without --shard_sessions
+SHARD_SESSIONS = {
+    "train_multi_session:--synthetic --shard_sessions": None,
+    "train_multi_session:--synthetic --mixed_session_batches "
+    "--shard_sessions": "device_resident_data"}
 
 
 @pytest.mark.parametrize("script,argv", UNPORTED,
@@ -293,12 +303,25 @@ WRONG_WORLD = {"train_baseline:--synthetic --dp 2",
                               for s, a in UNPORTED])
 def test_unported_flags_raise(script, argv, tmp_path):
     """Each flag that is not ported raises ``NotImplementedError``;
-    ``--dp``/``--tp`` of the single-session train scripts are ported and
-    raise ``ValueError`` when dp * tp is not the world of ranks."""
+    ``--dp``/``--tp`` of the train scripts are ported and raise
+    ``ValueError`` when dp * tp is not the world of ranks;
+    ``--shard_sessions`` is ported and runs as JAX runs it."""
     main, base = _script_args(script, tmp_path)
-    if f"{script}:{' '.join(argv)}" in WRONG_WORLD:
+    key = f"{script}:{' '.join(argv)}"
+    if key in WRONG_WORLD:
         with pytest.raises(ValueError, match="world"):
             main(argv + base)
+        return
+    if key in SHARD_SESSIONS:
+        tiny = argv + base + COMMON + SMALL_MM + [
+            "--num_sessions", "2", "--num_epochs", "1", "--pad_multiple",
+            "32"]
+        if SHARD_SESSIONS[key] is None:
+            row = main(tiny)["history"][0]
+            assert all(math.isfinite(x) for x in row["step_losses"])
+        else:
+            with pytest.raises(ValueError, match=SHARD_SESSIONS[key]):
+                main(tiny)
         return
     with pytest.raises(NotImplementedError):
         main(argv + base)

@@ -44,7 +44,6 @@ from multi_modal_foundation_model_tpu_torch.eval import loading as tload
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm
 from multi_modal_foundation_model_tpu_torch.ops.masking import (
     MaskParams as TMP)
-from multi_modal_foundation_model_tpu_torch.parallel import Mesh
 from multi_modal_foundation_model_tpu_torch.train import (
     MultiModalTrainer, OptimizerConfig, TrainerConfig)
 from multi_modal_foundation_model_tpu_torch.utils.convert import (
@@ -216,27 +215,37 @@ def test_train_runs_eval_and_keeps_best(tmp_path):
     assert (tmp_path / "metrics.jsonl").read_text().count("\n") == 3
 
 
-def test_unported_trainer_options_raise(tmp_path):
+def test_unported_trainer_options_raise(tmp_path, monkeypatch):
     train, val = _loaders(tloader, tsession)
     model = tmm.MultiModal(tmm.MultiModalConfig(**TOY), device="cpu")
-    for over in (dict(compile_retries=1), dict(save_plot_every_n_epochs=5),
-                 dict(shard_resident_sessions=True)):
+    for over in (dict(compile_retries=1), dict(save_plot_every_n_epochs=5)):
         with pytest.raises(NotImplementedError):
             MultiModalTrainer(model, train, val, OptimizerConfig(),
                               _tcfg(TrainerConfig, tmp_path, **over))
-    # under a mesh of more than one rank the resident (CUDA-graph) path
-    # is the next slice's: refused before any collective runs
-    two = Mesh(dp=2, tp=1, rank=0, data_group=None, model_group=None)
-    for over in (dict(device_resident_data=True),
-                 dict(device_resident_data=True, steps_per_dispatch=2)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            MultiModalTrainer(model, train, val, OptimizerConfig(),
-                              _tcfg(TrainerConfig, tmp_path, **over),
-                              mesh=two)
-    # ported: a single-session trainer ignores it, as JAX's does
-    MultiModalTrainer(model, train, val, OptimizerConfig(),
-                      _tcfg(TrainerConfig, tmp_path,
-                            mixed_session_batches=True))
+    # ported: a single-session trainer ignores them, as JAX's does
+    for over in (dict(mixed_session_batches=True),
+                 dict(shard_resident_sessions=True)):
+        MultiModalTrainer(model, train, val, OptimizerConfig(),
+                          _tcfg(TrainerConfig, tmp_path, **over))
+    # the resident path runs under a mesh, every step eager
+    # (tests/test_torch_parallel_resident.py): a rank's StepGraphs never
+    # captures; a capture in a world of more than one rank is refused
+    from multi_modal_foundation_model_tpu_torch.train import cuda_graph
+
+    monkeypatch.setattr(cuda_graph.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(cuda_graph.dist, "get_world_size",
+                        lambda group=None: 2)
+    ran = []
+    eager = cuda_graph.StepGraphs("cpu", capture=False)
+    eager._cuda = False
+    eager.run(("k",), lambda: ran.append(1))
+    eager.run(("k",), lambda: ran.append(1))
+    assert ran == [1, 1] and not eager.graphs
+    capturing = cuda_graph.StepGraphs("cpu")
+    capturing._cuda = True          # as on the card
+    with pytest.raises(NotImplementedError, match="3b"):
+        capturing.run(("k",), lambda: ran.append(1))
+    assert ran == [1, 1]
 
 
 def test_eval_reload_needs_an_explicit_cpu(tmp_path):

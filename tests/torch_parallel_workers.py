@@ -19,9 +19,16 @@ optimizer steps on those batches, the parameters after them (gathered),
 whether they are bit-equal across the data group, the eval loss and R²
 (predictions gathered over the data group) and (``save``) a ``last``
 checkpoint. ``run_baseline`` does the same for the decoding
-``BaselineTrainer``. ``Ranks`` starts the ranks (``launch`` also waits)
-and returns rank 0's result; a rank that fails fails the call with its
-output.
+``BaselineTrainer``. ``run_ms`` trains the stitched toy model's
+``MultiSessionTrainer`` (``MS_SESSIONS``) one epoch on each of the spec's
+``paths`` (host batches, resident data at K = 1 or 2, session-mixed
+batches, sharded resident sessions; a fresh trainer from ``init`` each)
+and returns per path its step losses, the parameters after the epoch
+(gathered), the equality checks, the step-0 loss and gradients (``grads``
+paths), the eval and (``sharded``) the rank's resident block; ``run_mm``
+does the epoch for the single-session trainer's resident path. ``Ranks``
+starts the ranks (``launch`` also waits) and returns rank 0's result; a
+rank that fails fails the call with its output.
 """
 
 from __future__ import annotations
@@ -44,13 +51,15 @@ from multi_modal_foundation_model_tpu_torch.data import session as tsession  # n
 from multi_modal_foundation_model_tpu_torch.models import multimodal as tmm  # noqa: E402
 from multi_modal_foundation_model_tpu_torch.models.baseline import (  # noqa: E402
     BaselineDecoder)
-from multi_modal_foundation_model_tpu_torch.ops.masking import MaskParams  # noqa: E402
+from multi_modal_foundation_model_tpu_torch.ops.masking import (  # noqa: E402
+    MaskParams, RegionTable)
 from multi_modal_foundation_model_tpu_torch.parallel import (  # noqa: E402
     build_mesh, full_state_dict, gather_full, initialize_multihost)
 from multi_modal_foundation_model_tpu_torch.parallel.mesh import (  # noqa: E402
     all_gather_cat, all_reduce_many_)
 from multi_modal_foundation_model_tpu_torch.train import (  # noqa: E402
-    BaselineTrainer, MultiModalTrainer, OptimizerConfig, TrainerConfig)
+    BaselineTrainer, MultiModalTrainer, MultiSessionTrainer, OptimizerConfig,
+    TrainerConfig, build_multisession_loaders)
 
 WORKER = Path(__file__).resolve()
 
@@ -76,10 +85,10 @@ def trainer(spec, mesh):
     model = tmm.MultiModal(cfg, device="cpu")
     model.load_state_dict(torch.load(spec["init"], weights_only=True))
     train, val = loaders(spec)
-    tcfg = TrainerConfig(
+    tcfg = TrainerConfig(**{**dict(
         num_epochs=2, log_dir=spec["log_dir"], seed=0, mask_type="input",
         mask_mode=tuple(spec["menu"]), mixed_training=spec["mixed"],
-        eval_every=10 ** 9)
+        eval_every=10 ** 9), **spec.get("tcfg", {})})
     opt = OptimizerConfig(lr=1e-3, max_grad_norm=spec.get("max_grad_norm"))
     return MultiModalTrainer(model, train, val, opt, tcfg, mesh=mesh)
 
@@ -160,6 +169,133 @@ def run_baseline(spec, mesh):
                 eval=tr.eval_epoch()["eval_trial_avg_r2"])
 
 
+# the multi-session toy: three sessions (neurons, trials) of 11 train
+# trials each (one resident shape: JAX compiles its K = 1 step once),
+# padded to 64 channels in one bucket: six batches of 8 an epoch, three of
+# them padded tails; five session-mixed batches
+MS_SESSIONS = ((24, 14), (41, 14), (61, 14))
+
+
+def ms_loaders(spec):
+    T = spec["geometry"]["max_F"]
+    sessions = {f"s{i}": tsession.synthetic_splits(
+                    seed=i, n_trials=nt, n_neurons=n, n_timesteps=T,
+                    eid=f"s{i}")
+                for i, (n, nt) in enumerate(MS_SESSIONS)}
+    return build_multisession_loaders(
+        sessions, batch_size=spec["batch_size"], max_time_length=T,
+        pad_multiple=32)
+
+
+def ms_trainer(spec, mesh, log_dir, **over):
+    """The spec's ``MultiSessionTrainer`` under ``mesh`` from ``init``,
+    ``over`` on its ``TrainerConfig``."""
+    train, val, _, meta = ms_loaders(spec)
+    table = RegionTable.build(meta["per_session_region_ids"],
+                              region_vocab=meta["region_vocab"],
+                              device="cpu")
+    g = dict(spec["geometry"], n_channels={"ap": meta["n_max"],
+                                           "behavior": 2})
+    cfg = tmm.MultiModalConfig(
+        **g, n_sessions=len(meta["eids"]), dropout=spec["dropout"],
+        embed_dropout=spec["embed_dropout"],
+        mask_params=MaskParams(**spec["mask"]), remat_layers=False)
+    model = tmm.MultiModal(cfg, device="cpu")
+    model.load_state_dict(torch.load(spec["init"], weights_only=True))
+    tcfg = TrainerConfig(**{**dict(
+        num_epochs=4, log_dir=str(log_dir), seed=0, mask_type="input",
+        mask_mode=tuple(spec["menu"]), mixed_training=spec["mixed"],
+        eval_every=10 ** 9), **over})
+    return MultiSessionTrainer(
+        model, train, val, OptimizerConfig(lr=1e-3,
+                                           max_grad_norm=spec.get(
+                                               "max_grad_norm")),
+        tcfg, region_table=table, eid_to_sid=meta["eid_to_sid"], mesh=mesh)
+
+
+def _step0(tr, mesh):
+    """The step-0 loss and gradients of ``tr``'s first host batch of epoch
+    0 (summed over the data group, gathered), without an update, and
+    whether the replicated gradients are bit-equal over the model group."""
+    tr._reseed_host_rng(0)
+    eid = tr._epoch_schedule(0)[0]
+    loader = tr.train_loaders[eid]
+    loader.set_epoch(0)
+    batch = tr._device_batch(next(iter(loader)))
+    mode, scheme = tr._sample_modes()
+    out = tr.step_loss(batch, mode, scheme, step=0,
+                       session=tr.eid_to_sid[eid])
+    params = dict(tr.model.named_parameters())
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        params.values(), torch.autograd.grad(out.loss, list(params.values()),
+                                             allow_unused=True))]
+    if mesh is not None:
+        all_reduce_many_(grads, mesh.data_group)
+    model_group = None if mesh is None else mesh.model_group
+    replicated_equal = all(
+        _equal_over(g, model_group) for p, g in zip(params.values(), grads)
+        if getattr(p, "tp_dim", None) is None)
+    return dict(loss0=float(out.loss.detach()), replicated_equal=replicated_equal,
+                grads={n: gather_full(g, getattr(p, "tp_dim", None), mesh)
+                       for (n, p), g in zip(params.items(), grads)})
+
+
+def _epoch(tr, mesh, name, save):
+    """One epoch of ``tr``: its losses, host draws, parameters after it
+    (gathered, copied), their equality over the data group, the eval."""
+    modes = []
+    one, group = tr._sample_modes, tr._sample_group_modes
+    tr._sample_modes = lambda: modes.append(one()) or modes[-1]
+    tr._sample_group_modes = lambda n: modes.append(group(n)) or modes[-1]
+    losses = tr.train_epoch(0)["step_losses"]
+    tr._sample_modes, tr._sample_group_modes = one, group
+    data_group = None if mesh is None else mesh.data_group
+    out = dict(losses=losses, modes=modes, step=tr.step,
+               data_equal=all(_equal_over(p.detach(), data_group)
+                              for p in tr.model.parameters()),
+               params={k: v.clone() for k, v in
+                       full_state_dict(tr.model, mesh).items()})
+    if save:
+        tr.save_model("last", epoch=0)
+    ev = tr.eval_epoch()
+    out.update(eval_loss=ev["eval_loss"], eval_r2=ev["eval_trial_avg_r2"])
+    return out
+
+
+def run_ms(spec, mesh):
+    res = {}
+    for path in spec["paths"]:
+        name = path["name"]
+        tr = ms_trainer(spec, mesh, Path(spec["log_dir"]) / name,
+                        **path["over"])
+        r = _step0(tr, mesh) if path.get("grads") else {}
+        r.update(_epoch(tr, mesh, name, path.get("save", False)))
+        if tr.tcfg.shard_resident_sessions:
+            block = tr._sharded_cache[tuple(tr.train_loaders)]
+            data = block[1]
+            r["resident_bytes"] = sum(
+                t.numel() * t.element_size() for k, t in data.items()
+                if k != "session_ids")
+            r["rows"] = int(data["spikes_data"].shape[0])
+            r["pools"] = block[3]
+            r["replicated_bytes"] = sum(
+                t.numel() * t.element_size() for k, t in
+                tr._stacked(tuple(tr.train_loaders))[1].items())
+        res[name] = r
+    return res
+
+
+def run_mm(spec, mesh):
+    """The single-session trainer's resident path: per ``paths`` entry one
+    epoch from ``init``, its losses and the parameters after it."""
+    res = {}
+    for path in spec["paths"]:
+        tr = trainer(dict(spec, tcfg=path["over"], log_dir=str(
+            Path(spec["log_dir"]) / path["name"])), mesh)
+        res[path["name"]] = _epoch(tr, mesh, path["name"], False)
+    return res
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -210,7 +346,8 @@ def main(argv):
     initialize_multihost(f"localhost:{port}", int(world), int(rank),
                          backend="gloo", device="cpu")
     mesh = build_mesh(spec["dp"], spec["tp"])
-    fn = run_baseline if spec.get("baseline") else run
+    fn = {"baseline": run_baseline, "ms": run_ms, "mm": run_mm}.get(
+        spec.get("kind"), run_baseline if spec.get("baseline") else run)
     result = fn(spec, mesh)
     if int(rank) == 0:
         torch.save(result, spec["out"])
