@@ -7,7 +7,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device  — ``nvidia-smi`` name and power limit, torch/CUDA versions,
    TF32 off, every CUDA kernel of the port built from ``csrc/`` (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together; the head-width-128
+   libraries, which phase 14 alone runs, beside the first phases, waited
+   for before phase 14: ``device_late_build``).
 2. kernels — each kernel against its plain PyTorch version at the shapes
    the main paths give it, timed beside the plain version, the one
    library call that computes the same function, and the bound the card
@@ -42,23 +44,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    step: K2 15, K1 30 with remat's recompute, and under "full" K3 62 = 30
    in-layer norms twice + 2, K4 32; per eval forward K1 15, K3 32).
    ``kernel_vs_plain_step`` holds one step's gradients against the plain
-   path (``attn_impl="xla"``, ``"off"``) in f32 and bf16;
-   ``plain_step_time`` times the plain path's f32 step at B=16 and B=256;
-   ``layernorm_ab`` times kernel-path steps in f32 and bf16 under "off",
-   "bwd" and "full" interleaved in one process (the LayerNorm A/B that set
-   the port's default), with profiles that give K1, K2, K3, K4, GEMMs and
-   the rest their own groups.
-5. dispatch — the trainer's host-dispatch options: ``host_split`` splits
-   the eager B=16 step's host time by kind (CPU side of torch.profiler)
-   beside its wall time with and without remat; ``dispatch`` trains the
+   path (``attn_impl="xla"``, ``"off"``) in f32 and bf16, and in f32 under
+   ``"bwd"`` (K4 with the plain forward). The step timings
+   (``plain_step_time``; ``layernorm_ab``, kernel-path steps in f32 and
+   bf16 under "off", "bwd" and "full" interleaved in one process, the A/B
+   that set the port's default) run in ``scripts/torch_step_time.py``.
+5. dispatch — the trainer's host-dispatch options: ``dispatch`` trains the
    resident path with K=10 steps a dispatch as CUDA graphs, f32 and bf16,
    full MtM menu with mixed training, epoch 0, save, epoch 1, restore in
    place, epoch 1 again, epoch 2, against the same steps run eagerly (per
    step loss and per parameter, bit for bit or within the stated gates;
    the graph path's launches counted by kernel name in a profile);
-   ``dispatch_time`` times the eager step against the graph step at B=16
+   ``dispatch_time`` (the eager step against the graph step at B=16
    and B=256, f32 and bf16, one variant, interleaved, with profiles, the
-   capture seconds and the peak memory; ``prefetch_check`` runs the
+   capture seconds and the peak memory) and ``host_split`` (the eager B=16
+   step's host time by kind, CPU side of torch.profiler, beside its wall
+   time with and without remat) run in ``scripts/torch_step_time.py``;
+   ``prefetch_check`` runs the
    host-batch path with ``prefetch_depth=2`` against the same epochs
    without it; ``philox_check`` holds the Philox draw kernel against its
    plain version and times it. The SDPA
@@ -173,6 +175,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    with the L2 flushed (``parallel_session_rows_check``). The ranks share
    one card and gloo goes through the host: none of these times is
    scaling.
+14. head_widths — K1-K4 at every width the JAX package runs: K1 (dropout,
+   lse) and K2 at head widths 8, 16, 24, 64 and 128 (16, 64 and 128
+   compiled, 8 and 24 through zero-padded heads; 256 // D heads, B=16, 200
+   tokens, the encoder's mask), f32 and bf16, dropout 0 and 0.4, against
+   their plain versions (``k1_gates``, ``k2_gates``) and timed beside them
+   and SDPA (``head_widths_kernels_*``); the per-rank K1/K2 at D = 64 (2
+   of 4 heads, draw offsets (8, 2)) bit-equal to the whole call's slices;
+   K3/K4 at 3,200 rows of 48, 100, 1280, 2048 and 4096 columns
+   (``head_widths_ln_check``); the mm.yaml model with 4 and 16 heads (D =
+   64 and 16), f32 and bf16: one step kernel path against plain path
+   (``head_widths_step``, the step gates), the resident path as CUDA graphs
+   against the same steps run eagerly over 80 trials (``head_widths_dispatch``,
+   the ``dispatch`` gates and launches: K1 30, K2 15, K3 62, K4 32 a
+   step), one eval forward against the plain path
+   (``head_widths_eval_forward``: K1 15, K3 32); and ``train_multi_modal
+   --synthetic`` with 4 heads for one epoch (``head_widths_script``).
+   Their times at every width and the library's with each SDPA backend
+   are ``scripts/torch_width_time.py``'s.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -206,6 +226,7 @@ import math
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -626,6 +647,44 @@ def lse_row_sums(q, k, key_pad, static, H, scale, lse) -> dict:
                 tolerance=tol, ok=err <= tol)
 
 
+def k2_gates(q, k, v, key_pad, static, g, lse, H, scale, grads, rate=0.0,
+             seed=0, draw_offset=(0, 0), f32_dots_gate=True) -> dict:
+    """K2's ``grads`` (dq, dk, dv) against the plain version on the same
+    lse and Philox bits. f32 (3xTF32): atol 1e-5 (the same f32 products
+    summed in other orders). bf16 (the tensor-core K2, with JAX's bf16
+    dots): within 1e-2 (1 + |plain|) of the plain version with the same
+    bf16 roundings (``dots_dtype=bf16``: f32 sums in other orders) and,
+    with ``f32_dots_gate``, 2e-2 (1 + |plain|) of the f32-dots one (one
+    bf16 rounding of every product operand); the bf16-dots plain version's
+    own excess over that gate is reported beside it (what the bf16
+    arithmetic alone moves)."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    args = (q, k, v, key_pad, static, g, lse, H, scale, rate, seed)
+    ref = att.attention_bwd_reference(*args, draw_offset=draw_offset)
+    gerr = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(grads, ref)]
+    finite = all(bool(torch.isfinite(a).all()) for a in grads)
+    if q.dtype == torch.float32:
+        return dict(dq_dk_dv_max_abs_err=gerr, tolerance="atol 1e-5",
+                    ok=max(gerr) <= 1e-5 and finite)
+    bf = att.attention_bwd_reference(*args, dots_dtype=torch.bfloat16,
+                                     draw_offset=draw_offset)
+    ex_bf = max(_excess(a, b, 1e-2) for a, b in zip(grads, bf))
+    ex_f32 = max(_excess(a, b, 2e-2) for a, b in zip(grads, ref))
+    return dict(dq_dk_dv_max_abs_err=gerr,
+                bf16_dots_max_abs_err=[(a.float() - b.float()).abs().max()
+                                       .item() for a, b in zip(grads, bf)],
+                bf16_dots_excess=ex_bf, f32_dots_excess=ex_f32,
+                plain_bf16_dots_f32_dots_excess=max(
+                    _excess(a, b, 2e-2) for a, b in zip(bf, ref)),
+                tolerance=("1e-2 (1 + |plain bf16 dots|)" + (
+                    " and 2e-2 (1 + |plain f32 dots|)" if f32_dots_gate
+                    else "")),
+                ok=ex_bf <= 0.0 and (ex_f32 <= 0.0 or not f32_dots_gate)
+                and finite)
+
+
 def k1_phase():
     """K1 of the eval (no dropout, no lse) at B=320 against its plain
     versions (``k1_gates``); timed in both dtypes at the encoder shape."""
@@ -735,49 +794,24 @@ def train_kernels_phase():
                     emit(phase="k1_lse_row_sums", dtype=dtype_name(dtype),
                          case=case, shape=[B, Tq, hidden], **sums)
                     k1["ok"] = k1["ok"] and sums["ok"]
-                ref_grads = att.attention_bwd_reference(
-                    q, k, v, key_pad, static, g, lse, H, scale, rate, 1234)
-                gerr = [(a.float() - b.float()).abs().max().item()
-                        for a, b in zip(grads, ref_grads)]
+                k2 = k2_gates(q, k, v, key_pad, static, g, lse, H, scale,
+                              grads, rate, 1234)
+                gerr = k2["dq_dk_dv_max_abs_err"]
                 masked_dq = (grads[0][3].abs().max().item()
                              if case == "decoder_pad" else 0.0)
                 ok1 = k1["ok"]
-                extra = {}
-                if dtype == torch.float32:
-                    ok2 = max(gerr) <= 1e-5
-                    tolerance = "atol 1e-5"
-                else:
-                    # the kernel's own yardstick: JAX's bf16 dots
-                    bf_grads = att.attention_bwd_reference(
-                        q, k, v, key_pad, static, g, lse, H, scale, rate,
-                        1234, dots_dtype=torch.bfloat16)
-                    bf_err = [(a.float() - b.float()).abs().max().item()
-                              for a, b in zip(grads, bf_grads)]
-                    ex_bf = max(_excess(a, b, 1e-2)
-                                for a, b in zip(grads, bf_grads))
-                    ex_f32 = max(_excess(a, b, 2e-2)
-                                 for a, b in zip(grads, ref_grads))
-                    del bf_grads
-                    ok2 = ex_bf <= 0.0 and ex_f32 <= 0.0
-                    tolerance = ("1e-2 (1 + |plain bf16 dots|) and "
-                                 "2e-2 (1 + |plain f32 dots|)")
-                    extra = dict(bf16_dots_max_abs_err=bf_err,
-                                 bf16_dots_excess=ex_bf,
-                                 f32_dots_excess=ex_f32)
-                ok2 = ok2 and masked_dq == 0.0 and bit_equal
+                ok2 = k2["ok"] and masked_dq == 0.0 and bit_equal
                 emit(phase="k1_dropout_check", dtype=dtype_name(dtype),
                      case=case, dropout=rate, shape=[B, Tq, hidden], **k1)
                 emit(phase="k2_check", dtype=dtype_name(dtype), case=case,
                      dropout=rate, shape=[B, Tq, hidden],
-                     dq_dk_dv_max_abs_err=gerr, **extra,
-                     padded_trial_max_abs_dq=masked_dq,
-                     bit_equal_across_launches=bit_equal,
-                     tolerance=tolerance, ok=ok2)
+                     **dict(k2, ok=ok2), padded_trial_max_abs_dq=masked_dq,
+                     bit_equal_across_launches=bit_equal)
                 if not (ok1 and ok2):
                     raise AssertionError(
                         f"K1/K2 disagree with their plain versions ({case}, "
-                        f"{dtype}, {rate}): {k1}, {gerr}, "
-                        f"{masked_dq}, {extra}, bit-equal {bit_equal}")
+                        f"{dtype}, {rate}): {k1}, {k2}, "
+                        f"{masked_dq}, bit-equal {bit_equal}")
                 worst_k1[dtype] = max(worst_k1[dtype], k1["max_abs_err"])
                 worst_k2[dtype] = max(worst_k2[dtype], *gerr)
 
@@ -934,6 +968,31 @@ def ln_time(rows: int, width: int, dtype) -> dict:
                 k3_share_of_bound=k3_b["bound_ms"] / dev["k3"])
 
 
+def ln_check(rows: int, width: int, dtype, phase: str = "k3_k4_check"):
+    """K3 and K4 at (rows, width) in ``dtype`` against their plain
+    versions, as ``ln_phase`` holds them; emits the line, raises when a
+    gate fails, and returns (y's, dx's max abs error)."""
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    eps, tol = 1e-5, TOL[dtype]
+    x, w, b, dy = _ln_operands(rows, width, dtype, seed=rows)
+    y = ln.layernorm_fwd(x, w, b, eps, dtype)
+    got = ln.layernorm_bwd(x, w, dy, eps)
+    again = ln.layernorm_bwd(x, w, dy, eps)
+    torch.cuda.synchronize()
+    y_ref = ln.layer_norm(x, w, b, eps, dtype)
+    gates = k4_gates(x, w, dy, got, again, tol, eps)
+    y_err = (y.float() - y_ref.float()).abs().max().item()
+    ok = gates["ok"] and _excess(y, y_ref, tol) <= 0 and y.dtype == dtype
+    emit(phase=phase, dtype=dtype_name(dtype), shape=[rows, width], tol=tol,
+         plan=ln.ln_plan(width, dtype)._asdict(), y_max_abs_err=y_err,
+         **dict(gates, ok=ok))
+    if not ok:
+        raise AssertionError(f"K3/K4 disagree with their plain versions "
+                             f"({rows}, {width}, {dtype})")
+    return y_err, gates["dx_max_abs_err"]
+
+
 def ln_phase():
     """K3 and K4 at the training step's token counts, 51,200 x 256 (B=256)
     and 3,200 x 256 (B=16), at 51,199 and 3,199 rows (K4's last tile
@@ -945,41 +1004,24 @@ def ln_phase():
     (``k4_gates``). Then timings at both training shapes (``ln_time``)."""
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
 
-    eps = 1e-5
     H = GEOMETRY["hidden_size"]
     tokens = len(GEOMETRY["n_channels"]) * GEOMETRY["max_F"]
     rows_main, rows_b16 = BIG_B * tokens, TRAIN_B * tokens
     worst = {3: dict.fromkeys(DTYPES, 0.0), 4: dict.fromkeys(DTYPES, 0.0)}
     for dtype in DTYPES:
-        tol = TOL[dtype]
         for rows, width in ((rows_main, H), (rows_main - 1, H),
                             (rows_b16, H), (rows_b16 - 1, H), (1, H),
                             (1001, 64)):
-            x, w, b, dy = _ln_operands(rows, width, dtype, seed=rows)
-            y = ln.layernorm_fwd(x, w, b, eps, dtype)
-            got = ln.layernorm_bwd(x, w, dy, eps)
-            again = ln.layernorm_bwd(x, w, dy, eps)
-            torch.cuda.synchronize()
-            y_ref = ln.layer_norm(x, w, b, eps, dtype)
-            gates = k4_gates(x, w, dy, got, again, tol, eps)
-            y_err = (y.float() - y_ref.float()).abs().max().item()
-            ok = (gates["ok"] and _excess(y, y_ref, tol) <= 0
-                  and y.dtype == dtype)
-            emit(phase="k3_k4_check", dtype=dtype_name(dtype),
-                 shape=[rows, width], tol=tol, y_max_abs_err=y_err,
-                 **dict(gates, ok=ok))
-            if not ok:
-                raise AssertionError(f"K3/K4 disagree with their plain "
-                                     f"versions ({rows}, {width}, {dtype})")
+            y_err, dx_err = ln_check(rows, width, dtype)
             worst[3][dtype] = max(worst[3][dtype], y_err)
-            worst[4][dtype] = max(worst[4][dtype], gates["dx_max_abs_err"])
+            worst[4][dtype] = max(worst[4][dtype], dx_err)
 
     rows3, rows4, rows4_b16 = {}, {}, {}
     for dtype in DTYPES:
         for rows in (rows_main, rows_b16):
             t = ln_time(rows, H, dtype)
-            n_sm, per_sm = ln._k4_card(ln._lib(), torch.device("cuda", 0),
-                                       H, dtype)
+            n_sm, per_sm = ln._k4_card(ln._lib(ln.ln_plan(H, dtype).variant),
+                                       torch.device("cuda", 0), H, dtype)
             emit(phase="k3_k4_time", dtype=dtype_name(dtype),
                  shape=[rows, H], device_ms=t["dev"],
                  k4_by_kernel_ms=t["k4_by_kernel_ms"],
@@ -1282,7 +1324,8 @@ def train_phase(root: Path, dtype, mode: str):
     return launches
 
 
-def kernel_vs_plain_step(root: Path, dtype, mode: str):
+def kernel_vs_plain_step(root: Path, dtype, mode: str, cfg=None,
+                         phase: str = "kernel_vs_plain_step"):
     """One training step's loss and parameter gradients, kernel path
     (``attn_impl="pallas"``, ``PALLAS_LAYERNORM = mode``) against the plain
     path (``"xla"``, ``"off"``): same weights, batch, objective, scheme and
@@ -1292,11 +1335,13 @@ def kernel_vs_plain_step(root: Path, dtype, mode: str):
     relative and every parameter's gradient within 5e-2 relative L2 (bf16
     activations rounded at other places: one bf16 step is 4e-3), except
     the attention key biases, whose exact gradient is 0 (softmax is
-    shift-invariant) so that both paths hold rounding noise there."""
+    shift-invariant) so that both paths hold rounding noise there. ``cfg``
+    (default: the main path's at ``dtype``) and ``phase`` (the line's name)
+    serve other configurations of the model."""
     from multi_modal_foundation_model_tpu_torch.data import (make_loader,
                                                              synthetic_splits)
 
-    cfg = _cfg(dtype)
+    cfg = cfg or _cfg(dtype)
     T, N = cfg.max_F, cfg.n_channels["ap"]
     splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
                               n_timesteps=T)
@@ -1314,7 +1359,7 @@ def kernel_vs_plain_step(root: Path, dtype, mode: str):
             n: p.grad.detach().clone()
             for n, p in tr.model.named_parameters()}))
     (lk, gk), (lp, gp) = results
-    _step_gates("kernel_vs_plain_step", dtype, mode, lk, gk, lp, gp)
+    _step_gates(phase, dtype, mode, lk, gk, lp, gp, n_heads=cfg.n_heads)
 
 
 def _step_gates(phase: str, dtype, mode: str, lk: float, gk: dict,
@@ -1434,19 +1479,20 @@ class _EagerSteps:
         step()
 
 
-def _train_loaders(B: int = TRAIN_B):
+def _train_loaders(B: int = TRAIN_B, n_trials: int = N_TRIALS):
     from multi_modal_foundation_model_tpu_torch.data import (make_loader,
                                                              synthetic_splits)
 
     T, N = GEOMETRY["max_F"], GEOMETRY["n_channels"]["ap"]
-    splits = synthetic_splits(seed=SEED, n_trials=N_TRIALS, n_neurons=N,
+    splits = synthetic_splits(seed=SEED, n_trials=n_trials, n_neurons=N,
                               n_timesteps=T)
     kw = dict(batch_size=B, max_time_length=T, max_space_length=N)
     return (make_loader(splits.train, seed=SEED, **kw),
             make_loader(splits.val, shuffle=False, **kw))
 
 
-def dispatch_phase(root: Path, dtype, mode: str) -> dict:
+def dispatch_phase(root: Path, dtype, mode: str, cfg=None, loaders=None,
+                   phase: str = "dispatch") -> dict:
     """The resident path with K = 10 steps a dispatch at full width (B=16,
     dropout 0.4, remat, the full MtM menu with mixed training), as CUDA
     graphs and as the same steps run eagerly: epoch 0, save, epoch 1,
@@ -1460,16 +1506,18 @@ def dispatch_phase(root: Path, dtype, mode: str) -> dict:
     biases, whose exact gradient is 0, are left out of the parameter gates.
     The repeated epoch 1 is profiled: on the graph path all its steps are
     replays, and its kernel counts by name are the graph path's launches.
-    Returns them."""
-    cfg = _cfg(dtype)
-    train_l, val_l = _train_loaders()
+    Returns them. ``cfg`` (default: the main path's at ``dtype``),
+    ``loaders`` (train, val) and ``phase`` (the line's name) serve other
+    configurations of the model."""
+    cfg = cfg or _cfg(dtype)
+    train_l, val_l = loaders or _train_loaders()
     over = dict(device_resident_data=True, steps_per_dispatch=DISPATCH_K)
     want = dict(k1=2 * K1_ATTN_PER_FORWARD, k2=K1_ATTN_PER_FORWARD,
                 k3=K3_PER_STEP if mode == "full" else 0,
                 k4=K4_PER_STEP if mode in ("bwd", "full") else 0)
     runs = {}
     for path in ("graph", "eager"):
-        log_dir = root / f"dispatch_{path}_{dtype_name(dtype)}"
+        log_dir = root / f"{phase}_{path}_{dtype_name(dtype)}"
         shutil.rmtree(log_dir, ignore_errors=True)
         with ln_mode(mode):
             tr = _trainer(cfg, train_l, val_l, 3, log_dir, tcfg_over=over)
@@ -1538,8 +1586,8 @@ def dispatch_phase(root: Path, dtype, mode: str) -> dict:
                 for k, v in (g["counts"] or {}).items()}
     ok = (finite and gate_ok and g["replay_exact"] and e["replay_exact"]
           and g["replays_profiled"] == g["steps_profiled"] and counts_ok)
-    emit(phase="dispatch", dtype=dtype_name(dtype), layernorm=mode,
-         batch=TRAIN_B, steps_per_dispatch=DISPATCH_K,
+    emit(phase=phase, dtype=dtype_name(dtype), layernorm=mode,
+         batch=TRAIN_B, n_heads=cfg.n_heads, steps_per_dispatch=DISPATCH_K,
          steps=len(g["losses"]), graph_losses=g["losses"],
          losses_bit_equal=bit_losses, loss_max_rel_err=loss_rel,
          params_not_bit_equal=bit_params, n_params=len(g["params"]),
@@ -1555,7 +1603,7 @@ def dispatch_phase(root: Path, dtype, mode: str) -> dict:
          eval_loss_eager=e["eval_loss"], eval_trial_avg_r2=g["eval_r2"],
          device=torch.cuda.get_device_name(0), ok=ok)
     if not ok:
-        raise AssertionError("dispatch phase: graph vs eager, replay after "
+        raise AssertionError(f"{phase} phase: graph vs eager, replay after "
                              "restore or launches off (see its line)")
     return g["counts"]
 
@@ -4436,19 +4484,78 @@ def par_script(root: Path) -> dict:
     return dict(wall_s=wall)
 
 
-def rank_kernels_check() -> dict:
+def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
+                     timer=cuda_time_ms) -> tuple:
+    """K1 (dropout 0.4, lse) and K2 at the operands' shape, timed beside
+    their plain versions (with the dots of q's dtype) and SDPA
+    (``SDPA_BACKEND``) with the same additive bias and dropout_p, K2's its
+    backward ((fwd + bwd) - fwd); with the bounds: each input read once,
+    each output written once, the products as ``_tc_bound`` counts them at
+    the operands' head width. ``timer(fn, reps, warmup)``: CUDA events
+    (``cuda_time_ms``: at B=16 the wrappers' host path is part of what
+    they read) or profiler device time (``device_ms``). Returns the K1 and
+    K2 rows, without their errors."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    dtype = q.dtype
+    B, Tq, hidden = q.shape
+    Tk, D = k.shape[1], hidden // H
+    scale = D ** -0.5
+    off = draw_offset
+    _, lse = att.attention_fwd(q, k, v, key_pad, static, H, scale, True,
+                               DROPOUT, 7, draw_offset=off)
+    k1_ms = timer(lambda: att.attention_fwd(
+        q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
+        draw_offset=off))
+    k2_ms = timer(lambda: att.attention_bwd(
+        q, k, v, key_pad, static, g, lse, H, scale, DROPOUT, 7,
+        draw_offset=off))
+    k1_plain = timer(lambda: att.attention_reference(
+        q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
+        dots_dtype=dtype, draw_offset=off), 5, 1)
+    k2_plain = timer(lambda: att.attention_bwd_reference(
+        q, k, v, key_pad, static, g, lse, H, scale, DROPOUT, 7,
+        dots_dtype=dtype, draw_offset=off), 5, 1)
+    bias = att.mask_to_bias(static.bool()[None]
+                            | key_pad.bool()[:, None])[:, None].to(dtype)
+    qh, kh, vh = (x.detach().unflatten(-1, (H, D)).transpose(1, 2)
+                  .requires_grad_(True) for x in (q, k, v))
+    gh = g.unflatten(-1, (H, D)).transpose(1, 2)
+
+    def lib():
+        return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
+
+    lib_fwd = timer(lambda: lib().detach())
+    lib_fwd_bwd = timer(lambda: torch.autograd.grad(
+        lib(), (qh, kh, vh), gh))
+    elem = q.element_size()
+    masks = key_pad.numel() * 4 + static.numel() * 4
+    lse_bytes = B * H * Tq * 4
+    # K1: q, k, v in, out and lse out; two products. K2: q, g, k, v, lse
+    # in; dq, dk, dv out; five products
+    k1_b = _tc_bound(B * (2 * Tq + 2 * Tk) * hidden * elem + lse_bytes
+                     + masks, 4 * B * H * Tq * Tk * D, dtype)
+    k2_b = _tc_bound(B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
+                     + masks, 10 * B * H * Tq * Tk * D, dtype)
+    return (dict(ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b),
+            dict(ms=k2_ms, plain_ms=k2_plain,
+                 library_ms=lib_fwd_bwd - lib_fwd,
+                 library_fwd_bwd_ms=lib_fwd_bwd, **k2_b))
+
+
+def rank_kernels_check(D: int = 32, H: int = 4, timed: bool = True) -> dict:
     """K1 (dropout, lse) and K2 at a tensor-parallel rank's shape under
-    tp=2 at B=16 and dp=2: (B=8, 200, 128), 4 heads of 32, the q/k/v
-    column views of the rank's (8, 200, 384) fused product, the draw
-    offsets of rank (d, m) = (1, 1), (8, 4). Each against its plain
-    version with the same offsets (the gates of ``train_kernels_phase``),
-    and bit-equal to the same rows and heads of the whole (16, 200, 256)
-    call; timed beside the plain version and SDPA (memory-efficient) at
-    the same shape, with the bound."""
+    tp=2 at B=16 and dp=2: (B=8, 200, H D), H heads of D (the parallel
+    phase: 4 of 32), the q/k/v column views of the rank's (8, 200, 3 H D)
+    fused product, the draw offsets of rank (d, m) = (1, 1), (8, H). Each
+    against its plain version with the same offsets (``k1_gates``,
+    ``k2_gates``), and bit-equal to the same rows and heads of the whole
+    (16, 200, 2 H D) call; with ``timed``, timed beside the plain version
+    and SDPA at the same shape, with the bound (``attn_train_times``)."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     rows = {}
-    B, T, H, D, off = 8, 200, 4, 32, (8, 4)
+    B, T, off = 8, 200, (8, H)
     for dtype in DTYPES:
         g = torch.Generator(device="cuda").manual_seed(11)
         qkv = torch.randn(2 * B, T, 3 * 2 * H * D, device="cuda",
@@ -4478,20 +4585,9 @@ def rank_kernels_check() -> dict:
                                       scale, rate, 77, draw_offset=off)
             k1 = k1_gates(q, k, v, key_pad, static, H, scale, o, lse, rate,
                           77, off)
-            ref = att.attention_bwd_reference(q, k, v, key_pad, static, gr,
-                                              lse, H, scale, rate, 77,
-                                              draw_offset=off)
-            gerr = [(a.float() - b.float()).abs().max().item()
-                    for a, b in zip(grads, ref)]
-            if dtype == torch.float32:
-                ok2 = max(gerr) <= 1e-5
-            else:
-                bf = att.attention_bwd_reference(
-                    q, k, v, key_pad, static, gr, lse, H, scale, rate, 77,
-                    dots_dtype=torch.bfloat16, draw_offset=off)
-                ok2 = (max(_excess(a, b, 1e-2) for a, b in zip(grads, bf))
-                       <= 0.0 and max(_excess(a, b, 2e-2)
-                                      for a, b in zip(grads, ref)) <= 0.0)
+            k2 = k2_gates(q, k, v, key_pad, static, gr, lse, H, scale,
+                          grads, rate, 77, off)
+            gerr = k2["dq_dk_dv_max_abs_err"]
             sliced = True
             if rate == DROPOUT:
                 sl = (slice(B, None), slice(None), slice(H * D, None))
@@ -4499,60 +4595,31 @@ def rank_kernels_check() -> dict:
                           and torch.equal(lse, whole_lse[B:, H:])
                           and all(torch.equal(a, b[sl])
                                   for a, b in zip(grads, whole_g)))
-            ok = k1["ok"] and ok2 and sliced
+            ok = k1["ok"] and k2["ok"] and sliced
             emit(phase="parallel_rank_kernels_check",
                  dtype=dtype_name(dtype), shape=[B, T, H * D], heads=H,
-                 draw_offset=list(off), dropout=rate, k1=k1,
+                 head_width=D, draw_offset=list(off), dropout=rate, k1=k1,
                  k2_dq_dk_dv_max_abs_err=gerr,
                  bit_equal_to_the_whole_call=sliced, ok=ok)
             if not ok:
-                raise AssertionError(f"per-rank K1/K2 ({dtype}, {rate}) "
-                                     "off (see the line)")
+                raise AssertionError(f"per-rank K1/K2 ({dtype}, {rate}, "
+                                     f"D {D}) off (see the line)")
             worst1 = max(worst1, k1["max_abs_err"])
             worst2 = max(worst2, *gerr)
+        if not timed:
+            continue
         # timings at dropout 0.4, the training step's
-        k1_ms = cuda_time_ms(lambda: att.attention_fwd(
-            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
-            draw_offset=off))
-        k2_ms = cuda_time_ms(lambda: att.attention_bwd(
-            q, k, v, key_pad, static, gr, lse, H, scale, DROPOUT, 7,
-            draw_offset=off))
-        k1_plain = cuda_time_ms(lambda: att.attention_reference(
-            q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
-            dots_dtype=dtype, draw_offset=off), 5, 1)
-        k2_plain = cuda_time_ms(lambda: att.attention_bwd_reference(
-            q, k, v, key_pad, static, gr, lse, H, scale, DROPOUT, 7,
-            dots_dtype=dtype, draw_offset=off), 5, 1)
-        bias = att.mask_to_bias(static.bool()[None]
-                                | key_pad.bool()[:, None])[:, None].to(dtype)
-        qh, kh, vh = (x.detach().unflatten(-1, (H, D)).transpose(1, 2)
-                      .requires_grad_(True) for x in (q, k, v))
-        gh = gr.unflatten(-1, (H, D)).transpose(1, 2)
-
-        def lib():
-            return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
-
-        lib_fwd = cuda_time_ms(lambda: lib().detach())
-        lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-            lib(), (qh, kh, vh), gh))
-        elem, hidden = q.element_size(), H * D
-        masks = key_pad.numel() * 4 + static.numel() * 4
-        lse_bytes = B * H * T * 4
-        k1_b = _tc_bound(B * 4 * T * hidden * elem + lse_bytes + masks,
-                         4 * B * H * T * T * D, dtype)
-        k2_b = _tc_bound(B * 7 * T * hidden * elem + lse_bytes + masks,
-                         10 * B * H * T * T * D, dtype)
+        t1, t2 = attn_train_times(q, k, v, key_pad, static, gr, H, off)
         emit(phase="parallel_rank_kernels_time", dtype=dtype_name(dtype),
-             shape=[B, T, T, H, D], dropout=DROPOUT, k1_ms=k1_ms,
-             k1_plain_ms=k1_plain, k1_library_ms=lib_fwd, k1_bound=k1_b,
-             k2_ms=k2_ms, k2_plain_ms=k2_plain,
-             k2_library_ms=lib_fwd_bwd - lib_fwd, k2_bound=k2_b,
+             shape=[B, T, T, H, D], dropout=DROPOUT, k1_ms=t1["ms"],
+             k1_plain_ms=t1["plain_ms"], k1_library_ms=t1["library_ms"],
+             k1_bound={k: t1[k] for k in t1 if k.startswith("bound")},
+             k2_ms=t2["ms"], k2_plain_ms=t2["plain_ms"],
+             k2_library_ms=t2["library_ms"],
+             k2_bound={k: t2[k] for k in t2 if k.startswith("bound")},
              sdpa_backend=SDPA_BACKEND)
-        rows[dtype] = (
-            dict(max_abs_err=worst1, ms=k1_ms, plain_ms=k1_plain,
-                 library_ms=lib_fwd, **k1_b),
-            dict(max_abs_err=worst2, ms=k2_ms, plain_ms=k2_plain,
-                 library_ms=lib_fwd_bwd - lib_fwd, **k2_b))
+        rows[dtype] = (dict(max_abs_err=worst1, **t1),
+                       dict(max_abs_err=worst2, **t2))
     return rows
 
 
@@ -4638,6 +4705,265 @@ def multisession_phases(root: Path, default: str):
     wall = time.perf_counter() - t0
     emit(phase="slice_12_13_phases_wall", total_s=wall, entry_s=entry_s)
     return counts, mixed, entry, wall
+
+
+# ---------------------------------------------------------------------------
+# phase 14: K1-K4 at every width the JAX package runs
+# ---------------------------------------------------------------------------
+
+# head widths held against the plain versions: 16, 64 and 128 compiled
+# (csrc/attention_{fwd,bwd}_d*.cu), 8 and 24 through zero-padded heads; the
+# hidden size near the model's 256 (256 // D heads)
+HW_WIDTHS = (8, 16, 24, 64, 128)
+# the widths the mm.yaml model runs with 16 and 4 heads: timed here
+# (``scripts/torch_width_time.py`` times every width)
+HW_TIMED = (16, 64)
+# LayerNorm widths: not multiples of 32, and above 1024 (a row a block)
+HW_LN_WIDTHS = (48, 100, 1280, 2048, 4096)
+HW_LN_ROWS = 3200                 # the B=16 step's tokens
+# the mm.yaml model with 4 and 16 heads (D = 64 and 16)
+HW_HEADS = (4, 16)
+# the graph-vs-eager runs' trials: 64 train trials, 4 steps an epoch
+HW_TRIALS = 80
+
+
+def head_width_kernels() -> dict:
+    """K1 (dropout, lse) and K2 at every head width of ``HW_WIDTHS``, B=16,
+    T=200, the encoder's mask (eye + key pad), f32 and bf16, dropout 0 and
+    0.4, against their plain versions (``k1_gates``; ``k2_gates`` with the
+    bf16 K2 held to its contract, the bf16-dots plain version: at D = 8
+    the f32-dots one moves past 2e-2 (1 + |plain|) by the bf16 rounding of
+    8-term products alone, which the line reports); the widths of
+    ``HW_TIMED`` then timed by profiler device time (``attn_train_times``;
+    at B=16 a wrapper's host path takes about as long as its kernel, which
+    CUDA events would time). Every width is checked before a failure
+    raises. Returns {(D, dtype): (K1 row, K2 row)}, the rows of the other
+    widths with their errors only."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    rows, failed = {}, []
+    for D in HW_WIDTHS:
+        H = GEOMETRY["hidden_size"] // D
+        for dtype in DTYPES:
+            q, k, v, spec, _ = k1_inputs("encoder_eye_pad", dtype, B=TRAIN_B,
+                                         T=200, H=H, D=D, seed=D)
+            B, Tq, hidden = q.shape
+            key_pad, static = att.spec_operands(spec, B, Tq, k.shape[1],
+                                                q.device)
+            scale = 1.0 / math.sqrt(D)
+            g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(D)).to(dtype)
+            worst1 = worst2 = 0.0
+            for rate in (0.0, DROPOUT):
+                out, lse = att.attention_fwd(q, k, v, key_pad, static, H,
+                                             scale, True, rate, 99)
+                grads = att.attention_bwd(q, k, v, key_pad, static, g, lse,
+                                          H, scale, rate, 99)
+                torch.cuda.synchronize()
+                k1 = k1_gates(q, k, v, key_pad, static, H, scale, out, lse,
+                              rate, 99)
+                k2 = k2_gates(q, k, v, key_pad, static, g, lse, H, scale,
+                              grads, rate, 99, f32_dots_gate=False)
+                ok = k1["ok"] and k2["ok"] and out.shape == q.shape
+                emit(phase="head_widths_kernels_check", head_width=D,
+                     heads=H, compiled_width=att.kernel_head_dim(D),
+                     dtype=dtype_name(dtype), dropout=rate,
+                     shape=[B, Tq, hidden], k1=k1, k2=k2, ok=ok)
+                if not ok:
+                    failed.append((D, dtype_name(dtype), rate))
+                worst1 = max(worst1, k1["max_abs_err"])
+                worst2 = max(worst2, *k2["dq_dk_dv_max_abs_err"])
+            t1 = t2 = {}
+            if D in HW_TIMED:
+                t1, t2 = attn_train_times(
+                    q, k, v, key_pad, static, g, H,
+                    timer=lambda fn, reps=20, warmup=3: device_ms(fn, reps))
+                emit(phase="head_widths_kernels_time", head_width=D,
+                     heads=H, dtype=dtype_name(dtype),
+                     shape=[B, Tq, Tq, H, D], dropout=DROPOUT, k1=t1, k2=t2,
+                     timer="profiler device time", sdpa_backend=SDPA_BACKEND)
+            rows[D, dtype] = (dict(max_abs_err=worst1, **t1),
+                              dict(max_abs_err=worst2, **t2))
+    if failed:
+        raise AssertionError(f"K1/K2 off at (head width, dtype, dropout) "
+                             f"{failed} (see the lines)")
+    return rows
+
+
+def head_width_eval_forward(cfg, dtype, mode: str) -> dict:
+    """One eval forward of ``cfg``'s model over the synthetic test split,
+    kernel path (``mode``) against the plain path (``"xla"``, ``"off"``):
+    f32 atol 1e-4, bf16 relative L2 2e-2 (``eval_phase``'s gates), K1 15
+    and K3 32 (under "full") a forward. Returns the launch counts."""
+    from multi_modal_foundation_model_tpu_torch.data import (make_loader,
+                                                             synthetic_splits)
+    from multi_modal_foundation_model_tpu_torch.eval import EvalForward
+    from multi_modal_foundation_model_tpu_torch.models import MultiModal
+
+    T, N = cfg.max_F, cfg.n_channels["ap"]
+    model = MultiModal(cfg, generator=torch.Generator().manual_seed(SEED))
+    plain = MultiModal(dataclasses.replace(cfg, attn_impl="xla"))
+    plain.load_state_dict(model.state_dict())
+    test = synthetic_splits(seed=SEED, n_trials=HW_TRIALS, n_neurons=N,
+                            n_timesteps=T).test
+    batch = next(iter(make_loader(test, batch_size=test.n_trials,
+                                  max_time_length=T, max_space_length=N,
+                                  shuffle=False)))
+    reset_counts()
+    with ln_mode(mode):
+        ap_k, beh_k = EvalForward(model, batch, chunk=CHUNK).forward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with ln_mode("off"):
+        ap_p, beh_p = EvalForward(plain, batch, chunk=CHUNK).forward()
+    err = max(np.abs(ap_k - ap_p).max(), np.abs(beh_k - beh_p).max())
+    rel = max(_rel(ap_k, ap_p), _rel(beh_k, beh_p))
+    want = dict(k1=K1_ATTN_PER_FORWARD,
+                k3=K3_PER_FORWARD if mode == "full" else 0)
+    ok = bool((err <= 1e-4 if dtype == torch.float32 else rel <= 2e-2)
+              and np.isfinite(ap_k).all() and np.isfinite(beh_k).all()
+              and all(counts[k] == n for k, n in want.items()))
+    emit(phase="head_widths_eval_forward", dtype=dtype_name(dtype),
+         layernorm=mode, n_heads=cfg.n_heads,
+         head_width=cfg.hidden_size // cfg.n_heads,
+         batch=int(batch["n_real"]), preds_max_abs_err=float(err),
+         preds_rel_l2=rel, launches=counts, launches_expected=want,
+         tolerance=("atol 1e-4" if dtype == torch.float32
+                    else "relative L2 2e-2"), ok=ok)
+    if not ok:
+        raise AssertionError(f"eval forward at {cfg.n_heads} heads off "
+                             "(see the line)")
+    return counts
+
+
+def head_width_script(root: Path) -> dict:
+    """``train_multi_modal --synthetic`` (mm.yaml, bf16, the resident path)
+    with 4 heads in the encoder and the decoder (``--set
+    model.{en,de}coder.transformer.n_heads=4``) for one epoch: finite
+    metrics rows, the model config's 4 heads, and K1, K2, K3, K4 launched.
+    Returns the launch counts."""
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        train_multi_modal)
+    from multi_modal_foundation_model_tpu_torch.scripts._common import (
+        DEFAULT_EID, log_dir_for)
+
+    base = root / "chip_smoke_head_widths_script"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["--synthetic", "--device", "cuda", "--overwrite", "--base_path",
+            str(base), "--use_MtM", "--mixed_training", "--num_epochs", "1",
+            "--n_trials", "160", "--device_resident",
+            "--set", "training.steps_per_dispatch=10",
+            "--set", "model.encoder.transformer.n_heads=4",
+            "--set", "model.decoder.transformer.n_heads=4"]
+    log_dir = Path(log_dir_for(str(base), DEFAULT_EID,
+                               {"input": ["ap", "behavior"],
+                                "output": ["ap", "behavior"]},
+                               "mask-temporal_ratio-0.1_mixed-True"))
+    reset_counts()
+    t0 = time.perf_counter()
+    train_multi_modal.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rows = [json.loads(line) for line in
+            (log_dir / "metrics.jsonl").read_text().splitlines()]
+    model_cfg = json.loads((log_dir / "model_config.json").read_text())
+    ok = (bool(rows) and _finite_tree(rows)
+          and model_cfg["n_heads"] == 4
+          and all(counts[k] > 0 for k in ("k1", "k2", "k3", "k4")))
+    emit(phase="head_widths_script", script="train_multi_modal", argv=argv,
+         wall_s=wall, launches=counts, rows=len(rows), finite=_finite_tree(
+             rows), n_heads=model_cfg["n_heads"], ok=ok)
+    if not ok:
+        raise AssertionError("train_multi_modal at 4 heads off (see the "
+                             "line)")
+    return counts
+
+
+def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
+                    kernels: list) -> list:
+    """The kernels line's rows of phase 14: K1 and K2 at head widths 16 and
+    64, the mm.yaml model's with 16 and 4 heads (f32, bf16 beside it;
+    launches on its paths; times by profiler device time); the widths no
+    shipped configuration runs (8 and 24 zero-padded, 128) in the width-64
+    rows, and the new LayerNorm widths in the K3 and K4 rows of
+    ``kernels``, each with its error, launched on no main path (their
+    times: ``scripts/torch_width_time.py``)."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, paths = hw["rows"], hw["paths"]
+    out = []
+    for i, (kname, short, line, lib) in enumerate((
+            ("k1", "attention_fwd (K1; timed as the training step's: "
+             "dropout 0.4, lse)", ":144", "attention_fwd"),
+            ("k2", "attention_bwd (K2)", ":221", "attention_bwd"))):
+        for D in (16, 64):
+            heads = GEOMETRY["hidden_size"] // D
+            mine = {k: v[kname] for k, v in paths.items()
+                    if k.split("_heads")[0].endswith(f"_{heads}")}
+            row = dict(
+                name=f"{short} at head width {D}: the mm.yaml model with "
+                     f"{heads} heads (B=16, 200 tokens), f32 (3xTF32); bf16 "
+                     "beside it", route="cuda",
+                source=f"{src}{lib}_d{D}.cu", replaces=attn_py + line,
+                launches=sum(mine.values()), launches_by_path=mine,
+                bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
+            if D == 64:
+                row["off_path_widths"] = {}
+                for w in HW_WIDTHS:
+                    width = att.kernel_head_dim(w)
+                    if w in (16, 64):
+                        continue
+                    row["off_path_widths"][str(w)] = dict(
+                        source=src + (f"{lib}.cu" if width == 32
+                                      else f"{lib}_d{width}.cu"),
+                        compiled_width=width, launches=0,
+                        max_abs_err={dtype_name(dt): rows[w, dt][i][
+                            "max_abs_err"] for dt in DTYPES})
+            out.append(row)
+    for row in kernels:
+        if row["name"].startswith(("layernorm_fwd", "layernorm_bwd")):
+            idx = 0 if row["name"].startswith("layernorm_fwd") else 1
+            row["widths"] = {
+                str(w): dict(
+                    rows=HW_LN_ROWS, launches=0,
+                    source=src + ("layernorm.cu" if w <= 1024
+                                  else "layernorm_wide.cu"),
+                    max_abs_err={dtype_name(dt): hw["ln_err"][w, dt][idx]
+                                 for dt in DTYPES})
+                for w in HW_LN_WIDTHS}
+    return out
+
+
+def head_widths_phase(root: Path, default: str) -> dict:
+    """Phase 14 (module docstring). Returns the kernel rows and the launch
+    counts of the paths at 4 and 16 heads."""
+    t0 = time.perf_counter()
+    rows = head_width_kernels()
+    rank_kernels_check(D=64, H=2, timed=False)
+    ln_err = {}
+    for width in HW_LN_WIDTHS:
+        for dtype in DTYPES:
+            ln_err[width, dtype] = ln_check(HW_LN_ROWS, width, dtype,
+                                            phase="head_widths_ln_check")
+    paths = {}
+    loaders = _train_loaders(n_trials=HW_TRIALS)
+    for heads in HW_HEADS:
+        for dtype in DTYPES:
+            mode = default if dtype == torch.float32 else "full"
+            cfg = dataclasses.replace(_cfg(dtype), n_heads=heads)
+            tag = f"{heads}_heads_{dtype_name(dtype)}"
+            kernel_vs_plain_step(root, dtype, mode, cfg,
+                                 phase="head_widths_step")
+            paths[f"graph_{tag}"] = dispatch_phase(
+                root, dtype, mode, cfg, loaders,
+                phase="head_widths_dispatch")
+            paths[f"eval_forward_{tag}"] = head_width_eval_forward(
+                cfg, dtype, mode)
+    paths["train_multi_modal_4_heads_bfloat16"] = head_width_script(root)
+    emit(phase="head_widths_wall", wall_s=time.perf_counter() - t0)
+    return dict(rows=rows, ln_err=ln_err, paths=paths)
 
 
 def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
@@ -4774,6 +5100,28 @@ def host_split_ab(other: str) -> int:
     return 0
 
 
+def _in_background(fn, *args):
+    """Start ``fn(*args)`` in a thread; returns a function that waits for
+    it and gives its result or raises its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as err:        # re-raised by the waiter
+            box["err"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return wait
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         parallel_worker(*sys.argv[2:6])
@@ -4809,12 +5157,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    build_s = build.build(build.kernel_sources())
+    # the libraries of head width 128, which only phase 14 runs and which
+    # take the longest to build, build beside the first phases
+    late = [n for n in build.kernel_sources() if n.endswith("_d128")]
+    late_build = _in_background(build.build, late)
+    build_s = build.build([n for n in build.kernel_sources()
+                           if n not in late])
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s,
-         build_wall_s=time.perf_counter() - t0, tf32=False,
-         layernorm_default=ln.PALLAS_LAYERNORM)
+         build_wall_s=time.perf_counter() - t0, building_beside=late,
+         tf32=False, layernorm_default=ln.PALLAS_LAYERNORM)
 
     k1 = k1_phase()
     k1_train, k2 = train_kernels_phase()
@@ -4830,17 +5183,11 @@ def main() -> int:
     train_bf16 = train_phase(out, bf16, "full")
     kernel_vs_plain_step(out, f32, default)
     kernel_vs_plain_step(out, bf16, "full")
-    host_split_worker("this", out)
+    kernel_vs_plain_step(out, f32, "bwd")
     disp_f32 = dispatch_phase(out, f32, default)
     disp_bf16 = dispatch_phase(out, bf16, "full")
-    dispatch_time(out, f32, default)
-    dispatch_time(out, bf16, "full")
     prefetch_check(out)
     philox = philox_check()
-    plain_step_time(out)
-    picks = {dtype_name(dt): layernorm_ab(out, dt) for dt in (f32, bf16)}
-    emit(phase="layernorm_default", rule_pick_at_b256=picks,
-         default_in_code=default)
     baseline_s = baseline_phase(out)
     entry, entry_s = entry_points_phase(out)
     emit(phase="slice_11_phases_wall", baseline_s=baseline_s,
@@ -4849,6 +5196,8 @@ def main() -> int:
     ref_counts = reference_ckpt_phase(out)
     real = real_data_phase(out)
     par = parallel_phase(out)
+    emit(phase="device_late_build", build_s=late_build())
+    hw = head_widths_phase(out, default)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16,
                  real_data_bf16=real["counters"], **par["launches"])
@@ -5024,6 +5373,7 @@ def main() -> int:
             launches=sum(paths[k][kname] for k in tp_paths),
             launches_by_path={k: paths[k][kname] for k in tp_paths},
             bf16=_row(rank_rows[bf16][i]), **_row(rank_rows[f32][i])))
+    kernels += head_width_rows(hw, src, attn_py, ln_py, kernels)
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):

@@ -29,7 +29,7 @@
 // Pass A recomputes s and g . v twice and pass B once more: 9 products
 // where the bound counts 5.
 //
-// One kernel pair serves both dtypes (Tc<T> in tc_traits.cuh holds what
+// One kernel pair serves both dtypes (Tc<T, D> in tc_traits.cuh holds what
 // differs, shared with K1).
 // Four warps a block, each owning 16 rows of its side: its two operands
 // (q * scale and g, or k and v) are mma A fragments in registers; the other
@@ -86,8 +86,21 @@
 // B operand). What bounds it on the H100: bytes, 0.0554 ms at the training
 // step's shape, where the products need 0.047 ms at 989 TFLOP/s bf16.
 //
-// D = 32 only; the operands' data pointers and batch and row strides must
-// be 16-byte aligned (cp.async), which the wrapper checks.
+// The operands' data pointers and batch and row strides must be 16-byte
+// aligned (cp.async), which the wrapper checks.
+//
+// Head width: both kernels are templates on D, and this file is compiled
+// once a width, as its own library, at D = MMFM_HEAD_DIM (32 unless
+// defined; attention_bwd_d{16,64,128}.cu define it and include this file),
+// as K1's. The wrapper pads any other D up to 128 with zero columns per
+// head. At D = 64 and 128 the fragments of two operands and a D-wide
+// accumulator (dq, or dk and dv) a warp take more registers than the
+// D = 32 bounds allow (Tc<T, D>::kBlocksA), and f32 at 128 spills: a
+// kernel that is right, not yet fast, at those widths. f32 at D = 128
+// keeps one tile buffer a side (Tc<float, 128>::kBwdBufs: two would take
+// 270 KB of shared memory), so its copies wait for the last tile's
+// readers, as the f32 K1's do. The D = 32 instantiations are the code they
+// were before D became a parameter.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +109,10 @@
 #include "philox.cuh"
 #include "tc_traits.cuh"
 
+#ifndef MMFM_HEAD_DIM
+#define MMFM_HEAD_DIM 32
+#endif
+
 namespace {
 
 using namespace mmfm;
@@ -103,8 +120,8 @@ using namespace mmfm;
 // Pass A: rowsum and dq for 64 query rows of one b and heads [h0, h0 +
 // hpb); and each head's mask bytes (attend and keep bits) for pass B, in
 // mask_out[b][h][q][n_kt * 16].
-template <typename T, bool kDropout>
-__global__ void __launch_bounds__(kTcThreads, Tc<T>::kBlocksA)
+template <typename T, bool kDropout, int D>
+__global__ void __launch_bounds__(kTcThreads, Tc<T, D>::kBlocksA)
 attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const int* __restrict__ key_pad,
@@ -118,14 +135,14 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const long long* __restrict__ seed_ptr,
                       unsigned threshold, float keep_scale, int b_off,
                       int h_off, bool vec) {
-  using Ops = Tc<T>;
+  using Ops = Tc<T, D>;
   // the Philox key: the low 32 bits of the step's seed-table entry
   const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
-  constexpr int D = kHeadDim;
   constexpr int kPer = 16 / sizeof(T);             // elements a copy
+  constexpr int kBufs = Ops::kBwdBufs;             // k/v tile buffers
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);              // [2][kElems]
-  T* vs = ks + 2 * Ops::kElems;                    // [2][kElems]
+  T* ks = reinterpret_cast<T*>(smem);              // [kBufs][kElems]
+  T* vs = ks + kBufs * Ops::kElems;                // [kBufs][kElems]
   // [2][64][bstride]: this head's bytes, and the next head's being drawn
   unsigned char* bits = smem + Ops::kSmem;
 
@@ -190,7 +207,7 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bits + cur * n_items + (warp * 16 + gid) * bstride;
     typename Ops::Frags qa, ga;
     float lse2[2], rs[2] = {0.f, 0.f};
-    float dqa[4][4] = {};
+    float dqa[D / 8][4] = {};
     if (active) {
       Ops::template load<true>(qa, q + b * q_sb + h * D, q_st, row0, Tq,
                                lane, scale);
@@ -206,11 +223,15 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     for (int t = 0; t < n_t; ++t) {
-      const int idx = (h - h0) * n_t + t, buf = idx & 1;
+      const int idx = (h - h0) * n_t + t, buf = kBufs == 2 ? idx & 1 : 0;
+      if (kBufs == 1 && idx > 0) {
+        __syncthreads();  // the last readers of the one buffer are done
+        load_tile(idx, 0);
+      }
       cp_async_wait_all();
       land_tile(buf);
       __syncthreads();  // tile idx (and the bits) in; the last readers done
-      if (idx + 1 < hpb * n_t) load_tile(idx + 1, buf ^ 1);
+      if (kBufs == 2 && idx + 1 < hpb * n_t) load_tile(idx + 1, buf ^ 1);
       if (t == 0) {
         // this head's bytes, complete since the barrier, out for pass B
         const int words = n_kt * 4;        // of a row
@@ -290,7 +311,7 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (row >= Tq) continue;
       T* op = dq + ((long long)b * Tq + row) * H * D + h * D;
 #pragma unroll
-      for (int dt = 0; dt < 4; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
         Ops::store2(op + dt * 8 + tig * 2, dqa[dt][2 * hh] * scale,
                     dqa[dt][2 * hh + 1] * scale);
       if (tig == 0) rowsum[((long long)b * H + h) * Tq + row] = rs[hh];
@@ -302,7 +323,7 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The attend and keep bits come from pass A (mask_in), 16 bytes a query
 // for the block's 64 keys, streamed with the query tiles: no Philox draws
 // and no mask reads here.
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, int D>
 __global__ void __launch_bounds__(kTcThreads)
 attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
@@ -314,12 +335,12 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long k_sb, long long k_st, long long v_sb,
                         long long v_st, long long g_sb, long long g_st,
                         float scale, float keep_scale) {
-  using Ops = Tc<T>;
-  constexpr int D = kHeadDim;
+  using Ops = Tc<T, D>;
   constexpr int kPer = 16 / sizeof(T);
+  constexpr int kBufs = Ops::kBwdBufs;             // q/g tile buffers
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);              // [2][kElems]
-  T* gs = qs + 2 * Ops::kElems;                    // [2][kElems]
+  T* qs = reinterpret_cast<T*>(smem);              // [kBufs][kElems]
+  T* gs = qs + kBufs * Ops::kElems;                // [kBufs][kElems]
   float* lse_s = reinterpret_cast<float*>(smem + Ops::kSmem);  // [2][64]
   float* sum_s = lse_s + 2 * kTcRows;                               // [2][64]
   // [2][64][4] words: one byte per (query, 4 of the block's keys)
@@ -380,7 +401,7 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sh0 = 8 * (gid >> 2) + (gid & 3);
   for (int h = h0; h < h0 + hpb; ++h) {
     typename Ops::Frags ka, va;
-    float dka[4][4] = {}, dva[4][4] = {};
+    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
     if (active) {
       Ops::template load<false>(ka, k + b * k_sb + h * D, k_st, kr0, Tk,
                                 lane, 1.f);
@@ -389,11 +410,15 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     for (int t = 0; t < n_qt; ++t) {
-      const int idx = (h - h0) * n_qt + t, buf = idx & 1;
+      const int idx = (h - h0) * n_qt + t, buf = kBufs == 2 ? idx & 1 : 0;
+      if (kBufs == 1 && idx > 0) {
+        __syncthreads();  // the last readers of the one buffer are done
+        load_tile(idx, 0);
+      }
       cp_async_wait_all();
       land_tile(buf);
       __syncthreads();  // tile idx in and readied; the last readers done
-      if (idx + 1 < hpb * n_qt) load_tile(idx + 1, buf ^ 1);
+      if (kBufs == 2 && idx + 1 < hpb * n_qt) load_tile(idx + 1, buf ^ 1);
       if (!active) continue;
       const T* qt = qs + buf * Ops::kElems;
       const T* gt = gs + buf * Ops::kElems;
@@ -438,7 +463,7 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (key >= Tk) continue;
       const long long o = ((long long)b * Tk + key) * H * D + h * D;
 #pragma unroll
-      for (int dt = 0; dt < 4; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         const int d = dt * 8 + tig * 2;
         Ops::store2(dk + o + d, dka[dt][2 * hh], dka[dt][2 * hh + 1]);
         Ops::store2(dv + o + d, dva[dt][2 * hh], dva[dt][2 * hh + 1]);
@@ -447,7 +472,7 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, int D>
 cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
                       const void* g_, const int* key_pad,
                       const int* static_mask, const float* lse, float* rowsum,
@@ -465,24 +490,27 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
   const int n_qt = (Tq + kTcRows - 1) / kTcRows;
   const int n_kt = (Tk + kTcRows - 1) / kTcRows;
   const size_t n_buf = kDropout ? 2 : 1;   // pass A's bit buffers
-  const size_t smem_a = Tc<T>::kSmem + n_buf * kTcRows * (n_kt * 16 + 4);
-  const size_t smem_b = Tc<T>::kSmem + 4 * kTcRows * sizeof(float) +
+  const size_t smem_a =
+      Tc<T, D>::kSmem + n_buf * kTcRows * (n_kt * 16 + 4);
+  const size_t smem_b = Tc<T, D>::kSmem + 4 * kTcRows * sizeof(float) +
                         2 * kTcRows * 16;
   // pass A's mask bytes for pass B, (B, H, Tq, n_kt * 16), after rowsum in
   // the scratch, 16-byte aligned
   const uintptr_t tail =
       reinterpret_cast<uintptr_t>(rowsum + (size_t)B * H * Tq);
   uint32_t* mask = reinterpret_cast<uint32_t*>((tail + 15) & ~uintptr_t(15));
-  cudaError_t err = allow_smem(attn_bwd_dq_tc_kernel<T, kDropout>, smem_a);
+  cudaError_t err =
+      allow_smem(attn_bwd_dq_tc_kernel<T, kDropout, D>, smem_a);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dkdv_tc_kernel<T, kDropout>, smem_b);
+  err = allow_smem(attn_bwd_dkdv_tc_kernel<T, kDropout, D>, smem_b);
   if (err != cudaSuccess) return err;
   const bool vec = Tk % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(key_pad) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(static_mask) % 16 == 0;
   const int hpb_a = heads_per_block(B, n_qt, H);
   const dim3 grid_a((unsigned)B * n_qt, H / hpb_a);
-  attn_bwd_dq_tc_kernel<T, kDropout><<<grid_a, kTcThreads, smem_a, stream>>>(
+  attn_bwd_dq_tc_kernel<T, kDropout, D>
+      <<<grid_a, kTcThreads, smem_a, stream>>>(
       q, k, v, g, key_pad, static_mask, lse, static_cast<T*>(dq_), rowsum,
       mask, Tq, Tk, H, hpb_a, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st,
       scale, seed, threshold, keep_scale, b_off, h_off, vec);
@@ -490,7 +518,7 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
   if (err != cudaSuccess) return err;
   const int hpb_b = heads_per_block(B, n_kt, H);
   const dim3 grid_b((unsigned)B * n_kt, H / hpb_b);
-  attn_bwd_dkdv_tc_kernel<T, kDropout>
+  attn_bwd_dkdv_tc_kernel<T, kDropout, D>
       <<<grid_b, kTcThreads, smem_b, stream>>>(
           q, k, v, g, mask, lse, rowsum, static_cast<T*>(dk_),
           static_cast<T*>(dv_), Tq, Tk, H, hpb_b, q_sb, q_st, k_sb, k_st,
@@ -501,7 +529,8 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
 }  // namespace
 
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16, for q, k, v, g, dq, dk, dv;
-// D must be 32; data pointers and batch and row strides of q, k, v, g
+// D must be this library's MMFM_HEAD_DIM; data pointers and batch and row
+// strides of q, k, v, g
 // 16-byte aligned. Strides in elements; dq (B, Tq, H*D), dk and dv
 // (B, Tk, H*D) contiguous. The f32 scratch holds rowsum (B, H, Tq), written
 // by pass A and read by pass B, then, 16-byte aligned, pass A's mask bytes
@@ -519,12 +548,12 @@ extern "C" int mmfm_attention_bwd(
     float keep_scale, int dropout, int b_off, int h_off, int dtype,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kHeadDim) return (int)cudaErrorInvalidValue;
+  if (D != MMFM_HEAD_DIM) return (int)cudaErrorInvalidValue;
 #define MMFM_K2_LAUNCH(T, DROP)                                              \
-  launch_tc<T, DROP>(q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk,  \
-                     dv, B, Tq, Tk, H, q_sb, q_st, k_sb, k_st, v_sb, v_st,   \
-                     g_sb, g_st, scale, seed, threshold, keep_scale, b_off,  \
-                     h_off, s)
+  launch_tc<T, DROP, MMFM_HEAD_DIM>(                                         \
+      q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
+      H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
+      threshold, keep_scale, b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);

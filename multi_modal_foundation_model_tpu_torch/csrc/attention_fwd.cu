@@ -27,8 +27,8 @@
 // row, so the column views of a fused QKV product (row stride 3*H*D) need
 // no copy. The output is contiguous (B, Tq, H*D) in the inputs' type.
 //
-// One kernel body serves both dtypes (attn_fwd_tc_kernel<T, kDropout>;
-// Tc<T> in tc_traits.cuh holds what differs, shared with K2). Its design is
+// One kernel body serves both dtypes (attn_fwd_tc_kernel<T, kDropout, D>;
+// Tc<T, D> in tc_traits.cuh holds what differs, shared with K2). Its design is
 // K2 pass A's: four warps a block, each holding 16 query rows of q * scale
 // as mma A fragments in registers; K_h and V_h stream through shared memory
 // in 64-key tiles by cp.async (16 B a copy, tail rows zero-filled; bf16
@@ -47,8 +47,21 @@
 // every key: a fully-masked row keeps its dropout) into a second buffer, a
 // slice with each tile of the head before, so the draws run beside the
 // products. Any Tq and Tk from 1 up (each bit buffer grows by 1 KB per 64
-// keys); D = 32 only; the operands' data pointers and batch and row
-// strides must be 16-byte aligned (cp.async), which the wrapper checks.
+// keys); the operands' data pointers and batch and row strides must be
+// 16-byte aligned (cp.async), which the wrapper checks.
+//
+// Head width: the kernel is a template on D, and this file is compiled
+// once a width, as its own library: here at D = MMFM_HEAD_DIM (32 unless
+// defined), and at 16, 64 and 128 by attention_fwd_d{16,64,128}.cu, which
+// define it and include this file, so the widths build in parallel. The
+// wrapper (ops/attention.py) pads any other D up to 128 with zero columns
+// per head. What grows with D: the q fragments (D / 4 registers in bf16,
+// D / 2 in f32), the O accumulators (D / 2), the tiles' pitch (D + 8 bf16,
+// D + 4 floats) and so the shared memory: 69.6 KB in bf16 and 135 KB in
+// f32 at D = 128 (one k/v buffer in f32, as at every width), above the
+// default 48 KB (allow_smem opts in). The D = 32 instantiations are the
+// code they were before D became a parameter (the same ptxas registers,
+// spills and shared memory).
 //
 // f32 (3xTF32, mma_tf32.cuh): the f32 contract, the plain version's f32
 // math, with no bf16 rounding anywhere. q * scale is multiplied in f32 and
@@ -77,7 +90,7 @@
 // is, the tiles took ~81 KB (2 blocks an SM) and the kernel 16-20% longer,
 // though each copy overlapped the last tile's products; B fragments split
 // in registers instead of hi/lo planes were slower again
-// (scripts/torch_k1_variants.py, Tc<T>::kFwdBufs).
+// (scripts/torch_k1_variants.py, Tc<T, D>::kFwdBufs).
 //
 // bf16 (mma_bf16.cuh): the arithmetic of JAX's K1 on its own hardware,
 // where DEFAULT-precision f32 dots feed the matrix unit bf16 operands
@@ -108,8 +121,12 @@ using namespace mmfm;
 
 constexpr float kLseFloor = -1e6f;  // ops/attention.py _LSE_FLOOR
 
+#ifndef MMFM_HEAD_DIM
+#define MMFM_HEAD_DIM 32
+#endif
+
 // out (and lse) for 64 query rows of one b and heads [h0, h0 + hpb).
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, int D>
 __global__ void __launch_bounds__(kTcThreads)
 attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ key_pad,
@@ -120,10 +137,9 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    float scale, const long long* __restrict__ seed_ptr,
                    unsigned threshold, float keep_scale, int b_off,
                    int h_off, bool vec) {
-  using Ops = Tc<T>;
+  using Ops = Tc<T, D>;
   // the Philox key: the low 32 bits of the step's seed-table entry
   const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
-  constexpr int D = kHeadDim;
   constexpr int kPer = 16 / sizeof(T);             // elements a copy
   constexpr int kBufs = Ops::kFwdBufs;             // k/v tile buffers
   extern __shared__ __align__(16) unsigned char smem[];
@@ -204,7 +220,7 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the running row max and the thread's share of the row sum, for rows
     // gid and gid + 8 of the warp's 16
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float oacc[4][4] = {};
+    float oacc[D / 8][4] = {};
     if (active)
       Ops::template load<true>(qa, q + b * q_sb + h * D, q_st, row0, Tq,
                                lane, scale);
@@ -273,7 +289,7 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[hh] *= corr[hh];
       }
 #pragma unroll
-      for (int dt = 0; dt < 4; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         oacc[dt][0] *= corr[0];
         oacc[dt][1] *= corr[0];
         oacc[dt][2] *= corr[1];
@@ -313,7 +329,7 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (row >= Tq) continue;
       T* op = out + ((long long)b * Tq + row) * H * D + h * D;
 #pragma unroll
-      for (int dt = 0; dt < 4; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
         Ops::store2(op + dt * 8 + tig * 2, oacc[dt][2 * hh] / l[hh],
                     oacc[dt][2 * hh + 1] / l[hh]);
       if (lse != nullptr && tig == 0)
@@ -323,7 +339,7 @@ attn_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const int* key_pad, const int* static_mask, void* out,
                       float* lse, int B, int Tq, int Tk, int H,
@@ -335,16 +351,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const int n_qt = (Tq + kTcRows - 1) / kTcRows;
   const int n_kt = (Tk + kTcRows - 1) / kTcRows;
   const size_t n_buf = kDropout ? 2 : 1;   // bit buffers
-  const size_t smem = 2 * Tc<T>::kFwdBufs * Tc<T>::kElems * sizeof(T) +
-                      n_buf * kTcRows * (n_kt * 16 + 4);
-  const cudaError_t err = allow_smem(attn_fwd_tc_kernel<T, kDropout>, smem);
+  const size_t smem =
+      2 * Tc<T, D>::kFwdBufs * Tc<T, D>::kElems * sizeof(T) +
+      n_buf * kTcRows * (n_kt * 16 + 4);
+  const cudaError_t err =
+      allow_smem(attn_fwd_tc_kernel<T, kDropout, D>, smem);
   if (err != cudaSuccess) return err;
   const bool vec = Tk % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(key_pad) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(static_mask) % 16 == 0;
   const int hpb = heads_per_block(B, n_qt, H);
   const dim3 grid((unsigned)B * n_qt, H / hpb);
-  attn_fwd_tc_kernel<T, kDropout><<<grid, kTcThreads, smem, stream>>>(
+  attn_fwd_tc_kernel<T, kDropout, D><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), key_pad, static_mask, static_cast<T*>(out),
       lse, Tq, Tk, H, hpb, q_sb, q_st, k_sb, k_st, v_sb, v_st, scale, seed,
@@ -355,7 +373,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16, for q, k, v and out; D must
-// be 32; data pointers and batch and row strides of q, k, v 16-byte
+// be this library's MMFM_HEAD_DIM; data pointers and batch and row strides
+// of q, k, v 16-byte
 // aligned. lse may be null. Strides in elements. dropout != 0 drops p[q,k]
 // unless its Philox bits exceed `threshold` and scales survivors by
 // `keep_scale`; the bits of (b, h) are drawn as those of (b + b_off,
@@ -370,11 +389,12 @@ extern "C" int mmfm_attention_fwd(
     const long long* seed, unsigned threshold, float keep_scale, int dropout,
     int b_off, int h_off, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != kHeadDim) return (int)cudaErrorInvalidValue;
+  if (D != MMFM_HEAD_DIM) return (int)cudaErrorInvalidValue;
 #define MMFM_K1_LAUNCH(T, DROP)                                              \
-  launch_tc<T, DROP>(q, k, v, key_pad, static_mask, out, lse, B, Tq, Tk, H,  \
-                     q_sb, q_st, k_sb, k_st, v_sb, v_st, scale, seed,        \
-                     threshold, keep_scale, b_off, h_off, s)
+  launch_tc<T, DROP, MMFM_HEAD_DIM>(                                         \
+      q, k, v, key_pad, static_mask, out, lse, B, Tq, Tk, H, q_sb, q_st,     \
+      k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale, b_off,     \
+      h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K1_LAUNCH(float, true) : MMFM_K1_LAUNCH(float, false);

@@ -1,0 +1,5 @@
+// K1, the attention forward, at head width D = 128: attention_fwd.cu
+// compiled as a library of its own, so that the widths build in parallel
+// (ops/build.py starts one nvcc a source).
+#define MMFM_HEAD_DIM 128
+#include "attention_fwd.cu"

@@ -5,14 +5,16 @@
 //
 // Four warps a block, each owning 16 rows of its side as mma.sync m16n8k16
 // A fragments in registers; the other side streams through shared memory
-// in 64-row tiles of (64, kLd) bf16 by cp.async (16 B a copy,
+// in 64-row tiles of (64, ld_bf16(D)) bf16 by cp.async (16 B a copy,
 // double-buffered, tail rows zero-filled) and is read by ldmatrix (.trans
 // for the second product's B operand). The f32 accumulators of the first
 // product turn, two n-tiles at a time, into the bf16 A fragments of the
 // second (mma_cols), never touching memory. The attend bits of the
 // (Tq, Tk) int32 static mask OR the (B, Tk) key pad, and the Philox keep
 // bits, are staged one byte per (row, 4 keys): keep in the low nibble,
-// attend in the high one.
+// attend in the high one. Everything that depends on the head width D is a
+// template on it: D a multiple of 16 (a k-step of m16n8k16) up to 128, the
+// widths the kernels are compiled at (attention_fwd.cu, attention_bwd.cu).
 
 #pragma once
 
@@ -24,16 +26,15 @@
 
 namespace mmfm {
 
-constexpr int kHeadDim = 32;        // D of the reference model
 constexpr float kNegInf = -1e30f;   // ops/attention.py NEG_INF
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kTcThreads = 128;      // 4 warps, 16 rows each
 constexpr int kTcRows = 64;          // rows per block, and per streamed tile
-constexpr int kLd = kHeadDim + 8;    // shared row pitch in bf16: 80 bytes,
-                                     // so ldmatrix's 8 rows hit 8 bank groups
-constexpr int kTileElems = kTcRows * kLd;
+// shared row pitch in bf16 at head width D: 80 bytes at D = 32; at every D
+// a multiple of 16 up to 128 the 8 rows of an ldmatrix hit 8 bank groups
+__host__ __device__ constexpr int ld_bf16(int D) { return D + 8; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -73,6 +74,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       : "memory");
 }
 
+// two 8x8 bf16 matrices; lanes 0-15 give the rows' addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -107,14 +116,14 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float mul) {
 // row stride st (rows past T read as 0): f[k][i] holds row gid + 8 (i & 1),
 // columns 16 k + 2 tig + 8 (i >> 1) and one more. With kScale the values
 // are f32(x) * mul rounded to bf16.
-template <bool kScale>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[2][4],
+template <int D, bool kScale>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
                                              const bf16* base, long long st,
                                              int row0, int T, int lane,
                                              float mul) {
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + gid + (i & 1) * 8;
@@ -128,29 +137,44 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[2][4],
 }
 
 // acc[n][.] += a . tile^T: a (16, D) A fragments, tile rows [0, n_valid)
-// of a shared (64, kLd) tile as the 8 n-tiles of B (n-tiles past n_valid
-// are skipped: their rows are zero and masked)
+// of a shared (64, ld_bf16(D)) tile as the 8 n-tiles of B (n-tiles past
+// n_valid are skipped: their rows are zero and masked). One ldmatrix.x4
+// feeds two k-steps (32 columns); an odd last k-step takes an x2
+template <int D>
 __device__ __forceinline__ void mma_rows(float (&acc)[8][4],
-                                         const uint32_t (&a)[2][4],
+                                         const uint32_t (&a)[D / 16][4],
                                          const bf16* tile, int lane,
                                          int n_valid) {
+  constexpr int kLd = ld_bf16(D);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     if (nt * 8 >= n_valid) break;
-    uint32_t r[4];
-    ldsm_x4(r, smem_u32(tile + (nt * 8 + (lane & 7)) * kLd + (lane >> 3) * 8));
-    mma_bf16(acc[nt], a[0], r[0], r[1]);
-    mma_bf16(acc[nt], a[1], r[2], r[3]);
+    const bf16* row = tile + (nt * 8 + (lane & 7)) * kLd;
+#pragma unroll
+    for (int k2 = 0; k2 < D / 32; ++k2) {
+      uint32_t r[4];
+      ldsm_x4(r, smem_u32(row + k2 * 32 + (lane >> 3) * 8));
+      mma_bf16(acc[nt], a[2 * k2], r[0], r[1]);
+      mma_bf16(acc[nt], a[2 * k2 + 1], r[2], r[3]);
+    }
+    if (D % 32 != 0) {
+      uint32_t r[2];
+      ldsm_x2(r, smem_u32(row + D - 16 + ((lane >> 3) & 1) * 8));
+      mma_bf16(acc[nt], a[D / 16 - 1], r[0], r[1]);
+    }
   }
 }
 
 // out[d-tile][.] += p . tile: p the (16, 64) bf16 A fragments built from the
-// 16x64 accumulator fragments acc (in registers), tile a shared (64, kLd)
-// tile read transposed as B; k-steps past n_valid (p = 0 there) skipped
-__device__ __forceinline__ void mma_cols(float (&out)[4][4],
+// 16x64 accumulator fragments acc (in registers), tile a shared (64,
+// ld_bf16(D)) tile read transposed as B; k-steps past n_valid (p = 0 there)
+// skipped
+template <int D>
+__device__ __forceinline__ void mma_cols(float (&out)[D / 8][4],
                                          const float (&acc)[8][4],
                                          const bf16* tile, int lane,
                                          int n_valid) {
+  constexpr int kLd = ld_bf16(D);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (16 * j >= n_valid) break;
@@ -159,7 +183,7 @@ __device__ __forceinline__ void mma_cols(float (&out)[4][4],
                            pack_bf16(acc[2 * j + 1][0], acc[2 * j + 1][1]),
                            pack_bf16(acc[2 * j + 1][2], acc[2 * j + 1][3])};
 #pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
+    for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t r[4];
       ldsm_x4_t(r, smem_u32(tile +
                             (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +

@@ -25,12 +25,14 @@
 // takes column 2 tig, slot tig + 4 column 2 tig + 1, and the B rows are
 // read from shared memory in the same order (mma_cols_3x).
 //
-// The streamed side lives in shared memory as two planes of a (64, kLdF)
-// f32 tile, hi then lo, split once when the tile lands (land_split). With
-// a pitch of kLdF = D + 4 = 36 floats, the B reads of both products --
-// tile[n0 + gid][k0 + tig] (mma_rows_3x) and tile[k0 + 2 tig (+1)][n0 +
-// gid] (mma_cols_3x) -- fall on 32 distinct banks. ldmatrix moves 16-bit
-// 8x8 matrices, so the f32 B fragments are plain 32-bit shared loads.
+// The streamed side lives in shared memory as two planes of a (64,
+// ld_f32(D)) f32 tile, hi then lo, split once when the tile lands
+// (land_split). With a pitch of D + 4 floats (36 at D = 32), the B reads of
+// both products -- tile[n0 + gid][k0 + tig] (mma_rows_3x) and tile[k0 +
+// 2 tig (+1)][n0 + gid] (mma_cols_3x) -- fall on 32 distinct banks at every
+// D a multiple of 8 up to 128 (the row pitch is 4 or 20 banks mod 32). ldmatrix
+// moves 16-bit 8x8 matrices, so the f32 B fragments are plain 32-bit shared
+// loads. The head width D is a template parameter, as in mma_bf16.cuh.
 
 #pragma once
 
@@ -41,8 +43,11 @@
 
 namespace mmfm {
 
-constexpr int kLdF = kHeadDim + 4;        // shared row pitch in floats
-constexpr int kPlaneF = kTcRows * kLdF;   // one (64, kLdF) f32 plane
+// shared row pitch in floats, and one (64, pitch) f32 plane, at width D
+__host__ __device__ constexpr int ld_f32(int D) { return D + 4; }
+__host__ __device__ constexpr int plane_f32(int D) {
+  return kTcRows * ld_f32(D);
+}
 
 // tf32(x) rounded to nearest (ties away), as f32 bits with the low 13
 // mantissa bits 0
@@ -92,15 +97,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
 // The A fragments of rows [row0, row0 + 16) x D of an f32 matrix with row
 // stride st (rows past T read as 0), times mul (f32 rounding) and split:
 // hi/lo[ks][i] hold row gid + 8 (i & 1), column 8 ks + tig + 4 (i >> 1).
-template <bool kScale>
-__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[4][4],
-                                            uint32_t (&lo)[4][4],
+template <int D, bool kScale>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[D / 8][4],
+                                            uint32_t (&lo)[D / 8][4],
                                             const float* base, long long st,
                                             int row0, int T, int lane,
                                             float mul) {
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < D / 8; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + gid + (i & 1) * 8;
@@ -112,14 +117,16 @@ __device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[4][4],
 }
 
 // acc[n][.] += a . tile^T: a the (16, D) split A fragments, tile rows
-// [0, n_valid) of a shared (64, kLdF) hi plane (lo plane after it) as the
-// 8 n-tiles of B (n-tiles past n_valid are skipped: their rows are zero and
-// masked)
+// [0, n_valid) of a shared (64, ld_f32(D)) hi plane (lo plane after it) as
+// the 8 n-tiles of B (n-tiles past n_valid are skipped: their rows are zero
+// and masked)
+template <int D>
 __device__ __forceinline__ void mma_rows_3x(float (&acc)[8][4],
-                                            const uint32_t (&ah)[4][4],
-                                            const uint32_t (&al)[4][4],
+                                            const uint32_t (&ah)[D / 8][4],
+                                            const uint32_t (&al)[D / 8][4],
                                             const float* tile, int lane,
                                             int n_valid) {
+  constexpr int kLdF = ld_f32(D), kPlaneF = plane_f32(D);
   const int gid = lane >> 2, tig = lane & 3;
   const uint32_t* t = reinterpret_cast<const uint32_t*>(tile) + gid * kLdF +
                       tig;
@@ -128,20 +135,22 @@ __device__ __forceinline__ void mma_rows_3x(float (&acc)[8][4],
     if (nt * 8 >= n_valid) break;
     const uint32_t* r = t + nt * 8 * kLdF;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < D / 8; ++ks)
       mma_3xtf32(acc[nt], ah[ks], al[ks], r[ks * 8], r[ks * 8 + 4],
                  r[kPlaneF + ks * 8], r[kPlaneF + ks * 8 + 4]);
   }
 }
 
 // out[d-tile][.] += p . tile: p the (16, 64) accumulator fragments acc (in
-// registers, split here), tile a shared (64, kLdF) hi plane (lo after it)
-// as B, its rows read in the permuted k order; k-steps past n_valid (p = 0
-// there) skipped
-__device__ __forceinline__ void mma_cols_3x(float (&out)[4][4],
+// registers, split here), tile a shared (64, ld_f32(D)) hi plane (lo after
+// it) as B, its rows read in the permuted k order; k-steps past n_valid
+// (p = 0 there) skipped
+template <int D>
+__device__ __forceinline__ void mma_cols_3x(float (&out)[D / 8][4],
                                             const float (&acc)[8][4],
                                             const float* tile, int lane,
                                             int n_valid) {
+  constexpr int kLdF = ld_f32(D), kPlaneF = plane_f32(D);
   const int gid = lane >> 2, tig = lane & 3;
   const uint32_t* t = reinterpret_cast<const uint32_t*>(tile) +
                       2 * tig * kLdF + gid;
@@ -156,16 +165,17 @@ __device__ __forceinline__ void mma_cols_3x(float (&out)[4][4],
     split_tf32(acc[nt][3], ah[3], al[3]);
     const uint32_t* r = t + nt * 8 * kLdF;
 #pragma unroll
-    for (int dt = 0; dt < 4; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)
       mma_3xtf32(out[dt], ah, al, r[dt * 8], r[kLdF + dt * 8],
                  r[kPlaneF + dt * 8], r[kPlaneF + kLdF + dt * 8]);
   }
 }
 
 // A landed 16-byte chunk (4 floats) at p of a hi plane, times mul with
-// kScale, split in place: hi stays at p, lo goes to p + kPlaneF
-template <bool kScale>
+// kScale, split in place: hi stays at p, lo goes to p + plane_f32(D)
+template <int D, bool kScale>
 __device__ __forceinline__ void land_split(float* p, float mul) {
+  constexpr int kPlaneF = plane_f32(D);
   float4 x = *reinterpret_cast<const float4*>(p);
   if (kScale) {
     x.x *= mul;

@@ -37,6 +37,15 @@ with ``impl="xla"``. Without grad, CUDA tensors launch K1 alone and CPU
 tensors take the plain forward. A CUDA tensor launches the kernel or
 raises: there is no fallback. A full ``mask``/``bias`` takes the plain path
 on either device, as in JAX; no module on the model's path passes one.
+
+Head widths: JAX's kernels take any ``d_head = hidden // n_heads`` (its
+``multi_head_attention``, :605-606). K1 and K2 are compiled at
+``HEAD_DIMS`` = 16, 32, 64 and 128 (one library a width); any other width
+up to 128 runs the next one up on operands whose heads are padded with
+zero columns (``padded_attention_fwd`` / ``padded_attention_bwd``): the
+zero columns add nothing to a score and give zero output and gradient
+columns, which are dropped, and the scale stays the true width's. A
+width above 128 raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .random import SeedLike, philox4x32_10, seed_tensor
 
@@ -61,7 +71,9 @@ K1_LAUNCHES = 0
 K1_LSE_LAUNCHES = 0
 K2_LAUNCHES = 0
 
-_HEAD_DIM = 32                     # the head width the kernels take
+# the head widths K1 and K2 are compiled at: csrc/attention_{fwd,bwd}.cu at
+# 32, and attention_{fwd,bwd}_d{16,64,128}.cu (one library a width)
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 
@@ -303,10 +315,71 @@ def attention_bwd_reference(q, k, v, key_pad, static, g, lse, n_heads: int,
 # K1 / K2 wrappers
 # ---------------------------------------------------------------------------
 
-def _k1_lib():
+def kernel_head_dim(D: int) -> int:
+    """The compiled head width that runs head width ``D``: the least of
+    ``HEAD_DIMS`` at or above it (``D`` itself where it is one of them).
+    Above 128, ``ValueError``."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head width {D}: the attention kernels take head "
+                     f"widths up to {HEAD_DIMS[-1]}")
+
+
+def _library(kernel: str, head_dim: int) -> str:
+    return kernel if head_dim == 32 else f"{kernel}_d{head_dim}"
+
+
+def pad_heads(x: torch.Tensor, n_heads: int, width: int) -> torch.Tensor:
+    """(B, T, H*D) -> contiguous (B, T, H*width): each head's D columns,
+    then ``width - D`` zero columns."""
+    B, T, hidden = x.shape
+    D = hidden // n_heads
+    return F.pad(x.reshape(B, T, n_heads, D), (0, width - D)).reshape(
+        B, T, n_heads * width)
+
+
+def unpad_heads(x: torch.Tensor, n_heads: int, D: int) -> torch.Tensor:
+    """(B, T, H*width) -> contiguous (B, T, H*D): each head's first D
+    columns."""
+    B, T, _ = x.shape
+    return x.reshape(B, T, n_heads, -1)[..., :D].reshape(B, T, n_heads * D)
+
+
+def padded_attention_fwd(fwd, width: int, q, k, v, key_pad, static,
+                         n_heads: int, scale: float, with_lse: bool = False,
+                         dropout_rate: float = 0.0, seed: SeedLike = 0,
+                         draw_offset: Tuple[int, int] = (0, 0)):
+    """``fwd`` (K1's launch, or a plain version in its place) on q/k/v
+    whose heads are padded with zero columns to ``width``; returns (out with
+    the padding dropped, lse). ``scale`` is the caller's, the true head
+    width's. Exact: a zero column adds 0 to every score and gives a zero
+    output column, and the dropout bits do not depend on the width."""
+    D = q.shape[-1] // n_heads
+    qp, kp, vp = (pad_heads(x, n_heads, width) for x in (q, k, v))
+    out, lse = fwd(qp, kp, vp, key_pad, static, n_heads, scale, with_lse,
+                   dropout_rate, seed, draw_offset=draw_offset)
+    return unpad_heads(out, n_heads, D), lse
+
+
+def padded_attention_bwd(bwd, width: int, q, k, v, key_pad, static, g, lse,
+                         n_heads: int, scale: float, dropout_rate: float = 0.0,
+                         seed: SeedLike = 0,
+                         draw_offset: Tuple[int, int] = (0, 0)):
+    """``bwd`` (K2's launch, or a plain version in its place) on q/k/v/g
+    padded as ``padded_attention_fwd`` pads them; returns (dq, dk, dv) with
+    the padding dropped (its gradient columns are zero)."""
+    D = q.shape[-1] // n_heads
+    qp, kp, vp, gp = (pad_heads(x, n_heads, width) for x in (q, k, v, g))
+    grads = bwd(qp, kp, vp, key_pad, static, gp, lse, n_heads, scale,
+                dropout_rate, seed, draw_offset=draw_offset)
+    return tuple(unpad_heads(x, n_heads, D) for x in grads)
+
+
+def _k1_lib(head_dim: int = 32):
     from . import build
 
-    fn = build.load("attention_fwd").mmfm_attention_fwd
+    fn = build.load(_library("attention_fwd", head_dim)).mmfm_attention_fwd
     if fn.argtypes is None:
         p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint)
@@ -317,10 +390,10 @@ def _k1_lib():
     return fn
 
 
-def _k2_lib():
+def _k2_lib(head_dim: int = 32):
     from . import build
 
-    fn = build.load("attention_bwd").mmfm_attention_bwd
+    fn = build.load(_library("attention_bwd", head_dim)).mmfm_attention_bwd
     if fn.argtypes is None:
         p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint)
@@ -356,9 +429,12 @@ def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
             or k.shape[2] != hidden:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hidden != n_heads * _HEAD_DIM:
-        raise ValueError(f"{name}: head width {hidden}/{n_heads}, "
-                         f"the kernel takes {_HEAD_DIM}")
+    if hidden % n_heads:
+        raise ValueError(f"{name}: hidden {hidden} not divisible by "
+                         f"{n_heads} heads")
+    if hidden // n_heads > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head width {hidden // n_heads}; the "
+                         f"kernels take head widths up to {HEAD_DIMS[-1]}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: q/k/v need unit stride in the "
                          "last dimension")
@@ -412,14 +488,16 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     q/k/v: f32 or bf16, one dtype, unit stride in the last dimension; any
     batch and row strides (the column views of a fused (B, T, 3*H*D) QKV
     product go in without a copy). key_pad (B, Tk) and static (Tq, Tk):
-    contiguous int32. Head width D = 32. ``seed`` is a seed-table entry (a
-    one-element int64 tensor on q's device) or a host int copied there; the
-    kernel reads its low 32 bits, the Philox key, from device memory, so a
-    CUDA graph of the launch draws the key the entry holds at replay.
-    ``draw_offset`` (b0, h0) draws the bits of (b0 + b, h0 + h), a rank's
-    slice of the whole batch's and heads' bits. Returns a contiguous
-    output in q's
-    dtype and, with ``with_lse``, an f32 (B, H, Tq) lse.
+    contiguous int32. Head width D up to 128: at 16, 32, 64 and 128 the
+    operands go in as they are, any other width through
+    ``padded_attention_fwd`` to the next of ``HEAD_DIMS``. ``seed`` is a
+    seed-table entry (a one-element int64 tensor on q's device) or a host
+    int copied there; the kernel reads its low 32 bits, the Philox key,
+    from device memory, so a CUDA graph of the launch draws the key the
+    entry holds at replay. ``draw_offset`` (b0, h0) draws the bits of
+    (b0 + b, h0 + h), a rank's slice of the whole batch's and heads' bits.
+    Returns a contiguous output in q's dtype and, with ``with_lse``, an f32
+    (B, H, Tq) lse.
 
     Both dtypes run on the tensor cores. f32 computes each product as
     three TF32 products of operands split into hi and lo parts (3xTF32),
@@ -432,13 +510,30 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""
+    _, _, _, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
+                                      static, n_heads, _DTYPE_CODE)
+    D = hidden // n_heads
+    width = kernel_head_dim(D)
+    if width != D:
+        return padded_attention_fwd(_k1_launch, width, q, k, v, key_pad,
+                                    static, n_heads, scale, with_lse,
+                                    dropout_rate, seed, draw_offset)
+    return _k1_launch(q, k, v, key_pad, static, n_heads, scale, with_lse,
+                      dropout_rate, seed, draw_offset)
+
+
+def _k1_launch(q, k, v, key_pad, static, n_heads: int, scale: float,
+               with_lse: bool = False, dropout_rate: float = 0.0,
+               seed: SeedLike = 0, draw_offset: Tuple[int, int] = (0, 0)):
+    """K1's launch on checked operands whose head width is one of
+    ``HEAD_DIMS``."""
     global K1_LAUNCHES, K1_LSE_LAUNCHES
-    B, Tq, Tk, hidden = _check_operands("attention_fwd", q, k, v, key_pad,
-                                        static, n_heads, _DTYPE_CODE)
     _check_aligned("attention_fwd", q=q, k=k, v=v)
+    B, Tq, hidden = q.shape
+    Tk = k.shape[1]
     dev = q.device
     key = _dropout_key(dropout_rate, seed, dev)
-    fn = _k1_lib()
+    fn = _k1_lib(hidden // n_heads)
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -466,8 +561,9 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     """Launch K2 on CUDA tensors. q/k/v/g share one dtype, f32 or bf16, with
     unit inner stride and any batch and row strides; lse the f32
     (B, H, Tq) of K1 on the same operands, dropout rate, seed and draw
-    offset. Returns
-    contiguous (dq, dk, dv) in q's dtype.
+    offset. Head widths as ``attention_fwd`` (any other than 16, 32, 64 and
+    128 up to 128 through ``padded_attention_bwd``). Returns contiguous
+    (dq, dk, dv) in q's dtype.
 
     Both dtypes run on the tensor cores. f32 computes each product as
     three TF32 products of operands split into hi and lo parts (3xTF32),
@@ -478,22 +574,40 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     ``cp.async``, so q/k/v/g need 16-byte aligned data pointers and batch
     and row strides (a multiple of 4 f32 or 8 bf16 elements; the fused-QKV
     column views have them); anything else raises ``ValueError``."""
-    global K2_LAUNCHES
     B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
     dev = q.device
     if g.shape != q.shape or g.dtype != q.dtype or g.device != dev:
         raise ValueError(f"attention_bwd: g {tuple(g.shape)} {g.dtype} "
                          f"must match q {tuple(q.shape)} {q.dtype}")
-    if g.stride(-1) != 1:
-        g = g.contiguous()
-    _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
     if lse.shape != (B, n_heads, Tq) or lse.dtype != torch.float32 \
             or lse.device != dev or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous f32 "
                          "(B, H, Tq)")
+    D = hidden // n_heads
+    width = kernel_head_dim(D)
+    if width != D:
+        return padded_attention_bwd(_k2_launch, width, q, k, v, key_pad,
+                                    static, g, lse, n_heads, scale,
+                                    dropout_rate, seed, draw_offset)
+    return _k2_launch(q, k, v, key_pad, static, g, lse, n_heads, scale,
+                      dropout_rate, seed, draw_offset)
+
+
+def _k2_launch(q, k, v, key_pad, static, g, lse, n_heads: int, scale: float,
+               dropout_rate: float = 0.0, seed: SeedLike = 0,
+               draw_offset: Tuple[int, int] = (0, 0)):
+    """K2's launch on checked operands whose head width is one of
+    ``HEAD_DIMS``."""
+    global K2_LAUNCHES
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
+    B, Tq, hidden = q.shape
+    Tk = k.shape[1]
+    dev = q.device
     key = _dropout_key(dropout_rate, seed, dev)
-    fn = _k2_lib()
+    fn = _k2_lib(hidden // n_heads)
     dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
     dv = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)

@@ -2,10 +2,11 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``. Libraries land in ``build/torch_kernels/``
-beside the package (git-ignored), named by a hash of the source and the
-shared headers, so a changed source or header rebuilds and an unchanged
-one loads at once. A failed build raises with the compiler's output.
-Nothing here runs at import time.
+beside the package (git-ignored), named by a hash of every file in
+``csrc/`` (a source may include another: ``attention_fwd_d64.cu`` is
+``attention_fwd.cu`` at another head width), so a changed file rebuilds and
+an unchanged tree loads at once. A failed build raises with the compiler's
+output. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -43,9 +45,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Path of ``csrc/<name>.cu``'s library, keyed by a hash of the source,
-    the headers beside it (``csrc/*.cuh``) and the compiler flags."""
+    every other file of ``csrc/`` and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cu*"))]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -67,13 +69,24 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
+    logs = {}
+
+    def finish(name):                      # each build's own seconds
+        proc, _, _, t0 = jobs[name]
+        logs[name] = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
+
+    waiters = [threading.Thread(target=finish, args=(n,)) for n in jobs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    failed = []
+    for name, (proc, tmp, out, _) in jobs.items():
+        out.with_suffix(".log").write_text(logs[name])
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc rc {proc.returncode}) ---\n{log}")
+            failed.append(f"--- {name} (nvcc rc {proc.returncode}) ---\n"
+                          f"{logs[name]}")
             continue
         os.replace(tmp, out)               # atomic: concurrent builds agree
     if failed:

@@ -24,8 +24,10 @@ Dispatch follows ``ops/attention.py``: under ``"bwd"``/``"full"`` CPU
 tensors take the plain versions inside the same Functions, and CUDA tensors
 launch the kernel or raise; nothing falls back. The launch is keyed on the
 switch and the device, not on JAX's ``H % 128`` rule (:236), a TPU tiling
-fact: the kernels take any H that is a multiple of 32 up to 1024, and one
-dtype (f32 or bf16) for x and the output, as every norm of the model has.
+fact: the kernels take every H from 1 to 4096 (``ln_plan`` picks a row a
+warp up to 1024 and a row a block above, and the vector width the row's
+alignment allows), and one dtype (f32 or bf16) for x and the output, as
+every norm of the model has.
 """
 
 from __future__ import annotations
@@ -51,9 +53,49 @@ K3_LAUNCHES = 0
 K4_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_H = 1024
+# the widest row a warp holds, and the widest the kernels take (a row a
+# block of 8 warps): kMaxH and kMaxWideH in csrc/layernorm.cu
+_WARP_MAX_H = 1024
+_MAX_H = 4096
 # K4's pass 1: warps a block (kWarps in csrc/layernorm.cu)
 _K4_WARPS = 8
+
+
+class LNPlan(NamedTuple):
+    """How K3 and K4 lay out a row of H values: ``variant`` ``"warp"`` (a
+    row a warp, ``csrc/layernorm.cu``) or ``"block"`` (a row a block of 8
+    warps, ``csrc/layernorm_wide.cu``); ``lanes`` the threads a row (32 or
+    256); ``epl`` the values a lane holds (a power of two); ``vec`` the
+    values a load or store moves (a power of two dividing H, at most 16
+    bytes). Lane l holds columns ``(l + lanes j) vec + e`` for ``j <
+    epl / vec`` and ``e < vec``, those past H as zeros."""
+    variant: str
+    lanes: int
+    epl: int
+    vec: int
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def ln_plan(H: int, dtype: torch.dtype) -> LNPlan:
+    """K3/K4's layout of a row of ``H`` values of ``dtype`` (f32 or
+    bf16): a row a warp up to 1024 columns, a row a block above, up to
+    4096 (wider raises ``ValueError``); ``epl`` = H / lanes rounded up to a
+    power of two; ``vec`` the widest power of two up to ``epl`` and 16
+    bytes that divides H (so every access is aligned in every row). At a
+    multiple of 32 up to 1024 this is the layout the kernels had when they
+    took only those widths."""
+    if not 1 <= H <= _MAX_H:
+        raise ValueError(f"LayerNorm width {H}: the kernels take widths from "
+                         f"1 to {_MAX_H}")
+    variant, lanes = ("warp", 32) if H <= _WARP_MAX_H else ("block", 256)
+    epl = _pow2_ceil(-(-H // lanes))
+    vec = min(epl, 16 // torch.empty((), dtype=dtype).element_size())
+    while H % vec:
+        vec //= 2
+    return LNPlan(variant, lanes, epl, vec)
 
 
 def _out_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -101,17 +143,19 @@ def layer_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
 # K3 / K4 wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
+def _lib(variant: str = "warp"):
+    """The library of a plan's variant: ``layernorm`` (a row a warp) or
+    ``layernorm_wide`` (a row a block)."""
     from . import build
 
-    lib = build.load("layernorm")
+    lib = build.load("layernorm" if variant == "warp" else "layernorm_wide")
     if lib.mmfm_layernorm_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mmfm_layernorm_fwd.argtypes = [p] * 4 + [i, i, f, i, p]
+        lib.mmfm_layernorm_fwd.argtypes = [p] * 4 + [i] * 4 + [f, i, p]
         lib.mmfm_layernorm_fwd.restype = i
-        lib.mmfm_layernorm_bwd.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
+        lib.mmfm_layernorm_bwd.argtypes = [p] * 6 + [i] * 6 + [f, i, p]
         lib.mmfm_layernorm_bwd.restype = i
-        lib.mmfm_layernorm_bwd_blocks_per_sm.argtypes = [i, i]
+        lib.mmfm_layernorm_bwd_blocks_per_sm.argtypes = [i] * 4
         lib.mmfm_layernorm_bwd_blocks_per_sm.restype = i
     return lib
 
@@ -126,17 +170,19 @@ class K4Plan(NamedTuple):
     parts: int
 
 
-def _k4_plan(rows: int, n_sm: int, blocks_per_sm: int) -> K4Plan:
+def _k4_plan(rows: int, n_sm: int, blocks_per_sm: int,
+             rows_at_once: int = _K4_WARPS) -> K4Plan:
     """K4's grid for ``rows`` rows on a card of ``n_sm`` SMs, each holding
-    ``blocks_per_sm`` pass-1 blocks at once. A warp walks its rows one after
-    another, so the time goes with the most rows a warp gets: the fewest
-    that one wave of blocks allows, in as few blocks as give that (each
-    block adds a partial row to pass 2), and a block an SM at least
-    wherever there are that many rows. The grid is at most one wave
-    (``n_sm * blocks_per_sm``)."""
+    ``blocks_per_sm`` pass-1 blocks at once; a block works on
+    ``rows_at_once`` rows at a time (a row a warp: 8; a row a block: 1). A
+    warp (or block) walks its rows one after another, so the time goes with
+    the most rows a warp gets: the fewest that one wave of blocks allows, in
+    as few blocks as give that (each block adds a partial row to pass 2),
+    and a block an SM at least wherever there are that many rows. The grid
+    is at most one wave (``n_sm * blocks_per_sm``)."""
     wave = n_sm * blocks_per_sm
-    warp_rows = max(1, -(-rows // (_K4_WARPS * wave)))
-    grid = -(-rows // (_K4_WARPS * warp_rows))
+    warp_rows = max(1, -(-rows // (rows_at_once * wave)))
+    grid = -(-rows // (rows_at_once * warp_rows))
     if rows >= n_sm:
         grid = max(grid, n_sm)
     return K4Plan(grid, rows // grid, grid)
@@ -149,11 +195,14 @@ _K4_CARD: Dict[tuple, Tuple[int, int]] = {}
 def _k4_card(lib, dev: torch.device, H: int,
              dtype: torch.dtype) -> Tuple[int, int]:
     """The SM count of ``dev`` and the pass-1 blocks an SM holds at width
-    ``H``, read once for each device, width and dtype."""
+    ``H`` (``lib``: the library of its plan's variant), read once for each
+    device, width and dtype."""
     key = (dev.index, H, dtype)
     if key not in _K4_CARD:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        per_sm = lib.mmfm_layernorm_bwd_blocks_per_sm(H, _DTYPE_CODE[dtype])
+        plan = ln_plan(H, dtype)
+        per_sm = lib.mmfm_layernorm_bwd_blocks_per_sm(H, plan.epl, plan.vec,
+                                                      _DTYPE_CODE[dtype])
         if per_sm < 1:
             raise RuntimeError(f"layernorm_bwd: no pass-1 block fits an SM "
                                f"(H {H}, {dtype})")
@@ -172,9 +221,9 @@ def _rows(name: str, x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
     H = x.shape[-1]
-    if H % 32 or not 32 <= H <= _MAX_H:
-        raise ValueError(f"{name}: width {H}; the kernel takes a multiple "
-                         f"of 32 up to {_MAX_H}")
+    if not 1 <= H <= _MAX_H:
+        raise ValueError(f"{name}: width {H}; the kernels take widths from "
+                         f"1 to {_MAX_H}")
     x2 = x.reshape(-1, H).contiguous()
     return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
 
@@ -196,8 +245,8 @@ def layernorm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch K3 on a CUDA tensor; same contract as ``layer_norm``, with the
-    output dtype equal to x's (f32 or bf16) and H a multiple of 32 up to
-    1024. Returns a contiguous tensor of x's shape."""
+    output dtype equal to x's (f32 or bf16) and H from 1 to 4096 (laid out
+    by ``ln_plan``). Returns a contiguous tensor of x's shape."""
     global K3_LAUNCHES
     x2 = _rows("layernorm_fwd", x, weight, bias)
     if _out_dtype(x, dtype) != x.dtype:
@@ -207,11 +256,13 @@ def layernorm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     w, b = _param("layernorm_fwd", weight, H), _param("layernorm_fwd", bias, H)
     y = torch.empty_like(x2)
     if rows:
+        plan = ln_plan(H, x2.dtype)
         with torch.cuda.device(x2.device):
             stream = torch.cuda.current_stream(x2.device).cuda_stream
-            _check_rc("layernorm_fwd", _lib().mmfm_layernorm_fwd(
+            _check_rc("layernorm_fwd", _lib(plan.variant).mmfm_layernorm_fwd(
                 x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                rows, H, float(eps), _DTYPE_CODE[x2.dtype], stream))
+                rows, H, plan.epl, plan.vec, float(eps),
+                _DTYPE_CODE[x2.dtype], stream))
         K3_LAUNCHES += 1
     return y.reshape(x.shape)
 
@@ -239,18 +290,23 @@ def layernorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     if not rows:
         out = torch.zeros(2 * H, dtype=torch.float32, device=dev)
         return dx.reshape(x.shape), out[:H], out[H:]
-    lib = _lib()
+    layout = ln_plan(H, x2.dtype)
+    lib = _lib(layout.variant)
     with torch.cuda.device(dev):
-        plan = _k4_plan(rows, *_k4_card(lib, dev, H, x2.dtype))
-        # dscale and dbias (2, H), then the scratch (2, parts, H)
-        buf = torch.empty((2 + 2 * plan.parts) * H, dtype=torch.float32,
-                          device=dev)
+        plan = _k4_plan(rows, *_k4_card(lib, dev, H, x2.dtype),
+                        _K4_WARPS if layout.variant == "warp" else 1)
+        # dscale and dbias (2, H) padded to a multiple of 8 floats, then the
+        # scratch (2, parts, H) and 8 floats: pass 2's blocks of 8 columns
+        # reach past 2H there (mmfm_layernorm_bwd)
+        out_len = -(-2 * H // 8) * 8
+        buf = torch.empty(out_len + 2 * plan.parts * H + 8,
+                          dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check_rc("layernorm_bwd", lib.mmfm_layernorm_bwd(
             x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-            buf.data_ptr(), buf[2 * H:].data_ptr(), plan.grid,
-            plan.rows_per_tile, rows, H, float(eps), _DTYPE_CODE[x2.dtype],
-            stream))
+            buf.data_ptr(), buf[out_len:].data_ptr(), plan.grid,
+            plan.rows_per_tile, rows, H, layout.epl, layout.vec, float(eps),
+            _DTYPE_CODE[x2.dtype], stream))
     K4_LAUNCHES += 1
     return dx.reshape(x.shape), buf[:H], buf[H:2 * H]
 

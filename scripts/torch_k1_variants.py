@@ -19,7 +19,7 @@ build's ``ptxas`` registers and spills per kernel, each check, each timing.
 The variants:
 
 - ``base``: the committed kernel (f32 k/v tiles in one buffer, bf16 in
-  two: ``Tc<T>::kFwdBufs``).
+  two: ``Tc<T, D>::kFwdBufs``); all at head width 32.
 - ``b_split_in_registers``: the f32 k and v tiles kept as one f32 plane
   (half the shared memory again) and each B fragment split into hi and lo
   in registers where it is read.
@@ -53,7 +53,9 @@ from multi_modal_foundation_model_tpu_torch.ops import build  # noqa: E402
 
 SPLIT_HELPERS = '''
 // b_split_in_registers: mma_rows_3x / mma_cols_3x on one f32 plane, each B
-// fragment split where it is read
+// fragment split where it is read (at D = 32, the width it was measured at)
+constexpr int kLdF = ld_f32(32);
+
 __device__ __forceinline__ void mma_rows_3x_r(float (&acc)[8][4],
                                               const uint32_t (&ah)[4][4],
                                               const uint32_t (&al)[4][4],
@@ -115,14 +117,15 @@ VARIANTS = {
     "base": {},
     "b_split_in_registers": {
         "tc_traits.cuh": [
-            ("  static constexpr int kElems = 2 * kPlaneF;",
-             "  static constexpr int kElems = kPlaneF;"),
-            ("    mma_rows_3x(acc, a.hi, a.lo, tile, lane, n_valid);",
+            ("  static constexpr int kElems = 2 * plane_f32(D);",
+             "  static constexpr int kElems = plane_f32(D);"),
+            ("    mma_rows_3x<D>(acc, a.hi, a.lo, tile, lane, n_valid);",
              "    mma_rows_3x_r(acc, a.hi, a.lo, tile, lane, n_valid);"),
-            ("    mma_cols_3x(out, acc, tile, lane, n_valid);",
+            ("    mma_cols_3x<D>(out, acc, tile, lane, n_valid);",
              "    mma_cols_3x_r(out, acc, tile, lane, n_valid);"),
             # K1 lands its tiles with kScale = false: nothing to do
-            ("    land_split<kScale>(p, mul);", "    (void)p;\n    (void)mul;"),
+            ("    land_split<D, kScale>(p, mul);",
+             "    (void)p;\n    (void)mul;"),
         ],
         "mma_tf32.cuh": [("\n}  // namespace mmfm\n", SPLIT_HELPERS)],
     },
@@ -224,7 +227,7 @@ def main() -> int:
         order = list(fns)
         for sweep in (order, order[::-1]):
             for name in sweep:
-                att._k1_lib = lambda fn=fns[name]: fn
+                att._k1_lib = lambda head_dim=32, fn=fns[name]: fn
                 for (dtype, kind), args in shapes.items():
                     q, k, v, key_pad, static, H, scale, with_lse, rate = args
 

@@ -113,7 +113,7 @@ def main() -> int:
                            emulation_vs_plain=_err(emulated, plain),
                            emulation_vs_f64=_err(emulated, f64))
                 for name, fn in libs.items():
-                    att._k2_lib = lambda fn=fn: fn
+                    att._k2_lib = lambda head_dim=32, fn=fn: fn
                     got = att.attention_bwd(*args)
                     row[name] = dict(vs_plain=_err(got, plain),
                                      vs_f64=_err(got, f64),
@@ -136,7 +136,7 @@ def main() -> int:
         lse = {r: att.attention_fwd(q, k, v, key_pad, static, H, scale, True,
                                     r, 1234)[1] for r in rates}
         for name in [*libs, *reversed(libs)]:
-            att._k2_lib = lambda fn=libs[name]: fn
+            att._k2_lib = lambda head_dim=32, fn=libs[name]: fn
             for rate in rates:
                 ms = chip_smoke.cuda_time_ms(lambda: att.attention_bwd(
                     q, k, v, key_pad, static, g, lse[rate], H, scale, rate,

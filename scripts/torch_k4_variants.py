@@ -12,10 +12,12 @@ apply exactly once) and, with ``--parent``, another checkout's (say the
 parent commit's, unpacked by ``git archive``); ``--only`` keeps the named
 builds. Every build gets one more export, ``mmfm_probe_blocks_per_sm``:
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the pass-1 kernel
-``ln_bwd_dx_kernel<T, 8>`` (H = 256). A build that still has the two-pass
+``ln_bwd_dx_kernel<T, 8, 16 / sizeof(T)>`` (H = 256). A build that still has the two-pass
 C interface of the first K4 (``mmfm_layernorm_bwd_rows_per_block``) is
 driven through it here; the others are swapped in for
-``ops.layernorm._lib`` and driven through ``layernorm_bwd``.
+``ops.layernorm._lib`` and driven through ``layernorm_bwd``, so they need
+its C interface (the plan's values a lane and vector width: a checkout
+from before head-width and vector-width support takes neither).
 
 At the two row counts of the training step, 3,200 x 256 (B=16) and
 51,200 x 256 (B=256), f32 and bf16, each build is checked against
@@ -96,39 +98,39 @@ extern "C" int mmfm_probe_blocks_per_sm(int dtype) {
   int n = -1;
   if (dtype == 0)
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, ln_bwd_dx_kernel<float, 8>, kThreads, 0);
+        &n, ln_bwd_dx_kernel<float, 8, 4>, kThreads, 0);
   else
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, ln_bwd_dx_kernel<__nv_bfloat16, 8>, kThreads, 0);
+        &n, ln_bwd_dx_kernel<__nv_bfloat16, 8, 8>, kThreads, 0);
   return n;
 }
 '''
 
 PIN = "__launch_bounds__(kThreads, kEpl <= 8 ? 2 : 1)\nln_bwd_dx_kernel"
-SLOT_HEAD = """  RawRow<T, kEpl> xr, gr;
+SLOT_HEAD = """  RawRow<T, kEpl, kV> xr, gr;
   int row = begin + warp;
   if (row < end) {
-    fetch_row<T, kEpl>(x + (long long)row * H, H, lane, xr);
-    fetch_row<T, kEpl>(g + (long long)row * H, H, lane, gr);
+    fetch_row<T, kEpl, kV>(x + (long long)row * H, H, lane, xr);
+    fetch_row<T, kEpl, kV>(g + (long long)row * H, H, lane, gr);
   }
   for (; row < end; row += kWarps) {
     float xv[kEpl], gv[kEpl];
-    unpack_row<T, kEpl>(xr, xv);
-    unpack_row<T, kEpl>(gr, gv);
+    unpack_row<T, kEpl, kV>(xr, xv);
+    unpack_row<T, kEpl, kV>(gr, gv);
     if (row + kWarps < end) {
       const long long next = (long long)(row + kWarps) * H;
-      fetch_row<T, kEpl>(x + next, H, lane, xr);
-      fetch_row<T, kEpl>(g + next, H, lane, gr);
+      fetch_row<T, kEpl, kV>(x + next, H, lane, xr);
+      fetch_row<T, kEpl, kV>(g + next, H, lane, gr);
     }
 """
 RING_HEAD = """  constexpr int kDepth = DEPTH;
-  RawRow<T, kEpl> xr[kDepth], gr[kDepth];
+  RawRow<T, kEpl, kV> xr[kDepth], gr[kDepth];
 #pragma unroll
   for (int d = 0; d < kDepth; ++d) {
     const int r = begin + warp + d * kWarps;
     if (r < end) {
-      fetch_row<T, kEpl>(x + (long long)r * H, H, lane, xr[d]);
-      fetch_row<T, kEpl>(g + (long long)r * H, H, lane, gr[d]);
+      fetch_row<T, kEpl, kV>(x + (long long)r * H, H, lane, xr[d]);
+      fetch_row<T, kEpl, kV>(g + (long long)r * H, H, lane, gr[d]);
     }
   }
   for (int r0 = begin + warp; r0 < end; r0 += kDepth * kWarps) {
@@ -137,15 +139,15 @@ RING_HEAD = """  constexpr int kDepth = DEPTH;
     const int row = r0 + d * kWarps;
     if (row >= end) break;
     float xv[kEpl], gv[kEpl];
-    unpack_row<T, kEpl>(xr[d], xv);
-    unpack_row<T, kEpl>(gr[d], gv);
+    unpack_row<T, kEpl, kV>(xr[d], xv);
+    unpack_row<T, kEpl, kV>(gr[d], gv);
     if (row + kDepth * kWarps < end) {
       const long long next = (long long)(row + kDepth * kWarps) * H;
-      fetch_row<T, kEpl>(x + next, H, lane, xr[d]);
-      fetch_row<T, kEpl>(g + next, H, lane, gr[d]);
+      fetch_row<T, kEpl, kV>(x + next, H, lane, xr[d]);
+      fetch_row<T, kEpl, kV>(g + next, H, lane, gr[d]);
     }
 """
-STORE = "    store_row<T, kEpl>(dx + (long long)row * H, H, lane, out);\n"
+STORE = "    store_row<T, kEpl, kV>(dx + (long long)row * H, H, lane, out);\n"
 
 
 def ring(depth: int) -> list:
@@ -154,8 +156,8 @@ def ring(depth: int) -> list:
             (STORE + "  }\n\n  float* part", STORE + "  }\n  }\n\n  float* part")]
 
 
-TICKET_FINISH = """  block_sum<T, kEpl>(acc_db, red, part + (long long)gridDim.x * H, H, lane,
-                     warp);
+TICKET_FINISH = """  block_sum<T, kEpl, kV>(acc_db, red, part + (long long)gridDim.x * H, H,
+                         lane, warp);
   // the last block to finish sums the partial rows in block order: thread
   // t adds the float4 of columns 4 (t % 128) in rows t / 128, + 2, ..., and
   // the two splits are added in order
@@ -264,13 +266,13 @@ VARIANTS: dict = {
         ("    part[c] = s;", "    part[(long long)c * gridDim.x] = s;"),
         ("  float* part = parts + (long long)blockIdx.x * H;",
          "  float* part = parts + blockIdx.x;"),
-        ("  block_sum<T, kEpl>(acc_db, red, part + (long long)gridDim.x * H,",
-         "  block_sum<T, kEpl>(acc_db, red, part + (long long)H * gridDim.x,"),
+        ("  block_sum<T, kEpl, kV>(acc_db, red, part + (long long)gridDim.x * H,",
+         "  block_sum<T, kEpl, kV>(acc_db, red, part + (long long)H * gridDim.x,"),
         (None, COLUMN_COLSUM),
-        ("""  ln_bwd_colsum_kernel<<<(unsigned)(2 * H / kSplitCols), kThreads, 0,
-                         stream>>>(parts, out, grid, H);""",
-         """  ln_bwd_colsum_kernel<<<(unsigned)(2 * H / kWarps), kThreads, 0,
-                         stream>>>(parts, out, grid, 2 * H);"""),
+        ("""    ln_bwd_colsum_kernel<<<(unsigned)((2 * H + kSplitCols - 1) / kSplitCols),
+                           kThreads, 0, stream>>>(parts, out, grid, H);""",
+         """    ln_bwd_colsum_kernel<<<(unsigned)(2 * H / kWarps), kThreads, 0,
+                           stream>>>(parts, out, grid, 2 * H);"""),
     ],
     "diag_hot_rows": [(FETCH, FETCH.replace("(row + kWarps) * H",
                                             "(begin + warp) * H"))],
@@ -279,9 +281,9 @@ VARIANTS: dict = {
         ("constexpr int kMaxH = 1024;\n",
          "constexpr int kMaxH = 1024;\n__device__ int g_ticket = 0;\n"),
         (TICKET_FINISH.split("  // the last")[0], TICKET_FINISH),
-        ("""  ln_bwd_colsum_kernel<<<(unsigned)(2 * H / kSplitCols), kThreads, 0,
-                         stream>>>(parts, out, grid, H);
-  return cudaGetLastError();""", "  (void)out;\n  return cudaSuccess;"),
+        ("""    ln_bwd_colsum_kernel<<<(unsigned)((2 * H + kSplitCols - 1) / kSplitCols),
+                           kThreads, 0, stream>>>(parts, out, grid, H);
+    return cudaGetLastError();""", "    (void)out;\n    return cudaSuccess;"),
     ],
 }
 
@@ -419,7 +421,8 @@ def wrapper_call(cdll, attrs: dict):
 
     def call(x, w, g, eps=EPS):
         original = {k: getattr(ln, k) for k in ("_lib", "_K4_CARD", *attrs)}
-        for k, v in dict(attrs, _lib=lambda: cdll, _K4_CARD=card).items():
+        for k, v in dict(attrs, _lib=lambda variant="warp": cdll,
+                         _K4_CARD=card).items():
             setattr(ln, k, v)
         try:
             return ln.layernorm_bwd(x, w, g, eps)

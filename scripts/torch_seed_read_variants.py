@@ -175,8 +175,8 @@ def main() -> int:
                 if name == "by_value":
                     fwd = _by_value(fwd, K1_SEED_ARG, seed)
                     bwd = _by_value(bwd, K2_SEED_ARG, seed)
-                att._k1_lib = lambda fn=fwd: fn
-                att._k2_lib = lambda fn=bwd: fn
+                att._k1_lib = lambda head_dim=32, fn=fwd: fn
+                att._k2_lib = lambda head_dim=32, fn=bwd: fn
                 for dtype, (q, k, v, key_pad, static, H, scale, g) in \
                         ops.items():
                     out, lse = att.attention_fwd(q, k, v, key_pad, static,

@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Time the port's single-session training steps on one card.
+
+    python3 scripts/torch_step_time.py
+
+Builds the port's kernels (TF32 off, as ``chip_smoke.py`` does) and runs
+the step timings that ``chip_smoke.py`` checks the paths of but no longer
+times: ``chip_smoke.host_split_worker`` (the eager B=16 step's host time
+by kind, with and without remat, f32 and bf16), ``chip_smoke.dispatch_time``
+(the eager host-batch step against the
+CUDA-graph step at B=16 and B=256, f32 under the port's default LayerNorm
+mode and bf16 under ``"full"``, interleaved, with profiles, capture seconds
+and peak memory), ``chip_smoke.plain_step_time`` (the plain path's f32
+step at B=16 and B=256) and ``chip_smoke.layernorm_ab`` (kernel-path
+steps under ``"off"``, ``"bwd"`` and ``"full"`` interleaved, f32 and bf16,
+B=16 and B=256, with profiles), then the ``layernorm_default`` line (the
+mode the A/B rule picks at B=256 beside the default in the code), the
+``nvidia-smi`` reading and the wall time. The full-width model is
+``chip_smoke``'s (N=668 + 2, T=100, H=256, 8 heads, 5+5 layers).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from multi_modal_foundation_model_tpu_torch.ops import build
+    from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build_s = build.build(build.kernel_sources())
+    out = ROOT / "build"
+    default = ln.PALLAS_LAYERNORM
+    t_time = time.perf_counter()
+    cs.host_split_worker("this", out)
+    cs.dispatch_time(out, torch.float32, default)
+    cs.dispatch_time(out, torch.bfloat16, "full")
+    cs.plain_step_time(out)
+    picks = {cs.dtype_name(dt): cs.layernorm_ab(out, dt)
+             for dt in cs.DTYPES}
+    cs.emit(phase="layernorm_default", rule_pick_at_b256=picks,
+            default_in_code=default)
+    print(cs.nvidia_smi(), flush=True)
+    print(json.dumps(dict(phase="step_time_wall",
+                          total_s=time.perf_counter() - t_time,
+                          build_s=build_s,
+                          wall_s=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

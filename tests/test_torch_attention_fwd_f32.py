@@ -183,7 +183,7 @@ def test_k1_alignment_rule(dtype, monkeypatch):
     class Reached(Exception):
         pass
 
-    def lib():
+    def lib(head_dim=32):
         raise Reached
 
     monkeypatch.setattr(tatt, "_check_operands",

@@ -130,9 +130,12 @@ def test_k1_rejects_what_it_does_not_take():
     with pytest.raises(TypeError):
         tatt.attention_fwd(q.half(), q.half(), q.half(), key_pad, static, H,
                            1.0)
-    with pytest.raises(ValueError):              # head width 24
-        tatt.attention_fwd(q[..., :96], q[..., :96], q[..., :96], key_pad,
-                           static, H, 1.0)
+    wide = torch.randn(B, T, H * 160, device="cuda")
+    with pytest.raises(ValueError, match="up to 128"):   # head width 160
+        tatt.attention_fwd(wide, wide, wide, key_pad, static, H, 1.0)
+    with pytest.raises(ValueError, match="up to 128"):
+        tatt.attention_bwd(wide, wide, wide, key_pad, static, wide,
+                           torch.zeros(B, H, T, device="cuda"), H, 1.0)
     with pytest.raises(ValueError):              # non-unit inner stride
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         tatt.attention_fwd(qt, q, q, key_pad, static, H, 1.0)
@@ -147,6 +150,61 @@ def test_k1_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):              # g in q's dtype
         tatt.attention_bwd(q, q, q, key_pad, static, q.bfloat16(),
                            torch.zeros(B, H, T, device="cuda"), H, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", [8, 16, 24, 40, 64, 128])
+def test_k1_k2_head_widths_match_plain(width, rate, dtype):
+    """K1 and K2 at head widths other than the model's 32: 16, 64 and 128
+    compiled, 8, 24 and 40 through heads zero-padded to 16, 32 and 64; one
+    launch each, through the fused-QKV column views, random masks, T = 70
+    (ragged tiles), against the plain versions with the dots of the
+    kernel's dtype: f32 (3xTF32) out, lse and dq/dk/dv atol 1e-5 (K2 rtol
+    1e-6, as ``_k2_gates``); bf16 out and dq/dk/dv within 1e-2 (1 +
+    |plain|), lse 1e-5 (1 + |lse|). The padded launches' outputs are
+    contiguous at the true width."""
+    _need_cuda()
+    heads = max(1, 128 // width)
+    hidden = heads * width
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    qkv = torch.randn(3, 70, 3 * hidden, device="cuda", generator=gen)
+    q, k, v = qkv.to(dtype).split(hidden, dim=-1)
+    g = torch.randn(3, 70, hidden, device="cuda", generator=gen).to(dtype)
+    rng = np.random.default_rng(width)
+    pad = (rng.random((3, 70)) > 0.3).astype(np.int32)
+    pad[0] = 1
+    key_pad = torch.from_numpy(pad).cuda()
+    static = torch.from_numpy((rng.random((70, 70)) > 0.8)
+                              .astype(np.int32)).cuda()
+    scale = width ** -0.5
+    n1, n2 = tatt.K1_LAUNCHES, tatt.K2_LAUNCHES
+    out, lse = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                  True, rate, 13)
+    grads = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, heads,
+                               scale, rate, 13)
+    torch.cuda.synchronize()
+    assert (tatt.K1_LAUNCHES - n1, tatt.K2_LAUNCHES - n2) == (1, 1)
+    assert out.shape == q.shape and out.is_contiguous()
+    want, want_lse = tatt.attention_reference(
+        q, k, v, key_pad, static, heads, scale, True, rate, 13,
+        dots_dtype=dtype)
+    want_g = tatt.attention_bwd_reference(
+        q, k, v, key_pad, static, g, lse, heads, scale, rate, 13,
+        dots_dtype=dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+    else:
+        _within(out, want, 1e-2, "out")
+        _within(lse, want_lse, 1e-5, "lse")
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+            assert a.shape == q.shape and a.is_contiguous(), name
+            _within(a, b, 1e-2, name)
 
 
 @pytest.mark.cuda
@@ -715,12 +773,17 @@ def _normwise(a, b):
 @pytest.mark.parametrize("rows,width", [(37 * 4, 256), (50 * 4, 64),
                                         (1001, 256), (129, 96),
                                         (3, 1024), (1, 256), (3200, 256),
-                                        (51200, 256), (51199, 256)])
+                                        (51200, 256), (51199, 256),
+                                        (3200, 48), (129, 100), (65, 3),
+                                        (33, 1001), (3200, 2048),
+                                        (129, 1025), (65, 4096)])
 def test_k3_k4_match_plain(rows, width, dtype):
     """K3 and K4 against ``layer_norm`` / ``layer_norm_bwd_reference``:
     odd row counts (ragged warps and blocks), H = 64, 96, 256, 1024; one
     row; the training step's 3,200 (B=16) and 51,200 (B=256) rows, and
-    51,199, whose last K4 tile is short."""
+    51,199, whose last K4 tile is short; widths that are not a multiple of
+    32 (48, 100, 3, 1001: vector widths 2, 4, 1, 1) and above 1024 (a row
+    a block: 2048, 1025, 4096)."""
     _need_cuda()
     dt, tol = getattr(torch, dtype), LN_TOL[dtype]
     x, w, b, dy = _ln_operands(rows, width, dt)
@@ -809,42 +872,46 @@ def test_k4_cuda_graph_replay_matches_eager(rows, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("width", [64, 256, 1024])
+@pytest.mark.parametrize("width", [48, 64, 256, 1024, 2048])
 def test_k4_plan_is_one_wave_on_the_card(width, dtype):
     """The card holds at least one pass-1 block an SM, so the plan's grid
     (at most SMs x blocks an SM) runs in one wave; the kernel refuses a
-    plan whose tiles leave rows out or hold none."""
+    plan whose tiles leave rows out or hold none, and a layout that is not
+    the planner's kind (a vector width that does not divide H)."""
     _need_cuda()
     dt = getattr(torch, dtype)
-    lib = tln._lib()
+    layout = tln.ln_plan(width, dt)
+    lib = tln._lib(layout.variant)
     n_sm, per_sm = tln._k4_card(lib, torch.device("cuda", 0), width, dt)
     assert n_sm == torch.cuda.get_device_properties(0).multi_processor_count
     assert per_sm >= 1
+    at_once = 8 if layout.variant == "warp" else 1
     for rows in (3200, 51200):
-        plan = tln._k4_plan(rows, n_sm, per_sm)
+        plan = tln._k4_plan(rows, n_sm, per_sm, at_once)
         assert min(n_sm, rows) <= plan.grid <= n_sm * per_sm
     x, w, _, dy = _ln_operands(100, width, dt)
     dx = torch.empty_like(x)
     buf = torch.empty(2 * width * 40, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for grid, tile in ((9, 10), (11, 10), (10, 0)):
+    for grid, tile, vec in ((9, 10, layout.vec), (11, 10, layout.vec),
+                            (10, 0, layout.vec), (10, 10, 3)):
         rc = lib.mmfm_layernorm_bwd(
             x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             buf.data_ptr(), buf[2 * width:].data_ptr(), grid, tile, 100,
-            width, 1e-5, tln._DTYPE_CODE[dt], stream)
+            width, layout.epl, vec, 1e-5, tln._DTYPE_CODE[dt], stream)
         assert rc != 0
 
 
 @pytest.mark.cuda
 def test_k3_k4_reject_what_they_do_not_take():
-    """Widths that are not a multiple of 32 up to 1024, an output dtype
-    other than x's, g in another dtype, and CPU tensors raise."""
+    """Widths above 4096, an output dtype other than x's, g in another
+    dtype, and CPU tensors raise."""
     _need_cuda()
-    for width in (48, 2048):
+    for width in (4097, 8192):
         x, w, b, dy = _ln_operands(8, width, torch.float32)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="4096"):
             tln.layernorm_fwd(x, w, b)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="4096"):
             tln.layernorm_bwd(x, w, dy)
     x, w, b, dy = _ln_operands(8, 64, torch.bfloat16)
     with pytest.raises(TypeError):               # bf16 -> f32 output
@@ -857,12 +924,12 @@ def test_k3_k4_reject_what_they_do_not_take():
         tln.layernorm_fwd(x.cpu(), w.cpu(), b.cpu(), dtype=torch.bfloat16)
     # under "full", a CUDA tensor of an unsupported width raises in the
     # module: no plain fallback
-    ln = tln.LayerNorm(48).cuda()
+    ln = tln.LayerNorm(4097).cuda()
     old = tln.PALLAS_LAYERNORM
     tln.PALLAS_LAYERNORM = "full"
     try:
         with pytest.raises(ValueError):
-            ln(torch.randn(4, 48, device="cuda"))
+            ln(torch.randn(4, 4097, device="cuda"))
     finally:
         tln.PALLAS_LAYERNORM = old
 
