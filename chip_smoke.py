@@ -193,6 +193,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
    --synthetic`` with 4 heads for one epoch (``head_widths_script``).
    Their times at every width and the library's with each SDPA backend
    are ``scripts/torch_width_time.py``'s.
+15. profile — ``scripts/profile_model.py``'s ``main`` (JAX's profiled step
+   on the flagship: bf16, N=668, ratio 0.3, AdamW; a CUDA-graph replay a
+   step) at B=16 and B=256, 20 timed steps and 3 traced by
+   ``trace_context``: its JSON line (step ms, seq/s, the FLOPs a step,
+   the peak, MFU, loss) beside the card's name and power limit. Gates: the
+   FLOP count (``MFUTracker.flops_of`` of an eager step) equals the same
+   step's count on the plain path (``attn_impl="xla"``, LayerNorm "off")
+   and ``utils/profiling.py::step_flops`` to the FLOP; 0 < MFU < 1; a
+   finite loss; the trace file holds K1 and K2 records and launches K1
+   30, K2 15, K3 62, K4 32 a replayed step (kernel names; traced again, up
+   to 3 times, if the profiler lost records).
+16. plots — ``train_multi_modal`` (one epoch, figures every epoch),
+   ``eval_multi_modal --co_smooth --save_plot`` (3 figures),
+   ``train_baseline`` and ``eval_baseline --save_plot`` (encoding) at full
+   width on the card, then ``scripts/launch/mask_ratio_sweep.sh
+   --synthetic`` over two ratios at one epoch and ``draw_mask_ratio`` over
+   its artifacts. Where matplotlib is missing (the card's machine so far)
+   each leg that draws must raise ``ImportError`` naming matplotlib and
+   then runs without figures (the launches, checkpoints and ``r2.npy`` /
+   ``bps.npy`` are checked either way), and the phase prints ``plots:
+   render not run, matplotlib not installed``.
 
 The second-to-last line repeats the ``nvidia-smi`` reading; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -223,6 +244,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -244,6 +266,10 @@ GEOMETRY = dict(n_channels={"ap": 668, "behavior": 2}, max_F=100,
                 hidden_size=256, n_heads=8, n_enc_layers=5, n_dec_layers=5,
                 inter_size=512, act="gelu")
 N_TRIALS, SEED, CHUNK = 200, 0, 16
+# the train scripts' epoch plots off (the shipped YAMLs draw every 5
+# epochs; the card's machine has no matplotlib): the phases before
+# ``plots`` drive the kernels, and ``plots`` draws
+NO_EPOCH_PLOTS = ["--set", "training.save_plot_every_n_epochs=0"]
 K1_ATTN_PER_FORWARD = 15          # 5 encoder self, 5 decoder self, 5 cross
 # LayerNorms per forward: 2 per encoder layer, 4 per decoder layer, plus
 # encoder_norm and decoder_norm; under remat the in-layer 30 run twice
@@ -331,15 +357,14 @@ def _device_events(prof):
 # up to 19 at 255 s (scripts/torch_profiler_loss.py); host sleep before
 # and after the traced work does not help. The loss is a count of records,
 # not a span of time: a lead-in of 100 us spin kernels lost as many as the
-# 1.4 us draws did. ``traced`` opens each trace with LEAD_IN spin kernels
-# (~10 us each) that take that loss, and refuses a trace that lost all of
-# them. Rarely a trace also loses records after a caught lead-in kernel
+# 1.4 us draws did. ``traced`` opens each trace with the port's lead-in
+# (``utils/profiling.py::profiler_lead_in``: LEAD_IN spin kernels of ~10
+# us each, which ``trace_context`` opens its traces with too) that takes
+# that loss, and refuses a trace that lost all of them. Rarely a trace also loses records after a caught lead-in kernel
 # (in that script, once in 30 traces: all 20 draws), so each caller checks
 # what it counts as well and traces again: ``device_ms_by_kernel`` (each
 # kernel's count a multiple of the calls), ``device_breakdown`` (the fuller
 # of two kept traces), ``dispatch_phase`` (the launches a step).
-LEAD_IN = 256
-LEAD_IN_CYCLES = 20_000
 LEAD_IN_KERNEL = "spin_kernel"     # torch.cuda._sleep's kernel
 TRACE_LOSSES: list = []            # lead-in kernels lost, trace by trace
 
@@ -356,12 +381,13 @@ def traced(cpu: bool = False):
     lead-in kernel came back."""
     from torch.profiler import ProfilerActivity, profile
 
+    from multi_modal_foundation_model_tpu_torch.utils.profiling import (
+        LEAD_IN, profiler_lead_in)
+
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        for _ in range(LEAD_IN):
-            torch.cuda._sleep(LEAD_IN_CYCLES)
-        torch.cuda.synchronize()
+        profiler_lead_in()
         yield prof
         torch.cuda.synchronize()
     caught = sum(1 for evt in prof.events()
@@ -1183,30 +1209,6 @@ def eval_phase(save_root: Path, dtype, mode: str):
 # phase 4: the training path
 # ---------------------------------------------------------------------------
 
-def step_flops(cfg, B: int) -> dict:
-    """Multiply-add operations (x2) of one training step of ``cfg`` at
-    batch ``B``, counted from the shapes: the forward ``F`` (GEMMs of the
-    tokenizers, the 5+5 layers, the context projection and the heads, and
-    the 15 attentions' two products); a step is ``3 F`` (forward, and a
-    backward of twice its products), plus the layers' forward again under
-    remat."""
-    H, T, I = cfg.hidden_size, cfg.max_F, cfg.inter_size
-    tokens = B * T * len(cfg.avail_mod)
-    tok = sum(2 * 2 * B * T * (c * c * cfg.mult + c * cfg.mult * H)
-              for c in cfg.n_channels.values())       # enc + dec tokenizers
-    attn_proj = 2 * tokens * (3 * H * H + H * H)       # qkv + out
-    cross_proj = 2 * tokens * (H * H + 2 * H * H + H * H)
-    mlp = 2 * tokens * 2 * H * I
-    attn = 4 * B * cfg.n_heads * (len(cfg.avail_mod) * T) ** 2 * (
-        H // cfg.n_heads)
-    enc = cfg.n_enc_layers * (attn_proj + mlp + attn)
-    dec = cfg.n_dec_layers * (attn_proj + cross_proj + mlp + 2 * attn)
-    heads = sum(2 * B * T * H * c for c in cfg.n_channels.values())
-    fwd = tok + enc + dec + 2 * tokens * H * H + heads
-    return dict(forward_flops=fwd, step_flops=3 * fwd,
-                step_flops_with_remat=3 * fwd + enc + dec)
-
-
 def _trainer(cfg, loader, val_loader, epochs, log_dir, tcfg_over=None,
              **model_kw):
     from multi_modal_foundation_model_tpu_torch.models import MultiModal
@@ -1870,6 +1872,8 @@ def layernorm_ab(root: Path, dtype) -> str:
     segments; then a profile of one step per mode. Returns the mode the
     rule picks at B=256: the fastest whose gain over "off" exceeds both
     modes' spread, else "off"."""
+    from multi_modal_foundation_model_tpu_torch.utils import profiling
+
     cfg = _cfg(dtype)
     choice = "off"
     for B, reps in ((TRAIN_B, 10), (BIG_B, 3)):
@@ -1898,7 +1902,9 @@ def layernorm_ab(root: Path, dtype) -> str:
         gain = med["off"] - med[best]
         pick = (best if best != "off"
                 and gain > max(spread["off"], spread[best]) else "off")
-        flops = step_flops(cfg, B)
+        # the products of the step (its masker's dilation aside: the MtM
+        # scheme varies by step)
+        flops = profiling.step_flops(cfg, B)
         emit(phase="train_step_time", dtype=dtype_name(dtype), path="pallas",
              batch=B, steps_per_segment=reps, segments_ms=segs,
              ms_per_step=med, spread_ms=spread,
@@ -2098,13 +2104,14 @@ def entry_points_phase(root: Path):
     for direction, modal_filter in BASELINE_FILTERS.items():
         d = log_dir_for(str(base), DEFAULT_EID, modal_filter, "linear")
         runs.append((f"train_baseline_{direction}", train_baseline.main,
-                     common + ["--direction", direction, "--num_epochs",
-                               "2"], d, ()))
+                     common + NO_EPOCH_PLOTS + ["--direction", direction,
+                                                "--num_epochs", "2"], d, ()))
         runs.append((f"eval_baseline_{direction}", eval_baseline.main,
                      common + ["--direction", direction], d, ()))
     runs.append(("train_multi_modal", train_multi_modal.main,
-                 common + mm + ["--num_epochs", "1", "--device_resident",
-                                "--set", "training.steps_per_dispatch=10"],
+                 common + mm + NO_EPOCH_PLOTS + [
+                     "--num_epochs", "1", "--device_resident",
+                     "--set", "training.steps_per_dispatch=10"],
                  mm_dir, ("k1", "k2", "k3", "k4", "philox")))
     runs.append(("eval_multi_modal", eval_multi_modal.main,
                  common + mm + ["--co_smooth", "--forward_pred",
@@ -2588,9 +2595,10 @@ def multisession_entry_phase(root: Path):
                                 "output": ["ap", "behavior"]},
                                "stitched_ratio-0.3"))
     runs = [("train_multi_session", train_multi_session.main,
-             common + ["--use_MtM", "--mixed_training", "--num_epochs", "1",
-                       "--device_resident", "--steps_per_dispatch", "10",
-                       "--num_sessions", str(MS_ENTRY_SESSIONS)],
+             common + NO_EPOCH_PLOTS + [
+                 "--use_MtM", "--mixed_training", "--num_epochs", "1",
+                 "--device_resident", "--steps_per_dispatch", "10",
+                 "--num_sessions", str(MS_ENTRY_SESSIONS)],
              ("k1", "k2", "k3", "k4", "philox")),
             ("eval_multi_session", eval_multi_modal.main,
              common + ["--multi_session", "--model_dir", str(log_dir),
@@ -2599,10 +2607,11 @@ def multisession_entry_phase(root: Path):
              ("k1", "k3")),
             # session-mixed batches (writes over the first run's dir)
             ("train_mixed_multi_session", train_multi_session.main,
-             common + ["--use_MtM", "--mixed_training", "--num_epochs", "1",
-                       "--device_resident", "--steps_per_dispatch", "10",
-                       "--num_sessions", str(MS_ENTRY_SESSIONS),
-                       "--mixed_session_batches"],
+             common + NO_EPOCH_PLOTS + [
+                 "--use_MtM", "--mixed_training", "--num_epochs", "1",
+                 "--device_resident", "--steps_per_dispatch", "10",
+                 "--num_sessions", str(MS_ENTRY_SESSIONS),
+                 "--mixed_session_batches"],
              ("k1", "k2", "k3", "k4", "philox", "session_rows"))]
     counts, walls, failed = {}, {}, []
     for name, main, argv, need in runs:
@@ -3447,8 +3456,8 @@ def real_data_phase(root: Path) -> dict:
              real_datasets_package_present=have["datasets"])
         for name, main, extra, need in (
                 ("train_multi_modal", train_multi_modal.main,
-                 ["--num_epochs", "1", "--device_resident", "--set",
-                  "training.steps_per_dispatch=10"],
+                 NO_EPOCH_PLOTS + ["--num_epochs", "1", "--device_resident",
+                                   "--set", "training.steps_per_dispatch=10"],
                  ("k1", "k2", "k3", "k4", "philox")),
                 ("eval_multi_modal", eval_multi_modal.main, [],
                  ("k1", "k3"))):
@@ -4457,7 +4466,7 @@ def par_script(root: Path) -> dict:
            "multi_modal_foundation_model_tpu_torch.scripts.train_multi_modal",
            "--synthetic", "--use_MtM", "--mixed_training", "--dp", "2",
            "--tp", "2", "--backend", "gloo", "--n_trials", "60",
-           "--num_epochs", "1", "--base_path", str(base)]
+           "--num_epochs", "1", "--base_path", str(base), *NO_EPOCH_PLOTS]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=str(Path(__file__).resolve().parent),
                          capture_output=True, text=True, timeout=600)
@@ -4851,7 +4860,7 @@ def head_width_script(root: Path) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     argv = ["--synthetic", "--device", "cuda", "--overwrite", "--base_path",
             str(base), "--use_MtM", "--mixed_training", "--num_epochs", "1",
-            "--n_trials", "160", "--device_resident",
+            "--n_trials", "160", "--device_resident", *NO_EPOCH_PLOTS,
             "--set", "training.steps_per_dispatch=10",
             "--set", "model.encoder.transformer.n_heads=4",
             "--set", "model.decoder.transformer.n_heads=4"]
@@ -4964,6 +4973,217 @@ def head_widths_phase(root: Path, default: str) -> dict:
     paths["train_multi_modal_4_heads_bfloat16"] = head_width_script(root)
     emit(phase="head_widths_wall", wall_s=time.perf_counter() - t0)
     return dict(rows=rows, ln_err=ln_err, paths=paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: profile_model (step time, the FLOP count, MFU, a trace)
+# ---------------------------------------------------------------------------
+
+PROFILE_STEPS = 20
+PROFILE_WANT = dict(k1=30, k2=15, k3=62, k4=32)    # launches a step
+
+
+def _trace_kernels(trace_dir: Path) -> dict:
+    """Kernel records by ``_KERNEL_GROUPS`` (and the lead-in's) in the one
+    ``tensorboard_trace_handler`` file under ``trace_dir``."""
+    (path,) = trace_dir.glob("*.pt.trace.json")
+    counts = dict.fromkeys([g for g, _ in _KERNEL_GROUPS] + ["lead_in"], 0)
+    for evt in json.loads(path.read_text())["traceEvents"]:
+        if evt.get("cat") != "kernel":
+            continue
+        name = evt.get("name", "")
+        if LEAD_IN_KERNEL in name:
+            counts["lead_in"] += 1
+        for group, key in _KERNEL_GROUPS:
+            if key in name:
+                counts[group] += 1
+    return dict(counts, file=str(path), bytes=path.stat().st_size)
+
+
+def profile_phase(root: Path) -> tuple:
+    """Phase 15 (module docstring). Returns the wrappers' launch counts by
+    path (the step's three Python runs: the counted step, the eager run
+    before the capture, the capture) and the traced replays' by kernel
+    name."""
+    from multi_modal_foundation_model_tpu_torch.scripts import profile_model
+    from multi_modal_foundation_model_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    counts, graph = {}, {}
+    for B in (TRAIN_B, BIG_B):
+        tag = f"profile_b{B}_bf16"
+        for attempt in range(3):      # a trace that lost records: again
+            trace_dir = root / f"chip_smoke_profile_trace_b{B}"
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            reset_counts()
+            rec = profile_model.main(["--batch_size", str(B), "--n_steps",
+                                      str(PROFILE_STEPS), "--trace_dir",
+                                      str(trace_dir)])
+            counts[tag] = read_counts()
+            traced = _trace_kernels(trace_dir)
+            per_step = {k: traced[k] / 3 for k in PROFILE_WANT}
+            if traced["lead_in"] and per_step == PROFILE_WANT:
+                break
+        with ln_mode("off"):
+            plain_step = profile_model.FlagshipStep(B, 668, "cuda",
+                                                    attn_impl="xla")
+            plain = plain_step.count_flops()
+        cfg = plain_step.model.config
+        del plain_step
+        want = profiling.step_flops(cfg, B, temporal_masks=2)
+        graph[f"profile_graph_b{B}_bf16"] = dict(traced, steps=3)
+        ok = (rec["flops_per_step"] == plain
+              == want["step_flops_with_remat"]
+              and 0 < rec["mfu"] < 1 and math.isfinite(rec["loss"])
+              and per_step == PROFILE_WANT
+              and {k: counts[tag][k] for k in PROFILE_WANT}
+              == {k: 3 * v for k, v in PROFILE_WANT.items()}
+              and counts[tag]["philox"] > 0
+              and traced["k1"] > 0 and traced["k2"] > 0)
+        emit(phase="profile", batch=B, dtype="bfloat16", **rec,
+             plain_path_flops=plain, analytic_flops=want,
+             launches_a_step=per_step, wrapper_launches=counts[tag],
+             trace=traced, trace_attempts=attempt + 1, nvidia_smi=smi,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"profile B={B} failed (see the line)")
+        torch.cuda.empty_cache()
+    emit(phase="profile_wall", wall_s=time.perf_counter() - t0)
+    return counts, graph
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the plots (trainers, harnesses, the mask-ratio sweep)
+# ---------------------------------------------------------------------------
+
+SWEEP_RATIOS = ("0.1", "0.3")
+# every leg's device and session size (the sweep's too)
+PLOTS_ARGS = ["--device", "cuda", "--n_trials", "160"]
+
+
+def _needs_matplotlib(fn, argv) -> bool:
+    """Whether ``fn(argv)`` raised ``ImportError`` naming matplotlib (any
+    other exception propagates); False if it ran."""
+    try:
+        fn(argv)
+    except ImportError as err:
+        if "matplotlib" not in str(err):
+            raise
+        return True
+    return False
+
+
+def plots_phase(root: Path) -> dict:
+    """Phase 16 (module docstring). Returns the wrappers' launch counts by
+    leg."""
+    from multi_modal_foundation_model_tpu_torch.scripts import (
+        draw_mask_ratio, eval_baseline, eval_multi_modal, train_baseline,
+        train_multi_modal)
+    from multi_modal_foundation_model_tpu_torch.scripts._common import (
+        DEFAULT_EID, log_dir_for)
+
+    try:
+        import matplotlib  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    t0 = time.perf_counter()
+    base = root / "chip_smoke_plots"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--synthetic", "--overwrite", "--base_path", str(base),
+              *PLOTS_ARGS]
+    mm = ["--use_MtM", "--mixed_training"]
+    mm_dir = Path(log_dir_for(str(base), DEFAULT_EID,
+                              {"input": ["ap", "behavior"],
+                               "output": ["ap", "behavior"]},
+                              "mask-temporal_ratio-0.1_mixed-True"))
+    enc_dir = Path(log_dir_for(str(base), DEFAULT_EID,
+                               {"input": ["behavior"], "output": ["ap"]},
+                               "linear"))
+    plot_epochs = ["--set", "training.save_plot_every_n_epochs=1"]
+    # (name, main, argv with plots, argv without, kernels, where figures go)
+    legs = [
+        ("train_multi_modal", train_multi_modal.main,
+         common + mm + ["--num_epochs", "1"] + plot_epochs,
+         common + mm + ["--num_epochs", "1"] + NO_EPOCH_PLOTS,
+         ("k1", "k2", "k3", "k4", "philox"), mm_dir),
+        ("eval_multi_modal", eval_multi_modal.main,
+         common + mm + ["--co_smooth", "--save_plot", "--max_plots", "3"],
+         common + mm + ["--co_smooth"], ("k1", "k3"),
+         mm_dir / "eval" / "per_neuron"),
+        ("train_baseline", train_baseline.main,
+         common + ["--direction", "encoding", "--num_epochs", "1"]
+         + plot_epochs,
+         common + ["--direction", "encoding", "--num_epochs", "1"]
+         + NO_EPOCH_PLOTS, (), enc_dir),
+        ("eval_baseline", eval_baseline.main,
+         common + ["--direction", "encoding", "--save_plot", "--max_plots",
+                   "3"], common + ["--direction", "encoding"], (),
+         enc_dir / "eval" / "modal_spike")]
+    counts, failed = {}, []
+    for name, main, with_plots, without, need, fig_dir in legs:
+        reset_counts()
+        t_leg = time.perf_counter()
+        raised = _needs_matplotlib(main, with_plots)
+        if raised:
+            main(without)
+        torch.cuda.synchronize()
+        counts[f"plots_{name}"] = c = read_counts()
+        figures = sorted(p.name for p in fig_dir.glob("*.png"))
+        artifacts = (["eval/results.json"] if name.startswith("eval")
+                     else ["model_best.pt", "metrics.jsonl"])
+        root_dir = mm_dir if "multi_modal" in name else enc_dir
+        ok = (all((root_dir / a).exists() for a in artifacts)
+              and all(c[k] > 0 for k in need)
+              and (bool(figures) if have else raised and not figures))
+        emit(phase="plots_leg", leg=name, matplotlib=have,
+             raised_import_error=raised, figures=figures[:8],
+             n_figures=len(figures), launches=c, launches_required=list(need),
+             wall_s=time.perf_counter() - t_leg, ok=ok)
+        if not ok:
+            failed.append(name)
+    # the mask-ratio sweep: the port's launcher over two ratios, one epoch
+    launcher = (Path(__file__).resolve().parent
+                / "multi_modal_foundation_model_tpu_torch" / "scripts"
+                / "launch" / "mask_ratio_sweep.sh")
+    env = dict(os.environ, RATIOS=" ".join(SWEEP_RATIOS),
+               BASE_PATH=str(base / "sweep"), PYTHON=sys.executable)
+    cmd = ["bash", str(launcher), "--synthetic", "--num_epochs", "1",
+           "--overwrite", *PLOTS_ARGS, *([] if have else NO_EPOCH_PLOTS)]
+    t_sweep = time.perf_counter()
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    out_dir = base / "sweep" / "sweep-synthetic"
+    artifacts = all((out_dir / f"ratio-{r}" / mode / f).exists()
+                    for r in SWEEP_RATIOS
+                    for mode, f in (("modal_behavior", "r2.npy"),
+                                    ("modal_spike", "bps.npy")))
+    figure = out_dir / "mask_ratio_vs_decoding_r2_encoding_bps.png"
+    draw_argv = ["--result_dir", str(out_dir), "--mask_ratios",
+                 *SWEEP_RATIOS, "--out", str(base / "drawn.png")]
+    draw_raised = _needs_matplotlib(draw_mask_ratio.main, draw_argv)
+    if have:
+        sweep_ok = run.returncode == 0 and figure.exists() and \
+            (base / "drawn.png").exists()
+    else:
+        # the launcher's last step, the figure, is what fails
+        sweep_ok = (run.returncode != 0 and "matplotlib" in run.stderr
+                    and draw_raised)
+    sweep_ok = sweep_ok and artifacts
+    emit(phase="plots_sweep", ratios=list(SWEEP_RATIOS), matplotlib=have,
+         returncode=run.returncode, artifacts=artifacts,
+         figure=figure.exists(), draw_raised_import_error=draw_raised,
+         stderr_tail=run.stderr[-300:], wall_s=time.perf_counter() - t_sweep,
+         ok=sweep_ok)
+    if not sweep_ok:
+        failed.append("mask_ratio_sweep")
+    if not have:
+        print("plots: render not run, matplotlib not installed", flush=True)
+    emit(phase="plots_wall", wall_s=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"plots failed: {failed} (see the lines)")
+    return counts
 
 
 def _ab_step(side: str, where: str, out: Path, dtype, mode: str, B: int,
@@ -5198,9 +5418,12 @@ def main() -> int:
     par = parallel_phase(out)
     emit(phase="device_late_build", build_s=late_build())
     hw = head_widths_phase(out, default)
+    prof_counts, prof_graph = profile_phase(out)
+    plot_counts = plots_phase(out)
     paths = dict(eval_f32=eval_f32, eval_bf16=eval_bf16,
                  train_f32=train_f32, train_bf16=train_bf16,
-                 real_data_bf16=real["counters"], **par["launches"])
+                 real_data_bf16=real["counters"], **par["launches"],
+                 **prof_counts, **plot_counts)
     par_f32 = tuple(k for k in par["launches"] if k.endswith("float32"))
     par_bf16 = tuple(k for k in par["launches"] if k.endswith("bfloat16"))
     # the graph path's launches, counted by kernel name in a profile of
@@ -5211,7 +5434,7 @@ def main() -> int:
                        multisession_graph_bf16=ms_counts["bf16"],
                        multisession_mixed_graph_f32=mixed["counts"]["f32"],
                        multisession_mixed_graph_bf16=mixed["counts"]["bf16"],
-                       real_data_graph_bf16=real["graph"])
+                       real_data_graph_bf16=real["graph"], **prof_graph)
 
     def by_path(group, names):
         got = {k: paths[k][group] for k in names if k in paths}
@@ -5252,7 +5475,9 @@ def main() -> int:
                                              "multisession_mixed_graph_bf16",
                                              "real_data_bf16",
                                              "real_data_graph_bf16",
-                                             *par_bf16)),
+                                             *par_bf16, *prof_counts,
+                                             *prof_graph,
+                                             "plots_train_multi_modal")),
              **_row(k1_train[bf16])),
         dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
              "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
@@ -5274,7 +5499,9 @@ def main() -> int:
                                              "multisession_mixed_graph_bf16",
                                              "real_data_bf16",
                                              "real_data_graph_bf16",
-                                             *par_bf16)),
+                                             *par_bf16, *prof_counts,
+                                             *prof_graph,
+                                             "plots_train_multi_modal")),
              **_row(k2[bf16])),
         dict(name="layernorm_fwd (K3), bf16 at 51,200 x 256", route="cuda",
              source=src + "layernorm.cu", replaces=ln_py + ":100",
@@ -5374,6 +5601,9 @@ def main() -> int:
             launches_by_path={k: paths[k][kname] for k in tp_paths},
             bf16=_row(rank_rows[bf16][i]), **_row(rank_rows[f32][i])))
     kernels += head_width_rows(hw, src, attn_py, ln_py, kernels)
+    from multi_modal_foundation_model_tpu_torch.utils.profiling import (
+        LEAD_IN)
+
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
     if any(k["launches"] == 0 for k in kernels):

@@ -12,7 +12,11 @@ are kept:
 - an infinite bits-per-spike becomes NaN;
 - ``modal_behavior`` saves ``bps.npy`` as NaN.
 
-Plotting (``save_plot=True``) is not ported yet and raises.
+With ``save_plot=True``, ``modal_spike`` also saves the multimodal
+harness's per-neuron figure (``viz_single_cell_figure``) for the first
+``max_plots`` neurons, as ``{region}_{n}_{r2_trial:.2f}_{method_name}.png``
+under ``save_path`` (JAX :80-100); without matplotlib the first figure
+raises ``ImportError``.
 """
 
 from __future__ import annotations
@@ -40,12 +44,12 @@ def co_smoothing_eval_baseline(
     is_aligned: bool = True,
     n_time_steps: int = 100,
     save_plot: bool = False,
+    max_plots: int = 20,
+    method_name: str = "linear",
 ) -> Dict[str, Any]:
     """Run ``mode`` over the full test split (the loader's first batch);
     returns the metric dict and saves ``bps.npy``/``r2.npy`` under
     ``save_path``."""
-    if save_plot:
-        raise NotImplementedError("eval plotting is not ported yet")
     batch = _first_batch(test_dataloader)
     T = n_time_steps
     N = _real_n(batch)
@@ -82,12 +86,26 @@ def co_smoothing_eval_baseline(
         gt_n = gt[:, :, :N]
         preds_n = np.exp(preds[:, :, :N])
         pred_held_out = preds_n[:, hd] - np.min(preds_n[:, hd])
+        regions = [str(r) for r in batch.get("neuron_regions", [])]
         for n_i in range(N):
             bps = bits_per_spike(pred_held_out[:, :, [n_i]],
                                  gt_n[:, hd][:, :, [n_i]])
             bps_result_list[n_i] = np.nan if np.isinf(bps) else bps
-            r2_result_list[n_i] = _r2_pair(gt_n[:, hd, n_i],
-                                           preds_n[:, hd, n_i], hd)
+            pair = _r2_pair(gt_n[:, hd, n_i], preds_n[:, hd, n_i], hd)
+            r2_result_list[n_i] = pair
+            if save_plot and n_i < max_plots:
+                from ..utils.plotting import _pyplot, viz_single_cell_figure
+
+                region = (regions[n_i].replace("/", "-")
+                          if n_i < len(regions) else "pad")
+                fig = viz_single_cell_figure(
+                    X[:, hd, :], gt_n[:, hd, n_i], preds_n[:, hd, n_i],
+                    var_tasklist, var_name2idx, neuron_idx=n_i,
+                    neuron_region=region, method=method_name, r2_pair=pair)
+                fig.savefig(os.path.join(
+                    save_path,
+                    f"{region}_{n_i}_{pair[1]:.2f}_{method_name}.png"))
+                _pyplot().close(fig)
         bps_all = np.array(bps_result_list)
         r2_all = np.array(r2_result_list)
         np.save(os.path.join(save_path, "bps.npy"), bps_all)

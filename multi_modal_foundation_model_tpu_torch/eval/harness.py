@@ -26,8 +26,13 @@ variant is zeroed by its own first trial, not by variant 0's.
 share one forward per distinct token mask.
 
 Artifacts: ``bps.npy``/``r2.npy`` per mode and the ``{mode}_mean_bps`` /
-``{mode}_mean_r2_psth`` / ``{mode}_mean_r2_trial`` result keys. Plotting
-(``save_plot=True``) is not ported yet.
+``{mode}_mean_r2_psth`` / ``{mode}_mean_r2_trial`` result keys. With
+``save_plot=True`` the ``per_neuron``, ``inter_region`` and
+``intra_region`` modes also save a figure per scored neuron, up to
+``max_plots`` a call (JAX :237-290): ``viz_single_cell_figure`` (aligned)
+or ``viz_single_cell_unaligned_figure``, named
+``{region}_{neuron}_{r2:.2f}_{method_name}.png`` under ``save_path``.
+Without matplotlib the first figure raises ``ImportError``.
 
 A session-stitched model (``n_sessions > 1``) is scored one session at a
 time: ``session_id`` (JAX :61-93, :209-233) routes every forward through
@@ -185,22 +190,27 @@ def co_smoothing_eval(
     *,
     use_mtm: bool = False,
     save_path: str = "eval_results",
+    method_name: str = "mm",
     is_aligned: bool = True,
     target_regions: Sequence[str] = ("all",),
     n_time_steps: int = 100,
     held_out_list: Optional[Sequence[int]] = None,
     avail_beh: Sequence[str] = ("wheel-speed", "whisker-motion-energy"),
+    subtract: str = "task",
+    onset_alignment: Sequence[int] = (40,),
     chunk: int = 16,
     save_plot: bool = False,
+    max_plots: int = 20,
     session_id: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Run one eval mode over the full test split (the loader's first
     batch) on the model's device; returns the metric dict and saves
     ``bps.npy``/``r2.npy`` under ``save_path``. ``session_id``: the
     session of a session-stitched model (required there, ignored
-    otherwise)."""
-    if save_plot:
-        raise NotImplementedError("eval plotting is not ported yet")
+    otherwise). ``method_name``, ``save_plot`` and ``max_plots`` name and
+    bound the figures (module docstring); ``subtract`` and
+    ``onset_alignment`` are JAX's arguments, which its figures do not
+    read either."""
     batch = _first_batch(test_dataloader)
     T = n_time_steps
     N = _real_n(batch)
@@ -214,28 +224,64 @@ def co_smoothing_eval(
 
     fwd = EvalForward(model, batch, chunk=chunk, session_id=session_id)
     N_total = spikes.shape[-1]
+    n_plotted = [0]
 
-    def _r2_pair(y, y_pred, t_idx=None) -> np.ndarray:
+    def _region(neuron) -> str:
+        return (region_list[neuron].replace("/", "-")
+                if neuron < len(region_list) else "pad")
+
+    def _save(fig, neuron, r2):
+        from ..utils.plotting import _pyplot
+
+        name = f"{_region(neuron)}_{neuron}_{r2:.2f}_{method_name}.png"
+        os.makedirs(save_path, exist_ok=True)
+        fig.savefig(os.path.join(save_path, name))
+        _pyplot().close(fig)
+        n_plotted[0] += 1
+
+    def _plot(neuron) -> bool:
+        return save_plot and neuron is not None and n_plotted[0] < max_plots
+
+    def _r2_pair(y, y_pred, t_idx=None, neuron=None) -> np.ndarray:
         if not is_aligned:
-            return np.array([np.nan, r2_score_nanable(y, y_pred)])
+            r2 = r2_score_nanable(y, y_pred)
+            if _plot(neuron):
+                from ..utils.plotting import viz_single_cell_unaligned_figure
+
+                _save(viz_single_cell_unaligned_figure(
+                    y, y_pred, neuron_idx=neuron,
+                    neuron_region=_region(neuron), method=method_name,
+                    r2=r2), neuron, r2)
+            return np.array([np.nan, r2])
         Xc = X if t_idx is None else X[:, t_idx, :]
-        return np.array(psth_and_trial_r2(Xc, y, y_pred, var_tasklist,
+        pair = np.array(psth_and_trial_r2(Xc, y, y_pred, var_tasklist,
                                           var_name2idx))
+        if _plot(neuron):
+            # the reference's viz_single_cell layout (eval_utils.py:
+            # 1348-1388), named as it names it (:1385)
+            from ..utils.plotting import viz_single_cell_figure
+
+            _save(viz_single_cell_figure(
+                Xc, y, y_pred, var_tasklist, var_name2idx,
+                neuron_idx=neuron, neuron_region=_region(neuron),
+                method=method_name, r2_pair=pair), neuron, pair[1])
+        return pair
 
     bps_result_list = [float("nan")] * N
     r2_result_list = [np.array([np.nan, np.nan])] * N
 
-    def _score(n_i, gt_n, pr_n, t_idx=None):
+    def _score(n_i, gt_n, pr_n, t_idx=None, plot=False):
         bps = bits_per_spike(pr_n[:, :, None], gt_n[:, :, None])
         bps_result_list[n_i] = np.nan if np.isinf(bps) else bps
-        r2_result_list[n_i] = _r2_pair(gt_n, pr_n, t_idx)
+        r2_result_list[n_i] = _r2_pair(gt_n, pr_n, t_idx,
+                                       int(n_i) if plot else None)
 
     if mode == "per_neuron":
         visible = np.ones((N, N_total), dtype=np.float32)
         visible[np.arange(N), np.arange(N)] = 0.0
         preds_at = fwd.sweep(visible, np.arange(N), use_mtm)  # (N, K, T)
         for n_i in range(N):
-            _score(n_i, spikes[:, :, n_i], np.exp(preds_at[n_i]))
+            _score(n_i, spikes[:, :, n_i], np.exp(preds_at[n_i]), plot=True)
 
     elif mode == "forward_pred" or mode == "modal_spike":
         assert held_out_list is not None, \
@@ -265,7 +311,7 @@ def co_smoothing_eval(
                                       ap_eval=mask_result["eval_mask"])
             preds = np.exp(ap_preds[:, :, :N])
             for n_i in mask_result["heldout_idxs"]:
-                _score(n_i, spikes[:, :, n_i], preds[:, :, n_i])
+                _score(n_i, spikes[:, :, n_i], preds[:, :, n_i], plot=True)
 
     elif mode == "intra_region":
         assert held_out_list is None, \
@@ -284,7 +330,7 @@ def co_smoothing_eval(
         targets = np.asarray(tgt_rows)
         preds_at = fwd.sweep(np.stack(vis_rows), targets, use_mtm)
         for v, n_i in enumerate(targets):
-            _score(n_i, spikes[:, :, n_i], np.exp(preds_at[v]))
+            _score(n_i, spikes[:, :, n_i], np.exp(preds_at[v]), plot=True)
 
     elif mode == "modal_behavior":
         N_beh = len(avail_beh)

@@ -34,7 +34,11 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
   layer runs under ``torch.utils.checkpoint(use_reentrant=False)``, as
   JAX's ``nn.remat`` (:281-287); its slice of the seed table is an
   argument of the checkpointed call, so the recompute replays the same
-  masks.
+  masks. The recompute runs each layer whole: torch would stop it at the
+  layer's last saved tensor, which without dropout comes before the MLP's
+  down projection and with dropout after it, so a step's products would
+  depend on the rate (early stop is turned off where the layers draw no
+  dropout; with dropout nothing it skips is a product).
 - **Attention masks as (key_pad, static) decompositions**: encoder
   ``eye | pad``, decoder pad / causal / modality-separation, fed to the
   fused attention (K1/K2 on the card).
@@ -81,6 +85,7 @@ Port of ``multi_modal_foundation_model_tpu/models/multimodal.py``:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
                     Union)
@@ -88,7 +93,7 @@ from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops.attention import MaskSpec, create_context_mask
 from ..ops.layernorm import LayerNorm
@@ -636,14 +641,19 @@ class MultiModal(nn.Module):
         dec_attn = self._decoder_attn_mask(attn_token)
 
         remat = training and mc.remat_layers and torch.is_grad_enabled()
+        # without dropout in the layers, the recompute runs them whole as
+        # with it (module docstring)
+        early_stop = drop is not None and mc.dropout > 0
 
         def run(layer, *args):
             if remat:
                 # the layer's seed-table slice is an argument: the
                 # recompute replays its dropout draws, so the default RNG
                 # state is not needed
-                return checkpoint(layer, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
+                with (contextlib.nullcontext() if early_stop
+                      else set_checkpoint_early_stop(False)):
+                    return checkpoint(layer, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
             return layer(*args)
 
         x = enc_tokens + enc_emb

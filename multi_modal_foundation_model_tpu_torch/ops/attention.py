@@ -46,6 +46,19 @@ zero columns (``padded_attention_fwd`` / ``padded_attention_bwd``): the
 zero columns add nothing to a score and give zero output and gradient
 columns, which are dropped, and the scale stays the true width's. A
 width above 128 raises ``ValueError``.
+
+FLOP count (``utils/profiling.py``). A ``FlopCounterMode`` sees neither
+K1 nor K2 (``ctypes`` launches), and on the plain path it would count the
+backward's recompute of the scores. So while a dispatch mode is active
+(``torch.utils.flop_counter.FlopCounterMode`` is one), the forward and
+backward, kernel or plain, run as one operator each (``mmfm_attention::
+fwd`` / ``bwd``), which the mode sees whole and counts by its registered
+formula: the model's products, 4 B Tq Tk (H D) forward and 8 B Tq Tk
+(H D) backward, H D the model's width (not the zero-padded one), masked
+keys included as in a dense product. The mode runs the operator's body
+with itself popped, so the products inside are not counted again.
+Without a dispatch mode the same functions run directly: no launch, bit
+or CUDA-graph capture depends on the counting.
 """
 
 from __future__ import annotations
@@ -630,6 +643,89 @@ def _k2_launch(q, k, v, key_pad, static, g, lse, n_heads: int, scale: float,
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# the forward and backward as operators a dispatch mode sees whole
+# ---------------------------------------------------------------------------
+
+def _run_fwd(q, k, v, key_pad, static, seed, n_heads: int, scale: float,
+             with_lse: bool, dropout_rate: float, use_kernel: bool,
+             draw_offset):
+    """K1 (``use_kernel``) or its plain version; (out, lse or None)."""
+    fwd = attention_fwd if use_kernel else attention_reference
+    return fwd(q, k, v, key_pad, static, n_heads, scale, with_lse=with_lse,
+               dropout_rate=dropout_rate, seed=seed,
+               draw_offset=tuple(draw_offset))
+
+
+def _run_bwd(q, k, v, key_pad, static, g, lse, seed, n_heads: int,
+             scale: float, dropout_rate: float, use_kernel: bool,
+             draw_offset):
+    """K2 (``use_kernel``) or its plain version; (dq, dk, dv)."""
+    bwd = attention_bwd if use_kernel else attention_bwd_reference
+    return bwd(q, k, v, key_pad, static, g, lse, n_heads, scale,
+               dropout_rate, seed, draw_offset=tuple(draw_offset))
+
+
+_OPS = "mmfm_attention"
+if not hasattr(getattr(torch.ops, _OPS), "fwd"):   # one definition a process
+    _LIB = torch.library.Library(_OPS, "DEF")
+    _LIB.define("fwd(Tensor q, Tensor k, Tensor v, Tensor key_pad, "
+                "Tensor static, Tensor? seed, int n_heads, float scale, "
+                "bool with_lse, float dropout_rate, bool use_kernel, "
+                "int[] draw_offset) -> (Tensor, Tensor)")
+    _LIB.define("bwd(Tensor q, Tensor k, Tensor v, Tensor key_pad, "
+                "Tensor static, Tensor g, Tensor lse, Tensor? seed, "
+                "int n_heads, float scale, float dropout_rate, "
+                "bool use_kernel, int[] draw_offset) "
+                "-> (Tensor, Tensor, Tensor)")
+
+    def _op_fwd(*args):
+        out, lse = _run_fwd(*args)
+        # an operator returns tensors: no lse is an empty one
+        return out, (out.new_empty(0, dtype=torch.float32)
+                     if lse is None else lse)
+
+    _LIB.impl("fwd", _op_fwd, "CompositeExplicitAutograd")
+    _LIB.impl("bwd", lambda *args: tuple(_run_bwd(*args)),
+              "CompositeExplicitAutograd")
+
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(getattr(torch.ops, _OPS).fwd)
+    def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        """The two products: B Tq Tk (H D) multiply-adds each."""
+        B, Tq, hidden = q_shape
+        return 4 * B * Tq * k_shape[1] * hidden
+
+    @register_flop_formula(getattr(torch.ops, _OPS).bwd)
+    def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        """dq, dk, dv and the probabilities' gradient: four products (the
+        recompute of the scores is not the model's work)."""
+        B, Tq, hidden = q_shape
+        return 8 * B * Tq * k_shape[1] * hidden
+
+
+def _attention_fwd_op(q, k, v, key_pad, static, seed, n_heads, scale,
+                      with_lse, dropout_rate, use_kernel, draw_offset):
+    """``_run_fwd``, as the ``fwd`` operator while a dispatch mode is
+    active (module docstring)."""
+    if not torch._C._len_torch_dispatch_stack():
+        return _run_fwd(q, k, v, key_pad, static, seed, n_heads, scale,
+                        with_lse, dropout_rate, use_kernel, draw_offset)
+    out, lse = getattr(torch.ops, _OPS).fwd(
+        q, k, v, key_pad, static, seed, n_heads, scale, with_lse,
+        dropout_rate, use_kernel, list(draw_offset))
+    return out, (lse if with_lse else None)
+
+
+def _attention_bwd_op(*args):
+    """``_run_bwd``, as the ``bwd`` operator while a dispatch mode is
+    active."""
+    if not torch._C._len_torch_dispatch_stack():
+        return _run_bwd(*args)
+    return getattr(torch.ops, _OPS).bwd(*args[:-1], list(args[-1]))
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 (with ``lse``) forward, K2 backward: the port of JAX's
     ``_flash_mha`` custom VJP (:394-456). ``use_kernel=False`` runs the
@@ -641,10 +737,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_pad, static, n_heads, scale, dropout_rate,
                 seed, use_kernel, draw_offset):
-        fwd = attention_fwd if use_kernel else attention_reference
-        out, lse = fwd(q, k, v, key_pad, static, n_heads, scale,
-                       with_lse=True, dropout_rate=dropout_rate, seed=seed,
-                       draw_offset=draw_offset)
+        out, lse = _attention_fwd_op(q, k, v, key_pad, static, seed,
+                                     n_heads, scale, True, dropout_rate,
+                                     use_kernel, draw_offset)
         ctx.save_for_backward(q, k, v, key_pad, static, lse, seed)
         ctx.args = (n_heads, scale, dropout_rate, use_kernel, draw_offset)
         return out
@@ -653,9 +748,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, key_pad, static, lse, seed = ctx.saved_tensors
         n_heads, scale, dropout_rate, use_kernel, draw_offset = ctx.args
-        bwd = attention_bwd if use_kernel else attention_bwd_reference
-        dq, dk, dv = bwd(q, k, v, key_pad, static, g, lse, n_heads, scale,
-                         dropout_rate, seed, draw_offset=draw_offset)
+        dq, dk, dv = _attention_bwd_op(q, k, v, key_pad, static, g, lse,
+                                       seed, n_heads, scale, dropout_rate,
+                                       use_kernel, draw_offset)
         return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
@@ -712,7 +807,6 @@ def multi_head_attention(
         return _FlashAttention.apply(q, k, v, key_pad, static, n_heads,
                                      scale, dropout_rate, seed, use_kernel,
                                      tuple(draw_offset))
-    fwd = attention_fwd if use_kernel else attention_reference
-    return fwd(q, k, v, key_pad, static, n_heads, scale,
-               dropout_rate=dropout_rate, seed=seed,
-               draw_offset=tuple(draw_offset))[0]
+    return _attention_fwd_op(q, k, v, key_pad, static, seed, n_heads, scale,
+                             False, dropout_rate, use_kernel,
+                             tuple(draw_offset))[0]

@@ -146,14 +146,3 @@ def guard_overwrite(log_dir: str, overwrite: bool) -> None:
         raise FileExistsError(
             f"checkpoint exists at {marker} and --overwrite not set")
 
-
-def no_epoch_plots(config) -> None:
-    """Epoch plots are not ported: a config that asks for them
-    (``training.save_plot_every_n_epochs``, 5 in the shipped trainer
-    YAMLs) runs without them, with a warning."""
-    every = config.training.get("save_plot_every_n_epochs", 0) or 0
-    if every:
-        warnings.warn(
-            f"training.save_plot_every_n_epochs={every}: epoch plots are "
-            "not ported; training without them", stacklevel=2)
-        config.training["save_plot_every_n_epochs"] = 0

@@ -36,13 +36,12 @@ def main(argv=None):
     ap.add_argument("--checkpoint", type=str, default="best")
     ap.add_argument("--n_time_steps", type=int, default=100)
     ap.add_argument("--save_plot", action="store_true",
-                    help="per-neuron diagnostic figures (not ported yet: "
-                         "raises)")
+                    help="per-neuron diagnostic figures (modal_spike; "
+                         "needs matplotlib)")
+    ap.add_argument("--max_plots", type=int, default=20,
+                    help="figures at most with --save_plot")
     args = ap.parse_args(argv)
     warn_unsupported(args, "dp", "tp", "device_resident")
-    if args.save_plot:
-        raise NotImplementedError(
-            "--save_plot: eval plots are not ported yet")
     device = resolve_device(args.device)
     splits = get_session(args)
 
@@ -79,7 +78,7 @@ def main(argv=None):
         save_path=os.path.join(model_dir, "eval", mode),
         held_out_list=list(range(T)),
         avail_beh=list(DEFAULT_TARGETS), n_time_steps=T,
-        save_plot=args.save_plot)
+        save_plot=args.save_plot, max_plots=args.max_plots)
     print(json.dumps(res, indent=1, default=float))
     with open(os.path.join(model_dir, "eval", "results.json"), "w") as f:
         json.dump(res, f, indent=1, default=float)

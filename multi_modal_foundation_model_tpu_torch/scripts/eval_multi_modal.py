@@ -24,7 +24,9 @@ eid. Without ``--synthetic`` the session is the IBL session ``--eid``
 ``--reference_ckpt`` evaluates a checkpoint the PyTorch reference trained
 (``load_reference_checkpoint``) on the session's test split, artifacts
 under ``<base_path>/reference_ckpt_eval`` unless ``--model_dir`` is given.
-Not ported yet, raising: ``--save_plot``.
+``--save_plot`` also saves the per-neuron figures of the co-smoothing
+modes (``--max_plots`` a mode, 20 by default) beside each mode's
+artifacts; it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def eval_multi_session(args, device):
                 model, loader, mode=mode, use_mtm=args.use_MtM,
                 save_path=os.path.join(args.model_dir, "eval", eid, mode),
                 n_time_steps=T, save_plot=args.save_plot,
-                is_aligned=not args.unaligned,
+                max_plots=args.max_plots, is_aligned=not args.unaligned,
                 avail_beh=list(DEFAULT_TARGETS),
                 session_id=eid_to_sid[eid], **kw)
             per_eid.update({k: (v if isinstance(v, dict) else float(v))
@@ -153,8 +155,10 @@ def main(argv=None):
     ap.add_argument("--no_modal_behavior", action="store_true")
     ap.add_argument("--n_time_steps", type=int, default=100)
     ap.add_argument("--save_plot", action="store_true",
-                    help="per-neuron diagnostic figures (not ported yet: "
-                         "raises)")
+                    help="per-neuron diagnostic figures of the co-smoothing "
+                         "modes (needs matplotlib)")
+    ap.add_argument("--max_plots", type=int, default=20,
+                    help="figures at most a mode with --save_plot")
     ap.add_argument("--unaligned", action="store_true",
                     help="the unaligned (chunked) session <eid>_unaligned "
                          "from the hub, and plain R² instead of "
@@ -168,9 +172,6 @@ def main(argv=None):
                          "--model_dir")
     args = ap.parse_args(argv)
     warn_unsupported(args, "dp", "tp", "device_resident")
-    if args.save_plot:
-        raise NotImplementedError(
-            "--save_plot: eval plots (ROADMAP queue 1 item 4) not ported yet")
     device = resolve_device(args.device)
     if args.multi_session:
         if not args.model_dir:
@@ -212,7 +213,8 @@ def main(argv=None):
         res = co_smoothing_eval(
             model, test_loader, mode=mode, use_mtm=args.use_MtM,
             save_path=os.path.join(model_dir, sub, mode), n_time_steps=T,
-            save_plot=args.save_plot, is_aligned=not args.unaligned,
+            save_plot=args.save_plot, max_plots=args.max_plots,
+            is_aligned=not args.unaligned,
             avail_beh=list(DEFAULT_TARGETS), **kw)
         results.update({k: (v if isinstance(v, dict) else float(v))
                         for k, v in res.items()})

@@ -30,7 +30,7 @@ from ..train import (BaselineTrainer, MetricLogger, OptimizerConfig,
                      TrainerConfig)
 from ._common import (add_common_args, apply_config_overrides, get_session,
                       guard_overwrite, is_main_rank, log_dir_for,
-                      no_epoch_plots, start_ranks, warn_unsupported)
+                      start_ranks, warn_unsupported)
 
 
 def main(argv=None):
@@ -52,7 +52,6 @@ def main(argv=None):
     config = apply_config_overrides(config, args.config_overrides)
     if args.num_epochs is not None:
         config.training["num_epochs"] = args.num_epochs
-    no_epoch_plots(config)
 
     splits = get_session(args)
     n_neurons = splits.n_neurons

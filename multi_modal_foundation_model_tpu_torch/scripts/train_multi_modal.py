@@ -33,7 +33,7 @@ from ..train import (MetricLogger, MultiModalTrainer, OptimizerConfig,
                      TrainerConfig)
 from ._common import (add_common_args, apply_config_overrides, get_session,
                       guard_overwrite, is_main_rank, log_dir_for,
-                      no_epoch_plots, start_ranks)
+                      start_ranks)
 
 MTM_MENU = ("inter-region", "intra-region", "neuron", "temporal")
 
@@ -63,7 +63,6 @@ def main(argv=None):
         config.training["num_epochs"] = args.num_epochs
     if args.batch_size is not None:
         config.training["train_batch_size"] = args.batch_size
-    no_epoch_plots(config)
 
     splits = get_session(args)
     n_neurons = splits.n_neurons

@@ -50,7 +50,7 @@ from ..train import (MetricLogger, MultiSessionTrainer, OptimizerConfig,
                      TrainerConfig, build_multisession_loaders)
 from ._common import (add_common_args, apply_config_overrides,
                       guard_overwrite, is_main_rank, log_dir_for,
-                      no_epoch_plots, start_ranks)
+                      start_ranks)
 from .train_multi_modal import MTM_MENU
 
 
@@ -116,7 +116,6 @@ def main(argv=None):
         config.training["num_epochs"] = args.num_epochs
     if args.batch_size is not None:
         config.training["train_batch_size"] = args.batch_size
-    no_epoch_plots(config)
 
     if args.synthetic or not args.eids:
         sessions = synthetic_sessions(args)

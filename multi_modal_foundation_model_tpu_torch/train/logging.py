@@ -1,8 +1,9 @@
 """Metric logging to ``<log_dir>/metrics.jsonl``.
 
 Port of ``multi_modal_foundation_model_tpu/train/logging.py``: one JSON
-row per call, epoch rows echoed to stdout. wandb logging (and with it
-figure logging) is not ported: ``use_wandb=True`` raises.
+row per call, epoch rows echoed to stdout. wandb logging is not ported:
+``use_wandb=True`` raises, so ``log_figures`` is JAX's no-op without
+wandb (the trainers save the same figures to disk either way).
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ class MetricLogger:
             print(" ".join(f"{k}={row[k]:.6g}" if isinstance(row[k], float)
                            else f"{k}={row[k]}" for k in keys), flush=True)
 
+    def log_figures(self, figs: Dict[str, Any],
+                    extra: Optional[Dict[str, Any]] = None) -> None:
+        """JAX's wandb image logging of figures (``train/logging.py:49-58``):
+        a no-op without wandb."""
+
 
 def _loggable(v) -> bool:
     if isinstance(v, dict):
@@ -60,4 +66,8 @@ class NullLogger:
     mesh): ``log`` does nothing."""
 
     def log(self, row: Dict[str, Any]) -> None:
+        pass
+
+    def log_figures(self, figs: Dict[str, Any],
+                    extra: Optional[Dict[str, Any]] = None) -> None:
         pass

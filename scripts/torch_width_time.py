@@ -2,6 +2,7 @@
 """K1-K4 at every width the JAX package runs, timed on one NVIDIA GPU.
 
     python3 scripts/torch_width_time.py [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_width_time.py --d32-b256
 
 Builds the port's kernels, then prints JSON lines:
 
@@ -28,6 +29,14 @@ Builds the port's kernels, then prints JSON lines:
   32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's shapes, timed in
   six processes in the order other, this, this, other, other, this, each
   importing its own checkout's package and building its kernels.
+
+With ``--d32-b256`` it prints only ``d32_b256`` lines: K1 (dropout 0.4,
+lse) and K2 at head width 32 and the smoke's B=256 training shape (256 x
+200 tokens, 8 heads, the encoder's mask, ``chip_smoke.k1_inputs``'s seed;
+the shape of PERF.md's D=32 rows), f32 and bf16, by profiler device time
+and by CUDA events (the smoke's ``cuda_time_ms``), beside SDPA pinned to
+each backend in turn with the same bias and dropout (``sdpa_by_backend``,
+profiler device time), each backend's refusal named.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit. Without
 CUDA it exits non-zero.
@@ -114,6 +123,29 @@ def attention_widths() -> None:
                     shape=[q.shape[0], q.shape[1], k.shape[1], H, D],
                     dropout=cs.DROPOUT, k1=k1, k2=k2,
                     sdpa=sdpa_by_backend(q, k, v, key_pad, static, g, H))
+
+
+def d32_b256_backends() -> None:
+    """The ``d32_b256`` lines (module docstring)."""
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    for dtype in cs.DTYPES:
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype,
+                                        B=cs.BIG_B)
+        key_pad, static = att.spec_operands(spec, q.shape[0], q.shape[1],
+                                            k.shape[1], q.device)
+        g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(3)).to(dtype)
+        by_timer = {name: cs.attn_train_times(q, k, v, key_pad, static, g,
+                                              H, timer=timer)
+                    for name, timer in (("device", device_timer),
+                                        ("events", cs.cuda_time_ms))}
+        cs.emit(phase="d32_b256", dtype=cs.dtype_name(dtype),
+                shape=[q.shape[0], q.shape[1], k.shape[1], H,
+                       q.shape[-1] // H], dropout=cs.DROPOUT,
+                k1={t: r[0] for t, r in by_timer.items()},
+                k2={t: r[1] for t, r in by_timer.items()},
+                sdpa=sdpa_by_backend(q, k, v, key_pad, static, g, H))
 
 
 def layernorm_widths() -> None:
@@ -273,6 +305,11 @@ def main() -> int:
     cs.emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
             device=torch.cuda.get_device_name(0),
             build_s=build.build(build.kernel_sources()))
+    if "--d32-b256" in args:
+        d32_b256_backends()
+        print(smi, flush=True)
+        cs.emit(ok=True, device=torch.cuda.get_device_name(0))
+        return 0
     attention_widths()
     layernorm_widths()
     ok = True

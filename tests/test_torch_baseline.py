@@ -210,17 +210,26 @@ def test_train_writes_best_and_last_and_resumes_the_watermark(tmp_path):
 
 @pytest.mark.parametrize("what", ["plots", "mesh"])
 def test_unported_options_raise(what, tmp_path):
-    """Epoch plots raise. A mesh is ported (data parallelism,
-    ``tests/test_torch_parallel_lockstep.py``): a one-rank mesh trains as
-    no mesh does, bit for bit."""
+    """Epoch plots and a mesh, both ported since. ``train()`` with
+    ``save_plot_every_n_epochs=1`` draws JAX's files: the output
+    modality's ``gt_pred`` figure every epoch, and a ``best_`` one on each
+    new best. A one-rank mesh (data parallelism,
+    ``tests/test_torch_parallel_lockstep.py``) trains as no mesh does, bit
+    for bit."""
     train, val = _loaders(tloader, tsession)
     if what == "plots":
-        with pytest.raises(NotImplementedError):
-            BaselineTrainer(_port_model("decoding"), train, val,
-                            OptimizerConfig(),
-                            _tcfg(TrainerConfig, tmp_path,
-                                  save_plot_every_n_epochs=5),
-                            modal_filter=FILTERS["decoding"])
+        tr = BaselineTrainer(_port_model("decoding"), train, val,
+                             OptimizerConfig(),
+                             _tcfg(TrainerConfig, tmp_path,
+                                   save_plot_every_n_epochs=1),
+                             modal_filter=FILTERS["decoding"])
+        summary = tr.train()
+        epochs = [r["epoch"] for r in summary["history"]]
+        names = {p.name for p in tmp_path.glob("*.png")}
+        assert {f"gt_pred_fig_behavior_{e}.png" for e in epochs} <= names
+        assert f"best_gt_pred_fig_behavior_{summary['best_epoch']}.png" \
+            in names
+        assert all("gt_pred_fig_behavior_" in n for n in names)
         return
     runs = []
     for mesh in (None, make_mesh(1, 1)):

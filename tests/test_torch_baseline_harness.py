@@ -103,14 +103,19 @@ def test_baseline_harness_matches_jax(mode, tmp_path):
 
 
 def test_baseline_harness_unported_and_bad_arguments_raise(tmp_path):
+    """``save_plot``, ported since, draws nothing in ``modal_behavior``
+    (JAX draws the encoder's ``modal_spike`` neurons only,
+    ``tests/test_torch_plotting.py``); a missing ``held_out_list`` and an
+    unknown mode raise."""
     loader = _test_loader(tloader, tsession)
     tm = tbaseline.BaselineDecoder(N, N_BEH, device="cpu")
     kw = dict(modal_filter=CASES["modal_behavior"][1],
               save_path=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        baseline_harness.co_smoothing_eval_baseline(
-            tm, loader, "modal_behavior", held_out_list=[0], save_plot=True,
-            **kw)
+    res = baseline_harness.co_smoothing_eval_baseline(
+        tm, loader, "modal_behavior", held_out_list=[0], save_plot=True,
+        **kw)
+    assert "modal_behavior_behav_results" in res
+    assert not list(tmp_path.glob("*.png"))
     with pytest.raises(ValueError):
         baseline_harness.co_smoothing_eval_baseline(
             tm, loader, "modal_behavior", **kw)

@@ -174,10 +174,23 @@ def test_co_smoothing_eval_matches_jax(shared, mode, use_mtm, tmp_path):
 
 
 def test_save_plot_not_ported(shared, tmp_path):
-    _, _, tmodel, _, tl = shared
-    with pytest.raises(NotImplementedError):
-        tharness.co_smoothing_eval(tmodel, tl, "per_neuron", save_plot=True,
-                                   save_path=str(tmp_path))
+    """``save_plot``, ported since: per_neuron draws JAX's figures, the
+    first ``max_plots`` neurons under JAX's names, from the same weights
+    (JAX's Pallas attention in interpret mode); the results are those of a
+    run without figures."""
+    jmodel, jparams, tmodel, jl, tl = shared
+    kw = dict(n_time_steps=T, save_plot=True, max_plots=2,
+              method_name="mm")
+    jharness.co_smoothing_eval(jmodel, jparams, jl, "per_neuron",
+                               save_path=str(tmp_path / "j"), **kw)
+    got = tharness.co_smoothing_eval(tmodel, tl, "per_neuron",
+                                     save_path=str(tmp_path / "t"), **kw)
+    names = sorted(p.name for p in (tmp_path / "t").glob("*.png"))
+    assert names == sorted(p.name for p in (tmp_path / "j").glob("*.png"))
+    assert len(names) == 2 and all(n.endswith("_mm.png") for n in names)
+    np.testing.assert_equal(got, tharness.co_smoothing_eval(
+        tmodel, tl, "per_neuron", save_path=str(tmp_path / "n"),
+        n_time_steps=T))
 
 
 def test_sweep_keeps_variants_apart(shared):

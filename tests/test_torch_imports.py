@@ -1,9 +1,10 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package,
 and the data side's optional packages (pandas, ``datasets``,
-``huggingface_hub``, h5py and the IBL stack) only inside the functions that
-use them; its entry points refuse to fall back to the CPU, and
-``chip_smoke.py`` fails (printing no result) where there is no card or no
-repo."""
+``huggingface_hub``, h5py and the IBL stack) and the figures' (matplotlib,
+sklearn) only inside the functions that use them; a figure asked for
+without matplotlib raises ``ImportError`` naming it; its entry points
+refuse to fall back to the CPU, and ``chip_smoke.py`` fails (printing no
+result) where there is no card or no repo."""
 
 import ast
 import os
@@ -44,9 +45,10 @@ def _imported_names(path: Path):
 
 
 # imported lazily, inside the functions that need them (JAX's data side
-# does the same)
+# does the same; its plots import matplotlib at module top, the port's
+# inside the functions that draw)
 LAZY = ["pandas", "datasets", "huggingface_hub", "h5py", "one", "brainbox",
-        "iblatlas"]
+        "iblatlas", "matplotlib", "sklearn"]
 
 
 def test_port_imports_with_jax_blocked():
@@ -61,6 +63,53 @@ def test_port_imports_with_jax_blocked():
         + [f"importlib.import_module({m!r})" for m in _port_modules()]
         + ["assert not any(sys.modules.get(m) for m in %r)" % blocked,
            "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_profiling_and_plots_are_scanned():
+    """The profiling and figure modules are among those loaded with JAX,
+    matplotlib and sklearn blocked."""
+    assert {f"multi_modal_foundation_model_tpu_torch.{m}" for m in (
+        "utils.profiling", "utils.plotting", "scripts.profile_model",
+        "scripts.draw_mask_ratio")} <= set(_port_modules())
+
+
+def test_figures_without_matplotlib_raise():
+    """With matplotlib blocked: the package and its plot exports import,
+    the profiling runs, and every path that draws (a plot function, a
+    trainer's epoch figures, ``draw_mask_ratio``) raises ``ImportError``
+    naming matplotlib; the figures' trial order falls back to the first
+    principal component without sklearn."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['matplotlib'] = None",
+        "sys.modules['sklearn'] = None",
+        "import types, numpy as np, torch",
+        "from multi_modal_foundation_model_tpu_torch import utils",
+        "from multi_modal_foundation_model_tpu_torch.utils import plotting",
+        "from multi_modal_foundation_model_tpu_torch.train import trainer",
+        "from multi_modal_foundation_model_tpu_torch.scripts import "
+        "draw_mask_ratio",
+        "assert utils.MFUTracker.flops_of(torch.mm, torch.ones(4, 4), "
+        "torch.ones(4, 4)) == 128",
+        "y = np.random.default_rng(0).normal(size=(6, 5))",
+        "assert sorted(plotting._cluster_trial_order(y)) == list(range(6))",
+        "me = types.SimpleNamespace(mesh=None, modal_filter={'output': "
+        "['behavior']})",
+        "calls = [lambda: utils.plot_gt_pred(y, y),",
+        "         lambda: trainer.BaselineTrainer._plot_epoch(me, {}, 0),",
+        "         lambda: draw_mask_ratio.draw({}, {})]",
+        "for call in calls:",
+        "    try:",
+        "        call()",
+        "    except ImportError as err:",
+        "        assert 'matplotlib' in str(err), err",
+        "    else:",
+        "        raise AssertionError('drew without matplotlib')",
+        "print('ok')"])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

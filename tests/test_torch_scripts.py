@@ -289,6 +289,12 @@ WRONG_WORLD = {"train_baseline:--synthetic --dp 2",
                "train_multi_modal:--synthetic --dp 2",
                "train_multi_modal:--synthetic --tp 2",
                "train_multi_session:--synthetic --dp 2"}
+# ported since: per-neuron figures, drawn from the module's trained
+# checkpoints (the first 2 a mode, JAX's names)
+SAVE_PLOT = {"eval_multi_modal:--synthetic --save_plot":
+             ("mask-temporal_ratio-0.1_mixed-True", "per_neuron", "mm"),
+             "eval_baseline:--synthetic --save_plot":
+             ("linear", "modal_spike", "linear")}
 # ported since: sharded sessions in one process, as JAX runs them (a tiny
 # run): ignored without mixed batches; with mixed batches but no resident
 # data the first epoch refuses, as it does without --shard_sessions
@@ -301,13 +307,33 @@ SHARD_SESSIONS = {
 @pytest.mark.parametrize("script,argv", UNPORTED,
                          ids=[f"{s}:{' '.join(a) or 'no --synthetic'}"
                               for s, a in UNPORTED])
-def test_unported_flags_raise(script, argv, tmp_path):
+def test_unported_flags_raise(script, argv, tmp_path, request):
     """Each flag that is not ported raises ``NotImplementedError``;
     ``--dp``/``--tp`` of the train scripts are ported and raise
     ``ValueError`` when dp * tp is not the world of ranks;
-    ``--shard_sessions`` is ported and runs as JAX runs it."""
+    ``--shard_sessions`` is ported and runs as JAX runs it; ``--save_plot``
+    is ported and draws the per-neuron figures."""
     main, base = _script_args(script, tmp_path)
     key = f"{script}:{' '.join(argv)}"
+    if key in SAVE_PLOT:
+        run, mode, method = SAVE_PLOT[key]
+        trained = str(request.getfixturevalue("port_base")[0])
+        flags = (MM_FLAGS + ["--co_smooth", "--no_modal_spike",
+                             "--no_modal_behavior"]
+                 if script == "eval_multi_modal" else
+                 ["--direction", "encoding"])
+        main(argv + COMMON[1:] + flags + ["--base_path", trained, "--device",
+                                          "cpu", "--max_plots", "2"])
+        modal = ({"input": ["ap", "behavior"], "output": ["ap", "behavior"]}
+                 if script == "eval_multi_modal" else
+                 {"input": ["behavior"], "output": ["ap"]})
+        from multi_modal_foundation_model_tpu_torch.scripts._common import (
+            log_dir_for)
+        out = Path(log_dir_for(trained, _eid(), modal, run)) / "eval" / mode
+        names = sorted(p.name for p in out.glob("*.png"))
+        assert len(names) == 2, names
+        assert all(n.endswith(f"_{method}.png") for n in names)
+        return
     if key in WRONG_WORLD:
         with pytest.raises(ValueError, match="world"):
             main(argv + base)
