@@ -15,7 +15,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    library call that computes the same function, and the bound the card
    could reach: K1 of the eval (``k1_check``/``k1_time``, f32 and bf16,
    B=320), K1 of the training step with dropout and ``lse``
-   (``k1_dropout_check``) and K2 (``k2_check``/``k2_time``), B=256, f32
+   (``k1_dropout_check``) and K2 (``k2_check``/``k2_time``, with the
+   device ms of each kernel K2 launches, by name, at dropout 0.4 and 0:
+   the bf16 K2 is the wgmma kernel of ``csrc/attention_bwd_bf16.cuh``,
+   its keep draws and two passes), B=256, f32
    and bf16 (all four on the tensor cores: bf16 each held against the plain
    version with JAX's bf16 dots and the f32-dots one, f32 in 3xTF32 against
    the f32 one; each K1's lse against the scores K2 recomputes,
@@ -245,6 +248,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -426,6 +430,19 @@ def device_ms_by_kernel(fn, reps: int = 20) -> dict:
             return ms_by
         why = f"kernel counts {count} over {reps} calls"
     raise RuntimeError(f"no whole trace in five: {why}")
+
+
+def kernel_ms_by_name(fn, reps: int = 20) -> dict:
+    """``device_ms_by_kernel`` keyed by the kernel's name with its template
+    arguments and without its namespace and parameter list (say
+    ``attn_bwd_dq_wg_kernel<true, 32>``); copies and other records keep
+    their names."""
+    out: dict = {}
+    for name, ms in device_ms_by_kernel(fn, reps).items():
+        m = re.search(r"(\w+_kernel(<[^>]*>)?)\(", name)
+        key = m.group(1) if m else name
+        out[key] = out.get(key, 0.0) + ms
+    return out
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -863,6 +880,12 @@ def train_kernels_phase():
             q, k, v, key_pad, static, g, lse, H, scale, DROPOUT, 7))
         k2_ms_rate0 = cuda_time_ms(lambda: att.attention_bwd(
             q, k, v, key_pad, static, g, lse, H, scale, 0.0, 7))
+        # device ms of each kernel K2 launches (with dropout the keep
+        # draws, then its two passes), by name
+        k2_by_kernel = {
+            str(rate): kernel_ms_by_name(lambda rate=rate: att.attention_bwd(
+                q, k, v, key_pad, static, g, lse, H, scale, rate, 7))
+            for rate in (DROPOUT, 0.0)}
         # the plain version of the kernel: bf16 dots for the bf16 K2
         k2_plain = cuda_time_ms(lambda: att.attention_bwd_reference(
             q, k, v, key_pad, static, g, lse, H, scale, DROPOUT, 7,
@@ -901,7 +924,8 @@ def train_kernels_phase():
              sdpa_backend=SDPA_BACKEND, **k1_b)
         emit(phase="k2_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, ms=k2_ms,
-             ms_dropout0=k2_ms_rate0, plain_ms=k2_plain,
+             ms_dropout0=k2_ms_rate0, device_ms_by_kernel=k2_by_kernel,
+             route=att.k2_route(dtype, D), plain_ms=k2_plain,
              library_ms=lib_fwd_bwd - lib_fwd,
              library_fwd_bwd_ms=lib_fwd_bwd, sdpa_backend=SDPA_BACKEND,
              **k2_b)
@@ -4918,6 +4942,9 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                 source=f"{src}{lib}_d{D}.cu", replaces=attn_py + line,
                 launches=sum(mine.values()), launches_by_path=mine,
                 bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
+            if kname == "k2":
+                row["bf16_kernel"] = ("wgmma: attn_bwd_*_wg_kernel, "
+                                      f"{src}attention_bwd_bf16.cuh")
             if D == 64:
                 row["off_path_widths"] = {}
                 for w in HW_WIDTHS:
@@ -5489,9 +5516,13 @@ def main() -> int:
                                              "multisession_mixed_graph_f32",
                                              *par_f32)),
              **_row(k2[f32])),
-        dict(name="attention_bwd (K2), bf16: tensor cores (mma.sync "
-             "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
-             source=src + "attention_bwd.cu", replaces=attn_py + ":221",
+        dict(name="attention_bwd (K2), bf16: Hopper wgmma (s and dP one "
+             "m64n104k16 wgmma each over half the key row a warpgroup, two "
+             "warpgroups; ds and pd as register A fragments of the dq, dk, "
+             "dv products), TMA tiles on an mbarrier, one sweep: "
+             "attn_bwd_dq_wg_kernel + attn_bwd_dkdv_wg_kernel", route="cuda",
+             source=src + "attention_bwd_bf16.cuh",
+             replaces=attn_py + ":221",
              launches=train_bf16["k2"],
              launches_by_path=by_path("k2", ("train_bf16",
                                              "dispatch_graph_bf16",

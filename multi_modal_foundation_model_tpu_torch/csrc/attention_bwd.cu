@@ -1,5 +1,11 @@
 // K2: fused multi-head attention backward for Hopper (sm_90a), on the
-// tensor cores in f32 (3xTF32) and bf16.
+// tensor cores in f32 (3xTF32) and bf16. This file's kernels are the
+// mma.sync pair of both dtypes; the bf16 K2 at head widths 16, 32 and 64
+// is the wgmma kernel of attention_bwd_bf16.cuh (wgmma over the whole key
+// row, TMA, one sweep), which mmfm_attention_bwd launches instead; the
+// pair below runs f32 at every width and bf16 at 128, whose accumulators
+// (dk and dv, 64 registers each a thread at N = 128) leave no room for
+// s and dP of the whole row.
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, launched by
@@ -106,11 +112,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "philox.cuh"
-#include "tc_traits.cuh"
-
 #ifndef MMFM_HEAD_DIM
 #define MMFM_HEAD_DIM 32
+#endif
+
+#include "philox.cuh"
+#include "tc_traits.cuh"
+#if MMFM_HEAD_DIM <= 64
+#include "attention_bwd_bf16.cuh"
 #endif
 
 namespace {
@@ -534,9 +543,10 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
 // 16-byte aligned. Strides in elements; dq (B, Tq, H*D), dk and dv
 // (B, Tk, H*D) contiguous. The f32 scratch holds rowsum (B, H, Tq), written
 // by pass A and read by pass B, then, 16-byte aligned, pass A's mask bytes
-// for pass B: B * H * Tq * ceil(Tk / 64) * 16 bytes
-// (ops/attention.py::_k2_scratch_floats). b_off and h_off offset the (b, h)
-// of the dropout bits as K1's do.
+// for pass B: the mma.sync kernels' B * H * Tq * ceil(Tk / 64) * 16 bytes,
+// the wgmma kernel's B * H * ceil(Tk / 8) * (Tq + Tq % 2)
+// (ops/attention.py::_k2_scratch_floats, by k2_route). b_off and h_off
+// offset the (b, h) of the dropout bits as K1's do.
 // Returns the first launch error (0 = ok).
 extern "C" int mmfm_attention_bwd(
     const void* q, const void* k, const void* v, const void* g,
@@ -554,11 +564,22 @@ extern "C" int mmfm_attention_bwd(
       q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
       H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
       threshold, keep_scale, b_off, h_off, s)
+#define MMFM_K2_WG(DROP)                                                     \
+  mmfm::k2wg::launch<DROP, MMFM_HEAD_DIM>(                                   \
+      q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
+      H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
+      threshold, keep_scale, b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);
+#if MMFM_HEAD_DIM <= 64
+  else if (dtype == 1)
+    err = dropout ? MMFM_K2_WG(true) : MMFM_K2_WG(false);
+#else
   else if (dtype == 1)
     err = dropout ? MMFM_K2_LAUNCH(bf16, true) : MMFM_K2_LAUNCH(bf16, false);
+#endif
+#undef MMFM_K2_WG
 #undef MMFM_K2_LAUNCH
   return (int)err;
 }

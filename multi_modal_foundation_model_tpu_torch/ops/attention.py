@@ -417,12 +417,32 @@ def _k2_lib(head_dim: int = 32):
     return fn
 
 
-def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int) -> int:
-    """f32 words of K2's scratch: rowsum (B, H, Tq), then pass A's mask
-    bytes for pass B, one byte per (b, h, query, 4 keys) with rows padded
-    to 64 keys, 16-byte aligned (``csrc/attention_bwd.cu``,
-    ``mmfm_attention_bwd``)."""
+def k2_route(dtype, head_dim: int) -> str:
+    """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
+    bf16 kernel of ``csrc/attention_bwd_bf16.cuh`` (wgmma, TMA), for bf16
+    at the compiled widths 16, 32 and 64 (and the widths padded to them);
+    ``"mma_sync"``, the pair of ``csrc/attention_bwd.cu``, for f32 at every
+    width and bf16 at 128. Above 128, ``ValueError``."""
+    width = kernel_head_dim(head_dim)
+    if dtype == torch.bfloat16 and width <= 64:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int,
+                       route: str = "mma_sync") -> int:
+    """f32 words of K2's scratch: rowsum (B, H, Tq), then, 16-byte aligned,
+    pass A's mask bytes for pass B (``csrc/attention_bwd.cu``,
+    ``mmfm_attention_bwd``). ``"mma_sync"``: one byte per (b, h, query, 4
+    keys), rows padded to 64 keys. ``"wgmma"``: one bit per (b, h, query,
+    key), bytes (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding
+    8 keys of one query (a row of 16-byte multiples: the stride of the
+    passes' TMA copies)."""
     n = B * H * Tq
+    if route == "wgmma":
+        return n + (B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16) + 16) // 4
+    if route != "mma_sync":
+        raise ValueError(f"K2 route {route!r}")
     return n + (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
 
 
@@ -461,7 +481,8 @@ def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
 
 def _check_aligned(name, **tensors):
     """The tensor-core kernels copy rows 16 bytes at a time
-    (``cp.async``): data pointers and batch and row strides must be
+    (``cp.async``), or by TMA, whose tensor maps take 16-byte aligned
+    addresses and strides: data pointers and batch and row strides must be
     16-byte aligned (a multiple of 8 bf16 or 4 f32 elements), or
     ``ValueError``."""
     for arg, t in tensors.items():
@@ -583,10 +604,12 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     f32 math to about f32 accuracy: the contract of
     ``attention_bwd_reference``. bf16 takes bf16 operands as JAX's K2 on
     its hardware: the contract of ``attention_bwd_reference(...,
-    dots_dtype=torch.bfloat16)``. The kernels copy their tiles with
-    ``cp.async``, so q/k/v/g need 16-byte aligned data pointers and batch
-    and row strides (a multiple of 4 f32 or 8 bf16 elements; the fused-QKV
-    column views have them); anything else raises ``ValueError``."""
+    dots_dtype=torch.bfloat16)``; at head widths up to 64 it runs on
+    Hopper's wgmma with TMA copies (``k2_route``). The kernels copy their
+    tiles with ``cp.async`` or TMA, so q/k/v/g need 16-byte aligned data
+    pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
+    elements; the fused-QKV column views have them); anything else raises
+    ``ValueError``."""
     B, Tq, Tk, hidden = _check_operands("attention_bwd", q, k, v, key_pad,
                                         static, n_heads, _DTYPE_CODE)
     dev = q.device
@@ -624,7 +647,8 @@ def _k2_launch(q, k, v, key_pad, static, g, lse, n_heads: int, scale: float,
     dq = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
     dv = torch.empty((B, Tk, hidden), dtype=q.dtype, device=dev)
-    rowsum = torch.empty(_k2_scratch_floats(B, n_heads, Tq, Tk),
+    route = k2_route(q.dtype, hidden // n_heads)
+    rowsum = torch.empty(_k2_scratch_floats(B, n_heads, Tq, Tk, route),
                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

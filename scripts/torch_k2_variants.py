@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Design variants of the bf16 wgmma K2, timed beside the committed kernel
+on one NVIDIA GPU.
+
+    python3 scripts/torch_k2_variants.py [--parent OTHER_CHECKOUT]
+
+Builds the committed ``csrc/attention_bwd.cu`` (head width 32) and
+variants of its bf16 kernel (string edits of
+``csrc/attention_bwd_bf16.cuh`` into ``build/probe/k2_<name>/``, each edit
+checked to apply exactly once) and, with ``--parent``, another checkout's
+K2 (say the parent commit's, unpacked by ``git archive``: the mma.sync
+bf16 K2). Each library in turn is swapped in for
+``ops.attention._k2_lib`` (the parent's with the scratch of its route,
+``k2_route``), checked with ``chip_smoke.k2_gates`` at the smoke run's
+B = 256 training shape (the encoder mask, dropout 0 and 0.4), and timed
+kernel by kernel by profiler device time
+(``chip_smoke.device_ms_by_kernel``) at B = 256 and B = 16, dropout 0.4
+and 0, in the order of the list and then reversed. Prints JSON lines: the
+card, each build's ``ptxas`` registers and spills per kernel and its SASS
+counts (``HGMMA``, ``HMMA``, ``UTMALDG`` TMA loads, ``STL`` / ``LDL``
+local memory) per kernel, each check, each timing.
+
+The variants (``diag_*`` compute wrong results on purpose and are only
+timed: what is left when a piece is taken out):
+
+- ``base``: the committed kernel.
+- ``diag_no_elementwise``: s and dP go into ds and pd as they are (no
+  exp, masks, dropout or row sums).
+- ``diag_exp_free``: the exponent's argument in place of its exp (the
+  special-function unit left out).
+- ``diag_no_score_products``: the s and dP wgmmas not issued.
+- ``diag_no_output_products``: the dq, dk and dv wgmmas not issued.
+- ``products_per_k_step``: each pass's output products (dq; dk and dv)
+  issued a k-step at a time, each as soon as its 16 columns are worked
+  and packed (so that they run beside the next columns' exp and masks),
+  not after all 104.
+- ``keep_below_tk``: the keep kernel draws a key group only below Tk
+  (a branch a call).
+- ``keep_wide_multiply``: the keep draws with each 32 x 32 -> 64-bit
+  Philox product one wide multiply (``keep_bits8``) in place of
+  ``philox.cuh``'s high and low words from two.
+- ``heads_per_block_rule``: the mma.sync kernels' heads a block (a
+  thousand blocks or more) in place of ``walk_heads``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (the smoke run's inputs, gates, timers)
+from multi_modal_foundation_model_tpu_torch.ops import attention as att  # noqa: E402
+from multi_modal_foundation_model_tpu_torch.ops import build  # noqa: E402
+
+SRC = "attention_bwd_bf16.cuh"
+# the keep kernel's draws of a byte, and a function spliced in before it
+KEEP_CALL = (
+    "    const uint32_t lo =\n"
+    "        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb);\n"
+    "    const uint32_t hi =\n"
+    "        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb + 1);"
+    "\n    word |= (lo | hi << 4) << (8 * u);")
+KEEP_ANCHOR = ("// The keep bytes of K1's dropout, mask[b][h][kb][q] for kb < "
+               "ceil(Tk / 8)")
+KEEP_BITS8 = """\
+// The keep bits of keys [8 kb, 8 kb + 8) of row (b, h, q): the two Philox
+// calls of philox.cuh's keep_bits4 (counters (2 kb, q, h, b) and (2 kb + 1,
+// q, h, b)) side by side, each 32 x 32 -> 64-bit product one wide multiply
+// (philox4x32_10 takes its high and low words from two); bit i is key
+// 8 kb + i, the same bits as two keep_bits4 calls.
+__device__ __forceinline__ uint32_t keep_bits8(uint32_t seed,
+                                               uint32_t threshold, int b,
+                                               int h, int q, int kb) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+  uint32_t x[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    x[u][0] = (uint32_t)(2 * kb + u);
+    x[u][1] = (uint32_t)q;
+    x[u][2] = (uint32_t)h;
+    x[u][3] = (uint32_t)b;
+  }
+  uint32_t k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint64_t p0 = (uint64_t)kM0 * x[u][0];
+      const uint64_t p1 = (uint64_t)kM1 * x[u][2];
+      const uint32_t n0 = (uint32_t)(p1 >> 32) ^ x[u][1] ^ k0;
+      const uint32_t n2 = (uint32_t)(p0 >> 32) ^ x[u][3] ^ k1;
+      x[u][0] = n0;
+      x[u][1] = (uint32_t)p1;
+      x[u][2] = n2;
+      x[u][3] = (uint32_t)p0;
+    }
+    k0 += kW0;
+    k1 += kW1;
+  }
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      bits |= (uint32_t)(x[u][i] > threshold) << (4 * u + i);
+  return bits;
+}
+
+"""
+# the output products issued after all columns are packed (serial, the
+# committed kernel) and a k-step at a time, each as soon as packed
+# (pipelined, with its helpers spliced in before the pass body)
+SERIAL_A = """\
+        // ds = pn (dpn - rowsum), rounded to bf16; dq += ds . k
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) s[i] *= p[i] - rsum[(i >> 1) & 1];
+        to_frags(f1, s);
+        wg::hold(f1);
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          wg::mma_rs(o1, f1[kk],
+                     wg::desc_add(wg::desc<kRB>(b1), kk * 16 * kRB),
+                     ch > 0 || kk > 0);
+"""
+PIPELINED_A = """\
+        // ds = pn (dpn - rowsum), rounded to bf16; dq += ds . k, each
+        // k-step's product issued as soon as its 16 columns are packed
+        for_steps<kSteps>([&](auto step) {
+          constexpr int kk = decltype(step)::value;
+#pragma unroll
+          for (int i = 8 * kk; i < 8 * kk + 8 && i < kAcc; ++i)
+            s[i] *= p[i] - rsum[(i >> 1) & 1];
+          to_frag<kk>(f1[kk], s);
+          wg::fence();
+          wg::mma_rs(o1, f1[kk],
+                     wg::desc_add(wg::desc<kRB>(b1), kk * 16 * kRB),
+                     ch > 0 || kk > 0);
+        });
+"""
+SERIAL_B = """\
+      // pd = pn ms and ds = pn (dP ms - rowsum), the columns' lse and
+      // rowsum from shared memory
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < kBits / 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = wgi * kCols + 8 * j + 2 * c + e;
+            const float* sb = stat + (t & 1) * 2 * kChunk;
+            const float l2 = sb[col], sum = sb[kChunk + col];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int i = 4 * j + 2 * hh + e, bit = 2 * j + e;
+              const float pn = att[hh] >> bit & 1u
+                                   ? fast_exp2(fmaf(s[i], kLog2e, -l2))
+                                   : 0.f;
+              float ms = 1.f;
+              if (kDropout) ms = keep[hh] >> bit & 1u ? a.keep_scale : 0.f;
+              s[i] = pn * ms;
+              p[i] = pn * (p[i] * ms - sum);
+            }
+          }
+      }
+      uint32_t f2[kSteps][4];
+      to_frags(f1, p);   // ds
+      to_frags(f2, s);   // pd
+      wg::hold(f1);
+      wg::hold(f2);
+      wg::fence();
+      // dk += ds . qs, dv += pd . g
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        wg::mma_rs(o1, f1[kk], wg::desc_add(wg::desc<kRB>(b1), kk * 16 * kRB),
+                   ch > 0 || kk > 0);
+        wg::mma_rs(o2, f2[kk], wg::desc_add(wg::desc<kRB>(b2), kk * 16 * kRB),
+                   ch > 0 || kk > 0);
+      }
+"""
+PIPELINED_B = """\
+      // pd = pn ms and ds = pn (dP ms - rowsum), the columns' lse and
+      // rowsum from shared memory, 16 columns (a k-step) at a time; each
+      // k-step's dk += ds . qs and dv += pd . g products are issued as soon
+      // as its fragments are packed, and run while the next columns' exp
+      // and masks are worked
+      const float* sb = stat + (t & 1) * 2 * kChunk + wgi * kCols;
+      uint32_t f2[kSteps][4];
+      for_steps<kSteps>([&](auto step) {
+        constexpr int kk = decltype(step)::value;
+        if (live) {
+#pragma unroll
+          for (int j = 2 * kk; j < 2 * kk + 2 && j < kBits / 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * c + e;
+              const float l2 = sb[col], sum = sb[kChunk + col];
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int i = 4 * j + 2 * hh + e, bit = 2 * j + e;
+                const float pn = att[hh] >> bit & 1u
+                                     ? fast_exp2(fmaf(s[i], kLog2e, -l2))
+                                     : 0.f;
+                float ms = 1.f;
+                if (kDropout) ms = keep[hh] >> bit & 1u ? a.keep_scale : 0.f;
+                s[i] = pn * ms;
+                p[i] = pn * (p[i] * ms - sum);
+              }
+            }
+        }
+        to_frag<kk>(f1[kk], p);   // ds
+        to_frag<kk>(f2[kk], s);   // pd
+        wg::fence();
+        const int acc = ch > 0 || kk > 0;
+        wg::mma_rs(o1, f1[kk], wg::desc_add(wg::desc<kRB>(b1), kk * 16 * kRB),
+                   acc);
+        wg::mma_rs(o2, f2[kk], wg::desc_add(wg::desc<kRB>(b2), kk * 16 * kRB),
+                   acc);
+      });
+"""
+STEP_HELPERS = """\
+// The A fragment of k-step kk (columns [16 kk, 16 kk + 16)) of the bf16
+// rounding of a 64 x 104 f32 accumulator x: element (row hh, n8 block j,
+// column e) is x[4 j + 2 hh + e]; the columns past 104 are zero.
+template <int kk>
+__device__ __forceinline__ void to_frag(uint32_t (&f)[4],
+                                        const float (&x)[kAcc]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 2 * kk + (r >> 1), i = 4 * j + 2 * (r & 1);
+    f[r] = j < kCols / 8 ? pack_bf16(x[i], x[i + 1]) : 0u;
+  }
+}
+
+// Calls f(Step<k>{}) for k = 0 .. N - 1, in order: a loop body that takes
+// its k-step as a constant (a template argument, a register index).
+template <int K>
+struct Step {
+  static constexpr int value = K;
+};
+template <int N, int K = 0, typename F>
+__device__ __forceinline__ void for_steps(F&& f) {
+  if constexpr (K < N) {
+    f(Step<K>{});
+    for_steps<N, K + 1>(f);
+  }
+}
+
+"""
+BODY_ANCHOR = "// Pass A (kPassB false): rows are queries"
+VARIANTS = {
+    "base": {},
+    "diag_no_elementwise": {SRC: [
+        ("      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (live) {",
+         "      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (false) {"),
+        ("      // rowsum from shared memory\n      if (live) {",
+         "      // rowsum from shared memory\n      if (false) {")]},
+    "diag_exp_free": {SRC: [
+        ("? fast_exp2(fmaf(s[i], kLog2e, -lse2[hh]))",
+         "? (fmaf(s[i], kLog2e, -lse2[hh]))"),
+        ("? fast_exp2(fmaf(s[i], kLog2e, -l2))",
+         "? (fmaf(s[i], kLog2e, -l2))")]},
+    "diag_no_score_products": {SRC: [
+        ("    for (int kk = 0; kk < D / 16; ++kk)\n"
+         "      wg::mma_ss_n104(s,",
+         "    for (int kk = 0; kk < D / 16 && false; ++kk)\n"
+         "      wg::mma_ss_n104(s,"),
+        ("    for (int kk = 0; kk < D / 16; ++kk)\n"
+         "      wg::mma_ss_n104(p,",
+         "    for (int kk = 0; kk < D / 16 && false; ++kk)\n"
+         "      wg::mma_ss_n104(p,")]},
+    "diag_no_output_products": {SRC: [
+        ("        for (int kk = 0; kk < kSteps; ++kk)\n"
+         "          wg::mma_rs(o1,",
+         "        for (int kk = 0; kk < kSteps && false; ++kk)\n"
+         "          wg::mma_rs(o1,"),
+        ("      for (int kk = 0; kk < kSteps; ++kk) {\n"
+         "        wg::mma_rs(o1,",
+         "      for (int kk = 0; kk < kSteps && false; ++kk) {\n"
+         "        wg::mma_rs(o1,")]},
+    "products_per_k_step": {SRC: [(BODY_ANCHOR, STEP_HELPERS + BODY_ANCHOR),
+                                   (SERIAL_A, PIPELINED_A),
+                                   (SERIAL_B, PIPELINED_B)]},
+    "keep_below_tk": {SRC: [
+        (KEEP_CALL,
+         "    uint32_t lo = 0u, hi = 0u;\n"
+         "    if (8 * kb < Tk)\n"
+         "      lo = keep_bits4(seed, threshold, b + b_off, h + h_off, q, "
+         "2 * kb);\n"
+         "    if (8 * kb + 4 < Tk)\n"
+         "      hi = keep_bits4(seed, threshold, b + b_off, h + h_off, q, "
+         "2 * kb + 1);\n"
+         "    word |= (lo | hi << 4) << (8 * u);")]},
+    "keep_wide_multiply": {SRC: [
+        (KEEP_ANCHOR, KEEP_BITS8 + KEEP_ANCHOR),
+        (KEEP_CALL,
+         "    word |= keep_bits8(seed, threshold, b + b_off, h + h_off, q, "
+         "kb)\n            << (8 * u);")]},
+    "heads_per_block_rule": {SRC: [
+        ("  args.hpb = walk_heads(B, n_qt, H);",
+         "  args.hpb = heads_per_block(B, n_qt, H);"),
+        ("  args.hpb = walk_heads(B, n_kt, H);",
+         "  args.hpb = heads_per_block(B, n_kt, H);")]},
+}
+SHAPES = ((cs.BIG_B, (cs.DROPOUT, 0.0)), (cs.TRAIN_B, (cs.DROPOUT, 0.0)))
+
+
+def emit(**record):
+    print(json.dumps(record), flush=True)
+
+
+def start_build(name: str, edits: dict, src_dir: Path):
+    """Write the edited sources to build/probe/k2_<name>/ and start nvcc."""
+    out = ROOT / "build" / "probe" / f"k2_{name}"
+    out.mkdir(parents=True, exist_ok=True)
+    for src in src_dir.glob("*.cu*"):
+        text = src.read_text()
+        for old, new in edits.get(src.name, ()):
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: an edit of {src.name} does "
+                                   f"not apply")
+            text = text.replace(old, new)
+        (out / src.name).write_text(text)
+    lib = out / "libattention_bwd.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                             str(out / "attention_bwd.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def sass_counts(lib: Path) -> dict:
+    """Per kernel of a library: its HGMMA, HMMA, UTMALDG, STL and LDL
+    instructions in ``cuobjdump -sass``."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.search(r"attn_\w+?_kernel|\w+_kernel", m.group(1))
+            cur = f"{cur.group(0) if cur else m.group(1)}#{len(counts)}"
+            counts[cur] = {}
+            continue
+        for op in ("HGMMA", "HMMA", "UTMALDG", "STL", "LDL"):
+            if cur and re.search(rf"\b{op}\b", line):
+                counts[cur][op] = counts[cur].get(op, 0) + 1
+    return counts
+
+
+def finish_build(name: str, proc, lib: Path, argtypes):
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed\n{log}")
+    regs = {}
+    for entry, spill, used in re.findall(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores"
+            r".*?Used (\d+) registers", log, re.S):
+        key = re.search(r"attn_bwd\w*?kernel\w*?E", entry)
+        regs[key.group(0) if key else entry] = dict(
+            registers=int(used), spill_bytes=int(spill))
+    emit(phase="k2_variant_build", variant=name, ptxas=regs,
+         sass=sass_counts(lib))
+    fn = ctypes.CDLL(str(lib)).mmfm_attention_bwd
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_k2_variants: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(phase="device", nvidia_smi=cs.nvidia_smi(),
+         device=torch.cuda.get_device_name(0))
+    base_fn = att._k2_lib()                     # builds csrc/ as the port does
+    sources = {name: (edits, build.CSRC) for name, edits in VARIANTS.items()}
+    if sys.argv[1:2] == ["--parent"]:
+        parent = Path(sys.argv[2]).resolve()
+        sources["parent"] = ({}, parent / build.CSRC.relative_to(ROOT))
+    started = {name: start_build(name, edits, src)
+               for name, (edits, src) in sources.items()}
+    fns = {name: finish_build(name, proc, lib, base_fn.argtypes)
+           for name, (proc, lib) in started.items()}
+
+    dtype = torch.bfloat16
+    inputs = {}
+    for B, _ in SHAPES:
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=B)
+        key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],
+                                            q.device)
+        g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(3)).to(dtype)
+        scale = 1.0 / math.sqrt(q.shape[-1] // H)
+        lse = {rate: att.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                       True, rate, 7)[1]
+               for rate in (cs.DROPOUT, 0.0)}
+        inputs[B] = (q, k, v, key_pad, static, g, H, scale, lse)
+
+    original, route = att._k2_lib, att.k2_route
+    times = {}
+    try:
+        order = list(fns)
+        for sweep in (order, order[::-1]):
+            for name in sweep:
+                att._k2_lib = lambda head_dim=32, fn=fns[name]: fn
+                att.k2_route = (route if name != "parent" else
+                                lambda dtype, head_dim: "mma_sync")
+                for B, rates in SHAPES:
+                    q, k, v, key_pad, static, g, H, scale, lse = inputs[B]
+                    for rate in rates:
+                        def call(rate=rate):
+                            return att.attention_bwd(
+                                q, k, v, key_pad, static, g, lse[rate], H,
+                                scale, rate, 7)
+
+                        if sweep is order and B == cs.BIG_B \
+                                and not name.startswith("diag_"):
+                            grads = call()
+                            torch.cuda.synchronize()
+                            gates = cs.k2_gates(q, k, v, key_pad, static, g,
+                                                lse[rate], H, scale, grads,
+                                                rate, 7)
+                            emit(phase="k2_variant_check", variant=name,
+                                 batch=B, dropout=rate, **gates)
+                            del grads
+                        times.setdefault((name, B, rate), []).append(
+                            cs.kernel_ms_by_name(call))
+    finally:
+        att._k2_lib, att.k2_route = original, route
+    for (name, B, rate), runs in times.items():
+        emit(phase="k2_variant_time", variant=name, batch=B, dropout=rate,
+             ms_in_order_and_reversed=[sum(r.values()) for r in runs],
+             by_kernel_ms=runs)
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

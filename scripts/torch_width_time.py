@@ -240,22 +240,36 @@ def _logs(checkout: Path, names) -> dict:
     return found
 
 
+# the parent's bf16 K2 at head width 32 (the mma.sync pair), which the
+# wgmma kernels of csrc/attention_bwd_bf16.cuh replace: not compared
+REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
+            ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16")}
+
+
 def ptxas_compare(parent: Path) -> bool:
     """Every kernel the parent builds against this checkout's build of it:
-    equal registers, spills, stack and static shared memory."""
+    equal registers, spills, stack and static shared memory; the kernels
+    this checkout replaced (``REPLACED``) and added are listed apart."""
     names = ("attention_fwd", "attention_bwd", "layernorm", "random",
              "session_rows")
     mine, theirs = _logs(ROOT, names), _logs(parent, names)
-    rows, same = [], True
+    rows, replaced, same = [], [], True
     for key, want in sorted(theirs.items(), key=str):
         got = mine.get(key)
+        if got is None and key[1] and (key[0], key[1][0]) in REPLACED:
+            replaced.append(dict(kernel=key[0], args=list(key[1]),
+                                 parent=want))
+            continue
         equal = got == want
         same = same and equal
         rows.append(dict(kernel=key[0], args=list(key[1]), parent=want,
                          this=got, equal=equal))
+    added = [dict(kernel=key[0], args=list(key[1]), this=got)
+             for key, got in sorted(mine.items(), key=str)
+             if key not in theirs]
     cs.emit(phase="ptxas_compare", kernels=rows, all_equal=same,
             compared=len(rows), parent_entries=len(theirs),
-            this_entries=len(mine))
+            this_entries=len(mine), replaced=replaced, added=added)
     return same
 
 

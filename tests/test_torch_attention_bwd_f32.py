@@ -217,9 +217,10 @@ def test_k2_alignment_rule(dtype):
 
 
 def test_k2_scratch_holds_the_mask_bytes_for_both_dtypes():
-    """K2's scratch: rowsum (B, H, Tq) f32, then pass A's mask bytes for
-    pass B (one byte per query and 4 keys, rows padded to 64 keys) and 16
-    bytes of alignment slack, for f32 as for bf16."""
+    """The mma.sync K2's scratch (f32 at every width, bf16 at 128): rowsum
+    (B, H, Tq) f32, then pass A's mask bytes for pass B (one byte per query
+    and 4 keys, rows padded to 64 keys) and 16 bytes of alignment slack.
+    The wgmma bf16 K2's is held in ``tests/test_torch_k2_plan.py``."""
     B, Hh, Tq, Tk = 256, 8, 200, 200
     n = tatt._k2_scratch_floats(B, Hh, Tq, Tk)
     mask_bytes = B * Hh * Tq * 4 * 16          # ceil(200 / 64) = 4 tiles

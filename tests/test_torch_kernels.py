@@ -156,27 +156,29 @@ def test_k1_rejects_what_it_does_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("width", [8, 16, 24, 40, 64, 128])
-def test_k1_k2_head_widths_match_plain(width, rate, dtype):
+@pytest.mark.parametrize("length", [70, 257])
+def test_k1_k2_head_widths_match_plain(length, width, rate, dtype):
     """K1 and K2 at head widths other than the model's 32: 16, 64 and 128
     compiled, 8, 24 and 40 through heads zero-padded to 16, 32 and 64; one
     launch each, through the fused-QKV column views, random masks, T = 70
-    (ragged tiles), against the plain versions with the dots of the
-    kernel's dtype: f32 (3xTF32) out, lse and dq/dk/dv atol 1e-5 (K2 rtol
-    1e-6, as ``_k2_gates``); bf16 out and dq/dk/dv within 1e-2 (1 +
-    |plain|), lse 1e-5 (1 + |lse|). The padded launches' outputs are
-    contiguous at the true width."""
+    (ragged tiles) and 257 (past the bf16 wgmma K2's 208 columns at once:
+    two chunks, pass A's two sweeps), against the plain versions with the
+    dots of the kernel's dtype: f32 (3xTF32) out, lse and dq/dk/dv atol
+    1e-5 (K2 rtol 1e-6, as ``_k2_gates``); bf16 out and dq/dk/dv within
+    1e-2 (1 + |plain|), lse 1e-5 (1 + |lse|). The padded launches' outputs
+    are contiguous at the true width."""
     _need_cuda()
     heads = max(1, 128 // width)
     hidden = heads * width
     gen = torch.Generator(device="cuda").manual_seed(width)
-    qkv = torch.randn(3, 70, 3 * hidden, device="cuda", generator=gen)
+    qkv = torch.randn(3, length, 3 * hidden, device="cuda", generator=gen)
     q, k, v = qkv.to(dtype).split(hidden, dim=-1)
-    g = torch.randn(3, 70, hidden, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(3, length, hidden, device="cuda", generator=gen).to(dtype)
     rng = np.random.default_rng(width)
-    pad = (rng.random((3, 70)) > 0.3).astype(np.int32)
+    pad = (rng.random((3, length)) > 0.3).astype(np.int32)
     pad[0] = 1
     key_pad = torch.from_numpy(pad).cuda()
-    static = torch.from_numpy((rng.random((70, 70)) > 0.8)
+    static = torch.from_numpy((rng.random((length, length)) > 0.8)
                               .astype(np.int32)).cuda()
     scale = width ** -0.5
     n1, n2 = tatt.K1_LAUNCHES, tatt.K2_LAUNCHES
@@ -481,10 +483,14 @@ K2_DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (63, 63), (64, 64),
                                    (65, 65), (70, 70), (200, 200), (65, 200),
-                                   (200, 17), (1, 200), (200, 1), (63, 65)])
+                                   (200, 17), (1, 200), (200, 1), (63, 65),
+                                   (256, 256), (257, 257), (200, 300),
+                                   (520, 520), (300, 17)])
 def test_k2_bf16_tensor_cores_at_tile_edges(tq, tk, rate, dtype):
     """The tensor-core K2 (f32: 3xTF32; bf16) at lengths below, at and past
-    its 64-row tiles (200 = 3 x 64 + 8, the model's), self and cross. The
+    its 64-row tiles (200 = 3 x 64 + 8, the model's), self and cross, and
+    past the bf16 wgmma kernel's 208 columns at once (256 and up: two or
+    three chunks, pass A sweeping them twice). The
     bf16 kernel is held against the bf16-dots plain version only: at Tk = 1
     the f32 softmax is exactly 1 and the f32-dots ds exactly 0, while q *
     scale rounded to bf16 moves s off K1's lse by up to 2^-8 |s|, and ds by
@@ -534,6 +540,32 @@ def test_k2_bf16_padded_trial_zero_and_bit_equal(rate, dtype):
         assert torch.equal(a, b)
         assert a[1].abs().max().item() == 0.0
         assert a[0].abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(200, 200), (257, 257), (300, 17)])
+def test_k2_bf16_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
+    """The bf16 K2 of a rank's slice, draw offsets (b0, h0) = (5, 3):
+    against the plain version drawn at the same offsets (1e-2 (1 +
+    |plain|), ``_within``), and a second launch bit-equal to the first
+    (fixed-order sums, no atomics), in one chunk and across chunks."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(tq, tk, seed=12)
+    scale, off = 1.0 / math.sqrt(D), (5, 3)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale, True,
+                                rate, 31, draw_offset=off)
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                             rate, 31, draw_offset=off)
+    again = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                               rate, 31, draw_offset=off)
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse, H,
+                                        scale, rate, 31,
+                                        dots_dtype=torch.bfloat16,
+                                        draw_offset=off)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        _within(a, b, 1e-2, name)
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.cuda
