@@ -15,7 +15,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    library call that computes the same function, and the bound the card
    could reach: K1 of the eval (``k1_check``/``k1_time``, f32 and bf16,
    B=320), K1 of the training step with dropout and ``lse``
-   (``k1_dropout_check``) and K2 (``k2_check``/``k2_time``, with the
+   (``k1_dropout_check``; ``k1_time``/``k1_train_time`` with the device
+   ms of each kernel K1 launches, by name: the bf16 K1 is the wgmma
+   kernel of ``csrc/attention_fwd_bf16.cuh``, with dropout after its keep
+   draws) and K2 (``k2_check``/``k2_time``, with the
    device ms of each kernel K2 launches, by name, at dropout 0.4 and 0:
    the bf16 K2 is the wgmma kernel of ``csrc/attention_bwd_bf16.cuh``,
    its keep draws and two passes), B=256, f32
@@ -762,6 +765,9 @@ def k1_phase():
         scale = 1.0 / math.sqrt(D)
         ms = cuda_time_ms(lambda: att.attention_fwd(q, k, v, key_pad, static,
                                                     H, scale))
+        # device ms of each kernel K1 launches, by name
+        by_kernel = kernel_ms_by_name(lambda: att.attention_fwd(
+            q, k, v, key_pad, static, H, scale))
         # the plain version of the kernel: bf16 dots for the bf16 K1
         plain_ms = cuda_time_ms(lambda: att.attention_reference(
             q, k, v, key_pad, static, H, scale, dots_dtype=dtype))
@@ -780,7 +786,8 @@ def k1_phase():
         flops = 4 * B * H * Tq * Tk * D
         b = _tc_bound(bytes_moved, flops, dtype)
         emit(phase="k1_time", shape=[B, Tq, Tk, H, D],
-             dtype=dtype_name(dtype), ms=ms, plain_ms=plain_ms,
+             dtype=dtype_name(dtype), ms=ms, device_ms_by_kernel=by_kernel,
+             route=att.k1_route(dtype, D), plain_ms=plain_ms,
              library_ms=library_ms, sdpa_backend=SDPA_BACKEND,
              bytes=bytes_moved, flops=flops, **b)
         rows[dtype] = dict(max_abs_err=worst[dtype], ms=ms,
@@ -873,6 +880,12 @@ def train_kernels_phase():
                                    DROPOUT, 7)
         k1_ms = cuda_time_ms(lambda: att.attention_fwd(
             q, k, v, key_pad, static, H, scale, True, DROPOUT, 7))
+        # device ms of each kernel K1 launches (the bf16 one's keep draws
+        # with dropout, then the kernel), by name
+        k1_by_kernel = {
+            str(rate): kernel_ms_by_name(lambda rate=rate: att.attention_fwd(
+                q, k, v, key_pad, static, H, scale, True, rate, 7))
+            for rate in (DROPOUT, 0.0)}
         k1_plain = cuda_time_ms(lambda: att.attention_reference(
             q, k, v, key_pad, static, H, scale, True, DROPOUT, 7,
             dots_dtype=dtype), 5, 1)
@@ -920,7 +933,9 @@ def train_kernels_phase():
                          + masks, 10 * B * H * Tq * Tk * D, dtype)
         emit(phase="k1_train_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, with_lse=True,
-             ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd,
+             ms=k1_ms, device_ms_by_kernel=k1_by_kernel,
+             route=att.k1_route(dtype, D), plain_ms=k1_plain,
+             library_ms=lib_fwd,
              sdpa_backend=SDPA_BACKEND, **k1_b)
         emit(phase="k2_time", dtype=dtype_name(dtype),
              shape=[B, Tq, Tk, H, D], dropout=DROPOUT, ms=k2_ms,
@@ -1468,9 +1483,11 @@ def plain_step_time(root: Path):
 
 # the resident path's K (steps per dispatch) in this phase
 DISPATCH_K = 10
-# a name per launch of each wrapper (K2 and K4 launch two kernels each:
-# their first is counted)
-_KERNEL_GROUPS = (("k1", "attn_fwd_"), ("k2", "attn_bwd_dq_"),
+# a kernel name (a regular expression) per launch of each wrapper: K2 and
+# K4 launch two kernels each, their first is counted; with dropout the bf16
+# K1 and K2 draw their keep bits first (attn_fwd_keep_kernel,
+# attn_bwd_keep_kernel), not counted
+_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg)_kernel"), ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
                   ("philox", "philox_"),
                   ("session_rows", "session_rows_grad_kernel"))
@@ -1482,7 +1499,7 @@ def kernel_counts(prof) -> dict:
     counts = dict.fromkeys((g for g, _ in _KERNEL_GROUPS), 0)
     for name, _ in _device_events(prof):
         for group, key in _KERNEL_GROUPS:
-            if key in name:
+            if re.search(key, name):
                 counts[group] += 1
     return counts
 
@@ -4942,9 +4959,10 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                 source=f"{src}{lib}_d{D}.cu", replaces=attn_py + line,
                 launches=sum(mine.values()), launches_by_path=mine,
                 bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
-            if kname == "k2":
-                row["bf16_kernel"] = ("wgmma: attn_bwd_*_wg_kernel, "
-                                      f"{src}attention_bwd_bf16.cuh")
+            row["bf16_kernel"] = (
+                "wgmma: attn_fwd_wg_kernel (+ attn_fwd_keep_kernel), "
+                f"{src}attention_fwd_bf16.cuh" if kname == "k1" else
+                f"wgmma: attn_bwd_*_wg_kernel, {src}attention_bwd_bf16.cuh")
             if D == 64:
                 row["off_path_widths"] = {}
                 for w in HW_WIDTHS:
@@ -5022,7 +5040,7 @@ def _trace_kernels(trace_dir: Path) -> dict:
         if LEAD_IN_KERNEL in name:
             counts["lead_in"] += 1
         for group, key in _KERNEL_GROUPS:
-            if key in name:
+            if re.search(key, name):
                 counts[group] += 1
     return dict(counts, file=str(path), bytes=path.stat().st_size)
 
@@ -5478,9 +5496,13 @@ def main() -> int:
              route="cuda", source=src + "attention_fwd.cu",
              replaces=attn_py + ":144", launches=eval_f32["k1"],
              **_row(k1[f32])),
-        dict(name="attention_fwd (K1, eval), bf16: tensor cores (mma.sync "
-             "m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
-             source=src + "attention_fwd.cu", replaces=attn_py + ":144",
+        dict(name="attention_fwd (K1, eval), bf16: Hopper wgmma (s one "
+             "m64n104k16 wgmma over half the key row a warpgroup, two "
+             "warpgroups, a one-sweep softmax; pd as register A fragments "
+             "of the pd . v product), TMA tiles on an mbarrier: "
+             "attn_fwd_wg_kernel", route="cuda",
+             source=src + "attention_fwd_bf16.cuh",
+             replaces=attn_py + ":144",
              launches=eval_bf16["k1"], **_row(k1[bf16])),
         dict(name="attention_fwd (K1, training: dropout 0.4, lse), f32: "
              "tensor cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, "
@@ -5492,9 +5514,12 @@ def main() -> int:
                                              "multisession_mixed_graph_f32",
                                              *par_f32)),
              **_row(k1_train[f32])),
-        dict(name="attention_fwd (K1, training), bf16: tensor cores "
-             "(mma.sync m16n8k16 bf16, ldmatrix, cp.async)", route="cuda",
-             source=src + "attention_fwd.cu", replaces=attn_py + ":144",
+        dict(name="attention_fwd (K1, training: dropout 0.4, lse), bf16: "
+             "Hopper wgmma, TMA tiles, one sweep (attn_fwd_wg_kernel), the "
+             "keep bits drawn first by attn_fwd_keep_kernel and read by "
+             "TMA", route="cuda",
+             source=src + "attention_fwd_bf16.cuh",
+             replaces=attn_py + ":144",
              launches=train_bf16["k1"],
              launches_by_path=by_path("k1", ("train_bf16",
                                              "dispatch_graph_bf16",
@@ -5617,9 +5642,11 @@ def main() -> int:
     # launches on the tp > 1 layouts' ranks 0 (three steps a layout)
     tp_paths = tuple(k for k in par["launches"] if "_tp1_" not in k)
     rank_rows = par["rank_rows"]
-    for i, (kname, short, line, cu) in enumerate((
-            ("k1", "attention_fwd (K1)", ":144", "attention_fwd.cu"),
-            ("k2", "attention_bwd (K2)", ":221", "attention_bwd.cu"))):
+    for i, (kname, short, line, cu, wg) in enumerate((
+            ("k1", "attention_fwd (K1)", ":144", "attention_fwd.cu",
+             "attention_fwd_bf16.cuh"),
+            ("k2", "attention_bwd (K2)", ":221", "attention_bwd.cu",
+             "attention_bwd_bf16.cuh"))):
         kernels.append(dict(
             name=f"{short} at a tensor-parallel rank's shape under tp=2 "
                  "(B=8 of 16 under dp=2, 200 tokens, 4 heads of 32: 128 "
@@ -5630,6 +5657,7 @@ def main() -> int:
                      ":528-555)",
             launches=sum(paths[k][kname] for k in tp_paths),
             launches_by_path={k: paths[k][kname] for k in tp_paths},
+            bf16_kernel=f"wgmma: {src}{wg}",
             bf16=_row(rank_rows[bf16][i]), **_row(rank_rows[f32][i])))
     kernels += head_width_rows(hw, src, attn_py, ln_py, kernels)
     from multi_modal_foundation_model_tpu_torch.utils.profiling import (

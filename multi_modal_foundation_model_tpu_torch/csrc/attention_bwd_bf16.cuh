@@ -74,24 +74,9 @@
 namespace mmfm {
 namespace k2wg {
 
-constexpr int kThreads = 256;              // two warpgroups
-constexpr int kRows = 64;                  // rows a block
-constexpr int kCols = 104;                 // columns a warpgroup
-constexpr int kChunk = 2 * kCols;          // columns a block takes at once
-constexpr int kBRows = kChunk + 8;         // + 8 zero rows: the last k-step
-constexpr int kSteps = (kCols + 15) / 16;  // k-steps of an output product
-constexpr int kAcc = kCols / 2;            // f32 a thread of a 64 x 104 sum
-constexpr int kBits = kCols / 4;           // elements a thread and row
-
-__host__ __device__ constexpr int align1k(int x) {
-  return (x + 1023) / 1024 * 1024;
-}
-
-// A stage's keep bytes (mask[b][h][k / 8][q], bit k % 8): pass A's 64
-// queries x 26 bytes of keys, pass B's 208 queries x 8 bytes (its 64 keys)
-constexpr int kKeepBytes = kRows * (kChunk / 8);
-static_assert(kKeepBytes == kChunk * (kRows / 8), "one box size");
-constexpr int kKeepBuf = (kKeepBytes + 127) / 128 * 128;
+// the tiling K1 and K2 share (kThreads, kRows, kCols, kChunk, to_frags,
+// walk_heads, ...)
+using namespace wg;
 
 // the dynamic shared memory of a block at head width D, in bytes
 template <int D>
@@ -123,8 +108,8 @@ struct Args {
 // and q < tq16 = Tq rounded up to 16 (0 past Tq): bit i of a byte is key
 // 8 kb + i of query q, kept iff K1's Philox draw (counter (k / 4, q,
 // h + h_off, b + b_off), philox.cuh) clears the threshold. A thread draws
-// 4 queries' bytes (8 Philox calls) and writes them as one word; the
-// passes read the bytes by TMA.
+// 4 queries' bytes (8 Philox calls, philox.cuh keep_word) and writes them
+// as one word; the passes read the bytes by TMA.
 __global__ void __launch_bounds__(256)
     attn_bwd_keep_kernel(uint32_t* __restrict__ mask,
                          const long long* __restrict__ seed_ptr,
@@ -138,35 +123,7 @@ __global__ void __launch_bounds__(256)
   const long long rest = i / words;
   const int kb = (int)(rest % kb_n), bh = (int)(rest / kb_n);
   const int b = bh / H, h = bh % H;
-  uint32_t word = 0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int q = 4 * qw + u;
-    if (q >= Tq) break;
-    // two calls a byte, keys past Tk in the last one drawn and never read
-    // (skipping them, a branch a call, took the kernel 21% longer on the
-    // H100: scripts/torch_k2_variants.py, keep_below_tk)
-    const uint32_t lo =
-        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb);
-    const uint32_t hi =
-        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb + 1);
-    word |= (lo | hi << 4) << (8 * u);
-  }
-  mask[i] = word;
-}
-
-// The A fragments (kSteps k-steps of 16 columns) of the bf16 rounding of a
-// 64 x 104 f32 accumulator x: element (row hh, n8 block j, column e) is
-// x[4 j + 2 hh + e]; the columns past 104 are zero.
-__device__ __forceinline__ void to_frags(uint32_t (&f)[kSteps][4],
-                                         const float (&x)[kAcc]) {
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = 2 * kk + (r >> 1), i = 4 * j + 2 * (r & 1);
-      f[kk][r] = j < kCols / 8 ? pack_bf16(x[i], x[i + 1]) : 0u;
-    }
+  mask[i] = keep_word(seed, threshold, b + b_off, h + h_off, qw, kb, Tq);
 }
 
 // Pass A (kPassB false): rows are queries, columns keys; A1 = q (scaled in
@@ -542,32 +499,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap keep_map,
                             const Args a) {
   bwd_body<true, kDropout, D>(&k_map, &v_map, &q_map, &g_map, &keep_map, a);
-}
-
-// The keep bytes' rows: Tq rounded up to 16 (a TMA stride)
-inline int keep_row(int Tq) { return (Tq + 15) / 16 * 16; }
-
-// Heads a block walks through, a divisor of H: one block runs on an SM at
-// a time, and a block's set-up (barriers, the attend bits, its first
-// copies) takes about 1.3 heads' time, so the fewest waves of blocks times
-// (1.3 + heads a block). At the training step's B = 256 all 8 heads (1,024
-// blocks); at B = 16, 4 (128 blocks: one wave on the H100's 132 SMs).
-inline int walk_heads(int B, int n_tiles, int H) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int best = 1;
-  double best_cost = 1e30;
-  for (int hpb = 1; hpb <= H; ++hpb) {
-    if (H % hpb != 0) continue;
-    const long long blocks = (long long)B * n_tiles * (H / hpb);
-    const double cost = (double)((blocks + sms - 1) / sms) * (1.3 + hpb);
-    if (cost < best_cost) {
-      best_cost = cost;
-      best = hpb;
-    }
-  }
-  return best;
 }
 
 // The keep draws and both passes on the stream: operands as

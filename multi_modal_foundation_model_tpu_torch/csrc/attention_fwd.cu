@@ -1,5 +1,8 @@
 // K1: fused multi-head attention forward for Hopper (sm_90a), on the
-// tensor cores in f32 (3xTF32) and bf16.
+// tensor cores in f32 (3xTF32) and bf16. bf16 at head widths 16, 32 and 64
+// runs the wgmma kernel of attention_fwd_bf16.cuh (whole key row, one
+// sweep, TMA tiles); f32 at every width and bf16 at 128 run the mma.sync
+// kernel of this file (attn_fwd_tc_kernel<T, kDropout, D>).
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
@@ -27,8 +30,9 @@
 // row, so the column views of a fused QKV product (row stride 3*H*D) need
 // no copy. The output is contiguous (B, Tq, H*D) in the inputs' type.
 //
-// One kernel body serves both dtypes (attn_fwd_tc_kernel<T, kDropout, D>;
-// Tc<T, D> in tc_traits.cuh holds what differs, shared with K2). Its design is
+// One mma.sync kernel body serves both dtypes (attn_fwd_tc_kernel<T,
+// kDropout, D>; Tc<T, D> in tc_traits.cuh holds what differs, shared with
+// K2); bf16 builds it at D = 128 only. Its design is
 // K2 pass A's: four warps a block, each holding 16 query rows of q * scale
 // as mma A fragments in registers; K_h and V_h stream through shared memory
 // in 64-key tiles by cp.async (16 B a copy, tail rows zero-filled; bf16
@@ -92,7 +96,8 @@
 // in registers instead of hi/lo planes were slower again
 // (scripts/torch_k1_variants.py, Tc<T, D>::kFwdBufs).
 //
-// bf16 (mma_bf16.cuh): the arithmetic of JAX's K1 on its own hardware,
+// bf16 (mma_bf16.cuh; at 16-64 attention_fwd_bf16.cuh, the same function
+// and roundings on wgmma): the arithmetic of JAX's K1 on its own hardware,
 // where DEFAULT-precision f32 dots feed the matrix unit bf16 operands
 // (:189-191, :213-216):
 //   s  = bf16(f32(q) * scale) . k + bias     (mma.sync m16n8k16, f32 sums)
@@ -106,24 +111,27 @@
 // (q, k, v in, out written; the masks once), where the products need 0.013
 // ms at 989 TFLOP/s bf16; the expected limiters are the exps (102 M at B =
 // 320) and, with dropout, the Philox draws (20 M calls at B = 256), not the
-// products.
+// products. At D = 128 bf16 stays on mma.sync: a 256-byte bf16 row is two
+// swizzle atoms, where the wgmma tiles' layout (wgmma_bf16.cuh wg::desc)
+// takes one; no configuration launches K1 at 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef MMFM_HEAD_DIM
+#define MMFM_HEAD_DIM 32
+#endif
+
 #include "philox.cuh"
 #include "tc_traits.cuh"
+#if MMFM_HEAD_DIM <= 64
+#include "attention_fwd_bf16.cuh"
+#endif
 
 namespace {
 
 using namespace mmfm;
-
-constexpr float kLseFloor = -1e6f;  // ops/attention.py _LSE_FLOOR
-
-#ifndef MMFM_HEAD_DIM
-#define MMFM_HEAD_DIM 32
-#endif
 
 // out (and lse) for 64 query rows of one b and heads [h0, h0 + hpb).
 template <typename T, bool kDropout, int D>
@@ -375,7 +383,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // dtype: 0 = float32 (3xTF32), 1 = bfloat16, for q, k, v and out; D must
 // be this library's MMFM_HEAD_DIM; data pointers and batch and row strides
 // of q, k, v 16-byte
-// aligned. lse may be null. Strides in elements. dropout != 0 drops p[q,k]
+// aligned. lse may be null. Strides in elements. scratch: with dropout,
+// the bf16 wgmma kernel's keep bytes, B * H * ceil(Tk / 8) * (Tq rounded up
+// to 16), 16-byte aligned (ops/attention.py::_k1_scratch_bytes, by
+// k1_route); unread otherwise (may be null). dropout != 0 drops p[q,k]
 // unless its Philox bits exceed `threshold` and scales survivors by
 // `keep_scale`; the bits of (b, h) are drawn as those of (b + b_off,
 // h + h_off), so a rank holding a slice of the batch (data parallel) and
@@ -383,9 +394,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // Returns the launch's cudaGetLastError() (0 = ok).
 extern "C" int mmfm_attention_fwd(
     const void* q, const void* k, const void* v, const int* key_pad,
-    const int* static_mask, void* out, float* lse, int B, int Tq, int Tk,
-    int H, int D, long long q_sb, long long q_st, long long k_sb,
-    long long k_st, long long v_sb, long long v_st, float scale,
+    const int* static_mask, void* out, float* lse, void* scratch, int B,
+    int Tq, int Tk, int H, int D, long long q_sb, long long q_st,
+    long long k_sb, long long k_st, long long v_sb, long long v_st, float scale,
     const long long* seed, unsigned threshold, float keep_scale, int dropout,
     int b_off, int h_off, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -395,11 +406,22 @@ extern "C" int mmfm_attention_fwd(
       q, k, v, key_pad, static_mask, out, lse, B, Tq, Tk, H, q_sb, q_st,     \
       k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale, b_off,     \
       h_off, s)
+#define MMFM_K1_WG(DROP)                                                     \
+  mmfm::k1wg::launch<DROP, MMFM_HEAD_DIM>(                                   \
+      q, k, v, key_pad, static_mask, out, lse, scratch, B, Tq, Tk, H, q_sb,  \
+      q_st, k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale,      \
+      b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0)
     err = dropout ? MMFM_K1_LAUNCH(float, true) : MMFM_K1_LAUNCH(float, false);
+#if MMFM_HEAD_DIM <= 64
+  else if (dtype == 1)
+    err = dropout ? MMFM_K1_WG(true) : MMFM_K1_WG(false);
+#else
   else if (dtype == 1)
     err = dropout ? MMFM_K1_LAUNCH(bf16, true) : MMFM_K1_LAUNCH(bf16, false);
+#endif
+#undef MMFM_K1_WG
 #undef MMFM_K1_LAUNCH
   return (int)err;
 }

@@ -27,6 +27,7 @@
 namespace mmfm {
 
 constexpr float kNegInf = -1e30f;   // ops/attention.py NEG_INF
+constexpr float kLseFloor = -1e6f;  // ops/attention.py _LSE_FLOOR
 
 using bf16 = __nv_bfloat16;
 

@@ -1,5 +1,5 @@
-// Counter-based dropout bits shared by K1 (attention_fwd.cu) and K2
-// (attention_bwd.cu).
+// Counter-based dropout bits shared by K1 (attention_fwd.cu,
+// attention_fwd_bf16.cuh) and K2 (attention_bwd.cu, attention_bwd_bf16.cuh).
 //
 // Philox4x32-10 (Salmon et al., SC'11), keyed by the attention call's seed.
 // The keep decision for score (b, h, q, k) is a pure function of those four
@@ -51,6 +51,29 @@ __device__ __forceinline__ uint32_t keep_bits4(uint32_t seed,
                                   (uint32_t)b, seed, 0u);
   return (uint32_t)(r.x > threshold) | (uint32_t)(r.y > threshold) << 1 |
          (uint32_t)(r.z > threshold) << 2 | (uint32_t)(r.w > threshold) << 3;
+}
+
+// The keep bytes of queries [4 qw, 4 qw + 4) (none at or past Tq) of row
+// (b, h), keys [8 kb, 8 kb + 8), as one word: byte u holds query 4 qw + u,
+// bit i key 8 kb + i. The layout mask[b][h][kb][q] that the bf16 K1 and K2
+// on wgmma draw into once (attn_fwd_keep_kernel, attn_bwd_keep_kernel) and
+// read by TMA: 8 Philox calls.
+__device__ __forceinline__ uint32_t keep_word(uint32_t seed,
+                                              uint32_t threshold, int b,
+                                              int h, int qw, int kb, int Tq) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int q = 4 * qw + u;
+    if (q >= Tq) break;
+    // two calls a byte, keys past Tk in the last one drawn and never read
+    // (skipping them, a branch a call, took the K2 keep kernel 21% longer
+    // on the H100: scripts/torch_k2_variants.py, keep_below_tk)
+    const uint32_t lo = keep_bits4(seed, threshold, b, h, q, 2 * kb);
+    const uint32_t hi = keep_bits4(seed, threshold, b, h, q, 2 * kb + 1);
+    word |= (lo | hi << 4) << (8 * u);
+  }
+  return word;
 }
 
 }  // namespace mmfm

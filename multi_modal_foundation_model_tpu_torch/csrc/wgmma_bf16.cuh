@@ -1,5 +1,7 @@
-// Hopper building blocks of the bf16 attention backward K2
-// (attention_bwd_bf16.cuh): wgmma, TMA and mbarriers, for sm_90a.
+// Hopper building blocks of the bf16 attention kernels on wgmma, the
+// forward K1 (attention_fwd_bf16.cuh) and the backward K2
+// (attention_bwd_bf16.cuh): wgmma, TMA and mbarriers, for sm_90a, and the
+// whole-key-row tiling the two share.
 //
 // - wgmma.mma_async: a warpgroup (four warps, 128 threads) multiplies a
 //   64-row A by a B of N columns, bf16 in, f32 accumulated in registers,
@@ -26,6 +28,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace mmfm {
 namespace wg {
@@ -243,6 +247,45 @@ __device__ __forceinline__ void mma_rs(float (&d)[32],
 }
 
 // ---------------------------------------------------------------------------
+// the whole-key-row tiling of K1 and K2: a block's 64 rows against a chunk
+// of 208 columns, 104 a warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;              // two warpgroups
+constexpr int kRows = 64;                  // rows a block
+constexpr int kCols = 104;                 // columns a warpgroup
+constexpr int kChunk = 2 * kCols;          // columns a block takes at once
+constexpr int kBRows = kChunk + 8;         // + 8 zero rows: the last k-step
+constexpr int kSteps = (kCols + 15) / 16;  // k-steps of an output product
+constexpr int kAcc = kCols / 2;            // f32 a thread of a 64 x 104 sum
+constexpr int kBits = kCols / 4;           // elements a thread and row
+
+__host__ __device__ constexpr int align1k(int x) {
+  return (x + 1023) / 1024 * 1024;
+}
+
+// A stage's keep bytes (mask[b][h][k / 8][q], bit k % 8): a query-row
+// pass's 64 queries x 26 bytes of keys (K1, K2's pass A), K2 pass B's 208
+// queries x 8 bytes (its 64 keys)
+constexpr int kKeepBytes = kRows * (kChunk / 8);
+static_assert(kKeepBytes == kChunk * (kRows / 8), "one box size");
+constexpr int kKeepBuf = (kKeepBytes + 127) / 128 * 128;
+
+// The A fragments (kSteps k-steps of 16 columns) of the bf16 rounding of a
+// 64 x 104 f32 accumulator x: element (row hh, n8 block j, column e) is
+// x[4 j + 2 hh + e]; the columns past 104 are zero.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[kSteps][4],
+                                         const float (&x)[kAcc]) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 2 * kk + (r >> 1), i = 4 * j + 2 * (r & 1);
+      f[kk][r] = j < kCols / 8 ? pack_bf16(x[i], x[i + 1]) : 0u;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // host side: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -307,6 +350,34 @@ inline bool byte_map(CUtensorMap* map, const void* ptr, int cols, int rows,
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The keep bytes' rows: Tq rounded up to 16 (a TMA stride)
+inline int keep_row(int Tq) { return (Tq + 15) / 16 * 16; }
+
+// Heads a block walks through, a divisor of H: per_sm blocks run on an SM
+// at a time, and a block's set-up (barriers, the attend bits, its first
+// copies) takes about 1.3 heads' time, so the fewest waves of blocks times
+// (1.3 + heads a block). K2 at the training step's B = 256 (one block an
+// SM): all 8 heads (1,024 blocks); at B = 16, 4 (128 blocks: one wave on
+// the H100's 132 SMs).
+inline int walk_heads(int B, int n_tiles, int H, int per_sm = 1) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  int best = 1;
+  double best_cost = 1e30;
+  for (int hpb = 1; hpb <= H; ++hpb) {
+    if (H % hpb != 0) continue;
+    const long long blocks = (long long)B * n_tiles * (H / hpb);
+    const double cost = (double)((blocks + slots - 1) / slots) * (1.3 + hpb);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = hpb;
+    }
+  }
+  return best;
 }
 
 }  // namespace wg

@@ -397,7 +397,7 @@ def _k1_lib(head_dim: int = 32):
         p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint)
         f = ctypes.c_float
-        fn.argtypes = ([p] * 7 + [i] * 5 + [ll] * 6
+        fn.argtypes = ([p] * 8 + [i] * 5 + [ll] * 6
                        + [f, p, u, f, i, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
@@ -417,16 +417,48 @@ def _k2_lib(head_dim: int = 32):
     return fn
 
 
+def _route(dtype, head_dim: int) -> str:
+    """``"wgmma"`` for bf16 at the compiled widths 16, 32 and 64 (and the
+    widths padded to them), ``"mma_sync"`` for f32 at every width and bf16
+    at 128; above 128, ``ValueError``."""
+    width = kernel_head_dim(head_dim)
+    if dtype == torch.bfloat16 and width <= 64:
+        return "wgmma"
+    return "mma_sync"
+
+
+def k1_route(dtype, head_dim: int) -> str:
+    """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
+    bf16 kernel of ``csrc/attention_fwd_bf16.cuh`` (wgmma over the whole key
+    row, TMA), for bf16 at the compiled widths 16, 32 and 64 (and the widths
+    padded to them); ``"mma_sync"``, ``attn_fwd_tc_kernel`` of
+    ``csrc/attention_fwd.cu``, for f32 at every width and bf16 at 128. Above
+    128, ``ValueError``."""
+    return _route(dtype, head_dim)
+
+
 def k2_route(dtype, head_dim: int) -> str:
     """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
     bf16 kernel of ``csrc/attention_bwd_bf16.cuh`` (wgmma, TMA), for bf16
     at the compiled widths 16, 32 and 64 (and the widths padded to them);
     ``"mma_sync"``, the pair of ``csrc/attention_bwd.cu``, for f32 at every
     width and bf16 at 128. Above 128, ``ValueError``."""
-    width = kernel_head_dim(head_dim)
-    if dtype == torch.bfloat16 and width <= 64:
-        return "wgmma"
-    return "mma_sync"
+    return _route(dtype, head_dim)
+
+
+def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
+                      route: str = "mma_sync") -> int:
+    """Bytes of K1's scratch with dropout. ``"wgmma"``: the keep bytes
+    that ``attn_fwd_keep_kernel`` draws and the kernel's stages read by TMA
+    (``csrc/attention_fwd_bf16.cuh``), one bit per (b, h, query, key):
+    (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding 8 keys of one
+    query (a row of 16-byte multiples: the stride of the TMA copies), as
+    the wgmma K2's. ``"mma_sync"`` draws inside the kernel: none."""
+    if route == "wgmma":
+        return B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16)
+    if route != "mma_sync":
+        raise ValueError(f"K1 route {route!r}")
+    return 0
 
 
 def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int,
@@ -539,8 +571,10 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     ``attention_reference``, with the scores the f32 K2 recomputes. bf16
     takes bf16 operands as JAX's K1 on its hardware: the contract of
     ``attention_reference(..., dots_dtype=torch.bfloat16)``, and the lse
-    the bf16 K2 recomputes its probabilities against. The kernel copies
-    its tiles with ``cp.async``, so q/k/v need 16-byte aligned data
+    the bf16 K2 recomputes its probabilities against; at head widths up to
+    64 it runs on Hopper's wgmma with TMA copies, its keep bits drawn by a
+    kernel of their own first (``k1_route``). The kernels copy
+    their tiles with ``cp.async`` or TMA, so q/k/v need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""
@@ -571,11 +605,18 @@ def _k1_launch(q, k, v, key_pad, static, n_heads: int, scale: float,
     out = torch.empty((B, Tq, hidden), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, n_heads, Tq), dtype=torch.float32, device=dev)
            if with_lse else None)
+    scratch = None
+    if key is not None:
+        size = _k1_scratch_bytes(B, n_heads, Tq, Tk,
+                                 k1_route(q.dtype, hidden // n_heads))
+        if size:
+            scratch = torch.empty(size, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad.data_ptr(),
                 static.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
+                scratch.data_ptr() if scratch is not None else None,
                 B, Tq, Tk, n_heads, hidden // n_heads,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), float(scale),

@@ -63,15 +63,16 @@ from multi_modal_foundation_model_tpu_torch.ops import attention as att  # noqa:
 from multi_modal_foundation_model_tpu_torch.ops import build  # noqa: E402
 
 SRC = "attention_bwd_bf16.cuh"
-# the keep kernel's draws of a byte, and a function spliced in before it
+# the keep draws of a byte (philox.cuh keep_word, which the keep kernel
+# calls), and a function spliced in before it
+KEEP_SRC = "philox.cuh"
 KEEP_CALL = (
-    "    const uint32_t lo =\n"
-    "        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb);\n"
-    "    const uint32_t hi =\n"
-    "        keep_bits4(seed, threshold, b + b_off, h + h_off, q, 2 * kb + 1);"
+    "    const uint32_t lo = keep_bits4(seed, threshold, b, h, q, 2 * kb);\n"
+    "    const uint32_t hi = keep_bits4(seed, threshold, b, h, q, 2 * kb + 1);"
     "\n    word |= (lo | hi << 4) << (8 * u);")
-KEEP_ANCHOR = ("// The keep bytes of K1's dropout, mask[b][h][kb][q] for kb < "
-               "ceil(Tk / 8)")
+KEEP_ANCHOR = "// The keep bytes of queries [4 qw, 4 qw + 4)"
+KEEP_WORD_CALL = ("  mask[i] = keep_word(seed, threshold, b + b_off, h + h_off, "
+                  "qw, kb, Tq);")
 KEEP_BITS8 = """\
 // The keep bits of keys [8 kb, 8 kb + 8) of row (b, h, q): the two Philox
 // calls of philox.cuh's keep_bits4 (counters (2 kb, q, h, b) and (2 kb + 1,
@@ -293,21 +294,23 @@ VARIANTS = {
     "products_per_k_step": {SRC: [(BODY_ANCHOR, STEP_HELPERS + BODY_ANCHOR),
                                    (SERIAL_A, PIPELINED_A),
                                    (SERIAL_B, PIPELINED_B)]},
-    "keep_below_tk": {SRC: [
-        (KEEP_CALL,
-         "    uint32_t lo = 0u, hi = 0u;\n"
-         "    if (8 * kb < Tk)\n"
-         "      lo = keep_bits4(seed, threshold, b + b_off, h + h_off, q, "
-         "2 * kb);\n"
-         "    if (8 * kb + 4 < Tk)\n"
-         "      hi = keep_bits4(seed, threshold, b + b_off, h + h_off, q, "
-         "2 * kb + 1);\n"
-         "    word |= (lo | hi << 4) << (8 * u);")]},
-    "keep_wide_multiply": {SRC: [
+    "keep_below_tk": {
+        KEEP_SRC: [
+            ("int h, int qw, int kb, int Tq) {",
+             "int h, int qw, int kb, int Tq,\n"
+             "                                              int Tk) {"),
+            (KEEP_CALL,
+             "    uint32_t lo = 0u, hi = 0u;\n"
+             "    if (8 * kb < Tk)\n"
+             "      lo = keep_bits4(seed, threshold, b, h, q, 2 * kb);\n"
+             "    if (8 * kb + 4 < Tk)\n"
+             "      hi = keep_bits4(seed, threshold, b, h, q, 2 * kb + 1);\n"
+             "    word |= (lo | hi << 4) << (8 * u);")],
+        SRC: [(KEEP_WORD_CALL, KEEP_WORD_CALL.replace("Tq);", "Tq, Tk);"))]},
+    "keep_wide_multiply": {KEEP_SRC: [
         (KEEP_ANCHOR, KEEP_BITS8 + KEEP_ANCHOR),
         (KEEP_CALL,
-         "    word |= keep_bits8(seed, threshold, b + b_off, h + h_off, q, "
-         "kb)\n            << (8 * u);")]},
+         "    word |= keep_bits8(seed, threshold, b, h, q, kb) << (8 * u);")]},
     "heads_per_block_rule": {SRC: [
         ("  args.hpb = walk_heads(B, n_qt, H);",
          "  args.hpb = heads_per_block(B, n_qt, H);"),

@@ -10,9 +10,12 @@ and variants of how the kernels take the key (string edits of the sources
 into ``build/probe/seed_<name>/``, each edit checked to apply exactly
 once), swaps each in for ``ops.attention._k1_lib`` / ``_k2_lib``, checks
 K1 with ``chip_smoke.k1_gates`` and K2 against its plain version (the
-smoke's gates: f32 atol 1e-5, bf16 2e-2 (1 + |plain|)) on the same Philox
-bits, and times both with CUDA events at the training step's B=256
-encoder shape, dropout 0.4, f32 and bf16, in order and then reversed.
+smoke's gates: f32 atol 1e-5) on the same Philox bits, and times both with
+CUDA events at the training step's B=256 encoder shape, dropout 0.4, in
+order and then reversed. f32 only: the variants edit the mma.sync kernels'
+read of the key, and bf16 at head width 32 runs the wgmma kernels, whose
+keep kernels read it (``ops.attention.k1_route`` / ``k2_route``); the
+``by_value`` build hands those launches no key.
 
 - ``pointer``: the committed read, ``__ldg`` of the entry into a register.
 - ``by_value``: the key as a kernel argument (the ABI before the seed
@@ -54,9 +57,22 @@ PARAMS = {
     "attention_bwd.cu": ("const long long* __restrict__ seed_ptr,",
                          "const long long* seed, unsigned threshold,\n"
                          "                      float keep_scale, "
-                         "cudaStream_t",
+                         "int b_off",
                          "float scale, const long long* seed, unsigned "
                          "threshold,"),
+}
+
+
+# the wgmma launches' key argument (bf16, not timed here): none in the
+# by_value build, whose entry points take the key's value
+WG_KEY = {
+    "attention_fwd.cu": ("lse, scratch, B, Tq, Tk, H, q_sb,  \\\n"
+                         "      q_st, k_sb, k_st, v_sb, v_st, scale, seed,"),
+    "attention_bwd.cu": ("mmfm::k2wg::launch<DROP, MMFM_HEAD_DIM>(" + " " * 35
+                         + "\\\n      q, k, v, g, key_pad, static_mask, lse, "
+                         "rowsum, dq, dk, dv, B, Tq, Tk,  \\\n      H, q_sb, "
+                         "q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, "
+                         "seed,"),
 }
 
 
@@ -69,7 +85,9 @@ def _by_value_edits():
             (launch, launch.replace("const long long* seed",
                                     "unsigned seed")),
             (entry, entry.replace("const long long* seed", "unsigned seed")),
-            (READ, "const unsigned seed = seed_val;")]
+            (READ, "const unsigned seed = seed_val;"),
+            (WG_KEY[src], WG_KEY[src].replace("scale, seed,",
+                                              "scale, nullptr,"))]
     return edits
 
 
@@ -81,7 +99,7 @@ VARIANTS = {
                      "(unsigned)__ldg(seed_ptr)) : 0u;")]
               for src in PARAMS},
 }
-K1_SEED_ARG, K2_SEED_ARG = 19, 25          # index of the key in the ABI
+K1_SEED_ARG, K2_SEED_ARG = 20, 25          # index of the key in the ABI
 
 
 def emit(**record):
@@ -155,7 +173,7 @@ def main() -> int:
             for n, p in started.items()}
     seed = 7
     ops = {}
-    for dtype in cs.DTYPES:
+    for dtype in (torch.float32,):
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=cs.BIG_B)
         B, Tq, hidden = q.shape
         key_pad, static = att.spec_operands(spec, B, Tq, k.shape[1],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's single-session training steps on one card.
 
-    python3 scripts/torch_step_time.py
+    python3 scripts/torch_step_time.py [--dispatch]
 
 Builds the port's kernels (TF32 off, as ``chip_smoke.py`` does) and runs
 the step timings that ``chip_smoke.py`` checks the paths of but no longer
@@ -16,7 +16,9 @@ steps under ``"off"``, ``"bwd"`` and ``"full"`` interleaved, f32 and bf16,
 B=16 and B=256, with profiles), then the ``layernorm_default`` line (the
 mode the A/B rule picks at B=256 beside the default in the code), the
 ``nvidia-smi`` reading and the wall time. The full-width model is
-``chip_smoke``'s (N=668 + 2, T=100, H=256, 8 heads, 5+5 layers).
+``chip_smoke``'s (N=668 + 2, T=100, H=256, 8 heads, 5+5 layers). With
+``--dispatch`` it runs ``chip_smoke.dispatch_time`` alone (f32 and bf16,
+B=16 and B=256, eager and graph steps with their profiles).
 """
 
 from __future__ import annotations
@@ -47,14 +49,17 @@ def main() -> int:
     out = ROOT / "build"
     default = ln.PALLAS_LAYERNORM
     t_time = time.perf_counter()
-    cs.host_split_worker("this", out)
+    only_dispatch = "--dispatch" in sys.argv[1:]
+    if not only_dispatch:
+        cs.host_split_worker("this", out)
     cs.dispatch_time(out, torch.float32, default)
     cs.dispatch_time(out, torch.bfloat16, "full")
-    cs.plain_step_time(out)
-    picks = {cs.dtype_name(dt): cs.layernorm_ab(out, dt)
-             for dt in cs.DTYPES}
-    cs.emit(phase="layernorm_default", rule_pick_at_b256=picks,
-            default_in_code=default)
+    if not only_dispatch:
+        cs.plain_step_time(out)
+        picks = {cs.dtype_name(dt): cs.layernorm_ab(out, dt)
+                 for dt in cs.DTYPES}
+        cs.emit(phase="layernorm_default", rule_pick_at_b256=picks,
+                default_in_code=default)
     print(cs.nvidia_smi(), flush=True)
     print(json.dumps(dict(phase="step_time_wall",
                           total_s=time.perf_counter() - t_time,

@@ -26,9 +26,12 @@ Builds the port's kernels, then prints JSON lines:
   attention kernels at head width 32, the LayerNorm kernels at the
   layouts the parent had), read from both build logs, and ``width_side``
   lines: K1 (eval, B=320; training, B=256) and K2 (B=256) at head width
-  32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's shapes, timed in
-  six processes in the order other, this, this, other, other, this, each
-  importing its own checkout's package and building its kernels.
+  32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's shapes, and K1
+  (dropout 0.4, lse) by profiler device time at the other head widths
+  (B=16, 256 // D heads) and at a tensor-parallel rank's shape (B=8, 4
+  heads of 32, draw offsets (8, 4)), timed in six processes in the order
+  other, this, this, other, other, this, each importing its own
+  checkout's package and building its kernels.
 
 With ``--d32-b256`` it prints only ``d32_b256`` lines: K1 (dropout 0.4,
 lse) and K2 at head width 32 and the smoke's B=256 training shape (256 x
@@ -36,7 +39,9 @@ lse) and K2 at head width 32 and the smoke's B=256 training shape (256 x
 the shape of PERF.md's D=32 rows), f32 and bf16, by profiler device time
 and by CUDA events (the smoke's ``cuda_time_ms``), beside SDPA pinned to
 each backend in turn with the same bias and dropout (``sdpa_by_backend``,
-profiler device time), each backend's refusal named.
+profiler device time), each backend's refusal named; then ``d32_eval``
+lines: the eval's K1 (B=320, dropout 0, no lse) the same way, beside each
+backend's forward without dropout.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit. Without
 CUDA it exits non-zero.
@@ -69,10 +74,12 @@ def device_timer(fn, reps: int = 20, warmup: int = 3) -> float:
     return cs.device_ms(fn, reps)
 
 
-def sdpa_by_backend(q, k, v, key_pad, static, g, H) -> dict:
-    """SDPA's forward and backward ms (CUDA events) on head views of the
-    operands, the additive bias of the mask and dropout 0.4, pinned to each
-    backend; a backend that refuses the call gets its error."""
+def sdpa_by_backend(q, k, v, key_pad, static, g, H,
+                    dropout: float = cs.DROPOUT) -> dict:
+    """SDPA's forward and (with ``g``) backward ms (profiler device time)
+    on head views of the operands, the additive bias of the mask and
+    ``dropout``, pinned to each backend; a backend that refuses the call
+    gets its error."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
@@ -81,17 +88,20 @@ def sdpa_by_backend(q, k, v, key_pad, static, g, H) -> dict:
     bias = att.mask_to_bias(static.bool()[None]
                             | key_pad.bool()[:, None])[:, None].to(q.dtype)
     qh, kh, vh = (x.detach().unflatten(-1, (H, D)).transpose(1, 2)
-                  .requires_grad_(True) for x in (q, k, v))
-    gh = g.unflatten(-1, (H, D)).transpose(1, 2)
+                  .requires_grad_(g is not None) for x in (q, k, v))
     out = {}
     for name in SDPA_BACKENDS:
         def call():
             return F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=bias, dropout_p=cs.DROPOUT)
+                qh, kh, vh, attn_mask=bias, dropout_p=dropout)
 
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]):
                 fwd = device_timer(lambda: call().detach())
+                if g is None:
+                    out[name] = dict(fwd_ms=fwd)
+                    continue
+                gh = g.unflatten(-1, (H, D)).transpose(1, 2)
                 both = device_timer(lambda: torch.autograd.grad(
                     call(), (qh, kh, vh), gh))
             out[name] = dict(fwd_ms=fwd, bwd_ms=both - fwd,
@@ -146,6 +156,24 @@ def d32_b256_backends() -> None:
                 k1={t: r[0] for t, r in by_timer.items()},
                 k2={t: r[1] for t, r in by_timer.items()},
                 sdpa=sdpa_by_backend(q, k, v, key_pad, static, g, H))
+    for dtype in cs.DTYPES:
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype)
+        key_pad, static = att.spec_operands(spec, q.shape[0], q.shape[1],
+                                            k.shape[1], q.device)
+        scale = (q.shape[-1] // H) ** -0.5
+
+        def call():
+            return att.attention_fwd(q, k, v, key_pad, static, H, scale)
+
+        cs.emit(phase="d32_eval", dtype=cs.dtype_name(dtype),
+                shape=[q.shape[0], q.shape[1], k.shape[1], H,
+                       q.shape[-1] // H], dropout=0.0, with_lse=False,
+                route=att.k1_route(dtype, q.shape[-1] // H),
+                k1=dict(device=device_timer(call),
+                        device_by_kernel=cs.kernel_ms_by_name(call),
+                        events=cs.cuda_time_ms(call)),
+                sdpa=sdpa_by_backend(q, k, v, key_pad, static, None, H,
+                                     dropout=0.0))
 
 
 def layernorm_widths() -> None:
@@ -240,10 +268,13 @@ def _logs(checkout: Path, names) -> dict:
     return found
 
 
-# the parent's bf16 K2 at head width 32 (the mma.sync pair), which the
-# wgmma kernels of csrc/attention_bwd_bf16.cuh replace: not compared
+# the parent's bf16 kernels at head width 32 that the wgmma kernels
+# replace, listed apart and not compared: the K2 pair (replaced by
+# csrc/attention_bwd_bf16.cuh) when the parent still builds it, and the K1
+# (by csrc/attention_fwd_bf16.cuh)
 REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
-            ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16")}
+            ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16"),
+            ("attn_fwd_tc_kernel", "__nv_bfloat16")}
 
 
 def ptxas_compare(parent: Path) -> bool:
@@ -276,7 +307,9 @@ def ptxas_compare(parent: Path) -> bool:
 def side_worker(side: str) -> None:
     """In a process whose package is the checkout's: K1 (eval B=320,
     training B=256) and K2 (B=256) at head width 32 and K3/K4 at 51,200 and
-    3,200 x 256, the smoke's shapes."""
+    3,200 x 256, the smoke's shapes; K1 (dropout 0.4, lse) by profiler
+    device time at the other head widths at B=16 and at a tensor-parallel
+    rank's shape."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
     from multi_modal_foundation_model_tpu_torch.ops import build
 
@@ -296,8 +329,25 @@ def side_worker(side: str) -> None:
         k1, k2 = cs.attn_train_times(q, k, v, key_pad, static, g, H)
         ln_ms = {rows: cs.ln_time(rows, 256, dtype)["dev"]
                  for rows in (cs.BIG_B * 200, cs.TRAIN_B * 200)}
+        k1_widths = {}
+        for D in cs.HW_WIDTHS:
+            H = cs.GEOMETRY["hidden_size"] // D
+            q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", dtype,
+                                            B=cs.TRAIN_B, H=H, D=D, seed=D)
+            key_pad, static = att.spec_operands(spec, *q.shape[:2],
+                                                k.shape[1], q.device)
+            k1_widths[str(D)] = device_timer(lambda: att.attention_fwd(
+                q, k, v, key_pad, static, H, D ** -0.5, True, cs.DROPOUT, 7))
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=8, H=4)
+        key_pad, static = att.spec_operands(spec, *q.shape[:2], k.shape[1],
+                                            q.device)
+        k1_rank = device_timer(lambda: att.attention_fwd(
+            q, k, v, key_pad, static, H, 32 ** -0.5, True, cs.DROPOUT, 7,
+            draw_offset=(8, 4)))
         cs.emit(phase="width_side", side=side, dtype=cs.dtype_name(dtype),
                 k1_eval_ms=eval_ms, k1_train_ms=k1["ms"], k2_ms=k2["ms"],
+                k1_b16_device_ms_by_width=k1_widths,
+                k1_rank_device_ms=k1_rank,
                 k3_k4_device_ms={str(r): {"k3": t["k3"], "k4": t["k4"]}
                                  for r, t in ln_ms.items()})
 

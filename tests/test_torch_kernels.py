@@ -689,8 +689,10 @@ def test_k1_tensor_cores_at_tile_edges(tq, tk, rate, dtype):
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 def test_k1_blocks_walking_several_heads(rate, dtype):
     """At B = 256 a block of the tensor-core K1 walks all 4 heads of its
-    (batch, row tile), drawing the next head's keep bits beside the
-    current head's products; the smaller tests run one head a block."""
+    (batch, row tile): the f32 kernel draws the next head's keep bits
+    beside the current head's products, the bf16 wgmma kernel brings each
+    head's keep bytes by TMA into one of its two stages; the smaller tests
+    run one head a block."""
     _need_cuda()
     q, k, v, key_pad, static, _ = _problem(200, 200, seed=7, b=256,
                                            dtype=dtype)
@@ -782,6 +784,91 @@ def test_k1_philox_bits_match_philox_keep(dtype):
     want = tatt.philox_keep(seed, B, H, T, tk, rate, device="cuda")
     assert torch.equal(got, want)
     assert 0.5 < want.float().mean().item() < 0.7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(207, 207), (208, 208), (209, 209),
+                                   (257, 257), (520, 520), (200, 300),
+                                   (300, 17)])
+def test_k1_bf16_wgmma_at_chunk_edges(tq, tk, rate):
+    """The bf16 wgmma K1 around its 208-key chunk (one chunk up to 208, the
+    online rescale across two or three past it) and its 64-query tiles,
+    self and cross, through the fused-QKV or KV column views, random
+    masks, with lse: against the plain versions (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(tq, tk, seed=tq + tk)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
+                                  1.0 / math.sqrt(D), with_lse=True,
+                                  dropout_rate=rate, seed=41)
+    torch.cuda.synchronize()
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 41)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(200, 200), (257, 257), (300, 17)])
+def test_k1_bf16_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
+    """The bf16 K1 of a rank's slice, draw offsets (b0, h0) = (5, 3):
+    against the plain version drawn at the same offsets (``_k1_gates``'s
+    bf16 gates), and a second launch bit-equal to the first (fixed-order
+    sums, no atomics), in one chunk and across chunks."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(tq, tk, seed=12)
+    scale, off = 1.0 / math.sqrt(D), (5, 3)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale, True,
+                                  rate, 31, draw_offset=off)
+    again, lse2 = tatt.attention_fwd(q, k, v, key_pad, static, H, scale,
+                                     True, rate, 31, draw_offset=off)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    want, want_lse = tatt.attention_reference(
+        q, k, v, key_pad, static, H, scale, True, rate, 31,
+        dots_dtype=torch.bfloat16, draw_offset=off)
+    _within(got, want, 1e-2, "out")
+    _within(lse, want_lse, 1e-5, "lse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
+@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 128])
+def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
+    """What runs on the card: bf16 up to head width 64 launches
+    ``attn_fwd_wg_kernel`` (and with dropout ``attn_fwd_keep_kernel``
+    first), never the mma.sync ``attn_fwd_tc_kernel``; f32 and bf16 at 128
+    the mma.sync kernel alone (``k1_route``). Read from the kernel names
+    of a profile of three calls, opened by the port's lead-in (a trace
+    loses its first records on the card; traced again if it lost K1's)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_modal_foundation_model_tpu_torch.utils.profiling import (
+        profiler_lead_in)
+
+    h = 256 // width
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    q, k, v = torch.randn(3, 2, 70, h * width, device="cuda",
+                          generator=gen).to(dtype)
+    key_pad = torch.ones(2, 70, dtype=torch.int32, device="cuda")
+    static = torch.zeros(70, 70, dtype=torch.int32, device="cuda")
+    tatt.attention_fwd(q, k, v, key_pad, static, h, width ** -0.5, True,
+                       rate, 3)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_lead_in()
+            for _ in range(3):
+                tatt.attention_fwd(q, k, v, key_pad, static, h,
+                                   width ** -0.5, True, rate, 3)
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        if "attn_fwd_" in names:
+            break
+    wgmma = tatt.k1_route(dtype, width) == "wgmma"
+    assert ("attn_fwd_wg_kernel" in names) == wgmma, names
+    assert ("attn_fwd_tc_kernel" in names) == (not wgmma), names
+    assert ("attn_fwd_keep_kernel" in names) == (wgmma and rate > 0), names
 
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
