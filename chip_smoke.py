@@ -20,8 +20,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    kernel of ``csrc/attention_fwd_bf16.cuh``, with dropout after its keep
    draws) and K2 (``k2_check``/``k2_time``, with the
    device ms of each kernel K2 launches, by name, at dropout 0.4 and 0:
-   the bf16 K2 is the wgmma kernel of ``csrc/attention_bwd_bf16.cuh``,
-   its keep draws and two passes), B=256, f32
+   the bf16 K2 is the wgmma kernel of ``csrc/attention_bwd_bf16.cuh``, the
+   f32 one that of ``csrc/attention_bwd_f32.cuh``, each its keep draws and
+   two passes; the f32 K2 also beside SDPA's MATH backward), B=256, f32
    and bf16 (all four on the tensor cores: bf16 each held against the plain
    version with JAX's bf16 dots and the f32-dots one, f32 in 3xTF32 against
    the f32 one; each K1's lse against the scores K2 recomputes,
@@ -303,12 +304,13 @@ def emit(**record):
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
 
 
-def sdpa(*args, **kwargs):
-    """``F.scaled_dot_product_attention`` on ``SDPA_BACKEND`` only (it
-    raises if that backend cannot run the call)."""
+def sdpa(*args, backend: str = None, **kwargs):
+    """``F.scaled_dot_product_attention`` on ``backend`` (default
+    ``SDPA_BACKEND``) only (it raises if that backend cannot run the
+    call)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    with sdpa_kernel([getattr(SDPBackend, SDPA_BACKEND)]):
+    with sdpa_kernel([getattr(SDPBackend, backend or SDPA_BACKEND)]):
         return F.scaled_dot_product_attention(*args, **kwargs)
 
 
@@ -913,12 +915,20 @@ def train_kernels_phase():
                       .requires_grad_(True) for x in (q, k, v))
         gh = g.unflatten(-1, (H, D)).transpose(1, 2)
 
-        def lib():
-            return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
+        def lib(backend=None):
+            return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT,
+                        backend=backend)
 
         lib_fwd = cuda_time_ms(lambda: lib().detach())
         lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
             lib(), (qh, kh, vh), gh))
+        # the f32 K2's other yardstick: SDPA's MATH backward, which beats
+        # memory-efficient's in f32 at this shape
+        math_bwd = None
+        if dtype == torch.float32:
+            math_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+                lib("MATH"), (qh, kh, vh), gh), 5, 1) - cuda_time_ms(
+                    lambda: lib("MATH").detach(), 5, 1)
         # bounds: each input read once, each output written once; the
         # products as ``_tc_bound`` counts them (the Philox draws not
         # counted)
@@ -943,12 +953,13 @@ def train_kernels_phase():
              route=att.k2_route(dtype, D), plain_ms=k2_plain,
              library_ms=lib_fwd_bwd - lib_fwd,
              library_fwd_bwd_ms=lib_fwd_bwd, sdpa_backend=SDPA_BACKEND,
-             **k2_b)
+             library_math_ms=math_bwd, **k2_b)
         k1_rows[dtype] = dict(max_abs_err=worst_k1[dtype], ms=k1_ms,
                               plain_ms=k1_plain, library_ms=lib_fwd, **k1_b)
         k2_rows[dtype] = dict(max_abs_err=worst_k2[dtype], ms=k2_ms,
                               plain_ms=k2_plain,
-                              library_ms=lib_fwd_bwd - lib_fwd, **k2_b)
+                              library_ms=lib_fwd_bwd - lib_fwd,
+                              library_math_ms=math_bwd, **k2_b)
     return k1_rows, k2_rows
 
 
@@ -1484,8 +1495,9 @@ def plain_step_time(root: Path):
 # the resident path's K (steps per dispatch) in this phase
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
-# K4 launch two kernels each, their first is counted; with dropout the bf16
-# K1 and K2 draw their keep bits first (attn_fwd_keep_kernel,
+# K4 launch two kernels each, their first is counted (K2's pass A:
+# attn_bwd_dq_tc/wg/tf_kernel); with dropout the bf16 K1 and both dtypes'
+# wgmma K2 draw their keep bits first (attn_fwd_keep_kernel,
 # attn_bwd_keep_kernel), not counted
 _KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg)_kernel"), ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
@@ -4963,6 +4975,9 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                 "wgmma: attn_fwd_wg_kernel (+ attn_fwd_keep_kernel), "
                 f"{src}attention_fwd_bf16.cuh" if kname == "k1" else
                 f"wgmma: attn_bwd_*_wg_kernel, {src}attention_bwd_bf16.cuh")
+            if kname == "k2":
+                row["f32_kernel"] = ("wgmma (3xTF32): attn_bwd_*_tf_kernel, "
+                                     f"{src}attention_bwd_f32.cuh")
             if D == 64:
                 row["off_path_widths"] = {}
                 for w in HW_WIDTHS:
@@ -5531,15 +5546,21 @@ def main() -> int:
                                              *prof_graph,
                                              "plots_train_multi_modal")),
              **_row(k1_train[bf16])),
-        dict(name="attention_bwd (K2), f32: tensor cores (3xTF32: mma.sync "
-             "m16n8k8 tf32, hi/lo split, cp.async)", route="cuda",
-             source=src + "attention_bwd.cu", replaces=attn_py + ":221",
+        dict(name="attention_bwd (K2), f32: Hopper wgmma in 3xTF32 (s and "
+             "dP over half the key row a warpgroup, two warpgroups, each "
+             "k-step from zero then added in f32; landed tiles split into "
+             "hi/lo planes, natural and transposed; ds and pd as register "
+             "A fragments), TMA tiles on an mbarrier, keep bits from "
+             "attn_bwd_keep_kernel: attn_bwd_dq_tf_kernel + "
+             "attn_bwd_dkdv_tf_kernel", route="cuda",
+             source=src + "attention_bwd_f32.cuh", replaces=attn_py + ":221",
              launches=train_f32["k2"],
              launches_by_path=by_path("k2", ("train_f32",
                                              "dispatch_graph_f32",
                                              "multisession_graph_f32",
                                              "multisession_mixed_graph_f32",
                                              *par_f32)),
+             library_math_ms=k2[f32]["library_math_ms"],
              **_row(k2[f32])),
         dict(name="attention_bwd (K2), bf16: Hopper wgmma (s and dP one "
              "m64n104k16 wgmma each over half the key row a warpgroup, two "
@@ -5645,7 +5666,7 @@ def main() -> int:
     for i, (kname, short, line, cu, wg) in enumerate((
             ("k1", "attention_fwd (K1)", ":144", "attention_fwd.cu",
              "attention_fwd_bf16.cuh"),
-            ("k2", "attention_bwd (K2)", ":221", "attention_bwd.cu",
+            ("k2", "attention_bwd (K2)", ":221", "attention_bwd_f32.cuh",
              "attention_bwd_bf16.cuh"))):
         kernels.append(dict(
             name=f"{short} at a tensor-parallel rank's shape under tp=2 "

@@ -1,11 +1,10 @@
 // K2: fused multi-head attention backward for Hopper (sm_90a), on the
-// tensor cores in f32 (3xTF32) and bf16. This file's kernels are the
-// mma.sync pair of both dtypes; the bf16 K2 at head widths 16, 32 and 64
-// is the wgmma kernel of attention_bwd_bf16.cuh (wgmma over the whole key
-// row, TMA, one sweep), which mmfm_attention_bwd launches instead; the
-// pair below runs f32 at every width and bf16 at 128, whose accumulators
-// (dk and dv, 64 registers each a thread at N = 128) leave no room for
-// s and dP of the whole row.
+// tensor cores in f32 (3xTF32) and bf16. At head widths 16, 32 and 64
+// mmfm_attention_bwd launches the wgmma kernels (wgmma over the whole key
+// row, TMA, one sweep), bf16 of attention_bwd_bf16.cuh and f32 of
+// attention_bwd_f32.cuh; this file's kernels, the mma.sync pair of both
+// dtypes, run at 128, whose accumulators (dk and dv, 64 registers each a
+// thread at N = 128) leave no room for s and dP of the whole row.
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, launched by
@@ -64,25 +63,14 @@
 // is three TF32 mma.sync.m16n8k8 products of operands split into hi =
 // tf32(x) and lo = tf32(x - hi), accumulated in f32. A landed f32 tile is
 // split into hi and lo planes in shared memory once (pass B's q tile times
-// scale first), not once per warp. Accuracy, on the H100 at the training
-// step's shape (B = 256, the three mask cases, dropout 0 and 0.4): within
-// 1.5e-6 to 4.8e-6 of the f32 plain version (the gate is 1e-5) and within
-// 3.1e-6 of an f64 evaluation of the formula, where the f32 plain version
-// itself is up to 3.4e-6 from it; one-term TF32 misses by ~1e-3 (the
-// emulation of these products, tests/tf32_emulation.py, which reads up to
-// 5.0e-6 from the plain version on the same inputs;
-// scripts/torch_k2_f32_accuracy.py). Each k-step's three products are
+// scale first), not once per warp. Each k-step's three products are
 // summed from zero before an f32 add (mma_3xtf32: the tensor cores
-// truncate their sums). pn = ex2.approx.ftz((s - lse) * log2(e))
-// (fast_exp2: ~2 ulp; results below 2^-126 flush to 0, where exp(s - lse)
-// adds nothing at the gate): the subtraction before the base-2 scale keeps
-// the argument's rounding relative to s - lse, not to s. A build with the
-// accurate expf(s - lse) had the same worst error and took 14-19% longer.
-// What bounds it on the H100 at the training step's shape (B = 256, Tq =
-// Tk = 200, H = 8, D = 32): the five products at 3 terms each, 3 x 10 B H
-// Tq Tk D TF32 operations at 495 TFLOP/s, 0.159 ms, against 0.110 ms of
-// bytes (q, g, k, v, lse, the masks in; dq, dk, dv out; 3.35 TB/s); on
-// the CUDA cores (67 TFLOP/s f32) the same five products need 0.391 ms.
+// truncate their sums), the order the f32 wgmma kernel keeps
+// (attention_bwd_f32.cuh notes its accuracy on the H100). pn =
+// ex2.approx.ftz((s - lse) * log2(e)) (fast_exp2: ~2 ulp; results below
+// 2^-126 flush to 0, where exp(s - lse) adds nothing at the gate): the
+// subtraction before the base-2 scale keeps the argument's rounding
+// relative to s - lse, not to s.
 //
 // bf16 (mma_bf16.cuh): the arithmetic of JAX's K2 on its own hardware
 // (dots_dtype = bf16, :431): qs = bf16(f32(q) * scale), k, v, g in bf16;
@@ -95,18 +83,16 @@
 // The operands' data pointers and batch and row strides must be 16-byte
 // aligned (cp.async), which the wrapper checks.
 //
-// Head width: both kernels are templates on D, and this file is compiled
+// Head width: the kernels are templates on D, and this file is compiled
 // once a width, as its own library, at D = MMFM_HEAD_DIM (32 unless
 // defined; attention_bwd_d{16,64,128}.cu define it and include this file),
 // as K1's. The wrapper pads any other D up to 128 with zero columns per
-// head. At D = 64 and 128 the fragments of two operands and a D-wide
-// accumulator (dq, or dk and dv) a warp take more registers than the
-// D = 32 bounds allow (Tc<T, D>::kBlocksA), and f32 at 128 spills: a
-// kernel that is right, not yet fast, at those widths. f32 at D = 128
-// keeps one tile buffer a side (Tc<float, 128>::kBwdBufs: two would take
-// 270 KB of shared memory), so its copies wait for the last tile's
-// readers, as the f32 K1's do. The D = 32 instantiations are the code they
-// were before D became a parameter.
+// head. At D = 128, the one width this pair runs, the fragments of two
+// operands and the dk and dv accumulators a warp take the registers of one
+// block an SM (Tc<T, D>::kBlocksA), and f32 spills: a kernel that is
+// right, not yet fast. f32 keeps one tile buffer a side (Tc<float,
+// 128>::kBwdBufs: two would take 270 KB of shared memory), so its copies
+// wait for the last tile's readers, as the f32 K1's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +106,7 @@
 #include "tc_traits.cuh"
 #if MMFM_HEAD_DIM <= 64
 #include "attention_bwd_bf16.cuh"
+#include "attention_bwd_f32.cuh"
 #endif
 
 namespace {
@@ -569,16 +556,24 @@ extern "C" int mmfm_attention_bwd(
       q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
       H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
       threshold, keep_scale, b_off, h_off, s)
+#define MMFM_K2_TF(DROP)                                                     \
+  mmfm::k2tf::launch<DROP, MMFM_HEAD_DIM>(                                   \
+      q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
+      H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
+      threshold, keep_scale, b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);
 #if MMFM_HEAD_DIM <= 64
+  if (dtype == 0)
+    err = dropout ? MMFM_K2_TF(true) : MMFM_K2_TF(false);
   else if (dtype == 1)
     err = dropout ? MMFM_K2_WG(true) : MMFM_K2_WG(false);
 #else
+  if (dtype == 0)
+    err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);
   else if (dtype == 1)
     err = dropout ? MMFM_K2_LAUNCH(bf16, true) : MMFM_K2_LAUNCH(bf16, false);
 #endif
+#undef MMFM_K2_TF
 #undef MMFM_K2_WG
 #undef MMFM_K2_LAUNCH
   return (int)err;

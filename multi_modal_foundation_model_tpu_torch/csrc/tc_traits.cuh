@@ -92,14 +92,15 @@ struct Tc<float, D> {
   static constexpr int kChunks = D / 4;
   static constexpr int kPitch = ld_f32(D);
   static constexpr int kElems = 2 * plane_f32(D);  // the hi plane, then lo
-  // K2's tile buffers a side: two up to D = 64 (139 KB at 64); at 128 two
-  // would need 270 KB of the SM's 227, so one, whose copy waits for the
-  // last tile's readers as K1's one buffer does
-  static constexpr int kBwdBufs = D <= 64 ? 2 : 1;
+  // K2's tile buffers a side, at D = 128, the one width the f32 mma.sync
+  // K2 runs (attention_bwd_f32.cuh takes 16-64): two would need 270 KB of
+  // the SM's 227, so one, whose copy waits for the last tile's readers as
+  // K1's one buffer does
+  static constexpr int kBwdBufs = 1;
   static constexpr size_t kSmem = kBwdBufs * 2 * kElems * sizeof(float);
-  // ~220 registers, 82 KB at D = 32; a wider head's split fragments do not
-  // fit 255 registers whatever the bound
-  static constexpr int kBlocksA = D <= 32 ? 2 : 1;
+  // the split fragments of a 128-wide head do not fit 255 registers
+  // whatever the bound: one block an SM
+  static constexpr int kBlocksA = 1;
   // K1's k/v tile buffers: one. Its ~45 KB of shared memory a block leave
   // the registers (127) to allow 4 blocks an SM, where two buffers' ~81 KB
   // allowed 2: 14-17% faster on the H100, though no copy overlaps a product

@@ -417,16 +417,6 @@ def _k2_lib(head_dim: int = 32):
     return fn
 
 
-def _route(dtype, head_dim: int) -> str:
-    """``"wgmma"`` for bf16 at the compiled widths 16, 32 and 64 (and the
-    widths padded to them), ``"mma_sync"`` for f32 at every width and bf16
-    at 128; above 128, ``ValueError``."""
-    width = kernel_head_dim(head_dim)
-    if dtype == torch.bfloat16 and width <= 64:
-        return "wgmma"
-    return "mma_sync"
-
-
 def k1_route(dtype, head_dim: int) -> str:
     """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
     bf16 kernel of ``csrc/attention_fwd_bf16.cuh`` (wgmma over the whole key
@@ -434,16 +424,18 @@ def k1_route(dtype, head_dim: int) -> str:
     padded to them); ``"mma_sync"``, ``attn_fwd_tc_kernel`` of
     ``csrc/attention_fwd.cu``, for f32 at every width and bf16 at 128. Above
     128, ``ValueError``."""
-    return _route(dtype, head_dim)
+    width = kernel_head_dim(head_dim)
+    return "wgmma" if dtype == torch.bfloat16 and width <= 64 else "mma_sync"
 
 
 def k2_route(dtype, head_dim: int) -> str:
-    """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
-    bf16 kernel of ``csrc/attention_bwd_bf16.cuh`` (wgmma, TMA), for bf16
-    at the compiled widths 16, 32 and 64 (and the widths padded to them);
-    ``"mma_sync"``, the pair of ``csrc/attention_bwd.cu``, for f32 at every
-    width and bf16 at 128. Above 128, ``ValueError``."""
-    return _route(dtype, head_dim)
+    """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` at
+    the compiled widths 16, 32 and 64 (and the widths padded to them), the
+    bf16 kernel of ``csrc/attention_bwd_bf16.cuh`` or the f32 (3xTF32) one
+    of ``csrc/attention_bwd_f32.cuh`` (wgmma, TMA, the keep bits drawn by a
+    kernel of their own); ``"mma_sync"``, the pair of
+    ``csrc/attention_bwd.cu``, at 128. Above 128, ``ValueError``."""
+    return "wgmma" if kernel_head_dim(head_dim) <= 64 else "mma_sync"
 
 
 def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
@@ -466,10 +458,10 @@ def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int,
     """f32 words of K2's scratch: rowsum (B, H, Tq), then, 16-byte aligned,
     pass A's mask bytes for pass B (``csrc/attention_bwd.cu``,
     ``mmfm_attention_bwd``). ``"mma_sync"``: one byte per (b, h, query, 4
-    keys), rows padded to 64 keys. ``"wgmma"``: one bit per (b, h, query,
-    key), bytes (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding
-    8 keys of one query (a row of 16-byte multiples: the stride of the
-    passes' TMA copies)."""
+    keys), rows padded to 64 keys. ``"wgmma"`` (both dtypes): one bit per
+    (b, h, query, key), bytes (B, H, ceil(Tk / 8), Tq rounded up to 16), a
+    byte holding 8 keys of one query (a row of 16-byte multiples: the
+    stride of the passes' TMA copies)."""
     n = B * H * Tq
     if route == "wgmma":
         return n + (B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16) + 16) // 4
@@ -645,7 +637,7 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     f32 math to about f32 accuracy: the contract of
     ``attention_bwd_reference``. bf16 takes bf16 operands as JAX's K2 on
     its hardware: the contract of ``attention_bwd_reference(...,
-    dots_dtype=torch.bfloat16)``; at head widths up to 64 it runs on
+    dots_dtype=torch.bfloat16)``. At head widths up to 64 both run on
     Hopper's wgmma with TMA copies (``k2_route``). The kernels copy their
     tiles with ``cp.async`` or TMA, so q/k/v/g need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16

@@ -6,16 +6,19 @@ NVIDIA GPU.
 
 At the inputs of ``chip_smoke.py``'s ``k2_check`` (B=256, T=200, 8 heads of
 32, the three mask cases, dropout 0 and 0.4, on K1 f32's lse), the f32 K2
-(``csrc/attention_bwd.cu``, 3xTF32, pn by ``ex2.approx``) is held against
+(at head width 32 the wgmma kernel of ``csrc/attention_bwd_f32.cuh``,
+3xTF32, pn by ``ex2.approx``) is held against
 
 - the f32 plain version (``attention_bwd_reference``, the smoke's
   yardstick at atol 1e-5) and an f64 evaluation of the same formula;
-- the 3xTF32 emulation of ``tests/tf32_emulation.py`` (torch's exp);
+- the 3xTF32 emulation of ``tests/tf32_emulation.py`` in the kernel's sum
+  order (torch's exp; ``wgmma_dots``), and in the mma.sync kernels' order
+  (``emulation_mma_sync_*``);
 - the same kernel built with pn = ``expf(s - lse)`` (the library's accurate
-  exp, an edit of ``Tc<float>::prob`` (``csrc/tc_traits.cuh``) into
-  ``build/probe/k2_expf/``).
+  exp, an edit of the two exponentials of ``csrc/attention_bwd_f32.cuh``
+  into ``build/probe/k2_expf/``).
 
-The plain version and the emulation are held against f64 as well. Then the
+The plain version and the emulations are held against f64 as well. Then the
 two builds are timed at the smoke's timing shape (encoder mask), in one
 order and the reverse, each with CUDA events over 20 launches after 3
 warm-ups. Prints JSON lines: the card, ``ptxas`` registers and spills,
@@ -43,10 +46,9 @@ import tf32_emulation as emu  # noqa: E402
 from multi_modal_foundation_model_tpu_torch.ops import attention as att  # noqa: E402
 from multi_modal_foundation_model_tpu_torch.ops import build  # noqa: E402
 
-PROB = """  static __device__ __forceinline__ float prob(float s, float l) {
-    return fast_exp2((s - l) * kLog2e);
-  }"""
-PROB_EXPF = PROB.replace("fast_exp2((s - l) * kLog2e)", "expf(s - l)")
+# the exponentials of pass A and pass B, and their expf edits
+PROBS = (("fast_exp2((s[i] - lse[hh]) * kLog2e)", "expf(s[i] - lse[hh])"),
+         ("fast_exp2((s[i] - l) * kLog2e)", "expf(s[i] - l)"))
 
 
 def build_expf():
@@ -56,10 +58,11 @@ def build_expf():
     out.mkdir(parents=True, exist_ok=True)
     for src in build.CSRC.glob("*.cu*"):
         text = src.read_text()
-        if src.name == "tc_traits.cuh":
-            if text.count(PROB) != 1:
-                raise RuntimeError("Tc<float>::prob is not as expected")
-            text = text.replace(PROB, PROB_EXPF)
+        if src.name == "attention_bwd_f32.cuh":
+            for old, new in PROBS:
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{old} is not as expected")
+                text = text.replace(old, new)
         (out / src.name).write_text(text)
     lib = out / "libattention_bwd.so"
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
@@ -107,11 +110,15 @@ def main() -> int:
                         1234)
                 plain = att.attention_bwd_reference(*args)
                 f64 = emu.k2(*args, dot=torch.matmul, dtype=torch.float64)
-                emulated = emu.k2(*args)
+                emulated = emu.k2(*args, out_dots=emu.wgmma_dots(hidden // H))
+                mma_sync = emu.k2(*args)
                 row = dict(case=case, dropout=rate, shape=[B, Tq, hidden],
                            plain_vs_f64=_err(plain, f64),
                            emulation_vs_plain=_err(emulated, plain),
-                           emulation_vs_f64=_err(emulated, f64))
+                           emulation_vs_f64=_err(emulated, f64),
+                           emulation_mma_sync_vs_plain=_err(mma_sync, plain),
+                           emulation_mma_sync_vs_f64=_err(mma_sync, f64))
+                del mma_sync
                 for name, fn in libs.items():
                     att._k2_lib = lambda head_dim=32, fn=fn: fn
                     got = att.attention_bwd(*args)

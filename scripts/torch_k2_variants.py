@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Design variants of the bf16 wgmma K2, timed beside the committed kernel
-on one NVIDIA GPU.
+"""Design variants of the wgmma K2, bf16 or f32, timed beside the committed
+kernel on one NVIDIA GPU.
 
-    python3 scripts/torch_k2_variants.py [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k2_variants.py [--dtype float32] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_bwd.cu`` (head width 32) and
 variants of its bf16 kernel (string edits of
-``csrc/attention_bwd_bf16.cuh`` into ``build/probe/k2_<name>/``, each edit
-checked to apply exactly once) and, with ``--parent``, another checkout's
-K2 (say the parent commit's, unpacked by ``git archive``: the mma.sync
-bf16 K2). Each library in turn is swapped in for
+``csrc/attention_bwd_bf16.cuh``) or, with ``--dtype float32``, of its f32
+kernel (edits of ``csrc/attention_bwd_f32.cuh`` and ``wgmma_tf32.cuh``),
+into ``build/probe/k2_<name>/``, each edit checked to apply exactly once,
+and, with ``--parent``, another checkout's K2 (say the parent commit's,
+unpacked by ``git archive``: the mma.sync K2 of the dtype). Each library in turn is swapped in for
 ``ops.attention._k2_lib`` (the parent's with the scratch of its route,
 ``k2_route``), checked with ``chip_smoke.k2_gates`` at the smoke run's
 B = 256 training shape (the encoder mask, dropout 0 and 0.4), and timed
@@ -41,6 +42,25 @@ timed: what is left when a piece is taken out):
   ``philox.cuh``'s high and low words from two.
 - ``heads_per_block_rule``: the mma.sync kernels' heads a block (a
   thousand blocks or more) in place of ``walk_heads``.
+
+The f32 variants (``--dtype float32``):
+
+- ``base``, ``diag_no_elementwise``, ``diag_no_output_products``: as
+  above, on the f32 kernel.
+- ``diag_no_score_products``: no s and dP wgmmas (``mma3_ss`` empty).
+- ``diag_no_split``: the landed tiles not split into their hi, lo and
+  transposed planes (the products read what is there).
+- ``keep_in_kernel``: no keep kernel; each pass draws its threads' keep
+  bits (``keep_bits4``, a Philox call per row and 4 keys; pass B's two
+  queries apart) while its s and dP products run, as the mma.sync pass A
+  drew them.
+- ``pipelined_outputs``: the output products' k-steps alternate two
+  from-zero temporaries, so a k-step's wgmmas run while the last one's sum
+  is added (``wait_group 1``), in place of one temporary waited for at
+  every k-step; the same sums in the same order.
+
+One block an SM is the only shape the f32 kernel has: a pass A block at
+D = 32 takes 207 KB of shared memory and 255 registers a thread.
 """
 
 from __future__ import annotations
@@ -317,6 +337,184 @@ VARIANTS = {
         ("  args.hpb = walk_heads(B, n_kt, H);",
          "  args.hpb = heads_per_block(B, n_kt, H);")]},
 }
+F32_SRC = "attention_bwd_f32.cuh"
+F32_SERIAL_A = """\
+#pragma unroll
+        for (int kk = 0; kk < kN8; ++kk) {
+          uint32_t fh[4], fl[4];
+          wgtf::to_frags_tf32(s, kk, fh, fl);
+          float o[D / 2];
+          wg::fence();
+          wgtf::mma3_rs(o, fh, fl, tr(t1, wgi * kN8 + kk),
+                        tr(t1 + L::kT, wgi * kN8 + kk));
+          wg::commit();
+          wg::wait<0>();
+          wg::hold(o);
+          wgtf::hold(fh);
+          wgtf::hold(fl);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o1[i] += o[i];
+        }
+"""
+F32_PIPELINED_A = """\
+        float o[2][D / 2];
+        uint32_t fh[2][4], fl[2][4];
+#pragma unroll
+        for (int kk = 0; kk < kN8; ++kk) {
+          const int u = kk & 1;
+          wgtf::to_frags_tf32(s, kk, fh[u], fl[u]);
+          wg::fence();
+          wgtf::mma3_rs(o[u], fh[u], fl[u], tr(t1, wgi * kN8 + kk),
+                        tr(t1 + L::kT, wgi * kN8 + kk));
+          wg::commit();
+          if (kk > 0) {
+            wg::wait<1>();
+            wg::hold(o[u ^ 1]);
+            wgtf::hold(fh[u ^ 1]);
+            wgtf::hold(fl[u ^ 1]);
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) o1[i] += o[u ^ 1][i];
+          }
+        }
+        wg::wait<0>();
+        wg::hold(o[(kN8 - 1) & 1]);
+        wgtf::hold(fh[(kN8 - 1) & 1]);
+        wgtf::hold(fl[(kN8 - 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o1[i] += o[(kN8 - 1) & 1][i];
+"""
+F32_SERIAL_B = """\
+#pragma unroll
+      for (int kk = 0; kk < kN8; ++kk) {
+        uint32_t dh[4], dl[4], ph[4], pl[4];
+        wgtf::to_frags_tf32(p, kk, dh, dl);
+        wgtf::to_frags_tf32(s, kk, ph, pl);
+        const int ks = wgi * kN8 + kk;
+        float ok[D / 2], ov[D / 2];
+        wg::fence();
+        wgtf::mma3_rs(ok, dh, dl, tr(t1, ks), tr(t1 + L::kT, ks));
+        wgtf::mma3_rs(ov, ph, pl, tr(t2, ks), tr(t2 + L::kT, ks));
+        wg::commit();
+        wg::wait<0>();
+        wg::hold(ok);
+        wg::hold(ov);
+        wgtf::hold(dh);
+        wgtf::hold(dl);
+        wgtf::hold(ph);
+        wgtf::hold(pl);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          o1[i] += ok[i];
+          o2[i] += ov[i];
+        }
+      }
+"""
+F32_PIPELINED_B = """\
+      float ok[2][D / 2], ov[2][D / 2];
+      uint32_t dh[2][4], dl[2][4], ph[2][4], pl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < kN8; ++kk) {
+        const int u = kk & 1;
+        wgtf::to_frags_tf32(p, kk, dh[u], dl[u]);
+        wgtf::to_frags_tf32(s, kk, ph[u], pl[u]);
+        const int ks = wgi * kN8 + kk;
+        wg::fence();
+        wgtf::mma3_rs(ok[u], dh[u], dl[u], tr(t1, ks), tr(t1 + L::kT, ks));
+        wgtf::mma3_rs(ov[u], ph[u], pl[u], tr(t2, ks), tr(t2 + L::kT, ks));
+        wg::commit();
+        if (kk > 0) {
+          const int w1 = u ^ 1;
+          wg::wait<1>();
+          wg::hold(ok[w1]);
+          wg::hold(ov[w1]);
+          wgtf::hold(dh[w1]);
+          wgtf::hold(dl[w1]);
+          wgtf::hold(ph[w1]);
+          wgtf::hold(pl[w1]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) {
+            o1[i] += ok[w1][i];
+            o2[i] += ov[w1][i];
+          }
+        }
+      }
+      {
+        const int w1 = (kN8 - 1) & 1;
+        wg::wait<0>();
+        wg::hold(ok[w1]);
+        wg::hold(ov[w1]);
+        wgtf::hold(dh[w1]);
+        wgtf::hold(dl[w1]);
+        wgtf::hold(ph[w1]);
+        wgtf::hold(pl[w1]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          o1[i] += ok[w1][i];
+          o2[i] += ov[w1][i];
+        }
+      }
+"""
+F32_KEEP_DRAWS = """\
+    if (kDropout) {
+      // the keep bits drawn here, a Philox call a row and 4 keys
+      const unsigned seed = (unsigned)__ldg(a.seed);
+      keep[0] = keep[1] = 0u;
+#pragma unroll
+      for (int j = 0; j < kN8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = ch * kChunk + wgi * kCols + 8 * j + 2 * c;
+          const int row = row0 + 8 * hh;
+          if (!kPassB) {
+            const uint32_t bits = keep_bits4(seed, a.threshold, b + a.b_off,
+                                             h + a.h_off, row, col >> 2);
+            keep[hh] |= (bits >> (col & 3) & 3u) << (2 * j);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t bits =
+                  keep_bits4(seed, a.threshold, b + a.b_off, h + a.h_off,
+                             col + e, row >> 2);
+              keep[hh] |= (bits >> (row & 3) & 1u) << (2 * j + e);
+            }
+          }
+        }
+    }
+"""
+F32_VARIANTS = {
+    "base": {},
+    "diag_no_elementwise": {F32_SRC: [
+        ("      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (live) {",
+         "      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (false) {"),
+        ("      // rowsum from shared memory\n      if (live) {",
+         "      // rowsum from shared memory\n      if (false) {")]},
+    "diag_no_output_products": {F32_SRC: [
+        (F32_SERIAL_A, F32_SERIAL_A.replace("kk < kN8;", "kk < kN8 && false;")),
+        (F32_SERIAL_B, F32_SERIAL_B.replace("kk < kN8;", "kk < kN8 && false;"))]},
+    "diag_no_score_products": {"wgmma_tf32.cuh": [
+        ("  mma_ss(d, al, bh, 0);\n  mma_ss(d, ah, bl, 1);\n"
+         "  mma_ss(d, ah, bh, 1);\n", "")]},
+    "diag_no_split": {F32_SRC: [
+        ("    for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {",
+         "    for (int i0 = tid; i0 < kN && false; i0 += kU * kThreads) {")]},
+    "keep_in_kernel": {F32_SRC: [
+        ("  float scale, keep_scale;\n};",
+         "  float scale, keep_scale;\n  const long long* seed;\n"
+         "  unsigned threshold;\n  int b_off, h_off;\n};"),
+        ("            scale,       keep_scale};",
+         "            scale, keep_scale, seed, threshold, b_off, h_off};"),
+        ("  if (kDropout) {\n    const long long n =",
+         "  if (false) {\n    const long long n ="),
+        ("                             (kDropout ? L::kKeepBytes : 0));\n"
+         "    if (kDropout)\n",
+         "                             0);\n    if (false)\n"),
+        ("    if (kDropout) load_keep(sm + L::kKeep, keep);\n",
+         F32_KEEP_DRAWS)]},
+    "pipelined_outputs": {F32_SRC: [(F32_SERIAL_A, F32_PIPELINED_A),
+                                    (F32_SERIAL_B, F32_PIPELINED_B)]},
+}
 SHAPES = ((cs.BIG_B, (cs.DROPOUT, 0.0)), (cs.TRAIN_B, (cs.DROPOUT, 0.0)))
 
 
@@ -390,17 +588,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     emit(phase="device", nvidia_smi=cs.nvidia_smi(),
          device=torch.cuda.get_device_name(0))
+    args = sys.argv[1:]
+    dtype = torch.bfloat16
+    if args[:2] == ["--dtype", "float32"]:
+        dtype, args = torch.float32, args[2:]
+    variants = VARIANTS if dtype == torch.bfloat16 else F32_VARIANTS
+    emit(phase="k2_variants", dtype=cs.dtype_name(dtype))
     base_fn = att._k2_lib()                     # builds csrc/ as the port does
-    sources = {name: (edits, build.CSRC) for name, edits in VARIANTS.items()}
-    if sys.argv[1:2] == ["--parent"]:
-        parent = Path(sys.argv[2]).resolve()
+    sources = {name: (edits, build.CSRC) for name, edits in variants.items()}
+    if args[:1] == ["--parent"]:
+        parent = Path(args[1]).resolve()
         sources["parent"] = ({}, parent / build.CSRC.relative_to(ROOT))
     started = {name: start_build(name, edits, src)
                for name, (edits, src) in sources.items()}
     fns = {name: finish_build(name, proc, lib, base_fn.argtypes)
            for name, (proc, lib) in started.items()}
 
-    dtype = torch.bfloat16
     inputs = {}
     for B, _ in SHAPES:
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=B)

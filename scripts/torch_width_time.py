@@ -3,6 +3,7 @@
 
     python3 scripts/torch_width_time.py [--parent OTHER_CHECKOUT]
     python3 scripts/torch_width_time.py --d32-b256
+    python3 scripts/torch_width_time.py --ptxas
 
 Builds the port's kernels, then prints JSON lines:
 
@@ -29,9 +30,15 @@ Builds the port's kernels, then prints JSON lines:
   32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's shapes, and K1
   (dropout 0.4, lse) by profiler device time at the other head widths
   (B=16, 256 // D heads) and at a tensor-parallel rank's shape (B=8, 4
-  heads of 32, draw offsets (8, 4)), timed in six processes in the order
+  heads of 32, draw offsets (8, 4)), K2 (dropout 0.4) by profiler device
+  time at every head width (B=16, 256 // D heads, 32 included), timed in
+  six processes in the order
   other, this, this, other, other, this, each importing its own
   checkout's package and building its kernels.
+
+With ``--ptxas`` it prints only ``ptxas`` lines: the registers, spills,
+stack and static shared memory of every kernel of every library this
+checkout builds, every head width's included.
 
 With ``--d32-b256`` it prints only ``d32_b256`` lines: K1 (dropout 0.4,
 lse) and K2 at head width 32 and the smoke's B=256 training shape (256 x
@@ -268,12 +275,15 @@ def _logs(checkout: Path, names) -> dict:
     return found
 
 
-# the parent's bf16 kernels at head width 32 that the wgmma kernels
-# replace, listed apart and not compared: the K2 pair (replaced by
-# csrc/attention_bwd_bf16.cuh) when the parent still builds it, and the K1
-# (by csrc/attention_fwd_bf16.cuh)
+# the parent's kernels at head width 32 that the wgmma kernels replace,
+# listed apart and not compared: the bf16 K2 pair (replaced by
+# csrc/attention_bwd_bf16.cuh) and the f32 one (by attention_bwd_f32.cuh)
+# when the parent still builds them, and the bf16 K1 (by
+# csrc/attention_fwd_bf16.cuh)
 REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16"),
+            ("attn_bwd_dq_tc_kernel", "f"),
+            ("attn_bwd_dkdv_tc_kernel", "f"),
             ("attn_fwd_tc_kernel", "__nv_bfloat16")}
 
 
@@ -304,12 +314,22 @@ def ptxas_compare(parent: Path) -> bool:
     return same
 
 
+def ptxas_all() -> None:
+    """The ``ptxas`` lines (module docstring)."""
+    from multi_modal_foundation_model_tpu_torch.ops import build
+
+    for name in build.kernel_sources():
+        cs.emit(phase="ptxas", library=name,
+                kernels=[dict(kernel=key[0], args=list(key[1]), **entry)
+                         for key, entry in _logs(ROOT, (name,)).items()])
+
+
 def side_worker(side: str) -> None:
     """In a process whose package is the checkout's: K1 (eval B=320,
     training B=256) and K2 (B=256) at head width 32 and K3/K4 at 51,200 and
-    3,200 x 256, the smoke's shapes; K1 (dropout 0.4, lse) by profiler
-    device time at the other head widths at B=16 and at a tensor-parallel
-    rank's shape."""
+    3,200 x 256, the smoke's shapes; K1 (dropout 0.4, lse) and K2 (dropout
+    0.4) by profiler device time at every head width at B=16, and K1 at a
+    tensor-parallel rank's shape."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
     from multi_modal_foundation_model_tpu_torch.ops import build
 
@@ -329,15 +349,22 @@ def side_worker(side: str) -> None:
         k1, k2 = cs.attn_train_times(q, k, v, key_pad, static, g, H)
         ln_ms = {rows: cs.ln_time(rows, 256, dtype)["dev"]
                  for rows in (cs.BIG_B * 200, cs.TRAIN_B * 200)}
-        k1_widths = {}
-        for D in cs.HW_WIDTHS:
+        k1_widths, k2_widths = {}, {}
+        for D in (32, *cs.HW_WIDTHS):
             H = cs.GEOMETRY["hidden_size"] // D
             q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", dtype,
                                             B=cs.TRAIN_B, H=H, D=D, seed=D)
             key_pad, static = att.spec_operands(spec, *q.shape[:2],
                                                 k.shape[1], q.device)
+            _, lse = att.attention_fwd(q, k, v, key_pad, static, H,
+                                       D ** -0.5, True, cs.DROPOUT, 7)
+            g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(D)).to(dtype)
             k1_widths[str(D)] = device_timer(lambda: att.attention_fwd(
                 q, k, v, key_pad, static, H, D ** -0.5, True, cs.DROPOUT, 7))
+            k2_widths[str(D)] = device_timer(lambda: att.attention_bwd(
+                q, k, v, key_pad, static, g, lse, H, D ** -0.5, cs.DROPOUT,
+                7))
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=8, H=4)
         key_pad, static = att.spec_operands(spec, *q.shape[:2], k.shape[1],
                                             q.device)
@@ -347,6 +374,7 @@ def side_worker(side: str) -> None:
         cs.emit(phase="width_side", side=side, dtype=cs.dtype_name(dtype),
                 k1_eval_ms=eval_ms, k1_train_ms=k1["ms"], k2_ms=k2["ms"],
                 k1_b16_device_ms_by_width=k1_widths,
+                k2_b16_device_ms_by_width=k2_widths,
                 k1_rank_device_ms=k1_rank,
                 k3_k4_device_ms={str(r): {"k3": t["k3"], "k4": t["k4"]}
                                  for r, t in ln_ms.items()})
@@ -369,6 +397,11 @@ def main() -> int:
     cs.emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
             device=torch.cuda.get_device_name(0),
             build_s=build.build(build.kernel_sources()))
+    if "--ptxas" in args:
+        ptxas_all()
+        print(smi, flush=True)
+        cs.emit(ok=True, device=torch.cuda.get_device_name(0))
+        return 0
     if "--d32-b256" in args:
         d32_b256_backends()
         print(smi, flush=True)

@@ -18,7 +18,11 @@ and dv,
 Negative controls show the tests see what matters: one-term TF32
 (``tf32(a) . tf32(b)``) misses the gate, and so does chaining the three
 terms into the running sum (the first design, which missed on the card).
-The emulation takes exp from torch, where the kernel takes ``ex2.approx``;
+The wgmma K2 of head widths 16 to 64 (``csrc/attention_bwd_f32.cuh``) sums
+the same k-steps, its output products split between two warpgroups
+(``emu.wgmma_dots``): held the same way, at each of its widths for the
+few-keys case. The emulation takes exp from torch, where the kernel takes
+``ex2.approx``;
 ``scripts/torch_k2_f32_accuracy.py`` runs the same emulation on the card
 at the smoke run's full inputs beside the kernel, an accurate-exp build of
 it and an f64 evaluation.
@@ -42,21 +46,22 @@ H, D = 4, 32
 
 
 def _k2(q, k, v, key_pad, static, g, lse, scale, rate=0.0, seed=0,
-        dot=emu.dot_3xtf32):
-    """K2's formula with every product through ``dot``: (dq, dk, dv) as
-    (B, T, H*D) f32."""
-    return emu.k2(q, k, v, key_pad, static, g, lse, H, scale, rate, seed,
-                  dot=dot)
+        dot=emu.dot_3xtf32, heads=H, out_dots=None):
+    """K2's formula with every product through ``dot`` (the output
+    products through ``out_dots`` where given): (dq, dk, dv) as (B, T,
+    H*D) f32."""
+    return emu.k2(q, k, v, key_pad, static, g, lse, heads, scale, rate, seed,
+                  dot=dot, out_dots=out_dots)
 
 
-def _case(case, B=3, tq=70, seed=0, tk=None):
+def _case(case, B=3, tq=70, seed=0, tk=None, hidden=H * D):
     """numpy q, k, v, g, key_pad (B, Tk) and static (Tq, Tk) or None; 70
     rows cross a 64-row tile."""
     tk = tk or (28 if case == "cross" else tq)
     rng = np.random.default_rng(seed)
-    q, g = (rng.normal(size=(B, tq, H * D)).astype(np.float32)
+    q, g = (rng.normal(size=(B, tq, hidden)).astype(np.float32)
             for _ in range(2))
-    k, v = (rng.normal(size=(B, tk, H * D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, tk, hidden)).astype(np.float32)
             for _ in range(2))
     pad = np.ones((B, tk), np.int32)
     pad[1, tk - 5:] = 0
@@ -84,7 +89,7 @@ def _jax_grads(q, k, v, g, pad, static):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
 
 
-def _operands(q, k, v, g, pad, static):
+def _operands(q, k, v, g, pad, static, heads=H):
     """torch operands, the kernel's masks and the port's f32 lse."""
     tq, tk_, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
     spec = tatt.MaskSpec(
@@ -92,9 +97,9 @@ def _operands(q, k, v, g, pad, static):
         static=None if static is None else torch.from_numpy(static))
     key_pad, stat = tatt.spec_operands(spec, q.shape[0], q.shape[1],
                                        k.shape[1], "cpu")
-    scale = 1.0 / math.sqrt(D)
-    _, lse = tatt.attention_reference(tq, tk_, tv, key_pad, stat, H, scale,
-                                      with_lse=True)
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    _, lse = tatt.attention_reference(tq, tk_, tv, key_pad, stat, heads,
+                                      scale, with_lse=True)
     return tq, tk_, tv, key_pad, stat, tg, lse, scale
 
 
@@ -159,6 +164,89 @@ def test_3xtf32_k2_few_keys_where_chained_sums_miss():
                          dot=emu.dot_3xtf32_chained), want)
     assert kernel <= ATOL, kernel
     assert chained > ATOL, chained
+
+
+MASKS = ["encoder_eye_pad", "decoder_pad_padded_trial", "cross"]
+
+
+@pytest.mark.parametrize("case", MASKS)
+def test_wgmma_order_k2_matches_jax_k2(case):
+    """The f32 wgmma K2's sums (``csrc/attention_bwd_f32.cuh``: every
+    k-step of 8 from zero, then an f32 add; the output products' k-steps
+    split between two warpgroups, ``emu.dot_3xtf32_wg``) against JAX's K2
+    in interpret mode at D = 32, atol 1e-5; a padded trial's rows get
+    exactly zero dq, as in JAX."""
+    q, k, v, g, pad, static = _case(case)
+    want = _jax_grads(q, k, v, g, pad, static)
+    tq, tk_, tv, key_pad, stat, tg, lse, scale = _operands(
+        q, k, v, g, pad, static)
+    got = _k2(tq, tk_, tv, key_pad, stat, tg, lse, scale,
+              out_dots=emu.wgmma_dots(D))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0,
+                                   err_msg=name)
+    if case == "decoder_pad_padded_trial":
+        assert not got[0][2].any() and not want[0][2].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", MASKS)
+def test_wgmma_order_k2_matches_f32_plain_at_smoke_magnitudes(case, rate):
+    """The wgmma K2's sums at the smoke run's magnitudes (randn operands,
+    T = 200 = 3 x 64 + 8, the three mask cases, dropout 0 and 0.4 on the
+    same Philox bits; 4 heads of 32, 3 trials) within 1e-5 of the port's
+    f32 plain version, as the kernel is held on the card."""
+    q, k, v, g, pad, static = _case(case, tq=200, seed=4,
+                                    tk=180 if case == "cross" else None)
+    tq, tk_, tv, key_pad, stat, tg, lse, scale = _operands(
+        q, k, v, g, pad, static)
+    want = tatt.attention_bwd_reference(tq, tk_, tv, key_pad, stat, tg, lse,
+                                        H, scale, rate, 77)
+    got = _k2(tq, tk_, tv, key_pad, stat, tg, lse, scale, rate, 77,
+              out_dots=emu.wgmma_dots(D))
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_wgmma_order_few_keys_where_chained_sums_miss(width, rate):
+    """Tq = 200 queries over Tk = 17 keys at each width the wgmma K2
+    compiles (128 columns: 8, 4 and 2 heads): dk and dv are sums of 200
+    large terms, over two chunks of pass B's columns at widths 32 and 64.
+    The wgmma K2's sums stay within 1e-5 of the f32 plain version, where
+    chaining every term of every product into the truncating running sum
+    misses at widths 32 and 64 (as the first mma.sync design did on the
+    card)."""
+    heads = 128 // width
+    q, k, v, g, pad, static = _case("cross", tq=200, tk=17, seed=4,
+                                    hidden=128)
+    tq, tk_, tv, key_pad, stat, tg, lse, scale = _operands(
+        q, k, v, g, pad, static, heads)
+    want = tatt.attention_bwd_reference(tq, tk_, tv, key_pad, stat, tg, lse,
+                                        heads, scale, rate, 5)
+    got = _k2(tq, tk_, tv, key_pad, stat, tg, lse, scale, rate, 5,
+              heads=heads, out_dots=emu.wgmma_dots(width))
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+    if width > 16:
+        chained = _worst(_k2(tq, tk_, tv, key_pad, stat, tg, lse, scale,
+                             rate, 5, dot=emu.dot_3xtf32_chained,
+                             heads=heads), want)
+        assert chained > ATOL, chained
+
+
+def test_wgmma_order_splits_k_as_the_kernel():
+    """``dot_3xtf32_wg`` on exact small integers equals the plain product
+    (every split and order sums them exactly), at K past one chunk and
+    not a multiple of 8; and the permuted k order puts column 2 t at t and
+    2 t + 1 at t + 4."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(-8, 8, (5, 250)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-8, 8, (250, 7)).astype(np.float32))
+    for cols in (104, 56, 40, 24):
+        assert torch.equal(emu.dot_3xtf32_wg(a, b, cols), a @ b)
+    assert [emu.perm_k(j) for j in range(8)] == [0, 4, 1, 5, 2, 6, 3, 7]
 
 
 @pytest.mark.parametrize("case", ["encoder_eye_pad", "cross"])

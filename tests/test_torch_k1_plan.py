@@ -23,13 +23,25 @@ LENGTHS = [1, 8, 200, 208, 209, 256, 520]
 @pytest.mark.parametrize("width", WIDTHS)
 def test_k1_route_by_dtype_and_width(width, dtype):
     """bf16 takes the wgmma kernel up to head width 64, f32 and bf16 at 128
-    the mma.sync kernel; a padded width takes its compiled width's route,
-    and K1's route is K2's."""
+    the mma.sync kernel; a padded width takes its compiled width's route.
+    K1's route is K2's in bf16; in f32 K2 runs on wgmma up to 64 while K1
+    stays on mma.sync."""
     want = ("wgmma" if dtype == torch.bfloat16 and width <= 64
             else "mma_sync")
     assert tatt.k1_route(dtype, width) == want
     assert tatt.k1_route(dtype, tatt.kernel_head_dim(width)) == want
-    assert tatt.k1_route(dtype, width) == tatt.k2_route(dtype, width)
+    if dtype == torch.bfloat16:
+        assert tatt.k1_route(dtype, width) == tatt.k2_route(dtype, width)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_k1_f32_stays_on_mma_sync(width):
+    """The f32 K1 is ``attn_fwd_tc_kernel`` (3xTF32 on mma.sync) at every
+    width, whichever route the f32 K2 takes; it draws its keep bits inside
+    the kernel, so its scratch is none."""
+    assert tatt.k1_route(torch.float32, width) == "mma_sync"
+    assert tatt._k1_scratch_bytes(3, 4, 200, 200,
+                                  tatt.k1_route(torch.float32, width)) == 0
 
 
 def test_k1_route_refuses_widths_above_128():

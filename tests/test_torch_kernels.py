@@ -789,6 +789,102 @@ def test_k1_philox_bits_match_philox_keep(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("tq,tk", [(207, 207), (208, 208), (209, 209),
+                                   (111, 111), (112, 112), (113, 113),
+                                   (225, 225), (257, 257), (520, 520),
+                                   (200, 300), (300, 17)])
+def test_k2_f32_wgmma_at_chunk_edges(tq, tk, rate):
+    """The f32 wgmma K2 (3xTF32) around its chunks: pass A's 208 keys (one
+    sweep up to 208, two past it), pass B's 112 queries at D = 32 (one
+    chunk up to 112, two or more past it), and its 64-row tiles, self and
+    cross, through the fused-QKV or KV column views, random masks: against
+    the f32 plain version at atol 1e-5 (``_k2_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(tq, tk, seed=tq + tk,
+                                           dtype=torch.float32)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H,
+                                1.0 / math.sqrt(D), with_lse=True,
+                                dropout_rate=rate, seed=43)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 43)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(200, 200), (257, 257), (300, 17)])
+def test_k2_f32_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
+    """The f32 K2 of a rank's slice, draw offsets (b0, h0) = (5, 3):
+    against the f32 plain version drawn at the same offsets (atol 1e-5 +
+    1e-6 |plain|, as ``_k2_gates``), and a second launch bit-equal to the
+    first (fixed-order sums, no atomics), in one chunk and across chunks."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(tq, tk, seed=12,
+                                           dtype=torch.float32)
+    scale, off = 1.0 / math.sqrt(D), (5, 3)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H, scale, True,
+                                rate, 31, draw_offset=off)
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                             rate, 31, draw_offset=off)
+    again = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+                               rate, 31, draw_offset=off)
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse, H,
+                                        scale, rate, 31, draw_offset=off)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6, msg=name)
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
+@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 128])
+def test_k2_launches_the_kernel_of_its_route(width, dtype, rate):
+    """What runs on the card: up to head width 64 K2 launches the wgmma
+    passes, ``attn_bwd_dq_tf_kernel`` / ``attn_bwd_dkdv_tf_kernel`` in f32
+    and ``attn_bwd_dq_wg_kernel`` / ``attn_bwd_dkdv_wg_kernel`` in bf16
+    (with dropout ``attn_bwd_keep_kernel`` first), never the mma.sync
+    ``attn_bwd_*_tc_kernel``; at 128 the mma.sync pair alone
+    (``k2_route``). Read from the kernel names of a profile of three
+    calls, opened by the port's lead-in (traced again if it lost K2's)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_modal_foundation_model_tpu_torch.utils.profiling import (
+        profiler_lead_in)
+
+    h = 256 // width
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    q, k, v, g = torch.randn(4, 2, 70, h * width, device="cuda",
+                             generator=gen).to(dtype)
+    key_pad = torch.ones(2, 70, dtype=torch.int32, device="cuda")
+    static = torch.zeros(70, 70, dtype=torch.int32, device="cuda")
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, h, width ** -0.5,
+                                True, rate, 3)
+    tatt.attention_bwd(q, k, v, key_pad, static, g, lse, h, width ** -0.5,
+                       rate, 3)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_lead_in()
+            for _ in range(3):
+                tatt.attention_bwd(q, k, v, key_pad, static, g, lse, h,
+                                   width ** -0.5, rate, 3)
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        if "attn_bwd_dkdv_" in names:
+            break
+    wgmma = tatt.k2_route(dtype, width) == "wgmma"
+    tag = "tf" if dtype == torch.float32 else "wg"
+    for other in ("tf", "wg"):
+        on = wgmma and other == tag
+        assert (f"attn_bwd_dq_{other}_kernel" in names) == on, names
+        assert (f"attn_bwd_dkdv_{other}_kernel" in names) == on, names
+    assert ("attn_bwd_dq_tc_kernel" in names) == (not wgmma), names
+    assert ("attn_bwd_keep_kernel" in names) == (wgmma and rate > 0), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(207, 207), (208, 208), (209, 209),
                                    (257, 257), (520, 520), (200, 300),
                                    (300, 17)])
 def test_k1_bf16_wgmma_at_chunk_edges(tq, tk, rate):

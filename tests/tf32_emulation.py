@@ -1,13 +1,16 @@
 """The f32 tensor-core K2's arithmetic (3xTF32) in plain torch, on any device.
 
-The f32 K2 (``csrc/attention_bwd.cu``, ``Tc<float>``) computes each of its
-products as TF32 ``mma.sync.m16n8k8`` products: every f32 operand x splits
-into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away
-(``cvt.rna.tf32.f32``), and each k-step of 8 of a . b sums al . bh, ah .
-bl, then ah . bh from zero on the tensor cores before an f32 add into the
-accumulator (``mma_3xtf32``). ``k2`` is K2's formula with every product
-through such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it
-is an f64 evaluation of the same formula. The f32 K1
+The f32 K2 computes each of its products as TF32 tensor-core products:
+every f32 operand x splits into hi = tf32(x) and lo = tf32(x - hi), rounded
+to nearest with ties away (``cvt.rna.tf32.f32``), and each k-step of 8 of
+a . b sums al . bh, ah . bl, then ah . bh from zero on the tensor cores
+before an f32 add into the accumulator: ``mma_3xtf32`` of the mma.sync
+kernels (``csrc/attention_bwd.cu``, ``Tc<float>``, head width 128) and the
+same k-steps on wgmma (``csrc/attention_bwd_f32.cuh``, widths 16 to 64),
+whose output products split their k-steps between two warpgroups
+(``dot_3xtf32_wg``). ``k2`` is K2's formula with every product through
+such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it is an
+f64 evaluation of the same formula. The f32 K1
 (``csrc/attention_fwd.cu``) takes the same products: ``k1`` is its formula
 with both products through ``dot`` and its online softmax over 64-key
 tiles. Imports torch and the port only, so
@@ -62,6 +65,62 @@ def dot_3xtf32(a: torch.Tensor, b: torch.Tensor,
         p = mma(p, ah[..., ks], bl[..., ks, :])
         c = c + mma(p, ah[..., ks], bh[..., ks, :])
     return c
+
+
+# The f32 K2 on wgmma (csrc/attention_bwd_f32.cuh, Layout<D, pass>::kCols):
+# columns a warpgroup takes of a chunk of two warpgroups', pass A's (the
+# keys of dq = ds . k) and pass B's (the queries of dk and dv), by head width
+WGMMA_COLS = {16: (104, 104), 32: (104, 56), 64: (40, 24)}
+
+
+def perm_k(j: int) -> int:
+    """The k position of column j of a block of 8 in the f32 wgmma K2's
+    permuted k order (``wgtf::perm_k``): column 2 t at t, 2 t + 1 at t + 4,
+    so that an accumulator's registers are the next product's A fragment."""
+    return (j & 1) * 4 + (j >> 1)
+
+
+def dot_3xtf32_wg(a: torch.Tensor, b: torch.Tensor,
+                  cols: int) -> torch.Tensor:
+    """a @ b as the f32 wgmma K2 sums its output products (dq = ds . k,
+    dk = ds^T . qs, dv = pd^T . g) over K, the columns of a chunk: K in
+    chunks of 2 ``cols``, warpgroup 0 taking the first ``cols`` of each and
+    warpgroup 1 the rest; each warpgroup's k-steps of 8 (the k order within
+    each permuted by ``perm_k``: the model sums a step exactly, so the order
+    within it moves nothing) summed from zero on the tensor cores (al . bh,
+    ah . bl, then ah . bh) and added in f32 to the warpgroup's running sum,
+    chunk after chunk; then warpgroup 0's sum plus warpgroup 1's."""
+    n = a.shape[-1]
+    chunk = 2 * cols
+    pad = -n % chunk
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    (ah, al), (bh, bl) = split(a), split(b)
+    order = torch.tensor([8 * (i // 8) + [0, 2, 4, 6, 1, 3, 5, 7][i % 8]
+                          for i in range(chunk)])
+    assert all(perm_k(int(order[i]) % 8) == i % 8 for i in range(chunk))
+    c = [torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
+                     device=a.device) for _ in range(2)]
+    for c0 in range(0, a.shape[-1], chunk):
+        idx = order + c0
+        xh, xl = ah[..., idx], al[..., idx]
+        yh, yl = bh[..., idx, :], bl[..., idx, :]
+        for w in range(2):
+            for k0 in range(w * cols, w * cols + cols, 8):
+                ks = slice(k0, k0 + 8)
+                p = mma(torch.zeros_like(c[w]), xl[..., ks], yh[..., ks, :])
+                p = mma(p, xh[..., ks], yl[..., ks, :])
+                c[w] = c[w] + mma(p, xh[..., ks], yh[..., ks, :])
+    return c[0] + c[1]
+
+
+def wgmma_dots(head_dim: int):
+    """``k2``'s ``out_dots`` for the f32 wgmma K2 at ``head_dim``: dq's
+    over pass A's columns, dk's and dv's over pass B's."""
+    cols_a, cols_b = WGMMA_COLS[head_dim]
+    return (lambda a, b: dot_3xtf32_wg(a, b, cols_a),
+            lambda a, b: dot_3xtf32_wg(a, b, cols_b))
 
 
 def dot_3xtf32_chained(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,10 +183,13 @@ def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
 
 
 def k2(q, k, v, key_pad, static, g, lse, n_heads, scale, rate=0.0, seed=0,
-       dot=dot_3xtf32, dtype=torch.float32):
+       dot=dot_3xtf32, dtype=torch.float32, out_dots=None):
     """K2's formula (``csrc/attention_bwd.cu``'s note) on the kernel's
-    operands, every product through ``dot``, elementwise math in
-    ``dtype``: (dq, dk, dv) as (B, T, H*D) in ``dtype``."""
+    operands, every product through ``dot`` (s and dP, and the output
+    products unless ``out_dots`` = (dq's dot, dk's and dv's dot), as
+    ``wgmma_dots`` gives them), elementwise math in ``dtype``: (dq, dk, dv)
+    as (B, T, H*D) in ``dtype``."""
+    dot_q, dot_kv = out_dots or (dot, dot)
     B, Tq, _ = q.shape
     Tk = k.shape[1]
 
@@ -151,7 +213,7 @@ def k2(q, k, v, key_pad, static, g, lse, n_heads, scale, rate=0.0, seed=0,
         pd, dpn = pn * ms, dpn * ms
     ds = pn * (dpn - (dpn * pn).sum(-1, keepdim=True))
     del dpn
-    dq = dot(ds, kh) * scale
-    dk = dot(ds.transpose(-1, -2), qs)
-    dv = dot(pd.transpose(-1, -2), gh)
+    dq = dot_q(ds, kh) * scale
+    dk = dot_kv(ds.transpose(-1, -2), qs)
+    dv = dot_kv(pd.transpose(-1, -2), gh)
     return tuple(tatt._merge(x, dtype) for x in (dq, dk, dv))
