@@ -187,11 +187,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    compiled, 8 and 24 through zero-padded heads; 256 // D heads, B=16, 200
    tokens, the encoder's mask), f32 and bf16, dropout 0 and 0.4, against
    their plain versions (``k1_gates``, ``k2_gates``) and timed beside them
-   and SDPA (``head_widths_kernels_*``); the per-rank K1/K2 at D = 64 (2
-   of 4 heads, draw offsets (8, 2)) bit-equal to the whole call's slices;
-   K3/K4 at 3,200 rows of 48, 100, 1280, 2048 and 4096 columns
-   (``head_widths_ln_check``); the mm.yaml model with 4 and 16 heads (D =
-   64 and 16), f32 and bf16: one step kernel path against plain path
+   and SDPA (``head_widths_kernels_*``; the f32 K2 at 128 also beside
+   SDPA's MATH backward); the per-rank K1/K2 at D = 64 (2 of 4 heads, draw
+   offsets (8, 2)) and D = 128 (1 of 2 heads, (8, 1)) bit-equal to the
+   whole call's slices; K3/K4 at 3,200 rows of 48, 100, 1280, 2048 and
+   4096 columns (``head_widths_ln_check``); the mm.yaml model with 2, 4
+   and 16 heads (D = 128, 64 and 16), f32 and bf16: one step kernel path
+   against plain path
    (``head_widths_step``, the step gates), the resident path as CUDA graphs
    against the same steps run eagerly over 80 trials (``head_widths_dispatch``,
    the ``dispatch`` gates and launches: K1 30, K2 15, K3 62, K4 32 a
@@ -1496,8 +1498,8 @@ def plain_step_time(root: Path):
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
 # K4 launch two kernels each, their first is counted (K2's pass A:
-# attn_bwd_dq_tc/wg/tf_kernel); with dropout the bf16 K1 and both dtypes'
-# wgmma K2 draw their keep bits first (attn_fwd_keep_kernel,
+# attn_bwd_dq_tc/wg/tf/tf128_kernel); with dropout the bf16 K1 and both
+# dtypes' wgmma K2 draw their keep bits first (attn_fwd_keep_kernel,
 # attn_bwd_keep_kernel), not counted
 _KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg)_kernel"), ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
@@ -4547,16 +4549,17 @@ def par_script(root: Path) -> dict:
 
 
 def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
-                     timer=cuda_time_ms) -> tuple:
+                     timer=cuda_time_ms, math: bool = False) -> tuple:
     """K1 (dropout 0.4, lse) and K2 at the operands' shape, timed beside
     their plain versions (with the dots of q's dtype) and SDPA
     (``SDPA_BACKEND``) with the same additive bias and dropout_p, K2's its
-    backward ((fwd + bwd) - fwd); with the bounds: each input read once,
-    each output written once, the products as ``_tc_bound`` counts them at
-    the operands' head width. ``timer(fn, reps, warmup)``: CUDA events
-    (``cuda_time_ms``: at B=16 the wrappers' host path is part of what
-    they read) or profiler device time (``device_ms``). Returns the K1 and
-    K2 rows, without their errors."""
+    backward ((fwd + bwd) - fwd), and with ``math`` SDPA's MATH backward
+    too (``library_math_ms``, the f32 K2's other yardstick); with the
+    bounds: each input read once, each output written once, the products
+    as ``_tc_bound`` counts them at the operands' head width.
+    ``timer(fn, reps, warmup)``: CUDA events (``cuda_time_ms``: at B=16 the
+    wrappers' host path is part of what they read) or profiler device time
+    (``device_ms``). Returns the K1 and K2 rows, without their errors."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     dtype = q.dtype
@@ -4584,12 +4587,18 @@ def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
                   .requires_grad_(True) for x in (q, k, v))
     gh = g.unflatten(-1, (H, D)).transpose(1, 2)
 
-    def lib():
-        return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT)
+    def lib(backend=None):
+        return sdpa(qh, kh, vh, attn_mask=bias, dropout_p=DROPOUT,
+                    backend=backend)
 
     lib_fwd = timer(lambda: lib().detach())
     lib_fwd_bwd = timer(lambda: torch.autograd.grad(
         lib(), (qh, kh, vh), gh))
+    extra = {}
+    if math:
+        extra["library_math_ms"] = timer(lambda: torch.autograd.grad(
+            lib("MATH"), (qh, kh, vh), gh)) - timer(
+                lambda: lib("MATH").detach())
     elem = q.element_size()
     masks = key_pad.numel() * 4 + static.numel() * 4
     lse_bytes = B * H * Tq * 4
@@ -4602,7 +4611,7 @@ def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
     return (dict(ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b),
             dict(ms=k2_ms, plain_ms=k2_plain,
                  library_ms=lib_fwd_bwd - lib_fwd,
-                 library_fwd_bwd_ms=lib_fwd_bwd, **k2_b))
+                 library_fwd_bwd_ms=lib_fwd_bwd, **extra, **k2_b))
 
 
 def rank_kernels_check(D: int = 32, H: int = 4, timed: bool = True) -> dict:
@@ -4777,14 +4786,14 @@ def multisession_phases(root: Path, default: str):
 # (csrc/attention_{fwd,bwd}_d*.cu), 8 and 24 through zero-padded heads; the
 # hidden size near the model's 256 (256 // D heads)
 HW_WIDTHS = (8, 16, 24, 64, 128)
-# the widths the mm.yaml model runs with 16 and 4 heads: timed here
+# the widths the mm.yaml model runs with 16, 4 and 2 heads: timed here
 # (``scripts/torch_width_time.py`` times every width)
-HW_TIMED = (16, 64)
+HW_TIMED = (16, 64, 128)
 # LayerNorm widths: not multiples of 32, and above 1024 (a row a block)
 HW_LN_WIDTHS = (48, 100, 1280, 2048, 4096)
 HW_LN_ROWS = 3200                 # the B=16 step's tokens
-# the mm.yaml model with 4 and 16 heads (D = 64 and 16)
-HW_HEADS = (4, 16)
+# the mm.yaml model with 2, 4 and 16 heads (D = 128, 64 and 16)
+HW_HEADS = (2, 4, 16)
 # the graph-vs-eager runs' trials: 64 train trials, 4 steps an epoch
 HW_TRIALS = 80
 
@@ -4839,7 +4848,8 @@ def head_width_kernels() -> dict:
             if D in HW_TIMED:
                 t1, t2 = attn_train_times(
                     q, k, v, key_pad, static, g, H,
-                    timer=lambda fn, reps=20, warmup=3: device_ms(fn, reps))
+                    timer=lambda fn, reps=20, warmup=3: device_ms(fn, reps),
+                    math=D == 128 and dtype == torch.float32)
                 emit(phase="head_widths_kernels_time", head_width=D,
                      heads=H, dtype=dtype_name(dtype),
                      shape=[B, Tq, Tq, H, D], dropout=DROPOUT, k1=t1, k2=t2,
@@ -4944,13 +4954,14 @@ def head_width_script(root: Path) -> dict:
 
 def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                     kernels: list) -> list:
-    """The kernels line's rows of phase 14: K1 and K2 at head widths 16 and
-    64, the mm.yaml model's with 16 and 4 heads (f32, bf16 beside it;
-    launches on its paths; times by profiler device time); the widths no
-    shipped configuration runs (8 and 24 zero-padded, 128) in the width-64
-    rows, and the new LayerNorm widths in the K3 and K4 rows of
-    ``kernels``, each with its error, launched on no main path (their
-    times: ``scripts/torch_width_time.py``)."""
+    """The kernels line's rows of phase 14: K1 and K2 at head widths 16, 64
+    and 128, the mm.yaml model's with 16, 4 and 2 heads (f32, bf16 beside
+    it; launches on its paths; times by profiler device time; the f32 K2 at
+    128 also beside SDPA's MATH backward); the widths no model path runs
+    (8 and 24 zero-padded) in the width-64 rows, and the new LayerNorm
+    widths in the K3 and K4 rows of ``kernels``, each with its error,
+    launched on no main path (their times:
+    ``scripts/torch_width_time.py``)."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -4960,29 +4971,46 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
             ("k1", "attention_fwd (K1; timed as the training step's: "
              "dropout 0.4, lse)", ":144", "attention_fwd"),
             ("k2", "attention_bwd (K2)", ":221", "attention_bwd"))):
-        for D in (16, 64):
+        for D in HW_TIMED:
             heads = GEOMETRY["hidden_size"] // D
             mine = {k: v[kname] for k, v in paths.items()
                     if k.split("_heads")[0].endswith(f"_{heads}")}
+            f32_src = (f"{src}attention_bwd_f32_d128.cuh"
+                       if kname == "k2" and D == 128 else f"{src}{lib}_d{D}.cu")
             row = dict(
                 name=f"{short} at head width {D}: the mm.yaml model with "
                      f"{heads} heads (B=16, 200 tokens), f32 (3xTF32); bf16 "
                      "beside it", route="cuda",
-                source=f"{src}{lib}_d{D}.cu", replaces=attn_py + line,
+                source=f32_src, replaces=attn_py + line,
                 launches=sum(mine.values()), launches_by_path=mine,
                 bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
-            row["bf16_kernel"] = (
-                "wgmma: attn_fwd_wg_kernel (+ attn_fwd_keep_kernel), "
-                f"{src}attention_fwd_bf16.cuh" if kname == "k1" else
-                f"wgmma: attn_bwd_*_wg_kernel, {src}attention_bwd_bf16.cuh")
-            if kname == "k2":
+            if D == 128:
+                row["bf16_kernel"] = (
+                    "mma.sync: attn_fwd_tc_kernel, "
+                    f"{src}attention_fwd_d128.cu" if kname == "k1" else
+                    "mma.sync: attn_bwd_dq_tc_kernel + "
+                    f"attn_bwd_dkdv_tc_kernel, {src}attention_bwd_d128.cu")
+            else:
+                row["bf16_kernel"] = (
+                    "wgmma: attn_fwd_wg_kernel (+ attn_fwd_keep_kernel), "
+                    f"{src}attention_fwd_bf16.cuh" if kname == "k1" else
+                    "wgmma: attn_bwd_*_wg_kernel, "
+                    f"{src}attention_bwd_bf16.cuh")
+            if kname == "k2" and D == 128:
+                row["f32_kernel"] = (
+                    "wgmma (3xTF32; A operands split in registers, the "
+                    "output products transposed, each warpgroup half of "
+                    "D): attn_bwd_keep_kernel + attn_bwd_dq_tf128_kernel + "
+                    f"attn_bwd_dkdv_tf128_kernel, {f32_src}")
+                row["library_math_ms"] = rows[D, f32][i]["library_math_ms"]
+            elif kname == "k2":
                 row["f32_kernel"] = ("wgmma (3xTF32): attn_bwd_*_tf_kernel, "
                                      f"{src}attention_bwd_f32.cuh")
             if D == 64:
                 row["off_path_widths"] = {}
                 for w in HW_WIDTHS:
                     width = att.kernel_head_dim(w)
-                    if w in (16, 64):
+                    if w in HW_TIMED:
                         continue
                     row["off_path_widths"][str(w)] = dict(
                         source=src + (f"{lib}.cu" if width == 32
@@ -5011,6 +5039,7 @@ def head_widths_phase(root: Path, default: str) -> dict:
     t0 = time.perf_counter()
     rows = head_width_kernels()
     rank_kernels_check(D=64, H=2, timed=False)
+    rank_kernels_check(D=128, H=1, timed=False)
     ln_err = {}
     for width in HW_LN_WIDTHS:
         for dtype in DTYPES:

@@ -1,10 +1,11 @@
 // K2: fused multi-head attention backward for Hopper (sm_90a), on the
-// tensor cores in f32 (3xTF32) and bf16. At head widths 16, 32 and 64
-// mmfm_attention_bwd launches the wgmma kernels (wgmma over the whole key
-// row, TMA, one sweep), bf16 of attention_bwd_bf16.cuh and f32 of
-// attention_bwd_f32.cuh; this file's kernels, the mma.sync pair of both
-// dtypes, run at 128, whose accumulators (dk and dv, 64 registers each a
-// thread at N = 128) leave no room for s and dP of the whole row.
+// tensor cores in f32 (3xTF32) and bf16. mmfm_attention_bwd launches the
+// wgmma kernels (TMA tiles, the keep bits drawn apart): at head widths 16,
+// 32 and 64 bf16 of attention_bwd_bf16.cuh and f32 of
+// attention_bwd_f32.cuh, at 128 f32 of attention_bwd_f32_d128.cuh (the
+// output products taken transposed). This file's kernels, the mma.sync
+// pair, run bf16 at 128, whose accumulators (dk and dv, 64 registers each
+// a thread at N = 128) leave no room for s and dP of the whole row.
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, launched by
@@ -34,8 +35,8 @@
 // Pass A recomputes s and g . v twice and pass B once more: 9 products
 // where the bound counts 5.
 //
-// One kernel pair serves both dtypes (Tc<T, D> in tc_traits.cuh holds what
-// differs, shared with K1).
+// The pair is templated on the operand type as K1 is (Tc<T, D> in
+// tc_traits.cuh holds what differs, shared with K1); it runs bf16 only.
 // Four warps a block, each owning 16 rows of its side: its two operands
 // (q * scale and g, or k and v) are mma A fragments in registers; the other
 // side streams through shared memory in 64-row tiles by cp.async (16 B a
@@ -58,19 +59,15 @@
 // slice with each tile of the head before, so that the draws run beside
 // the products.
 //
-// f32 (3xTF32, mma_tf32.cuh): the f32 contract, the plain version's f32
-// math, with no bf16 rounding anywhere (q * scale stays f32). Every product
-// is three TF32 mma.sync.m16n8k8 products of operands split into hi =
-// tf32(x) and lo = tf32(x - hi), accumulated in f32. A landed f32 tile is
-// split into hi and lo planes in shared memory once (pass B's q tile times
-// scale first), not once per warp. Each k-step's three products are
-// summed from zero before an f32 add (mma_3xtf32: the tensor cores
-// truncate their sums), the order the f32 wgmma kernel keeps
-// (attention_bwd_f32.cuh notes its accuracy on the H100). pn =
-// ex2.approx.ftz((s - lse) * log2(e)) (fast_exp2: ~2 ulp; results below
-// 2^-126 flush to 0, where exp(s - lse) adds nothing at the gate): the
-// subtraction before the base-2 scale keeps the argument's rounding
-// relative to s - lse, not to s.
+// f32 (3xTF32): the f32 contract, the plain version's f32 math, with no
+// bf16 rounding anywhere (q * scale stays f32). Every product is three
+// TF32 wgmma products of operands split into hi = tf32(x) and lo = tf32(x
+// - hi), each k-step's three summed from zero before an f32 add (the
+// tensor cores truncate their sums; attention_bwd_f32.cuh notes the
+// accuracy on the H100). pn = ex2.approx.ftz((s - lse) * log2(e))
+// (fast_exp2: ~2 ulp; results below 2^-126 flush to 0, where exp(s - lse)
+// adds nothing at the gate): the subtraction before the base-2 scale
+// keeps the argument's rounding relative to s - lse, not to s.
 //
 // bf16 (mma_bf16.cuh): the arithmetic of JAX's K2 on its own hardware
 // (dots_dtype = bf16, :431): qs = bf16(f32(q) * scale), k, v, g in bf16;
@@ -89,10 +86,7 @@
 // as K1's. The wrapper pads any other D up to 128 with zero columns per
 // head. At D = 128, the one width this pair runs, the fragments of two
 // operands and the dk and dv accumulators a warp take the registers of one
-// block an SM (Tc<T, D>::kBlocksA), and f32 spills: a kernel that is
-// right, not yet fast. f32 keeps one tile buffer a side (Tc<float,
-// 128>::kBwdBufs: two would take 270 KB of shared memory), so its copies
-// wait for the last tile's readers, as the f32 K1's do.
+// block an SM (Tc<T, D>::kBlocksA).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +101,8 @@
 #if MMFM_HEAD_DIM <= 64
 #include "attention_bwd_bf16.cuh"
 #include "attention_bwd_f32.cuh"
+#else
+#include "attention_bwd_f32_d128.cuh"
 #endif
 
 namespace {
@@ -135,7 +131,7 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the Philox key: the low 32 bits of the step's seed-table entry
   const unsigned seed = kDropout ? (unsigned)__ldg(seed_ptr) : 0u;
   constexpr int kPer = 16 / sizeof(T);             // elements a copy
-  constexpr int kBufs = Ops::kBwdBufs;             // k/v tile buffers
+  constexpr int kBufs = Ops::kBwdBufs;             // k/v tile buffers: 2
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);              // [kBufs][kElems]
   T* vs = ks + kBufs * Ops::kElems;                // [kBufs][kElems]
@@ -219,15 +215,11 @@ attn_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     for (int t = 0; t < n_t; ++t) {
-      const int idx = (h - h0) * n_t + t, buf = kBufs == 2 ? idx & 1 : 0;
-      if (kBufs == 1 && idx > 0) {
-        __syncthreads();  // the last readers of the one buffer are done
-        load_tile(idx, 0);
-      }
+      const int idx = (h - h0) * n_t + t, buf = idx & 1;
       cp_async_wait_all();
       land_tile(buf);
       __syncthreads();  // tile idx (and the bits) in; the last readers done
-      if (kBufs == 2 && idx + 1 < hpb * n_t) load_tile(idx + 1, buf ^ 1);
+      if (idx + 1 < hpb * n_t) load_tile(idx + 1, buf ^ 1);
       if (t == 0) {
         // this head's bytes, complete since the barrier, out for pass B
         const int words = n_kt * 4;        // of a row
@@ -333,7 +325,7 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float scale, float keep_scale) {
   using Ops = Tc<T, D>;
   constexpr int kPer = 16 / sizeof(T);
-  constexpr int kBufs = Ops::kBwdBufs;             // q/g tile buffers
+  constexpr int kBufs = Ops::kBwdBufs;             // q/g tile buffers: 2
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);              // [kBufs][kElems]
   T* gs = qs + kBufs * Ops::kElems;                // [kBufs][kElems]
@@ -406,15 +398,11 @@ attn_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     for (int t = 0; t < n_qt; ++t) {
-      const int idx = (h - h0) * n_qt + t, buf = kBufs == 2 ? idx & 1 : 0;
-      if (kBufs == 1 && idx > 0) {
-        __syncthreads();  // the last readers of the one buffer are done
-        load_tile(idx, 0);
-      }
+      const int idx = (h - h0) * n_qt + t, buf = idx & 1;
       cp_async_wait_all();
       land_tile(buf);
       __syncthreads();  // tile idx in and readied; the last readers done
-      if (kBufs == 2 && idx + 1 < hpb * n_qt) load_tile(idx + 1, buf ^ 1);
+      if (idx + 1 < hpb * n_qt) load_tile(idx + 1, buf ^ 1);
       if (!active) continue;
       const T* qt = qs + buf * Ops::kElems;
       const T* gt = gs + buf * Ops::kElems;
@@ -529,9 +517,9 @@ cudaError_t launch_tc(const void* q_, const void* k_, const void* v_,
 // strides of q, k, v, g
 // 16-byte aligned. Strides in elements; dq (B, Tq, H*D), dk and dv
 // (B, Tk, H*D) contiguous. The f32 scratch holds rowsum (B, H, Tq), written
-// by pass A and read by pass B, then, 16-byte aligned, pass A's mask bytes
-// for pass B: the mma.sync kernels' B * H * Tq * ceil(Tk / 64) * 16 bytes,
-// the wgmma kernel's B * H * ceil(Tk / 8) * (Tq + Tq % 2)
+// by pass A and read by pass B, then, 16-byte aligned, the mask bytes the
+// passes read: the mma.sync pair's (bf16 at 128) B * H * Tq * ceil(Tk /
+// 64) * 16 bytes, the wgmma kernels' B * H * ceil(Tk / 8) * keep_row(Tq)
 // (ops/attention.py::_k2_scratch_floats, by k2_route). b_off and h_off
 // offset the (b, h) of the dropout bits as K1's do.
 // Returns the first launch error (0 = ok).
@@ -561,6 +549,11 @@ extern "C" int mmfm_attention_bwd(
       q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
       H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
       threshold, keep_scale, b_off, h_off, s)
+#define MMFM_K2_T128(DROP)                                                   \
+  mmfm::k2t128::launch<DROP>(                                                \
+      q, k, v, g, key_pad, static_mask, lse, rowsum, dq, dk, dv, B, Tq, Tk,  \
+      H, q_sb, q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, scale, seed,        \
+      threshold, keep_scale, b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
 #if MMFM_HEAD_DIM <= 64
   if (dtype == 0)
@@ -569,10 +562,11 @@ extern "C" int mmfm_attention_bwd(
     err = dropout ? MMFM_K2_WG(true) : MMFM_K2_WG(false);
 #else
   if (dtype == 0)
-    err = dropout ? MMFM_K2_LAUNCH(float, true) : MMFM_K2_LAUNCH(float, false);
+    err = dropout ? MMFM_K2_T128(true) : MMFM_K2_T128(false);
   else if (dtype == 1)
     err = dropout ? MMFM_K2_LAUNCH(bf16, true) : MMFM_K2_LAUNCH(bf16, false);
 #endif
+#undef MMFM_K2_T128
 #undef MMFM_K2_TF
 #undef MMFM_K2_WG
 #undef MMFM_K2_LAUNCH

@@ -1,7 +1,8 @@
 // K2 in f32 for Hopper (sm_90a): 3xTF32 on wgmma over the whole key row,
 // tiles fed by TMA, the keep bits drawn apart. Included by
 // attention_bwd.cu, which launches it for f32 at head widths 16, 32 and 64
-// (at 128 the f32 mma.sync kernels of that file run).
+// (at 128, whose planes do not fit this layout, attention_bwd_f32_d128.cuh
+// runs).
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel` with f32 dots
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, :439): the f32

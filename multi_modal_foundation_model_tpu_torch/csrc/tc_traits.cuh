@@ -1,5 +1,6 @@
 // What the operand type changes in the tensor-core attention kernels, K1
-// (attention_fwd.cu) and K2 (attention_bwd.cu), one kernel body each for
+// (attention_fwd.cu, f32 and bf16) and K2's mma.sync pair
+// (attention_bwd.cu, bf16 at head width 128), one kernel body each for
 // f32 (3xTF32, mma_tf32.cuh) and bf16 (mma_bf16.cuh): the shared tiles of
 // the streamed side, the A fragments held in registers, the two products,
 // how a landed chunk is readied, K2's exp(s - lse) and the stores, at head
@@ -92,15 +93,6 @@ struct Tc<float, D> {
   static constexpr int kChunks = D / 4;
   static constexpr int kPitch = ld_f32(D);
   static constexpr int kElems = 2 * plane_f32(D);  // the hi plane, then lo
-  // K2's tile buffers a side, at D = 128, the one width the f32 mma.sync
-  // K2 runs (attention_bwd_f32.cuh takes 16-64): two would need 270 KB of
-  // the SM's 227, so one, whose copy waits for the last tile's readers as
-  // K1's one buffer does
-  static constexpr int kBwdBufs = 1;
-  static constexpr size_t kSmem = kBwdBufs * 2 * kElems * sizeof(float);
-  // the split fragments of a 128-wide head do not fit 255 registers
-  // whatever the bound: one block an SM
-  static constexpr int kBlocksA = 1;
   // K1's k/v tile buffers: one. Its ~45 KB of shared memory a block leave
   // the registers (127) to allow 4 blocks an SM, where two buffers' ~81 KB
   // allowed 2: 14-17% faster on the H100, though no copy overlaps a product
@@ -130,10 +122,6 @@ struct Tc<float, D> {
   template <bool kScale>
   static __device__ __forceinline__ void land(float* p, float mul) {
     land_split<D, kScale>(p, mul);
-  }
-  static __device__ __forceinline__ float lse_arg(float lse) { return lse; }
-  static __device__ __forceinline__ float prob(float s, float l) {
-    return fast_exp2((s - l) * kLog2e);
   }
   static __device__ __forceinline__ void store2(float* p, float a, float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);

@@ -297,7 +297,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapFloatOOBfill);
 
 // libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry
-// point lookup (the library does not link libcuda), or null
+// point lookup (the library does not link libcuda), or null. A driver call
+// needs a current context, which the runtime binds to a thread at its
+// first runtime call there: a thread whose first CUDA work is this launch
+// (autograd's device thread running K2 first) has none, so each thread
+// binds the current device's primary context once (cudaSetDevice).
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = [] {
     void* p = nullptr;
@@ -308,7 +312,12 @@ inline EncodeTiled encode_tiled() {
       return static_cast<EncodeTiled>(nullptr);
     return reinterpret_cast<EncodeTiled>(p);
   }();
-  return fn;
+  thread_local bool bound = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess &&
+           cudaSetDevice(dev) == cudaSuccess;
+  }();
+  return bound ? fn : nullptr;
 }
 
 // A tensor map of the bf16 (B, T, hidden) tensor at ptr, batch and row

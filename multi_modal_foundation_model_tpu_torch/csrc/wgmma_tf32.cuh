@@ -1,5 +1,6 @@
 // Hopper building blocks of the f32 attention backward K2 on wgmma
-// (attention_bwd_f32.cuh): TF32 wgmma, for sm_90a, and the f32 tensor maps.
+// (attention_bwd_f32.cuh; attention_bwd_f32_d128.cuh at head width 128):
+// TF32 wgmma, for sm_90a, and the f32 tensor maps.
 // The mbarriers, TMA loads, fences and descriptors are those of the bf16
 // kernels (wgmma_bf16.cuh).
 //
@@ -16,7 +17,7 @@
 //   written in the same order (attention_bwd_f32.cuh, split).
 // - f32 tiles in shared memory are rows of at most 32 floats (128 bytes,
 //   one 128-byte swizzle atom; 64 bytes and the 64-byte swizzle at D = 16);
-//   a D = 64 tile is two such column blocks.
+//   a D = 64 tile is two such column blocks, a D = 128 tile four.
 
 #pragma once
 
@@ -144,6 +145,27 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
         "r"(accumulate));
 }
 
+// d (64 x 48, f32) = or += A . B: A (64 x 8) tf32 in registers (each
+// warp's 16 rows as the mma.sync m16n8k8 A fragment), B (8 x 48) tf32
+// K-major in shared memory (descriptor db)
+__device__ __forceinline__ void mma_rs_n48(float (&d)[24],
+                                          const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // d (64 x 64, f32) = or += A . B: A (64 x 8) tf32 in registers (each
 // warp's 16 rows as the mma.sync m16n8k8 A fragment), B (8 x 64) tf32
 // K-major in shared memory (descriptor db)
@@ -194,6 +216,11 @@ __device__ __forceinline__ void mma_rs(float (&d)[16],
                                        int accumulate) {
   mma_rs_n32(d, a, db, accumulate);
 }
+__device__ __forceinline__ void mma_rs(float (&d)[24],
+                                       const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate) {
+  mma_rs_n48(d, a, db, accumulate);
+}
 __device__ __forceinline__ void mma_rs(float (&d)[32],
                                        const uint32_t (&a)[4], uint64_t db,
                                        int accumulate) {
@@ -222,6 +249,22 @@ __device__ __forceinline__ void mma3_rs(float (&d)[N],
   mma_rs(d, al, bh, 0);
   mma_rs(d, ah, bl, 1);
   mma_rs(d, ah, bh, 1);
+}
+
+// two independent k-steps of mma3_rs, d and e (each from zero, each the
+// same three terms in the same order), their terms issued alternately: a
+// term of one waits on its own last term while the other's runs
+template <int N, int M>
+__device__ __forceinline__ void mma3_rs2(
+    float (&d)[N], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+    uint64_t bh, uint64_t bl, float (&e)[M], const uint32_t (&ch)[4],
+    const uint32_t (&cl)[4], uint64_t fh, uint64_t fl) {
+  mma_rs(d, al, bh, 0);
+  mma_rs(e, cl, fh, 0);
+  mma_rs(d, ah, bl, 1);
+  mma_rs(e, ch, fl, 1);
+  mma_rs(d, ah, bh, 1);
+  mma_rs(e, ch, fh, 1);
 }
 
 // ties A fragment registers of an asynchronous wgmma to this point (see

@@ -356,7 +356,10 @@ def unpad_heads(x: torch.Tensor, n_heads: int, D: int) -> torch.Tensor:
     """(B, T, H*width) -> contiguous (B, T, H*D): each head's first D
     columns."""
     B, T, _ = x.shape
-    return x.reshape(B, T, n_heads, -1)[..., :D].reshape(B, T, n_heads * D)
+    # a reshape copies where heads > 1; at one head it keeps the strided
+    # view, hence contiguous()
+    return x.reshape(B, T, n_heads, -1)[..., :D].reshape(
+        B, T, n_heads * D).contiguous()
 
 
 def padded_attention_fwd(fwd, width: int, q, k, v, key_pad, static,
@@ -429,13 +432,16 @@ def k1_route(dtype, head_dim: int) -> str:
 
 
 def k2_route(dtype, head_dim: int) -> str:
-    """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` at
-    the compiled widths 16, 32 and 64 (and the widths padded to them), the
-    bf16 kernel of ``csrc/attention_bwd_bf16.cuh`` or the f32 (3xTF32) one
-    of ``csrc/attention_bwd_f32.cuh`` (wgmma, TMA, the keep bits drawn by a
-    kernel of their own); ``"mma_sync"``, the pair of
-    ``csrc/attention_bwd.cu``, at 128. Above 128, ``ValueError``."""
-    return "wgmma" if kernel_head_dim(head_dim) <= 64 else "mma_sync"
+    """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` (TMA
+    tiles, the keep bits drawn by a kernel of their own) at the compiled
+    widths 16, 32 and 64 (and the widths padded to them), the bf16 kernel
+    of ``csrc/attention_bwd_bf16.cuh`` or the f32 (3xTF32) one of
+    ``csrc/attention_bwd_f32.cuh``, and f32 at 128 (and 65-127), the
+    3xTF32 kernel of ``csrc/attention_bwd_f32_d128.cuh``; ``"mma_sync"``,
+    the pair of ``csrc/attention_bwd.cu``, bf16 at 128. Above 128,
+    ``ValueError``."""
+    width = kernel_head_dim(head_dim)
+    return "wgmma" if width <= 64 or dtype == torch.float32 else "mma_sync"
 
 
 def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
@@ -637,8 +643,8 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     f32 math to about f32 accuracy: the contract of
     ``attention_bwd_reference``. bf16 takes bf16 operands as JAX's K2 on
     its hardware: the contract of ``attention_bwd_reference(...,
-    dots_dtype=torch.bfloat16)``. At head widths up to 64 both run on
-    Hopper's wgmma with TMA copies (``k2_route``). The kernels copy their
+    dots_dtype=torch.bfloat16)``. Both run on Hopper's wgmma with TMA
+    copies, f32 at every width and bf16 up to 64 (``k2_route``). The kernels copy their
     tiles with ``cp.async`` or TMA, so q/k/v/g need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises

@@ -7,7 +7,8 @@ NVIDIA GPU.
 At the inputs of ``chip_smoke.py``'s ``k2_check`` (B=256, T=200, 8 heads of
 32, the three mask cases, dropout 0 and 0.4, on K1 f32's lse), the f32 K2
 (at head width 32 the wgmma kernel of ``csrc/attention_bwd_f32.cuh``,
-3xTF32, pn by ``ex2.approx``) is held against
+3xTF32, pn by ``ex2.approx``), and at the same inputs with 2 heads of 128
+the kernel of ``csrc/attention_bwd_f32_d128.cuh``, is held against
 
 - the f32 plain version (``attention_bwd_reference``, the smoke's
   yardstick at atol 1e-5) and an f64 evaluation of the same formula;
@@ -15,14 +16,15 @@ At the inputs of ``chip_smoke.py``'s ``k2_check`` (B=256, T=200, 8 heads of
   order (torch's exp; ``wgmma_dots``), and in the mma.sync kernels' order
   (``emulation_mma_sync_*``);
 - the same kernel built with pn = ``expf(s - lse)`` (the library's accurate
-  exp, an edit of the two exponentials of ``csrc/attention_bwd_f32.cuh``
-  into ``build/probe/k2_expf/``).
+  exp, an edit of the two exponentials of its source into
+  ``build/probe/k2_expf_<library>/``).
 
 The plain version and the emulations are held against f64 as well. Then the
 two builds are timed at the smoke's timing shape (encoder mask), in one
 order and the reverse, each with CUDA events over 20 launches after 3
 warm-ups. Prints JSON lines: the card, ``ptxas`` registers and spills,
-one line of max-abs errors per case and dropout, then the timings.
+one line of max-abs errors per head width, case and dropout, then the
+timings.
 """
 
 from __future__ import annotations
@@ -49,24 +51,27 @@ from multi_modal_foundation_model_tpu_torch.ops import build  # noqa: E402
 # the exponentials of pass A and pass B, and their expf edits
 PROBS = (("fast_exp2((s[i] - lse[hh]) * kLog2e)", "expf(s[i] - lse[hh])"),
          ("fast_exp2((s[i] - l) * kLog2e)", "expf(s[i] - l)"))
+# (head width, library, the f32 kernel's source)
+WIDTHS = ((32, "attention_bwd", "attention_bwd_f32.cuh"),
+          (128, "attention_bwd_d128", "attention_bwd_f32_d128.cuh"))
 
 
-def build_expf():
-    """The f32 K2 with pn = expf(s - lse): (entry point, [(spill bytes,
-    registers)] per kernel)."""
-    out = ROOT / "build" / "probe" / "k2_expf"
+def build_expf(library: str, source: str):
+    """The f32 K2 of ``library`` with pn = expf(s - lse) in ``source``:
+    (entry point, [(spill bytes, registers)] per kernel)."""
+    out = ROOT / "build" / "probe" / f"k2_expf_{library}"
     out.mkdir(parents=True, exist_ok=True)
     for src in build.CSRC.glob("*.cu*"):
         text = src.read_text()
-        if src.name == "attention_bwd_f32.cuh":
+        if src.name == source:
             for old, new in PROBS:
                 if text.count(old) != 1:
                     raise RuntimeError(f"{old} is not as expected")
                 text = text.replace(old, new)
         (out / src.name).write_text(text)
-    lib = out / "libattention_bwd.so"
+    lib = out / f"lib{library}.so"
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                           str(out / "attention_bwd.cu")],
+                           str(out / f"{library}.cu")],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -87,16 +92,30 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps(dict(nvidia_smi=chip_smoke.nvidia_smi())), flush=True)
-    kernel = att._k2_lib()
-    expf, regs = build_expf()
+    original = att._k2_lib
+    try:
+        for D, library, source in WIDTHS:
+            accuracy(D, library, source)
+    finally:
+        att._k2_lib = original
+    return 0
+
+
+def accuracy(D: int, library: str, source: str) -> None:
+    """The lines of one head width (module docstring), 256 // D heads."""
+    kernel = att._k2_lib(D)
+    expf, regs = build_expf(library, source)
     expf.argtypes, expf.restype = kernel.argtypes, kernel.restype
     libs = {"ex2.approx": kernel, "expf": expf}
-    print(json.dumps(dict(expf_ptxas_spill_bytes_registers=regs)), flush=True)
+    print(json.dumps(dict(head_dim=D,
+                          expf_ptxas_spill_bytes_registers=regs)),
+          flush=True)
     original = att._k2_lib
     try:
         for case in ("encoder_eye_pad", "decoder_pad", "cross"):
             q, k, v, spec, H = chip_smoke.k1_inputs(case, torch.float32,
-                                                    B=chip_smoke.BIG_B)
+                                                    B=chip_smoke.BIG_B,
+                                                    H=256 // D, D=D)
             B, Tq, hidden = q.shape
             key_pad, static = att.spec_operands(spec, B, Tq, k.shape[1],
                                                 q.device)
@@ -112,7 +131,8 @@ def main() -> int:
                 f64 = emu.k2(*args, dot=torch.matmul, dtype=torch.float64)
                 emulated = emu.k2(*args, out_dots=emu.wgmma_dots(hidden // H))
                 mma_sync = emu.k2(*args)
-                row = dict(case=case, dropout=rate, shape=[B, Tq, hidden],
+                row = dict(head_dim=D, case=case, dropout=rate,
+                           shape=[B, Tq, hidden],
                            plain_vs_f64=_err(plain, f64),
                            emulation_vs_plain=_err(emulated, plain),
                            emulation_vs_f64=_err(emulated, f64),
@@ -120,7 +140,7 @@ def main() -> int:
                            emulation_mma_sync_vs_f64=_err(mma_sync, f64))
                 del mma_sync
                 for name, fn in libs.items():
-                    att._k2_lib = lambda head_dim=32, fn=fn: fn
+                    att._k2_lib = lambda head_dim=D, fn=fn: fn
                     got = att.attention_bwd(*args)
                     row[name] = dict(vs_plain=_err(got, plain),
                                      vs_f64=_err(got, f64),
@@ -133,7 +153,8 @@ def main() -> int:
 
         q, k, v, spec, H = chip_smoke.k1_inputs("encoder_eye_pad",
                                                 torch.float32,
-                                                B=chip_smoke.BIG_B)
+                                                B=chip_smoke.BIG_B,
+                                                H=256 // D, D=D)
         B, Tq, hidden = q.shape
         key_pad, static = att.spec_operands(spec, B, Tq, k.shape[1], q.device)
         scale = 1.0 / math.sqrt(hidden // H)
@@ -143,17 +164,19 @@ def main() -> int:
         lse = {r: att.attention_fwd(q, k, v, key_pad, static, H, scale, True,
                                     r, 1234)[1] for r in rates}
         for name in [*libs, *reversed(libs)]:
-            att._k2_lib = lambda head_dim=32, fn=libs[name]: fn
+            att._k2_lib = lambda head_dim=D, fn=libs[name]: fn
             for rate in rates:
                 ms = chip_smoke.cuda_time_ms(lambda: att.attention_bwd(
                     q, k, v, key_pad, static, g, lse[rate], H, scale, rate,
                     1234))
-                print(json.dumps(dict(exp=name, dropout=rate, ms=ms,
+                print(json.dumps(dict(head_dim=D, exp=name, dropout=rate,
+                                      ms=ms,
                                       shape=[B, Tq, Tq, H, hidden // H])),
                       flush=True)
     finally:
         att._k2_lib = original
-    return 0
+    del q, k, v, g, lse
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

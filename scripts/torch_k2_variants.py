@@ -2,24 +2,28 @@
 """Design variants of the wgmma K2, bf16 or f32, timed beside the committed
 kernel on one NVIDIA GPU.
 
-    python3 scripts/torch_k2_variants.py [--dtype float32] [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k2_variants.py [--dtype float32 [--head-dim 128]] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_bwd.cu`` (head width 32) and
 variants of its bf16 kernel (string edits of
 ``csrc/attention_bwd_bf16.cuh``) or, with ``--dtype float32``, of its f32
 kernel (edits of ``csrc/attention_bwd_f32.cuh`` and ``wgmma_tf32.cuh``),
-into ``build/probe/k2_<name>/``, each edit checked to apply exactly once,
-and, with ``--parent``, another checkout's K2 (say the parent commit's,
-unpacked by ``git archive``: the mma.sync K2 of the dtype). Each library in turn is swapped in for
-``ops.attention._k2_lib`` (the parent's with the scratch of its route,
-``k2_route``), checked with ``chip_smoke.k2_gates`` at the smoke run's
-B = 256 training shape (the encoder mask, dropout 0 and 0.4), and timed
-kernel by kernel by profiler device time
-(``chip_smoke.device_ms_by_kernel``) at B = 256 and B = 16, dropout 0.4
-and 0, in the order of the list and then reversed. Prints JSON lines: the
-card, each build's ``ptxas`` registers and spills per kernel and its SASS
-counts (``HGMMA``, ``HMMA``, ``UTMALDG`` TMA loads, ``STL`` / ``LDL``
-local memory) per kernel, each check, each timing.
+or, with ``--dtype float32 --head-dim 128``, ``csrc/attention_bwd_d128.cu``
+and variants of its f32 kernel (edits of
+``csrc/attention_bwd_f32_d128.cuh``), into ``build/probe/k2_<name>/``,
+each edit checked to apply exactly once, and, with ``--parent``, another
+checkout's K2 of that width (say the parent commit's, unpacked by ``git
+archive``: the mma.sync K2 of the dtype). Each library in turn is swapped
+in for ``ops.attention._k2_lib`` (the parent's with the scratch of its
+route, ``k2_route``), checked with ``chip_smoke.k2_gates`` at the smoke
+run's B = 256 training shape (the encoder mask, dropout 0 and 0.4; at
+head width 128 two heads), and timed kernel by kernel by profiler device
+time (``chip_smoke.device_ms_by_kernel``: the keep draws and each pass
+apart) at B = 256 and B = 16, dropout 0.4 and 0, in the order of the list
+and then reversed. Prints JSON lines: the card, each build's ``ptxas``
+registers and spills per kernel and its SASS counts (``HGMMA``, ``HMMA``,
+``UTMALDG`` TMA loads, ``STL`` / ``LDL`` local memory) per kernel, each
+check, each timing.
 
 The variants (``diag_*`` compute wrong results on purpose and are only
 timed: what is left when a piece is taken out):
@@ -61,6 +65,27 @@ The f32 variants (``--dtype float32``):
 
 One block an SM is the only shape the f32 kernel has: a pass A block at
 D = 32 takes 207 KB of shared memory and 255 registers a thread.
+
+The head-width-128 f32 variants (``--dtype float32 --head-dim 128``):
+
+- ``base``, ``diag_no_split``, ``diag_no_elementwise``: as above, on the
+  D = 128 kernel.
+- ``diag_no_score_products``: no s and dP wgmmas (the ``mma3_rs`` calls of
+  s, dP and their temporaries not issued).
+- ``diag_no_output_products``: no dq, dk and dv wgmmas.
+- ``terms_in_sequence``: each group's two k-steps (s and dP's, dq's two,
+  dk and dv's) issued one after the other (three terms of one, then the
+  other's) in place of alternating their terms (``mma3_rs2``); the same
+  sums.
+- ``descriptors_from_base``: each k-step's shared-memory descriptor as the
+  plane's descriptor plus the k-step's offset (``wg::desc_add``), in place
+  of encoding each address anew.
+- ``score_loop_rolled``: the loop over s's and dP's k-step pairs not
+  unrolled (fewer registers for addresses).
+- ``pass_a_chunk_48``: pass A in chunks of 48 keys (24 a warpgroup) in
+  place of 64.
+- ``pass_b_chunk_32``: pass B in chunks of 32 queries (16 a warpgroup) in
+  place of 48.
 """
 
 from __future__ import annotations
@@ -515,6 +540,52 @@ F32_VARIANTS = {
     "pipelined_outputs": {F32_SRC: [(F32_SERIAL_A, F32_PIPELINED_A),
                                     (F32_SERIAL_B, F32_PIPELINED_B)]},
 }
+F128_SRC = "attention_bwd_f32_d128.cuh"
+F128_COLS = "  static constexpr int kCols = kPassB ? 24 : 32;"
+F128_VARIANTS = {
+    "base": {},
+    "diag_no_split": {F128_SRC: [
+        ("    for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {",
+         "    for (int i0 = tid; i0 < kN && false; i0 += kU * kThreads) {")]},
+    "diag_no_elementwise": {F128_SRC: [
+        ("      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (live) {",
+         "      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (false) {"),
+        ("      // rowsum from shared memory\n      if (live) {",
+         "      // rowsum from shared memory\n      if (false) {")]},
+    "diag_no_score_products": {F128_SRC: [
+        ("      wgtf::mma3_rs2(acc, ", "      if (false) wgtf::mma3_rs2(acc, "),
+        ("        wgtf::mma3_rs2(tmp[0], ",
+         "        if (false) wgtf::mma3_rs2(tmp[0], ")]},
+    "diag_no_output_products": {F128_SRC: [
+        ("            wgtf::mma3_rs2(to[0], ",
+         "            if (false) wgtf::mma3_rs2(to[0], "),
+        ("            wgtf::mma3_rs(to[0], ",
+         "            if (false) wgtf::mma3_rs(to[0], "),
+        ("          wgtf::mma3_rs2(tk, ", "          if (false) wgtf::mma3_rs2(tk, ")]},
+    "terms_in_sequence": {"wgmma_tf32.cuh": [
+        ("  mma_rs(d, al, bh, 0);\n  mma_rs(e, cl, fh, 0);\n"
+         "  mma_rs(d, ah, bl, 1);\n  mma_rs(e, ch, fl, 1);\n"
+         "  mma_rs(d, ah, bh, 1);\n  mma_rs(e, ch, fh, 1);\n",
+         "  mma_rs(d, al, bh, 0);\n  mma_rs(d, ah, bl, 1);\n"
+         "  mma_rs(d, ah, bh, 1);\n  mma_rs(e, cl, fh, 0);\n"
+         "  mma_rs(e, ch, fl, 1);\n  mma_rs(e, ch, fh, 1);\n")]},
+    "descriptors_from_base": {F128_SRC: [
+        ("    return wg::desc<128>(plane + (kk >> 2) * L::kBlkB + 32 * (kk & 3));",
+         "    return wg::desc_add(wg::desc<128>(plane),\n"
+         "                        (kk >> 2) * L::kBlkB + 32 * (kk & 3));"),
+        ("    return wg::desc<128>(plane + (ks >> 2) * L::kBlkP + 32 * (ks & 3));",
+         "    return wg::desc_add(wg::desc<128>(plane),\n"
+         "                        (ks >> 2) * L::kBlkP + 32 * (ks & 3));")]},
+    "score_loop_rolled": {F128_SRC: [
+        ("#pragma unroll\n      for (int kk = 2; kk < kD / 8; kk += 2) {",
+         "#pragma unroll 1\n      for (int kk = 2; kk < kD / 8; kk += 2) {")]},
+    "pass_a_chunk_48": {F128_SRC: [
+        (F128_COLS, F128_COLS.replace("24 : 32", "24 : 24"))]},
+    "pass_b_chunk_32": {F128_SRC: [
+        (F128_COLS, F128_COLS.replace("24 : 32", "16 : 32"))]},
+}
 SHAPES = ((cs.BIG_B, (cs.DROPOUT, 0.0)), (cs.TRAIN_B, (cs.DROPOUT, 0.0)))
 
 
@@ -522,8 +593,10 @@ def emit(**record):
     print(json.dumps(record), flush=True)
 
 
-def start_build(name: str, edits: dict, src_dir: Path):
-    """Write the edited sources to build/probe/k2_<name>/ and start nvcc."""
+def start_build(name: str, edits: dict, src_dir: Path,
+                entry: str = "attention_bwd"):
+    """Write the edited sources to build/probe/k2_<name>/ and start nvcc on
+    ``entry``.cu."""
     out = ROOT / "build" / "probe" / f"k2_{name}"
     out.mkdir(parents=True, exist_ok=True)
     for src in src_dir.glob("*.cu*"):
@@ -534,9 +607,9 @@ def start_build(name: str, edits: dict, src_dir: Path):
                                    f"not apply")
             text = text.replace(old, new)
         (out / src.name).write_text(text)
-    lib = out / "libattention_bwd.so"
+    lib = out / f"lib{entry}.so"
     proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                             str(out / "attention_bwd.cu")],
+                             str(out / f"{entry}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, lib
@@ -589,24 +662,29 @@ def main() -> int:
     emit(phase="device", nvidia_smi=cs.nvidia_smi(),
          device=torch.cuda.get_device_name(0))
     args = sys.argv[1:]
-    dtype = torch.bfloat16
+    dtype, head_dim = torch.bfloat16, 32
     if args[:2] == ["--dtype", "float32"]:
         dtype, args = torch.float32, args[2:]
-    variants = VARIANTS if dtype == torch.bfloat16 else F32_VARIANTS
-    emit(phase="k2_variants", dtype=cs.dtype_name(dtype))
-    base_fn = att._k2_lib()                     # builds csrc/ as the port does
+    if dtype == torch.float32 and args[:2] == ["--head-dim", "128"]:
+        head_dim, args = 128, args[2:]
+    variants = (VARIANTS if dtype == torch.bfloat16 else
+                F32_VARIANTS if head_dim == 32 else F128_VARIANTS)
+    entry = "attention_bwd" if head_dim == 32 else "attention_bwd_d128"
+    emit(phase="k2_variants", dtype=cs.dtype_name(dtype), head_dim=head_dim)
+    base_fn = att._k2_lib(head_dim)             # builds csrc/ as the port does
     sources = {name: (edits, build.CSRC) for name, edits in variants.items()}
     if args[:1] == ["--parent"]:
         parent = Path(args[1]).resolve()
         sources["parent"] = ({}, parent / build.CSRC.relative_to(ROOT))
-    started = {name: start_build(name, edits, src)
+    started = {name: start_build(name, edits, src, entry)
                for name, (edits, src) in sources.items()}
     fns = {name: finish_build(name, proc, lib, base_fn.argtypes)
            for name, (proc, lib) in started.items()}
 
     inputs = {}
     for B, _ in SHAPES:
-        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=B)
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=B,
+                                        H=256 // head_dim, D=head_dim)
         key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],
                                             q.device)
         g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
@@ -623,7 +701,7 @@ def main() -> int:
         order = list(fns)
         for sweep in (order, order[::-1]):
             for name in sweep:
-                att._k2_lib = lambda head_dim=32, fn=fns[name]: fn
+                att._k2_lib = lambda head_dim=head_dim, fn=fns[name]: fn
                 att.k2_route = (route if name != "parent" else
                                 lambda dtype, head_dim: "mma_sync")
                 for B, rates in SHAPES:

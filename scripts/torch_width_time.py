@@ -23,17 +23,17 @@ Builds the port's kernels, then prints JSON lines:
   (``chip_smoke.ln_time``) and ``ops.layernorm.ln_plan``'s layout.
 - with ``--parent`` (another checkout, say the parent commit's unpacked by
   ``git archive``): ``ptxas_compare``, the registers, spills, stack and
-  static shared memory of every kernel both checkouts build (the
-  attention kernels at head width 32, the LayerNorm kernels at the
-  layouts the parent had), read from both build logs, and ``width_side``
-  lines: K1 (eval, B=320; training, B=256) and K2 (B=256) at head width
-  32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's shapes, and K1
-  (dropout 0.4, lse) by profiler device time at the other head widths
-  (B=16, 256 // D heads) and at a tensor-parallel rank's shape (B=8, 4
-  heads of 32, draw offsets (8, 4)), K2 (dropout 0.4) by profiler device
-  time at every head width (B=16, 256 // D heads, 32 included), timed in
-  six processes in the order
-  other, this, this, other, other, this, each importing its own
+  static shared memory of every kernel both checkouts build (every
+  library: the attention kernels at every head width, the LayerNorm
+  kernels at the layouts the parent had), read from both build logs, and
+  ``width_side`` lines: K1 (eval, B=320; training, B=256) and K2 (B=256)
+  at head width 32 and K3/K4 at 51,200 and 3,200 x 256, the smoke's
+  shapes, and K1 (dropout 0.4, lse) by profiler device time at the other
+  head widths (B=16, 256 // D heads) and at a tensor-parallel rank's
+  shape (B=8, 4 heads of 32, draw offsets (8, 4)), K2 (dropout 0.4) by
+  profiler device time at every head width (B=16, 256 // D heads, 32
+  included) and at B=256 with 2 heads of 128, timed in six processes in
+  the order other, this, this, other, other, this, each importing its own
   checkout's package and building its kernels.
 
 With ``--ptxas`` it prints only ``ptxas`` lines: the registers, spills,
@@ -46,9 +46,11 @@ lse) and K2 at head width 32 and the smoke's B=256 training shape (256 x
 the shape of PERF.md's D=32 rows), f32 and bf16, by profiler device time
 and by CUDA events (the smoke's ``cuda_time_ms``), beside SDPA pinned to
 each backend in turn with the same bias and dropout (``sdpa_by_backend``,
-profiler device time), each backend's refusal named; then ``d32_eval``
-lines: the eval's K1 (B=320, dropout 0, no lse) the same way, beside each
-backend's forward without dropout.
+profiler device time), each backend's refusal named; ``d128_b256`` lines:
+the same at B=256 with 2 heads of 128 (the mm.yaml model with 2 heads at
+the training step's B=256); then ``d32_eval`` lines: the eval's K1
+(B=320, dropout 0, no lse) the same way, beside each backend's forward
+without dropout.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit. Without
 CUDA it exits non-zero.
@@ -143,26 +145,29 @@ def attention_widths() -> None:
 
 
 def d32_b256_backends() -> None:
-    """The ``d32_b256`` lines (module docstring)."""
+    """The ``d32_b256`` and ``d128_b256`` lines (module docstring)."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
 
-    for dtype in cs.DTYPES:
-        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype,
-                                        B=cs.BIG_B)
-        key_pad, static = att.spec_operands(spec, q.shape[0], q.shape[1],
-                                            k.shape[1], q.device)
-        g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
-            "cuda").manual_seed(3)).to(dtype)
-        by_timer = {name: cs.attn_train_times(q, k, v, key_pad, static, g,
-                                              H, timer=timer)
-                    for name, timer in (("device", device_timer),
-                                        ("events", cs.cuda_time_ms))}
-        cs.emit(phase="d32_b256", dtype=cs.dtype_name(dtype),
-                shape=[q.shape[0], q.shape[1], k.shape[1], H,
-                       q.shape[-1] // H], dropout=cs.DROPOUT,
-                k1={t: r[0] for t, r in by_timer.items()},
-                k2={t: r[1] for t, r in by_timer.items()},
-                sdpa=sdpa_by_backend(q, k, v, key_pad, static, g, H))
+    for phase, H, D in (("d32_b256", 8, 32), ("d128_b256", 2, 128)):
+        for dtype in cs.DTYPES:
+            q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype,
+                                            B=cs.BIG_B, H=H, D=D)
+            key_pad, static = att.spec_operands(spec, q.shape[0],
+                                                q.shape[1], k.shape[1],
+                                                q.device)
+            g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(3)).to(dtype)
+            by_timer = {name: cs.attn_train_times(q, k, v, key_pad, static,
+                                                  g, H, timer=timer)
+                        for name, timer in (("device", device_timer),
+                                            ("events", cs.cuda_time_ms))}
+            cs.emit(phase=phase, dtype=cs.dtype_name(dtype),
+                    shape=[q.shape[0], q.shape[1], k.shape[1], H,
+                           q.shape[-1] // H], dropout=cs.DROPOUT,
+                    k2_route=att.k2_route(dtype, D),
+                    k1={t: r[0] for t, r in by_timer.items()},
+                    k2={t: r[1] for t, r in by_timer.items()},
+                    sdpa=sdpa_by_backend(q, k, v, key_pad, static, g, H))
     for dtype in cs.DTYPES:
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype)
         key_pad, static = att.spec_operands(spec, q.shape[0], q.shape[1],
@@ -264,22 +269,27 @@ def ptxas_entries(log: str) -> dict:
     return out
 
 
-def _logs(checkout: Path, names) -> dict:
+def _logs(checkout: Path, names, by_library: bool = False) -> dict:
+    """The ptxas entries of the libraries ``names`` of a checkout's build,
+    keyed by kernel key (with ``by_library``, by (library, *key): a kernel
+    such as the keep draw is built into several libraries)."""
     build_dir = checkout / "build" / "torch_kernels"
     found = {}
     for name in names:
         logs = sorted(build_dir.glob(f"lib{name}-*.log"),
                       key=lambda p: p.stat().st_mtime)
         if logs:
-            found.update(ptxas_entries(logs[-1].read_text()))
+            entries = ptxas_entries(logs[-1].read_text())
+            found.update({(name, *k) if by_library else k: v
+                          for k, v in entries.items()})
     return found
 
 
-# the parent's kernels at head width 32 that the wgmma kernels replace,
-# listed apart and not compared: the bf16 K2 pair (replaced by
-# csrc/attention_bwd_bf16.cuh) and the f32 one (by attention_bwd_f32.cuh)
-# when the parent still builds them, and the bf16 K1 (by
-# csrc/attention_fwd_bf16.cuh)
+# the parent's kernels that the wgmma kernels replace, listed apart and
+# not compared: the bf16 K2 pair (replaced by csrc/attention_bwd_bf16.cuh
+# up to head width 64) and the f32 one (by attention_bwd_f32.cuh up to 64,
+# attention_bwd_f32_d128.cuh at 128) when the parent still builds them,
+# and the bf16 K1 (by csrc/attention_fwd_bf16.cuh up to 64)
 REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dq_tc_kernel", "f"),
@@ -288,24 +298,28 @@ REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
 
 
 def ptxas_compare(parent: Path) -> bool:
-    """Every kernel the parent builds against this checkout's build of it:
-    equal registers, spills, stack and static shared memory; the kernels
-    this checkout replaced (``REPLACED``) and added are listed apart."""
-    names = ("attention_fwd", "attention_bwd", "layernorm", "random",
-             "session_rows")
-    mine, theirs = _logs(ROOT, names), _logs(parent, names)
+    """Every kernel the parent builds, in every library, against this
+    checkout's build of it: equal registers, spills, stack and static
+    shared memory; the kernels this checkout replaced (``REPLACED``) and
+    added are listed apart."""
+    from multi_modal_foundation_model_tpu_torch.ops import build
+
+    names = build.kernel_sources()
+    mine = _logs(ROOT, names, by_library=True)
+    theirs = _logs(parent, names, by_library=True)
     rows, replaced, same = [], [], True
     for key, want in sorted(theirs.items(), key=str):
+        lib, kernel, args = key
         got = mine.get(key)
-        if got is None and key[1] and (key[0], key[1][0]) in REPLACED:
-            replaced.append(dict(kernel=key[0], args=list(key[1]),
+        if got is None and args and (kernel, args[0]) in REPLACED:
+            replaced.append(dict(library=lib, kernel=kernel, args=list(args),
                                  parent=want))
             continue
         equal = got == want
         same = same and equal
-        rows.append(dict(kernel=key[0], args=list(key[1]), parent=want,
-                         this=got, equal=equal))
-    added = [dict(kernel=key[0], args=list(key[1]), this=got)
+        rows.append(dict(library=lib, kernel=kernel, args=list(args),
+                         parent=want, this=got, equal=equal))
+    added = [dict(library=key[0], kernel=key[1], args=list(key[2]), this=got)
              for key, got in sorted(mine.items(), key=str)
              if key not in theirs]
     cs.emit(phase="ptxas_compare", kernels=rows, all_equal=same,
@@ -371,11 +385,24 @@ def side_worker(side: str) -> None:
         k1_rank = device_timer(lambda: att.attention_fwd(
             q, k, v, key_pad, static, H, 32 ** -0.5, True, cs.DROPOUT, 7,
             draw_offset=(8, 4)))
+        # K2 at B=256 with 2 heads of 128
+        q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=cs.BIG_B,
+                                        H=2, D=128)
+        key_pad, static = att.spec_operands(spec, *q.shape[:2], k.shape[1],
+                                            q.device)
+        _, lse = att.attention_fwd(q, k, v, key_pad, static, H, 128 ** -0.5,
+                                   True, cs.DROPOUT, 7)
+        g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(3)).to(dtype)
+        k2_d128_b256 = device_timer(lambda: att.attention_bwd(
+            q, k, v, key_pad, static, g, lse, H, 128 ** -0.5, cs.DROPOUT, 7))
+        del q, k, v, g, lse
         cs.emit(phase="width_side", side=side, dtype=cs.dtype_name(dtype),
                 k1_eval_ms=eval_ms, k1_train_ms=k1["ms"], k2_ms=k2["ms"],
                 k1_b16_device_ms_by_width=k1_widths,
                 k2_b16_device_ms_by_width=k2_widths,
                 k1_rank_device_ms=k1_rank,
+                k2_d128_b256_device_ms=k2_d128_b256,
                 k3_k4_device_ms={str(r): {"k3": t["k3"], "k4": t["k4"]}
                                  for r, t in ln_ms.items()})
 

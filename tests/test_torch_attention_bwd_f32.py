@@ -21,7 +21,11 @@ terms into the running sum (the first design, which missed on the card).
 The wgmma K2 of head widths 16 to 64 (``csrc/attention_bwd_f32.cuh``) sums
 the same k-steps, its output products split between two warpgroups
 (``emu.wgmma_dots``): held the same way, at each of its widths for the
-few-keys case. The emulation takes exp from torch, where the kernel takes
+few-keys case. The wgmma K2 of head width 128
+(``csrc/attention_bwd_f32_d128.cuh``: each warpgroup owns half of D of the
+transposed output products, so each output element is one running sum in
+the mma.sync order) is held at 2 heads of 128 against JAX's K2 and the
+plain version in the three mask cases, and in the few-keys case. The emulation takes exp from torch, where the kernel takes
 ``ex2.approx``;
 ``scripts/torch_k2_f32_accuracy.py`` runs the same emulation on the card
 at the smoke run's full inputs beside the kernel, an accurate-exp build of
@@ -75,13 +79,13 @@ def _case(case, B=3, tq=70, seed=0, tk=None, hidden=H * D):
     return q, k, v, g, pad, static
 
 
-def _jax_grads(q, k, v, g, pad, static):
+def _jax_grads(q, k, v, g, pad, static, heads=H):
     spec = jatt.MaskSpec(
         key_pad=jnp.asarray(pad),
         static=None if static is None else jnp.asarray(static))
 
     def f(q, k, v):
-        out = jatt.multi_head_attention(q, k, v, H, mask_spec=spec,
+        out = jatt.multi_head_attention(q, k, v, heads, mask_spec=spec,
                                         impl="pallas")
         return jnp.sum(out * jnp.asarray(g))
 
@@ -208,12 +212,60 @@ def test_wgmma_order_k2_matches_f32_plain_at_smoke_magnitudes(case, rate):
     assert worst <= ATOL, worst
 
 
+# 2 heads of 128: the D = 128 kernel's width (mm.yaml's hidden 256)
+H128, D128 = 2, 128
+
+
+@pytest.mark.parametrize("case", MASKS)
+def test_wgmma_order_k2_d128_matches_jax_k2(case):
+    """The D = 128 wgmma K2's sums (``csrc/attention_bwd_f32_d128.cuh``:
+    every k-step of 8 from zero, then an f32 add; each warpgroup owning
+    half of D of the transposed output products, ``emu.wgmma_dots(128)``)
+    against JAX's K2 in interpret mode at 2 heads of 128, atol 1e-5; a
+    padded trial's rows get exactly zero dq, as in JAX."""
+    q, k, v, g, pad, static = _case(case, hidden=H128 * D128)
+    want = _jax_grads(q, k, v, g, pad, static, heads=H128)
+    tq, tk_, tv, key_pad, stat, tg, lse, scale = _operands(
+        q, k, v, g, pad, static, H128)
+    got = _k2(tq, tk_, tv, key_pad, stat, tg, lse, scale, heads=H128,
+              out_dots=emu.wgmma_dots(D128))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0,
+                                   err_msg=name)
+    if case == "decoder_pad_padded_trial":
+        assert not got[0][2].any() and not want[0][2].any()
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-@pytest.mark.parametrize("width", [16, 32, 64])
+@pytest.mark.parametrize("case", MASKS)
+def test_wgmma_order_k2_d128_matches_f32_plain_at_smoke_magnitudes(case,
+                                                                  rate):
+    """The D = 128 wgmma K2's sums at the smoke run's magnitudes (randn
+    operands, T = 200: pass A's chunks of 64 keys and pass B's of 48
+    queries, the last one partly past the end; the three mask cases,
+    dropout 0 and 0.4 on the same Philox bits; 2 heads of 128, 3 trials)
+    within 1e-5 of the port's f32 plain version, as the kernel is held on
+    the card."""
+    q, k, v, g, pad, static = _case(case, tq=200, seed=4,
+                                    tk=180 if case == "cross" else None,
+                                    hidden=H128 * D128)
+    tq, tk_, tv, key_pad, stat, tg, lse, scale = _operands(
+        q, k, v, g, pad, static, H128)
+    want = tatt.attention_bwd_reference(tq, tk_, tv, key_pad, stat, tg, lse,
+                                        H128, scale, rate, 77)
+    got = _k2(tq, tk_, tv, key_pad, stat, tg, lse, scale, rate, 77,
+              heads=H128, out_dots=emu.wgmma_dots(D128))
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", [16, 32, 64, 128])
 def test_wgmma_order_few_keys_where_chained_sums_miss(width, rate):
     """Tq = 200 queries over Tk = 17 keys at each width the wgmma K2
-    compiles (128 columns: 8, 4 and 2 heads): dk and dv are sums of 200
-    large terms, over two chunks of pass B's columns at widths 32 and 64.
+    compiles (128 columns: 8, 4, 2 heads and 1): dk and dv are sums of 200
+    large terms, over two chunks of pass B's columns at widths 32 and 64,
+    and over five (each a running sum, one warpgroup's half of D) at 128.
     The wgmma K2's sums stay within 1e-5 of the f32 plain version, where
     chaining every term of every product into the truncating running sum
     misses at widths 32 and 64 (as the first mma.sync design did on the

@@ -24,8 +24,8 @@ LENGTHS = [1, 8, 200, 208, 209, 256, 520]
 def test_k1_route_by_dtype_and_width(width, dtype):
     """bf16 takes the wgmma kernel up to head width 64, f32 and bf16 at 128
     the mma.sync kernel; a padded width takes its compiled width's route.
-    K1's route is K2's in bf16; in f32 K2 runs on wgmma up to 64 while K1
-    stays on mma.sync."""
+    K1's route is K2's in bf16; in f32 K2 runs on wgmma at every width while
+    K1 stays on mma.sync."""
     want = ("wgmma" if dtype == torch.bfloat16 and width <= 64
             else "mma_sync")
     assert tatt.k1_route(dtype, width) == want

@@ -155,11 +155,12 @@ def test_k1_rejects_what_it_does_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.4])
-@pytest.mark.parametrize("width", [8, 16, 24, 40, 64, 128])
+@pytest.mark.parametrize("width", [8, 16, 24, 40, 64, 100, 128])
 @pytest.mark.parametrize("length", [70, 257])
 def test_k1_k2_head_widths_match_plain(length, width, rate, dtype):
     """K1 and K2 at head widths other than the model's 32: 16, 64 and 128
-    compiled, 8, 24 and 40 through heads zero-padded to 16, 32 and 64; one
+    compiled, 8, 24, 40 and 100 through heads zero-padded to 16, 32, 64 and
+    128; one
     launch each, through the fused-QKV column views, random masks, T = 70
     (ragged tiles) and 257 (past the bf16 wgmma K2's 208 columns at once:
     two chunks, pass A's two sweeps), against the plain versions with the
@@ -381,7 +382,8 @@ def _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
     return got
 
 
-def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True):
+def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True,
+              heads=H):
     """The tensor-core K2 in q's dtype against its plain version: f32
     (3xTF32) within 1e-5 + 1e-6 |plain| of ``attention_bwd_reference``,
     bf16 as ``_k2_bf16_gates``; returns the kernel's (dq, dk, dv). The f32
@@ -402,27 +404,29 @@ def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True):
     (|1 - pn| within a few ulps of |s| ~ 1, randn operands), not to the
     plain version's own rounding of it (measured 1.08e-5 where the plain
     version has 4.7e-6 at Tq = 200, dropout 0.4, against the scalar K1's
-    lse; the bound is ~1e-4)."""
+    lse; the bound is ~1e-4). ``heads``: the operands' heads (f32 only;
+    the head width is q's columns over them)."""
     if q.dtype == torch.bfloat16:
         return _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
                               f32_gate)
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
     n0 = tatt.K2_LAUNCHES
-    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, heads, scale,
                              rate, seed)
     torch.cuda.synchronize()
     assert tatt.K2_LAUNCHES == n0 + 1
-    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse, H,
-                                        scale, rate, seed)
+    want = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse,
+                                        heads, scale, rate, seed)
     one_key = k.shape[1] == 1
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.is_contiguous(), name
         if one_key and name == "dk":
-            dpn = (tatt._heads(g, H) * tatt._heads(v, H)).sum(-1).abs()
-            dpn = dpn / (1.0 - rate)                         # (B, H, Tq)
-            qs = tatt._heads(q, H).abs() * scale             # (B, H, Tq, D)
+            dpn = (tatt._heads(g, heads) * tatt._heads(v, heads)).sum(-1)
+            dpn = dpn.abs() / (1.0 - rate)                   # (B, H, Tq)
+            qs = tatt._heads(q, heads).abs() * scale         # (B, H, Tq, D)
             bound = 2.0 ** -20 * (dpn[..., None] * qs).sum(2)
-            assert (tatt._heads(a, H)[:, :, 0].abs() <= bound).all(), name
+            assert (tatt._heads(a, heads)[:, :, 0].abs() <= bound).all(), \
+                name
             continue
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6,
                                    msg=lambda m, name=name: f"{name}: {m}")
@@ -452,23 +456,23 @@ def test_k2_bf16_matches_plain(case, tk, rate):
         assert got[0][2].abs().max().item() == 0.0
 
 
-def _problem(tq, tk, seed=4, b=3, dtype=torch.bfloat16):
+def _problem(tq, tk, seed=4, b=3, dtype=torch.bfloat16, hidden=H * D):
     """q (column view of a fused QKV when self-attention, else its own
     tensor), k/v views of a fused KV, random masks, g, at Tq x Tk, in
-    ``dtype``."""
+    ``dtype``, ``hidden`` columns (H heads of D unless given)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if tq == tk:
-        qkv = torch.randn(b, tq, 3 * H * D, device="cuda", generator=gen)
-        q, k, v = qkv.to(dtype).split(H * D, dim=-1)
+        qkv = torch.randn(b, tq, 3 * hidden, device="cuda", generator=gen)
+        q, k, v = qkv.to(dtype).split(hidden, dim=-1)
     else:
-        q = torch.randn(b, tq, H * D, device="cuda", generator=gen).to(dtype)
-        kv = torch.randn(b, tk, 2 * H * D, device="cuda", generator=gen)
-        k, v = kv.to(dtype).split(H * D, dim=-1)
+        q = torch.randn(b, tq, hidden, device="cuda", generator=gen).to(dtype)
+        kv = torch.randn(b, tk, 2 * hidden, device="cuda", generator=gen)
+        k, v = kv.to(dtype).split(hidden, dim=-1)
     rng = np.random.default_rng(seed)
     pad = (rng.random((b, tk)) > 0.3).astype(np.int32)
     pad[0] = 1
     static = (rng.random((tq, tk)) > 0.8).astype(np.int32)
-    g = torch.randn(b, tq, H * D, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(b, tq, hidden, device="cuda", generator=gen).to(dtype)
     return (q, k, v, torch.from_numpy(pad).cuda(),
             torch.from_numpy(static).cuda(), g)
 
@@ -833,15 +837,164 @@ def test_k2_f32_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
+@pytest.mark.parametrize("width", [32, 128])
+def test_k2_launches_as_a_new_threads_first_cuda_work(width, dtype):
+    """The wgmma kernels encode their TMA tensor maps through the driver
+    API, which needs a context current on the calling thread, and
+    autograd's device thread can reach K2 before any other CUDA call binds
+    one there (``test_flash_attention_function_kernel_vs_plain`` did). K2
+    launched as the first CUDA work of a new thread, without dropout (no
+    seed copied to the card first), gives this thread's result bit for
+    bit."""
+    _need_cuda()
+    import threading
+
+    h = 256 // width
+    q, k, v, key_pad, static, g = _problem(37, 37, seed=width, b=3,
+                                           dtype=dtype, hidden=h * width)
+    scale = width ** -0.5
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, h, scale, True)
+    want = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, h, scale)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["grads"] = tatt.attention_bwd(q, k, v, key_pad, static, g,
+                                              lse, h, scale)
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            got["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    for name, a, b in zip(("dq", "dk", "dv"), got["grads"], want):
+        assert torch.equal(a, b), name
+
+
+# 2 heads of 128: the f32 K2 of csrc/attention_bwd_f32_d128.cuh (the
+# mm.yaml model's hidden 256 at 2 heads)
+H128 = 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", ["encoder_eye_pad", "decoder_pad",
+                                  "cross"])
+def test_k2_f32_d128_matches_plain(case, rate):
+    """The f32 K2 at head width 128 (2 heads, T = 200, B = 4) in the three
+    mask cases of the model (the encoder's eye and key pad; the decoder's
+    key pad with trial 2 fully padded; cross attention over 180 keys with a
+    random mask), dropout 0 and 0.4: against the f32 plain version on the
+    same lse and Philox bits (``_k2_gates``: atol 1e-5 + 1e-6 |plain|);
+    the padded trial's dq exactly zero; a second launch bit-equal to the
+    first."""
+    _need_cuda()
+    tk = 180 if case == "cross" else 200
+    q, k, v, key_pad, static, g = _problem(200, tk, seed=7, b=4,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    if case == "encoder_eye_pad":
+        static = torch.eye(200, dtype=torch.int32, device="cuda")
+    elif case == "decoder_pad":
+        static = torch.zeros_like(static)
+        key_pad[2] = 0
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, 128 ** -0.5,
+                                True, rate, 17)
+    got = _k2_gates(q, k, v, key_pad, static, g, lse, rate, 17,
+                    heads=H128)
+    again = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H128,
+                               128 ** -0.5, rate, 17)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name
+    if case == "decoder_pad":
+        assert got[0][2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (47, 47), (48, 48),
+                                   (49, 49), (63, 63), (64, 64), (65, 65),
+                                   (200, 200), (241, 241), (256, 256),
+                                   (257, 257), (520, 520), (200, 300),
+                                   (300, 17), (65, 200)])
+def test_k2_f32_d128_at_chunk_edges(tq, tk, rate):
+    """The f32 K2 at head width 128 around its chunks and tiles: pass A's
+    64 keys (one sweep up to 64, two past it; the attend bits held for up
+    to 4 chunks, 256 keys, read a tile at a time past them), pass B's 48
+    queries (held up to 5 chunks, 240 queries), 64-row tiles; self and
+    cross, through the fused-QKV or KV column views, random masks: against
+    the f32 plain version (``_k2_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(tq, tk, seed=tq + tk,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, 128 ** -0.5,
+                                True, rate, 43)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 43, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k2_f32_d128_blocks_walking_several_heads(rate):
+    """B = 256 at 2 heads of 128: the grid puts two heads in a block
+    (``walk_heads``), so a block's second head loads its row tiles while
+    the first finishes: against the f32 plain version (``_k2_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(200, 200, seed=3, b=256,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, 128 ** -0.5,
+                                True, rate, 29)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 29, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k2_f32_d128_rank_slice_matches_the_whole_call(rate):
+    """A rank's call under tensor and data parallelism at head width 128:
+    the slice of trials [2, 4) and head 1 of a 4-trial, 2-head call, with
+    draw offsets (2, 1), gives the whole call's dq, dk and dv of that slice
+    bit for bit (the same sums in the same order, the same keep bits), and
+    agrees with the plain version drawn at the same offsets."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(200, 200, seed=8, b=4,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    scale = 128 ** -0.5
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                                rate, 51)
+    whole = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H128, scale,
+                               rate, 51)
+
+    def part(x):
+        return x[2:4, :, 128:].contiguous()
+
+    args = (part(q), part(k), part(v), key_pad[2:4].contiguous(), static,
+            part(g), lse[2:4, 1:].contiguous(), 1, scale, rate, 51)
+    got = tatt.attention_bwd(*args, draw_offset=(2, 1))
+    want = tatt.attention_bwd_reference(*args, draw_offset=(2, 1))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, whole, want):
+        assert torch.equal(a, part(b)), name
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-6,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
-@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 100, 128])
 def test_k2_launches_the_kernel_of_its_route(width, dtype, rate):
     """What runs on the card: up to head width 64 K2 launches the wgmma
     passes, ``attn_bwd_dq_tf_kernel`` / ``attn_bwd_dkdv_tf_kernel`` in f32
-    and ``attn_bwd_dq_wg_kernel`` / ``attn_bwd_dkdv_wg_kernel`` in bf16
-    (with dropout ``attn_bwd_keep_kernel`` first), never the mma.sync
-    ``attn_bwd_*_tc_kernel``; at 128 the mma.sync pair alone
+    and ``attn_bwd_dq_wg_kernel`` / ``attn_bwd_dkdv_wg_kernel`` in bf16; at
+    128 (and 100, padded to it) f32 launches ``attn_bwd_dq_tf128_kernel`` /
+    ``attn_bwd_dkdv_tf128_kernel``; the wgmma kernels with dropout
+    ``attn_bwd_keep_kernel`` first, never the mma.sync
+    ``attn_bwd_*_tc_kernel``; bf16 at 128 the mma.sync pair alone
     (``k2_route``). Read from the kernel names of a profile of three
     calls, opened by the port's lead-in (traced again if it lost K2's)."""
     _need_cuda()
@@ -873,8 +1026,9 @@ def test_k2_launches_the_kernel_of_its_route(width, dtype, rate):
         if "attn_bwd_dkdv_" in names:
             break
     wgmma = tatt.k2_route(dtype, width) == "wgmma"
-    tag = "tf" if dtype == torch.float32 else "wg"
-    for other in ("tf", "wg"):
+    tag = "wg" if dtype == torch.bfloat16 else (
+        "tf" if tatt.kernel_head_dim(width) <= 64 else "tf128")
+    for other in ("tf", "wg", "tf128"):
         on = wgmma and other == tag
         assert (f"attn_bwd_dq_{other}_kernel" in names) == on, names
         assert (f"attn_bwd_dkdv_{other}_kernel" in names) == on, names

@@ -4,11 +4,12 @@ The f32 K2 computes each of its products as TF32 tensor-core products:
 every f32 operand x splits into hi = tf32(x) and lo = tf32(x - hi), rounded
 to nearest with ties away (``cvt.rna.tf32.f32``), and each k-step of 8 of
 a . b sums al . bh, ah . bl, then ah . bh from zero on the tensor cores
-before an f32 add into the accumulator: ``mma_3xtf32`` of the mma.sync
-kernels (``csrc/attention_bwd.cu``, ``Tc<float>``, head width 128) and the
-same k-steps on wgmma (``csrc/attention_bwd_f32.cuh``, widths 16 to 64),
-whose output products split their k-steps between two warpgroups
-(``dot_3xtf32_wg``). ``k2`` is K2's formula with every product through
+before an f32 add into the accumulator: ``mma_3xtf32`` of the first mma.sync
+kernels, and the same k-steps on wgmma: at widths 16 to 64
+(``csrc/attention_bwd_f32.cuh``) the output products split their k-steps
+between two warpgroups (``dot_3xtf32_wg``); at 128
+(``csrc/attention_bwd_f32_d128.cuh``) each warpgroup owns half of D, so
+every output element is one running sum in ``dot_3xtf32``'s order. ``k2`` is K2's formula with every product through
 such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it is an
 f64 evaluation of the same formula. The f32 K1
 (``csrc/attention_fwd.cu``) takes the same products: ``k1`` is its formula
@@ -69,8 +70,10 @@ def dot_3xtf32(a: torch.Tensor, b: torch.Tensor,
 
 # The f32 K2 on wgmma (csrc/attention_bwd_f32.cuh, Layout<D, pass>::kCols):
 # columns a warpgroup takes of a chunk of two warpgroups', pass A's (the
-# keys of dq = ds . k) and pass B's (the queries of dk and dv), by head width
-WGMMA_COLS = {16: (104, 104), 32: (104, 56), 64: (40, 24)}
+# keys of dq = ds . k) and pass B's (the queries of dk and dv), by head
+# width. At 128 (csrc/attention_bwd_f32_d128.cuh) the output products are
+# split by D, not by K: None.
+WGMMA_COLS = {16: (104, 104), 32: (104, 56), 64: (40, 24), 128: None}
 
 
 def perm_k(j: int) -> int:
@@ -117,7 +120,14 @@ def dot_3xtf32_wg(a: torch.Tensor, b: torch.Tensor,
 
 def wgmma_dots(head_dim: int):
     """``k2``'s ``out_dots`` for the f32 wgmma K2 at ``head_dim``: dq's
-    over pass A's columns, dk's and dv's over pass B's."""
+    over pass A's columns, dk's and dv's over pass B's. At 128 the kernel
+    takes the output products transposed (dq^T = k^T . ds^T, dk^T = qs^T .
+    ds, dv^T = g^T . pd), each warpgroup owning 64 of the 128 columns of D
+    over the whole of K: every output element is one running sum of the
+    k-steps of 8 keys or queries in order, chunk after chunk (64 keys in
+    pass A, 48 queries in pass B), ``dot_3xtf32``'s order."""
+    if WGMMA_COLS[head_dim] is None:
+        return dot_3xtf32, dot_3xtf32
     cols_a, cols_b = WGMMA_COLS[head_dim]
     return (lambda a, b: dot_3xtf32_wg(a, b, cols_a),
             lambda a, b: dot_3xtf32_wg(a, b, cols_b))
