@@ -187,8 +187,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    compiled, 8 and 24 through zero-padded heads; 256 // D heads, B=16, 200
    tokens, the encoder's mask), f32 and bf16, dropout 0 and 0.4, against
    their plain versions (``k1_gates``, ``k2_gates``) and timed beside them
-   and SDPA (``head_widths_kernels_*``; the f32 K2 at 128 also beside
-   SDPA's MATH backward); the per-rank K1/K2 at D = 64 (2 of 4 heads, draw
+   and SDPA (``head_widths_kernels_*``; the f32 K1 and K2 at 128 also
+   beside SDPA's MATH forward and backward); the per-rank K1/K2 at D = 64 (2 of 4 heads, draw
    offsets (8, 2)) and D = 128 (1 of 2 heads, (8, 1)) bit-equal to the
    whole call's slices; K3/K4 at 3,200 rows of 48, 100, 1280, 2048 and
    4096 columns (``head_widths_ln_check``); the mm.yaml model with 2, 4
@@ -1498,10 +1498,11 @@ def plain_step_time(root: Path):
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
 # K4 launch two kernels each, their first is counted (K2's pass A:
-# attn_bwd_dq_tc/wg/tf/tf128_kernel); with dropout the bf16 K1 and both
-# dtypes' wgmma K2 draw their keep bits first (attn_fwd_keep_kernel,
-# attn_bwd_keep_kernel), not counted
-_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg)_kernel"), ("k2", "attn_bwd_dq_"),
+# attn_bwd_dq_tc/wg/tf/tf128_kernel); with dropout the wgmma K1 (bf16 up to
+# 64, f32 at 128) and both dtypes' wgmma K2 draw their keep bits first
+# (attn_fwd_keep_kernel, attn_bwd_keep_kernel), not counted
+_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg|tf128)_kernel"),
+                  ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
                   ("philox", "philox_"),
                   ("session_rows", "session_rows_grad_kernel"))
@@ -4554,7 +4555,8 @@ def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
     their plain versions (with the dots of q's dtype) and SDPA
     (``SDPA_BACKEND``) with the same additive bias and dropout_p, K2's its
     backward ((fwd + bwd) - fwd), and with ``math`` SDPA's MATH backward
-    too (``library_math_ms``, the f32 K2's other yardstick); with the
+    too (``library_math_ms`` of both rows, the f32 kernels' other
+    yardstick: the forward's, and the backward's (fwd + bwd) - fwd); with the
     bounds: each input read once, each output written once, the products
     as ``_tc_bound`` counts them at the operands' head width.
     ``timer(fn, reps, warmup)``: CUDA events (``cuda_time_ms``: at B=16 the
@@ -4594,11 +4596,11 @@ def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
     lib_fwd = timer(lambda: lib().detach())
     lib_fwd_bwd = timer(lambda: torch.autograd.grad(
         lib(), (qh, kh, vh), gh))
-    extra = {}
+    extra, extra1 = {}, {}
     if math:
+        extra1["library_math_ms"] = timer(lambda: lib("MATH").detach())
         extra["library_math_ms"] = timer(lambda: torch.autograd.grad(
-            lib("MATH"), (qh, kh, vh), gh)) - timer(
-                lambda: lib("MATH").detach())
+            lib("MATH"), (qh, kh, vh), gh)) - extra1["library_math_ms"]
     elem = q.element_size()
     masks = key_pad.numel() * 4 + static.numel() * 4
     lse_bytes = B * H * Tq * 4
@@ -4608,7 +4610,8 @@ def attn_train_times(q, k, v, key_pad, static, g, H, draw_offset=(0, 0),
                      + masks, 4 * B * H * Tq * Tk * D, dtype)
     k2_b = _tc_bound(B * (3 * Tq + 4 * Tk) * hidden * elem + lse_bytes
                      + masks, 10 * B * H * Tq * Tk * D, dtype)
-    return (dict(ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **k1_b),
+    return (dict(ms=k1_ms, plain_ms=k1_plain, library_ms=lib_fwd, **extra1,
+                 **k1_b),
             dict(ms=k2_ms, plain_ms=k2_plain,
                  library_ms=lib_fwd_bwd - lib_fwd,
                  library_fwd_bwd_ms=lib_fwd_bwd, **extra, **k2_b))
@@ -4956,8 +4959,9 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                     kernels: list) -> list:
     """The kernels line's rows of phase 14: K1 and K2 at head widths 16, 64
     and 128, the mm.yaml model's with 16, 4 and 2 heads (f32, bf16 beside
-    it; launches on its paths; times by profiler device time; the f32 K2 at
-    128 also beside SDPA's MATH backward); the widths no model path runs
+    it; launches on its paths, and the f32 paths' apart; times by profiler
+    device time; the f32 K1 and K2 at 128 also beside SDPA's MATH forward
+    and backward); the widths no model path runs
     (8 and 24 zero-padded) in the width-64 rows, and the new LayerNorm
     widths in the K3 and K4 rows of ``kernels``, each with its error,
     launched on no main path (their times:
@@ -4975,14 +4979,16 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
             heads = GEOMETRY["hidden_size"] // D
             mine = {k: v[kname] for k, v in paths.items()
                     if k.split("_heads")[0].endswith(f"_{heads}")}
-            f32_src = (f"{src}attention_bwd_f32_d128.cuh"
-                       if kname == "k2" and D == 128 else f"{src}{lib}_d{D}.cu")
+            f32_src = (f"{src}{lib}_f32_d128.cuh" if D == 128
+                       else f"{src}{lib}_d{D}.cu")
             row = dict(
                 name=f"{short} at head width {D}: the mm.yaml model with "
                      f"{heads} heads (B=16, 200 tokens), f32 (3xTF32); bf16 "
                      "beside it", route="cuda",
                 source=f32_src, replaces=attn_py + line,
                 launches=sum(mine.values()), launches_by_path=mine,
+                f32_launches=sum(n for k, n in mine.items()
+                                 if k.endswith("float32")),
                 bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
             if D == 128:
                 row["bf16_kernel"] = (
@@ -4996,7 +5002,14 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                     f"{src}attention_fwd_bf16.cuh" if kname == "k1" else
                     "wgmma: attn_bwd_*_wg_kernel, "
                     f"{src}attention_bwd_bf16.cuh")
-            if kname == "k2" and D == 128:
+            if kname == "k1" and D == 128:
+                row["f32_kernel"] = (
+                    "wgmma (3xTF32; chunks of 128 keys, 64 a warpgroup, "
+                    "q split in registers, o taken transposed, each "
+                    "warpgroup half of D): attn_fwd_keep_kernel + "
+                    f"attn_fwd_tf128_kernel, {f32_src}")
+                row["library_math_ms"] = rows[D, f32][i]["library_math_ms"]
+            elif kname == "k2" and D == 128:
                 row["f32_kernel"] = (
                     "wgmma (3xTF32; A operands split in registers, the "
                     "output products transposed, each warpgroup half of "
@@ -5715,7 +5728,8 @@ def main() -> int:
 
     emit(phase="profiler_lead_in", traces=len(TRACE_LOSSES),
          lead_in=LEAD_IN, lost_by_trace=TRACE_LOSSES)
-    if any(k["launches"] == 0 for k in kernels):
+    if any(k["launches"] == 0 or k.get("f32_launches", 1) == 0
+           for k in kernels):
         raise AssertionError("a kernel of the main paths never launched")
     emit(kernels=kernels)
     print(smi, flush=True)

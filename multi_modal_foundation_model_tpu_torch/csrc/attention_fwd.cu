@@ -1,8 +1,10 @@
 // K1: fused multi-head attention forward for Hopper (sm_90a), on the
 // tensor cores in f32 (3xTF32) and bf16. bf16 at head widths 16, 32 and 64
 // runs the wgmma kernel of attention_fwd_bf16.cuh (whole key row, one
-// sweep, TMA tiles); f32 at every width and bf16 at 128 run the mma.sync
-// kernel of this file (attn_fwd_tc_kernel<T, kDropout, D>).
+// sweep, TMA tiles), f32 at 128 the wgmma kernel of
+// attention_fwd_f32_d128.cuh (3xTF32, the output product transposed); f32
+// at 16-64 and bf16 at 128 run the mma.sync kernel of this file
+// (attn_fwd_tc_kernel<T, kDropout, D>).
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
@@ -61,11 +63,12 @@
 // wrapper (ops/attention.py) pads any other D up to 128 with zero columns
 // per head. What grows with D: the q fragments (D / 4 registers in bf16,
 // D / 2 in f32), the O accumulators (D / 2), the tiles' pitch (D + 8 bf16,
-// D + 4 floats) and so the shared memory: 69.6 KB in bf16 and 135 KB in
-// f32 at D = 128 (one k/v buffer in f32, as at every width), above the
-// default 48 KB (allow_smem opts in). The D = 32 instantiations are the
-// code they were before D became a parameter (the same ptxas registers,
-// spills and shared memory).
+// D + 4 floats) and so the shared memory: 69.6 KB in bf16 at D = 128,
+// above the default 48 KB (allow_smem opts in). f32 at 128 is not this
+// kernel's (its q fragments alone took ~128 registers, its split k and v
+// tiles 135 KB: one block of 4 warps an SM). The D = 32 instantiations are
+// the code they were before D became a parameter (the same ptxas
+// registers, spills and shared memory).
 //
 // f32 (3xTF32, mma_tf32.cuh): the f32 contract, the plain version's f32
 // math, with no bf16 rounding anywhere. q * scale is multiplied in f32 and
@@ -127,6 +130,8 @@
 #include "tc_traits.cuh"
 #if MMFM_HEAD_DIM <= 64
 #include "attention_fwd_bf16.cuh"
+#else
+#include "attention_fwd_f32_d128.cuh"
 #endif
 
 namespace {
@@ -384,9 +389,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // be this library's MMFM_HEAD_DIM; data pointers and batch and row strides
 // of q, k, v 16-byte
 // aligned. lse may be null. Strides in elements. scratch: with dropout,
-// the bf16 wgmma kernel's keep bytes, B * H * ceil(Tk / 8) * (Tq rounded up
-// to 16), 16-byte aligned (ops/attention.py::_k1_scratch_bytes, by
-// k1_route); unread otherwise (may be null). dropout != 0 drops p[q,k]
+// the wgmma kernels' keep bytes (bf16 at 16-64, f32 at 128), B * H *
+// ceil(Tk / 8) * (Tq rounded up to 16), 16-byte aligned
+// (ops/attention.py::_k1_scratch_bytes, by k1_route); unread otherwise (may
+// be null). dropout != 0 drops p[q,k]
 // unless its Philox bits exceed `threshold` and scales survivors by
 // `keep_scale`; the bits of (b, h) are drawn as those of (b + b_off,
 // h + h_off), so a rank holding a slice of the batch (data parallel) and
@@ -411,16 +417,24 @@ extern "C" int mmfm_attention_fwd(
       q, k, v, key_pad, static_mask, out, lse, scratch, B, Tq, Tk, H, q_sb,  \
       q_st, k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale,      \
       b_off, h_off, s)
+#define MMFM_K1_T128(DROP)                                                   \
+  mmfm::k1t128::launch<DROP>(                                                \
+      q, k, v, key_pad, static_mask, out, lse, scratch, B, Tq, Tk, H, q_sb,  \
+      q_st, k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale,      \
+      b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
+#if MMFM_HEAD_DIM <= 64
   if (dtype == 0)
     err = dropout ? MMFM_K1_LAUNCH(float, true) : MMFM_K1_LAUNCH(float, false);
-#if MMFM_HEAD_DIM <= 64
   else if (dtype == 1)
     err = dropout ? MMFM_K1_WG(true) : MMFM_K1_WG(false);
 #else
+  if (dtype == 0)
+    err = dropout ? MMFM_K1_T128(true) : MMFM_K1_T128(false);
   else if (dtype == 1)
     err = dropout ? MMFM_K1_LAUNCH(bf16, true) : MMFM_K1_LAUNCH(bf16, false);
 #endif
+#undef MMFM_K1_T128
 #undef MMFM_K1_WG
 #undef MMFM_K1_LAUNCH
   return (int)err;

@@ -421,14 +421,17 @@ def _k2_lib(head_dim: int = 32):
 
 
 def k1_route(dtype, head_dim: int) -> str:
-    """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"``, the
-    bf16 kernel of ``csrc/attention_fwd_bf16.cuh`` (wgmma over the whole key
-    row, TMA), for bf16 at the compiled widths 16, 32 and 64 (and the widths
-    padded to them); ``"mma_sync"``, ``attn_fwd_tc_kernel`` of
-    ``csrc/attention_fwd.cu``, for f32 at every width and bf16 at 128. Above
-    128, ``ValueError``."""
+    """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` (TMA
+    tiles, the keep bits drawn by a kernel of their own), the bf16 kernel of
+    ``csrc/attention_fwd_bf16.cuh`` (wgmma over the whole key row) at the
+    compiled widths 16, 32 and 64 (and the widths padded to them), and f32
+    at 128 (and 65-127), the 3xTF32 kernel of
+    ``csrc/attention_fwd_f32_d128.cuh``; ``"mma_sync"``,
+    ``attn_fwd_tc_kernel`` of ``csrc/attention_fwd.cu``, for f32 up to 64
+    and bf16 at 128. Above 128, ``ValueError``."""
     width = kernel_head_dim(head_dim)
-    return "wgmma" if dtype == torch.bfloat16 and width <= 64 else "mma_sync"
+    wgmma_dtype = torch.float32 if width == 128 else torch.bfloat16
+    return "wgmma" if dtype == wgmma_dtype else "mma_sync"
 
 
 def k2_route(dtype, head_dim: int) -> str:
@@ -448,7 +451,8 @@ def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
                       route: str = "mma_sync") -> int:
     """Bytes of K1's scratch with dropout. ``"wgmma"``: the keep bytes
     that ``attn_fwd_keep_kernel`` draws and the kernel's stages read by TMA
-    (``csrc/attention_fwd_bf16.cuh``), one bit per (b, h, query, key):
+    (``csrc/attention_fwd_bf16.cuh``, ``csrc/attention_fwd_f32_d128.cuh``),
+    one bit per (b, h, query, key):
     (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding 8 keys of one
     query (a row of 16-byte multiples: the stride of the TMA copies), as
     the wgmma K2's. ``"mma_sync"`` draws inside the kernel: none."""
@@ -569,9 +573,10 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     ``attention_reference``, with the scores the f32 K2 recomputes. bf16
     takes bf16 operands as JAX's K1 on its hardware: the contract of
     ``attention_reference(..., dots_dtype=torch.bfloat16)``, and the lse
-    the bf16 K2 recomputes its probabilities against; at head widths up to
-    64 it runs on Hopper's wgmma with TMA copies, its keep bits drawn by a
-    kernel of their own first (``k1_route``). The kernels copy
+    the bf16 K2 recomputes its probabilities against. bf16 at head widths
+    up to 64 and f32 at 128 (and 65-127) run on Hopper's wgmma with TMA
+    copies, their keep bits drawn by a kernel of their own first
+    (``k1_route``). The kernels copy
     their tiles with ``cp.async`` or TMA, so q/k/v need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises

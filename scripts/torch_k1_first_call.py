@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""A first chip call of the f32 K1 at head width 128, on one NVIDIA GPU.
+
+    python3 scripts/torch_k1_first_call.py
+
+Builds ``csrc/attention_fwd_d128.cu`` alone and prints JSON lines: the
+build's seconds, every kernel's ``ptxas`` registers and spills and the
+SASS counts of each kernel (``torch_k2_variants.sass_counts``); then, in a
+child process with a 240 s timeout (an mbarrier wait that never completes
+spins forever), the f32 K1 at 2 heads of 128 against the plain version
+(``chip_smoke.k1_gates``) at Tq x Tk from 1 x 1 to 520 x 520, dropout 0
+and 0.4, with lse; at the width row's shape (the encoder mask, T = 200)
+at B=16 and B=256: that check, the f32 K2 at 128 on this lse
+(``chip_smoke.k2_gates``), the lse row sums (``chip_smoke.lse_row_sums``),
+device ms kernel by kernel (dropout 0.4 with lse, 0 without) and SDPA's
+memory-efficient and MATH forwards; last the keep bits read back (q = 0,
+one-hot V). Without CUDA it exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+H, D = 2, 128
+SHAPES = ((1, 1), (17, 17), (64, 64), (65, 65), (128, 128), (129, 129),
+          (200, 200), (256, 256), (257, 257), (520, 520), (200, 300),
+          (300, 17))
+
+
+def emit(**record):
+    print(json.dumps(record), flush=True)
+
+
+def checks() -> None:
+    """The child process's checks and timings (module docstring)."""
+    import chip_smoke as cs
+    from multi_modal_foundation_model_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scale = D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for tq, tk in SHAPES:
+        for rate in (0.0, 0.4):
+            q = torch.randn(3, tq, H * D, device="cuda", generator=gen)
+            k = torch.randn(3, tk, H * D, device="cuda", generator=gen)
+            v = torch.randn(3, tk, H * D, device="cuda", generator=gen)
+            rng = np.random.default_rng(tq + tk)
+            pad = (rng.random((3, tk)) > 0.3).astype(np.int32)
+            pad[0] = 1
+            static = (rng.random((tq, tk)) > 0.8).astype(np.int32)
+            key_pad = torch.from_numpy(pad).cuda()
+            st = torch.from_numpy(static).cuda()
+            out, lse = att.attention_fwd(q, k, v, key_pad, st, H, scale, True,
+                                         rate, 9)
+            torch.cuda.synchronize()
+            emit(phase="check", tq=tq, tk=tk, rate=rate,
+                 **cs.k1_gates(q, k, v, key_pad, st, H, scale, out, lse,
+                               rate, 9))
+    for B in (cs.TRAIN_B, cs.BIG_B):
+        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", torch.float32, B=B,
+                                        H=H, D=D)
+        key_pad, st = att.spec_operands(spec, B, 200, 200, q.device)
+        out, lse = att.attention_fwd(q, k, v, key_pad, st, H, scale, True,
+                                     cs.DROPOUT, 7)
+        torch.cuda.synchronize()
+        emit(phase="check_width_row", B=B,
+             **cs.k1_gates(q, k, v, key_pad, st, H, scale, out, lse,
+                           cs.DROPOUT, 7))
+        g = torch.randn(q.shape, device="cuda", generator=gen)
+        grads = att.attention_bwd(q, k, v, key_pad, st, g, lse, H, scale,
+                                  cs.DROPOUT, 7)
+        torch.cuda.synchronize()
+        k2 = cs.k2_gates(q, k, v, key_pad, st, g, lse, H, scale, grads,
+                         cs.DROPOUT, 7)
+        emit(phase="k2_on_this_lse", B=B, ok=k2["ok"],
+             err=k2.get("dq_dk_dv_max_abs_err"))
+        _, lse0 = att.attention_fwd(q, k, v, key_pad, st, H, scale, True)
+        emit(phase="lse_rows", B=B,
+             **cs.lse_row_sums(q, k, key_pad, st, H, scale, lse0))
+        for rate, with_lse in ((cs.DROPOUT, True), (0.0, False)):
+            by = cs.kernel_ms_by_name(lambda: att.attention_fwd(
+                q, k, v, key_pad, st, H, scale, with_lse, rate, 7))
+            emit(phase="time", B=B, rate=rate, with_lse=with_lse,
+                 by_kernel=by, total=sum(by.values()))
+        bias = att.mask_to_bias(st.bool()[None] | key_pad.bool()[:, None])
+        qh, kh, vh = (x.unflatten(-1, (H, D)).transpose(1, 2)
+                      for x in (q, k, v))
+        for backend in ("EFFICIENT_ATTENTION", "MATH"):
+            emit(phase="time_sdpa", B=B, backend=backend,
+                 ms=cs.device_ms(lambda: cs.sdpa(
+                     qh, kh, vh, attn_mask=bias[:, None],
+                     dropout_p=cs.DROPOUT, backend=backend)))
+    # the keep bits read back: q = 0, V one-hot a head over Tk = D keys
+    B, T, seed = 3, 70, 123456789
+    q = torch.zeros(B, T, H * D, device="cuda")
+    v = torch.eye(D, device="cuda").repeat(1, H).expand(B, D, H * D)
+    k = torch.zeros(B, D, H * D, device="cuda")
+    key_pad = torch.ones(B, D, dtype=torch.int32, device="cuda")
+    st = torch.zeros(T, D, dtype=torch.int32, device="cuda")
+    out, _ = att.attention_fwd(q, k, v.contiguous(), key_pad, st, H, 1.0,
+                               dropout_rate=cs.DROPOUT, seed=seed)
+    got = out.reshape(B, T, H, D).transpose(1, 2) > 0
+    want = att.philox_keep(seed, B, H, T, D, cs.DROPOUT, device="cuda")
+    emit(phase="philox", equal=bool(torch.equal(got, want)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_k1_first_call: CUDA is not available", file=sys.stderr)
+        return 2
+    if sys.argv[1:] == ["--child"]:
+        checks()
+        return 0
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from multi_modal_foundation_model_tpu_torch.ops import build
+    from torch_k2_variants import sass_counts
+
+    emit(phase="build", s=build.build(["attention_fwd_d128"]))
+    for log in build.BUILD_DIR.glob("libattention_fwd_d128*.log"):
+        for entry, spill, used in re.findall(
+                r"Compiling entry function '(\S+)'.*?(\d+) bytes spill "
+                r"stores.*?Used (\d+) registers", log.read_text(), re.S):
+            emit(phase="ptxas", entry=entry, spill_bytes=int(spill),
+                 registers=int(used))
+        emit(phase="sass", counts=sass_counts(log.with_suffix(".so")))
+    try:
+        child = subprocess.run([sys.executable, __file__, "--child"],
+                               timeout=240, capture_output=True, text=True)
+    except subprocess.TimeoutExpired:
+        emit(phase="checks", ok=False, why="the child timed out")
+        return 1
+    print(child.stdout, end="", flush=True)
+    print(child.stderr[-6000:], file=sys.stderr)
+    return child.returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())

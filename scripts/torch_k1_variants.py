@@ -2,7 +2,7 @@
 """Design variants of the tensor-core K1, timed beside the committed kernel
 on one NVIDIA GPU.
 
-    python3 scripts/torch_k1_variants.py [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k1_variants.py [--dtype float32 --head-dim 128 [--other NAME=DIR ...]] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_fwd.cu`` (head width 32) and
 variants of it (string edits of the sources into
@@ -19,7 +19,8 @@ B = 16) and timed there, kernel by kernel by profiler device time
 (``chip_smoke.cuda_time_ms``), in the order of the list and then in the
 reverse order; a variant of one dtype's kernel runs that dtype only.
 Prints JSON lines: the card, each build's ``ptxas`` registers and spills
-per kernel and its SASS counts (``HGMMA``, ``HMMA``, ``UTMALDG``, ``STL``,
+per kernel, the kernels in which ptxas serialized the wgmmas (its C7514
+note) and its SASS counts (``HGMMA``, ``HMMA``, ``UTMALDG``, ``STL``,
 ``LDL``) per kernel, each check, each timing.
 
 The variants of the bf16 wgmma kernel (``csrc/attention_fwd_bf16.cuh``;
@@ -52,6 +53,49 @@ The variants of the f32 mma.sync kernel (``attn_fwd_tc_kernel<float>``):
   last one's products).
 - ``heads_per_block_2``: blocks of 2 heads instead of all 8 (4x the
   blocks, the mask read 4x as often).
+
+With ``--dtype float32 --head-dim 128`` the script builds
+``csrc/attention_fwd_d128.cu`` and variants of its f32 kernel (edits of
+``csrc/attention_fwd_f32_d128.cuh``), and with ``--parent`` the other
+checkout's K1 at 128 (the parent commit's: the mma.sync f32 kernel, called
+with the scratch of that route, none). Each is checked with
+``chip_smoke.k1_gates`` at the width row's shape (2 heads of 128, T =
+200, the encoder mask) at B = 16 and B = 256, dropout 0.4 with lse, and
+timed there by profiler device time kernel by kernel (the keep draws and
+the kernel apart), dropout 0.4 with lse and dropout 0 without, in the
+order of the list and reversed. The variants:
+
+- ``base``: the committed kernel.
+- ``split_before_products``: each chunk's k split whole (its four column
+  blocks waited for and split) before its score products, not a column
+  block at a time beside them.
+- ``attend_per_thread``: the attend bits read by each thread for its
+  own elements from the masks (two loads an element), not through a
+  table in shared memory.
+- ``stores_per_thread``: out stored by each thread from its accumulator
+  (4-byte stores, eight rows of 32 bytes a warp store), not staged.
+- ``v_with_first_k``: the first chunk's v issued beside its k and q, not
+  once their first column block has landed.
+- ``keep_read_during_scores``: with dropout, each thread's keep bits read
+  from shared memory while the first score products run (live through
+  them), not after s.
+- ``diag_keep_unread``: with dropout, the keep bytes land but are not
+  read (every score kept).
+- ``diag_no_split``: the landed k rows not split into hi and lo planes
+  (the products read what is there).
+- ``diag_no_score_products``: the s wgmmas not issued.
+- ``diag_no_output_product``: the o^T wgmmas not issued.
+- ``diag_no_stores``: out not stored.
+- ``diag_loads_and_barriers``: no split, no score or output products, no
+  masks, exp, pd planes or stores: the loads, the attend bits, the
+  barriers and the loop.
+
+``--other NAME=DIR`` (any number) adds another checkout's K1 at 128 under
+NAME, called as this one is (another version of
+``csrc/attention_fwd_f32_d128.cuh`` in DIR, say).
+
+A variant whose build fails (nvcc has crashed on some of these edits)
+is reported with its log and left out.
 """
 from __future__ import annotations
 
@@ -234,6 +278,97 @@ VARIANTS = {
 }
 
 
+F128_SRC = "attention_fwd_f32_d128.cuh"
+NO_SPLIT = [("      split(sm + region(t), sm + region(t + 1), 0);\n",
+             "      if (false) split(sm + region(t), sm + region(t + 1), 0);\n"),
+            ("          split(sm + region(t), sm + region(t + 1), nb);\n",
+             "          if (false) split(sm + region(t), sm + region(t + 1), nb);"
+             "\n")]
+NO_SCORE = [("        if (gi == 0)\n          wgtf::mma3_rs2(acc,",
+             "        if (false)\n          wgtf::mma3_rs2(acc,"),
+            ("        else\n          wgtf::mma3_rs2(tmp[0],",
+             "        else if (false)\n          wgtf::mma3_rs2(tmp[0],")]
+NO_OUTPUT = [("        if (pair)\n          wgtf::mma3_rs2(to[0]",
+              "        if (false)\n          wgtf::mma3_rs2(to[0]"),
+             ("        else\n          wgtf::mma3_rs(to[0]",
+              "        else if (false)\n          wgtf::mma3_rs(to[0]")]
+NO_STORES = [("        if (row < a.Tq)\n          *reinterpret_cast<float4*>",
+              "        if (false)\n          *reinterpret_cast<float4*>")]
+NO_SOFTMAX = [
+    ("      float cmax[2] = {-INFINITY, -INFINITY};\n#pragma unroll\n"
+     "      for (int j = 0;",
+     "      float cmax[2] = {-INFINITY, -INFINITY};\n#pragma unroll\n"
+     "      if (false) for (int j = 0;"),
+    ("#pragma unroll\n      for (int j = 0; j < kN8; ++j)\n#pragma unroll\n"
+     "        for (int hh = 0; hh < 2; ++hh) {\n          float pd[2];",
+     "#pragma unroll\n      if (false) for (int j = 0; j < kN8; ++j)\n"
+     "#pragma unroll\n        for (int hh = 0; hh < 2; ++hh) {\n"
+     "          float pd[2];")]
+# the committed attend table and staged stores, and what they replaced
+ATT_TABLE = (
+    "  if (held) {\n    unsigned char* const tab = sm + region(1);",
+    "  if (held) {\n    for (int ch = 0; ch < n_ch; ++ch) {\n"
+    "      uint32_t bits[2];\n      attend(ch, bits);\n"
+    "      att_all[0] |= bits[0] << (2 * kN8 * ch);\n"
+    "      att_all[1] |= bits[1] << (2 * kN8 * ch);\n    }\n  }\n"
+    "  if (false) {\n    unsigned char* const tab = sm + region(1);")
+STAGED_STORES = (
+    "      float* const stage = reinterpret_cast<float*>(sm + region(t));\n",
+    "      float* const stage = reinterpret_cast<float*>(sm + region(t));\n"
+    "#pragma unroll\n      for (int j = 0; j < kN8; ++j)\n#pragma unroll\n"
+    "        for (int e = 0; e < 2; ++e) {\n"
+    "          const int q = 8 * j + 2 * c + e, row = q0 + q;\n"
+    "          if (row >= a.Tq) continue;\n"
+    "          const float sum = corr_s[q];\n"
+    "          float* const op = a.out + ((long long)b * a.Tq + row) * "
+    "a.H * kD +\n                            h * kD + 64 * wgi + lr;\n"
+    "#pragma unroll\n          for (int hh = 0; hh < 2; ++hh)\n"
+    "            op[8 * hh] = o[4 * j + 2 * hh + e] / sum;\n        }\n"
+    "      if (true) continue;\n")
+# the whole chunk split before its score products
+SPLIT_FIRST = [
+    ("      wg::mbar_wait(bar_k, t & 1);\n"
+     "      split(sm + region(t), sm + region(t + 1), 0);\n",
+     "      for (int hf = 0; hf < kD / kBlk; ++hf) {\n"
+     "        wg::mbar_wait(bar_k + 8 * hf, t & 1);\n"
+     "        split(sm + region(t), sm + region(t + 1), hf);\n      }\n"),
+    ("        if (gi % 2 == 0 && nb < kD / kBlk) {\n",
+     "        if (false) {\n"),
+    ("        if (gi % 2 == 1 && nb < kD / kBlk) {\n",
+     "        if (false) {\n")]
+F128_VARIANTS = {
+    "base": {},
+    "split_before_products": {F128_SRC: SPLIT_FIRST},
+    "attend_per_thread": {F128_SRC: [ATT_TABLE]},
+    "stores_per_thread": {F128_SRC: [STAGED_STORES]},
+    "v_with_first_k": {F128_SRC: [
+        ("    issue_k(0);\n    if (kDropout) issue_keep(0);\n",
+         "    issue_k(0);\n    if (kDropout) issue_keep(0);\n"
+         "    issue_v(0);\n"),
+        ("      if (t == 0 && tid == 0) issue_v(0);\n", "")]},
+    "keep_read_during_scores": {F128_SRC: [
+        ("    uint32_t keep[2] = {~0u, ~0u};\n    if (kDropout) load_keep(keep);"
+         "\n", ""),
+        ("    float acc[kAcc];\n",
+         "    float acc[kAcc];\n    uint32_t keep[2] = {~0u, ~0u};\n"),
+        ("        wg::commit();\n        // the next column block split",
+         "        wg::commit();\n"
+         "        if (gi == 0 && kDropout) load_keep(keep);\n"
+         "        // the next column block split")]},
+    "diag_keep_unread": {F128_SRC: [
+        ("    if (kDropout) load_keep(keep);\n",
+         "    if (false) load_keep(keep);\n")]},
+    "diag_no_split": {F128_SRC: NO_SPLIT},
+    "diag_no_score_products": {F128_SRC: NO_SCORE},
+    "diag_no_output_product": {F128_SRC: NO_OUTPUT},
+    "diag_no_stores": {F128_SRC: NO_STORES},
+    "diag_loads_and_barriers": {
+        F128_SRC: NO_SPLIT + NO_SCORE + NO_OUTPUT + NO_STORES + NO_SOFTMAX},
+}
+# the f32 K1 at 128: (batch, dropout, with lse) timed; checks at dropout 0.4
+F128_SHAPES = ((cs.TRAIN_B, cs.DROPOUT, True), (cs.TRAIN_B, 0.0, False),
+               (cs.BIG_B, cs.DROPOUT, True), (cs.BIG_B, 0.0, False))
+
 # the dtype each variant's kernel runs (the others time both)
 F32_ONLY = ("b_split_in_registers", "int_index", "other_buffers",
             "heads_per_block_2")
@@ -245,8 +380,10 @@ def emit(**record):
     print(json.dumps(record), flush=True)
 
 
-def start_build(name: str, edits: dict, src_dir: Path):
-    """Write the edited sources to build/probe/k1_<name>/ and start nvcc."""
+def start_build(name: str, edits: dict, src_dir: Path,
+                entry: str = "attention_fwd"):
+    """Write the edited sources to build/probe/k1_<name>/ and start nvcc on
+    ``entry``.cu."""
     out = ROOT / "build" / "probe" / f"k1_{name}"
     out.mkdir(parents=True, exist_ok=True)
     for src in src_dir.glob("*.cu*"):
@@ -257,9 +394,9 @@ def start_build(name: str, edits: dict, src_dir: Path):
                                    f"not apply")
             text = text.replace(old, new)
         (out / src.name).write_text(text)
-    lib = out / "libattention_fwd.so"
+    lib = out / f"lib{entry}.so"
     proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                             str(out / "attention_fwd.cu")],
+                             str(out / f"{entry}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, lib
@@ -276,8 +413,12 @@ def finish_build(name: str, proc, lib: Path, argtypes):
         key = re.search(r"attn_fwd\w*?kernel\w*?E", entry)
         regs[key.group(0) if key else entry] = dict(
             registers=int(used), spill_bytes=int(spill))
+    # ptxas's C7514 notes: wgmmas it serialized because other instructions
+    # read their accumulators inside a pipeline stage
+    serialized = sorted(set(re.findall(
+        r"C7514\).*?in the function '(\S+?)'", log)))
     emit(phase="k1_variant_build", variant=name, ptxas=regs,
-         sass=sass_counts(lib))
+         sass=sass_counts(lib), wgmma_serialized_in=serialized)
     fn = ctypes.CDLL(str(lib)).mmfm_attention_fwd
     if "void* scratch" in (lib.parent / "attention_fwd.cu").read_text():
         fn.argtypes = argtypes
@@ -289,6 +430,78 @@ def finish_build(name: str, proc, lib: Path, argtypes):
     return lambda *args: fn(*args[:7], *args[8:])
 
 
+def main_f128(args) -> int:
+    """The f32 K1 at head width 128: its variants (``F128_VARIANTS``) and,
+    with ``--parent DIR``, the other checkout's K1 at 128 (the scratch of
+    the mma.sync route, none), checked and timed at ``F128_SHAPES``."""
+    entry, H, D = "attention_fwd_d128", 2, 128
+    base_fn = att._k1_lib(D)                    # builds csrc/ as the port does
+    sources = {name: (edits, build.CSRC)
+               for name, edits in F128_VARIANTS.items()}
+    for i, arg in enumerate(args):
+        if arg == "--parent":
+            sources["parent"] = ({}, Path(args[i + 1]).resolve()
+                                 / build.CSRC.relative_to(ROOT))
+        elif arg == "--other":
+            name, path = args[i + 1].split("=", 1)
+            sources[name] = ({}, Path(path).resolve()
+                             / build.CSRC.relative_to(ROOT))
+    started = {name: start_build(name, edits, src, entry)
+               for name, (edits, src) in sources.items()}
+    fns = {}
+    for name, (proc, lib) in started.items():
+        try:
+            fns[name] = finish_build(name, proc, lib, base_fn.argtypes)
+        except RuntimeError as err:
+            if name == "base":
+                raise
+            emit(phase="k1_variant_build_failed", variant=name,
+                 log=str(err)[-2000:])
+    inputs = {}
+    for B in sorted({b for b, _, _ in F128_SHAPES}):
+        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", torch.float32,
+                                        B=B, H=H, D=D)
+        key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],
+                                            q.device)
+        inputs[B] = (q, k, v, key_pad, static)
+    original, route = att._k1_lib, att.k1_route
+    times = {}
+    try:
+        order = list(fns)
+        for sweep in (order, order[::-1]):
+            for name in sweep:
+                att._k1_lib = lambda head_dim=D, fn=fns[name]: fn
+                att.k1_route = (route if name != "parent" else
+                                lambda dtype, head_dim: "mma_sync")
+                for B, rate, with_lse in F128_SHAPES:
+                    q, k, v, key_pad, static = inputs[B]
+
+                    def call(rate=rate, with_lse=with_lse):
+                        return att.attention_fwd(q, k, v, key_pad, static, H,
+                                                 D ** -0.5, with_lse, rate, 7)
+
+                    if sweep is order and rate > 0.0 \
+                            and not name.startswith("diag_"):
+                        out, lse = call()
+                        torch.cuda.synchronize()
+                        gates = cs.k1_gates(q, k, v, key_pad, static, H,
+                                            D ** -0.5, out, lse, rate, 7)
+                        emit(phase="k1_variant_check", variant=name,
+                             dtype="float32", head_dim=D, batch=B, **gates)
+                        del out, lse
+                    times.setdefault((name, B, rate, with_lse), []).append(
+                        cs.kernel_ms_by_name(call))
+    finally:
+        att._k1_lib, att.k1_route = original, route
+    for (name, B, rate, with_lse), runs in times.items():
+        emit(phase="k1_variant_time", variant=name, dtype="float32",
+             head_dim=D, batch=B, dropout=rate, with_lse=with_lse,
+             device_ms_in_order_and_reversed=[sum(r.values()) for r in runs],
+             by_kernel_ms=runs)
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k1_variants: CUDA is not available", file=sys.stderr)
@@ -296,10 +509,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     emit(phase="device", nvidia_smi=cs.nvidia_smi(),
          device=torch.cuda.get_device_name(0))
+    args = sys.argv[1:]
+    if args[:4] == ["--dtype", "float32", "--head-dim", "128"]:
+        return main_f128(args[4:])
     base_fn = att._k1_lib()                     # builds csrc/ as the port does
     sources = {name: (edits, build.CSRC) for name, edits in VARIANTS.items()}
-    if sys.argv[1:2] == ["--parent"]:
-        parent = Path(sys.argv[2]).resolve()
+    if args[:1] == ["--parent"]:
+        parent = Path(args[1]).resolve()
         sources["parent"] = ({}, parent / build.CSRC.relative_to(ROOT))
     started = {name: start_build(name, edits, src)
                for name, (edits, src) in sources.items()}

@@ -2,6 +2,7 @@
 """Time the port's single-session training steps on one card.
 
     python3 scripts/torch_step_time.py [--dispatch]
+    python3 scripts/torch_step_time.py --dispatch --dtype float32 --heads 2 [--parent OTHER_CHECKOUT]
 
 Builds the port's kernels (TF32 off, as ``chip_smoke.py`` does) and runs
 the step timings that ``chip_smoke.py`` checks the paths of but no longer
@@ -18,12 +19,20 @@ mode the A/B rule picks at B=256 beside the default in the code), the
 ``nvidia-smi`` reading and the wall time. The full-width model is
 ``chip_smoke``'s (N=668 + 2, T=100, H=256, 8 heads, 5+5 layers). With
 ``--dispatch`` it runs ``chip_smoke.dispatch_time`` alone (f32 and bf16,
-B=16 and B=256, eager and graph steps with their profiles).
+B=16 and B=256, eager and graph steps with their profiles); ``--dtype``
+keeps one dtype, ``--heads N`` gives the model N heads (2: head width 128,
+the mm.yaml model with 2 heads). With ``--parent`` the timings run in four
+processes, the other checkout's (say the parent commit's, unpacked by
+``git archive``), this one's, this one's, the other's, each importing its
+own checkout's ``chip_smoke`` and package and building its kernels; a
+``step_time_side`` line opens each process's lines.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -31,13 +40,15 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 2
+def _opt(args, name, default=None):
+    return args[args.index(name) + 1] if name in args else default
+
+
+def run(checkout: Path, args) -> None:
+    """The timings of ``args`` with ``checkout``'s chip_smoke and package."""
+    sys.path.insert(0, str(checkout))
     import chip_smoke as cs
     from multi_modal_foundation_model_tpu_torch.ops import build
     from multi_modal_foundation_model_tpu_torch.ops import layernorm as ln
@@ -46,14 +57,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_s = build.build(build.kernel_sources())
-    out = ROOT / "build"
+    out = checkout / "build"
     default = ln.PALLAS_LAYERNORM
+    heads = _opt(args, "--heads")
+    if heads is not None:
+        cfg = cs._cfg
+
+        def with_heads(dtype, **over):
+            return dataclasses.replace(cfg(dtype, **over), n_heads=int(heads))
+
+        cs._cfg = with_heads
+    dtypes = [d for d in cs.DTYPES
+              if _opt(args, "--dtype", cs.dtype_name(d)) == cs.dtype_name(d)]
     t_time = time.perf_counter()
-    only_dispatch = "--dispatch" in sys.argv[1:]
+    only_dispatch = "--dispatch" in args
     if not only_dispatch:
         cs.host_split_worker("this", out)
-    cs.dispatch_time(out, torch.float32, default)
-    cs.dispatch_time(out, torch.bfloat16, "full")
+    for dtype in dtypes:
+        cs.dispatch_time(out, dtype, default if dtype == torch.float32
+                         else "full")
     if not only_dispatch:
         cs.plain_step_time(out)
         picks = {cs.dtype_name(dt): cs.layernorm_ab(out, dt)
@@ -65,6 +87,31 @@ def main() -> int:
                           total_s=time.perf_counter() - t_time,
                           build_s=build_s,
                           wall_s=time.perf_counter() - t0)), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    if args[:1] == ["--side-worker"]:
+        print(json.dumps(dict(phase="step_time_side", side=args[2],
+                              checkout=args[1])), flush=True)
+        run(Path(args[1]), args[3:])
+        return 0
+    parent = _opt(args, "--parent")
+    if parent is None:
+        run(ROOT, args)
+        return 0
+    rest = [a for i, a in enumerate(args)
+            if a != "--parent" and (i == 0 or args[i - 1] != "--parent")]
+    sides = (("parent", Path(parent).resolve()), ("this", ROOT),
+             ("this", ROOT), ("parent", Path(parent).resolve()))
+    for label, checkout in sides:
+        proc = subprocess.run([sys.executable, __file__, "--side-worker",
+                               str(checkout), label, *rest])
+        if proc.returncode != 0:
+            return proc.returncode
     return 0
 
 

@@ -32,7 +32,8 @@ Builds the port's kernels, then prints JSON lines:
   head widths (B=16, 256 // D heads) and at a tensor-parallel rank's
   shape (B=8, 4 heads of 32, draw offsets (8, 4)), K2 (dropout 0.4) by
   profiler device time at every head width (B=16, 256 // D heads, 32
-  included) and at B=256 with 2 heads of 128, timed in six processes in
+  included) and, with K1 (dropout 0.4, lse), at B=256 with 2 heads of
+  128, timed in six processes in
   the order other, this, this, other, other, this, each importing its own
   checkout's package and building its kernels.
 
@@ -289,12 +290,15 @@ def _logs(checkout: Path, names, by_library: bool = False) -> dict:
 # not compared: the bf16 K2 pair (replaced by csrc/attention_bwd_bf16.cuh
 # up to head width 64) and the f32 one (by attention_bwd_f32.cuh up to 64,
 # attention_bwd_f32_d128.cuh at 128) when the parent still builds them,
-# and the bf16 K1 (by csrc/attention_fwd_bf16.cuh up to 64)
+# the bf16 K1 (by csrc/attention_fwd_bf16.cuh up to 64) and the f32 K1 at
+# 128 (by csrc/attention_fwd_f32_d128.cuh); a kernel this checkout still
+# builds is compared
 REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dq_tc_kernel", "f"),
             ("attn_bwd_dkdv_tc_kernel", "f"),
-            ("attn_fwd_tc_kernel", "__nv_bfloat16")}
+            ("attn_fwd_tc_kernel", "__nv_bfloat16"),
+            ("attn_fwd_tc_kernel", "f")}
 
 
 def ptxas_compare(parent: Path) -> bool:
@@ -342,8 +346,8 @@ def side_worker(side: str) -> None:
     """In a process whose package is the checkout's: K1 (eval B=320,
     training B=256) and K2 (B=256) at head width 32 and K3/K4 at 51,200 and
     3,200 x 256, the smoke's shapes; K1 (dropout 0.4, lse) and K2 (dropout
-    0.4) by profiler device time at every head width at B=16, and K1 at a
-    tensor-parallel rank's shape."""
+    0.4) by profiler device time at every head width at B=16 and at B=256
+    with 2 heads of 128, and K1 at a tensor-parallel rank's shape."""
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
     from multi_modal_foundation_model_tpu_torch.ops import build
 
@@ -385,13 +389,15 @@ def side_worker(side: str) -> None:
         k1_rank = device_timer(lambda: att.attention_fwd(
             q, k, v, key_pad, static, H, 32 ** -0.5, True, cs.DROPOUT, 7,
             draw_offset=(8, 4)))
-        # K2 at B=256 with 2 heads of 128
+        # K1 and K2 at B=256 with 2 heads of 128
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=cs.BIG_B,
                                         H=2, D=128)
         key_pad, static = att.spec_operands(spec, *q.shape[:2], k.shape[1],
                                             q.device)
         _, lse = att.attention_fwd(q, k, v, key_pad, static, H, 128 ** -0.5,
                                    True, cs.DROPOUT, 7)
+        k1_d128_b256 = device_timer(lambda: att.attention_fwd(
+            q, k, v, key_pad, static, H, 128 ** -0.5, True, cs.DROPOUT, 7))
         g = torch.randn(q.shape, device="cuda", generator=torch.Generator(
             "cuda").manual_seed(3)).to(dtype)
         k2_d128_b256 = device_timer(lambda: att.attention_bwd(
@@ -402,6 +408,7 @@ def side_worker(side: str) -> None:
                 k1_b16_device_ms_by_width=k1_widths,
                 k2_b16_device_ms_by_width=k2_widths,
                 k1_rank_device_ms=k1_rank,
+                k1_d128_b256_device_ms=k1_d128_b256,
                 k2_d128_b256_device_ms=k2_d128_b256,
                 k3_k4_device_ms={str(r): {"k3": t["k3"], "k4": t["k4"]}
                                  for r, t in ln_ms.items()})

@@ -22,14 +22,26 @@ comes out as the mean of the kept V with lse -1e6 + log(Tk); K1's lse is
 built from the very scores the f32 K2 recomputes (pass A's 3xTF32
 products on the same operands); and ``attention_fwd`` checks the
 ``cp.async`` alignment rule in both dtypes before it reaches the kernel.
+
+The f32 K1 at head width 128 (``csrc/attention_fwd_f32_d128.cuh``: chunks
+of 128 keys split between two warpgroups that keep their own softmax
+statistics until a head's end, o taken transposed;
+``tf32_emulation.k1_wgmma128``) is held
+the same way at 1 and 2 heads of 128: against JAX's K1 in interpret mode
+at dropout 0 and 0.4 (JAX's draw replaced, in the test only, by the same
+Philox bits computed in jnp inside the kernel, ``_jnp_keep``), against the
+f32 plain version at the smoke's magnitudes and at key lengths around its
+chunks, and its lse against the scores the f32 K2 at 128 recomputes.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 import tf32_emulation as emu
 import torch_parity  # noqa: F401  (one torch thread per xdist worker)
@@ -205,3 +217,197 @@ def test_k1_alignment_rule(dtype, monkeypatch):
             with pytest.raises(ValueError, match="16-byte aligned"):
                 tatt.attention_fwd(*args, key_pad, static, H, 1.0)
     assert tatt.K1_LAUNCHES == n0
+
+
+# ---------------------------------------------------------------------------
+# the f32 K1 at head width 128 (csrc/attention_fwd_f32_d128.cuh)
+# ---------------------------------------------------------------------------
+
+D128 = 128
+SCALE128 = 1.0 / math.sqrt(D128)
+
+
+def _case128(case, heads, tq=70, tk=None, B=2, seed=0):
+    """numpy q, k, v (B, T, heads*128), key_pad, static for the cases of
+    ``_case``; ``cross`` with a random mask over its own key length."""
+    tk = tk or tq
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, tq, heads * D128)).astype(np.float32)
+    k, v = (rng.normal(size=(B, tk, heads * D128)).astype(np.float32)
+            for _ in range(2))
+    pad = np.ones((B, tk), np.int32)
+    pad[B - 1, max(tk - 5, 1):] = 0
+    if case == "encoder_eye_pad":
+        static = np.eye(tq, tk, dtype=np.int32)
+    elif case == "decoder_pad_padded_trial":
+        pad[B - 1] = 0                      # every key of the last trial
+        static = None
+    else:
+        static = (rng.random((tq, tk)) > 0.7).astype(np.int32)
+    return q, k, v, pad, static
+
+
+def _mulhi(a, b):
+    """The high 32 bits of the 64-bit product of uint32 arrays, from 16-bit
+    halves (no 64-bit integers)."""
+    al, ah, bl, bh = a & 0xFFFF, a >> 16, b & 0xFFFF, b >> 16
+    ll, hl, lh = al * bl, ah * bl, al * bh
+    mid = (ll >> 16) + (hl & 0xFFFF) + (lh & 0xFFFF)
+    return ah * bh + (hl >> 16) + (lh >> 16) + (mid >> 16)
+
+
+def _jnp_keep(seed, b, h, q, k, rate):
+    """``tatt.philox_keep``'s bits (``csrc/philox.cuh``: word k % 4 of
+    Philox4x32-10 at counter (k / 4, q, h, b), key (seed, 0)) in jnp uint32
+    arithmetic, so that they can be drawn inside a Pallas kernel."""
+    u = jnp.uint32
+    c0, c1, c2, c3 = ((k >> 2).astype(u), q.astype(u), h.astype(u),
+                      b.astype(u))
+    k0, k1 = u(seed & 0xFFFFFFFF), u(0)
+    for _ in range(10):
+        hi0, lo0 = _mulhi(u(0xD2511F53), c0), u(0xD2511F53) * c0
+        hi1, lo1 = _mulhi(u(0xCD9E8D57), c2), u(0xCD9E8D57) * c2
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = k0 + u(0x9E3779B9), k1 + u(0xBB67AE85)
+    j = k & 3
+    word = jnp.where(j == 0, c0, jnp.where(j == 1, c1,
+                                           jnp.where(j == 2, c2, c3)))
+    return word > u(tatt.dropout_threshold(rate))
+
+
+def test_jnp_keep_is_philox_keep():
+    """The jnp draw gives ``philox_keep``'s bits, keys past a multiple of
+    4 and a 63-bit seed included."""
+    B, heads, tq, tk, seed = 2, 2, 9, 13, 2 ** 40 + 77
+    grid = jnp.meshgrid(*(jnp.arange(n) for n in (B, heads, tq, tk)),
+                        indexing="ij")
+    got = np.asarray(_jnp_keep(seed, *grid, 0.4))
+    want = tatt.philox_keep(seed, B, heads, tq, tk, 0.4).numpy()
+    assert (got == want).all()
+
+
+def _jax_k1_128(q, k, v, pad, static, heads, rate, seed, monkeypatch):
+    """JAX's K1 (``_mha_impl(with_lse=True)``, interpret mode) at head
+    width 128: (out, lse (B, H, Tq)). With dropout its keep mask is the
+    port's Philox draw: the kernel's ``_dropout_mask`` is replaced for this
+    call by ``_jnp_keep`` over the grid step's (batch, head-stacked row,
+    key) and its TPU seeding by nothing (interpret mode on the CPU has no
+    ``prng_seed``)."""
+    B, tq, _ = q.shape
+    tk = k.shape[1]
+    if static is None:
+        static = np.zeros((tq, tk), np.int32)
+    if rate > 0.0:
+        def keep(shape, r):
+            iota = [jax.lax.broadcasted_iota(jnp.int32, shape, i)
+                    for i in range(3)]
+            b = pl.program_id(0) * shape[0] + iota[0]
+            return _jnp_keep(seed, b, iota[1] // tq, iota[1] % tq, iota[2],
+                             r)
+
+        monkeypatch.setattr(jatt, "_dropout_mask", keep)
+        monkeypatch.setattr(jatt.pltpu, "prng_seed", lambda *args: None)
+    out, ml = jatt._mha_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(pad).reshape(B, 1, tk),
+        jnp.asarray(static).reshape(1, tq, tk), jnp.zeros((1, 1), jnp.int32),
+        SCALE128, rate, heads, D128, with_lse=True)
+    return np.asarray(out), np.asarray(ml)[:, 0, :].reshape(B, heads, tq)
+
+
+def _k1_128(q, k, v, pad, static, heads, rate=0.0, seed=0):
+    ops = _operands(q, k, v, pad, static)
+    return ops, emu.k1_wgmma128(*ops, heads, SCALE128, rate, seed)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("heads,case,tq,tk", [
+    (1, "encoder_eye_pad", 140, 140),
+    (2, "decoder_pad_padded_trial", 70, 70),
+    (2, "cross", 70, 150)])
+def test_wgmma128_k1_matches_jax_k1(heads, case, tq, tk, rate, monkeypatch):
+    """The head-width-128 kernel's order (chunks of 128 keys, 64 a
+    warpgroup: at 70 keys one chunk with the second warpgroup's 6 keys, at
+    140 and 150 a rescale of each warpgroup's statistics; 64-query tiles
+    crossed at 70 and 140) against JAX's K1 in interpret mode on the same
+    numpy inputs and the same Philox bits: out and lse within atol 1e-5."""
+    q, k, v, pad, static = _case128(case, heads, tq, tk, seed=tq + tk)
+    want, want_lse = _jax_k1_128(q, k, v, pad, static, heads, rate, 21,
+                                 monkeypatch)
+    _, (got, lse) = _k1_128(q, k, v, pad, static, heads, rate, 21)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0,
+                               err_msg="out")
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=0,
+                               err_msg="lse")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_wgmma128_k1_matches_f32_plain_at_smoke_magnitudes(rate):
+    """At the smoke's magnitudes (randn q, k, v; T = 200 = 128 + 72, two
+    chunks; 2 heads of 128, the mm.yaml model's; the encoder's eye-and-pad
+    mask) the head-width-128 kernel's order stays within 1e-5 of the f32
+    plain version on the same Philox bits, out and lse."""
+    q, k, v, pad, static = _case128("encoder_eye_pad", 2, 200, seed=4)
+    ops, got = _k1_128(q, k, v, pad, static, 2, rate, 77)
+    want = tatt.attention_reference(*ops, 2, SCALE128, True, rate, 77)
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 200, 209, 520])
+def test_wgmma128_k1_key_lengths(tk, rate):
+    """Key lengths below, at and past the kernel's 64 keys a warpgroup and
+    128 a chunk (up to 64 the second warpgroup has no key and its
+    statistics drop out of the combination; 209: a last chunk of 81 keys,
+    the second warpgroup's 17, whose last k-step of 8 holds one; 520: five
+    chunks), 2 heads of 128, a random mask and a padded key tail: within
+    1e-5 of the f32 plain version, out and lse."""
+    q, k, v, pad, static = _case128("cross", 2, 37, tk, seed=tk)
+    ops, got = _k1_128(q, k, v, pad, static, 2, rate, 5)
+    want = tatt.attention_reference(*ops, 2, SCALE128, True, rate, 5)
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_wgmma128_k1_padded_trial_is_the_mean_of_the_kept_v(rate):
+    """A padded trial at head width 128 over two chunks: every score is
+    -1e30, so both warpgroups' maxima are -1e30, p is 1 on every key and
+    l = Tk; the rows are the mean of (the kept) V and lse is -1e6 +
+    log(Tk) exactly."""
+    tq = tk = 140
+    q, k, v, pad, static = _case128("decoder_pad_padded_trial", 2, tq,
+                                    seed=6)
+    ops, (got, lse) = _k1_128(q, k, v, pad, static, 2, rate, 9)
+    vh = ops[2][1].reshape(tk, 2, D128).transpose(0, 1)        # (H, Tk, D)
+    keep = torch.ones(2, tq, tk, dtype=torch.bool)
+    if rate > 0.0:
+        keep = tatt.philox_keep(9, 2, 2, tq, tk, rate)[1]
+    mean = (keep.float() * (1.0 / (1.0 - rate))) @ vh / tk    # (H, Tq, D)
+    torch.testing.assert_close(got[1].reshape(tq, 2, D128).transpose(0, 1),
+                               mean, atol=ATOL, rtol=0)
+    assert torch.equal(lse[1], torch.full((2, tq), -1e6) + math.log(tk))
+
+
+@pytest.mark.parametrize("tk", [1, 200])
+def test_wgmma128_k1_lse_is_what_the_k2_recompute_sums_to_one(tk):
+    """The f32 K2 at 128 recomputes s as ``dot_3xtf32`` of the same splits
+    (``emu.k2`` with ``wgmma_dots(128)``), the products the head-width-128
+    K1 summarised: with one key its lse equals that s bit for bit; over
+    two chunks every row of exp(s - lse) sums to 1 within 1e-6, and K2's
+    emulation on this lse stays within 1e-5 of the plain backward."""
+    q, k, v, pad, static = _case128("cross", 2, 70, tk, seed=8)
+    pad[:] = 1                                   # every row attends
+    ops, (_, lse) = _k1_128(q, k, v, pad, static, 2)
+    qs = tatt._heads(ops[0], 2) * SCALE128
+    s = emu.dot_3xtf32(qs, tatt._heads(ops[1], 2).transpose(-1, -2))
+    if tk == 1:
+        assert torch.equal(lse, s[..., 0])
+    sums = torch.exp(s - lse[..., None]).sum(-1)
+    assert (sums - 1).abs().max().item() <= 1e-6
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=q.shape).astype(np.float32))
+    got = emu.k2(*ops, g, lse, 2, SCALE128, out_dots=emu.wgmma_dots(128))
+    want = tatt.attention_bwd_reference(*ops, g, lse, 2, SCALE128)
+    assert _worst(got, want) <= ATOL

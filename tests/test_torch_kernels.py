@@ -638,29 +638,34 @@ def test_k1_bf16_dropout_lse_matches_plain(rate):
     _k1_gates(q, k, v, key_pad, static, got, lse, rate, 11)
 
 
-def _k1_gates(q, k, v, key_pad, static, got, lse, rate=0.0, seed=0):
+def _k1_gates(q, k, v, key_pad, static, got, lse, rate=0.0, seed=0,
+              heads=None, draw_offset=(0, 0)):
     """The tensor-core K1 in q's dtype against its plain version: f32
     (3xTF32) out and lse within atol 1e-5 of ``attention_reference`` (the
     module's note says why no relative term); bf16 out within 1e-2 (1 +
     |plain|) of the bf16-dots plain version and 2e-2 (1 + |plain|) of the
     f32-dots one, its lse within 1e-5 (1 + |lse|) of the bf16-dots plain
-    lse."""
-    h = q.shape[-1] // D
-    args = (q, k, v, key_pad, static, h, 1.0 / math.sqrt(D), True, rate,
-            seed)
+    lse. ``heads``: the operands' heads (H heads of D unless given; the
+    head width is q's columns over them)."""
+    h = heads or q.shape[-1] // D
+    args = (q, k, v, key_pad, static, h, 1.0 / math.sqrt(q.shape[-1] // h),
+            True, rate, seed)
     assert got.dtype == q.dtype and got.is_contiguous()
     assert torch.isfinite(got).all() and torch.isfinite(lse).all()
     if q.dtype == torch.float32:
-        want, want_lse = tatt.attention_reference(*args)
+        want, want_lse = tatt.attention_reference(*args,
+                                                  draw_offset=draw_offset)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0, msg="out")
         torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0,
                                    msg="lse")
         return
     want, want_lse = tatt.attention_reference(*args,
-                                              dots_dtype=torch.bfloat16)
+                                              dots_dtype=torch.bfloat16,
+                                              draw_offset=draw_offset)
     _within(got, want, 1e-2, "out")
     _within(lse, want_lse, 1e-5, "lse")
-    _within(got, tatt.attention_reference(*args)[0], 2e-2, "out f32")
+    _within(got, tatt.attention_reference(
+        *args, draw_offset=draw_offset)[0], 2e-2, "out f32")
 
 
 # both dtypes of the tensor-core K1
@@ -1081,14 +1086,16 @@ def test_k1_bf16_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("dtype", K1_DTYPES, ids=str)
-@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 100, 128])
 def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
     """What runs on the card: bf16 up to head width 64 launches
-    ``attn_fwd_wg_kernel`` (and with dropout ``attn_fwd_keep_kernel``
-    first), never the mma.sync ``attn_fwd_tc_kernel``; f32 and bf16 at 128
-    the mma.sync kernel alone (``k1_route``). Read from the kernel names
-    of a profile of three calls, opened by the port's lead-in (a trace
-    loses its first records on the card; traced again if it lost K1's)."""
+    ``attn_fwd_wg_kernel``, f32 at 128 (and 100, padded to it)
+    ``attn_fwd_tf128_kernel``, each with dropout ``attn_fwd_keep_kernel``
+    first, never the mma.sync ``attn_fwd_tc_kernel``; f32 up to 64 and
+    bf16 at 128 the mma.sync kernel alone (``k1_route``). Read from the
+    kernel names of a profile of three calls, opened by the port's lead-in
+    (a trace loses its first records on the card; traced again if it lost
+    K1's)."""
     _need_cuda()
     from torch.profiler import ProfilerActivity, profile
 
@@ -1116,9 +1123,234 @@ def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
         if "attn_fwd_" in names:
             break
     wgmma = tatt.k1_route(dtype, width) == "wgmma"
-    assert ("attn_fwd_wg_kernel" in names) == wgmma, names
+    tag = "tf128" if dtype == torch.float32 else "wg"
+    for other in ("wg", "tf128"):
+        on = wgmma and other == tag
+        assert (f"attn_fwd_{other}_kernel" in names) == on, names
     assert ("attn_fwd_tc_kernel" in names) == (not wgmma), names
     assert ("attn_fwd_keep_kernel" in names) == (wgmma and rate > 0), names
+
+
+# the f32 K1 of csrc/attention_fwd_f32_d128.cuh at 2 heads of 128 (H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", ["encoder_eye_pad", "decoder_pad",
+                                  "cross"])
+def test_k1_f32_d128_matches_plain(case, rate):
+    """The f32 K1 at head width 128 (2 heads, T = 200, B = 4) in the three
+    mask cases of the model (the encoder's eye and key pad; the decoder's
+    key pad with trial 2 fully padded; cross attention over 180 keys with a
+    random mask), dropout 0 and 0.4, with lse: against the f32 plain
+    version on the same Philox bits (``_k1_gates``: atol 1e-5); a second
+    launch bit-equal to the first."""
+    _need_cuda()
+    tk = 180 if case == "cross" else 200
+    q, k, v, key_pad, static, _ = _problem(200, tk, seed=7, b=4,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    if case == "encoder_eye_pad":
+        static = torch.eye(200, dtype=torch.int32, device="cuda")
+    elif case == "decoder_pad":
+        static = torch.zeros_like(static)
+        key_pad[2] = 0
+    scale = 128 ** -0.5
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale,
+                                  True, rate, 17)
+    again, lse2 = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale,
+                                     True, rate, 17)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 17, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (63, 63), (64, 64),
+                                   (65, 65), (127, 127), (128, 128),
+                                   (129, 129), (200, 200), (209, 209),
+                                   (256, 256), (257, 257), (520, 520),
+                                   (200, 300), (300, 17), (65, 200)])
+def test_k1_f32_d128_at_chunk_edges(tq, tk, rate):
+    """The f32 K1 at head width 128 around its chunks and tiles: 64 keys a
+    warpgroup, 128 a chunk (one sweep up to 128, the online rescale past
+    it; the attend bits held for up to 2 chunks, 256 keys, read a chunk at
+    a time past them), 64-query tiles; self and cross, through the
+    fused-QKV or KV column views, random masks, with lse: against the f32
+    plain version (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(tq, tk, seed=tq + tk,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    n0 = tatt.K1_LAUNCHES
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                  128 ** -0.5, True, rate, 43)
+    torch.cuda.synchronize()
+    assert tatt.K1_LAUNCHES == n0 + 1
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 43, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_f32_d128_blocks_walking_several_heads(rate):
+    """B = 256 at 2 heads of 128: the grid puts two heads in a block
+    (``walk_heads``), so a block loads its second head's q with that
+    head's first k chunk: against the f32 plain version (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=3, b=256,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                  128 ** -0.5, True, rate, 29)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 29, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_f32_d128_fully_masked_row_and_bit_equal(rate):
+    """A padded trial at head width 128 (every key masked, pad-only mask,
+    200 keys: two chunks): its rows are the mean of V (of the kept V / (1 -
+    rate) with dropout) within 1e-5 and their lse is -1e6 + log(Tk); two
+    launches give the same bits."""
+    _need_cuda()
+    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6, dtype=torch.float32,
+                                      hidden=H128 * 128)
+    key_pad[1] = 0
+    static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
+    scale = 128 ** -0.5
+    one = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                             rate, 8)
+    two = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                             rate, 8)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    got, lse = one
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 8, heads=H128)
+    floor = torch.tensor(-1e6) + torch.log(torch.tensor(200.0))
+    torch.testing.assert_close(lse[1].cpu(), floor.expand(H128, 200),
+                               atol=0.07, rtol=0)
+    vh = v[1].reshape(200, H128, 128).transpose(0, 1)       # (H, Tk, D)
+    if rate > 0.0:
+        keep = tatt.philox_keep(8, 2, H128, 200, 200, rate,
+                                device="cuda")[1]
+        mean = (keep.float() / (1.0 - rate)) @ vh / 200     # (H, Tq, D)
+    else:
+        mean = vh.mean(1, keepdim=True).expand(H128, 200, 128)
+    row = got[1].reshape(200, H128, 128).transpose(0, 1)
+    torch.testing.assert_close(row, mean, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_f32_d128_rank_slice_matches_the_whole_call(rate):
+    """A rank's call under tensor and data parallelism at head width 128:
+    the slice of trials [2, 4) and head 1 of a 4-trial, 2-head call, with
+    draw offsets (2, 1), gives the whole call's out and lse of that slice
+    bit for bit (the same sums in the same order, the same keep bits), and
+    agrees with the plain version drawn at the same offsets."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=8, b=4,
+                                           dtype=torch.float32,
+                                           hidden=H128 * 128)
+    scale = 128 ** -0.5
+    whole, whole_lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                          scale, True, rate, 51)
+
+    def part(x):
+        return x[2:4, :, 128:].contiguous()
+
+    args = (part(q), part(k), part(v), key_pad[2:4].contiguous(), static)
+    got, lse = tatt.attention_fwd(*args, 1, scale, True, rate, 51,
+                                  draw_offset=(2, 1))
+    assert torch.equal(got, part(whole))
+    assert torch.equal(lse, whole_lse[2:4, 1:])
+    _k1_gates(*args, got, lse, rate, 51, heads=1, draw_offset=(2, 1))
+
+
+@pytest.mark.cuda
+def test_k1_f32_d128_philox_bits_match_philox_keep():
+    """Read the f32 K1's keep mask back at head width 128: q = 0 and all
+    keys attended make every probability 1 (before 1/l = 1/Tk); V's rows
+    are one-hot per head (Tk = D = 128, one chunk), so out[b, q, h*128 +
+    k] > 0 exactly where Philox keeps (b, h, q, k)."""
+    _need_cuda()
+    tk, rate, seed = 128, 0.4, 123456789
+    q = torch.zeros(B, T, H128 * 128, device="cuda")
+    v = torch.eye(128, device="cuda").repeat(1, H128).expand(
+        B, tk, H128 * 128).contiguous()
+    k = torch.zeros(B, tk, H128 * 128, device="cuda")
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
+    out, _ = tatt.attention_fwd(q, k, v, key_pad, static, H128, 1.0,
+                                dropout_rate=rate, seed=seed)
+    got = out.reshape(B, T, H128, 128).transpose(1, 2) > 0
+    want = tatt.philox_keep(seed, B, H128, T, tk, rate, device="cuda")
+    assert torch.equal(got, want)
+    assert 0.5 < want.float().mean().item() < 0.7
+
+
+@pytest.mark.cuda
+def test_k1_f32_d128_rejects_misaligned_views():
+    """TMA copies need 16-byte aligned data pointers and strides: an f32
+    view at head width 128 whose data pointer or row stride is not 16-byte
+    aligned raises ValueError before any launch."""
+    _need_cuda()
+    hidden = H128 * 128
+    q, k, v, key_pad, static, _ = _problem(17, 17, dtype=torch.float32,
+                                           hidden=hidden)
+    wide = torch.zeros(3, 17, hidden + 4, device="cuda")
+    off = wide[..., 1:1 + hidden]                  # pointer one element off
+    odd = torch.zeros(3, 17, hidden + 2, device="cuda")[..., :hidden]
+    n0 = tatt.K1_LAUNCHES
+    for bad in (off, odd):
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(bad, k, v, key_pad, static, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, bad, v, key_pad, static, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, k, bad, key_pad, static, H128, 1.0)
+    assert tatt.K1_LAUNCHES == n0
+
+
+@pytest.mark.cuda
+def test_k1_k2_f32_d128_graph_replays_take_each_tables_keys():
+    """The f32 K1 and K2 at head width 128 with dropout, captured once in a
+    CUDA graph keyed by a table entry, replayed with two tables: each
+    replay's out and dq/dk/dv equal the eager launches under that table's
+    key, bit for bit (the keep kernels read the key on the device)."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, g = (torch.randn(B, T, H128 * 128, device="cuda",
+                              generator=gen) for _ in range(4))
+    key_pad, static = _operands("enc_eye_pad")
+    table = _table(0, 0)
+    seeds = (123_456_789_012, 987)
+    scale = 128 ** -0.5
+
+    def step():
+        out, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale,
+                                      True, 0.4, table[1:2])
+        return (out,) + tatt.attention_bwd(q, k, v, key_pad, static, g,
+                                           lse, H128, scale, 0.4, table[1:2])
+
+    eager = []
+    for s in seeds:
+        table[1] = s
+        eager.append([t.clone() for t in step()])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        outs = step()
+    for s, want in zip(seeds, eager):
+        table[1] = s
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    assert not torch.equal(eager[0][0], eager[1][0])
 
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -11,10 +11,14 @@ between two warpgroups (``dot_3xtf32_wg``); at 128
 (``csrc/attention_bwd_f32_d128.cuh``) each warpgroup owns half of D, so
 every output element is one running sum in ``dot_3xtf32``'s order. ``k2`` is K2's formula with every product through
 such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it is an
-f64 evaluation of the same formula. The f32 K1
-(``csrc/attention_fwd.cu``) takes the same products: ``k1`` is its formula
-with both products through ``dot`` and its online softmax over 64-key
-tiles. Imports torch and the port only, so
+f64 evaluation of the same formula. The f32 K1 takes the same products:
+``k1`` is its formula with both products through ``dot`` and its online
+softmax over chunks of keys, 64 for the mma.sync kernel of
+``csrc/attention_fwd.cu`` (16-64), 128 for the wgmma kernel of
+``csrc/attention_fwd_f32_d128.cuh`` at 128 (``k1_wgmma128``: its output
+product taken transposed, so each k-step's two middle terms come in the
+other order, ``dot_3xtf32(..., transposed=True)``). Imports torch and the
+port only, so
 ``scripts/torch_k2_f32_accuracy.py`` runs it on the card's inputs and
 ``tests/test_torch_attention_bwd_f32.py`` and
 ``tests/test_torch_attention_fwd_f32.py`` on the CPU.
@@ -51,19 +55,24 @@ def split(x: torch.Tensor):
 
 
 def dot_3xtf32(a: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor = None) -> torch.Tensor:
+               c: torch.Tensor = None,
+               transposed: bool = False) -> torch.Tensor:
     """c + a @ b (c = 0 by default) as the kernel's ``mma_3xtf32``: per
     k-step of 8 the terms al . bh, ah . bl, then ah . bh summed from zero
     on the tensor cores, then added to the f32 accumulator c (rounded to
-    nearest)."""
+    nearest). ``transposed``: a kernel that takes the product as (b^T .
+    a^T)^T, whose first two terms are then bl . ah (= ah . bl here) and bh
+    . al, in that order."""
     (ah, al), (bh, bl) = split(a), split(b)
     if c is None:
         c = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
                         device=a.device)
+    first, second = ((ah, bl), (al, bh)) if transposed else \
+        ((al, bh), (ah, bl))
     for k0 in range(0, a.shape[-1], 8):
         ks = slice(k0, k0 + 8)
-        p = mma(torch.zeros_like(c), al[..., ks], bh[..., ks, :])
-        p = mma(p, ah[..., ks], bl[..., ks, :])
+        p = mma(torch.zeros_like(c), first[0][..., ks], first[1][..., ks, :])
+        p = mma(p, second[0][..., ks], second[1][..., ks, :])
         c = c + mma(p, ah[..., ks], bh[..., ks, :])
     return c
 
@@ -156,15 +165,17 @@ def dot_1xtf32(a: torch.Tensor, b: torch.Tensor,
 
 
 def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
-       dot=dot_3xtf32):
+       dot=dot_3xtf32, chunk=64, out_dot=None):
     """The f32 K1's formula (``csrc/attention_fwd.cu``'s note) on the
-    kernel's operands, as the kernel computes it: per tile of 64 keys, s =
-    (q * scale) . k through ``dot`` (q * scale rounded to f32 first), the
-    masked scores replaced by -1e30; an online softmax: the new row max m,
-    the correction exp(m_old - m) of l and of the O accumulator, p = exp(s
-    - m) summed undropped into l; then the dropped and rescaled pd . v
-    added to the rescaled accumulator through ``dot``. out = o / l, lse =
-    max(m, -1e6) + log(l). Returns (out (B, Tq, H*D) f32, lse (B, H, Tq))."""
+    kernel's operands, as the kernel computes it: per chunk of ``chunk``
+    keys, s = (q * scale) . k through ``dot`` (q * scale rounded to f32
+    first), the masked scores replaced by -1e30; an online softmax: the new
+    row max m, the correction exp(m_old - m) of l and of the O accumulator,
+    p = exp(s - m) summed undropped into l; then the dropped and rescaled
+    pd . v added to the rescaled accumulator through ``out_dot`` (``dot``
+    unless given). out = o / l, lse = max(m, -1e6) + log(l). Returns (out
+    (B, Tq, H*D) f32, lse (B, H, Tq))."""
+    out_dot = out_dot or dot
     B, Tq, _ = q.shape
     Tk = k.shape[1]
     qs = tatt._heads(q, n_heads) * scale
@@ -176,8 +187,8 @@ def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
     m = torch.full(qs.shape[:-1] + (1,), -torch.inf, device=q.device)
     l = torch.zeros_like(m)
     o = torch.zeros_like(qs)
-    for k0 in range(0, Tk, 64):
-        ks = slice(k0, k0 + 64)
+    for k0 in range(0, Tk, chunk):
+        ks = slice(k0, k0 + chunk)
         s = dot(qs, kh[..., ks, :].transpose(-1, -2))
         s = torch.where(attend[..., ks], s, tatt.NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -186,10 +197,23 @@ def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
         l = l * corr + p.sum(-1, keepdim=True)
         if keep is not None:
             p = torch.where(keep[..., ks], p * (1.0 / (1.0 - rate)), 0.0)
-        o = dot(p, vh[..., ks, :], o * corr)
+        o = out_dot(p, vh[..., ks, :], o * corr)
         m = m_new
     lse = (m.clamp_min(tatt._LSE_FLOOR) + torch.log(l))[..., 0]
     return tatt._merge(o / l, torch.float32), lse
+
+
+def k1_wgmma128(q, k, v, key_pad, static, n_heads, scale, rate=0.0,
+                seed=0):
+    """``k1`` as the f32 K1 at head width 128 computes it
+    (``csrc/attention_fwd_f32_d128.cuh``): s as the f32 K2 at 128
+    recomputes it (``dot_3xtf32``), the online softmax over chunks of 128
+    keys (one sweep up to 128), and o^T = v^T . pd^T, each output element
+    one running sum of k-steps of 8 keys in order, chunk after chunk, the
+    terms of the transposed product."""
+    return k1(q, k, v, key_pad, static, n_heads, scale, rate, seed,
+              chunk=128,
+              out_dot=lambda a, b, c: dot_3xtf32(a, b, c, transposed=True))
 
 
 def k2(q, k, v, key_pad, static, g, lse, n_heads, scale, rate=0.0, seed=0,
