@@ -1498,8 +1498,8 @@ def plain_step_time(root: Path):
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
 # K4 launch two kernels each, their first is counted (K2's pass A:
-# attn_bwd_dq_tc/wg/tf/tf128_kernel); with dropout the wgmma K1 (bf16 up to
-# 64, f32 at 128) and both dtypes' wgmma K2 draw their keep bits first
+# attn_bwd_dq_wg/wg128/tf/tf128_kernel); with dropout the wgmma K1 (bf16 up
+# to 64, f32 at 128) and both dtypes' wgmma K2 draw their keep bits first
 # (attn_fwd_keep_kernel, attn_bwd_keep_kernel), not counted
 _KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg|tf128)_kernel"),
                   ("k2", "attn_bwd_dq_"),
@@ -4994,8 +4994,11 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                 row["bf16_kernel"] = (
                     "mma.sync: attn_fwd_tc_kernel, "
                     f"{src}attention_fwd_d128.cu" if kname == "k1" else
-                    "mma.sync: attn_bwd_dq_tc_kernel + "
-                    f"attn_bwd_dkdv_tc_kernel, {src}attention_bwd_d128.cu")
+                    "wgmma (rows of two 128-byte swizzle atoms, TMA-fed "
+                    "tiles; pass B's output products each warpgroup half "
+                    "of D): attn_bwd_keep_kernel + attn_bwd_dq_wg128_kernel"
+                    " + attn_bwd_dkdv_wg128_kernel, "
+                    f"{src}attention_bwd_bf16_d128.cuh")
             else:
                 row["bf16_kernel"] = (
                     "wgmma: attn_fwd_wg_kernel (+ attn_fwd_keep_kernel), "

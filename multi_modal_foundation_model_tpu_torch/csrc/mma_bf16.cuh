@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by the bf16 attention kernels K1
-// (attention_fwd.cu) and K2 (attention_bwd.cu), for Hopper (sm_90a); the
-// f32 K1 and K2 (3xTF32, mma_tf32.cuh) share their copies, mask and
-// keep-bit staging and launch helpers.
+// Tensor-core building blocks of the mma.sync attention forward K1
+// (attention_fwd.cu: bf16 at head width 128; the f32 K1 at 16-64, 3xTF32 in
+// mma_tf32.cuh, shares its copies, mask and keep-bit staging and launch
+// helpers), for Hopper (sm_90a); the wgmma kernels take the small helpers
+// (smem_u32, pack_bf16, scale_bf16x2, fast_exp2, allow_smem, the
+// constants).
 //
 // Four warps a block, each owning 16 rows of its side as mma.sync m16n8k16
 // A fragments in registers; the other side streams through shared memory
@@ -14,7 +16,7 @@
 // bits, are staged one byte per (row, 4 keys): keep in the low nibble,
 // attend in the high one. Everything that depends on the head width D is a
 // template on it: D a multiple of 16 (a k-step of m16n8k16) up to 128, the
-// widths the kernels are compiled at (attention_fwd.cu, attention_bwd.cu).
+// widths the kernel is compiled at (attention_fwd.cu).
 
 #pragma once
 
@@ -47,13 +49,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -1,13 +1,11 @@
-// What the operand type changes in the tensor-core attention kernels, K1
-// (attention_fwd.cu, f32 and bf16) and K2's mma.sync pair
-// (attention_bwd.cu, bf16 at head width 128), one kernel body each for
-// f32 (3xTF32, mma_tf32.cuh) and bf16 (mma_bf16.cuh): the shared tiles of
-// the streamed side, the A fragments held in registers, the two products,
-// how a landed chunk is readied, K2's exp(s - lse) and the stores, at head
-// width D (16, 32, 64 or 128: each compiled in its own translation unit,
-// attention_fwd*.cu and attention_bwd*.cu). K1 and K2's pass A ready their
-// k/v chunks with kScale = false, K2's pass B its q chunks with kScale =
-// true (q * scale) and its g chunks with false.
+// What the operand type changes in the tensor-core attention forward K1's
+// mma.sync kernel (attention_fwd.cu: f32 at head widths 16-64, bf16 at
+// 128), one kernel body for f32 (3xTF32, mma_tf32.cuh) and bf16
+// (mma_bf16.cuh): the shared tiles of the streamed side, the A fragments
+// held in registers, the two products, how a landed chunk is readied and
+// the stores, at head width D (16, 32, 64 or 128: each compiled in its own
+// translation unit, attention_fwd*.cu). K1 readies its k/v chunks with
+// kScale = false.
 
 #pragma once
 
@@ -29,16 +27,6 @@ struct Tc<bf16, D> {
   static constexpr int kChunks = D / 8;        // 16-byte copies a row
   static constexpr int kPitch = ld_bf16(D);    // shared row pitch, elements
   static constexpr int kElems = kTcRows * kPitch;  // one buffered tile
-  // K2's tile buffers a side, and the two sides' tiles in bytes
-  static constexpr int kBwdBufs = 2;
-  static constexpr size_t kSmem = kBwdBufs * 2 * kElems * sizeof(bf16);
-  // K2 pass A's blocks an SM: at D = 32, 4 holds it to 128 registers a
-  // thread. Left free, ptxas took 152 with dropout and 143 without (3 blocks
-  // an SM: +0.13 ms a launch at dropout 0.4 and at 0, measured on the
-  // H100); without dropout it then spills 8 bytes, at no measured cost.
-  // Wider heads hold D / 4 more accumulator registers a head width of 16:
-  // no bound beyond the 255 a thread may take at 64 and 128
-  static constexpr int kBlocksA = D <= 32 ? 4 : 1;
   // K1's k/v tile buffers: two, so that the next tile's copy overlaps this
   // one's products (one buffer cost the bf16 training K1 ~3% on the H100)
   static constexpr int kFwdBufs = 2;
@@ -63,24 +51,10 @@ struct Tc<bf16, D> {
                                               int n_valid) {
     mma_cols<D>(out, acc, tile, lane, n_valid);
   }
-  // q tiles: bf16(f32(q) * scale), in place; k, v, g tiles as they land
+  // k and v tiles are used as they land
   template <bool kScale>
-  static __device__ __forceinline__ void land(bf16* p, float mul) {
-    if (!kScale) return;
-    uint4* c = reinterpret_cast<uint4*>(p);
-    uint4 w = *c;
-    w.x = scale_bf16x2(w.x, mul);
-    w.y = scale_bf16x2(w.y, mul);
-    w.z = scale_bf16x2(w.z, mul);
-    w.w = scale_bf16x2(w.w, mul);
-    *c = w;
-  }
-  static __device__ __forceinline__ float lse_arg(float lse) {
-    return lse * kLog2e;
-  }
-  // exp(s - lse), l = lse_arg(lse)
-  static __device__ __forceinline__ float prob(float s, float l) {
-    return fast_exp2(fmaf(s, kLog2e, -l));
+  static __device__ __forceinline__ void land(bf16*, float) {
+    static_assert(!kScale, "bf16 K1 tiles are not scaled");
   }
   static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
     *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);

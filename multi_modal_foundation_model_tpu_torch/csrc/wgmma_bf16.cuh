@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 attention kernels on wgmma, the
 // forward K1 (attention_fwd_bf16.cuh) and the backward K2
-// (attention_bwd_bf16.cuh): wgmma, TMA and mbarriers, for sm_90a, and the
-// whole-key-row tiling the two share.
+// (attention_bwd_bf16.cuh; attention_bwd_bf16_d128.cuh at head width 128):
+// wgmma, TMA and mbarriers, for sm_90a, and the whole-key-row tiling they
+// share.
 //
 // - wgmma.mma_async: a warpgroup (four warps, 128 threads) multiplies a
 //   64-row A by a B of N columns, bf16 in, f32 accumulated in registers,
@@ -17,7 +18,9 @@
 //   (rows, D) operand and the MN-major layout of a (D, rows) one, so one
 //   tile of k serves s = q . k^T (K-major B) and dq = ds . k (MN-major B).
 //   Buffers start at 1024-byte boundaries, where both sides' swizzle
-//   patterns agree.
+//   patterns agree. A 128-wide row (256 bytes) is two atoms: the D = 128
+//   kernel lands each tile as two boxes of 64 columns and reads each as
+//   the D = 64 kernels read theirs.
 // - TMA (cp.async.bulk.tensor): one thread asks for a (rows, D) box of a
 //   (B, T, H * D) tensor (any batch and row strides, 16-byte multiples);
 //   rows past T land as zeros; completion is counted in bytes on an
@@ -228,6 +231,28 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// d (64 x 64, f32) = or += A . B: A (64 x 16) bf16 K-major in shared
+// memory (descriptor da), B (16 x 64) bf16 MN-major in shared memory
+// (descriptor db; transposed: rows of 64 contiguous)
+__device__ __forceinline__ void mma_ss_n64_t(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // the output products at N = D

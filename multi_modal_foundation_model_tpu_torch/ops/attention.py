@@ -45,7 +45,10 @@ up to 128 runs the next one up on operands whose heads are padded with
 zero columns (``padded_attention_fwd`` / ``padded_attention_bwd``): the
 zero columns add nothing to a score and give zero output and gradient
 columns, which are dropped, and the scale stays the true width's. A
-width above 128 raises ``ValueError``.
+width above 128 raises ``ValueError``. Every K2 runs on Hopper's wgmma
+with TMA tiles and a keep-bit kernel of its own (``k2_route``); K1 does
+for bf16 up to 64 and f32 at 128, and runs ``mma.sync`` otherwise
+(``k1_route``).
 
 FLOP count (``utils/profiling.py``). A ``FlopCounterMode`` sees neither
 K1 nor K2 (``ctypes`` launches), and on the plain path it would count the
@@ -436,15 +439,15 @@ def k1_route(dtype, head_dim: int) -> str:
 
 def k2_route(dtype, head_dim: int) -> str:
     """Which K2 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` (TMA
-    tiles, the keep bits drawn by a kernel of their own) at the compiled
-    widths 16, 32 and 64 (and the widths padded to them), the bf16 kernel
-    of ``csrc/attention_bwd_bf16.cuh`` or the f32 (3xTF32) one of
-    ``csrc/attention_bwd_f32.cuh``, and f32 at 128 (and 65-127), the
-    3xTF32 kernel of ``csrc/attention_bwd_f32_d128.cuh``; ``"mma_sync"``,
-    the pair of ``csrc/attention_bwd.cu``, bf16 at 128. Above 128,
+    tiles, the keep bits drawn by a kernel of their own) for both dtypes at
+    every compiled width (and the widths padded to them): bf16 the kernel
+    of ``csrc/attention_bwd_bf16.cuh`` at 16, 32 and 64 and of
+    ``csrc/attention_bwd_bf16_d128.cuh`` at 128, f32 the 3xTF32 kernel of
+    ``csrc/attention_bwd_f32.cuh`` at 16-64 and of
+    ``csrc/attention_bwd_f32_d128.cuh`` at 128. Above 128,
     ``ValueError``."""
-    width = kernel_head_dim(head_dim)
-    return "wgmma" if width <= 64 or dtype == torch.float32 else "mma_sync"
+    kernel_head_dim(head_dim)
+    return "wgmma"
 
 
 def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
@@ -464,20 +467,18 @@ def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
 
 
 def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int,
-                       route: str = "mma_sync") -> int:
+                       route: str = "wgmma") -> int:
     """f32 words of K2's scratch: rowsum (B, H, Tq), then, 16-byte aligned,
-    pass A's mask bytes for pass B (``csrc/attention_bwd.cu``,
-    ``mmfm_attention_bwd``). ``"mma_sync"``: one byte per (b, h, query, 4
-    keys), rows padded to 64 keys. ``"wgmma"`` (both dtypes): one bit per
-    (b, h, query, key), bytes (B, H, ceil(Tk / 8), Tq rounded up to 16), a
-    byte holding 8 keys of one query (a row of 16-byte multiples: the
-    stride of the passes' TMA copies)."""
-    n = B * H * Tq
-    if route == "wgmma":
-        return n + (B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16) + 16) // 4
-    if route != "mma_sync":
+    the keep bytes that ``attn_bwd_keep_kernel`` draws and both passes read
+    (``csrc/attention_bwd.cu``, ``mmfm_attention_bwd``), one bit per (b, h,
+    query, key): bytes (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte
+    holding 8 keys of one query (a row of 16-byte multiples: the stride of
+    the passes' TMA copies). ``route`` is ``k2_route``'s, ``"wgmma"`` for
+    every dtype and width; any other raises ``ValueError``."""
+    if route != "wgmma":
         raise ValueError(f"K2 route {route!r}")
-    return n + (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
+    return (B * H * Tq
+            + (B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16) + 16) // 4)
 
 
 def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
@@ -649,8 +650,9 @@ def attention_bwd(q, k, v, key_pad, static, g, lse, n_heads: int,
     ``attention_bwd_reference``. bf16 takes bf16 operands as JAX's K2 on
     its hardware: the contract of ``attention_bwd_reference(...,
     dots_dtype=torch.bfloat16)``. Both run on Hopper's wgmma with TMA
-    copies, f32 at every width and bf16 up to 64 (``k2_route``). The kernels copy their
-    tiles with ``cp.async`` or TMA, so q/k/v/g need 16-byte aligned data
+    copies at every width (``k2_route``), their keep bits drawn by a kernel
+    of their own first. The kernels copy their tiles by TMA, so q/k/v/g
+    need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""

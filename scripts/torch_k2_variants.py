@@ -2,20 +2,22 @@
 """Design variants of the wgmma K2, bf16 or f32, timed beside the committed
 kernel on one NVIDIA GPU.
 
-    python3 scripts/torch_k2_variants.py [--dtype float32 [--head-dim 128]] [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k2_variants.py [--dtype float32] [--head-dim 128] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_bwd.cu`` (head width 32) and
 variants of its bf16 kernel (string edits of
 ``csrc/attention_bwd_bf16.cuh``) or, with ``--dtype float32``, of its f32
 kernel (edits of ``csrc/attention_bwd_f32.cuh`` and ``wgmma_tf32.cuh``),
-or, with ``--dtype float32 --head-dim 128``, ``csrc/attention_bwd_d128.cu``
-and variants of its f32 kernel (edits of
+or, with ``--head-dim 128``, ``csrc/attention_bwd_d128.cu`` and variants
+of its bf16 kernel (edits of ``csrc/attention_bwd_bf16_d128.cuh``) or,
+with ``--dtype float32 --head-dim 128``, of its f32 kernel (edits of
 ``csrc/attention_bwd_f32_d128.cuh``), into ``build/probe/k2_<name>/``,
 each edit checked to apply exactly once, and, with ``--parent``, another
 checkout's K2 of that width (say the parent commit's, unpacked by ``git
-archive``: the mma.sync K2 of the dtype). Each library in turn is swapped
-in for ``ops.attention._k2_lib`` (the parent's with the scratch of its
-route, ``k2_route``), checked with ``chip_smoke.k2_gates`` at the smoke
+archive``: the mma.sync pair of bf16 at 128 before its redesign). Each
+library in turn is swapped in for ``ops.attention._k2_lib`` (the parent's
+with a scratch that holds either layout, ``parent_scratch_floats``),
+checked with ``chip_smoke.k2_gates`` at the smoke
 run's B = 256 training shape (the encoder mask, dropout 0 and 0.4; at
 head width 128 two heads), and timed kernel by kernel by profiler device
 time (``chip_smoke.device_ms_by_kernel``: the keep draws and each pass
@@ -62,6 +64,20 @@ The f32 variants (``--dtype float32``):
   from-zero temporaries, so a k-step's wgmmas run while the last one's sum
   is added (``wait_group 1``), in place of one temporary waited for at
   every k-step; the same sums in the same order.
+
+The head-width-128 bf16 variants (``--head-dim 128``):
+
+- ``base``, ``diag_no_elementwise``: as above, on the D = 128 kernel.
+- ``diag_no_score_products``: no s and dP wgmmas.
+- ``diag_no_output_products``: no dq, dk and dv wgmmas.
+- ``diag_no_q_scale``: q not scaled in place (nor the barrier after it).
+- ``issue_at_tile_end``: the next tile's copies issued in one part after
+  the output products, in place of two parts as buffers free up.
+- ``diag_no_attend``: every element attended, no mask read.
+- ``diag_exp_free``: the exponent's argument in place of its exp.
+- ``attend_guarded``: the attend bits' loads guarded by the bounds (the
+  D <= 64 kernels' form), in place of all issued with their indices
+  clamped into the masks.
 
 One block an SM is the only shape the f32 kernel has: a pass A block at
 D = 32 takes 207 KB of shared memory and 255 registers a thread.
@@ -589,8 +605,77 @@ F128_VARIANTS = {
 SHAPES = ((cs.BIG_B, (cs.DROPOUT, 0.0)), (cs.TRAIN_B, (cs.DROPOUT, 0.0)))
 
 
+B128_SRC = "attention_bwd_bf16_d128.cuh"
+B128_VARIANTS = {
+    "base": {},
+    "diag_no_elementwise": {B128_SRC: [
+        ("      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (live) {",
+         "      // pn = exp(s - lse) where attended, dpn = dP ms\n"
+         "      if (false) {"),
+        ("      // rowsum from shared memory\n      if (live) {",
+         "      // rowsum from shared memory\n      if (false) {")]},
+    "diag_no_score_products": {B128_SRC: [
+        ("    for (int kk = 0; kk < kD / 16; ++kk)\n"
+         "      wg::mma_ss_n104(\n          s,",
+         "    for (int kk = 0; kk < kD / 16 && false; ++kk)\n"
+         "      wg::mma_ss_n104(\n          s,"),
+        ("    for (int kk = 0; kk < kD / 16; ++kk)\n"
+         "      wg::mma_ss_n104(\n          p,",
+         "    for (int kk = 0; kk < kD / 16 && false; ++kk)\n"
+         "      wg::mma_ss_n104(\n          p,")]},
+    "diag_no_output_products": {B128_SRC: [
+        ("        for (int kk = 0; kk < kSteps; ++kk) {",
+         "        for (int kk = 0; kk < kSteps && false; ++kk) {"),
+        ("        if (ks >= n_ks) break;",
+         "        if (ks >= n_ks || true) break;")]},
+    "diag_no_q_scale": {B128_SRC: [
+        ("    if (kPassB || r == 0) {", "    if (false) {")]},
+    "diag_no_attend": {B128_SRC: [
+        ("  if (n_ch == 1) attend(0, att);",
+         "  if (n_ch == 1) att[0] = att[1] = ~0u;")]},
+    "diag_exp_free": {B128_SRC: [
+        ("? fast_exp2(fmaf(s[i], kLog2e, -lse2[hh]))",
+         "? (fmaf(s[i], kLog2e, -lse2[hh]))"),
+        ("? fast_exp2(fmaf(s[i], kLog2e, -l2))",
+         "? (fmaf(s[i], kLog2e, -l2))")]},
+    "attend_guarded": {B128_SRC: [
+        ("""          const int qc = min(q, a.Tq - 1), kc = min(k, a.Tk - 1);
+          const int on = __ldg(a.static_mask + (long long)qc * a.Tk + kc) |
+                         __ldg(a.key_pad + (long long)b * a.Tk + kc);
+          if (q < a.Tq && k < a.Tk && on != 0) m[hh] |= 1u << (2 * j + e);""",
+         """          if (q < a.Tq && k < a.Tk &&
+              (__ldg(a.static_mask + (long long)q * a.Tk + k) |
+               __ldg(a.key_pad + (long long)b * a.Tk + k)) != 0)
+            m[hh] |= 1u << (2 * j + e);""")]},
+    "issue_at_tile_end": {B128_SRC: [
+        ("      if (tid == 0 && more) issue(t + 1, fin ? 1 : 3);",
+         "      if (tid == 0 && more && !fin) issue(t + 1, 3);"),
+        ("        if (tid == 0 && more) issue(t + 1, 2);",
+         "        if (tid == 0 && more) issue(t + 1, 3);"),
+        ("      if (tid == 0 && more) issue(t + 1, 1);\n",
+         ""),
+        ("      if (tid == 0 && more) issue(t + 1, 2);\n\n",
+         "      if (tid == 0 && more) issue(t + 1, 3);\n\n")]},
+}
+
+
 def emit(**record):
     print(json.dumps(record), flush=True)
+
+
+def parent_scratch_floats(B: int, H: int, Tq: int, Tk: int,
+                          route: str = "wgmma") -> int:
+    """f32 words of a scratch that holds either K2 scratch layout: the
+    wgmma kernels' (``ops.attention._k2_scratch_floats``) and the mma.sync
+    pair's that bf16 ran at 128 before its redesign (rowsum, then one byte
+    per (b, h, query, 4 keys), rows padded to 64 keys), for a parent
+    checkout's library of either kind."""
+    pair = B * H * Tq + (B * H * Tq * (-(-Tk // 64)) * 16 + 16) // 4
+    return max(pair, ORIGINAL_SCRATCH(B, H, Tq, Tk, "wgmma"))
+
+
+ORIGINAL_SCRATCH = att._k2_scratch_floats
 
 
 def start_build(name: str, edits: dict, src_dir: Path,
@@ -665,10 +750,12 @@ def main() -> int:
     dtype, head_dim = torch.bfloat16, 32
     if args[:2] == ["--dtype", "float32"]:
         dtype, args = torch.float32, args[2:]
-    if dtype == torch.float32 and args[:2] == ["--head-dim", "128"]:
+    if args[:2] == ["--head-dim", "128"]:
         head_dim, args = 128, args[2:]
-    variants = (VARIANTS if dtype == torch.bfloat16 else
-                F32_VARIANTS if head_dim == 32 else F128_VARIANTS)
+    variants = {(torch.bfloat16, 32): VARIANTS,
+                (torch.float32, 32): F32_VARIANTS,
+                (torch.bfloat16, 128): B128_VARIANTS,
+                (torch.float32, 128): F128_VARIANTS}[dtype, head_dim]
     entry = "attention_bwd" if head_dim == 32 else "attention_bwd_d128"
     emit(phase="k2_variants", dtype=cs.dtype_name(dtype), head_dim=head_dim)
     base_fn = att._k2_lib(head_dim)             # builds csrc/ as the port does
@@ -695,15 +782,15 @@ def main() -> int:
                for rate in (cs.DROPOUT, 0.0)}
         inputs[B] = (q, k, v, key_pad, static, g, H, scale, lse)
 
-    original, route = att._k2_lib, att.k2_route
+    original = att._k2_lib
     times = {}
     try:
         order = list(fns)
         for sweep in (order, order[::-1]):
             for name in sweep:
                 att._k2_lib = lambda head_dim=head_dim, fn=fns[name]: fn
-                att.k2_route = (route if name != "parent" else
-                                lambda dtype, head_dim: "mma_sync")
+                att._k2_scratch_floats = (ORIGINAL_SCRATCH if name != "parent"
+                                          else parent_scratch_floats)
                 for B, rates in SHAPES:
                     q, k, v, key_pad, static, g, H, scale, lse = inputs[B]
                     for rate in rates:
@@ -725,7 +812,7 @@ def main() -> int:
                         times.setdefault((name, B, rate), []).append(
                             cs.kernel_ms_by_name(call))
     finally:
-        att._k2_lib, att.k2_route = original, route
+        att._k2_lib, att._k2_scratch_floats = original, ORIGINAL_SCRATCH
     for (name, B, rate), runs in times.items():
         emit(phase="k2_variant_time", variant=name, batch=B, dropout=rate,
              ms_in_order_and_reversed=[sum(r.values()) for r in runs],

@@ -26,23 +26,24 @@ ATOL = 1e-5
 B, TQ, H, D = 3, 20, 4, 16
 
 
-def _case(case, seed=0):
-    """numpy q, k, v, g, key_pad (B, Tk) and static (Tq, Tk) or None."""
-    tk = 28 if case == "cross" else TQ
+def _case(case, seed=0, tq=TQ, hidden=H * D):
+    """numpy q, k, v, g, key_pad (B, Tk) and static (Tq, Tk) or None, Tq
+    queries of ``hidden`` columns (Tk = Tq + 8 for cross attention)."""
+    tk = tq + 8 if case == "cross" else tq
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, TQ, H * D)).astype(np.float32)
-    k = rng.normal(size=(B, tk, H * D)).astype(np.float32)
-    v = rng.normal(size=(B, tk, H * D)).astype(np.float32)
-    g = rng.normal(size=(B, TQ, H * D)).astype(np.float32)
+    q = rng.normal(size=(B, tq, hidden)).astype(np.float32)
+    k = rng.normal(size=(B, tk, hidden)).astype(np.float32)
+    v = rng.normal(size=(B, tk, hidden)).astype(np.float32)
+    g = rng.normal(size=(B, tq, hidden)).astype(np.float32)
     pad = np.ones((B, tk), np.int32)
     pad[1, tk - 5:] = 0
     if case == "encoder_eye_pad":
-        static = np.eye(TQ, tk, dtype=np.int32)
+        static = np.eye(tq, tk, dtype=np.int32)
     elif case == "decoder_pad_padded_trial":
         pad[2] = 0                          # every key of trial 2 masked
         static = None
     else:                                   # cross, Tq != Tk
-        static = (rng.random((TQ, tk)) > 0.7).astype(np.int32)
+        static = (rng.random((tq, tk)) > 0.7).astype(np.int32)
     return q, k, v, g, pad, static
 
 
@@ -146,62 +147,74 @@ def test_function_uses_the_lse_backward_not_autograd():
 BF16_DOTS_ATOL = 1e-3
 
 
-def _jax_bf16_dots_k2(q, k, v, g, pad, static):
+def _jax_bf16_dots_k2(q, k, v, g, pad, static, n_heads=H):
     """dq, dk, dv of JAX's ``_attn_bwd_kernel`` with bf16 dots, and the
-    lse (B, H, Tq) of JAX's forward that it read."""
+    lse (B, H, Tq) of JAX's forward that it read, at ``n_heads`` heads of
+    q's columns over them."""
     import functools
 
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
 
-    tk = k.shape[1]
-    hidden = H * D
+    tq, tk, hidden = q.shape[1], k.shape[1], q.shape[2]
+    d = hidden // n_heads
     key_pad = jnp.asarray(pad).reshape(B, 1, tk)
-    stat = (jnp.zeros((1, TQ, tk), jnp.int32) if static is None
-            else jnp.asarray(static).reshape(1, TQ, tk))
+    stat = (jnp.zeros((1, tq, tk), jnp.int32) if static is None
+            else jnp.asarray(static).reshape(1, tq, tk))
     seed = jnp.zeros((1, 1), jnp.int32)
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(d)
     jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
-    _, ml = jatt._mha_impl(jq, jk, jv, key_pad, stat, seed, scale, 0.0, H, D,
-                           with_lse=True)
+    _, ml = jatt._mha_impl(jq, jk, jv, key_pad, stat, seed, scale, 0.0,
+                           n_heads, d, with_lse=True)
     kernel = functools.partial(jatt._attn_bwd_kernel, scale=scale,
-                               dropout_rate=0.0, n_heads=H, d_head=D,
+                               dropout_rate=0.0, n_heads=n_heads, d_head=d,
                                dots_dtype=jnp.bfloat16)
-    blk_q = pl.BlockSpec((B, TQ, hidden), lambda i: (i, 0, 0),
+    blk_q = pl.BlockSpec((B, tq, hidden), lambda i: (i, 0, 0),
                          memory_space=pltpu.VMEM)
     blk_k = pl.BlockSpec((B, tk, hidden), lambda i: (i, 0, 0),
                          memory_space=pltpu.VMEM)
-    blk_ml = pl.BlockSpec((B, 8, H * TQ), lambda i: (i, 0, 0),
+    blk_ml = pl.BlockSpec((B, 8, n_heads * tq), lambda i: (i, 0, 0),
                           memory_space=pltpu.VMEM)
     grads = pl.pallas_call(
         kernel, grid=(1,),
-        in_specs=jatt._specs(B, TQ, tk, hidden) + [blk_q, blk_ml],
+        in_specs=jatt._specs(B, tq, tk, hidden) + [blk_q, blk_ml],
         out_specs=[blk_q, blk_k, blk_k],
         out_shape=[jax.ShapeDtypeStruct(jq.shape, jq.dtype),
                    jax.ShapeDtypeStruct(jk.shape, jk.dtype),
                    jax.ShapeDtypeStruct(jv.shape, jv.dtype)],
-        scratch_shapes=[pltpu.VMEM((B, H * TQ, tk), jnp.float32),
-                        pltpu.VMEM((B, H * TQ, tk), jnp.float32)],
+        scratch_shapes=[pltpu.VMEM((B, n_heads * tq, tk), jnp.float32),
+                        pltpu.VMEM((B, n_heads * tq, tk), jnp.float32)],
         interpret=True,
     )(seed, jq, jk, jv, key_pad, stat, jg, ml)
-    lse = np.array(ml[:, 0, :]).reshape(B, H, TQ)
+    lse = np.array(ml[:, 0, :]).reshape(B, n_heads, tq)
     return [np.asarray(x) for x in grads], lse
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_bf16_dots_reference_matches_jax_bf16_dots_k2(case):
+# (case, heads, head width, Tq): the 4 heads of 16 at Tq = 20 the test
+# began with (their ids unchanged), and 1 and 2 heads of 128, the width of
+# the bf16 K2 of csrc/attention_bwd_bf16_d128.cuh (the mm.yaml model with 2
+# heads), at Tq = 70 (Tk 70, 78 cross): past one 64-row tile
+BF16_DOTS_CASES = ([pytest.param(c, H, D, TQ, id=c) for c in CASES]
+                   + [pytest.param(c, h, 128, 70, id=f"{c}-{h}x128")
+                      for h in (1, 2) for c in CASES])
+
+
+@pytest.mark.parametrize("case,n_heads,d_head,tq", BF16_DOTS_CASES)
+def test_bf16_dots_reference_matches_jax_bf16_dots_k2(case, n_heads, d_head,
+                                                     tq):
     """``attention_bwd_reference(dots_dtype=bf16)`` against JAX's K2 with
     bf16 dots on the same numpy inputs and JAX's own lse, dropout 0: the
-    yardstick of the tensor-core bf16 K2. The f32-dots version is held to
-    the same inputs and must fall outside the tolerance, so the test tells
-    the two apart."""
-    q, k, v, g, pad, static = _case(case, seed=3)
-    want, lse = _jax_bf16_dots_k2(q, k, v, g, pad, static)
-    tq, tk_, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
-    key_pad, stat = tatt.spec_operands(_tspec(pad, static), B, TQ,
+    yardstick of the tensor-core bf16 K2, at the widths its kernels run (16
+    and 128). The f32-dots version is held to the same inputs and must fall
+    outside the tolerance, so the test tells the two apart."""
+    q, k, v, g, pad, static = _case(case, seed=3, tq=tq,
+                                    hidden=n_heads * d_head)
+    want, lse = _jax_bf16_dots_k2(q, k, v, g, pad, static, n_heads)
+    tq_, tk_, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    key_pad, stat = tatt.spec_operands(_tspec(pad, static), B, tq,
                                        k.shape[1], "cpu")
-    args = (tq, tk_, tv, key_pad, stat, tg, torch.from_numpy(lse), H,
-            1.0 / math.sqrt(D))
+    args = (tq_, tk_, tv, key_pad, stat, tg, torch.from_numpy(lse), n_heads,
+            1.0 / math.sqrt(d_head))
     got = tatt.attention_bwd_reference(*args, dots_dtype=torch.bfloat16)
     f32 = tatt.attention_bwd_reference(*args)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):

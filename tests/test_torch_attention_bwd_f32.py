@@ -357,12 +357,16 @@ def test_k2_alignment_rule(dtype):
 
 
 def test_k2_scratch_holds_the_mask_bytes_for_both_dtypes():
-    """The mma.sync K2's scratch (f32 at every width, bf16 at 128): rowsum
-    (B, H, Tq) f32, then pass A's mask bytes for pass B (one byte per query
-    and 4 keys, rows padded to 64 keys) and 16 bytes of alignment slack.
-    The wgmma bf16 K2's is held in ``tests/test_torch_k2_plan.py``."""
+    """K2's scratch, the wgmma kernels' of both dtypes at every width (the
+    default route, ``k2_route``'s only one since the mma.sync pair's
+    removal): rowsum (B, H, Tq) f32, then the keep bytes both passes read
+    (one bit per query and key: ceil(Tk / 8) rows of Tq rounded up to 16
+    bytes) and 16 bytes of alignment slack. Every route is held in
+    ``tests/test_torch_k2_plan.py``."""
     B, Hh, Tq, Tk = 256, 8, 200, 200
+    for dtype in (torch.float32, torch.bfloat16):
+        assert tatt.k2_route(dtype, 128) == "wgmma"
     n = tatt._k2_scratch_floats(B, Hh, Tq, Tk)
-    mask_bytes = B * Hh * Tq * 4 * 16          # ceil(200 / 64) = 4 tiles
+    mask_bytes = B * Hh * 25 * 208             # ceil(200 / 8) rows of 208
     assert n * 4 >= B * Hh * Tq * 4 + mask_bytes + 12
     assert n == B * Hh * Tq + (mask_bytes + 16) // 4

@@ -25,15 +25,18 @@ LENGTHS = [1, 8, 200, 208, 209, 256, 520]
 def test_k1_route_by_dtype_and_width(width, dtype):
     """bf16 takes the wgmma kernel up to head width 64 and the mma.sync
     kernel at 128; f32 the mma.sync kernel up to 64 and the wgmma kernel at
-    128; a padded width takes its compiled width's route. K1's route is
-    K2's in bf16 at every width and in f32 at 128; in f32 up to 64 K2 runs
-    on wgmma while K1 stays on mma.sync."""
+    128; a padded width takes its compiled width's route. K2 runs on wgmma
+    at every width and dtype, so K1's route is K2's where K1 is on wgmma
+    (bf16 up to 64, f32 at 128) and differs where K1 stays on mma.sync
+    (f32 up to 64, and bf16 at 128, whose mma.sync K1 draws the keep bits
+    that the wgmma K2's keep kernel replays)."""
     wide = tatt.kernel_head_dim(width) == 128
     want = ("wgmma" if (dtype == torch.bfloat16) != wide else "mma_sync")
     assert tatt.k1_route(dtype, width) == want
     assert tatt.k1_route(dtype, tatt.kernel_head_dim(width)) == want
-    if dtype == torch.bfloat16 or wide:
-        assert tatt.k1_route(dtype, width) == tatt.k2_route(dtype, width)
+    assert tatt.k2_route(dtype, width) == "wgmma"
+    assert (tatt.k1_route(dtype, width)
+            == tatt.k2_route(dtype, width)) == (want == "wgmma")
 
 
 @pytest.mark.parametrize("width", WIDTHS)

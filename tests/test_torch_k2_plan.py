@@ -1,16 +1,16 @@
 """What the K2 wrapper decides on the host (``ops/attention.py``): which
-kernel runs a dtype and head width (``k2_route``: at the compiled widths
-16, 32 and 64 the wgmma K2, bf16 of ``csrc/attention_bwd_bf16.cuh`` and
-f32 of ``csrc/attention_bwd_f32.cuh``; at 128 f32's wgmma kernel of
-``csrc/attention_bwd_f32_d128.cuh`` and bf16's mma.sync pair of
-``csrc/attention_bwd.cu``), and the scratch each route needs
-(``_k2_scratch_floats``: rowsum, then the keep bits the passes read). Held at head widths 8, 16, 24, 32, 64,
-100 and 128 (8, 24 and 100 run their padded widths' kernels) and key
-lengths 1, 8, 200 (the model's), 256, 257 and 520 (past the 208 columns the
-wgmma kernel takes at once, which the kernel splits into chunks itself).
-A mirror of the D = 128 kernel's shared-memory layout holds it to the
-H100's 232,448 bytes a block. No card needed: the kernels themselves are
-held on the card by ``tests/test_torch_kernels.py``."""
+kernel runs a dtype and head width (``k2_route``: the wgmma K2 for both
+dtypes at every compiled width, bf16 of ``csrc/attention_bwd_bf16.cuh`` at
+16, 32 and 64 and of ``csrc/attention_bwd_bf16_d128.cuh`` at 128, f32 of
+``csrc/attention_bwd_f32.cuh`` and ``csrc/attention_bwd_f32_d128.cuh``),
+and the scratch it needs (``_k2_scratch_floats``: rowsum, then the keep
+bits the passes read). Held at head widths 8, 16, 24, 32, 64, 100 and 128
+(8, 24 and 100 run their padded widths' kernels) and key lengths 1, 8, 200
+(the model's), 256, 257 and 520 (past the 208 columns the wgmma kernel
+takes at once, which the kernel splits into chunks itself). Mirrors of the
+D = 128 kernels' shared-memory layouts hold them to the H100's 232,448
+bytes a block. No card needed: the kernels themselves are held on the card
+by ``tests/test_torch_kernels.py``."""
 
 import pytest
 import torch
@@ -24,15 +24,13 @@ LENGTHS = [1, 8, 200, 256, 257, 520]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("width", WIDTHS)
 def test_k2_route_by_dtype_and_width(width, dtype):
-    """Both dtypes take the wgmma kernel up to head width 64 (bf16 since
-    the bf16 K2's redesign, f32 since the f32 one's); at 128, and the widths
-    65-127 padded to it, f32 takes its wgmma kernel of
-    ``attention_bwd_f32_d128.cuh`` and bf16 keeps the mma.sync pair; a
+    """Both dtypes take the wgmma kernel at every width: up to 64 since the
+    bf16 and f32 K2's redesigns, at 128 (and the widths 65-127 padded to
+    it) f32's of ``attention_bwd_f32_d128.cuh`` and bf16's of
+    ``attention_bwd_bf16_d128.cuh``, which replaced the mma.sync pair; a
     padded width takes its compiled width's route."""
-    want = ("wgmma" if width <= 64 or dtype == torch.float32
-            else "mma_sync")
-    assert tatt.k2_route(dtype, width) == want
-    assert tatt.k2_route(dtype, tatt.kernel_head_dim(width)) == want
+    assert tatt.k2_route(dtype, width) == "wgmma"
+    assert tatt.k2_route(dtype, tatt.kernel_head_dim(width)) == "wgmma"
 
 
 def test_k2_route_refuses_widths_above_128():
@@ -45,24 +43,25 @@ def test_k2_route_refuses_widths_above_128():
 def test_k2_scratch_by_route(width, tk):
     """Each dtype's route's scratch: rowsum (B, H, Tq) f32, up to 12 bytes
     of alignment, then the keep bytes (B, H, ceil(Tk / 8), Tq rounded up to
-    16) of the wgmma kernels (bf16 and f32 alike: ``attn_bwd_keep_kernel``
-    draws them for both), or (B, H, Tq, ceil(Tk / 64) * 16) of the
-    mma.sync pair; at most 16 bytes more than that."""
+    16) of the wgmma kernels (bf16 and f32 alike, at 128 as below it:
+    ``attn_bwd_keep_kernel`` draws them for every one); at most 16 bytes
+    more than that."""
     B, H, tq = 3, 4, 199                     # rows of 208 keep bytes
     for dtype in (torch.bfloat16, torch.float32):
         route = tatt.k2_route(dtype, width)
+        assert route == "wgmma"
         n = tatt._k2_scratch_floats(B, H, tq, tk, route)
         rowsum = B * H * tq * 4
-        if route == "wgmma":
-            mask = B * H * (-(-tk // 8)) * 208
-        else:
-            mask = B * H * tq * (-(-tk // 64)) * 16
+        mask = B * H * (-(-tk // 8)) * 208
         assert rowsum + 12 + mask <= 4 * n <= rowsum + mask + 32, dtype
 
 
 def test_k2_scratch_refuses_an_unknown_route():
-    with pytest.raises(ValueError, match="route"):
-        tatt._k2_scratch_floats(1, 1, 8, 8, "mma")
+    """Only the wgmma kernels' scratch exists: the mma.sync pair's layout
+    went with the pair."""
+    for route in ("mma", "mma_sync"):
+        with pytest.raises(ValueError, match="route"):
+            tatt._k2_scratch_floats(1, 1, 8, 8, route)
 
 
 # The D = 128 f32 kernel's layout (csrc/attention_bwd_f32_d128.cuh,
@@ -113,3 +112,48 @@ def test_k2_d128_layout_fits_a_block(pass_b):
     box_cols = got["chunk"] if pass_b else 64
     assert box_cols % 16 == 0 and got["keep"] % 1024 == 0
 
+
+
+# The D = 128 bf16 kernel's layout (csrc/attention_bwd_bf16_d128.cuh,
+# k2b128::Layout<kPassB>): every operand lands as two TMA boxes of 64
+# columns (a 128-byte swizzle atom); a chunk is 208 columns
+BF16_CHUNK = 208
+
+
+def bf16_d128_layout_bytes(pass_b: bool) -> dict:
+    """The offsets and total of ``k2b128::Layout<pass_b>``, byte for byte:
+    the row tiles (q and g, or k and v: two boxes of 64 rows x 128 bytes),
+    the column chunks (two boxes of the chunk's rows each: pass A's k and v
+    with 8 zero rows, 216; pass B's qs and g, 208), pass B's product planes
+    (ds and pd: 4 blocks of 64 rows x 64 columns), the keep bytes (a 128-byte
+    multiple), pass A's dq exchange (64 f32 of 128 threads) and row sums,
+    pass B's column statistics, the mbarrier and the 1024 bytes of
+    alignment."""
+    row_box = _align1k(64 * 128)
+    col_box = _align1k((BF16_CHUNK if pass_b else BF16_CHUNK + 8) * 128)
+    row_tile, col_chunk = 2 * row_box, 2 * col_box
+    plane = 4 * row_box
+    prod = 2 * row_tile + 2 * col_chunk
+    keep = prod + (2 * plane if pass_b else 0)
+    keep_bytes = 64 * (BF16_CHUNK // 8)
+    xchg = keep + -(-keep_bytes // 128) * 128
+    red = xchg + (0 if pass_b else 64 * 128 * 4)
+    stat = red + (0 if pass_b else 2 * 64 * 4)
+    bar = stat + (2 * BF16_CHUNK * 4 if pass_b else 0)
+    return dict(stage=prod, keep=keep, xchg=xchg, bar=bar,
+                bytes=bar + 8 + 1024)
+
+
+@pytest.mark.parametrize("pass_b", [False, True], ids=["pass_a", "pass_b"])
+def test_k2_bf16_d128_layout_fits_a_block(pass_b):
+    """Both passes of the D = 128 bf16 kernel fit the H100's 232,448 bytes
+    of shared memory a block with one stage (pass A 179,336 bytes, pass B
+    209,160) and would not with a second stage of operands; every box and
+    plane starts on a 1024-byte boundary (where TMA's and wgmma's 128-byte
+    swizzles agree), the f32 exchange on 16 bytes and the mbarrier on 8."""
+    got = bf16_d128_layout_bytes(pass_b)
+    assert got["bytes"] == (209160 if pass_b else 179336)
+    assert got["bytes"] <= SMEM_PER_BLOCK
+    assert got["bytes"] + got["stage"] > SMEM_PER_BLOCK
+    assert got["stage"] % 1024 == 0 and got["keep"] % 1024 == 0
+    assert got["xchg"] % 16 == 0 and got["bar"] % 8 == 0

@@ -360,17 +360,18 @@ def _within(a, b, tol, name=""):
 
 
 def _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
-                   f32_gate=True):
+                   f32_gate=True, heads=H):
     """The bf16 K2 against the bf16-dots plain version (1e-2) and, with
     ``f32_gate``, the f32-dots one (2e-2); returns the kernel's (dq, dk,
-    dv)."""
-    scale = 1.0 / math.sqrt(D)
+    dv). ``heads``: the operands' heads (the head width is q's columns over
+    them)."""
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
     n0 = tatt.K2_LAUNCHES
-    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H, scale,
+    got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, heads, scale,
                              rate, seed)
     torch.cuda.synchronize()
     assert tatt.K2_LAUNCHES == n0 + 1
-    args = (q, k, v, key_pad, static, g, lse, H, scale, rate, seed)
+    args = (q, k, v, key_pad, static, g, lse, heads, scale, rate, seed)
     want = tatt.attention_bwd_reference(*args, dots_dtype=torch.bfloat16)
     want_f32 = tatt.attention_bwd_reference(*args)
     for name, a, b, c in zip(("dq", "dk", "dv"), got, want, want_f32):
@@ -404,11 +405,11 @@ def _k2_gates(q, k, v, key_pad, static, g, lse, rate, seed, f32_gate=True,
     (|1 - pn| within a few ulps of |s| ~ 1, randn operands), not to the
     plain version's own rounding of it (measured 1.08e-5 where the plain
     version has 4.7e-6 at Tq = 200, dropout 0.4, against the scalar K1's
-    lse; the bound is ~1e-4). ``heads``: the operands' heads (f32 only;
-    the head width is q's columns over them)."""
+    lse; the bound is ~1e-4). ``heads``: the operands' heads (the head
+    width is q's columns over them)."""
     if q.dtype == torch.bfloat16:
         return _k2_bf16_gates(q, k, v, key_pad, static, g, lse, rate, seed,
-                              f32_gate)
+                              f32_gate, heads)
     scale = 1.0 / math.sqrt(q.shape[-1] // heads)
     n0 = tatt.K2_LAUNCHES
     got = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, heads, scale,
@@ -988,20 +989,248 @@ def test_k2_f32_d128_rank_slice_matches_the_whole_call(rate):
                                    msg=lambda m, n=name: f"{n}: {m}")
 
 
+# 2 heads of 128 in bf16: the bf16 K2 of csrc/attention_bwd_bf16_d128.cuh,
+# on the lse of the bf16 K1 at 128 (the mma.sync attn_fwd_tc_kernel, whose
+# keep bits the K2's keep kernel replays)
+BF16 = torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (63, 63), (64, 64), (65, 65),
+                                   (200, 200), (208, 208), (209, 209),
+                                   (520, 520), (1, 200), (200, 1), (63, 209),
+                                   (209, 65), (520, 64), (65, 520)])
+def test_k2_bf16_d128_at_chunk_edges(tq, tk, rate):
+    """The bf16 K2 at head width 128 around its tiles and chunks: 64-row
+    tiles, 208 columns at once (104 a warpgroup; one sweep up to 208, pass
+    A's two sweeps past it), self and cross, through the fused-QKV or KV
+    column views, random masks: against the bf16-dots plain version
+    (``_k2_gates``: 1e-2 (1 + |plain|))."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(tq, tk, seed=tq + tk, dtype=BF16,
+                                           hidden=H128 * 128)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, 128 ** -0.5,
+                                True, rate, 43)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 43, f32_gate=False,
+              heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k2_bf16_d128_blocks_walking_several_heads(rate):
+    """B = 256 at 2 heads of 128: the grid puts two heads in a block
+    (``walk_heads``), so a block's second head's copies are issued while
+    the first finishes: against the bf16-dots plain version and the f32-dots
+    one (``_k2_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(200, 200, seed=3, b=256,
+                                           dtype=BF16, hidden=H128 * 128)
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, 128 ** -0.5,
+                                True, rate, 29)
+    _k2_gates(q, k, v, key_pad, static, g, lse, rate, 29, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k2_bf16_d128_padded_trial_zero_and_bit_equal(rate):
+    """A padded trial at head width 128 (every key masked, pad-only mask)
+    gets exactly zero dq, dk and dv; two launches give the same bits (no
+    atomics); the other trials are held to the plain version."""
+    _need_cuda()
+    q, k, v, key_pad, _, g = _problem(200, 200, seed=6, dtype=BF16,
+                                      hidden=H128 * 128)
+    key_pad[1] = 0
+    static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
+    scale = 128 ** -0.5
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                                rate, 8)
+    one = _k2_gates(q, k, v, key_pad, static, g, lse, rate, 8,
+                    heads=H128)
+    two = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H128, scale,
+                             rate, 8)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+        assert a[1].abs().max().item() == 0.0
+        assert a[0].abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k2_bf16_d128_rank_slice_matches_the_whole_call(rate):
+    """A rank's call under tensor and data parallelism at head width 128 in
+    bf16: the slice of trials [2, 4) and head 1 of a 4-trial, 2-head call,
+    with draw offsets (2, 1), gives the whole call's dq, dk and dv of that
+    slice bit for bit, and agrees with the bf16-dots plain version drawn at
+    the same offsets (1e-2 (1 + |plain|))."""
+    _need_cuda()
+    q, k, v, key_pad, static, g = _problem(200, 200, seed=8, b=4,
+                                           dtype=BF16, hidden=H128 * 128)
+    scale = 128 ** -0.5
+    _, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                                rate, 51)
+    whole = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, H128, scale,
+                               rate, 51)
+
+    def part(x):
+        return x[2:4, :, 128:].contiguous()
+
+    args = (part(q), part(k), part(v), key_pad[2:4].contiguous(), static,
+            part(g), lse[2:4, 1:].contiguous(), 1, scale, rate, 51)
+    got = tatt.attention_bwd(*args, draw_offset=(2, 1))
+    want = tatt.attention_bwd_reference(*args, dots_dtype=BF16,
+                                        draw_offset=(2, 1))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, whole, want):
+        assert torch.equal(a, part(b)), name
+        _within(a, c, 1e-2, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q0", [0, 77, 199])
+def test_k2_bf16_d128_pass_b_keep_bits_read_back(q0):
+    """Pass B's keep bits at head width 128 read back: q = k = 0 and every
+    key attended make every probability 1/Tk (the bf16 K1's lse); v = 0 and
+    g one-hot at query q0 make dv[b, k, h*128 + d] = ms(q0, k) / Tk, so dv
+    > 0 exactly where Philox keeps (b, h, q0, k): the bits the bf16
+    mma.sync K1 at 128 drew. rtol: one bf16 rounding of dv."""
+    _need_cuda()
+    tq = tk = 200
+    rate, seed = 0.4, 987654321
+    hidden = H128 * 128
+    q = torch.zeros(B, tq, hidden, device="cuda", dtype=BF16)
+    k = torch.zeros(B, tk, hidden, device="cuda", dtype=BF16)
+    g = torch.zeros(B, tq, hidden, device="cuda")
+    g[:, q0] = 1.0
+    g = g.to(BF16)
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(tq, tk, dtype=torch.int32, device="cuda")
+    _, lse = tatt.attention_fwd(q, k, k, key_pad, static, H128, 1.0,
+                                with_lse=True, dropout_rate=rate, seed=seed)
+    _, _, dv = tatt.attention_bwd(q, k, k, key_pad, static, g, lse, H128,
+                                  1.0, rate, seed)
+    dv = dv.float().reshape(B, tk, H128, 128).transpose(1, 2)
+    keep = tatt.philox_keep(seed, B, H128, tq, tk, rate,
+                            device="cuda")[:, :, q0]
+    want = keep.float()[..., None] / (1 - rate) / tk
+    torch.testing.assert_close(dv, want.expand_as(dv), atol=0, rtol=4e-3)
+
+
+@pytest.mark.cuda
+def test_k2_bf16_d128_rejects_misaligned_views():
+    """TMA takes 16-byte aligned addresses and strides: a bf16 view at head
+    width 128 whose data pointer or row stride is not 16-byte aligned
+    raises ValueError and launches nothing."""
+    _need_cuda()
+    hidden = H128 * 128
+    q, k, v, key_pad, static, g = _problem(17, 17, dtype=BF16, hidden=hidden)
+    lse = torch.zeros(3, H128, 17, device="cuda")
+    off = torch.zeros(3, 17, hidden + 8, device="cuda", dtype=BF16)
+    off = off[..., 1:1 + hidden]                   # pointer one element off
+    odd = torch.zeros(3, 17, hidden + 4, device="cuda", dtype=BF16)
+    odd = odd[..., :hidden]                        # row stride 8 bytes off
+    n0 = tatt.K2_LAUNCHES
+    for bad in (off, odd):
+        with pytest.raises(ValueError):
+            tatt.attention_bwd(bad, k, v, key_pad, static, g, lse, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_bwd(q, bad, v, key_pad, static, g, lse, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_bwd(q, k, v, key_pad, static, bad, lse, H128, 1.0)
+    assert tatt.K2_LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_d128_lse_rows_sum_to_one(rate):
+    """What the bf16 K2 at 128 relies on: with the scores it recomputes (s =
+    bf16(q * scale) . k + bias, bf16 operands, f32 sums), every row that
+    attends anything has sum_k exp(s - lse) = 1 against the lse of the bf16
+    K1 at 128 (``attn_fwd_tc_kernel``; its l sums the undropped
+    probabilities, so dropout leaves the lse as it is), within the bf16
+    gate of ``chip_smoke.lse_row_sums``, 1e-3."""
+    _need_cuda()
+    q, k, _, key_pad, static, _ = _problem(200, 200, seed=10, b=4,
+                                           dtype=BF16, hidden=H128 * 128)
+    scale = 128 ** -0.5
+    _, lse = tatt.attention_fwd(q, k, k, key_pad, static, H128, scale, True,
+                                rate, 5)
+
+    def heads(x):
+        return x.unflatten(-1, (H128, 128)).transpose(1, 2).float()
+
+    qs = (heads(q) * scale).bfloat16().float()
+    s = (qs @ heads(k).transpose(-1, -2)
+         + tatt._attend_bias(key_pad, static)[:, None])
+    sums = torch.exp(s - lse[..., None]).sum(-1)            # (B, H, Tq)
+    rows = (static.bool()[None] | key_pad.bool()[:, None]).any(-1)
+    err = (sums - 1).abs()[rows[:, None].expand_as(sums)].max().item()
+    assert err <= 1e-3, err
+
+
+@pytest.mark.cuda
+def test_k1_k2_bf16_d128_graph_replays_take_each_tables_keys():
+    """The bf16 K1 (mma.sync, drawing its keep bits inside) and K2 (its keep
+    kernel replaying them) at head width 128 with dropout, captured once in
+    a CUDA graph keyed by a table entry, replayed with two tables: each
+    replay's out and dq/dk/dv equal the eager launches under that table's
+    key, bit for bit, and hold the bf16-dots plain version under that key
+    (1e-2 (1 + |plain|)): the replayed K2 bits are the K1's own."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, g = (torch.randn(B, T, H128 * 128, device="cuda",
+                              generator=gen).to(BF16) for _ in range(4))
+    key_pad, static = _operands("enc_eye_pad")
+    table = _table(0, 0)
+    seeds = (123_456_789_012, 987)
+    scale = 128 ** -0.5
+
+    def step():
+        out, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale,
+                                      True, 0.4, table[1:2])
+        return (out, lse) + tatt.attention_bwd(
+            q, k, v, key_pad, static, g, lse, H128, scale, 0.4, table[1:2])
+
+    eager = []
+    for s in seeds:
+        table[1] = s
+        eager.append([t.clone() for t in step()])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        outs = step()
+    for s, want in zip(seeds, eager):
+        table[1] = s
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+        plain = tatt.attention_bwd_reference(
+            q, k, v, key_pad, static, g, want[1], H128, scale, 0.4, s,
+            dots_dtype=BF16)
+        for name, a, b in zip(("dq", "dk", "dv"), want[2:], plain):
+            _within(a, b, 1e-2, name)
+    assert not torch.equal(eager[0][0], eager[1][0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 @pytest.mark.parametrize("dtype", K2_DTYPES, ids=str)
 @pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 100, 128])
 def test_k2_launches_the_kernel_of_its_route(width, dtype, rate):
-    """What runs on the card: up to head width 64 K2 launches the wgmma
-    passes, ``attn_bwd_dq_tf_kernel`` / ``attn_bwd_dkdv_tf_kernel`` in f32
-    and ``attn_bwd_dq_wg_kernel`` / ``attn_bwd_dkdv_wg_kernel`` in bf16; at
-    128 (and 100, padded to it) f32 launches ``attn_bwd_dq_tf128_kernel`` /
-    ``attn_bwd_dkdv_tf128_kernel``; the wgmma kernels with dropout
-    ``attn_bwd_keep_kernel`` first, never the mma.sync
-    ``attn_bwd_*_tc_kernel``; bf16 at 128 the mma.sync pair alone
-    (``k2_route``). Read from the kernel names of a profile of three
-    calls, opened by the port's lead-in (traced again if it lost K2's)."""
+    """What runs on the card: every width and dtype launches wgmma passes
+    (``k2_route``): up to head width 64 ``attn_bwd_dq_tf_kernel`` /
+    ``attn_bwd_dkdv_tf_kernel`` in f32 and ``attn_bwd_dq_wg_kernel`` /
+    ``attn_bwd_dkdv_wg_kernel`` in bf16; at 128 (and 100, padded to it)
+    ``attn_bwd_dq_tf128_kernel`` / ``attn_bwd_dkdv_tf128_kernel`` in f32 and
+    ``attn_bwd_dq_wg128_kernel`` / ``attn_bwd_dkdv_wg128_kernel`` in bf16;
+    with dropout ``attn_bwd_keep_kernel`` first; never the mma.sync
+    ``attn_bwd_*_tc_kernel`` pair, which bf16 ran at 128 before. Read from
+    the kernel names of a profile of three calls, opened by the port's
+    lead-in (traced again if it lost K2's)."""
     _need_cuda()
     from torch.profiler import ProfilerActivity, profile
 
@@ -1030,15 +1259,15 @@ def test_k2_launches_the_kernel_of_its_route(width, dtype, rate):
                          if e.device_type == torch.autograd.DeviceType.CUDA)
         if "attn_bwd_dkdv_" in names:
             break
-    wgmma = tatt.k2_route(dtype, width) == "wgmma"
-    tag = "wg" if dtype == torch.bfloat16 else (
-        "tf" if tatt.kernel_head_dim(width) <= 64 else "tf128")
-    for other in ("tf", "wg", "tf128"):
-        on = wgmma and other == tag
+    assert tatt.k2_route(dtype, width) == "wgmma"
+    tag = ("wg" if dtype == torch.bfloat16 else "tf") + (
+        "" if tatt.kernel_head_dim(width) <= 64 else "128")
+    for other in ("tf", "wg", "tf128", "wg128"):
+        on = other == tag
         assert (f"attn_bwd_dq_{other}_kernel" in names) == on, names
         assert (f"attn_bwd_dkdv_{other}_kernel" in names) == on, names
-    assert ("attn_bwd_dq_tc_kernel" in names) == (not wgmma), names
-    assert ("attn_bwd_keep_kernel" in names) == (wgmma and rate > 0), names
+    assert "_tc_kernel" not in names, names
+    assert ("attn_bwd_keep_kernel" in names) == (rate > 0), names
 
 
 @pytest.mark.cuda
