@@ -1498,10 +1498,10 @@ def plain_step_time(root: Path):
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
 # K4 launch two kernels each, their first is counted (K2's pass A:
-# attn_bwd_dq_wg/wg128/tf/tf128_kernel); with dropout the wgmma K1 (bf16 up
-# to 64, f32 at 128) and both dtypes' wgmma K2 draw their keep bits first
-# (attn_fwd_keep_kernel, attn_bwd_keep_kernel), not counted
-_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg|tf128)_kernel"),
+# attn_bwd_dq_wg/wg128/tf/tf128_kernel); with dropout the wgmma K1 (bf16 at
+# every width, f32 at 128) and both dtypes' wgmma K2 draw their keep bits
+# first (attn_fwd_keep_kernel, attn_bwd_keep_kernel), not counted
+_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg|wg128|tf128)_kernel"),
                   ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
                   ("philox", "philox_"),
@@ -4992,8 +4992,10 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
                 bf16=_row(rows[D, bf16][i]), **_row(rows[D, f32][i]))
             if D == 128:
                 row["bf16_kernel"] = (
-                    "mma.sync: attn_fwd_tc_kernel, "
-                    f"{src}attention_fwd_d128.cu" if kname == "k1" else
+                    "wgmma (rows of two 128-byte swizzle atoms, TMA-fed "
+                    "tiles; o over all of D, the halves exchanged): "
+                    "attn_fwd_keep_kernel + attn_fwd_wg128_kernel, "
+                    f"{src}attention_fwd_bf16_d128.cuh" if kname == "k1" else
                     "wgmma (rows of two 128-byte swizzle atoms, TMA-fed "
                     "tiles; pass B's output products each warpgroup half "
                     "of D): attn_bwd_keep_kernel + attn_bwd_dq_wg128_kernel"

@@ -1,10 +1,11 @@
 // K1: fused multi-head attention forward for Hopper (sm_90a), on the
 // tensor cores in f32 (3xTF32) and bf16. bf16 at head widths 16, 32 and 64
 // runs the wgmma kernel of attention_fwd_bf16.cuh (whole key row, one
-// sweep, TMA tiles), f32 at 128 the wgmma kernel of
+// sweep, TMA tiles), bf16 at 128 that of attention_fwd_bf16_d128.cuh (rows
+// of two swizzle atoms), f32 at 128 the wgmma kernel of
 // attention_fwd_f32_d128.cuh (3xTF32, the output product transposed); f32
-// at 16-64 and bf16 at 128 run the mma.sync kernel of this file
-// (attn_fwd_tc_kernel<T, kDropout, D>).
+// at 16-64 runs the mma.sync kernel of this file
+// (attn_fwd_tc_kernel<float, kDropout, D>).
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel`
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
@@ -32,13 +33,13 @@
 // row, so the column views of a fused QKV product (row stride 3*H*D) need
 // no copy. The output is contiguous (B, Tq, H*D) in the inputs' type.
 //
-// One mma.sync kernel body serves both dtypes (attn_fwd_tc_kernel<T,
-// kDropout, D>; Tc<T, D> in tc_traits.cuh holds what differs, shared with
-// K2); bf16 builds it at D = 128 only. Its design is
+// The mma.sync kernel (attn_fwd_tc_kernel<T, kDropout, D>; Tc<T, D> in
+// tc_traits.cuh holds what the operand type changes) is built for f32 at
+// D = 16, 32 and 64 only. Its design is
 // K2 pass A's: four warps a block, each holding 16 query rows of q * scale
 // as mma A fragments in registers; K_h and V_h stream through shared memory
-// in 64-key tiles by cp.async (16 B a copy, tail rows zero-filled; bf16
-// double-buffered, f32 in one buffer, below), each thread readying the
+// in 64-key tiles by cp.async (16 B a copy, tail rows zero-filled; one
+// buffer, below), each thread readying the
 // chunks it copied once they land, before the tile's barrier; an online
 // softmax over the tiles rescales
 // the O accumulator per tile, the row max and sum reduced across each quad
@@ -61,14 +62,13 @@
 // defined), and at 16, 64 and 128 by attention_fwd_d{16,64,128}.cu, which
 // define it and include this file, so the widths build in parallel. The
 // wrapper (ops/attention.py) pads any other D up to 128 with zero columns
-// per head. What grows with D: the q fragments (D / 4 registers in bf16,
-// D / 2 in f32), the O accumulators (D / 2), the tiles' pitch (D + 8 bf16,
-// D + 4 floats) and so the shared memory: 69.6 KB in bf16 at D = 128,
-// above the default 48 KB (allow_smem opts in). f32 at 128 is not this
-// kernel's (its q fragments alone took ~128 registers, its split k and v
-// tiles 135 KB: one block of 4 warps an SM). The D = 32 instantiations are
-// the code they were before D became a parameter (the same ptxas
-// registers, spills and shared memory).
+// per head. What grows with D: the q fragments (D / 2 registers in f32),
+// the O accumulators (D / 2), the tiles' pitch (D + 4 floats) and so the
+// shared memory. At D = 128 this library builds the two wgmma kernels
+// alone: the mma.sync kernel's f32 q fragments took ~128 registers there
+// and its split k and v tiles 135 KB (one block of 4 warps an SM). The
+// D = 32 instantiations are the code they were before D became a
+// parameter (the same ptxas registers, spills and shared memory).
 //
 // f32 (3xTF32, mma_tf32.cuh): the f32 contract, the plain version's f32
 // math, with no bf16 rounding anywhere. q * scale is multiplied in f32 and
@@ -93,30 +93,23 @@
 // at Tk = 200 (two with dropout): ~45 KB. Registers: the q fragments' hi
 // and lo planes (32), the S accumulators (32), the O accumulators (16) and
 // each k-step's split pd (8); ptxas -v: 127 with and without dropout, no
-// spills (bf16: 95 and 96), so 4 blocks an SM. Double-buffered, as bf16
-// is, the tiles took ~81 KB (2 blocks an SM) and the kernel 16-20% longer,
+// spills, so 4 blocks an SM. Double-buffered, the tiles took ~81 KB (2
+// blocks an SM) and the kernel 16-20% longer,
 // though each copy overlapped the last tile's products; B fragments split
 // in registers instead of hi/lo planes were slower again
 // (scripts/torch_k1_variants.py, Tc<T, D>::kFwdBufs).
 //
-// bf16 (mma_bf16.cuh; at 16-64 attention_fwd_bf16.cuh, the same function
-// and roundings on wgmma): the arithmetic of JAX's K1 on its own hardware,
+// bf16 (attention_fwd_bf16.cuh at 16-64, attention_fwd_bf16_d128.cuh at
+// 128, both on wgmma): the arithmetic of JAX's K1 on its own hardware,
 // where DEFAULT-precision f32 dots feed the matrix unit bf16 operands
 // (:189-191, :213-216):
-//   s  = bf16(f32(q) * scale) . k + bias     (mma.sync m16n8k16, f32 sums)
+//   s  = bf16(f32(q) * scale) . k + bias     (f32 sums)
 //   pd = bf16(keep ? p / (1 - rate) : 0)     (JAX scales before the dot,
 //                                             :207-208; bf16(p) at rate 0)
-//   o  = (pd . v) / l                        (mma.sync, f32 sums), bf16 out
+//   o  = (pd . v) / l                        (f32 sums), bf16 out
 // with m, l and lse in f32 and the natural log, so the lse is the one
-// the bf16 K2 recomputes its probabilities against (attention_bwd.cu: its
-// exp(s - lse) rows sum to 1). Tiles are read by ldmatrix (.trans for pd .
-// v). What bounds it on the H100: bytes, 0.039 ms at the eval's B = 320
-// (q, k, v in, out written; the masks once), where the products need 0.013
-// ms at 989 TFLOP/s bf16; the expected limiters are the exps (102 M at B =
-// 320) and, with dropout, the Philox draws (20 M calls at B = 256), not the
-// products. At D = 128 bf16 stays on mma.sync: a 256-byte bf16 row is two
-// swizzle atoms, where the wgmma tiles' layout (wgmma_bf16.cuh wg::desc)
-// takes one; no configuration launches K1 at 128.
+// the bf16 K2 recomputes its probabilities against (its exp(s - lse) rows
+// sum to 1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,6 +124,7 @@
 #if MMFM_HEAD_DIM <= 64
 #include "attention_fwd_bf16.cuh"
 #else
+#include "attention_fwd_bf16_d128.cuh"
 #include "attention_fwd_f32_d128.cuh"
 #endif
 
@@ -389,7 +383,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 // be this library's MMFM_HEAD_DIM; data pointers and batch and row strides
 // of q, k, v 16-byte
 // aligned. lse may be null. Strides in elements. scratch: with dropout,
-// the wgmma kernels' keep bytes (bf16 at 16-64, f32 at 128), B * H *
+// the wgmma kernels' keep bytes (bf16 at every width, f32 at 128), B * H *
 // ceil(Tk / 8) * (Tq rounded up to 16), 16-byte aligned
 // (ops/attention.py::_k1_scratch_bytes, by k1_route); unread otherwise (may
 // be null). dropout != 0 drops p[q,k]
@@ -422,6 +416,11 @@ extern "C" int mmfm_attention_fwd(
       q, k, v, key_pad, static_mask, out, lse, scratch, B, Tq, Tk, H, q_sb,  \
       q_st, k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale,      \
       b_off, h_off, s)
+#define MMFM_K1_B128(DROP)                                                   \
+  mmfm::k1b128::launch<DROP>(                                                \
+      q, k, v, key_pad, static_mask, out, lse, scratch, B, Tq, Tk, H, q_sb,  \
+      q_st, k_sb, k_st, v_sb, v_st, scale, seed, threshold, keep_scale,      \
+      b_off, h_off, s)
   cudaError_t err = cudaErrorInvalidValue;
 #if MMFM_HEAD_DIM <= 64
   if (dtype == 0)
@@ -432,8 +431,9 @@ extern "C" int mmfm_attention_fwd(
   if (dtype == 0)
     err = dropout ? MMFM_K1_T128(true) : MMFM_K1_T128(false);
   else if (dtype == 1)
-    err = dropout ? MMFM_K1_LAUNCH(bf16, true) : MMFM_K1_LAUNCH(bf16, false);
+    err = dropout ? MMFM_K1_B128(true) : MMFM_K1_B128(false);
 #endif
+#undef MMFM_K1_B128
 #undef MMFM_K1_T128
 #undef MMFM_K1_WG
 #undef MMFM_K1_LAUNCH

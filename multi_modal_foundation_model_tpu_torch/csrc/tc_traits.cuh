@@ -1,9 +1,9 @@
 // What the operand type changes in the tensor-core attention forward K1's
-// mma.sync kernel (attention_fwd.cu: f32 at head widths 16-64, bf16 at
-// 128), one kernel body for f32 (3xTF32, mma_tf32.cuh) and bf16
-// (mma_bf16.cuh): the shared tiles of the streamed side, the A fragments
-// held in registers, the two products, how a landed chunk is readied and
-// the stores, at head width D (16, 32, 64 or 128: each compiled in its own
+// mma.sync kernel (attention_fwd.cu), which runs f32 (3xTF32,
+// mma_tf32.cuh) at head widths 16, 32 and 64 (every bf16 width, and f32 at
+// 128, run wgmma kernels): the shared tiles of the streamed side, the A
+// fragments held in registers, the two products, how a landed chunk is
+// readied and the stores, at head width D (each compiled in its own
 // translation unit, attention_fwd*.cu). K1 readies its k/v chunks with
 // kScale = false.
 
@@ -20,46 +20,6 @@ namespace mmfm {
 
 template <typename T, int D>
 struct Tc;
-
-template <int D>
-struct Tc<bf16, D> {
-  static_assert(D % 16 == 0 && D <= 128, "bf16 head width");
-  static constexpr int kChunks = D / 8;        // 16-byte copies a row
-  static constexpr int kPitch = ld_bf16(D);    // shared row pitch, elements
-  static constexpr int kElems = kTcRows * kPitch;  // one buffered tile
-  // K1's k/v tile buffers: two, so that the next tile's copy overlaps this
-  // one's products (one buffer cost the bf16 training K1 ~3% on the H100)
-  static constexpr int kFwdBufs = 2;
-  struct Frags {
-    uint32_t f[D / 16][4];
-  };
-  template <bool kScale>
-  static __device__ __forceinline__ void load(Frags& a, const bf16* base,
-                                              long long st, int row0, int T,
-                                              int lane, float mul) {
-    load_a_frags<D, kScale>(a.f, base, st, row0, T, lane, mul);
-  }
-  static __device__ __forceinline__ void rows(float (&acc)[8][4],
-                                              const Frags& a,
-                                              const bf16* tile, int lane,
-                                              int n_valid) {
-    mma_rows<D>(acc, a.f, tile, lane, n_valid);
-  }
-  static __device__ __forceinline__ void cols(float (&out)[D / 8][4],
-                                              const float (&acc)[8][4],
-                                              const bf16* tile, int lane,
-                                              int n_valid) {
-    mma_cols<D>(out, acc, tile, lane, n_valid);
-  }
-  // k and v tiles are used as they land
-  template <bool kScale>
-  static __device__ __forceinline__ void land(bf16*, float) {
-    static_assert(!kScale, "bf16 K1 tiles are not scaled");
-  }
-  static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-  }
-};
 
 template <int D>
 struct Tc<float, D> {

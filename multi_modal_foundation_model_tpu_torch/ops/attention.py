@@ -47,8 +47,8 @@ zero columns add nothing to a score and give zero output and gradient
 columns, which are dropped, and the scale stays the true width's. A
 width above 128 raises ``ValueError``. Every K2 runs on Hopper's wgmma
 with TMA tiles and a keep-bit kernel of its own (``k2_route``); K1 does
-for bf16 up to 64 and f32 at 128, and runs ``mma.sync`` otherwise
-(``k1_route``).
+for bf16 at every width and f32 at 128, and runs ``mma.sync`` for f32 up
+to 64 (``k1_route``).
 
 FLOP count (``utils/profiling.py``). A ``FlopCounterMode`` sees neither
 K1 nor K2 (``ctypes`` launches), and on the plain path it would count the
@@ -425,16 +425,17 @@ def _k2_lib(head_dim: int = 32):
 
 def k1_route(dtype, head_dim: int) -> str:
     """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` (TMA
-    tiles, the keep bits drawn by a kernel of their own), the bf16 kernel of
-    ``csrc/attention_fwd_bf16.cuh`` (wgmma over the whole key row) at the
-    compiled widths 16, 32 and 64 (and the widths padded to them), and f32
-    at 128 (and 65-127), the 3xTF32 kernel of
-    ``csrc/attention_fwd_f32_d128.cuh``; ``"mma_sync"``,
-    ``attn_fwd_tc_kernel`` of ``csrc/attention_fwd.cu``, for f32 up to 64
-    and bf16 at 128. Above 128, ``ValueError``."""
+    tiles, the keep bits drawn by a kernel of their own) for bf16 at every
+    width, the kernel of ``csrc/attention_fwd_bf16.cuh`` (wgmma over the
+    whole key row) at the compiled widths 16, 32 and 64 (and the widths
+    padded to them) and of ``csrc/attention_fwd_bf16_d128.cuh`` (rows of two
+    swizzle atoms) at 128 (and 65-127), and for f32 at 128 (and 65-127),
+    the 3xTF32 kernel of ``csrc/attention_fwd_f32_d128.cuh``;
+    ``"mma_sync"``, ``attn_fwd_tc_kernel`` of ``csrc/attention_fwd.cu``,
+    for f32 up to 64. Above 128, ``ValueError``."""
     width = kernel_head_dim(head_dim)
-    wgmma_dtype = torch.float32 if width == 128 else torch.bfloat16
-    return "wgmma" if dtype == wgmma_dtype else "mma_sync"
+    wgmma = dtype == torch.bfloat16 or width == 128
+    return "wgmma" if wgmma else "mma_sync"
 
 
 def k2_route(dtype, head_dim: int) -> str:
@@ -454,7 +455,8 @@ def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
                       route: str = "mma_sync") -> int:
     """Bytes of K1's scratch with dropout. ``"wgmma"``: the keep bytes
     that ``attn_fwd_keep_kernel`` draws and the kernel's stages read by TMA
-    (``csrc/attention_fwd_bf16.cuh``, ``csrc/attention_fwd_f32_d128.cuh``),
+    (``csrc/attention_fwd_bf16.cuh``, ``csrc/attention_fwd_bf16_d128.cuh``,
+    ``csrc/attention_fwd_f32_d128.cuh``),
     one bit per (b, h, query, key):
     (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding 8 keys of one
     query (a row of 16-byte multiples: the stride of the TMA copies), as
@@ -574,10 +576,10 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     ``attention_reference``, with the scores the f32 K2 recomputes. bf16
     takes bf16 operands as JAX's K1 on its hardware: the contract of
     ``attention_reference(..., dots_dtype=torch.bfloat16)``, and the lse
-    the bf16 K2 recomputes its probabilities against. bf16 at head widths
-    up to 64 and f32 at 128 (and 65-127) run on Hopper's wgmma with TMA
+    the bf16 K2 recomputes its probabilities against. bf16 at every head
+    width and f32 at 128 (and 65-127) run on Hopper's wgmma with TMA
     copies, their keep bits drawn by a kernel of their own first
-    (``k1_route``). The kernels copy
+    (``k1_route``); f32 up to 64 on ``mma.sync``. The kernels copy
     their tiles with ``cp.async`` or TMA, so q/k/v need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""A first chip call of the f32 K1 at head width 128, on one NVIDIA GPU.
+"""A first chip call of the bf16 K1 at head width 128, on one NVIDIA GPU.
 
-    python3 scripts/torch_k1_first_call.py
+    python3 scripts/torch_k1_first_call.py [--dtype float32]
 
 Builds ``csrc/attention_fwd_d128.cu`` alone and prints JSON lines: the
 build's seconds, every kernel's ``ptxas`` registers and spills and the
 SASS counts of each kernel (``torch_k2_variants.sass_counts``); then, in a
 child process with a 240 s timeout (an mbarrier wait that never completes
-spins forever), the f32 K1 at 2 heads of 128 against the plain version
-(``chip_smoke.k1_gates``) at Tq x Tk from 1 x 1 to 520 x 520, dropout 0
-and 0.4, with lse; at the width row's shape (the encoder mask, T = 200)
-at B=16 and B=256: that check, the f32 K2 at 128 on this lse
-(``chip_smoke.k2_gates``), the lse row sums (``chip_smoke.lse_row_sums``),
-device ms kernel by kernel (dropout 0.4 with lse, 0 without) and SDPA's
-memory-efficient and MATH forwards; last the keep bits read back (q = 0,
-one-hot V). Without CUDA it exits non-zero.
+spins forever), the K1 at 2 heads of 128 in bf16 (``--dtype float32``:
+the f32 one) against its plain version (``chip_smoke.k1_gates``) at Tq x
+Tk from 1 x 1 to 520 x 520, dropout 0 and 0.4, with lse, a second launch
+bit-equal to the first; at the width row's shape (the encoder mask, T =
+200) at B=16 and B=256: that check, the K2 at 128 of the same dtype on
+this lse (``chip_smoke.k2_gates``), the lse row sums
+(``chip_smoke.lse_row_sums``), device ms kernel by kernel (dropout 0.4
+with lse, 0 without) and SDPA's forwards (bf16: memory-efficient and
+cuDNN; f32: memory-efficient and MATH) with the same bias and dropout;
+last the keep bits read back (q = 0, one-hot V). Without CUDA it exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -32,15 +35,15 @@ sys.path.insert(0, str(ROOT))
 
 H, D = 2, 128
 SHAPES = ((1, 1), (17, 17), (64, 64), (65, 65), (128, 128), (129, 129),
-          (200, 200), (256, 256), (257, 257), (520, 520), (200, 300),
-          (300, 17))
+          (200, 200), (207, 207), (208, 208), (209, 209), (256, 256),
+          (257, 257), (520, 520), (200, 300), (300, 17), (1, 200), (200, 1))
 
 
 def emit(**record):
     print(json.dumps(record), flush=True)
 
 
-def checks() -> None:
+def checks(dt) -> None:
     """The child process's checks and timings (module docstring)."""
     import chip_smoke as cs
     from multi_modal_foundation_model_tpu_torch.ops import attention as att
@@ -50,9 +53,9 @@ def checks() -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     for tq, tk in SHAPES:
         for rate in (0.0, 0.4):
-            q = torch.randn(3, tq, H * D, device="cuda", generator=gen)
-            k = torch.randn(3, tk, H * D, device="cuda", generator=gen)
-            v = torch.randn(3, tk, H * D, device="cuda", generator=gen)
+            q, k, v = (torch.randn(3, t, H * D, device="cuda",
+                                   generator=gen).to(dt)
+                       for t in (tq, tk, tk))
             rng = np.random.default_rng(tq + tk)
             pad = (rng.random((3, tk)) > 0.3).astype(np.int32)
             pad[0] = 1
@@ -61,13 +64,16 @@ def checks() -> None:
             st = torch.from_numpy(static).cuda()
             out, lse = att.attention_fwd(q, k, v, key_pad, st, H, scale, True,
                                          rate, 9)
+            again = att.attention_fwd(q, k, v, key_pad, st, H, scale, True,
+                                      rate, 9)
             torch.cuda.synchronize()
             emit(phase="check", tq=tq, tk=tk, rate=rate,
+                 bit_equal=bool(torch.equal(out, again[0])
+                                and torch.equal(lse, again[1])),
                  **cs.k1_gates(q, k, v, key_pad, st, H, scale, out, lse,
                                rate, 9))
     for B in (cs.TRAIN_B, cs.BIG_B):
-        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", torch.float32, B=B,
-                                        H=H, D=D)
+        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", dt, B=B, H=H, D=D)
         key_pad, st = att.spec_operands(spec, B, 200, 200, q.device)
         out, lse = att.attention_fwd(q, k, v, key_pad, st, H, scale, True,
                                      cs.DROPOUT, 7)
@@ -75,7 +81,7 @@ def checks() -> None:
         emit(phase="check_width_row", B=B,
              **cs.k1_gates(q, k, v, key_pad, st, H, scale, out, lse,
                            cs.DROPOUT, 7))
-        g = torch.randn(q.shape, device="cuda", generator=gen)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(dt)
         grads = att.attention_bwd(q, k, v, key_pad, st, g, lse, H, scale,
                                   cs.DROPOUT, 7)
         torch.cuda.synchronize()
@@ -92,23 +98,30 @@ def checks() -> None:
             emit(phase="time", B=B, rate=rate, with_lse=with_lse,
                  by_kernel=by, total=sum(by.values()))
         bias = att.mask_to_bias(st.bool()[None] | key_pad.bool()[:, None])
+        bias = bias[:, None].to(dt)
         qh, kh, vh = (x.unflatten(-1, (H, D)).transpose(1, 2)
                       for x in (q, k, v))
-        for backend in ("EFFICIENT_ATTENTION", "MATH"):
-            emit(phase="time_sdpa", B=B, backend=backend,
-                 ms=cs.device_ms(lambda: cs.sdpa(
-                     qh, kh, vh, attn_mask=bias[:, None],
-                     dropout_p=cs.DROPOUT, backend=backend)))
+        backends = (("EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+                    if dt == torch.bfloat16 else ("EFFICIENT_ATTENTION",
+                                                  "MATH"))
+        for backend in backends:
+            try:
+                ms = cs.device_ms(lambda: cs.sdpa(
+                    qh, kh, vh, attn_mask=bias,
+                    dropout_p=cs.DROPOUT, backend=backend))
+            except RuntimeError as err:
+                ms = f"refused: {str(err)[:200]}"
+            emit(phase="time_sdpa", B=B, backend=backend, ms=ms)
     # the keep bits read back: q = 0, V one-hot a head over Tk = D keys
     B, T, seed = 3, 70, 123456789
-    q = torch.zeros(B, T, H * D, device="cuda")
+    q = torch.zeros(B, T, H * D, device="cuda", dtype=dt)
     v = torch.eye(D, device="cuda").repeat(1, H).expand(B, D, H * D)
-    k = torch.zeros(B, D, H * D, device="cuda")
+    k = torch.zeros(B, D, H * D, device="cuda", dtype=dt)
     key_pad = torch.ones(B, D, dtype=torch.int32, device="cuda")
     st = torch.zeros(T, D, dtype=torch.int32, device="cuda")
-    out, _ = att.attention_fwd(q, k, v.contiguous(), key_pad, st, H, 1.0,
-                               dropout_rate=cs.DROPOUT, seed=seed)
-    got = out.reshape(B, T, H, D).transpose(1, 2) > 0
+    out, _ = att.attention_fwd(q, k, v.contiguous().to(dt), key_pad, st, H,
+                               1.0, dropout_rate=cs.DROPOUT, seed=seed)
+    got = out.float().reshape(B, T, H, D).transpose(1, 2) > 0
     want = att.philox_keep(seed, B, H, T, D, cs.DROPOUT, device="cuda")
     emit(phase="philox", equal=bool(torch.equal(got, want)))
 
@@ -117,13 +130,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k1_first_call: CUDA is not available", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--child"]:
-        checks()
+    dtype = torch.float32 if "float32" in sys.argv[1:] else torch.bfloat16
+    if sys.argv[1:2] == ["--child"]:
+        checks(dtype)
         return 0
     sys.path.insert(0, str(ROOT / "scripts"))
     from multi_modal_foundation_model_tpu_torch.ops import build
     from torch_k2_variants import sass_counts
 
+    import chip_smoke as cs
+
+    emit(phase="device", nvidia_smi=cs.nvidia_smi(),
+         device=torch.cuda.get_device_name(0))
     emit(phase="build", s=build.build(["attention_fwd_d128"]))
     for log in build.BUILD_DIR.glob("libattention_fwd_d128*.log"):
         for entry, spill, used in re.findall(
@@ -133,9 +151,13 @@ def main() -> int:
                  registers=int(used))
         emit(phase="sass", counts=sass_counts(log.with_suffix(".so")))
     try:
-        child = subprocess.run([sys.executable, __file__, "--child"],
+        child = subprocess.run([sys.executable, __file__, "--child",
+                                str(dtype).split(".")[-1]],
                                timeout=240, capture_output=True, text=True)
-    except subprocess.TimeoutExpired:
+    except subprocess.TimeoutExpired as err:
+        out = err.stdout or b""
+        print(out.decode() if isinstance(out, bytes) else out, end="",
+              flush=True)
         emit(phase="checks", ok=False, why="the child timed out")
         return 1
     print(child.stdout, end="", flush=True)

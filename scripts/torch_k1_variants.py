@@ -2,7 +2,7 @@
 """Design variants of the tensor-core K1, timed beside the committed kernel
 on one NVIDIA GPU.
 
-    python3 scripts/torch_k1_variants.py [--dtype float32 --head-dim 128 [--other NAME=DIR ...]] [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k1_variants.py [--dtype float32|bfloat16 --head-dim 128 [--other NAME=DIR ...]] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_fwd.cu`` (head width 32) and
 variants of it (string edits of the sources into
@@ -90,9 +90,37 @@ order of the list and reversed. The variants:
   masks, exp, pd planes or stores: the loads, the attend bits, the
   barriers and the loop.
 
+With ``--dtype bfloat16 --head-dim 128`` the same for the bf16 kernel at
+128 (edits of ``csrc/attention_fwd_bf16_d128.cuh``; ``--parent``: the
+parent's mma.sync bf16 kernel, called with the scratch of that route,
+none), at the same shapes, and beside it SDPA's memory-efficient and cuDNN
+forwards with the same bias and dropout 0.4 (profiler device time). The
+variants:
+
+- ``base``: the committed kernel.
+- ``issue_at_tile_end``: the next tile's copies issued in one part once
+  the output products are read, in place of two parts as buffers free up
+  (q, k and the keep bytes once s is read).
+- ``attend_guarded``: the attend bits' loads guarded by the bounds, in
+  place of all issued with their indices clamped into the masks.
+- ``diag_no_attend``: every element attended, no mask read.
+- ``diag_no_softmax``: no masks, max, exp, sums or dropout: the scores go
+  into pd as they are.
+- ``diag_no_q_scale``: q not scaled in place (nor the barrier after it).
+- ``diag_no_score_products``: the s wgmmas not issued.
+- ``diag_no_output_product``: the pd . v wgmmas not issued.
+- ``stores_staged``: out rounded to bf16 into a staging tile in shared
+  memory (16 KB more), then stored 16 bytes a thread (a row's 128 bytes by
+  8 threads), in place of each thread storing its sums 4 bytes at a time.
+- ``divide_by_l``: out divided by l, each element, in place of times
+  1 / l.
+- ``diag_no_stores``: out and lse not stored (the exchange's reads, the
+  sums and divisions go with them).
+
 ``--other NAME=DIR`` (any number) adds another checkout's K1 at 128 under
 NAME, called as this one is (another version of
-``csrc/attention_fwd_f32_d128.cuh`` in DIR, say).
+``csrc/attention_fwd_f32_d128.cuh`` or ``attention_fwd_bf16_d128.cuh`` in
+DIR, say).
 
 A variant whose build fails (nvcc has crashed on some of these edits)
 is reported with its log and left out.
@@ -365,9 +393,124 @@ F128_VARIANTS = {
     "diag_loads_and_barriers": {
         F128_SRC: NO_SPLIT + NO_SCORE + NO_OUTPUT + NO_STORES + NO_SOFTMAX},
 }
-# the f32 K1 at 128: (batch, dropout, with lse) timed; checks at dropout 0.4
+# the K1 at 128: (batch, dropout, with lse) timed; checks at dropout 0.4
 F128_SHAPES = ((cs.TRAIN_B, cs.DROPOUT, True), (cs.TRAIN_B, 0.0, False),
                (cs.BIG_B, cs.DROPOUT, True), (cs.BIG_B, 0.0, False))
+
+B128_SRC = "attention_fwd_bf16_d128.cuh"
+# stores_staged: out rounded into a staging tile in shared memory (its
+# 16-byte pieces rotated by the row), then stored 16 bytes a thread
+STAGED_LAYOUT = ("  static constexpr int kBar = kSum + 2 * kRows * 4;",
+                 "  static constexpr int kOut = kSum + 2 * kRows * 4;\n"
+                 "  static constexpr int kBar = kOut + 2 * kRows * kAtom;")
+PER_THREAD_STORES = """\
+    if (last && live) {
+      // warpgroup 0's partial plus warpgroup 1's, times 1 / l (divided by
+      // l, each element, the kernel took 3-7% longer): warpgroup 0 stores
+      // columns [0, 64), warpgroup 1 [64, 128)
+      const float* other = xchg + (wgi == 0 ? 32 : 0) * 128 + t128;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 8 * hh;
+        if (row >= a.Tq) continue;
+        const float sum = rsum[lr + 8 * hh] + rsum[kRows + lr + 8 * hh];
+        const float inv = 1.f / sum;
+        bf16* op = a.out + ((long long)b * a.Tq + row) * a.H * kD + h * kD +
+                   kBox * wgi;
+#pragma unroll
+        for (int nt = 0; nt < kBox / 8; ++nt) {
+          const int i = 4 * nt + 2 * hh;
+          const float x0 = other[i * 128], x1 = other[(i + 1) * 128];
+          const float s0 = wgi == 0 ? o1[i] + x0 : x0 + o2[i];
+          const float s1 = wgi == 0 ? o1[i + 1] + x1 : x1 + o2[i + 1];
+          *reinterpret_cast<uint32_t*>(op + 8 * nt + 2 * c) =
+              pack_bf16(s0 * inv, s1 * inv);
+        }
+        if (a.lse != nullptr && wgi == 0 && c == 0)
+          a.lse[((long long)b * a.H + h) * a.Tq + row] =
+              fmaxf(m[hh], kLseFloor) + logf(sum);
+      }
+    }
+"""
+STAGED_STORES = """\
+    if (last) {
+      unsigned char* const st = sm + L::kOut + wgi * kRows * kAtom;
+      if (live) {
+        const float* other = xchg + (wgi == 0 ? 32 : 0) * 128 + t128;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = lr + 8 * hh;
+          if (q0 + r >= a.Tq) continue;
+          const float sum = rsum[r] + rsum[kRows + r];
+          const float inv = 1.f / sum;
+#pragma unroll
+          for (int nt = 0; nt < kBox / 8; ++nt) {
+            const int i = 4 * nt + 2 * hh;
+            const float x0 = other[i * 128], x1 = other[(i + 1) * 128];
+            const float s0 = wgi == 0 ? o1[i] + x0 : x0 + o2[i];
+            const float s1 = wgi == 0 ? o1[i + 1] + x1 : x1 + o2[i + 1];
+            *reinterpret_cast<uint32_t*>(st + r * kAtom +
+                                         ((nt ^ (r & 7)) << 4) + 4 * c) =
+                pack_bf16(s0 * inv, s1 * inv);
+          }
+          if (a.lse != nullptr && wgi == 0 && c == 0)
+            a.lse[((long long)b * a.H + h) * a.Tq + q0 + r] =
+                fmaxf(m[hh], kLseFloor) + logf(sum);
+        }
+      }
+      asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wgi) : "memory");
+      bf16* const op = a.out + ((long long)b * a.Tq + q0) * a.H * kD +
+                       h * kD + kBox * wgi;
+#pragma unroll
+      for (int i = t128; i < kRows * 8; i += 128) {
+        const int r = i >> 3, pc = i & 7;
+        if (q0 + r >= a.Tq) break;
+        *reinterpret_cast<uint4*>(op + (long long)r * a.H * kD + 8 * pc) =
+            *reinterpret_cast<const uint4*>(st + r * kAtom +
+                                            ((pc ^ (r & 7)) << 4));
+      }
+    }
+"""
+B128_VARIANTS = {
+    "base": {},
+    "issue_at_tile_end": {B128_SRC: [
+        ("    if (tid == 0 && more) issue(t + 1, 1);\n", ""),
+        ("    if (tid == 0 && more) issue(t + 1, 2);\n",
+         "    if (tid == 0 && more) issue(t + 1, 3);\n")]},
+    "attend_guarded": {B128_SRC: [
+        ("""          const int qc = min(q, a.Tq - 1), kc = min(k, a.Tk - 1);
+          const int on = __ldg(a.static_mask + (long long)qc * a.Tk + kc) |
+                         __ldg(a.key_pad + (long long)b * a.Tk + kc);
+          if (q < a.Tq && k < a.Tk && on != 0) m[hh] |= 1u << (2 * j + e);""",
+         """          if (q < a.Tq && k < a.Tk &&
+              (__ldg(a.static_mask + (long long)q * a.Tk + k) |
+               __ldg(a.key_pad + (long long)b * a.Tk + k)) != 0)
+            m[hh] |= 1u << (2 * j + e);""")]},
+    "diag_no_attend": {B128_SRC: [
+        ("  if (n_ch == 1) attend(0, att);",
+         "  if (n_ch == 1) att[0] = att[1] = ~0u;")]},
+    "diag_no_softmax": {B128_SRC: [
+        ("    if (live) {\n      // the bias, -inf past Tk",
+         "    if (false) {\n      // the bias, -inf past Tk"),
+        ("    if (live) {\n      float corr[2];",
+         "    if (false) {\n      float corr[2];")]},
+    "diag_no_q_scale": {B128_SRC: [
+        ("    mbar_wait(bar, t & 1);\n    if (ch == 0) {",
+         "    mbar_wait(bar, t & 1);\n    if (false) {")]},
+    "diag_no_score_products": {B128_SRC: [
+        ("    for (int kk = 0; kk < kD / 16; ++kk)\n      mma_ss_n104(",
+         "    for (int kk = 0; kk < kD / 16 && false; ++kk)\n      mma_ss_n104(")]},
+    "diag_no_output_product": {B128_SRC: [
+        ("    for (int kk = 0; kk < kSteps; ++kk) {",
+         "    for (int kk = 0; kk < kSteps && false; ++kk) {")]},
+    "diag_no_stores": {B128_SRC: [
+        ("    if (last && live) {", "    if (false) {")]},
+    "stores_staged": {B128_SRC: [STAGED_LAYOUT,
+                                 (PER_THREAD_STORES, STAGED_STORES)]},
+    "divide_by_l": {B128_SRC: [
+        ("              pack_bf16(s0 * inv, s1 * inv);",
+         "              pack_bf16(s0 / sum, s1 / sum);")]},
+}
 
 # the dtype each variant's kernel runs (the others time both)
 F32_ONLY = ("b_split_in_registers", "int_index", "other_buffers",
@@ -430,14 +573,17 @@ def finish_build(name: str, proc, lib: Path, argtypes):
     return lambda *args: fn(*args[:7], *args[8:])
 
 
-def main_f128(args) -> int:
-    """The f32 K1 at head width 128: its variants (``F128_VARIANTS``) and,
-    with ``--parent DIR``, the other checkout's K1 at 128 (the scratch of
-    the mma.sync route, none), checked and timed at ``F128_SHAPES``."""
+def main_d128(args, dtype=torch.float32) -> int:
+    """The K1 at head width 128 in ``dtype``: its variants
+    (``F128_VARIANTS``, ``B128_VARIANTS``) and, with ``--parent DIR``, the
+    other checkout's K1 at 128 (the scratch of the mma.sync route, none),
+    checked and timed at ``F128_SHAPES``; bf16 beside SDPA's
+    memory-efficient and cuDNN forwards."""
     entry, H, D = "attention_fwd_d128", 2, 128
     base_fn = att._k1_lib(D)                    # builds csrc/ as the port does
+    variants = F128_VARIANTS if dtype == torch.float32 else B128_VARIANTS
     sources = {name: (edits, build.CSRC)
-               for name, edits in F128_VARIANTS.items()}
+               for name, edits in variants.items()}
     for i, arg in enumerate(args):
         if arg == "--parent":
             sources["parent"] = ({}, Path(args[i + 1]).resolve()
@@ -459,7 +605,7 @@ def main_f128(args) -> int:
                  log=str(err)[-2000:])
     inputs = {}
     for B in sorted({b for b, _, _ in F128_SHAPES}):
-        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", torch.float32,
+        q, k, v, spec, _ = cs.k1_inputs("encoder_eye_pad", dtype,
                                         B=B, H=H, D=D)
         key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],
                                             q.device)
@@ -487,19 +633,47 @@ def main_f128(args) -> int:
                         gates = cs.k1_gates(q, k, v, key_pad, static, H,
                                             D ** -0.5, out, lse, rate, 7)
                         emit(phase="k1_variant_check", variant=name,
-                             dtype="float32", head_dim=D, batch=B, **gates)
+                             dtype=cs.dtype_name(dtype), head_dim=D, batch=B,
+                             **gates)
                         del out, lse
                     times.setdefault((name, B, rate, with_lse), []).append(
                         cs.kernel_ms_by_name(call))
+                if dtype == torch.bfloat16 and name == order[0]:
+                    sdpa_times(inputs, H, D, times)
     finally:
         att._k1_lib, att.k1_route = original, route
     for (name, B, rate, with_lse), runs in times.items():
-        emit(phase="k1_variant_time", variant=name, dtype="float32",
-             head_dim=D, batch=B, dropout=rate, with_lse=with_lse,
+        emit(phase="k1_variant_time", variant=name,
+             dtype=cs.dtype_name(dtype), head_dim=D, batch=B, dropout=rate,
+             with_lse=with_lse,
              device_ms_in_order_and_reversed=[sum(r.values()) for r in runs],
              by_kernel_ms=runs)
     print(cs.nvidia_smi(), flush=True)
     return 0
+
+
+def sdpa_times(inputs, H: int, D: int, times: dict) -> None:
+    """SDPA's memory-efficient and cuDNN forwards on the same inputs, the
+    additive bias of the masks and dropout 0.4, by profiler device time,
+    into ``times`` under ``sdpa_<backend>`` (a refusal is named)."""
+    for B, (q, k, v, key_pad, static) in inputs.items():
+        bias = att.mask_to_bias(static.bool()[None] | key_pad.bool()[:, None])
+        bias = bias[:, None].to(q.dtype)
+        qh, kh, vh = (x.unflatten(-1, (H, D)).transpose(1, 2)
+                      for x in (q, k, v))
+        for backend in ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+            def call(backend=backend):
+                return cs.sdpa(qh, kh, vh, attn_mask=bias,
+                               dropout_p=cs.DROPOUT, backend=backend)
+
+            try:
+                by = cs.kernel_ms_by_name(call)
+            except RuntimeError as err:
+                emit(phase="k1_sdpa_refused", backend=backend, batch=B,
+                     why=str(err)[:200])
+                continue
+            times.setdefault((f"sdpa_{backend.lower()}", B, cs.DROPOUT,
+                              False), []).append(by)
 
 
 def main() -> int:
@@ -511,7 +685,9 @@ def main() -> int:
          device=torch.cuda.get_device_name(0))
     args = sys.argv[1:]
     if args[:4] == ["--dtype", "float32", "--head-dim", "128"]:
-        return main_f128(args[4:])
+        return main_d128(args[4:])
+    if args[:4] == ["--dtype", "bfloat16", "--head-dim", "128"]:
+        return main_d128(args[4:], torch.bfloat16)
     base_fn = att._k1_lib()                     # builds csrc/ as the port does
     sources = {name: (edits, build.CSRC) for name, edits in VARIANTS.items()}
     if args[:1] == ["--parent"]:

@@ -990,8 +990,9 @@ def test_k2_f32_d128_rank_slice_matches_the_whole_call(rate):
 
 
 # 2 heads of 128 in bf16: the bf16 K2 of csrc/attention_bwd_bf16_d128.cuh,
-# on the lse of the bf16 K1 at 128 (the mma.sync attn_fwd_tc_kernel, whose
-# keep bits the K2's keep kernel replays)
+# on the lse of the bf16 K1 at 128 (attn_fwd_wg128_kernel of
+# csrc/attention_fwd_bf16_d128.cuh, whose keep bits the K2's keep kernel
+# draws again)
 BF16 = torch.bfloat16
 
 
@@ -1091,8 +1092,8 @@ def test_k2_bf16_d128_pass_b_keep_bits_read_back(q0):
     """Pass B's keep bits at head width 128 read back: q = k = 0 and every
     key attended make every probability 1/Tk (the bf16 K1's lse); v = 0 and
     g one-hot at query q0 make dv[b, k, h*128 + d] = ms(q0, k) / Tk, so dv
-    > 0 exactly where Philox keeps (b, h, q0, k): the bits the bf16
-    mma.sync K1 at 128 drew. rtol: one bf16 rounding of dv."""
+    > 0 exactly where Philox keeps (b, h, q0, k): the bits the bf16 K1
+    at 128 drew. rtol: one bf16 rounding of dv."""
     _need_cuda()
     tq = tk = 200
     rate, seed = 0.4, 987654321
@@ -1145,7 +1146,7 @@ def test_k1_bf16_d128_lse_rows_sum_to_one(rate):
     """What the bf16 K2 at 128 relies on: with the scores it recomputes (s =
     bf16(q * scale) . k + bias, bf16 operands, f32 sums), every row that
     attends anything has sum_k exp(s - lse) = 1 against the lse of the bf16
-    K1 at 128 (``attn_fwd_tc_kernel``; its l sums the undropped
+    K1 at 128 (``attn_fwd_wg128_kernel``; its l sums the undropped
     probabilities, so dropout leaves the lse as it is), within the bf16
     gate of ``chip_smoke.lse_row_sums``, 1e-3."""
     _need_cuda()
@@ -1169,8 +1170,8 @@ def test_k1_bf16_d128_lse_rows_sum_to_one(rate):
 
 @pytest.mark.cuda
 def test_k1_k2_bf16_d128_graph_replays_take_each_tables_keys():
-    """The bf16 K1 (mma.sync, drawing its keep bits inside) and K2 (its keep
-    kernel replaying them) at head width 128 with dropout, captured once in
+    """The bf16 K1 and K2 at head width 128 (each drawing the keep bits in a
+    keep kernel of its own from the key) with dropout, captured once in
     a CUDA graph keyed by a table entry, replayed with two tables: each
     replay's out and dq/dk/dv equal the eager launches under that table's
     key, bit for bit, and hold the bf16-dots plain version under that key
@@ -1318,13 +1319,13 @@ def test_k1_bf16_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
 @pytest.mark.parametrize("width", [8, 16, 24, 32, 64, 100, 128])
 def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
     """What runs on the card: bf16 up to head width 64 launches
-    ``attn_fwd_wg_kernel``, f32 at 128 (and 100, padded to it)
-    ``attn_fwd_tf128_kernel``, each with dropout ``attn_fwd_keep_kernel``
-    first, never the mma.sync ``attn_fwd_tc_kernel``; f32 up to 64 and
-    bf16 at 128 the mma.sync kernel alone (``k1_route``). Read from the
-    kernel names of a profile of three calls, opened by the port's lead-in
-    (a trace loses its first records on the card; traced again if it lost
-    K1's)."""
+    ``attn_fwd_wg_kernel``, bf16 at 128 (and 100, padded to it)
+    ``attn_fwd_wg128_kernel``, f32 at 128 ``attn_fwd_tf128_kernel``, each
+    with dropout ``attn_fwd_keep_kernel`` first, never the mma.sync
+    ``attn_fwd_tc_kernel``; f32 up to 64 the mma.sync kernel alone
+    (``k1_route``). Read from the kernel names of a profile of three calls,
+    opened by the port's lead-in (a trace loses its first records on the
+    card; traced again if it lost K1's)."""
     _need_cuda()
     from torch.profiler import ProfilerActivity, profile
 
@@ -1352,8 +1353,10 @@ def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
         if "attn_fwd_" in names:
             break
     wgmma = tatt.k1_route(dtype, width) == "wgmma"
-    tag = "tf128" if dtype == torch.float32 else "wg"
-    for other in ("wg", "tf128"):
+    assert wgmma == (dtype == torch.bfloat16 or width > 64)
+    tag = ("tf" if dtype == torch.float32 else "wg") + (
+        "" if tatt.kernel_head_dim(width) <= 64 else "128")
+    for other in ("wg", "wg128", "tf128"):
         on = wgmma and other == tag
         assert (f"attn_fwd_{other}_kernel" in names) == on, names
     assert ("attn_fwd_tc_kernel" in names) == (not wgmma), names
@@ -1581,6 +1584,187 @@ def test_k1_k2_f32_d128_graph_replays_take_each_tables_keys():
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
     assert not torch.equal(eager[0][0], eager[1][0])
 
+
+
+# the bf16 K1 of csrc/attention_fwd_bf16_d128.cuh at 1-2 heads of 128, the
+# twins of the f32 set above, held with _k1_gates's bf16 gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", ["encoder_eye_pad", "decoder_pad",
+                                  "cross"])
+def test_k1_bf16_d128_matches_plain(case, rate, heads):
+    """The bf16 K1 at head width 128 (1 and 2 heads, T = 200, B = 4) in
+    the three mask cases of the model (the encoder's eye and key pad; the
+    decoder's key pad with trial 2 fully padded; cross attention over 180
+    keys with a random mask), dropout 0 and 0.4, with lse: against the
+    bf16-dots plain version on the same Philox bits (``_k1_gates``: out
+    within 1e-2 (1 + |plain|), lse within 1e-5 (1 + |lse|)); a second
+    launch bit-equal to the first."""
+    _need_cuda()
+    tk = 180 if case == "cross" else 200
+    q, k, v, key_pad, static, _ = _problem(200, tk, seed=7, b=4, dtype=BF16,
+                                           hidden=heads * 128)
+    if case == "encoder_eye_pad":
+        static = torch.eye(200, dtype=torch.int32, device="cuda")
+    elif case == "decoder_pad":
+        static = torch.zeros_like(static)
+        key_pad[2] = 0
+    scale = 128 ** -0.5
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                  True, rate, 17)
+    again, lse2 = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                     True, rate, 17)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 17, heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (63, 63), (64, 64),
+                                   (65, 65), (200, 200), (207, 207),
+                                   (208, 208), (209, 209), (256, 256),
+                                   (257, 257), (520, 520), (200, 300),
+                                   (300, 17), (65, 200), (1, 200), (200, 1)])
+def test_k1_bf16_d128_at_chunk_edges(tq, tk, rate):
+    """The bf16 K1 at head width 128 around its chunks and tiles: 104 keys
+    a warpgroup, 208 a chunk (one sweep up to 208, the online rescale
+    across two or three past it), 64-query tiles; self and cross, through
+    the fused-QKV or KV column views, random masks, with lse: against the
+    bf16-dots plain version (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(tq, tk, seed=tq + tk, dtype=BF16,
+                                           hidden=H128 * 128)
+    n0 = tatt.K1_LAUNCHES
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                  128 ** -0.5, True, rate, 43)
+    torch.cuda.synchronize()
+    assert tatt.K1_LAUNCHES == n0 + 1
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 43, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_d128_blocks_walking_several_heads(rate):
+    """B = 256 at 2 heads of 128: the grid puts two heads in a block
+    (``walk_heads``), so a block loads its second head's q, k and keep
+    bytes into the one stage once the first head's scores are read:
+    against the bf16-dots plain version (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=3, b=256,
+                                           dtype=BF16, hidden=H128 * 128)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                  128 ** -0.5, True, rate, 29)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 29, heads=H128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_d128_fully_masked_row_and_bit_equal(rate):
+    """A padded trial at head width 128 (every key masked, pad-only mask,
+    200 keys: one chunk): its rows are the mean of V (of the kept V times
+    1/(1 - rate) rounded to bf16, as pd is) within 1e-2 (1 + |mean|), and
+    their lse is -1e6 + log(Tk); two launches give the same bits."""
+    _need_cuda()
+    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6, dtype=BF16,
+                                      hidden=H128 * 128)
+    key_pad[1] = 0
+    static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
+    scale = 128 ** -0.5
+    one = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                             rate, 8)
+    two = tatt.attention_fwd(q, k, v, key_pad, static, H128, scale, True,
+                             rate, 8)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    got, lse = one
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 8, heads=H128)
+    floor = torch.tensor(-1e6) + torch.log(torch.tensor(200.0))
+    torch.testing.assert_close(lse[1].cpu(), floor.expand(H128, 200),
+                               atol=0.07, rtol=0)
+    vh = v[1].float().reshape(200, H128, 128).transpose(0, 1)  # (H, Tk, D)
+    if rate > 0.0:
+        keep = tatt.philox_keep(8, 2, H128, 200, 200, rate,
+                                device="cuda")[1]
+        kept = torch.tensor(1.0 / (1.0 - rate)).to(BF16).float()
+        mean = (keep.float() * kept) @ vh / 200              # (H, Tq, D)
+    else:
+        mean = vh.mean(1, keepdim=True).expand(H128, 200, 128)
+    row = got[1].float().reshape(200, H128, 128).transpose(0, 1)
+    _within(row, mean, 1e-2, "padded trial")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+def test_k1_bf16_d128_rank_slice_matches_the_whole_call(rate):
+    """A rank's call under tensor and data parallelism at head width 128 in
+    bf16: the slice of trials [2, 4) and head 1 of a 4-trial, 2-head call,
+    with draw offsets (2, 1), gives the whole call's out and lse of that
+    slice bit for bit (the same sums in the same order, the same keep
+    bits), and agrees with the plain version drawn at the same offsets."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=8, b=4, dtype=BF16,
+                                           hidden=H128 * 128)
+    scale = 128 ** -0.5
+    whole, whole_lse = tatt.attention_fwd(q, k, v, key_pad, static, H128,
+                                          scale, True, rate, 51)
+
+    def part(x):
+        return x[2:4, :, 128:].contiguous()
+
+    args = (part(q), part(k), part(v), key_pad[2:4].contiguous(), static)
+    got, lse = tatt.attention_fwd(*args, 1, scale, True, rate, 51,
+                                  draw_offset=(2, 1))
+    assert torch.equal(got, part(whole))
+    assert torch.equal(lse, whole_lse[2:4, 1:])
+    _k1_gates(*args, got, lse, rate, 51, heads=1, draw_offset=(2, 1))
+
+
+@pytest.mark.cuda
+def test_k1_bf16_d128_philox_bits_match_philox_keep():
+    """Read the bf16 K1's keep mask back at head width 128: q = 0 and all
+    keys attended make every probability 1 (before 1/l = 1/Tk); V's rows
+    are one-hot per head (Tk = D = 128, one chunk), so out[b, q, h*128 +
+    k] > 0 exactly where Philox keeps (b, h, q, k)."""
+    _need_cuda()
+    tk, rate, seed = 128, 0.4, 123456789
+    hidden = H128 * 128
+    q = torch.zeros(B, T, hidden, device="cuda", dtype=BF16)
+    v = torch.eye(128, device="cuda").repeat(1, H128).expand(
+        B, tk, hidden).contiguous().to(BF16)
+    k = torch.zeros(B, tk, hidden, device="cuda", dtype=BF16)
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
+    out, _ = tatt.attention_fwd(q, k, v, key_pad, static, H128, 1.0,
+                                dropout_rate=rate, seed=seed)
+    got = out.float().reshape(B, T, H128, 128).transpose(1, 2) > 0
+    want = tatt.philox_keep(seed, B, H128, T, tk, rate, device="cuda")
+    assert torch.equal(got, want)
+    assert 0.5 < want.float().mean().item() < 0.7
+
+
+@pytest.mark.cuda
+def test_k1_bf16_d128_rejects_misaligned_views():
+    """TMA copies need 16-byte aligned data pointers and strides: a bf16
+    view at head width 128 whose data pointer or row stride is not 16-byte
+    aligned raises ValueError before any launch."""
+    _need_cuda()
+    hidden = H128 * 128
+    q, k, v, key_pad, static, _ = _problem(17, 17, dtype=BF16, hidden=hidden)
+    wide = torch.zeros(3, 17, hidden + 8, device="cuda", dtype=BF16)
+    off = wide[..., 1:1 + hidden]                  # pointer one element off
+    odd = torch.zeros(3, 17, hidden + 4, device="cuda",
+                      dtype=BF16)[..., :hidden]    # row stride 8 bytes off
+    n0 = tatt.K1_LAUNCHES
+    for bad in (off, odd):
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(bad, k, v, key_pad, static, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, bad, v, key_pad, static, H128, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, k, bad, key_pad, static, H128, 1.0)
+    assert tatt.K1_LAUNCHES == n0
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
