@@ -18,7 +18,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (``k1_dropout_check``; ``k1_time``/``k1_train_time`` with the device
    ms of each kernel K1 launches, by name: the bf16 K1 is the wgmma
    kernel of ``csrc/attention_fwd_bf16.cuh``, with dropout after its keep
-   draws) and K2 (``k2_check``/``k2_time``, with the
+   draws, the f32 one that of ``csrc/attention_fwd_f32.cuh``) and K2
+   (``k2_check``/``k2_time``, with the
    device ms of each kernel K2 launches, by name, at dropout 0.4 and 0:
    the bf16 K2 is the wgmma kernel of ``csrc/attention_bwd_bf16.cuh``, the
    f32 one that of ``csrc/attention_bwd_f32.cuh``, each its keep draws and
@@ -1498,10 +1499,10 @@ def plain_step_time(root: Path):
 DISPATCH_K = 10
 # a kernel name (a regular expression) per launch of each wrapper: K2 and
 # K4 launch two kernels each, their first is counted (K2's pass A:
-# attn_bwd_dq_wg/wg128/tf/tf128_kernel); with dropout the wgmma K1 (bf16 at
-# every width, f32 at 128) and both dtypes' wgmma K2 draw their keep bits
-# first (attn_fwd_keep_kernel, attn_bwd_keep_kernel), not counted
-_KERNEL_GROUPS = (("k1", r"attn_fwd_(tc|wg|wg128|tf128)_kernel"),
+# attn_bwd_dq_wg/wg128/tf/tf128_kernel); with dropout every K1 and K2
+# draws its keep bits first (attn_fwd_keep_kernel, attn_bwd_keep_kernel),
+# not counted
+_KERNEL_GROUPS = (("k1", r"attn_fwd_(tf|wg|wg128|tf128)_kernel"),
                   ("k2", "attn_bwd_dq_"),
                   ("k3", "ln_fwd_kernel"), ("k4", "ln_bwd_dx_"),
                   ("philox", "philox_"),
@@ -5024,6 +5025,11 @@ def head_width_rows(hw: dict, src: str, attn_py: str, ln_py: str,
             elif kname == "k2":
                 row["f32_kernel"] = ("wgmma (3xTF32): attn_bwd_*_tf_kernel, "
                                      f"{src}attention_bwd_f32.cuh")
+            else:
+                row["f32_kernel"] = (
+                    "wgmma (3xTF32; s as the f32 K2 recomputes it, v's "
+                    "transposed planes): attn_fwd_keep_kernel + "
+                    f"attn_fwd_tf_kernel, {src}attention_fwd_f32.cuh")
             if D == 64:
                 row["off_path_widths"] = {}
                 for w in HW_WIDTHS:
@@ -5553,9 +5559,13 @@ def main() -> int:
     attn_py = "multi_modal_foundation_model_tpu/ops/attention.py"
     ln_py = "multi_modal_foundation_model_tpu/ops/layernorm.py"
     kernels = [
-        dict(name="attention_fwd (K1, eval: no dropout, no lse), f32: tensor "
-             "cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, cp.async)",
-             route="cuda", source=src + "attention_fwd.cu",
+        dict(name="attention_fwd (K1, eval: no dropout, no lse), f32: Hopper "
+             "wgmma in 3xTF32 (one warpgroup a block over chunks of 104 "
+             "keys, two blocks an SM, each k-step from zero then added in "
+             "f32, s as the f32 K2 recomputes it; v split into transposed "
+             "hi/lo planes; pd as register A fragments), TMA tiles on an "
+             "mbarrier: attn_fwd_tf_kernel",
+             route="cuda", source=src + "attention_fwd_f32.cuh",
              replaces=attn_py + ":144", launches=eval_f32["k1"],
              **_row(k1[f32])),
         dict(name="attention_fwd (K1, eval), bf16: Hopper wgmma (s one "
@@ -5567,8 +5577,10 @@ def main() -> int:
              replaces=attn_py + ":144",
              launches=eval_bf16["k1"], **_row(k1[bf16])),
         dict(name="attention_fwd (K1, training: dropout 0.4, lse), f32: "
-             "tensor cores (3xTF32: mma.sync m16n8k8 tf32, hi/lo split, "
-             "cp.async)", route="cuda", source=src + "attention_fwd.cu",
+             "Hopper wgmma in 3xTF32, TMA tiles, chunks of 104 keys "
+             "(attn_fwd_tf_kernel), the keep bits drawn first by "
+             "attn_fwd_keep_kernel and read by TMA", route="cuda",
+             source=src + "attention_fwd_f32.cuh",
              replaces=attn_py + ":144", launches=train_f32["k1"],
              launches_by_path=by_path("k1", ("train_f32",
                                              "dispatch_graph_f32",
@@ -5711,7 +5723,7 @@ def main() -> int:
     tp_paths = tuple(k for k in par["launches"] if "_tp1_" not in k)
     rank_rows = par["rank_rows"]
     for i, (kname, short, line, cu, wg) in enumerate((
-            ("k1", "attention_fwd (K1)", ":144", "attention_fwd.cu",
+            ("k1", "attention_fwd (K1)", ":144", "attention_fwd_f32.cuh",
              "attention_fwd_bf16.cuh"),
             ("k2", "attention_bwd (K2)", ":221", "attention_bwd_f32.cuh",
              "attention_bwd_bf16.cuh"))):

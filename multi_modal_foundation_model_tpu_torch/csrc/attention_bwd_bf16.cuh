@@ -1,7 +1,8 @@
 // K2 in bf16 for Hopper (sm_90a): wgmma over the whole key row, tiles fed
 // by TMA, one sweep. Included by attention_bwd.cu, which launches it for
-// bf16 at head widths 16, 32 and 64 (at 128, and in f32, the mma.sync
-// kernels of that file run).
+// bf16 at head widths 16, 32 and 64 (bf16 at 128 runs
+// attention_bwd_bf16_d128.cuh, f32 attention_bwd_f32.cuh and
+// attention_bwd_f32_d128.cuh).
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel` with dots_dtype = bf16
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, :431): the same

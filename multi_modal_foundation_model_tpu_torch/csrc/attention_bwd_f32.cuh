@@ -6,11 +6,11 @@
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel` with f32 dots
 // (multi_modal_foundation_model_tpu/ops/attention.py:221, :439): the f32
-// contract of the mma.sync kernels it replaces (q * scale stays f32,
-// nothing is rounded to bf16; every product is 3xTF32, hi = tf32(x) and
-// lo = tf32(x - hi) by cvt.rna, f32 sums), the same dropout bits (K1's
-// Philox counter (k/4, q, h + h_off, b + b_off), philox.cuh) and the same
-// two passes with no atomics as the bf16 K2 on wgmma (attention_bwd_bf16.cuh):
+// contract of the mma.sync kernels it replaces (q * scale stays f32, nothing is
+// rounded to bf16; every product is 3xTF32, hi = tf32(x) and lo = tf32(x - hi)
+// by mma_tf32.cuh split_tf32, f32 sums), the same dropout bits (K1's Philox
+// counter (k/4, q, h + h_off, b + b_off), philox.cuh) and the same two passes
+// with no atomics as the bf16 K2 on wgmma (attention_bwd_bf16.cuh):
 //   Pass A (attn_bwd_dq_tf_kernel), a block per (batch, 64 query rows) and
 //     group of heads: s = qs . k^T and dP = g . v^T over the whole key row,
 //     rowsum = sum_k dpn pn, ds = pn (dpn - rowsum), dq = ds . k * scale.
@@ -47,10 +47,14 @@
 //   at Tk = 200) and 48.
 // - The tensor cores truncate their f32 sums, so every k-step's three terms
 //   (al . bh, ah . bl, ah . bh) are summed from zero (scale-d = 0) into a
-//   temporary and added to the running sum in f32, the order of the
-//   mma.sync kernels' mma_3xtf32 (emulated, with the output products'
-//   split between the warpgroups, by tests/tf32_emulation.py,
-//   dot_3xtf32_wg). On the H100 at the training step's inputs (the three
+//   temporary and added to the running sum in f32 (emulated, with the
+//   output products' split between the warpgroups, by
+//   tests/tf32_emulation.py, dot_3xtf32_wg). The split and the k-steps of
+//   s are tiles_f32.cuh's, which the f32 K1 at these widths takes too, so
+//   pass A recomputes bit for bit the s that K1 summarised into lse; the
+//   split, and ds's and pd's fragments, round to TF32 by mma_tf32.cuh
+//   tf32_rna, as every f32 kernel does. On the H100 at the training step's
+//   inputs (the three
 //   mask cases, dropout 0 and 0.4) the kernel reads within 4.1e-6 of the
 //   f32 plain version (the gate is 1e-5), 2.9e-6 of an f64 evaluation and
 //   1.2e-6 of the emulation (scripts/torch_k2_f32_accuracy.py).
@@ -72,12 +76,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "attention_bwd_bf16.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "philox.cuh"
+#include "tiles_f32.cuh"
 #include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -101,9 +104,9 @@ struct Layout {
   static constexpr int kChunk = 2 * kCols;
   static constexpr int kAcc = kCols / 2;   // f32 a thread of a 64 x kCols sum
   static constexpr int kN8 = kCols / 8;    // n8 blocks = output k-steps
-  static constexpr int kW = D < 32 ? D : 32;  // floats a plane row
-  static constexpr int kHalves = D / kW;      // column blocks a plane
-  static constexpr int kRowB = 4 * kW;
+  static constexpr int kW = f32t::Rows<D>::kW;   // floats a plane row
+  static constexpr int kHalves = f32t::Rows<D>::kHalves;  // column blocks
+  static constexpr int kRowB = f32t::Rows<D>::kRowB;
   static constexpr int kHalfA = align1k(kRows * kRowB);
   static constexpr int kHalfB = align1k(kChunk * kRowB);
   static constexpr int kA = kHalves * kHalfA;   // a row plane
@@ -147,7 +150,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
                                          const Args& a) {
   using L = Layout<D, kPassB>;
   constexpr int kCols = L::kCols, kChunk = L::kChunk, kAcc = L::kAcc;
-  constexpr int kN8 = L::kN8, kW = L::kW, kRowB = L::kRowB;
+  constexpr int kN8 = L::kN8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -190,7 +193,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
                    kPassB ? r0 / 8 : ch * (kChunk / 8), b * a.H + h);
 #pragma unroll
     for (int hf = 0; hf < L::kHalves; ++hf) {
-      const int c0 = h * D + kW * hf;
+      const int c0 = h * D + L::kW * hf;
       if (rows) {
         wg::tma_load(base + hf * L::kHalfA, mA1, bar, c0, r0, b);
         wg::tma_load(base + 2 * L::kA + hf * L::kHalfA, mA2, bar, c0, r0, b);
@@ -202,74 +205,6 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
     }
   };
   if (tid == 0) issue(0);
-
-  // A landed tile of R rows at hi (kHalves column blocks of kW floats,
-  // `half` bytes apart, in the swizzle TMA wrote), times mul with kScale,
-  // split in place: hi stays, lo goes lo_off further; with kTrans also
-  // written transposed into the planes at th (hi) and th + kT (lo): row d,
-  // the tile's row r at k position 8 (r / 8) + perm_k(r % 8). A thread
-  // takes 4 floats of a row, a warp 32 rows of the same 4 columns: the
-  // 16-byte accesses of 8 rows and the transposed stores of 32 k positions
-  // of a row d fall on distinct banks.
-  auto split = [&](unsigned char* hi, int half, int lo_off, unsigned char* th,
-                   auto rows, auto scaled, auto trans) {
-    constexpr int R = decltype(rows)::value, kCh = kW / 4;
-    constexpr int kN = L::kHalves * R * kCh, kU = 4;
-    // kU chunks a thread at a time: their loads in flight together (a
-    // load cannot pass the stores of the chunk before it)
-    for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {
-      float4 x[kU];
-      int off[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int i = i0 + u * kThreads;
-        const int hf = i / (R * kCh), rem = i % (R * kCh);
-        const int r = rem % R, lc = rem / R;
-        // the physical chunk of logical chunk lc: 128-byte swizzle (lc ^
-        // row % 8), or 64-byte (lc ^ (row / 2) % 4)
-        const int pc = lc ^ (kW == 32 ? (r & 7) : ((r >> 1) & 3));
-        off[u] = hf * half + r * kRowB + pc * 16;
-        if (i < kN) x[u] = *reinterpret_cast<const float4*>(hi + off[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i >= kN) break;
-        if constexpr (decltype(scaled)::value) {
-          x[u].x *= a.scale;
-          x[u].y *= a.scale;
-          x[u].z *= a.scale;
-          x[u].w *= a.scale;
-        }
-        uint32_t h4[4], l4[4];
-        split_tf32(x[u].x, h4[0], l4[0]);
-        split_tf32(x[u].y, h4[1], l4[1]);
-        split_tf32(x[u].z, h4[2], l4[2]);
-        split_tf32(x[u].w, h4[3], l4[3]);
-        *reinterpret_cast<uint4*>(hi + off[u]) =
-            make_uint4(h4[0], h4[1], h4[2], h4[3]);
-        *reinterpret_cast<uint4*>(hi + lo_off + off[u]) =
-            make_uint4(l4[0], l4[1], l4[2], l4[3]);
-        if constexpr (decltype(trans)::value) {
-          const int rem = i % (R * kCh), r = rem % R;
-          const int d0 = kW * (i / (R * kCh)) + 4 * (rem / R);
-          const int k = (r & ~7) | wgtf::perm_k(r & 7);
-          unsigned char* tb = th + (k >> 5) * (D * 128) + (k & 3) * 4;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int d = d0 + j;
-            const int o = d * 128 + ((((k & 31) >> 2) ^ (d & 7)) << 4);
-            *reinterpret_cast<uint32_t*>(tb + o) = h4[j];
-            *reinterpret_cast<uint32_t*>(tb + L::kT + o) = l4[j];
-          }
-        }
-      }
-    }
-  };
-  using RowsA = std::integral_constant<int, kRows>;
-  using RowsB = std::integral_constant<int, kChunk>;
-  using Yes = std::true_type;
-  using No = std::false_type;
 
   // the attend bits of this thread's elements in chunk ch: element (row
   // hh, n8 block j, column e) is bit 2 j + e of m[hh]. Every load is
@@ -334,17 +269,6 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
   float next[2];
   stats_of(0, next);
 
-  // descriptors: k-step kk of a natural plane from byte `row` of its first
-  // column block, and k-step ks of a transposed plane
-  auto nat = [&](uint32_t plane, int half, int row, int kk) {
-    constexpr int kKs = kW / 8;          // k-steps a column block
-    return wg::desc<kRowB>(plane + (kk / kKs) * half + row +
-                           32 * (kk % kKs));
-  };
-  auto tr = [&](uint32_t plane, int ks) {
-    return wg::desc<128>(plane + (ks >> 2) * (D * 128) + (ks & 3) * 32);
-  };
-
   // the attend bits of the chunk: read once a block where there is one
   // chunk; pass B, which walks two chunks a head at Tq up to 2 kChunk
   // (the model's 200 queries at D = 32), keeps both chunks' for every head
@@ -388,15 +312,17 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
     // the tile landed; its planes made, then visible to the tensor cores
     wg::mbar_wait(bar, t & 1);
     if (r == 0) {
-      split(sm, L::kHalfA, L::kA, nullptr, RowsA{},
-            std::integral_constant<bool, !kPassB>{}, No{});
-      split(sm + 2 * L::kA, L::kHalfA, L::kA, nullptr, RowsA{}, No{}, No{});
+      f32t::split<D, kRows, !kPassB, true, false>(sm, L::kHalfA, L::kA,
+                                                  nullptr, 0, a.scale, tid);
+      f32t::split<D, kRows, false, true, false>(
+          sm + 2 * L::kA, L::kHalfA, L::kA, nullptr, 0, a.scale, tid);
     }
-    split(sm + L::kPlanesB, L::kHalfB, L::kB, sm + L::kPlanesT, RowsB{},
-          std::integral_constant<bool, kPassB>{}, Yes{});
-    split(sm + L::kPlanesB + 2 * L::kB, L::kHalfB, L::kB,
-          sm + L::kPlanesT + 2 * L::kT, RowsB{}, No{},
-          std::integral_constant<bool, kPassB>{});
+    f32t::split<D, kChunk, kPassB, true, true>(
+        sm + L::kPlanesB, L::kHalfB, L::kB, sm + L::kPlanesT, L::kT, a.scale,
+        tid);
+    f32t::split<D, kChunk, false, true, kPassB>(
+        sm + L::kPlanesB + 2 * L::kB, L::kHalfB, L::kB,
+        sm + L::kPlanesT + 2 * L::kT, L::kT, a.scale, tid);
     wg::fence_async_shared();
     __syncthreads();
 
@@ -405,15 +331,11 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
     // one from zero into tmp, then added in f32
     const uint32_t a1 = base, a2 = base + 2 * L::kA;
     const uint32_t b1 = base + L::kPlanesB, b2 = b1 + 2 * L::kB;
-    const int cb = wgi * kCols * kRowB;
+    const int cb = wgi * kCols * L::kRowB;
     float s[kAcc], p[kAcc];
     wg::fence();
-    wgtf::mma3_ss(s, nat(a1, L::kHalfA, 0, 0),
-                  nat(a1 + L::kA, L::kHalfA, 0, 0),
-                  nat(b1, L::kHalfB, cb, 0), nat(b1 + L::kB, L::kHalfB, cb, 0));
-    wgtf::mma3_ss(p, nat(a2, L::kHalfA, 0, 0),
-                  nat(a2 + L::kA, L::kHalfA, 0, 0),
-                  nat(b2, L::kHalfB, cb, 0), nat(b2 + L::kB, L::kHalfB, cb, 0));
+    f32t::step3<D>(s, a1, L::kHalfA, L::kA, b1, L::kHalfB, L::kB, cb, 0);
+    f32t::step3<D>(p, a2, L::kHalfA, L::kA, b2, L::kHalfB, L::kB, cb, 0);
     wg::commit();
     // the keep bits while the products run
     uint32_t keep[2] = {~0u, ~0u};
@@ -422,10 +344,8 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
     for (int kk = 1; kk < D / 8; ++kk) {
       float tmp[kAcc];
       wg::fence();
-      wgtf::mma3_ss(tmp, nat(a1, L::kHalfA, 0, kk),
-                    nat(a1 + L::kA, L::kHalfA, 0, kk),
-                    nat(b1, L::kHalfB, cb, kk),
-                    nat(b1 + L::kB, L::kHalfB, cb, kk));
+      f32t::step3<D>(tmp, a1, L::kHalfA, L::kA, b1, L::kHalfB, L::kB, cb,
+                     kk);
       wg::commit();
       wg::wait<0>();
       wg::hold(s);
@@ -434,10 +354,8 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) s[i] += tmp[i];
       wg::fence();
-      wgtf::mma3_ss(tmp, nat(a2, L::kHalfA, 0, kk),
-                    nat(a2 + L::kA, L::kHalfA, 0, kk),
-                    nat(b2, L::kHalfB, cb, kk),
-                    nat(b2 + L::kB, L::kHalfB, cb, kk));
+      f32t::step3<D>(tmp, a2, L::kHalfA, L::kA, b2, L::kHalfB, L::kB, cb,
+                     kk);
       wg::commit();
       wg::wait<0>();
       wg::hold(tmp);
@@ -505,8 +423,8 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
           wgtf::to_frags_tf32(s, kk, fh, fl);
           float o[D / 2];
           wg::fence();
-          wgtf::mma3_rs(o, fh, fl, tr(t1, wgi * kN8 + kk),
-                        tr(t1 + L::kT, wgi * kN8 + kk));
+          wgtf::mma3_rs(o, fh, fl, f32t::tr<D>(t1, wgi * kN8 + kk),
+                        f32t::tr<D>(t1 + L::kT, wgi * kN8 + kk));
           wg::commit();
           wg::wait<0>();
           wg::hold(o);
@@ -550,8 +468,10 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* mA1,
         const int ks = wgi * kN8 + kk;
         float ok[D / 2], ov[D / 2];
         wg::fence();
-        wgtf::mma3_rs(ok, dh, dl, tr(t1, ks), tr(t1 + L::kT, ks));
-        wgtf::mma3_rs(ov, ph, pl, tr(t2, ks), tr(t2 + L::kT, ks));
+        wgtf::mma3_rs(ok, dh, dl, f32t::tr<D>(t1, ks),
+                      f32t::tr<D>(t1 + L::kT, ks));
+        wgtf::mma3_rs(ov, ph, pl, f32t::tr<D>(t2, ks),
+                      f32t::tr<D>(t2 + L::kT, ks));
         wg::commit();
         wg::wait<0>();
         wg::hold(ok);

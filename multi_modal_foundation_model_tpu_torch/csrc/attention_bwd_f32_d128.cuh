@@ -5,14 +5,14 @@
 // widths 65-127 the wrapper pads to it); 16-64 run attention_bwd_f32.cuh.
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel` with f32 dots
-// (multi_modal_foundation_model_tpu/ops/attention.py:221, :439) under the
-// f32 contract of attention_bwd_f32.cuh: q * scale stays f32, nothing is
-// rounded to bf16; every product is 3xTF32, hi = tf32(x) and lo = tf32(x -
-// hi) by cvt.rna; every k-step's three terms (al . bh, ah . bl, ah . bh)
-// are summed from zero and then added in f32; the keep bits are K1's
-// Philox draws (counter (k/4, q, h + h_off, b + b_off)), drawn first by
-// attn_bwd_keep_kernel (attention_bwd_bf16.cuh); no atomics, and a launch
-// is bit-equal to the next. Two passes:
+// (multi_modal_foundation_model_tpu/ops/attention.py:221, :439) under the f32
+// contract of attention_bwd_f32.cuh: q * scale stays f32, nothing is rounded to
+// bf16; every product is 3xTF32, hi = tf32(x) and lo = tf32(x - hi)
+// (mma_tf32.cuh split_tf32); every k-step's three terms (al . bh, ah . bl, ah .
+// bh) are summed from zero and then added in f32; the keep bits are K1's Philox
+// draws (counter (k/4, q, h + h_off, b + b_off)), drawn first by
+// attn_bwd_keep_kernel (attention_bwd_bf16.cuh); no atomics, and a launch is
+// bit-equal to the next. Two passes:
 //   Pass A (attn_bwd_dq_tf128_kernel), a block per (batch, 64 query rows)
 //     and group of heads: s = qs . k^T and dP = g . v^T over chunks of 64
 //     keys, rowsum = sum_k dpn pn (a first sweep), ds = pn (dpn - rowsum)
@@ -63,7 +63,7 @@
 //   registers a thread each and need no exchange at the end.
 // - Sums: each output element is one running f32 sum of k-steps of 8 keys
 //   (dq) or queries (dk, dv), in order, chunk after chunk, each k-step's
-//   three terms from zero: the mma.sync kernels' order (mma_3xtf32;
+//   three terms from zero (wgmma_tf32.cuh mma3_ss / mma3_rs;
 //   tests/tf32_emulation.py, dot_3xtf32). s and dP likewise over D.
 // - A k-step's three terms depend on each other; a group holds two
 //   independent k-steps (two of s or of dP, dq's two, or dk's and dv's),

@@ -1,12 +1,14 @@
 // K1 in bf16 for Hopper (sm_90a): wgmma over the whole key row, a one-sweep
 // softmax, tiles fed by TMA. Included by attention_fwd.cu, which launches
-// it for bf16 at head widths 16, 32 and 64 (at 128, and in f32, the
-// mma.sync kernel of that file runs).
+// it for bf16 at head widths 16, 32 and 64 (bf16 at 128 runs
+// attention_fwd_bf16_d128.cuh, f32 at 16-64 attention_fwd_f32.cuh, f32 at
+// 128 attention_fwd_f32_d128.cuh); its attn_fwd_keep_kernel draws the keep
+// bits of every K1.
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel` with bf16 dots
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
-// `_mha_impl`, :349-391): the function of the mma.sync kernel it replaces
-// (attention_fwd.cu), with its rounding points:
+// `_mha_impl`, :349-391): the function of the mma.sync kernel it replaced,
+// with its rounding points:
 //   qs = bf16(f32(q) * scale)
 //   s  = qs . k^T, -1e30 where not attended, -inf past Tk   (f32 sums)
 //   p  = exp(s - m) (s - m first), l = sum_k p (undropped)

@@ -2,8 +2,9 @@
 // fed by TMA, the keep bits drawn apart, and the output product taken
 // transposed so that no operand needs a transposed copy. Included by
 // attention_fwd.cu, which launches it for f32 at head width 128 (and the
-// widths 65-127 the wrapper pads to it); f32 at 16-64 and bf16 at 128 run
-// the mma.sync kernel of that file, bf16 at 16-64 attention_fwd_bf16.cuh.
+// widths 65-127 the wrapper pads to it); f32 at 16-64 runs
+// attention_fwd_f32.cuh, bf16 attention_fwd_bf16.cuh (16-64) and
+// attention_fwd_bf16_d128.cuh (128).
 //
 // Replaces the Pallas TPU kernel `_attn_fwd_kernel` with f32 dots
 // (multi_modal_foundation_model_tpu/ops/attention.py:144, launched by
@@ -11,14 +12,14 @@
 //   s  = (q * scale) . k^T, -1e30 where not attended, -inf past Tk
 //   p  = exp(s - m), l = sum_k p (undropped)
 //   o  = (sum_k p keep / (1 - rate) v) / l;  lse = max(m, -1e6) + log(l)
-// q * scale stays f32, nothing is rounded to bf16; every product is
-// 3xTF32, hi = tf32(x) and lo = tf32(x - hi) by cvt.rna, every k-step's
+// q * scale stays f32, nothing is rounded to bf16; every product is 3xTF32, hi
+// = tf32(x) and lo = tf32(x - hi) (mma_tf32.cuh split_tf32), every k-step's
 // three terms summed from zero on the tensor cores and then added in f32,
 // k-steps in order. s is taken exactly as the f32 K2 at 128 recomputes it
-// (attention_bwd_f32_d128.cuh, pass A: the same m64n64k8 products of the
-// same splits of q * scale and k, the same order), so K2's exp(s - lse)
-// rows sum to 1. The keep bits are K1's Philox draws (counter (k / 4, q,
-// h + h_off, b + b_off), the key read from the seed table on the device),
+// (attention_bwd_f32_d128.cuh, pass A: the same m64n64k8 products of the same
+// splits of q * scale and k, the same order), so K2's exp(s - lse) rows sum to
+// 1. The keep bits are K1's Philox draws (counter (k / 4, q, h + h_off, b +
+// b_off), the key read from the seed table on the device),
 // drawn first by attn_fwd_keep_kernel (attention_fwd_bf16.cuh) into bytes
 // mask[b][h][k / 8][q], the layout the f32 K2 at 128 replays. No atomics:
 // a launch is bit-equal to the next.

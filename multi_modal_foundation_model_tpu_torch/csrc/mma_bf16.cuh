@@ -1,9 +1,7 @@
-// Small building blocks of the attention kernels for Hopper (sm_90a): the
-// mma.sync f32 K1 (attention_fwd.cu, with mma_tf32.cuh) takes the cp.async
-// copies, the attend and keep bits staged one byte per (row, 4 keys) (keep
-// in the low nibble, attend in the high one) and the heads a block; the
-// wgmma kernels take the rest (smem_u32, pack_bf16, scale_bf16x2,
-// fast_exp2, allow_smem, the constants).
+// Small building blocks of the attention kernels for Hopper (sm_90a):
+// smem_u32, pack_bf16, scale_bf16x2, fast_exp2, the attend bits of 4 keys
+// (attend_nibble, the f32 K1 at 128's table), allow_smem and the
+// constants.
 
 #pragma once
 
@@ -20,28 +18,10 @@ constexpr float kLseFloor = -1e6f;  // ops/attention.py _LSE_FLOOR
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcThreads = 128;      // 4 warps, 16 rows each
-constexpr int kTcRows = 64;          // rows per block, and per streamed tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -86,27 +66,6 @@ __device__ __forceinline__ unsigned attend_nibble(
       byte |= 0x10u << i;
   }
   return byte;
-}
-
-// The keep bits (low nibble) of keys [k0, k0 + 4) of query qrow in head h:
-// one Philox call; all kept without dropout.
-template <bool kDropout>
-__device__ __forceinline__ unsigned keep_nibble(uint32_t seed,
-                                                uint32_t threshold, int b,
-                                                int h, int qrow, int k0) {
-  return kDropout ? keep_bits4(seed, threshold, b, h, qrow, k0 >> 2)
-                  : 0xFu;
-}
-
-// Heads a block walks through: the attend bits come from the (Tq, Tk)
-// int32 static mask, read from L2 once per block and shared by its heads
-// (read per (b, h) block, it was the kernel's largest cost at the training
-// step's shape); fewer heads a block where the grid would
-// otherwise leave the card's 132 SMs short of two waves.
-inline int heads_per_block(int B, int n_tiles, int H) {
-  int hpb = H;
-  while (hpb % 2 == 0 && (long long)B * n_tiles * (H / hpb) < 1024) hpb /= 2;
-  return hpb;
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in.

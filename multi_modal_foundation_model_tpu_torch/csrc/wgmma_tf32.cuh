@@ -1,6 +1,7 @@
-// Hopper building blocks of the f32 attention backward K2 on wgmma
-// (attention_bwd_f32.cuh; attention_bwd_f32_d128.cuh at head width 128):
-// TF32 wgmma, for sm_90a, and the f32 tensor maps.
+// Hopper building blocks of the f32 attention kernels on wgmma (K1:
+// attention_fwd_f32.cuh, attention_fwd_f32_d128.cuh at head width 128; K2:
+// attention_bwd_f32.cuh, attention_bwd_f32_d128.cuh): TF32 wgmma, for
+// sm_90a, and the f32 tensor maps.
 // The mbarriers, TMA loads, fences and descriptors are those of the bf16
 // kernels (wgmma_bf16.cuh).
 //
@@ -228,9 +229,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[32],
 }
 
 // d = (ah + al) . (bh + bl) over one k-step, from zero, small terms first
-// (al . bh, ah . bl, then ah . bh; al . bl dropped), as mma_3xtf32 sums a
-// k-step: the caller adds d to its running sum in f32. Operands in shared
-// memory (descriptors of the hi and lo planes).
+// (al . bh, ah . bl, then ah . bh; al . bl dropped): the caller adds d to
+// its running sum in f32 (the tensor cores truncate their sums, so nothing
+// is chained into a running sum). Operands in shared memory (descriptors of
+// the hi and lo planes).
 template <int N>
 __device__ __forceinline__ void mma3_ss(float (&d)[N], uint64_t ah,
                                         uint64_t al, uint64_t bh,
@@ -238,6 +240,22 @@ __device__ __forceinline__ void mma3_ss(float (&d)[N], uint64_t ah,
   mma_ss(d, al, bh, 0);
   mma_ss(d, ah, bl, 1);
   mma_ss(d, ah, bh, 1);
+}
+
+// two independent k-steps of mma3_ss, d and e (each from zero, each the
+// same three terms in the same order), their terms issued alternately
+template <int N>
+__device__ __forceinline__ void mma3_ss2(float (&d)[N], uint64_t ah,
+                                         uint64_t al, uint64_t bh,
+                                         uint64_t bl, float (&e)[N],
+                                         uint64_t ch, uint64_t cl,
+                                         uint64_t fh, uint64_t fl) {
+  mma_ss(d, al, bh, 0);
+  mma_ss(e, cl, fh, 0);
+  mma_ss(d, ah, bl, 1);
+  mma_ss(e, ch, fl, 1);
+  mma_ss(d, ah, bh, 1);
+  mma_ss(e, ch, fh, 1);
 }
 
 // the same with A in registers (hi and lo fragments)
@@ -267,6 +285,24 @@ __device__ __forceinline__ void mma3_rs2(
   mma_rs(e, ch, fh, 1);
 }
 
+// G independent k-steps of mma3_rs, d[j] from A fragments ah[j] / al[j]
+// and B descriptors bh[j] / bl[j] (each from zero, each the same three
+// terms in the same order), their terms issued round-robin: a term of one
+// waits on its own last term while the others' run
+template <int G, int N>
+__device__ __forceinline__ void mma3_rs_g(float (&d)[G][N],
+                                          const uint32_t (&ah)[G][4],
+                                          const uint32_t (&al)[G][4],
+                                          const uint64_t (&bh)[G],
+                                          const uint64_t (&bl)[G]) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_rs(d[j], al[j], bh[j], 0);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_rs(d[j], ah[j], bl[j], 1);
+#pragma unroll
+  for (int j = 0; j < G; ++j) mma_rs(d[j], ah[j], bh[j], 1);
+}
+
 // ties A fragment registers of an asynchronous wgmma to this point (see
 // wg::hold)
 __device__ __forceinline__ void hold(uint32_t (&a)[4]) {
@@ -276,7 +312,7 @@ __device__ __forceinline__ void hold(uint32_t (&a)[4]) {
 
 // The hi and lo A fragments of k-step kk of a 64 x N f32 accumulator x (n8
 // block kk): slot t of the fragment takes column 2 t, slot t + 4 column
-// 2 t + 1 (the permuted k order)
+// 2 t + 1 (the permuted k order); split by mma_tf32.cuh split_tf32
 template <int N>
 __device__ __forceinline__ void to_frags_tf32(const float (&x)[N], int kk,
                                               uint32_t (&hi)[4],

@@ -45,10 +45,9 @@ up to 128 runs the next one up on operands whose heads are padded with
 zero columns (``padded_attention_fwd`` / ``padded_attention_bwd``): the
 zero columns add nothing to a score and give zero output and gradient
 columns, which are dropped, and the scale stays the true width's. A
-width above 128 raises ``ValueError``. Every K2 runs on Hopper's wgmma
-with TMA tiles and a keep-bit kernel of its own (``k2_route``); K1 does
-for bf16 at every width and f32 at 128, and runs ``mma.sync`` for f32 up
-to 64 (``k1_route``).
+width above 128 raises ``ValueError``. Every K1 and K2 runs on Hopper's
+wgmma with TMA tiles and a keep-bit kernel of its own (``k1_route``,
+``k2_route``).
 
 FLOP count (``utils/profiling.py``). A ``FlopCounterMode`` sees neither
 K1 nor K2 (``ctypes`` launches), and on the plain path it would count the
@@ -425,17 +424,15 @@ def _k2_lib(head_dim: int = 32):
 
 def k1_route(dtype, head_dim: int) -> str:
     """Which K1 runs ``dtype`` at head width ``head_dim``: ``"wgmma"`` (TMA
-    tiles, the keep bits drawn by a kernel of their own) for bf16 at every
-    width, the kernel of ``csrc/attention_fwd_bf16.cuh`` (wgmma over the
-    whole key row) at the compiled widths 16, 32 and 64 (and the widths
-    padded to them) and of ``csrc/attention_fwd_bf16_d128.cuh`` (rows of two
-    swizzle atoms) at 128 (and 65-127), and for f32 at 128 (and 65-127),
-    the 3xTF32 kernel of ``csrc/attention_fwd_f32_d128.cuh``;
-    ``"mma_sync"``, ``attn_fwd_tc_kernel`` of ``csrc/attention_fwd.cu``,
-    for f32 up to 64. Above 128, ``ValueError``."""
-    width = kernel_head_dim(head_dim)
-    wgmma = dtype == torch.bfloat16 or width == 128
-    return "wgmma" if wgmma else "mma_sync"
+    tiles, the keep bits drawn by a kernel of their own) for both dtypes at
+    every compiled width (and the widths padded to them): bf16 the kernel
+    of ``csrc/attention_fwd_bf16.cuh`` at 16, 32 and 64 and of
+    ``csrc/attention_fwd_bf16_d128.cuh`` at 128, f32 the 3xTF32 kernel of
+    ``csrc/attention_fwd_f32.cuh`` at 16-64 and of
+    ``csrc/attention_fwd_f32_d128.cuh`` at 128. Above 128,
+    ``ValueError``."""
+    kernel_head_dim(head_dim)
+    return "wgmma"
 
 
 def k2_route(dtype, head_dim: int) -> str:
@@ -452,20 +449,17 @@ def k2_route(dtype, head_dim: int) -> str:
 
 
 def _k1_scratch_bytes(B: int, H: int, Tq: int, Tk: int,
-                      route: str = "mma_sync") -> int:
-    """Bytes of K1's scratch with dropout. ``"wgmma"``: the keep bytes
-    that ``attn_fwd_keep_kernel`` draws and the kernel's stages read by TMA
-    (``csrc/attention_fwd_bf16.cuh``, ``csrc/attention_fwd_bf16_d128.cuh``,
-    ``csrc/attention_fwd_f32_d128.cuh``),
-    one bit per (b, h, query, key):
+                      route: str = "wgmma") -> int:
+    """Bytes of K1's scratch with dropout: the keep bytes that
+    ``attn_fwd_keep_kernel`` draws and the kernel's stages read by TMA
+    (``csrc/attention_fwd_bf16.cuh``), one bit per (b, h, query, key):
     (B, H, ceil(Tk / 8), Tq rounded up to 16), a byte holding 8 keys of one
     query (a row of 16-byte multiples: the stride of the TMA copies), as
-    the wgmma K2's. ``"mma_sync"`` draws inside the kernel: none."""
-    if route == "wgmma":
-        return B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16)
-    if route != "mma_sync":
+    the wgmma K2's. ``route`` is ``k1_route``'s, ``"wgmma"`` for every
+    dtype and width; any other raises ``ValueError``."""
+    if route != "wgmma":
         raise ValueError(f"K1 route {route!r}")
-    return 0
+    return B * H * (-(-Tk // 8)) * (-(-Tq // 16) * 16)
 
 
 def _k2_scratch_floats(B: int, H: int, Tq: int, Tk: int,
@@ -517,9 +511,9 @@ def _check_operands(name, q, k, v, key_pad, static, n_heads, dtypes):
 
 
 def _check_aligned(name, **tensors):
-    """The tensor-core kernels copy rows 16 bytes at a time
-    (``cp.async``), or by TMA, whose tensor maps take 16-byte aligned
-    addresses and strides: data pointers and batch and row strides must be
+    """The tensor-core kernels copy their tiles by TMA, whose tensor maps
+    take 16-byte aligned addresses and strides: data pointers and batch
+    and row strides must be
     16-byte aligned (a multiple of 8 bf16 or 4 f32 elements), or
     ``ValueError``."""
     for arg, t in tensors.items():
@@ -576,11 +570,10 @@ def attention_fwd(q, k, v, key_pad, static, n_heads: int, scale: float,
     ``attention_reference``, with the scores the f32 K2 recomputes. bf16
     takes bf16 operands as JAX's K1 on its hardware: the contract of
     ``attention_reference(..., dots_dtype=torch.bfloat16)``, and the lse
-    the bf16 K2 recomputes its probabilities against. bf16 at every head
-    width and f32 at 128 (and 65-127) run on Hopper's wgmma with TMA
-    copies, their keep bits drawn by a kernel of their own first
-    (``k1_route``); f32 up to 64 on ``mma.sync``. The kernels copy
-    their tiles with ``cp.async`` or TMA, so q/k/v need 16-byte aligned data
+    the bf16 K2 recomputes its probabilities against. Both run on Hopper's
+    wgmma with TMA copies at every width (``k1_route``), their keep bits
+    drawn by a kernel of their own first. The kernels copy their tiles by
+    TMA, so q/k/v need 16-byte aligned data
     pointers and batch and row strides (a multiple of 4 f32 or 8 bf16
     elements; the fused-QKV column views have them); anything else raises
     ``ValueError``."""
@@ -613,10 +606,10 @@ def _k1_launch(q, k, v, key_pad, static, n_heads: int, scale: float,
            if with_lse else None)
     scratch = None
     if key is not None:
-        size = _k1_scratch_bytes(B, n_heads, Tq, Tk,
-                                 k1_route(q.dtype, hidden // n_heads))
-        if size:
-            scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(
+            _k1_scratch_bytes(B, n_heads, Tq, Tk,
+                              k1_route(q.dtype, hidden // n_heads)),
+            dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad.data_ptr(),

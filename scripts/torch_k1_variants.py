@@ -2,7 +2,8 @@
 """Design variants of the tensor-core K1, timed beside the committed kernel
 on one NVIDIA GPU.
 
-    python3 scripts/torch_k1_variants.py [--dtype float32|bfloat16 --head-dim 128 [--other NAME=DIR ...]] [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k1_variants.py [--dtype float32] [--variants A,B] [--parent OTHER_CHECKOUT] [--other NAME=DIR ...]
+    python3 scripts/torch_k1_variants.py --dtype float32|bfloat16 --head-dim 128 [--variants A,B] [--other NAME=DIR ...] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_fwd.cu`` (head width 32) and
 variants of it (string edits of the sources into
@@ -27,9 +28,8 @@ The variants of the bf16 wgmma kernel (``csrc/attention_fwd_bf16.cuh``;
 ``diag_*`` compute wrong results on purpose and are only timed: what is
 left when a piece is taken out):
 
-- ``base``: the committed kernels (bf16 at 16-64 on wgmma, the keep bits
-  drawn by ``attn_fwd_keep_kernel`` first and read by TMA; f32 on
-  mma.sync).
+- ``base``: the committed kernels (both dtypes at 16-64 on wgmma, the keep
+  bits drawn by ``attn_fwd_keep_kernel`` first and read by TMA).
 - ``draw_in_kernel``: no keep kernel; each warpgroup draws its elements'
   keep bits between the score wgmma's issue and its wait (one Philox call
   a pair of lanes and 4 keys, passed across the pair by a shuffle), at
@@ -41,24 +41,44 @@ left when a piece is taken out):
   exp, sums or dropout).
 - ``diag_no_output_product``: the pd . v wgmmas not issued.
 
-The variants of the f32 mma.sync kernel (``attn_fwd_tc_kernel<float>``):
+The variants of the f32 wgmma kernel (``csrc/attention_fwd_f32.cuh``,
+``attn_fwd_tf_kernel<drop, 32>``; with ``--dtype float32`` and no
+``--head-dim`` only base, the parent and these run, f32 only):
 
-- ``b_split_in_registers``: the f32 k and v tiles kept as one f32 plane
-  (half the shared memory again) and each B fragment split into hi and lo
-  in registers where it is read.
-- ``int_index``: the tile loops' chunk index an ``int`` instead of
-  ``unsigned`` (its division and remainder no longer a shift and a mask).
-- ``other_buffers``: two k/v tile buffers in place of one (~81 KB of
-  shared memory a block, 2 blocks an SM; each tile's copy overlaps the
-  last one's products).
-- ``heads_per_block_2``: blocks of 2 heads instead of all 8 (4x the
-  blocks, the mask read 4x as often).
+- ``f32_one_block_an_sm``: one block an SM in place of two:
+  ``__launch_bounds__``, the grid's heads a block, and 120 KB more shared
+  memory a block so that a second one cannot fit beside it (without it the
+  card placed two all the same).
+- ``cvt_split``: the TF32 split (``csrc/mma_tf32.cuh`` ``split_tf32``,
+  of the landed tiles and of pd's fragments) rounding hi and lo by
+  ``cvt.rna.tf32.f32`` in place of integer ops (the same bits,
+  scripts/torch_tf32_rna_check.py).
+- ``rna_unguarded``: lo rounded as hi is, without the signed min that
+  keeps a NaN (one integer op fewer; a NaN operand may vanish): what
+  keeping NaNs costs.
+- ``split_unroll_8``: the split takes 8 chunks of 16 bytes a thread at a
+  time (their loads in flight together), in place of 4 (``kU`` of
+  ``csrc/tiles_f32.cuh``'s split).
+- ``pairs_in_flight``: the output product's k-steps two in flight, in
+  place of four (``kGroup``).
+- ``group_7``: seven in flight (13 k-steps: a group of 7, then 6).
+- ``diag_no_split``: the landed tiles not split into planes (the products
+  read what is there).
+- ``diag_no_softmax_f32``: no masks, max, exp, sums or dropout: the scores go
+  into pd as they are.
+- ``diag_no_score_products``: the s wgmmas not issued.
+- ``diag_no_output_product_f32``: the pd . v wgmmas not issued.
+- ``diag_keep_unread``: with dropout, the keep bytes land but are not
+  read.
+- ``diag_no_stores``: out and lse not stored.
+- ``diag_loads_and_barriers``: none of the above: the loads, the attend
+  bits, the barriers and the loop.
 
 With ``--dtype float32 --head-dim 128`` the script builds
 ``csrc/attention_fwd_d128.cu`` and variants of its f32 kernel (edits of
 ``csrc/attention_fwd_f32_d128.cuh``), and with ``--parent`` the other
-checkout's K1 at 128 (the parent commit's: the mma.sync f32 kernel, called
-with the scratch of that route, none). Each is checked with
+checkout's K1 at 128 (called with the scratch of the wgmma route: an
+older mma.sync kernel ignores it). Each is checked with
 ``chip_smoke.k1_gates`` at the width row's shape (2 heads of 128, T =
 200, the encoder mask) at B = 16 and B = 256, dropout 0.4 with lse, and
 timed there by profiler device time kernel by kernel (the keep draws and
@@ -89,11 +109,11 @@ order of the list and reversed. The variants:
 - ``diag_loads_and_barriers``: no split, no score or output products, no
   masks, exp, pd planes or stores: the loads, the attend bits, the
   barriers and the loop.
+- ``cvt_split``, ``rna_unguarded``: as at 16-64 (``csrc/mma_tf32.cuh``).
 
 With ``--dtype bfloat16 --head-dim 128`` the same for the bf16 kernel at
 128 (edits of ``csrc/attention_fwd_bf16_d128.cuh``; ``--parent``: the
-parent's mma.sync bf16 kernel, called with the scratch of that route,
-none), at the same shapes, and beside it SDPA's memory-efficient and cuDNN
+other checkout's K1 at 128), at the same shapes, and beside it SDPA's memory-efficient and cuDNN
 forwards with the same bias and dropout 0.4 (profiler device time). The
 variants:
 
@@ -117,7 +137,10 @@ variants:
 - ``diag_no_stores``: out and lse not stored (the exchange's reads, the
   sums and divisions go with them).
 
-``--other NAME=DIR`` (any number) adds another checkout's K1 at 128 under
+``--variants A,B,...`` runs only the named variants beside ``base`` (and
+the parent and others). ``--other NAME=DIR`` (any number) adds another
+checkout's K1 (at 128 with
+``--head-dim 128``, else at 32) under
 NAME, called as this one is (another version of
 ``csrc/attention_fwd_f32_d128.cuh`` or ``attention_fwd_bf16_d128.cuh`` in
 DIR, say).
@@ -178,66 +201,36 @@ DRAW_KEEP = '''\
   };
 '''
 
-SPLIT_HELPERS = '''
-// b_split_in_registers: mma_rows_3x / mma_cols_3x on one f32 plane, each B
-// fragment split where it is read (at D = 32, the width it was measured at)
-constexpr int kLdF = ld_f32(32);
-
-__device__ __forceinline__ void mma_rows_3x_r(float (&acc)[8][4],
-                                              const uint32_t (&ah)[4][4],
-                                              const uint32_t (&al)[4][4],
-                                              const float* tile, int lane,
-                                              int n_valid) {
-  const int gid = lane >> 2, tig = lane & 3;
-  const float* t = tile + gid * kLdF + tig;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    if (nt * 8 >= n_valid) break;
-    const float* r = t + nt * 8 * kLdF;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(r[ks * 8], bh0, bl0);
-      split_tf32(r[ks * 8 + 4], bh1, bl1);
-      mma_3xtf32(acc[nt], ah[ks], al[ks], bh0, bh1, bl0, bl1);
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_cols_3x_r(float (&out)[4][4],
-                                              const float (&acc)[8][4],
-                                              const float* tile, int lane,
-                                              int n_valid) {
-  const int gid = lane >> 2, tig = lane & 3;
-  const float* t = tile + 2 * tig * kLdF + gid;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    if (nt * 8 >= n_valid) break;
-    uint32_t ah[4], al[4];
-    split_tf32(acc[nt][0], ah[0], al[0]);
-    split_tf32(acc[nt][2], ah[1], al[1]);
-    split_tf32(acc[nt][1], ah[2], al[2]);
-    split_tf32(acc[nt][3], ah[3], al[3]);
-    const float* r = t + nt * 8 * kLdF;
-#pragma unroll
-    for (int dt = 0; dt < 4; ++dt) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(r[dt * 8], bh0, bl0);
-      split_tf32(r[kLdF + dt * 8], bh1, bl1);
-      mma_3xtf32(out[dt], ah, al, bh0, bh1, bl0, bl1);
-    }
-  }
-}
-
-}  // namespace mmfm
-'''
-
-LOAD_LOOP = """\
-    for (unsigned c = tid; c < kTcRows * Ops::kChunks; c += kTcThreads) {
-      const int r = c / Ops::kChunks"""
-LAND_LOOP = """\
-    for (unsigned c = tid; c < kTcRows * Ops::kChunks; c += kTcThreads) {
-      const int at = """
+F32_SRC = "attention_fwd_f32.cuh"
+F32_NO_SPLIT = [
+    ("    if (ch == 0)\n      f32t::split<D, kRows, true, true, false, kThreads>(",
+     "    if (false)\n      f32t::split<D, kRows, true, true, false, kThreads>("),
+    ("    f32t::split<D, kChunk, false, true, false, kThreads>(",
+     "    if (false) f32t::split<D, kChunk, false, true, false, kThreads>("),
+    ("    f32t::split<D, kChunk, false, false, true, kThreads>(",
+     "    if (false) f32t::split<D, kChunk, false, false, true, kThreads>(")]
+F32_NO_SOFTMAX = [
+    ("    if (live) {\n      // the bias, -inf past Tk",
+     "    if (false) {\n      // the bias, -inf past Tk")]
+F32_NO_SCORE = [
+    ("        if (gi == 0)\n          f32t::step3x2<D>(s,",
+     "        if (false)\n          f32t::step3x2<D>(s,"),
+    ("        else\n          f32t::step3x2<D>(tmp[0],",
+     "        else if (false)\n          f32t::step3x2<D>(tmp[0],")]
+F32_NO_OUTPUT = [("  wgtf::mma3_rs_g(t, fh, fl, bh, bl);",
+                  "  if (false) wgtf::mma3_rs_g(t, fh, fl, bh, bl);")]
+F32_KEEP_UNREAD = [
+    ("        if (gi == 0 && kDropout) load_keep(keep);",
+     "        if (false) load_keep(keep);")]
+F32_NO_STORES = [("    if (ch == n_ch - 1 && live) {", "    if (false) {")]
+SPLIT_BODY = """  hi = tf32_rna(x);
+  const int r = __float_as_int(x - __uint_as_float(hi));
+  lo = ((uint32_t)min(r, 0x7FFFDFFF) + 0x1000u) & 0xFFFFE000u;"""
+CVT_SPLIT = {"mma_tf32.cuh": [(SPLIT_BODY, """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));""")]}
+RNA_UNGUARDED = {"mma_tf32.cuh": [(SPLIT_BODY, """  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));""")]}
+F32_GROUP = "constexpr int kGroup = D <= 32 ? 4 : 2;"
 
 # file name -> [(old, new)], each old text present exactly once
 VARIANTS = {
@@ -271,38 +264,28 @@ VARIANTS = {
     "diag_no_output_product": {WG: [
         ("    for (int kk = 0; kk < kSteps; ++kk)\n      mma_rs(o,",
          "    for (int kk = 0; kk < kSteps && false; ++kk)\n      mma_rs(o,")]},
-    "b_split_in_registers": {
-        "tc_traits.cuh": [
-            ("  static constexpr int kElems = 2 * plane_f32(D);",
-             "  static constexpr int kElems = plane_f32(D);"),
-            ("    mma_rows_3x<D>(acc, a.hi, a.lo, tile, lane, n_valid);",
-             "    mma_rows_3x_r(acc, a.hi, a.lo, tile, lane, n_valid);"),
-            ("    mma_cols_3x<D>(out, acc, tile, lane, n_valid);",
-             "    mma_cols_3x_r(out, acc, tile, lane, n_valid);"),
-            # K1 lands its tiles with kScale = false: nothing to do
-            ("    land_split<D, kScale>(p, mul);",
-             "    (void)p;\n    (void)mul;"),
-        ],
-        "mma_tf32.cuh": [("\n}  // namespace mmfm\n", SPLIT_HELPERS)],
-    },
-    "int_index": {
-        "attention_fwd.cu": [
-            (LOAD_LOOP, LOAD_LOOP.replace("(unsigned c", "(int c")),
-            (LAND_LOOP, LAND_LOOP.replace("(unsigned c", "(int c")),
-        ],
-    },
-    "other_buffers": {
-        "tc_traits.cuh": [
-            ("kFwdBufs = 1;\n  struct Frags {\n    uint32_t hi[",
-             "kFwdBufs = 2;\n  struct Frags {\n    uint32_t hi["),
-        ],
-    },
-    "heads_per_block_2": {
-        "attention_fwd.cu": [
-            ("  const int hpb = heads_per_block(B, n_qt, H);",
-             "  const int hpb = H % 2 ? 1 : 2;"),
-        ],
-    },
+    "f32_one_block_an_sm": {F32_SRC: [
+        ("constexpr int kBlocksPerSm = 2;", "constexpr int kBlocksPerSm = 1;"),
+        ("  static constexpr int kBytes = kBar + 8 + 1024;",
+         "  static constexpr int kBytes = kBar + 8 + 1024 + 120 * 1024;")]},
+    "cvt_split": CVT_SPLIT,
+    "rna_unguarded": RNA_UNGUARDED,
+    "split_unroll_8": {"tiles_f32.cuh": [(
+        "  constexpr int kN = Rows<D>::kHalves * R * kCh, kU = 4;",
+        "  constexpr int kN = Rows<D>::kHalves * R * kCh, kU = 8;")]},
+    "pairs_in_flight": {F32_SRC: [
+        (F32_GROUP, "constexpr int kGroup = 2;")]},
+    "group_7": {F32_SRC: [
+        (F32_GROUP, "constexpr int kGroup = D <= 32 ? 7 : 2;")]},
+    "diag_no_split": {F32_SRC: F32_NO_SPLIT},
+    "diag_no_softmax_f32": {F32_SRC: F32_NO_SOFTMAX},
+    "diag_no_score_products": {F32_SRC: F32_NO_SCORE},
+    "diag_no_output_product_f32": {F32_SRC: F32_NO_OUTPUT},
+    "diag_keep_unread": {F32_SRC: F32_KEEP_UNREAD},
+    "diag_no_stores": {F32_SRC: F32_NO_STORES},
+    "diag_loads_and_barriers": {F32_SRC: F32_NO_SPLIT + F32_NO_SOFTMAX +
+                                F32_NO_SCORE + F32_NO_OUTPUT +
+                                F32_KEEP_UNREAD + F32_NO_STORES},
 }
 
 
@@ -366,6 +349,8 @@ SPLIT_FIRST = [
      "        if (false) {\n")]
 F128_VARIANTS = {
     "base": {},
+    "cvt_split": CVT_SPLIT,
+    "rna_unguarded": RNA_UNGUARDED,
     "split_before_products": {F128_SRC: SPLIT_FIRST},
     "attend_per_thread": {F128_SRC: [ATT_TABLE]},
     "stores_per_thread": {F128_SRC: [STAGED_STORES]},
@@ -513,10 +498,27 @@ B128_VARIANTS = {
 }
 
 # the dtype each variant's kernel runs (the others time both)
-F32_ONLY = ("b_split_in_registers", "int_index", "other_buffers",
-            "heads_per_block_2")
+F32_ONLY = ("f32_one_block_an_sm", "cvt_split", "rna_unguarded",
+            "split_unroll_8",
+            "pairs_in_flight",
+            "group_7", "diag_no_split",
+            "diag_no_softmax_f32", "diag_no_score_products",
+            "diag_no_output_product_f32", "diag_keep_unread",
+            "diag_no_stores", "diag_loads_and_barriers")
 BF16_ONLY = ("draw_in_kernel", "one_block_an_sm", "diag_no_softmax",
              "diag_no_output_product")
+
+
+def chosen(variants: dict, args) -> dict:
+    """``variants`` cut to ``base`` and the names after ``--variants``
+    (comma-separated) when ``args`` holds it."""
+    if "--variants" not in args:
+        return variants
+    names = set(args[args.index("--variants") + 1].split(",")) | {"base"}
+    unknown = names - set(variants)
+    if unknown:
+        raise SystemExit(f"unknown variants: {sorted(unknown)}")
+    return {name: edits for name, edits in variants.items() if name in names}
 
 
 def emit(**record):
@@ -576,12 +578,13 @@ def finish_build(name: str, proc, lib: Path, argtypes):
 def main_d128(args, dtype=torch.float32) -> int:
     """The K1 at head width 128 in ``dtype``: its variants
     (``F128_VARIANTS``, ``B128_VARIANTS``) and, with ``--parent DIR``, the
-    other checkout's K1 at 128 (the scratch of the mma.sync route, none),
+    other checkout's K1 at 128,
     checked and timed at ``F128_SHAPES``; bf16 beside SDPA's
     memory-efficient and cuDNN forwards."""
     entry, H, D = "attention_fwd_d128", 2, 128
     base_fn = att._k1_lib(D)                    # builds csrc/ as the port does
-    variants = F128_VARIANTS if dtype == torch.float32 else B128_VARIANTS
+    variants = chosen(F128_VARIANTS if dtype == torch.float32
+                      else B128_VARIANTS, args)
     sources = {name: (edits, build.CSRC)
                for name, edits in variants.items()}
     for i, arg in enumerate(args):
@@ -610,15 +613,13 @@ def main_d128(args, dtype=torch.float32) -> int:
         key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],
                                             q.device)
         inputs[B] = (q, k, v, key_pad, static)
-    original, route = att._k1_lib, att.k1_route
+    original = att._k1_lib
     times = {}
     try:
         order = list(fns)
         for sweep in (order, order[::-1]):
             for name in sweep:
                 att._k1_lib = lambda head_dim=D, fn=fns[name]: fn
-                att.k1_route = (route if name != "parent" else
-                                lambda dtype, head_dim: "mma_sync")
                 for B, rate, with_lse in F128_SHAPES:
                     q, k, v, key_pad, static = inputs[B]
 
@@ -641,7 +642,7 @@ def main_d128(args, dtype=torch.float32) -> int:
                 if dtype == torch.bfloat16 and name == order[0]:
                     sdpa_times(inputs, H, D, times)
     finally:
-        att._k1_lib, att.k1_route = original, route
+        att._k1_lib = original
     for (name, B, rate, with_lse), runs in times.items():
         emit(phase="k1_variant_time", variant=name,
              dtype=cs.dtype_name(dtype), head_dim=D, batch=B, dropout=rate,
@@ -688,11 +689,21 @@ def main() -> int:
         return main_d128(args[4:])
     if args[:4] == ["--dtype", "bfloat16", "--head-dim", "128"]:
         return main_d128(args[4:], torch.bfloat16)
+    only_f32 = args[:2] == ["--dtype", "float32"]
+    if only_f32:
+        args = args[2:]
     base_fn = att._k1_lib()                     # builds csrc/ as the port does
-    sources = {name: (edits, build.CSRC) for name, edits in VARIANTS.items()}
-    if args[:1] == ["--parent"]:
-        parent = Path(args[1]).resolve()
-        sources["parent"] = ({}, parent / build.CSRC.relative_to(ROOT))
+    sources = {name: (edits, build.CSRC)
+               for name, edits in chosen(VARIANTS, args).items()
+               if not (only_f32 and name in BF16_ONLY)}
+    for i, arg in enumerate(args):
+        if arg == "--parent":
+            sources["parent"] = ({}, Path(args[i + 1]).resolve()
+                                 / build.CSRC.relative_to(ROOT))
+        elif arg == "--other":
+            name, path = args[i + 1].split("=", 1)
+            sources[name] = ({}, Path(path).resolve()
+                             / build.CSRC.relative_to(ROOT))
     started = {name: start_build(name, edits, src)
                for name, (edits, src) in sources.items()}
     fns = {name: finish_build(name, proc, lib, base_fn.argtypes)
@@ -704,6 +715,8 @@ def main() -> int:
               for dtype in cs.DTYPES]
     cases += [(torch.bfloat16, "train_rate0", cs.BIG_B, 0.0, True),
               (torch.bfloat16, "train_b16", cs.TRAIN_B, cs.DROPOUT, True)]
+    if only_f32:
+        cases = [c for c in cases if c[0] == torch.float32]
     for dtype, kind, B, rate, with_lse in cases:
         q, k, v, spec, H = cs.k1_inputs("encoder_eye_pad", dtype, B=B)
         key_pad, static = att.spec_operands(spec, B, q.shape[1], k.shape[1],

@@ -2,12 +2,13 @@
 """Design variants of the wgmma K2, bf16 or f32, timed beside the committed
 kernel on one NVIDIA GPU.
 
-    python3 scripts/torch_k2_variants.py [--dtype float32] [--head-dim 128] [--parent OTHER_CHECKOUT]
+    python3 scripts/torch_k2_variants.py [--dtype float32] [--head-dim 128] [--variants A,B] [--parent OTHER_CHECKOUT]
 
 Builds the committed ``csrc/attention_bwd.cu`` (head width 32) and
 variants of its bf16 kernel (string edits of
 ``csrc/attention_bwd_bf16.cuh``) or, with ``--dtype float32``, of its f32
-kernel (edits of ``csrc/attention_bwd_f32.cuh`` and ``wgmma_tf32.cuh``),
+kernel (edits of ``csrc/attention_bwd_f32.cuh``, ``tiles_f32.cuh`` and
+``wgmma_tf32.cuh``),
 or, with ``--head-dim 128``, ``csrc/attention_bwd_d128.cu`` and variants
 of its bf16 kernel (edits of ``csrc/attention_bwd_bf16_d128.cuh``) or,
 with ``--dtype float32 --head-dim 128``, of its f32 kernel (edits of
@@ -60,6 +61,12 @@ The f32 variants (``--dtype float32``):
   bits (``keep_bits4``, a Philox call per row and 4 keys; pass B's two
   queries apart) while its s and dP products run, as the mma.sync pass A
   drew them.
+- ``cvt_split``: the TF32 split (``csrc/mma_tf32.cuh`` ``split_tf32``, of
+  the landed tiles and of ds's and pd's fragments) rounding hi and lo by
+  ``cvt.rna.tf32.f32`` in place of integer ops (the same bits,
+  scripts/torch_tf32_rna_check.py); also at 128.
+- ``rna_unguarded``: lo rounded as hi is, without the signed min that
+  keeps a NaN: what keeping NaNs costs; also at 128.
 - ``pipelined_outputs``: the output products' k-steps alternate two
   from-zero temporaries, so a k-step's wgmmas run while the last one's sum
   is added (``wait_group 1``), in place of one temporary waited for at
@@ -102,6 +109,9 @@ The head-width-128 f32 variants (``--dtype float32 --head-dim 128``):
   place of 64.
 - ``pass_b_chunk_32``: pass B in chunks of 32 queries (16 a warpgroup) in
   place of 48.
+
+``--variants A,B,...`` runs only the named variants beside ``base`` (and
+the parent).
 """
 
 from __future__ import annotations
@@ -386,8 +396,8 @@ F32_SERIAL_A = """\
           wgtf::to_frags_tf32(s, kk, fh, fl);
           float o[D / 2];
           wg::fence();
-          wgtf::mma3_rs(o, fh, fl, tr(t1, wgi * kN8 + kk),
-                        tr(t1 + L::kT, wgi * kN8 + kk));
+          wgtf::mma3_rs(o, fh, fl, f32t::tr<D>(t1, wgi * kN8 + kk),
+                        f32t::tr<D>(t1 + L::kT, wgi * kN8 + kk));
           wg::commit();
           wg::wait<0>();
           wg::hold(o);
@@ -405,8 +415,8 @@ F32_PIPELINED_A = """\
           const int u = kk & 1;
           wgtf::to_frags_tf32(s, kk, fh[u], fl[u]);
           wg::fence();
-          wgtf::mma3_rs(o[u], fh[u], fl[u], tr(t1, wgi * kN8 + kk),
-                        tr(t1 + L::kT, wgi * kN8 + kk));
+          wgtf::mma3_rs(o[u], fh[u], fl[u], f32t::tr<D>(t1, wgi * kN8 + kk),
+                        f32t::tr<D>(t1 + L::kT, wgi * kN8 + kk));
           wg::commit();
           if (kk > 0) {
             wg::wait<1>();
@@ -433,8 +443,10 @@ F32_SERIAL_B = """\
         const int ks = wgi * kN8 + kk;
         float ok[D / 2], ov[D / 2];
         wg::fence();
-        wgtf::mma3_rs(ok, dh, dl, tr(t1, ks), tr(t1 + L::kT, ks));
-        wgtf::mma3_rs(ov, ph, pl, tr(t2, ks), tr(t2 + L::kT, ks));
+        wgtf::mma3_rs(ok, dh, dl, f32t::tr<D>(t1, ks),
+                      f32t::tr<D>(t1 + L::kT, ks));
+        wgtf::mma3_rs(ov, ph, pl, f32t::tr<D>(t2, ks),
+                      f32t::tr<D>(t2 + L::kT, ks));
         wg::commit();
         wg::wait<0>();
         wg::hold(ok);
@@ -460,8 +472,8 @@ F32_PIPELINED_B = """\
         wgtf::to_frags_tf32(s, kk, ph[u], pl[u]);
         const int ks = wgi * kN8 + kk;
         wg::fence();
-        wgtf::mma3_rs(ok[u], dh[u], dl[u], tr(t1, ks), tr(t1 + L::kT, ks));
-        wgtf::mma3_rs(ov[u], ph[u], pl[u], tr(t2, ks), tr(t2 + L::kT, ks));
+        wgtf::mma3_rs(ok[u], dh[u], dl[u], f32t::tr<D>(t1, ks), f32t::tr<D>(t1 + L::kT, ks));
+        wgtf::mma3_rs(ov[u], ph[u], pl[u], f32t::tr<D>(t2, ks), f32t::tr<D>(t2 + L::kT, ks));
         wg::commit();
         if (kk > 0) {
           const int w1 = u ^ 1;
@@ -522,8 +534,17 @@ F32_KEEP_DRAWS = """\
         }
     }
 """
+SPLIT_BODY = """  hi = tf32_rna(x);
+  const int r = __float_as_int(x - __uint_as_float(hi));
+  lo = ((uint32_t)min(r, 0x7FFFDFFF) + 0x1000u) & 0xFFFFE000u;"""
+CVT_SPLIT = {"mma_tf32.cuh": [(SPLIT_BODY, """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));""")]}
+RNA_UNGUARDED = {"mma_tf32.cuh": [(SPLIT_BODY, """  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));""")]}
 F32_VARIANTS = {
     "base": {},
+    "cvt_split": CVT_SPLIT,
+    "rna_unguarded": RNA_UNGUARDED,
     "diag_no_elementwise": {F32_SRC: [
         ("      // pn = exp(s - lse) where attended, dpn = dP ms\n"
          "      if (live) {",
@@ -537,9 +558,9 @@ F32_VARIANTS = {
     "diag_no_score_products": {"wgmma_tf32.cuh": [
         ("  mma_ss(d, al, bh, 0);\n  mma_ss(d, ah, bl, 1);\n"
          "  mma_ss(d, ah, bh, 1);\n", "")]},
-    "diag_no_split": {F32_SRC: [
-        ("    for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {",
-         "    for (int i0 = tid; i0 < kN && false; i0 += kU * kThreads) {")]},
+    "diag_no_split": {"tiles_f32.cuh": [
+        ("  for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {",
+         "  for (int i0 = tid; i0 < kN && false; i0 += kU * kThreads) {")]},
     "keep_in_kernel": {F32_SRC: [
         ("  float scale, keep_scale;\n};",
          "  float scale, keep_scale;\n  const long long* seed;\n"
@@ -560,6 +581,8 @@ F128_SRC = "attention_bwd_f32_d128.cuh"
 F128_COLS = "  static constexpr int kCols = kPassB ? 24 : 32;"
 F128_VARIANTS = {
     "base": {},
+    "cvt_split": CVT_SPLIT,
+    "rna_unguarded": RNA_UNGUARDED,
     "diag_no_split": {F128_SRC: [
         ("    for (int i0 = tid; i0 < kN; i0 += kU * kThreads) {",
          "    for (int i0 = tid; i0 < kN && false; i0 += kU * kThreads) {")]},
@@ -759,6 +782,13 @@ def main() -> int:
     entry = "attention_bwd" if head_dim == 32 else "attention_bwd_d128"
     emit(phase="k2_variants", dtype=cs.dtype_name(dtype), head_dim=head_dim)
     base_fn = att._k2_lib(head_dim)             # builds csrc/ as the port does
+    if args[:1] == ["--variants"]:
+        names = set(args[1].split(",")) | {"base"}
+        unknown = sorted(names - set(variants))
+        if unknown:
+            raise SystemExit(f"unknown variants: {unknown}")
+        variants = {n: e for n, e in variants.items() if n in names}
+        args = args[2:]
     sources = {name: (edits, build.CSRC) for name, edits in variants.items()}
     if args[:1] == ["--parent"]:
         parent = Path(args[1]).resolve()

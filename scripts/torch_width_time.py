@@ -291,9 +291,9 @@ def _logs(checkout: Path, names, by_library: bool = False) -> dict:
 # up to head width 64) and the f32 one (by attention_bwd_f32.cuh up to 64,
 # attention_bwd_f32_d128.cuh at 128) when the parent still builds them,
 # the bf16 K1 (by csrc/attention_fwd_bf16.cuh up to 64 and
-# attention_fwd_bf16_d128.cuh at 128) and the f32 K1 at 128 (by
-# csrc/attention_fwd_f32_d128.cuh); a kernel this checkout still builds is
-# compared
+# attention_fwd_bf16_d128.cuh at 128) and the f32 K1 (by
+# csrc/attention_fwd_f32.cuh up to 64, attention_fwd_f32_d128.cuh at 128);
+# a kernel this checkout still builds is compared
 REPLACED = {("attn_bwd_dq_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dkdv_tc_kernel", "__nv_bfloat16"),
             ("attn_bwd_dq_tc_kernel", "f"),

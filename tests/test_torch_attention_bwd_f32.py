@@ -338,6 +338,20 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert ((x - got).abs() <= got.abs() * 2.0 ** -11).all()
 
 
+def test_tf32_rounding_keeps_nan_and_infinity():
+    """``tf32`` of a NaN is a NaN, whatever its bits (half an ulp added to
+    0x7FFFFFFF would carry into the sign and give -0, to 0xFFFFFFFF +0, to
+    0x7F800001 an infinity); an infinity stays itself, and a finite value
+    past the largest TF32 rounds to an infinity, as ``cvt.rna`` gives."""
+    bits = torch.tensor([0x7FFFFFFF, -1, 0x7F800001, 0x7FC00000,
+                         0x7F800000, -0x800000, 0x7F7FFFFF],
+                        dtype=torch.int32)
+    got = emu.tf32(bits.view(torch.float32))
+    assert torch.isnan(got[:4]).all()
+    assert got[4].item() == math.inf and got[5].item() == -math.inf
+    assert got[6].item() == math.inf
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_k2_alignment_rule(dtype):
     """The wrapper's ``cp.async`` rule, on either dtype: data pointer and

@@ -1,37 +1,42 @@
 """The arithmetic of the f32 tensor-core K1 (3xTF32), on the CPU.
 
 The card cannot be reached from here, so this file holds the f32 K1's
-arithmetic before it reaches one: ``tf32_emulation.k1`` is K1's formula
-with both products emulated as the kernel computes them (TF32 by bit
-masking, the three terms in ``mma_3xtf32``'s order, each mma's sum
-truncated to f32 as the tensor cores do) and its online softmax over
-64-key tiles, held within the kernel's gate, atol 1e-5 on out and lse,
+arithmetic before it reaches one: ``tf32_emulation.k1_wgmma`` is the
+formula of the f32 K1 at head widths 16, 32 and 64
+(``csrc/attention_fwd_f32.cuh``) with both products emulated as the kernel
+computes them (TF32 by bit masking, the three terms of a k-step summed from
+zero, each mma's sum truncated to f32 as the tensor cores do) and its
+online softmax over chunks of 104 keys (56 at 64), held within the
+kernel's gate, atol 1e-5 on out and lse,
 
 - against JAX's K1 (``_attn_fwd_kernel`` in interpret mode, f32 dots,
   through ``_mha_impl(with_lse=True)``) at D = 32 for the
   encoder-eye-pad, padded-trial and cross cases, with 70 query rows so
-  that a 64-row tile is crossed;
+  that a 64-row tile is crossed, and at D = 8, 16, 24, 32 and 64 (8 and 24
+  through the wrapper's zero padding to 16 and 32) at dropout 0 and 0.4
+  (JAX's draw replaced, in the test only, by the same Philox bits computed
+  in jnp inside the kernel, ``_jnp_keep``);
 - against the port's f32 ``attention_reference`` at the smoke run's
   magnitudes (randn operands, T = 200, dropout 0 and 0.4 on the same
-  Philox bits).
+  Philox bits) and at key lengths around the kernel's chunks.
 
 A negative control shows the tests see what matters: one-term TF32
 (``tf32(a) . tf32(b)``) misses the gate. The emulation takes exp from
 torch, where the kernel takes ``ex2.approx``. Beside them: a padded trial
 comes out as the mean of the kept V with lse -1e6 + log(Tk); K1's lse is
 built from the very scores the f32 K2 recomputes (pass A's 3xTF32
-products on the same operands); and ``attention_fwd`` checks the
-``cp.async`` alignment rule in both dtypes before it reaches the kernel.
+products on the same operands, ``csrc/tiles_f32.cuh``); and
+``attention_fwd`` checks the TMA alignment rule in both dtypes before it
+reaches the kernel.
 
 The f32 K1 at head width 128 (``csrc/attention_fwd_f32_d128.cuh``: chunks
 of 128 keys split between two warpgroups that keep their own softmax
 statistics until a head's end, o taken transposed;
 ``tf32_emulation.k1_wgmma128``) is held
 the same way at 1 and 2 heads of 128: against JAX's K1 in interpret mode
-at dropout 0 and 0.4 (JAX's draw replaced, in the test only, by the same
-Philox bits computed in jnp inside the kernel, ``_jnp_keep``), against the
-f32 plain version at the smoke's magnitudes and at key lengths around its
-chunks, and its lse against the scores the f32 K2 at 128 recomputes.
+at dropout 0 and 0.4, against the f32 plain version at the smoke's
+magnitudes and at key lengths around its chunks, and its lse against the
+scores the f32 K2 at 128 recomputes.
 """
 
 import math
@@ -84,7 +89,8 @@ def _operands(q, k, v, pad, static):
 
 
 def _k1(q, k, v, key_pad, static, rate=0.0, seed=0, dot=emu.dot_3xtf32):
-    return emu.k1(q, k, v, key_pad, static, H, SCALE, rate, seed, dot=dot)
+    return emu.k1_wgmma(q, k, v, key_pad, static, H, SCALE, rate, seed,
+                        dot=dot)
 
 
 def _worst(got, want) -> float:
@@ -115,11 +121,10 @@ def test_3xtf32_k1_matches_jax_k1(case):
 
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 def test_3xtf32_k1_matches_f32_plain_at_smoke_magnitudes(rate):
-    """At the smoke run's magnitudes (randn q, k, v; T = 200 = 3 x 64 + 8;
-    8 heads of 32 there, 4 here; the encoder's eye-and-pad mask) the
-    3xTF32 emulation stays within 1e-5 of the port's f32 plain version on
-    the same Philox bits, out and lse (measured 6.6e-7 / 9.5e-7 at rate 0,
-    1.4e-6 / 9.5e-7 at 0.4)."""
+    """At the smoke run's magnitudes (randn q, k, v; T = 200, two chunks of
+    the kernel; 8 heads of 32 there, 4 here; the encoder's eye-and-pad
+    mask) the 3xTF32 emulation stays within 1e-5 of the port's f32 plain
+    version on the same Philox bits, out and lse."""
     q, k, v, pad, static = _case("encoder_eye_pad", B=2, tq=200, seed=4)
     ops = _operands(q, k, v, pad, static)
     want = tatt.attention_reference(*ops, H, SCALE, True, rate, 77)
@@ -146,7 +151,7 @@ def test_one_term_tf32_misses_the_k1_gate(case):
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 def test_3xtf32_k1_padded_trial_is_the_mean_of_the_kept_v(rate):
     """A padded trial (every key masked, pad-only mask): every score is
-    -1e30, each tile's p is exactly 1 and l = Tk, so the rows are the mean
+    -1e30, each chunk's p is exactly 1 and l = Tk, so the rows are the mean
     of V (of the kept V / (1 - rate) with dropout) and lse is exactly
     the plain version's -1e6 + log(Tk)."""
     q, k, v, pad, static = _case("decoder_pad_padded_trial", B=2, tq=70,
@@ -187,7 +192,7 @@ def test_3xtf32_k1_lse_is_built_from_the_scores_k2_recomputes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_k1_alignment_rule(dtype, monkeypatch):
-    """``attention_fwd`` checks the ``cp.async`` rule in both dtypes before
+    """``attention_fwd`` checks the TMA alignment rule in both dtypes before
     it reaches the kernel: the fused-QKV column views pass (and go on to
     the library, stubbed here), a view one element off or a row stride
     half a chunk off raises ``ValueError``. The device check is stubbed so
@@ -287,8 +292,14 @@ def test_jnp_keep_is_philox_keep():
 
 
 def _jax_k1_128(q, k, v, pad, static, heads, rate, seed, monkeypatch):
+    """``_jax_k1`` at head width 128."""
+    return _jax_k1(q, k, v, pad, static, heads, D128, rate, seed,
+                   monkeypatch)
+
+
+def _jax_k1(q, k, v, pad, static, heads, d, rate, seed, monkeypatch):
     """JAX's K1 (``_mha_impl(with_lse=True)``, interpret mode) at head
-    width 128: (out, lse (B, H, Tq)). With dropout its keep mask is the
+    width d, scale 1 / sqrt(d): (out, lse (B, H, Tq)). With dropout its keep mask is the
     port's Philox draw: the kernel's ``_dropout_mask`` is replaced for this
     call by ``_jnp_keep`` over the grid step's (batch, head-stacked row,
     key) and its TPU seeding by nothing (interpret mode on the CPU has no
@@ -311,7 +322,7 @@ def _jax_k1_128(q, k, v, pad, static, heads, rate, seed, monkeypatch):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(pad).reshape(B, 1, tk),
         jnp.asarray(static).reshape(1, tq, tk), jnp.zeros((1, 1), jnp.int32),
-        SCALE128, rate, heads, D128, with_lse=True)
+        1.0 / math.sqrt(d), rate, heads, d, with_lse=True)
     return np.asarray(out), np.asarray(ml)[:, 0, :].reshape(B, heads, tq)
 
 
@@ -410,4 +421,147 @@ def test_wgmma128_k1_lse_is_what_the_k2_recompute_sums_to_one(tk):
         size=q.shape).astype(np.float32))
     got = emu.k2(*ops, g, lse, 2, SCALE128, out_dots=emu.wgmma_dots(128))
     want = tatt.attention_bwd_reference(*ops, g, lse, 2, SCALE128)
+    assert _worst(got, want) <= ATOL
+
+
+# ---------------------------------------------------------------------------
+# the f32 K1 at head widths 16-64 (csrc/attention_fwd_f32.cuh), and 8 and 24
+# through the wrapper's padding
+# ---------------------------------------------------------------------------
+
+
+def _case_w(case, heads, d, tq, tk, B=2, seed=0):
+    """numpy q, k, v (B, T, heads*d), key_pad, static for the cases of
+    ``_case``; ``cross`` with a random mask over its own key length."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, tq, heads * d)).astype(np.float32)
+    k, v = (rng.normal(size=(B, tk, heads * d)).astype(np.float32)
+            for _ in range(2))
+    pad = np.ones((B, tk), np.int32)
+    pad[B - 1, max(tk - 5, 1):] = 0
+    if case == "encoder_eye_pad":
+        static = np.eye(tq, tk, dtype=np.int32)
+    elif case == "decoder_pad_padded_trial":
+        pad[B - 1] = 0                      # every key of the last trial
+        static = None
+    else:
+        static = (rng.random((tq, tk)) > 0.7).astype(np.int32)
+    return q, k, v, pad, static
+
+
+def _k1_wg(q, k, v, pad, static, heads, d, rate=0.0, seed=0):
+    """The torch operands and the kernel's order at head width d: widths
+    other than 16, 32 and 64 zero-padded to the next of them as
+    ``padded_attention_fwd`` pads them, the scale the true width's, and
+    the padding dropped from out."""
+    ops = _operands(q, k, v, pad, static)
+    width = tatt.kernel_head_dim(d)
+    qp, kp, vp = (tatt.pad_heads(x, heads, width) for x in ops[:3])
+    out, lse = emu.k1_wgmma(qp, kp, vp, ops[3], ops[4], heads,
+                            1.0 / math.sqrt(d), rate, seed)
+    return ops, (tatt.unpad_heads(out, heads, d), lse)
+
+
+# (head width, mask case, Tq, Tk): 8 and 24 run padded; 24 over 90 keys is
+# one chunk of 104, 32 over 230 three, 64 over 150 three of 56
+WG_JAX_CASES = [(8, "encoder_eye_pad", 70, 70),
+                (16, "decoder_pad_padded_trial", 70, 70),
+                (24, "cross", 70, 90),
+                (32, "cross", 70, 230),
+                (64, "cross", 70, 150)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("d,case,tq,tk", WG_JAX_CASES)
+def test_wgmma_k1_matches_jax_k1(d, case, tq, tk, rate, monkeypatch):
+    """The kernel's order at head widths 8-64 (its chunks and their online
+    rescale; 64-query tiles crossed at 70) against JAX's K1 in
+    interpret mode at the true width on the same numpy inputs and the same
+    Philox bits, 2 heads: out and lse within atol 1e-5."""
+    q, k, v, pad, static = _case_w(case, 2, d, tq, tk, seed=d + tk)
+    want, want_lse = _jax_k1(q, k, v, pad, static, 2, d, rate, 31,
+                             monkeypatch)
+    _, (got, lse) = _k1_wg(q, k, v, pad, static, 2, d, rate, 31)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0,
+                               err_msg="out")
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=0,
+                               err_msg="lse")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 64])
+def test_wgmma_k1_matches_f32_plain_at_smoke_magnitudes(d, rate):
+    """At the smoke's magnitudes (randn q, k, v; T = 200: two chunks at D <=
+    32, four at 64; 256 // D heads, the mm.yaml model's; the encoder's
+    eye-and-pad mask) the kernel's order stays within 1e-5 of the f32
+    plain version on the same Philox bits, out and lse."""
+    heads = 256 // d
+    q, k, v, pad, static = _case_w("encoder_eye_pad", heads, d, 200, 200,
+                                   seed=4)
+    ops, got = _k1_wg(q, k, v, pad, static, heads, d, rate, 77)
+    want = tatt.attention_reference(*ops, heads, 1.0 / math.sqrt(d), True,
+                                    rate, 77)
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tk", [1, 8, 200, 208, 209, 256, 520])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wgmma_k1_key_lengths(d, tk, rate):
+    """Key lengths below, at and past the kernel's chunks (104 keys at D <=
+    32, 56 at 64; 1 and 8: part of a k-step group; 208: two chunks at D <=
+    32; 209: a last chunk of one key; 520: five and ten chunks), 2 heads, a
+    random mask and a padded key tail: within 1e-5 of the f32 plain
+    version, out and lse."""
+    q, k, v, pad, static = _case_w("cross", 2, d, 37, tk, seed=tk + d)
+    ops, got = _k1_wg(q, k, v, pad, static, 2, d, rate, 5)
+    want = tatt.attention_reference(*ops, 2, 1.0 / math.sqrt(d), True, rate,
+                                    5)
+    worst = _worst(got, want)
+    assert worst <= ATOL, worst
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("d", [16, 64])
+def test_wgmma_k1_padded_trial_is_the_mean_of_the_kept_v(d, rate):
+    """A padded trial over 140 keys (two chunks at 16, three at 64): every
+    score is -1e30, so p is 1 on every key and l = Tk; the rows are the
+    mean of (the kept) V and lse is -1e6 + log(Tk) exactly."""
+    tq = tk = 140
+    q, k, v, pad, static = _case_w("decoder_pad_padded_trial", 2, d, tq,
+                                   tk, seed=6)
+    ops, (got, lse) = _k1_wg(q, k, v, pad, static, 2, d, rate, 9)
+    vh = ops[2][1].reshape(tk, 2, d).transpose(0, 1)           # (H, Tk, D)
+    keep = torch.ones(2, tq, tk, dtype=torch.bool)
+    if rate > 0.0:
+        keep = tatt.philox_keep(9, 2, 2, tq, tk, rate)[1]
+    mean = (keep.float() * (1.0 / (1.0 - rate))) @ vh / tk    # (H, Tq, D)
+    torch.testing.assert_close(got[1].reshape(tq, 2, d).transpose(0, 1),
+                               mean, atol=ATOL, rtol=0)
+    assert torch.equal(lse[1], torch.full((2, tq), -1e6) + math.log(tk))
+
+
+@pytest.mark.parametrize("tk", [1, 200])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wgmma_k1_lse_is_what_the_k2_recompute_sums_to_one(d, tk):
+    """The f32 K2 at 16-64 recomputes s as ``dot_3xtf32`` of the same
+    splits (``emu.k2`` with ``wgmma_dots(d)``), the products this K1
+    summarised: with one key its lse equals that s bit for bit; over 200
+    keys every row of exp(s - lse) sums to 1 within 1e-6, and K2's
+    emulation on this lse stays within 1e-5 of the plain backward."""
+    q, k, v, pad, static = _case_w("cross", 2, d, 70, tk, seed=8 + d)
+    pad[:] = 1                                   # every row attends
+    ops, (_, lse) = _k1_wg(q, k, v, pad, static, 2, d)
+    scale = 1.0 / math.sqrt(d)
+    qs = tatt._heads(ops[0], 2) * scale
+    s = emu.dot_3xtf32(qs, tatt._heads(ops[1], 2).transpose(-1, -2))
+    if tk == 1:
+        assert torch.equal(lse, s[..., 0])
+    sums = torch.exp(s - lse[..., None]).sum(-1)
+    assert (sums - 1).abs().max().item() <= 1e-6
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=q.shape).astype(np.float32))
+    got = emu.k2(*ops, g, lse, 2, scale, out_dots=emu.wgmma_dots(d))
+    want = tatt.attention_bwd_reference(*ops, g, lse, 2, scale)
     assert _worst(got, want) <= ATOL

@@ -1320,10 +1320,11 @@ def test_k1_bf16_draw_offset_matches_plain_and_bit_equal(tq, tk, rate):
 def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
     """What runs on the card: bf16 up to head width 64 launches
     ``attn_fwd_wg_kernel``, bf16 at 128 (and 100, padded to it)
-    ``attn_fwd_wg128_kernel``, f32 at 128 ``attn_fwd_tf128_kernel``, each
-    with dropout ``attn_fwd_keep_kernel`` first, never the mma.sync
-    ``attn_fwd_tc_kernel``; f32 up to 64 the mma.sync kernel alone
-    (``k1_route``). Read from the kernel names of a profile of three calls,
+    ``attn_fwd_wg128_kernel``, f32 up to 64 ``attn_fwd_tf_kernel``, f32 at
+    128 ``attn_fwd_tf128_kernel``, each with dropout
+    ``attn_fwd_keep_kernel`` first, never the retired mma.sync
+    ``attn_fwd_tc_kernel`` (``k1_route``: ``"wgmma"`` everywhere). Read
+    from the kernel names of a profile of three calls,
     opened by the port's lead-in (a trace loses its first records on the
     card; traced again if it lost K1's)."""
     _need_cuda()
@@ -1352,15 +1353,13 @@ def test_k1_launches_the_kernel_of_its_route(width, dtype, rate):
                          if e.device_type == torch.autograd.DeviceType.CUDA)
         if "attn_fwd_" in names:
             break
-    wgmma = tatt.k1_route(dtype, width) == "wgmma"
-    assert wgmma == (dtype == torch.bfloat16 or width > 64)
+    assert tatt.k1_route(dtype, width) == "wgmma"
     tag = ("tf" if dtype == torch.float32 else "wg") + (
         "" if tatt.kernel_head_dim(width) <= 64 else "128")
-    for other in ("wg", "wg128", "tf128"):
-        on = wgmma and other == tag
-        assert (f"attn_fwd_{other}_kernel" in names) == on, names
-    assert ("attn_fwd_tc_kernel" in names) == (not wgmma), names
-    assert ("attn_fwd_keep_kernel" in names) == (wgmma and rate > 0), names
+    for other in ("tf", "wg", "wg128", "tf128"):
+        assert (f"attn_fwd_{other}_kernel" in names) == (other == tag), names
+    assert "attn_fwd_tc_kernel" not in names, names
+    assert ("attn_fwd_keep_kernel" in names) == (rate > 0), names
 
 
 # the f32 K1 of csrc/attention_fwd_f32_d128.cuh at 2 heads of 128 (H128)
@@ -1584,6 +1583,245 @@ def test_k1_k2_f32_d128_graph_replays_take_each_tables_keys():
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
     assert not torch.equal(eager[0][0], eager[1][0])
 
+
+
+# the f32 K1 of csrc/attention_fwd_f32.cuh at head widths 16, 32 and 64,
+# the twins of the f32 set at 128 above (2 heads unless named)
+
+WG_WIDTHS = [16, 32, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("case", ["encoder_eye_pad", "decoder_pad",
+                                  "cross"])
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_matches_plain(width, case, rate):
+    """The f32 K1 at head widths 16-64 (256 // D heads, the mm.yaml
+    model's; T = 200, B = 4) in the three mask cases of the model (the
+    encoder's eye and key pad; the decoder's key pad with trial 2 fully
+    padded; cross attention over 180 keys with a random mask), dropout 0
+    and 0.4, with lse: against the f32 plain version on the same Philox
+    bits (``_k1_gates``: atol 1e-5); a second launch bit-equal to the
+    first."""
+    _need_cuda()
+    heads = 256 // width
+    tk = 180 if case == "cross" else 200
+    q, k, v, key_pad, static, _ = _problem(200, tk, seed=7, b=4,
+                                           dtype=torch.float32,
+                                           hidden=heads * width)
+    if case == "encoder_eye_pad":
+        static = torch.eye(200, dtype=torch.int32, device="cuda")
+    elif case == "decoder_pad":
+        static = torch.zeros_like(static)
+        key_pad[2] = 0
+    scale = width ** -0.5
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                  True, rate, 17)
+    again, lse2 = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                     True, rate, 17)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 17, heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("tq,tk", [(1, 1), (17, 17), (56, 56), (57, 57),
+                                   (64, 64), (65, 65),
+                                   (104, 104), (105, 105), (112, 112),
+                                   (113, 113), (200, 200), (208, 208),
+                                   (209, 209), (224, 224), (225, 225),
+                                   (256, 256), (417, 417), (520, 520),
+                                   (200, 300), (300, 17), (65, 200)])
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_at_chunk_edges(width, tq, tk, rate):
+    """The f32 K1 at head widths 16-64 around its chunks and tiles: 104
+    keys a chunk at 16 and 32, 56 at 64 (the online rescale past the first;
+    the attend bits held for up to 2 chunks, read a chunk at a time past
+    them), k-step groups of 32 keys (16 at 64), 64-query tiles;
+    self and cross, through the fused-QKV or KV column views, random
+    masks, with lse: against the f32 plain version (``_k1_gates``)."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(tq, tk, seed=tq + tk,
+                                           dtype=torch.float32,
+                                           hidden=2 * width)
+    n0 = tatt.K1_LAUNCHES
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, 2,
+                                  width ** -0.5, True, rate, 43)
+    torch.cuda.synchronize()
+    assert tatt.K1_LAUNCHES == n0 + 1
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 43, heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_blocks_walking_several_heads(width, rate):
+    """B = 256 at 256 // D heads: the grid puts several heads in a block
+    (``walk_heads``, two blocks an SM), so a block loads each further
+    head's q with that head's first k chunk: against the f32 plain version
+    (``_k1_gates``)."""
+    _need_cuda()
+    heads = 256 // width
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=3, b=256,
+                                           dtype=torch.float32,
+                                           hidden=heads * width)
+    got, lse = tatt.attention_fwd(q, k, v, key_pad, static, heads,
+                                  width ** -0.5, True, rate, 29)
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 29, heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_fully_masked_row_and_bit_equal(width, rate):
+    """A padded trial (every key masked, pad-only mask, 200 keys: two chunks
+    at 16 and 32, four at 64): its rows are the mean of V (of the kept V /
+    (1 - rate) with dropout) within 1e-5 and their lse is -1e6 + log(Tk);
+    two launches give the same bits."""
+    _need_cuda()
+    q, k, v, key_pad, _, _ = _problem(200, 200, seed=6, dtype=torch.float32,
+                                      hidden=2 * width)
+    key_pad[1] = 0
+    static = torch.zeros(200, 200, dtype=torch.int32, device="cuda")
+    scale = width ** -0.5
+    one = tatt.attention_fwd(q, k, v, key_pad, static, 2, scale, True,
+                             rate, 8)
+    two = tatt.attention_fwd(q, k, v, key_pad, static, 2, scale, True,
+                             rate, 8)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    got, lse = one
+    _k1_gates(q, k, v, key_pad, static, got, lse, rate, 8, heads=2)
+    floor = torch.tensor(-1e6) + torch.log(torch.tensor(200.0))
+    torch.testing.assert_close(lse[1].cpu(), floor.expand(2, 200),
+                               atol=0.07, rtol=0)
+    vh = v[1].reshape(200, 2, width).transpose(0, 1)        # (H, Tk, D)
+    if rate > 0.0:
+        keep = tatt.philox_keep(8, 2, 2, 200, 200, rate, device="cuda")[1]
+        mean = (keep.float() / (1.0 - rate)) @ vh / 200     # (H, Tq, D)
+    else:
+        mean = vh.mean(1, keepdim=True).expand(2, 200, width)
+    row = got[1].reshape(200, 2, width).transpose(0, 1)
+    torch.testing.assert_close(row, mean, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_rank_slice_matches_the_whole_call(width, rate):
+    """A rank's call under tensor and data parallelism: the slice of trials
+    [2, 4) and heads [2, 4) of a 4-trial, 4-head call, with draw offsets
+    (2, 2), gives the whole call's out and lse of that slice bit for bit
+    (the same sums in the same order, the same keep bits), and agrees with
+    the plain version drawn at the same offsets."""
+    _need_cuda()
+    q, k, v, key_pad, static, _ = _problem(200, 200, seed=8, b=4,
+                                           dtype=torch.float32,
+                                           hidden=4 * width)
+    scale = width ** -0.5
+    whole, whole_lse = tatt.attention_fwd(q, k, v, key_pad, static, 4,
+                                          scale, True, rate, 51)
+
+    def part(x):
+        return x[2:4, :, 2 * width:].contiguous()
+
+    args = (part(q), part(k), part(v), key_pad[2:4].contiguous(), static)
+    got, lse = tatt.attention_fwd(*args, 2, scale, True, rate, 51,
+                                  draw_offset=(2, 2))
+    assert torch.equal(got, part(whole))
+    assert torch.equal(lse, whole_lse[2:4, 2:])
+    _k1_gates(*args, got, lse, rate, 51, heads=2, draw_offset=(2, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_philox_bits_match_philox_keep(width):
+    """Read the f32 K1's keep mask back: q = 0 and all keys attended make
+    every probability 1 (before 1/l = 1/Tk); V's rows are one-hot per head
+    (Tk = D keys: one chunk at 16 and 32, two at 64), so out[b, q, h*D +
+    k] > 0 exactly where
+    Philox keeps (b, h, q, k)."""
+    _need_cuda()
+    tk, rate, seed = width, 0.4, 123456789
+    q = torch.zeros(B, T, 2 * width, device="cuda")
+    v = torch.eye(width, device="cuda").repeat(1, 2).expand(
+        B, tk, 2 * width).contiguous()
+    k = torch.zeros(B, tk, 2 * width, device="cuda")
+    key_pad = torch.ones(B, tk, dtype=torch.int32, device="cuda")
+    static = torch.zeros(T, tk, dtype=torch.int32, device="cuda")
+    out, _ = tatt.attention_fwd(q, k, v, key_pad, static, 2, 1.0,
+                                dropout_rate=rate, seed=seed)
+    got = out.reshape(B, T, 2, width).transpose(1, 2) > 0
+    want = tatt.philox_keep(seed, B, 2, T, tk, rate, device="cuda")
+    assert torch.equal(got, want)
+    assert 0.5 < want.float().mean().item() < 0.7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_f32_wg_rejects_misaligned_views(width):
+    """TMA copies need 16-byte aligned data pointers and strides: an f32
+    view whose data pointer or row stride is not 16-byte aligned raises
+    ValueError before any launch."""
+    _need_cuda()
+    hidden = 2 * width
+    q, k, v, key_pad, static, _ = _problem(17, 17, dtype=torch.float32,
+                                           hidden=hidden)
+    wide = torch.zeros(3, 17, hidden + 4, device="cuda")
+    off = wide[..., 1:1 + hidden]                  # pointer one element off
+    odd = torch.zeros(3, 17, hidden + 2, device="cuda")[..., :hidden]
+    n0 = tatt.K1_LAUNCHES
+    for bad in (off, odd):
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(bad, k, v, key_pad, static, 2, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, bad, v, key_pad, static, 2, 1.0)
+        with pytest.raises(ValueError):
+            tatt.attention_fwd(q, k, bad, key_pad, static, 2, 1.0)
+    assert tatt.K1_LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WG_WIDTHS)
+def test_k1_k2_f32_wg_graph_replays_take_each_tables_keys(width):
+    """The f32 K1 and K2 at head widths 16-64 with dropout, captured once
+    in a CUDA graph keyed by a table entry, replayed with two tables: each
+    replay's out and dq/dk/dv equal the eager launches under that table's
+    key, bit for bit (the keep kernels read the key on the device)."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, g = (torch.randn(B, T, 2 * width, device="cuda",
+                              generator=gen) for _ in range(4))
+    key_pad, static = _operands("enc_eye_pad")
+    table = _table(0, 0)
+    seeds = (123_456_789_012, 987)
+    scale = width ** -0.5
+
+    def step():
+        out, lse = tatt.attention_fwd(q, k, v, key_pad, static, 2, scale,
+                                      True, 0.4, table[1:2])
+        return (out,) + tatt.attention_bwd(q, k, v, key_pad, static, g,
+                                           lse, 2, scale, 0.4, table[1:2])
+
+    eager = []
+    for s in seeds:
+        table[1] = s
+        eager.append([t.clone() for t in step()])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        outs = step()
+    for s, want in zip(seeds, eager):
+        table[1] = s
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    assert not torch.equal(eager[0][0], eager[1][0])
 
 
 # the bf16 K1 of csrc/attention_fwd_bf16_d128.cuh at 1-2 heads of 128, the
@@ -2250,3 +2488,69 @@ def test_session_rows_grad_misaligned_view_and_graph_replay():
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, sr.session_rows_grad_reference(g_buf, ids_buf, S))
+
+
+# a NaN operand of the f32 K1 and K2 at every width: the kernels' TF32
+# split (csrc/mma_tf32.cuh tf32_rna) keeps it a NaN. Rounded as a finite
+# value's bits, 0x7FFFFFFF (the card's own NaN, as 0 / 0 gives it) came
+# out as -0 and 0xFFFFFFFF as +0: hi and lo both zero, the NaN gone.
+F32_NAN_BITS = {"zero_over_zero": None, "0xffffffff": -1,
+                "0x7f800001": 0x7F800001}
+
+
+def _same_nans(got, want, name):
+    """NaN exactly where the plain version is NaN (and somewhere), and
+    within f32 1e-5 of it elsewhere."""
+    nan = torch.isnan(want)
+    assert nan.any(), name
+    assert torch.equal(torch.isnan(got), nan), name
+    torch.testing.assert_close(got[~nan], want[~nan], atol=1e-5, rtol=0,
+                               msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["q", "g"])
+@pytest.mark.parametrize("nan", list(F32_NAN_BITS))
+@pytest.mark.parametrize("rate", [0.0, 0.4])
+@pytest.mark.parametrize("width", WG_WIDTHS + [128])
+def test_f32_nan_operand_gives_nan_where_plain_does(width, rate, nan, where):
+    """One NaN in q (trial 1, query 5, head 1) or in the output gradient g
+    (trial 1, query 9, head 1) of the f32 K1 and K2 (2 heads, T = 70, B =
+    2), made on the card (0 / 0) or of the bits named: out and lse (a NaN
+    in q) and dq, dk and dv are NaN exactly where the f32 plain versions
+    are, and within 1e-5 of them elsewhere. Every key attended: where a key
+    is masked or dropped the plain versions multiply the NaN by 0 and the
+    kernels select 0 in places, which is no question of the split."""
+    _need_cuda()
+    heads = 2
+    q, k, v, _, _, g = _problem(70, 70, seed=11, b=2, dtype=torch.float32,
+                                hidden=heads * width)
+    key_pad = torch.ones(2, 70, dtype=torch.int32, device="cuda")
+    static = torch.zeros(70, 70, dtype=torch.int32, device="cuda")
+    bits = F32_NAN_BITS[nan]
+    if bits is None:
+        zero = torch.zeros((), device="cuda")
+        value = zero / zero
+    else:
+        value = torch.tensor(bits, dtype=torch.int32).view(
+            torch.float32).cuda()
+    if where == "q":
+        q[1, 5, width + 3] = value
+    else:
+        g[1, 9, width + 3] = value
+    scale = width ** -0.5
+    out, lse = tatt.attention_fwd(q, k, v, key_pad, static, heads, scale,
+                                  True, rate, 17)
+    want, want_lse = tatt.attention_reference(q, k, v, key_pad, static,
+                                              heads, scale, True, rate, 17)
+    if where == "q":
+        _same_nans(out, want, "out")
+        _same_nans(lse, want_lse, "lse")
+    else:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0, msg="out")
+    grads = tatt.attention_bwd(q, k, v, key_pad, static, g, lse, heads,
+                               scale, rate, 17)
+    wants = tatt.attention_bwd_reference(q, k, v, key_pad, static, g, lse,
+                                         heads, scale, rate, 17)
+    for name, got_, want_ in zip(("dq", "dk", "dv"), grads, wants):
+        _same_nans(got_, want_, name)

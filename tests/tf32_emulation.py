@@ -9,16 +9,18 @@ kernels, and the same k-steps on wgmma: at widths 16 to 64
 (``csrc/attention_bwd_f32.cuh``) the output products split their k-steps
 between two warpgroups (``dot_3xtf32_wg``); at 128
 (``csrc/attention_bwd_f32_d128.cuh``) each warpgroup owns half of D, so
-every output element is one running sum in ``dot_3xtf32``'s order. ``k2`` is K2's formula with every product through
-such a ``dot``; with ``dot=torch.matmul`` and ``dtype=float64`` it is an
-f64 evaluation of the same formula. The f32 K1 takes the same products:
-``k1`` is its formula with both products through ``dot`` and its online
-softmax over chunks of keys, 64 for the mma.sync kernel of
-``csrc/attention_fwd.cu`` (16-64), 128 for the wgmma kernel of
-``csrc/attention_fwd_f32_d128.cuh`` at 128 (``k1_wgmma128``: its output
-product taken transposed, so each k-step's two middle terms come in the
-other order, ``dot_3xtf32(..., transposed=True)``). Imports torch and the
-port only, so
+every output element is one running sum in ``dot_3xtf32``'s order. ``k2``
+is K2's formula with every product through such a ``dot``; with
+``dot=torch.matmul`` and ``dtype=float64`` it is an f64 evaluation of the
+same formula. The f32 K1 takes the same products: ``k1`` is its formula
+with both products through ``dot`` and its online softmax over chunks of
+keys; ``k1_wgmma`` the kernel at 16-64 (``csrc/attention_fwd_f32.cuh``:
+chunks of 104 keys, 56 at 64, one output sum, ``K1_WGMMA_CHUNK``);
+``k1_wgmma128`` the
+kernel at 128 (``csrc/attention_fwd_f32_d128.cuh``: chunks of 128, its
+output product taken transposed, so each k-step's two middle terms come
+in the other order, ``dot_3xtf32(..., transposed=True)``). Imports torch
+and the port only, so
 ``scripts/torch_k2_f32_accuracy.py`` runs it on the card's inputs and
 ``tests/test_torch_attention_bwd_f32.py`` and
 ``tests/test_torch_attention_fwd_f32.py`` on the CPU.
@@ -31,9 +33,12 @@ from multi_modal_foundation_model_tpu_torch.ops import attention as tatt
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """Round f32 to TF32 (10 mantissa bits), to nearest, ties away from
-    zero: add half an ulp to the magnitude's bits, clear the low 13."""
+    zero: add half an ulp to the magnitude's bits, clear the low 13; a NaN
+    stays a NaN, so that a NaN operand gives NaN products, as the kernels'
+    ``split_tf32`` (``csrc/mma_tf32.cuh``) makes it."""
     bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), float("nan"), r)
 
 
 def mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -165,10 +170,10 @@ def dot_1xtf32(a: torch.Tensor, b: torch.Tensor,
 
 
 def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
-       dot=dot_3xtf32, chunk=64, out_dot=None):
+       dot=dot_3xtf32, chunk=128, out_dot=None):
     """The f32 K1's formula (``csrc/attention_fwd.cu``'s note) on the
-    kernel's operands, as the kernel computes it: per chunk of ``chunk``
-    keys, s = (q * scale) . k through ``dot`` (q * scale rounded to f32
+    kernel's operands, as a kernel with one output sum computes it: per
+    chunk of ``chunk`` keys, s = (q * scale) . k through ``dot`` (q * scale rounded to f32
     first), the masked scores replaced by -1e30; an online softmax: the new
     row max m, the correction exp(m_old - m) of l and of the O accumulator,
     p = exp(s - m) summed undropped into l; then the dropped and rescaled
@@ -201,6 +206,48 @@ def k1(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
         m = m_new
     lse = (m.clamp_min(tatt._LSE_FLOOR) + torch.log(l))[..., 0]
     return tatt._merge(o / l, torch.float32), lse
+
+
+# The f32 K1 on wgmma at 16-64 (csrc/attention_fwd_f32.cuh,
+# Layout<D>::kChunk): keys a block takes at once
+K1_WGMMA_CHUNK = {16: 104, 32: 104, 64: 56}
+
+
+def k1_wgmma(q, k, v, key_pad, static, n_heads, scale, rate=0.0, seed=0,
+             dot=dot_3xtf32):
+    """``k1`` as the f32 K1 at head widths 16, 32 and 64 computes it
+    (``csrc/attention_fwd_f32.cuh``): s as the f32 K2 at these widths
+    recomputes it (``dot``, ``dot_3xtf32``'s order over D); an online
+    softmax over chunks of ``K1_WGMMA_CHUNK[D]`` keys; o = pd . v one
+    running sum, rescaled between chunks and added k-step by k-step
+    (``dot(pd, v, o * corr)``); out = o * (1 / l), lse = max(m, -1e6) +
+    log(l). Returns (out (B, Tq, H*D) f32, lse (B, H, Tq))."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    chunk = K1_WGMMA_CHUNK[q.shape[-1] // n_heads]
+    qs = tatt._heads(q, n_heads) * scale
+    kh, vh = tatt._heads(k, n_heads), tatt._heads(v, n_heads)
+    attend = (static.bool()[None] | key_pad.bool()[:, None, :])[:, None]
+    keep = None
+    if rate > 0.0:
+        keep = tatt.philox_keep(seed, q.shape[0], n_heads, Tq, Tk, rate,
+                                q.device)
+    m = torch.full(qs.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qs)
+    for k0 in range(0, Tk, chunk):
+        ks = slice(k0, k0 + chunk)
+        s = dot(qs, kh[..., ks, :].transpose(-1, -2))
+        s = torch.where(attend[..., ks], s, tatt.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., ks], p * (1.0 / (1.0 - rate)), 0.0)
+        o = dot(p, vh[..., ks, :], o * corr)
+        m = m_new
+    lse = (m.clamp_min(tatt._LSE_FLOOR) + torch.log(l))[..., 0]
+    return tatt._merge(o * (1.0 / l), torch.float32), lse
 
 
 def k1_wgmma128(q, k, v, key_pad, static, n_heads, scale, rate=0.0,
